@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version at the shapes the serving path gives
-it, then serves the char-RNN at full width (vocab 96, hidden 512, 2 layers,
-B=64, T=256; decode with 8 slots) through the port's entry points, checks the
-results, and times the kernels. Every phase prints one JSON line and raises on
-failure; the last line is {"ok": true, "device": {...}}. It exits non-zero,
-printing no result, where CUDA or the port's package is missing. It imports
-no JAX and nothing of the JAX package.
+kernel against its plain PyTorch version at the shapes the serving and
+training paths give it, then drives both paths through the port's entry
+points at full width (char-RNN: vocab 96, hidden 512, 2 layers, B=64, T=256):
+serving (output/predict, decode with 8 slots) and training (fit with SGD,
+standard backprop and TBPTT(50), f32 and bf16 compute, on the card and on
+the CPU from the same seed params and data). It checks the results and the
+kernel launch counts of each path, and times the kernels and the training
+update. Every phase prints one JSON line and raises on failure; the last line
+is {"ok": true, "device": {...}}. It exits non-zero, printing no result,
+where CUDA or the port's package is missing. It imports no JAX and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ VOCAB, HIDDEN, LAYERS, BATCH, STEPS = 96, 512, 2, 64, 256
 SLOTS, DECODE_CHARS = 8, 32
 SEED = 1234
 DEVICE = "cuda"
+# training: SGD at this rate, TBPTT segments of 50 steps (five and a 6-step
+# tail per batch); 3 batches compared with the CPU, 2 more timed
+TBPTT, LR, TRAIN_BATCHES, TIMED_BATCHES = 50, 0.1, 3, 2
+UPDATES_PER_BATCH = {"standard": 1, "tbptt": -(-STEPS // TBPTT)}
+# softmax-xent rows: a standard batch (B*T) and a TBPTT segment (B*50)
+SXENT_ROWS = (BATCH * STEPS, BATCH * TBPTT)
 
 # stated tolerances, max abs error against the plain version on the same
 # CUDA tensors: f32 differs only in the order of the recurrent product's sum;
@@ -37,6 +47,43 @@ DEVICE = "cuda"
 # in another order can round one step's value to the neighbouring bf16,
 # which the recurrence carries on
 KERNEL_ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the training kernels in f32, at the f32 limit: the elementwise outputs as
+# max abs error; dRW and the peephole grads, which sum T*B = 16384 terms
+# each, as max abs error over their largest element. The softmax-xent
+# kernels compute in f32 for either input type, so their f32 outputs are
+# held at the f32 limit and their bf16 outputs (dx, dl of bf16 inputs) at
+# one bf16 step of values below 1.
+SUMMED_GRADS = ("dRW", "dpF", "dpI", "dpO")
+# the LSTM training kernels in bf16, each output (and each gate column
+# a, f, o, i of dzx) relative to its own size: max |err| / max |ref| and
+# mean |err| / mean |ref|. An absolute limit would be as large as a typical
+# gradient (dzx ~1e-2). Limits by sequence length: over the 6-step TBPTT
+# tail the recurrence has not yet carried a neighbouring-bf16 rounding far;
+# at 50 and 256 steps it has. Each limit sits between the error a correct
+# kernel shows and what a wrong one gives. Correct, on the H100 (rows 6 and
+# 7, worst output): tail max 0.0053 and mean 5.1e-5; 50 and 256 steps max
+# 0.0146 and mean 0.0044. Wrong, on the plain version at H=512, worst
+# output: a dropped term (d_o*pO in dc, d_f*pF in the carry) reads max
+# 5.5-8% and mean 2.2-3.8%; a bf16 rounding point dropped, or dh kept in
+# f32, mean 0.30-0.72%, which only the tail can tell from a right kernel
+# (scripts/torch_bf16_grad_sensitivity.py, T=6 and 50).
+BF16_TRAIN_REL = {"tail": {"max": 2e-2, "mean": 5e-4},
+                  "long": {"max": 3e-2, "mean": 1e-2}}
+TAIL = STEPS % TBPTT
+# training on the card against the same training on the CPU: the loss of
+# every update relative to the CPU's, the params after the last update (f32
+# master params in both dtypes), and the params' change from the seed params
+# relative to its own norm, per tensor, so an update left out reads 1. In
+# bf16 compute the gradients carry the bf16 rounding of the activations, so
+# the limits are looser there. Each is about 17x (10x for the bf16 change)
+# the worst reading on the H100: f32 loss 1.2e-7, params 1.2e-7, change
+# 1.1e-5; bf16 5.5e-5, 5.8e-5 and 2.9e-3.
+TRAIN_LOSS_RTOL = {"float32": 2e-6, "bfloat16": 1e-3}
+TRAIN_PARAM_ATOL = {"float32": 2e-6, "bfloat16": 1e-3}
+TRAIN_STEP_RTOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# the text trained on: a sentence of this many characters drawn from the
+# seed, repeated, so the loss falls visibly over the compared updates
+SENTENCE = 61
 # served probabilities, card against the same net on the CPU
 SERVE_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DECODE_ATOL = 1e-5  # a decode session's outputs, batched against alone (f32)
@@ -46,8 +93,17 @@ DECODE_ATOL = 1e-5  # a decode session's outputs, batched against alone (f32)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
-KERNEL_SOURCE = "deeplearning4j_tpu_torch/ops/csrc/lstm_seq.cu"
-KERNEL_REPLACES = "deeplearning4j_tpu/ops/pallas_kernels.py:509"
+# each kernel: its source and the pallas_call it replaces
+CSRC = "deeplearning4j_tpu_torch/ops/csrc/"
+PALLAS = "deeplearning4j_tpu/ops/pallas_kernels.py:"
+KERNELS = {
+    "lstm_seq_lean": (CSRC + "lstm_seq.cu", PALLAS + "509"),
+    "lstm_seq_lean_masked": (CSRC + "lstm_seq.cu", PALLAS + "509"),
+    "lstm_seq_train_fwd": (CSRC + "lstm_seq.cu", PALLAS + "546"),
+    "lstm_seq_bwd": (CSRC + "lstm_seq_bwd.cu", PALLAS + "603"),
+    "softmax_xent_fwd": (CSRC + "softmax_xent.cu", PALLAS + "946"),
+    "softmax_xent_bwd": (CSRC + "softmax_xent.cu", PALLAS + "968"),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -79,6 +135,14 @@ def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def roofline(nbytes: float, ops: float, dtype: str):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over HBM
+    and the operations at the dtype's peak."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def bound(T: int, B: int, H: int, dtype: str, masked: bool):
     """Least time for one layer-forward of the sequence op: each input read
     once and each output written once over HBM, or the recurrent product's
@@ -87,9 +151,39 @@ def bound(T: int, B: int, H: int, dtype: str, masked: bool):
     item = 4 if dtype == "float32" else 2
     elems = (T * B * 4 * H + (T * B if masked else 0) + 4 * B * H
              + H * 4 * H + 3 * H + T * B * H)
-    bytes_ms = elems * item / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * B * H * 4 * H * T / PEAK_OPS_PER_S[dtype] * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype)
+
+
+def bound_train_fwd(T: int, B: int, H: int, dtype: str):
+    """Row 6: zx, h0, c0, RW and the peepholes read; ys and the residuals
+    a, f, o, i, c ([T, B, H] each), hT and cT written; the recurrent
+    product's 2*B*H*4H*T operations."""
+    item = 4 if dtype == "float32" else 2
+    elems = T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + 6 * T * B * H + 2 * B * H
+    return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype)
+
+
+def bound_bwd(T: int, B: int, H: int, dtype: str):
+    """Row 7: dys, ys (as h_{t-1}), a, f, o, i, c (as c_{t-1}) [T, B, H],
+    dhT, dcT, h0, c0, RW and the peepholes read; dzx [T, B, 4H], dh0, dc0,
+    dRW and the three peephole grads written. Operations: the recurrent
+    product dzx @ RW^T (2*B*4H*H per step) and dRW (2*H*4H per row of the
+    T*B rows)."""
+    item = 4 if dtype == "float32" else 2
+    elems = (7 * T * B * H + 4 * B * H + H * 4 * H + 3 * H
+             + T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H)
+    return roofline(elems * item, 2 * (2.0 * B * 4 * H * H * T), dtype)
+
+
+def bound_sxent(N: int, C: int, dtype: str, backward: bool):
+    """Rows 10-11 (logits and labels of one dtype, math in f32): forward
+    reads x and labels and writes the f32 row losses, 7 operations an
+    element; backward reads x, labels and g and writes dx and dl, 14 an
+    element."""
+    item = 4 if dtype == "float32" else 2
+    if backward:
+        return roofline(4 * N * C * item + 4 * N, 14.0 * N * C, "float32")
+    return roofline(2 * N * C * item + 4 * N, 7.0 * N * C, "float32")
 
 
 def seq_inputs(torch, T, B, H, dtype, masked, seed):
@@ -169,6 +263,296 @@ def phase_kernels(torch, ls):
     return errs
 
 
+def check(name: str, dtype: str, errs: dict, tol: dict, **fields) -> float:
+    """Emit one kernel_vs_plain line for the per-output errors ``errs`` and
+    raise past the limit of each output's dtype (``tol``: output -> (err
+    limit)). Returns the largest error."""
+    bad = {k: (e, tol[k]) for k, e in errs.items()
+           if not (e <= tol[k])}  # NaN fails too
+    emit("kernel_vs_plain", kernel=name, dtype=dtype, max_err_by_output=errs,
+         limit_by_output=tol, ok=not bad, **fields)
+    if bad:
+        raise AssertionError(f"{name} {dtype} {fields}: outside the limits {bad}")
+    return max(errs.values())
+
+
+def check_rel(name: str, T: int, names, got, want) -> None:
+    """A bf16 LSTM training kernel against its plain version: each output,
+    and each gate column of dzx, by max |err| / max |ref| and mean |err| /
+    mean |ref| (BF16_TRAIN_REL). Emits one kernel_vs_plain line with the
+    readings, the limits and max |ref| beside them, and raises past a
+    limit."""
+    parts = []
+    for n, g, w in zip(names, got, want):
+        parts.append((n, g, w))
+        if g.dim() == 3 and g.shape[-1] == 4 * HIDDEN:
+            parts += [(f"{n}_{k}", gc, wc) for k, gc, wc in
+                      zip("afoi", g.split(HIDDEN, -1), w.split(HIDDEN, -1))]
+    lim = BF16_TRAIN_REL["tail" if T <= TAIL else "long"]
+    readings, bad = {}, {}
+    for n, g, w in parts:
+        err, ref = (g.float() - w.float()).abs(), w.float().abs()
+        r = {"max_rel": float(err.max() / ref.max()),
+             "mean_rel": float(err.mean() / ref.mean()),
+             "max_abs_ref": float(ref.max())}
+        readings[n] = r
+        if not (r["max_rel"] <= lim["max"] and r["mean_rel"] <= lim["mean"]):
+            bad[n] = r  # NaN fails too
+    emit("kernel_vs_plain", kernel=name, dtype="bfloat16", T=T, B=BATCH, H=HIDDEN,
+         relative_by_output=readings, limit_max_rel=lim["max"],
+         limit_mean_rel=lim["mean"], ok=not bad)
+    if bad:
+        raise AssertionError(f"{name} bfloat16 T={T}: outside the limits {lim}: {bad}")
+
+
+def max_abs(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+
+def phase_kernels_train(torch, ls, sx):
+    """The training kernels against their plain versions on the same CUDA
+    tensors: row 6 on every output including the residuals, row 7 on all
+    seven grads from random upstream grads, at T=256, T=50 and the 6-step
+    tail; rows 10-11 at both row counts with one-hot and soft labels, f32 and
+    bf16 inputs. Returns the max abs error of each (kernel, dtype, size)."""
+    import numpy as np
+
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        dt, lim = getattr(torch, dtype), KERNEL_ATOL[dtype]
+        for T in (STEPS, TBPTT, TAIL):
+            args = seq_inputs(torch, T, BATCH, HIDDEN, dtype, False, SEED + 7 * T)
+            got = ls.lstm_sequence_train_forward(*args)
+            want = ls.lstm_sequence_train_reference(*args)
+            torch.cuda.synchronize()
+            names = ("ys", "a", "f", "o", "i", "c", "hT", "cT")
+            errs[("lstm_seq_train_fwd", dtype, T)] = max_abs(got, want)
+            if dtype == "bfloat16":
+                check_rel("lstm_seq_train_fwd", T, names, got, want)
+            else:
+                e = {n: float((g.float() - w.float()).abs().max())
+                     for n, g, w in zip(names, got, want)}
+                check("lstm_seq_train_fwd", dtype, e, dict.fromkeys(e, lim), T=T,
+                      B=BATCH, H=HIDDEN)
+            rng = np.random.default_rng(SEED + T)
+            up = [torch.as_tensor(rng.normal(0.0, 0.1, shape), dtype=dt, device=DEVICE)
+                  for shape in ((T, BATCH, HIDDEN), (BATCH, HIDDEN), (BATCH, HIDDEN))]
+            zx, h0, c0, RW, pF, pI, pO = args
+            res = tuple(want[:6]) + (h0, c0, RW, pF, pI, pO)
+            got = ls.lstm_sequence_backward(*up, *res)
+            ref = ls.lstm_sequence_backward_reference(*up, *res)
+            torch.cuda.synchronize()
+            names = ("dzx", "dh0", "dc0") + SUMMED_GRADS
+            errs[("lstm_seq_bwd", dtype, T)] = max_abs(got, ref)
+            if dtype == "bfloat16":
+                check_rel("lstm_seq_bwd", T, names, got, ref)
+                continue
+            e = {}
+            for n, g, w in zip(names, got, ref):
+                diff = float((g.float() - w.float()).abs().max())
+                e[n] = diff / float(w.float().abs().max()) if n in SUMMED_GRADS else diff
+            check("lstm_seq_bwd", dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH,
+                  H=HIDDEN, summed_grads_relative_to_largest=list(SUMMED_GRADS))
+        for N in SXENT_ROWS:
+            for labels in ("one_hot", "soft"):
+                x, lab = sxent_inputs(torch, N, dtype, labels, SEED + N)
+                g = torch.as_tensor(np.random.default_rng(N).normal(0.0, 1.0, N),
+                                    dtype=torch.float32, device=DEVICE)
+                out = {"loss": (sx.fused_softmax_xent(x, lab),
+                                sx.softmax_xent_reference(x, lab))}
+                for n, k, w in zip(("dx", "dl"), sx.softmax_xent_backward(x, lab, g),
+                                   sx.softmax_xent_backward_reference(x, lab, g)):
+                    out[n] = (k, w)
+                torch.cuda.synchronize()
+                e = {n: float((k.float() - w.float()).abs().max())
+                     for n, (k, w) in out.items()}
+                tol = {n: KERNEL_ATOL["float32"] if k.dtype == torch.float32 else 2.0 ** -8
+                       for n, (k, _) in out.items()}
+                check("softmax_xent", dtype, e, tol, N=N, C=VOCAB, labels=labels)
+                for name, keys in (("softmax_xent_fwd", ("loss",)),
+                                   ("softmax_xent_bwd", ("dx", "dl"))):
+                    key = (name, dtype, N)
+                    errs[key] = max(errs.get(key, 0.0), max(e[k] for k in keys))
+    return errs
+
+
+def time_train_kernels(torch, ls, sx, card):
+    """ms of each training kernel at the main path's shapes (T=256, B=64;
+    N=B*T rows) beside its plain version, its bound and, for rows 10-11, the
+    one PyTorch call that computes the same function (cross_entropy with
+    probability targets: forward, and forward plus backward into both
+    inputs)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        args = seq_inputs(torch, STEPS, BATCH, HIDDEN, dtype, False, SEED)
+        res = ls.lstm_sequence_train_reference(*args)
+        rng = np.random.default_rng(SEED)
+        up = [torch.as_tensor(rng.normal(0.0, 0.1, shape), dtype=dt, device=DEVICE)
+              for shape in ((STEPS, BATCH, HIDDEN), (BATCH, HIDDEN), (BATCH, HIDDEN))]
+        res = tuple(res[:6]) + tuple(args[1:])
+        N = SXENT_ROWS[0]
+        x, lab = sxent_inputs(torch, N, dtype, "one_hot", SEED)
+        g = torch.as_tensor(rng.normal(0.0, 1.0, N), dtype=torch.float32, device=DEVICE)
+        xg, lg = x.clone().requires_grad_(), lab.clone().requires_grad_()
+        gl = g.to(dt)
+
+        def lib_fwd_bwd():
+            xg.grad = lg.grad = None
+            F.cross_entropy(xg, lg, reduction="none").backward(gl)
+
+        cases = (
+            ("lstm_seq_train_fwd", lambda: ls.lstm_sequence_train_forward(*args),
+             lambda: ls.lstm_sequence_train_reference(*args), None,
+             bound_train_fwd(STEPS, BATCH, HIDDEN, dtype)),
+            ("lstm_seq_bwd", lambda: ls.lstm_sequence_backward(*up, *res),
+             lambda: ls.lstm_sequence_backward_reference(*up, *res), None,
+             bound_bwd(STEPS, BATCH, HIDDEN, dtype)),
+            ("softmax_xent_fwd", lambda: sx.fused_softmax_xent(x, lab),
+             lambda: sx.softmax_xent_reference(x, lab),
+             lambda: F.cross_entropy(x, lab, reduction="none"),
+             bound_sxent(N, VOCAB, dtype, False)),
+            ("softmax_xent_bwd", lambda: sx.softmax_xent_backward(x, lab, g),
+             lambda: sx.softmax_xent_backward_reference(x, lab, g), lib_fwd_bwd,
+             bound_sxent(N, VOCAB, dtype, True)),
+        )
+        for name, kern, plain, lib, (b_ms, b_by) in cases:
+            plain_1, ms_1 = median_ms(plain), median_ms(kern)
+            ms_2, plain_2 = median_ms(kern), median_ms(plain)
+            lib_runs = [median_ms(lib), median_ms(lib)] if lib is not None else None
+            times[(name, dtype)] = dict(
+                ms=min(ms_1, ms_2), plain_ms=min(plain_1, plain_2), bound_ms=b_ms,
+                bound_by=b_by, library_ms=min(lib_runs) if lib_runs else None)
+            emit("time_kernel", kernel=name, dtype=dtype, T=STEPS, B=BATCH, H=HIDDEN,
+                 N=N, C=VOCAB, ms_runs=[ms_1, ms_2], plain_ms_runs=[plain_1, plain_2],
+                 library_ms_runs=lib_runs, bound_ms=b_ms, bound_by=b_by, gpu=card)
+    return times
+
+
+def sxent_inputs(torch, N, dtype, labels, seed):
+    """Logits [N, VOCAB] and one-hot or soft (softmax of random) labels, both
+    in ``dtype``, on the card from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 2.0, (N, VOCAB))
+    if labels == "one_hot":
+        lab = np.eye(VOCAB)[rng.integers(0, VOCAB, N)]
+    else:
+        z = rng.normal(0.0, 1.0, (N, VOCAB))
+        lab = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
+    dt = getattr(torch, dtype)
+    return (torch.as_tensor(x, dtype=dt, device=DEVICE).contiguous(),
+            torch.as_tensor(lab, dtype=dt, device=DEVICE).contiguous())
+
+
+class LossRecorder:
+    """fit listener: keeps each update's loss tensor (read after the run)."""
+
+    def __init__(self):
+        self.losses = []
+
+    def iteration_done(self, net, iteration, loss):
+        self.losses.append(loss)
+
+
+def char_batches(n: int, seed: int):
+    """``n`` (x, y) batches of next-char prediction over learnable text: a
+    sentence of SENTENCE characters drawn from the seed, repeated, each row
+    starting at a random place in it. One-hot [BATCH, STEPS, VOCAB] each, y
+    shifted one step from x."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sentence = rng.integers(0, VOCAB, SENTENCE)
+    out = []
+    for _ in range(n):
+        start = rng.integers(0, SENTENCE, (BATCH, 1))
+        seq = sentence[(start + np.arange(STEPS + 1)) % SENTENCE]
+        out.append((one_hot(seq[:, :-1], VOCAB), one_hot(seq[:, 1:], VOCAB)))
+    return out
+
+
+def phase_train(torch, mode, dtype, host_params, card):
+    """Train the char-RNN from the seed params on the card and on the CPU
+    from the same batches; hold the per-update losses, the final params and
+    their change from the seed params against the CPU's, check that the loss
+    fell and the launch counts of the card's run, then time more batches on
+    the card. Returns (launch counts, ms per update, the card's net, the
+    first batch)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, char_rnn, load_jax_params
+    from deeplearning4j_tpu_torch import ops
+
+    conf = char_rnn(VOCAB, HIDDEN, LAYERS, tbptt_length=TBPTT, dtype=dtype)
+    conf.updater = {"updater": "sgd", "learning_rate": LR}
+    conf.backprop_type = mode
+    batches = char_batches(TRAIN_BATCHES + TIMED_BATCHES, SEED + 1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        net = load_jax_params(MultiLayerNetwork(conf, device=dev), host_params)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ops.reset_counters()
+        t0 = time.perf_counter()
+        for x, y in batches[:TRAIN_BATCHES]:
+            net.fit((x, y))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = ops.counters()
+        seconds = time.perf_counter() - t0
+        losses = np.array([float(l) for l in rec.losses])
+        params = [{k: v.detach().float().cpu().numpy() for k, v in p.items()}
+                  for p in net.layer_params]
+        runs[dev] = (net, losses, params, seconds)
+    net, losses, params, gpu_s = runs["cuda"]
+    _, cpu_losses, cpu_params, cpu_s = runs["cpu"]
+    updates = TRAIN_BATCHES * UPDATES_PER_BATCH[mode]
+    expected = {"lstm_seq_train_fwd": LAYERS * updates, "lstm_seq_bwd": LAYERS * updates,
+                "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
+                "lstm_seq_lean": 0, "lstm_seq_lean_masked": 0}
+    loss_err = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
+    param_err = max(float(np.abs(p[k] - q[k]).max())
+                    for p, q in zip(params, cpu_params) for k in p)
+    # each tensor's change from the seed params, card against CPU, over the
+    # norm of the CPU's change: an update left out reads 1
+    step_err = max(float(np.linalg.norm(p[k] - q[k])
+                         / np.linalg.norm(q[k] - p0[k].astype(np.float32)))
+                   for p, q, p0 in zip(params, cpu_params, host_params) for k in p)
+    loss_fall = float(cpu_losses[0] - cpu_losses[-1])
+    ok = (losses.shape == (updates,) and bool(np.isfinite(losses).all())
+          and loss_err <= TRAIN_LOSS_RTOL[dtype] and param_err <= TRAIN_PARAM_ATOL[dtype]
+          and step_err <= TRAIN_STEP_RTOL[dtype] and loss_fall > 0.0
+          and launches == expected and net.iteration == updates)
+    net.set_listeners()
+    times = []
+    for x, y in batches[TRAIN_BATCHES:]:
+        t0 = time.perf_counter()
+        net.fit((x, y))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    batch_ms = statistics.median(times)
+    ms_per_update = batch_ms / UPDATES_PER_BATCH[mode]
+    emit(f"train_{mode}", dtype=dtype, batches=TRAIN_BATCHES, updates=updates,
+         losses=losses.tolist(), cpu_losses=cpu_losses.tolist(),
+         max_loss_rel_err_vs_cpu=loss_err, loss_rtol=TRAIN_LOSS_RTOL[dtype],
+         max_param_abs_err_vs_cpu=param_err, param_atol=TRAIN_PARAM_ATOL[dtype],
+         max_param_change_rel_err_vs_cpu=step_err, change_rtol=TRAIN_STEP_RTOL[dtype],
+         cpu_loss_fall=loss_fall, kernel_launches=launches, expected_launches=expected,
+         first_batches_s=gpu_s, cpu_batches_s=cpu_s, timed_batch_ms_runs=times,
+         ms_per_update=ms_per_update, chars_per_s=BATCH * STEPS / (batch_ms / 1e3),
+         ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"training {mode} {dtype} failed its checks")
+    return launches, ms_per_update, net, batches[0]
+
+
 def profile(torch, fn):
     """Run ``fn`` under torch.profiler: wall ms, the card's busy ms (sum of
     kernel intervals on the one stream) and the top kernels by time."""
@@ -230,9 +614,10 @@ def main() -> int:
     import numpy as np
 
     from deeplearning4j_tpu_torch import (DecodeServer, MultiLayerNetwork, char_rnn,
-                                          load_jax_params)
+                                          load_jax_params, ops)
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import lstm_sequence as ls
+    from deeplearning4j_tpu_torch.ops import softmax_xent as sx
 
     # ---- 1. environment and build
     card = gpu_line()
@@ -251,6 +636,7 @@ def main() -> int:
 
     # ---- 2. each kernel against its plain version
     errs = phase_kernels(torch, ls)
+    errs.update(phase_kernels_train(torch, ls, sx))
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
     confs = {dt: char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dt)
@@ -260,8 +646,7 @@ def main() -> int:
             for dt, c in confs.items()}
     rng = np.random.default_rng(SEED)
     x = one_hot(rng.integers(0, VOCAB, (BATCH, STEPS)), VOCAB)
-    for k in ls.launches:
-        ls.launches[k] = 0
+    ops.reset_counters()
     served = {}
     for dt, net in nets.items():
         before = ls.launches["lstm_seq_lean"]
@@ -282,7 +667,7 @@ def main() -> int:
     decode_s = time.perf_counter() - t0
     ticks = server.ticks
     server.stop()
-    launches = dict(ls.launches)
+    launches = ops.counters()
 
     for dt, (probs, cls, rose) in served.items():
         cpu = load_jax_params(MultiLayerNetwork(confs[dt], device="cpu"), host_params)
@@ -320,8 +705,19 @@ def main() -> int:
          atol=DECODE_ATOL, ok=ok, gpu=card)
     if not ok:
         raise AssertionError("decode sessions differ from running alone")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the path did not launch: {launches}")
+    if not (launches["lstm_seq_lean"] and launches["lstm_seq_lean_masked"]):
+        raise AssertionError(f"a kernel of the serving path did not launch: {launches}")
+
+    # ---- 4b. the training path: each run counts from 0 (phase_train)
+    train = {}
+    for mode in ("standard", "tbptt"):
+        for dtype in ("float32", "bfloat16"):
+            train[(mode, dtype)] = phase_train(torch, mode, dtype, host_params, card)
+    for name in ("lstm_seq_train_fwd", "lstm_seq_bwd", "softmax_xent_fwd",
+                 "softmax_xent_bwd"):
+        launches[name] = sum(run[0][name] for run in train.values())
+        if not launches[name]:
+            raise AssertionError(f"{name} did not launch on the training path")
 
     # ---- 5. times
     times = {}
@@ -357,9 +753,14 @@ def main() -> int:
         emit("time_output", dtype=dt, B=BATCH, T=STEPS, ms_median=statistics.median(runs),
              ms_runs=runs, gpu=card)
 
+    times.update(time_train_kernels(torch, ls, sx, card))
+
     net = nets["float32"]
     emit("profile", what="output() f32 B=64 T=256", gpu=card,
          **profile(torch, lambda: net.output(x)))
+    _, _, train_net, (tx, ty) = train[("standard", "float32")]
+    emit("profile", what="fit() one standard SGD update, f32 B=64 T=256", gpu=card,
+         **profile(torch, lambda: train_net.fit((tx, ty))))
     server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
 
     def decode_all():
@@ -377,20 +778,27 @@ def main() -> int:
          **profile(torch, decode_all))
     server.stop()
 
-    # ---- 6. the kernels of the path
+    # ---- 6. the kernels of the paths (f32, at the main path's shapes)
     lines = []
-    for name, T, B in (("lstm_seq_lean", STEPS, BATCH), ("lstm_seq_lean_masked", 1, SLOTS)):
+    shapes = {"lstm_seq_lean": ("lstm_seq_lean", "float32", STEPS, BATCH),
+              "lstm_seq_lean_masked": ("lstm_seq_lean_masked", "float32", 1, SLOTS),
+              "lstm_seq_train_fwd": ("lstm_seq_train_fwd", "float32", STEPS),
+              "lstm_seq_bwd": ("lstm_seq_bwd", "float32", STEPS),
+              "softmax_xent_fwd": ("softmax_xent_fwd", "float32", SXENT_ROWS[0]),
+              "softmax_xent_bwd": ("softmax_xent_bwd", "float32", SXENT_ROWS[0])}
+    for name, (source, replaces) in KERNELS.items():
         t = times[(name, "float32")]
         lines.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": KERNEL_REPLACES, "launches": launches[name],
-            "max_abs_err": errs[(name, "float32", T, B)], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-            "dtype": "float32", "T": T, "B": B, "H": HIDDEN})
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[shapes[name]],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            "dtype": "float32"})
     print(json.dumps({"kernels": lines, "launches": launches,
                       "library_ms_note": "no single PyTorch call computes the "
-                      "peephole LSTM (torch.nn.LSTM has no peepholes)"}), flush=True)
+                      "peephole LSTM (torch.nn.LSTM has no peepholes); rows 10-11: "
+                      "cross_entropy with probability targets, forward and "
+                      "forward+backward"}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Carry weights over from the JAX package.
 
 :func:`load_jax_params` fills a port net from the JAX net's ``params`` (a
-tuple of per-layer dicts of arrays, e.g. ``jax_net.params``).
+tuple of per-layer dicts of arrays, e.g. ``jax_net.params``);
+:func:`params_to_numpy` is the way back, for comparing trained params.
 :func:`load_jax_model_zip` reads a zip written by the JAX package's
 ``utils/serialization.write_model`` (``configuration.json`` and
 ``coefficients.npz``) with zipfile and numpy only.
@@ -12,7 +13,7 @@ from __future__ import annotations
 import io
 import json
 import zipfile
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -46,6 +47,13 @@ def load_jax_params(net: MultiLayerNetwork,
             layer[k] = a
         host.append(layer)
     return net.init(params=host)
+
+
+def params_to_numpy(net: MultiLayerNetwork) -> List[Dict[str, np.ndarray]]:
+    """The net's params as one dict of host float32 arrays per layer, in the
+    JAX layout (what :func:`load_jax_params` takes)."""
+    return [{k: v.detach().float().cpu().numpy() for k, v in p.items()}
+            for p in net.layer_params]
 
 
 def load_jax_model_zip(path: str, device="cuda") -> MultiLayerNetwork:

@@ -5,7 +5,9 @@ same JSON configures both packages. It carries plain tensor functions:
 
 - ``get_output_type(input_type)`` — static shape inference
 - ``init_params(gen, input_type)`` — dict of CPU tensors from a ``torch.Generator``
-- ``apply(params, x, state, mask)`` — inference forward
+- ``apply(params, x, state, mask, train, generator)`` — forward; ``train``
+  turns dropout on, drawn from ``generator``
+- ``regularization_loss(params)`` — the l1/l2 terms of the training loss
 
 Params for layer i are a dict keyed "W"/"b"/... as in the JAX package; the
 network (``nn/multilayer.py``) holds them as an ``nn.ParameterDict`` per layer.
@@ -48,8 +50,8 @@ def layer_from_dict(d: dict) -> "BaseLayer":
 
 @dataclass
 class BaseLayer:
-    """Common hyperparameters. ``l1``/``l2`` and ``dropout`` are training
-    settings: kept for the JSON round-trip, not acted on at inference."""
+    """Common hyperparameters. ``l1``/``l2`` enter the training loss through
+    :meth:`regularization_loss`; ``dropout`` acts only in training."""
 
     name: str = ""
     activation: str = "identity"
@@ -75,8 +77,30 @@ class BaseLayer:
         return {}
 
     def apply(self, params: Params, x: torch.Tensor, state: State, *,
-              mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, State]:
+              mask: Optional[torch.Tensor] = None, train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              ) -> Tuple[torch.Tensor, State]:
         raise NotImplementedError
+
+    def regularization_loss(self, params: Params) -> torch.Tensor:
+        """0.5*l2*||W||^2 + l1*|W| (+ the bias coefficients for every key that
+        starts with "b" or names a bias) — reference BaseLayer.calcL2/calcL1,
+        key rule of the JAX package as it is."""
+        total = torch.zeros((), dtype=torch.float32)
+        for k, v in params.items():
+            if k.startswith("b") or "bias" in k.lower():
+                l1c, l2c = self.l1_bias, self.l2_bias
+            elif k in ("gamma", "beta", "mean", "var"):
+                continue  # BN params not regularized (reference parity)
+            else:
+                l1c, l2c = self.l1, self.l2
+            if l2c:
+                total = total + 0.5 * l2c * torch.sum(v * v)
+            if l1c:
+                # |v| with the JAX package's subgradient at 0 (+1, where
+                # torch.abs gives 0): peepholes start at exactly 0
+                total = total + l1c * torch.sum(torch.where(v >= 0, v, -v))
+        return total
 
     @property
     def is_recurrent(self) -> bool:
@@ -93,7 +117,14 @@ class BaseLayer:
         return get_activation(self.activation)(preout)
 
 
-def maybe_dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
-    """Dropout on a layer's input acts only in training; the port serves
-    only, so ``x`` passes through, as in the JAX package at inference."""
-    return x
+def maybe_dropout(x: torch.Tensor, rate: float, train: bool = False,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout on a layer's input (reference: util/Dropout.java):
+    in training, each unit is dropped with probability ``rate`` and the rest
+    scaled by 1/(1 - rate), from ``generator`` (on x's device). It does not
+    draw the JAX package's random bits. Outside training ``x`` passes."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))

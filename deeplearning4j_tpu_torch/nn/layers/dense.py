@@ -1,4 +1,4 @@
-"""Dense and output layers, forward only (counterpart of
+"""Dense and output layers (counterpart of
 ``deeplearning4j_tpu/nn/layers/dense.py``)."""
 
 from __future__ import annotations
@@ -6,6 +6,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..conf.inputs import InputType
+from ..losses import get_loss
 from .base import BaseLayer, Params, register_layer, maybe_dropout
 
 
@@ -39,14 +40,22 @@ class DenseLayer(BaseLayer):
             z = z + params["b"]
         return z
 
-    def apply(self, params, x, state, *, mask=None):
-        x = maybe_dropout(x, self.dropout)
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        x = maybe_dropout(x, self.dropout, train, generator)
         return self._activate(self.pre_output(params, x)), state
 
 
 @register_layer
 @dataclass
 class OutputLayer(DenseLayer):
-    """Dense + loss head; the loss is a training setting, kept for the JSON."""
+    """Dense + loss head (reference: OutputLayer)."""
 
     loss: str = "mcxent"
+
+    def compute_loss(self, params, x, labels, mask=None, *, train=False,
+                     generator=None):
+        """The mean loss of ``labels`` against this layer's pre-output on
+        ``x`` (``mask`` [N] weights the rows)."""
+        x = maybe_dropout(x, self.dropout, train, generator)
+        return get_loss(self.loss)(labels, self.pre_output(params, x),
+                                   self.activation, mask)

@@ -4,9 +4,14 @@
 Gate semantics as in the JAX package: columns [a, f, o, i]; f and i see
 c_{t-1} through peepholes pF/pI, o sees c_t through pO; c_t = f*c_{t-1} + i*a;
 h_t = o * act(c_t). Data is [batch, time, features]. The input projection
-``x @ W + b`` for all steps is one product, computed time-major; the
-recurrence is the sequence op of ``ops`` (the CUDA kernel on the card, its
-plain version on the CPU).
+``x @ W + b`` for all steps is one product, computed time-major and left to
+``torch.matmul`` under autograd, as the JAX package leaves it to XLA; the
+recurrence is the sequence op of ``ops`` (the CUDA kernels on the card,
+their plain versions on the CPU), through ``ops.lstm_sequence_apply``, which
+picks what runs: under grad the unmasked recurrence runs
+``ops.LstmSequenceFunction`` (training forward and backward kernels); masked
+training has no kernel yet (rows 8-9 of PERF.md's table): on the CPU it runs
+the plain masked version under autograd, on CUDA it raises.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from ... import ops
 from ..activations import get_activation, is_builtin
 from ..conf.inputs import InputType
+from ..losses import get_loss
 from .base import BaseLayer, Params, maybe_dropout, register_layer
 from .dense import DenseLayer
 
@@ -46,11 +52,8 @@ def _lstm_scan(prefix: str, params: Params, x: torch.Tensor, h0: torch.Tensor,
     act, gate = act_name.lower(), gate_name.lower()
     if (ops.supported_lstm_activations(act, gate)
             and is_builtin(act) and is_builtin(gate)):
-        if m is None:
-            ys, h, c = ops.fused_lstm_sequence(zx, h0, c0, RW, pF, pI, pO, act, gate)
-        else:
-            ys, h, c = ops.fused_lstm_sequence_masked(zx, m, h0, c0, RW, pF, pI,
-                                                      pO, act, gate)
+        ys, h, c = ops.lstm_sequence_apply(zx, h0, c0, RW, pF, pI, pO, act, gate,
+                                           mask=m)
     elif zx.is_cuda:
         raise NotImplementedError(
             f"LSTM activations ({act_name}, {gate_name}) have no CUDA kernel; "
@@ -110,18 +113,20 @@ class GravesLSTM(BaseLayer):
                 "c": torch.zeros((batch, H), dtype=dtype, device=device)}
 
     def apply_seq(self, params: Params, x: torch.Tensor, rstate: RecurrentState,
-                  *, mask: Optional[torch.Tensor] = None,
+                  *, mask: Optional[torch.Tensor] = None, train: bool = False,
+                  generator: Optional[torch.Generator] = None,
                   ) -> Tuple[torch.Tensor, RecurrentState]:
-        x = maybe_dropout(x, self.dropout)
+        x = maybe_dropout(x, self.dropout, train, generator)
         h0 = rstate["h"].to(x.dtype).contiguous()
         c0 = rstate["c"].to(x.dtype).contiguous()
         y, h, c = _lstm_scan("", params, x, h0, c0, self.activation,
                              self.gate_activation, mask)
         return y, {"h": h, "c": c}
 
-    def apply(self, params, x, state, *, mask=None):
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
         rstate = self.init_recurrent_state(x.shape[0], x.dtype, x.device)
-        y, _ = self.apply_seq(params, x, rstate, mask=mask)
+        y, _ = self.apply_seq(params, x, rstate, mask=mask, train=train,
+                              generator=generator)
         return y, state
 
 
@@ -137,12 +142,13 @@ class GravesBidirectionalLSTM(GravesLSTM):
         p.update(self._direction_params(gen, n_in, prefix="bwd_"))
         return p
 
-    def apply_seq(self, params, x, rstate, *, mask=None):
+    def apply_seq(self, params, x, rstate, *, mask=None, train=False,
+                  generator=None):
         raise NotImplementedError(
-            "Bidirectional LSTM has no streaming state")
+            "Bidirectional LSTM has no streaming or TBPTT state")
 
-    def apply(self, params, x, state, *, mask=None):
-        x = maybe_dropout(x, self.dropout)
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        x = maybe_dropout(x, self.dropout, train, generator)
         zeros = torch.zeros((x.shape[0], self.n_out), dtype=x.dtype, device=x.device)
         y_f, _, _ = _lstm_scan("", params, x, zeros, zeros, self.activation,
                                self.gate_activation, mask)
@@ -154,8 +160,8 @@ class GravesBidirectionalLSTM(GravesLSTM):
 @register_layer
 @dataclass
 class RnnOutputLayer(DenseLayer):
-    """Per-timestep dense head over [B, T, C]; the loss is a training
-    setting, kept for the JSON."""
+    """Per-timestep dense + loss head over [B, T, C]; the loss flattens time
+    into the batch, with the [B, T] label mask alongside."""
 
     loss: str = "mcxent"
 
@@ -174,3 +180,14 @@ class RnnOutputLayer(DenseLayer):
         if self.has_bias:
             z = z + params["b"]
         return z
+
+    def compute_loss(self, params, x, labels, mask=None, *, train=False,
+                     generator=None):
+        """The loss over [B*T, C] rows of ``labels`` against the pre-output on
+        ``x`` [B, T, H]; ``mask`` [B, T] weights the rows."""
+        x = maybe_dropout(x, self.dropout, train, generator)
+        preout = self.pre_output(params, x)
+        C = preout.shape[-1]
+        mask1d = None if mask is None else mask.reshape(-1)
+        return get_loss(self.loss)(labels.reshape(-1, C), preout.reshape(-1, C),
+                                   self.activation, mask1d)

@@ -1,12 +1,23 @@
-"""MultiLayerNetwork, inference only (counterpart of
-``deeplearning4j_tpu/nn/multilayer.py``).
+"""MultiLayerNetwork (counterpart of ``deeplearning4j_tpu/nn/multilayer.py``):
+inference, streaming and training.
 
 The network is an ``nn.Module`` holding one ``nn.ParameterDict`` per layer on
 an explicit device. It runs on the card unless the caller passes
 ``device="cpu"``; with the default device and no CUDA, construction raises.
-``output``, ``predict`` and ``rnn_time_step`` take host arrays (or tensors)
-and return host numpy arrays, as the JAX package's inference fast path does;
-bfloat16 results come back as float32, which holds them exactly.
+
+- ``output``, ``predict`` and ``rnn_time_step`` take host arrays (or
+  tensors) and return host numpy arrays, as the JAX package's inference fast
+  path does; bfloat16 results come back as float32, which holds them
+  exactly. They run under ``torch.no_grad()``, so the LSTM layers launch the
+  lean sequence kernel.
+- ``fit`` trains on an (x, y) pair, a ``DataSet`` or an iterable of either,
+  one update per batch (``backprop_type="standard"``) or one per time
+  segment (``"tbptt"``). The params are trainable leaves in
+  ``params_dtype``; each step casts them to the compute dtype under
+  autograd, and the loss head runs in f32 on f32 params as in the JAX
+  package. The updater (``conf.updater``, the JAX JSON dict) is built at the
+  first fit; updates run in an f32 island (``updaters.optimizer_update``)
+  and are written into the leaves in place.
 """
 
 from __future__ import annotations
@@ -16,7 +27,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..datasets.iterators import DataSet, as_iterator
 from .conf.multi_layer import MultiLayerConfiguration
+from .updaters import UpdaterConfig, optimizer_update, scaled_loss, unscale_grads
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -54,6 +67,13 @@ class MultiLayerNetwork(torch.nn.Module):
         self._initialized = False
         self._compute_params: Optional[List[dict]] = None
         self._rnn_state = None  # streaming state: one dict per layer
+        self.iteration = 0  # updates taken
+        self.epoch = 0  # passes of fit over its data
+        self._last_loss: Optional[torch.Tensor] = None
+        self._updater = None  # built from conf.updater at the first fit
+        self._opt_state = None
+        self._generator: Optional[torch.Generator] = None  # dropout draws
+        self.listeners: List = []
 
     # ------------------------------------------------------------------ init
     @property
@@ -69,7 +89,8 @@ class MultiLayerNetwork(torch.nn.Module):
     def init(self, params: Optional[Sequence[dict]] = None, force: bool = False,
              generator: Optional[torch.Generator] = None) -> "MultiLayerNetwork":
         """Create the params: from ``params`` (one dict of arrays per layer),
-        else drawn from ``generator`` (default: seeded by ``conf.seed``)."""
+        else drawn from ``generator`` (default: seeded by ``conf.seed``).
+        Resets the updater state and the iteration count."""
         if self._initialized and not force and params is None:
             return self
         input_types = self.conf.layer_input_types()
@@ -84,21 +105,35 @@ class MultiLayerNetwork(torch.nn.Module):
         self.layer_params = torch.nn.ModuleList(
             torch.nn.ParameterDict({
                 k: torch.nn.Parameter(
-                    torch.as_tensor(v).to(self.device, self.params_dtype),
-                    requires_grad=False)
+                    torch.as_tensor(v).to(self.device, self.params_dtype))
                 for k, v in p.items()})
             for p in params)
         self._initialized = True
         self._compute_params = None
         self._rnn_state = None
+        self._updater = None
+        self._opt_state = None
+        self.iteration = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(self.conf.seed)
         return self
 
+    def _leaves(self) -> List[dict]:
+        """The trainable params, one dict per layer."""
+        return [dict(p.items()) for p in self.layer_params]
+
+    def _cast_params(self) -> List[dict]:
+        """Params in the compute dtype, as casts of the leaves that autograd
+        follows (the leaf itself where the dtypes agree)."""
+        dt = self.compute_dtype
+        return [{k: v.to(dt) for k, v in p.items()} for p in self.layer_params]
+
     def _params(self) -> List[dict]:
-        """Params in the compute dtype, cast once per init."""
+        """Params in the compute dtype for inference: cast once, and again
+        after every update."""
         if self._compute_params is None:
-            dt = self.compute_dtype
-            self._compute_params = [{k: v.detach().to(dt) for k, v in p.items()}
-                                    for p in self.layer_params]
+            with torch.no_grad():
+                self._compute_params = [{k: v.detach() for k, v in p.items()}
+                                        for p in self._cast_params()]
         return self._compute_params
 
     def _input(self, x) -> torch.Tensor:
@@ -114,25 +149,75 @@ class MultiLayerNetwork(torch.nn.Module):
             return None
         return self._input(features_mask).to(self.compute_dtype)
 
+    def _labels(self, y) -> torch.Tensor:
+        """Labels on this net's device; floating labels in f32, the dtype the
+        loss head computes in."""
+        t = y if isinstance(y, torch.Tensor) else torch.as_tensor(np.asarray(y))
+        if t.is_floating_point():
+            return t.to(self.device, torch.float32)
+        return t.to(self.device)
+
+    def _labels_mask(self, labels_mask) -> Optional[torch.Tensor]:
+        return None if labels_mask is None else self._labels(labels_mask).float()
+
     # ------------------------------------------------------- functional core
-    def _forward(self, x: torch.Tensor, features_mask=None, rnn_state=None):
-        """Forward through every layer. Returns (out, new_rnn_state);
+    def _forward(self, params, x: torch.Tensor, features_mask=None, rnn_state=None,
+                 *, upto: Optional[int] = None, train: bool = False):
+        """Forward through layers [0, upto). Returns (out, new_rnn_state);
         ``rnn_state`` (one dict per layer, {} for stateless layers) threads
-        LSTM h/c across streaming calls."""
-        params = self._params()
+        LSTM h/c across streaming calls and TBPTT segments. ``train`` turns
+        dropout on."""
+        layers = self.conf.layers
+        n = len(layers) if upto is None else upto
+        gen = self._generator if train else None
         new_rnn = list(rnn_state) if rnn_state is not None else None
-        for i, layer in enumerate(self.conf.layers):
+        for i in range(n):
             if new_rnn is not None and new_rnn[i]:
-                x, new_rnn[i] = layer.apply_seq(params[i], x, new_rnn[i],
-                                                mask=features_mask)
+                x, new_rnn[i] = layers[i].apply_seq(params[i], x, new_rnn[i],
+                                                    mask=features_mask, train=train,
+                                                    generator=gen)
             else:
-                x, _ = layer.apply(params[i], x, {}, mask=features_mask)
+                x, _ = layers[i].apply(params[i], x, {}, mask=features_mask,
+                                       train=train, generator=gen)
         return x, (tuple(new_rnn) if new_rnn is not None else None)
 
+    def _loss(self, x, y, labels_mask=None, features_mask=None, rnn_state=None,
+              train: bool = True):
+        """Loss + regularization (reference: computeGradientAndScore +
+        calcL1/L2) and the new streaming state. The hidden layers run in the
+        compute dtype; the output layer takes f32 h and f32 params, as the
+        JAX package upcasts bf16 there."""
+        layers = self.conf.layers
+        out_idx = len(layers) - 1
+        out_layer = layers[out_idx]
+        if not hasattr(out_layer, "compute_loss"):
+            raise ValueError(
+                f"Last layer {type(out_layer).__name__} is not an output layer")
+        h, new_rnn = self._forward(self._cast_params(), x, features_mask, rnn_state,
+                                   upto=out_idx, train=train)
+        h32 = h.float() if h.dtype == torch.bfloat16 else h
+        out_p = {k: v.float() if v.dtype == torch.bfloat16 else v
+                 for k, v in self.layer_params[out_idx].items()}
+        loss = out_layer.compute_loss(out_p, h32, y, labels_mask, train=train,
+                                      generator=self._generator if train else None)
+        reg = sum(layer.regularization_loss(dict(p.items()))
+                  for layer, p in zip(layers, self.layer_params))
+        return loss + reg, new_rnn
+
+    def loss_fn(self, x, y, *, train: bool = False, labels_mask=None,
+                features_mask=None) -> torch.Tensor:
+        """Scalar loss of the current params on (x, y), differentiable."""
+        self.init()
+        val, _ = self._loss(self._input(x), self._labels(y),
+                            self._labels_mask(labels_mask), self._mask(features_mask),
+                            train=train)
+        return val
+
+    @torch.no_grad()
     def forward(self, x: torch.Tensor, features_mask: Optional[torch.Tensor] = None):
         """Device-side inference: tensor in, tensor out."""
         self.init()
-        return self._forward(self._input(x), self._mask(features_mask))[0]
+        return self._forward(self._params(), self._input(x), self._mask(features_mask))[0]
 
     # -------------------------------------------------------------- inference
     def output(self, x, features_mask=None) -> np.ndarray:
@@ -143,6 +228,108 @@ class MultiLayerNetwork(torch.nn.Module):
         """Class indices (argmax over the last axis) as int32."""
         return to_host(torch.argmax(self.forward(x), dim=-1).to(torch.int32))
 
+    def score(self, dataset=None) -> float:
+        """Loss on a dataset (inference mode: no dropout), or the last
+        training loss."""
+        if dataset is None:
+            return float(self._last_loss) if self._last_loss is not None else float("nan")
+        with torch.no_grad():
+            return float(self.loss_fn(dataset.features, dataset.labels))
+
+    # --------------------------------------------------------------- training
+    def set_listeners(self, *listeners) -> None:
+        """Objects whose ``iteration_done(net, iteration, loss)`` is called
+        after every update (the JAX package's IterationListener contract);
+        ``loss`` is the update's loss as a 0-d device tensor."""
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def fit(self, data, epochs: int = 1) -> "MultiLayerNetwork":
+        """Train (reference: MultiLayerNetwork.fit(DataSetIterator)).
+
+        ``data``: an (x, y) tuple, a DataSet, or an iterable of either (an
+        iterator with ``reset()`` is reset before each epoch). One update per
+        batch, or per time segment under TBPTT."""
+        self.init()
+        if self._updater is None:
+            self._updater = UpdaterConfig.from_dict(self.conf.updater).build()
+            self._opt_state = self._updater.init(self._leaves())
+        for _ in range(epochs):
+            it = as_iterator(data)
+            if hasattr(it, "reset"):
+                it.reset()
+            for ds in it:
+                self._fit_batch(ds if isinstance(ds, DataSet) else DataSet(*ds))
+            self.epoch += 1
+        return self
+
+    def _step(self, x, y, labels_mask, features_mask, rnn_state=None):
+        """One update from the loss on (x, y): backward, unscale, update the
+        leaves in place. Returns the new streaming state, detached."""
+        ls = self.conf.loss_scale
+        loss, new_rnn = self._loss(x, y, labels_mask, features_mask, rnn_state)
+        leaves = self._leaves()
+        flat = [v for layer in leaves for v in layer.values()]
+        flat_grads = iter(torch.autograd.grad(scaled_loss(loss, ls), flat,
+                                              allow_unused=True, materialize_grads=True))
+        grads = unscale_grads([{k: next(flat_grads) for k in layer} for layer in leaves],
+                              ls)
+        _, self._opt_state, new_params = optimizer_update(
+            self._updater, grads, self._opt_state, leaves)
+        with torch.no_grad():
+            for layer, new in zip(leaves, new_params):
+                for k, v in layer.items():
+                    v.copy_(new[k])
+        self._compute_params = None
+        self._last_loss = loss.detach()
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self._last_loss)
+        if new_rnn is None:
+            return None
+        return tuple({k: t.detach() for k, t in st.items()} for st in new_rnn)
+
+    def _fit_batch(self, ds: DataSet) -> None:
+        x = self._input(ds.features)
+        if self.conf.backprop_type == "tbptt" and x.dim() == 3:
+            self._fit_tbptt(x, ds)
+            return
+        self._step(x, self._labels(ds.labels), self._labels_mask(ds.labels_mask),
+                   self._mask(ds.features_mask))
+
+    def _fit_tbptt(self, x: torch.Tensor, ds: DataSet) -> None:
+        """Truncated BPTT (reference: doTruncatedBPTT): the sequence is cut
+        into ``tbptt_fwd_length`` segments, one update each, a trailing
+        partial segment included; LSTM h/c carry from one segment to the next
+        with their gradient cut. With ``tbptt_back_length`` below the segment
+        length, the first steps of a segment only advance h/c, without
+        gradient, and the loss covers the last ``tbptt_back_length`` steps."""
+        y = self._labels(ds.labels)
+        fmask, lmask = self._mask(ds.features_mask), self._labels_mask(ds.labels_mask)
+        T, L = x.shape[1], self.conf.tbptt_fwd_length
+        back = int(self.conf.tbptt_back_length or 0)
+        rnn = self._init_rnn_states(x.shape[0])
+        for t0 in range(0, T, L):
+            seg = slice(t0, t0 + min(L, T - t0))
+            xs, ys = x[:, seg], y[:, seg]
+            fm = None if fmask is None else fmask[:, seg]
+            lm = None if lmask is None else lmask[:, seg]
+            n = xs.shape[1]
+            k = n if back <= 0 else min(back, n)
+            if k < n:
+                split = n - k
+                with torch.no_grad():
+                    _, rnn = self._forward(
+                        self._cast_params(), xs[:, :split],
+                        None if fm is None else fm[:, :split], rnn,
+                        upto=len(self.conf.layers) - 1, train=True)
+                xs, ys = xs[:, split:], ys[:, split:]
+                fm = None if fm is None else fm[:, split:]
+                lm = None if lm is None else lm[:, split:]
+            rnn = self._step(xs, ys, lm, fm, rnn)
+
     # ------------------------------------------------------------- streaming
     def _init_rnn_states(self, batch: int):
         return tuple(
@@ -152,6 +339,7 @@ class MultiLayerNetwork(torch.nn.Module):
             for layer in self.conf.layers
         )
 
+    @torch.no_grad()
     def rnn_time_step(self, x, features_mask=None) -> np.ndarray:
         """Stateful streaming inference. ``x`` is [batch, features] (one
         step) or [batch, time, features]; LSTM h/c persist across calls
@@ -165,7 +353,8 @@ class MultiLayerNetwork(torch.nn.Module):
         state = self._rnn_state
         if state is None or any(st and st["h"].shape[0] != x.shape[0] for st in state):
             state = self._init_rnn_states(x.shape[0])
-        out, self._rnn_state = self._forward(x, self._mask(features_mask), state)
+        out, self._rnn_state = self._forward(self._params(), x, self._mask(features_mask),
+                                             state)
         if single_step and out.dim() == 3:
             out = out[:, 0, :]
         return to_host(out)

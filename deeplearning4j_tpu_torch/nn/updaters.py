@@ -1,0 +1,306 @@
+"""Updaters: gradient transforms with learning-rate schedules and clipping
+(counterpart of ``deeplearning4j_tpu/nn/updaters.py``).
+
+The JAX package builds optax transforms; the port does the same arithmetic
+with an explicit state, so a run from the same params and data takes the
+same steps:
+
+- :func:`build_schedule` maps the iteration count to the learning rate, by
+  every policy of the JAX package;
+- :func:`gradient_normalization` by every mode;
+- :class:`UpdaterConfig` is the same JSON dict; ``build()`` gives an
+  :class:`Updater` for ``sgd``, ``momentum`` and ``nesterovs`` (optax's
+  ``sgd`` with and without ``trace``) and ``none``/``noop`` (optax's
+  ``set_to_zero``). The optax chain is ``(normalization, core)``, and the
+  learning rate of update k is ``schedule(k)``.
+- :func:`optimizer_update` is the f32 update island of the JAX package:
+  with any bf16 leaf, grads, state and params are upcast, updated in f32 and
+  cast back per leaf; with f32 only it is ``update`` plus ``p + u``.
+
+Params, grads and updates are lists of per-layer dicts of tensors, as the
+JAX package's are tuples of dicts. Adam and the other updaters come in later
+slices of the port and raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import asdict, dataclass
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+Tree = List[Dict[str, torch.Tensor]]
+
+# updaters of the JAX package that the port does not run yet, and the slice
+# that brings each (ROADMAP.md)
+_LATER = {
+    "adam": "port slice 3 (with the Adam kernel, row 12 of PERF.md's table)",
+    **{name: "a slice after port slice 3 (ROADMAP.md Queue 1)"
+       for name in ("adamw", "adamax", "adadelta", "adagrad", "rmsprop",
+                    "lamb", "lion")},
+}
+
+
+# ---------------------------------------------------------------------------
+# Learning-rate schedules (reference: LearningRatePolicy)
+# ---------------------------------------------------------------------------
+def build_schedule(
+    lr: float,
+    policy: str = "none",
+    decay_rate: float = 0.0,
+    power: float = 0.0,
+    steps: float = 1.0,
+    gamma: float = 0.0,
+    max_iterations: int = 1,
+    schedule: Optional[Dict[int, float]] = None,
+) -> Callable[[int], float]:
+    """Return iteration -> learning rate, by the JAX package's policies."""
+    policy = (policy or "none").lower()
+    if policy == "none":
+        return lambda it: lr
+    if policy == "exponential":
+        return lambda it: lr * decay_rate ** it
+    if policy == "inverse":
+        return lambda it: lr / (1.0 + decay_rate * it) ** power
+    if policy == "poly":
+        return lambda it: lr * (1.0 - min(it / max_iterations, 1.0)) ** power
+    if policy == "sigmoid":
+        return lambda it: lr / (1.0 + math.exp(-gamma * (it - steps)))
+    if policy in ("step", "torch_step"):
+        return lambda it: lr * decay_rate ** math.floor(it / steps)
+    if policy == "schedule":
+        # piecewise-constant map {iteration: lr}, like conf.learningRateSchedule
+        sched = sorted((int(k), float(v)) for k, v in (schedule or {}).items())
+        boundaries = [k for k, _ in sched] if sched else [0]
+        values = [lr] + [v for _, v in sched]
+        return lambda it: values[sum(it >= b for b in boundaries)]
+    raise ValueError(f"Unknown learning-rate policy '{policy}'")
+
+
+# ---------------------------------------------------------------------------
+# Gradient normalization (reference: GradientNormalization)
+# ---------------------------------------------------------------------------
+def _per_leaf_l2(g: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(torch.sum(g * g), min=1e-12))
+
+
+def _layer_norm(layer: Dict[str, torch.Tensor]) -> torch.Tensor:
+    # summed in sorted key order, the order of jax.tree_util's leaves
+    return torch.sqrt(sum(torch.sum(layer[k] * layer[k]) for k in sorted(layer))
+                      + 1e-12)
+
+
+def gradient_normalization(kind: str, threshold: float = 1.0) -> Callable[[Tree], Tree]:
+    """The reference's GradientNormalization modes as a function of the
+    gradient list. "PerLayer" modes normalize over all params of one layer
+    jointly, "PerParamType" modes each tensor alone."""
+    kind = (kind or "none").lower()
+
+    def per_layer(fn):
+        def apply(grads):
+            norms = [_layer_norm(layer) if layer else None for layer in grads]
+            return [{k: fn(g, n) for k, g in layer.items()}
+                    for layer, n in zip(grads, norms)]
+        return apply
+
+    def per_leaf(fn):
+        return lambda grads: [{k: fn(g) for k, g in layer.items()} for layer in grads]
+
+    def clip(g, n):
+        return torch.where(n > threshold, g * threshold / n, g)
+
+    if kind == "none":
+        return lambda grads: grads
+    if kind == "renormalizel2perlayer":
+        return per_layer(lambda g, norm: g / norm)
+    if kind == "renormalizel2perparamtype":
+        return per_leaf(lambda g: g / _per_leaf_l2(g))
+    if kind == "clipelementwiseabsolutevalue":
+        return per_leaf(lambda g: torch.clamp(g, -threshold, threshold))
+    if kind == "clipl2perlayer":
+        return per_layer(clip)
+    if kind == "clipl2perparamtype":
+        return per_leaf(lambda g: clip(g, _per_leaf_l2(g)))
+    raise ValueError(f"Unknown gradient normalization '{kind}'")
+
+
+# ---------------------------------------------------------------------------
+# Updater config (reference: Updater enum + per-updater hyperparams)
+# ---------------------------------------------------------------------------
+@dataclass
+class UpdaterConfig:
+    """JSON-serializable updater description -> :class:`Updater` via build()."""
+
+    updater: str = "sgd"
+    learning_rate: float = 0.1
+    # momentum family
+    momentum: float = 0.9
+    # adam family
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+    # rmsprop / adadelta
+    rms_decay: float = 0.95
+    rho: float = 0.95
+    # schedules
+    lr_policy: str = "none"
+    lr_policy_decay_rate: float = 0.0
+    lr_policy_power: float = 0.0
+    lr_policy_steps: float = 1.0
+    lr_policy_gamma: float = 0.0
+    max_iterations: int = 1
+    learning_rate_schedule: Optional[Dict[int, float]] = None
+    # gradient normalization (reference: GradientNormalization)
+    gradient_normalization: str = "none"
+    gradient_normalization_threshold: float = 1.0
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "UpdaterConfig":
+        d = dict(d)
+        if d.get("learning_rate_schedule"):
+            d["learning_rate_schedule"] = {
+                int(k): float(v) for k, v in d["learning_rate_schedule"].items()
+            }
+        return UpdaterConfig(**d)
+
+    def build(self) -> "Updater":
+        name = self.updater.lower()
+        if name in _LATER:
+            raise NotImplementedError(
+                f"updater '{self.updater}' is not ported yet: it comes with "
+                f"{_LATER[name]}; the port trains with sgd, momentum, "
+                f"nesterovs and none")
+        if name not in ("sgd", "momentum", "nesterovs", "none", "noop"):
+            raise ValueError(f"Unknown updater '{self.updater}'")
+        sched = build_schedule(
+            self.learning_rate, self.lr_policy, self.lr_policy_decay_rate,
+            self.lr_policy_power, self.lr_policy_steps, self.lr_policy_gamma,
+            self.max_iterations, self.learning_rate_schedule)
+        momentum = self.momentum if name in ("momentum", "nesterovs") else None
+        return Updater(
+            schedule=sched, momentum=momentum, nesterov=name == "nesterovs",
+            zero=name in ("none", "noop"),
+            normalize=gradient_normalization(
+                self.gradient_normalization, self.gradient_normalization_threshold))
+
+
+@dataclass
+class Updater:
+    """optax's ``chain(normalization, sgd(schedule, momentum, nesterov))``
+    (or ``set_to_zero``) with its state as a plain dict: ``count`` (the
+    schedule's step) and ``trace`` (the momentum buffers, a gradient-shaped
+    list, or None)."""
+
+    schedule: Callable[[int], float]
+    momentum: Optional[float]
+    nesterov: bool
+    zero: bool
+    normalize: Callable[[Tree], Tree]
+
+    def init(self, params: Tree) -> dict:
+        trace = None
+        if self.momentum is not None and not self.zero:
+            trace = [{k: torch.zeros_like(v) for k, v in layer.items()} for layer in params]
+        return {"count": 0, "trace": trace}
+
+    def update(self, grads: Tree, state: dict):
+        """(updates, new_state): updates are to be added to the params."""
+        grads = self.normalize(grads)
+        if self.zero:
+            return [{k: torch.zeros_like(g) for k, g in layer.items()}
+                    for layer in grads], state
+        trace = state["trace"]
+        if self.momentum is not None:
+            mu = self.momentum
+            # optax.trace: t = g + mu * t; nesterov takes g + mu * t as well
+            trace = [{k: g + mu * t[k] for k, g in layer.items()}
+                     for layer, t in zip(grads, trace)]
+            if self.nesterov:
+                grads = [{k: g + mu * t[k] for k, g in layer.items()}
+                         for layer, t in zip(grads, trace)]
+            else:
+                grads = trace
+        step = -self.schedule(state["count"])
+        updates = [{k: step * g for k, g in layer.items()} for layer in grads]
+        return updates, {"count": state["count"] + 1, "trace": trace}
+
+
+# ---------------------------------------------------------------------------
+# Mixed-precision update island + loss scaling
+# ---------------------------------------------------------------------------
+def _is_low_float(t: torch.Tensor) -> bool:
+    return t.is_floating_point() and t.dtype.itemsize < 4
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [l for v in tree.values() for l in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in _leaves(v)]
+    return []
+
+
+def _map(fn, tree, *rest):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return tree
+
+
+def _to_f32(tree):
+    return _map(lambda t: t.float() if _is_low_float(t) else t, tree)
+
+
+def _like(tree, ref):
+    return _map(lambda t, r: t.to(r.dtype) if t.dtype != r.dtype else t, tree, ref)
+
+
+def _apply_updates(params: Tree, updates: Tree) -> Tree:
+    """optax.apply_updates: ``p + u`` in p's dtype."""
+    return _map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def optimizer_update(tx: Updater, grads: Tree, opt_state: dict, params: Tree):
+    """``tx.update`` plus ``p + u`` under the precision contract: with any
+    sub-f32 leaf in grads, state or params, the update runs in an f32 island
+    and the new state and params are cast back per leaf; with f32 only it is
+    the plain update. Returns (updates, new_opt_state, new_params)."""
+    if not any(_is_low_float(t) for t in
+               _leaves(grads) + _leaves(opt_state) + _leaves(params)):
+        updates, new_opt = tx.update(grads, opt_state)
+        return updates, new_opt, _apply_updates(params, updates)
+    p32 = _to_f32(params)
+    updates, new_opt32 = tx.update(_to_f32(grads), _to_f32(opt_state))
+    new_p32 = _apply_updates(p32, updates)
+    return updates, _like(new_opt32, opt_state), _like(new_p32, params)
+
+
+def scaled_loss(loss: torch.Tensor, loss_scale: Optional[float]) -> torch.Tensor:
+    """The loss times ``loss_scale`` for sub-f32 backprop (None: identity)."""
+    return loss * loss_scale if loss_scale else loss
+
+
+def unscale_loss(loss: torch.Tensor, loss_scale: Optional[float]) -> torch.Tensor:
+    """Undo :func:`scaled_loss` on the reported loss value."""
+    return loss / loss_scale if loss_scale else loss
+
+
+def unscale_grads(grads: Tree, loss_scale: Optional[float]) -> Tree:
+    """Undo :func:`scaled_loss` on the gradients, in at least f32 (no-op for
+    a falsy scale)."""
+    if not loss_scale:
+        return grads
+    inv = 1.0 / float(loss_scale)
+    return _map(lambda g: (g.float() if _is_low_float(g) else g) * inv
+                if g.is_floating_point() else g, grads)

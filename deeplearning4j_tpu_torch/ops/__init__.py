@@ -5,27 +5,76 @@ Counterpart of ``deeplearning4j_tpu/ops/__init__.py``. There is no knob and
 no fallback: a CUDA tensor goes to the kernel, which raises on what it does
 not take; a CPU tensor goes to the kernel's plain version. ``variant(t)``
 reports which of the two ran, under the JAX package's variant names
-("seqfused" for the sequence kernel, "reference" for the plain math).
+("seqfused" for the sequence kernels, "reference" for the plain math).
 """
 
 from __future__ import annotations
 
+from . import lstm_sequence as _lstm_sequence
+from . import softmax_xent as _softmax_xent
 from .lstm_sequence import (
+    LstmSequenceFunction,
     fused_lstm_sequence,
     fused_lstm_sequence_masked,
-    launches,
+    lstm_sequence_apply,
+    lstm_sequence_backward,
+    lstm_sequence_backward_reference,
     lstm_sequence_masked_reference,
     lstm_sequence_reference,
+    lstm_sequence_train_forward,
+    lstm_sequence_train_reference,
     supported_lstm_activations,
     variant,
 )
+from .softmax_xent import (
+    SoftmaxXentFunction,
+    fused_softmax_xent,
+    softmax_xent_backward,
+    softmax_xent_backward_reference,
+    softmax_xent_reference,
+)
+
+
+def counters() -> dict:
+    """A snapshot of every kernel's launch count, by kernel name (each op
+    module keeps its own ``launches`` dict)."""
+    return {**_lstm_sequence.launches, **_softmax_xent.launches}
+
+
+def reset_counters() -> None:
+    """Set every kernel's launch count to 0."""
+    for counts in (_lstm_sequence.launches, _softmax_xent.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def softmax_xent_rows(labels2d, preout2d):
+    """Per-row softmax cross-entropy for 2D [N, C] logits/labels (the JAX
+    package's argument order): the kernels on CUDA, the plain versions on
+    the CPU, in ``promote_types(dtype, float32)`` (``losses.mcxent`` routes
+    here)."""
+    return fused_softmax_xent(preout2d, labels2d)
+
 
 __all__ = [
+    "LstmSequenceFunction",
+    "SoftmaxXentFunction",
+    "counters",
     "fused_lstm_sequence",
     "fused_lstm_sequence_masked",
-    "launches",
+    "lstm_sequence_apply",
+    "lstm_sequence_backward",
+    "lstm_sequence_backward_reference",
     "lstm_sequence_masked_reference",
     "lstm_sequence_reference",
+    "lstm_sequence_train_forward",
+    "lstm_sequence_train_reference",
+    "reset_counters",
+    "fused_softmax_xent",
+    "softmax_xent_backward",
+    "softmax_xent_backward_reference",
+    "softmax_xent_reference",
+    "softmax_xent_rows",
     "supported_lstm_activations",
     "variant",
 ]

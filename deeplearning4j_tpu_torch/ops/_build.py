@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+"""Build the port's CUDA kernels with nvcc, bind them with ctypes, launch
+them.
 
 Each source ``ops/csrc/<name>.cu`` is compiled on its own into a shared
 library with a plain C interface, at first use, into ``build/torch_kernels/``
@@ -7,8 +8,9 @@ carries a hash of its source, the headers beside it and the flags, so an
 edited source builds anew and an unchanged one is loaded as it is.
 :func:`build` starts one nvcc per missing library, all at once.
 
-Nothing here runs at import: the CPU tests import every module on machines
-that have no nvcc.
+:func:`bind` declares a C entry's arguments; :func:`launch` calls it on the
+current stream and counts the launch. Nothing here runs at import: the CPU
+tests import every module on machines that have no nvcc.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -34,6 +36,9 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# guards the op modules' launch counters: decode tickers and callers on other
+# threads launch concurrently
+_COUNT_LOCK = threading.Lock()
 
 
 def sources() -> Dict[str, Path]:
@@ -107,3 +112,30 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(lib_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def bind(lib: str, symbol: str, n_ptrs: int, n_ints: int) -> Callable:
+    """C entry ``symbol`` of library ``lib``, taking ``n_ptrs`` pointers,
+    ``n_ints`` ints and the stream, returning a CUDA error code."""
+    fn = getattr(load(lib), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(counts: Dict[str, int], name: str, fn: Callable, device, *args) -> None:
+    """Call ``fn`` with ``args`` (tensors as their pointers, None as null)
+    and the current stream of ``device``; raise on a launch error, else add
+    one to ``counts[name]``."""
+    import torch  # noqa: PLC0415 - the build helpers above need no torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    with _COUNT_LOCK:
+        counts[name] += 1

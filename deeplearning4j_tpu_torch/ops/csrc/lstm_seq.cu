@@ -1,8 +1,13 @@
-// Lean peephole-LSTM sequence, inference primal, for Hopper (sm_90a).
+// Peephole-LSTM sequence forward for Hopper (sm_90a): the lean inference
+// primal and the training forward that also streams the residuals.
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_kernels.py:_seq_lean_impl (the
 // pallas_call of _seq_lean_kernel with the math of _cell_math), in both of
-// its static modes, unmasked and masked. For each step t:
+// its static modes, unmasked and masked (dl4j_lstm_seq_lean); and
+// _seq_fwd_impl (the pallas_call of _seq_fwd_kernel), the forward rule of
+// the sequence VJP, which also writes a, f, o, i and c of every step
+// (dl4j_lstm_seq_train_fwd, the kStoreResiduals instantiation of the same
+// step kernel). For each step t:
 //   z = zx[t] + h_prev @ RW                  (product accumulated in f32)
 //   a = act(z[:, :H])
 //   f = gate(z[:, H:2H] + c_prev * pF),  i = gate(z[:, 3H:] + c_prev * pI)
@@ -29,16 +34,18 @@
 // kRows batch rows and computes all four gate columns of those units, so the
 // gate math and the c/h update stay in registers with no exchange between
 // blocks. The h_prev @ RW product is tiled through shared memory. ys[t-1]
-// is h_prev for step t; c ping-pongs between two scratch buffers. Later
+// is h_prev for step t; c ping-pongs between two scratch buffers, or, in the
+// training forward, is the c residual stream itself. The residuals add
+// 5*T*B*H stored elements and no operations, so the training forward is
+// bound as the lean one is (PERF.md row 6). Later
 // work: a persistent kernel with RW split across SMs and wgmma for the
 // recurrent product.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "common.cuh"
 
 namespace {
+
+using namespace dl4j;
 
 constexpr int kUnits = 8;    // hidden units per block
 constexpr int kRows = 32;    // batch rows per block
@@ -46,47 +53,7 @@ constexpr int kTileK = 64;   // depth of one shared-memory tile of h_prev @ RW
 constexpr int kThreads = kUnits * kRows;
 constexpr int kCols = 4 * kUnits;  // RW columns a block reads: 4 gates x kUnits
 
-// activation codes; ops/lstm_sequence.py:_ACT_CODES holds the same table
-enum Act { kTanh = 0, kSigmoid = 1, kHardSigmoid = 2, kRelu = 3, kIdentity = 4 };
-
-__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16(v);
-}
-
-// round to the storage type and back (identity for f32)
-template <typename T>
-__device__ __forceinline__ float rnd(float v);
-template <>
-__device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-template <typename T>
-__device__ __forceinline__ float activate(int kind, float x) {
-  switch (kind) {
-    case kTanh:
-      return rnd<T>(tanhf(x));
-    case kSigmoid: {  // 0.5 * (tanh(0.5 * x) + 1)
-      const float t = rnd<T>(tanhf(rnd<T>(0.5f * x)));
-      return rnd<T>(0.5f * rnd<T>(t + 1.0f));
-    }
-    case kHardSigmoid:  // clip(0.2 * x + 0.5, 0, 1)
-      return fminf(fmaxf(rnd<T>(rnd<T>(0.2f * x) + 0.5f), 0.0f), 1.0f);
-    case kRelu:
-      return fmaxf(x, 0.0f);
-    default:
-      return x;
-  }
-}
-
-template <typename T, bool kMasked>
+template <typename T, bool kMasked, bool kStoreResiduals>
 __global__ void __launch_bounds__(kThreads)
 lstm_step(const T* __restrict__ zx,      // [B, 4H] of this step
           const T* __restrict__ mask,    // [B] of this step (masked only)
@@ -98,6 +65,9 @@ lstm_step(const T* __restrict__ zx,      // [B, 4H] of this step
           T* __restrict__ h_out,         // [B, H]: ys[t]
           T* __restrict__ c_out,         // [B, H]
           T* __restrict__ h_last,        // [B, H]: hT on the last step, else null
+          T* __restrict__ a_out, T* __restrict__ f_out,
+          T* __restrict__ o_out,
+          T* __restrict__ i_out,         // [B, H] each: residuals (kStoreResiduals)
           int B, int H, int act, int gate) {
   __shared__ float hs[kRows][kTileK + 1];  // +1: rows of one warp hit other banks
   __shared__ float ws[kTileK][kCols];
@@ -164,6 +134,12 @@ lstm_step(const T* __restrict__ zx,      // [B, 4H] of this step
   st(h_out, hidx, h);
   st(c_out, hidx, c);
   if (h_last != nullptr) st(h_last, hidx, h);
+  if (kStoreResiduals) {
+    st(a_out, hidx, a);
+    st(f_out, hidx, f);
+    st(o_out, hidx, o);
+    st(i_out, hidx, i);
+  }
 }
 
 template <typename T, bool kMasked>
@@ -183,15 +159,49 @@ cudaError_t run_sequence(const void* zx_v, const void* mask_v, const void* h0_v,
     const T* hp = t == 0 ? static_cast<const T*>(h0_v) : ys + (t - 1) * BH;
     const T* cp = t == 0 ? static_cast<const T*>(c0_v) : cbuf + ((t - 1) & 1) * BH;
     T* co = last ? static_cast<T*>(cT_v) : cbuf + (t & 1) * BH;
-    lstm_step<T, kMasked><<<grid, kThreads, 0, stream>>>(
+    lstm_step<T, kMasked, false><<<grid, kThreads, 0, stream>>>(
         zx + t * 4 * BH, kMasked ? mask + static_cast<size_t>(t) * B : nullptr,
         hp, cp, static_cast<const T*>(rw_v), static_cast<const T*>(pf_v),
         static_cast<const T*>(pi_v), static_cast<const T*>(po_v), ys + t * BH, co,
-        last ? static_cast<T*>(hT_v) : nullptr, B, H, act, gate);
+        last ? static_cast<T*>(hT_v) : nullptr, nullptr, nullptr, nullptr, nullptr, B, H,
+        act, gate);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// Training forward, unmasked: as run_sequence, and every step also stores
+// a, f, o, i and c into [steps, B, H] streams; c[t-1] is c_prev of step t.
+template <typename T>
+cudaError_t run_sequence_train(const void* zx_v, const void* h0_v, const void* c0_v,
+                               const void* rw_v, const void* pf_v, const void* pi_v,
+                               const void* po_v, void* ys_v, void* a_v, void* f_v,
+                               void* o_v, void* i_v, void* c_v, void* hT_v, void* cT_v,
+                               int steps, int B, int H, int act, int gate,
+                               cudaStream_t stream) {
+  const T* zx = static_cast<const T*>(zx_v);
+  T* ys = static_cast<T*>(ys_v);
+  T* c = static_cast<T*>(c_v);
+  const size_t BH = static_cast<size_t>(B) * H;
+  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
+  for (int t = 0; t < steps; ++t) {
+    const size_t off = t * BH;
+    const T* hp = t == 0 ? static_cast<const T*>(h0_v) : ys + off - BH;
+    const T* cp = t == 0 ? static_cast<const T*>(c0_v) : c + off - BH;
+    lstm_step<T, false, true><<<grid, kThreads, 0, stream>>>(
+        zx + 4 * off, nullptr, hp, cp, static_cast<const T*>(rw_v),
+        static_cast<const T*>(pf_v), static_cast<const T*>(pi_v),
+        static_cast<const T*>(po_v), ys + off, c + off,
+        t == steps - 1 ? static_cast<T*>(hT_v) : nullptr, static_cast<T*>(a_v) + off,
+        static_cast<T*>(f_v) + off, static_cast<T*>(o_v) + off, static_cast<T*>(i_v) + off,
+        B, H, act, gate);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  // c_T is the last row of the c stream
+  return cudaMemcpyAsync(cT_v, c + (steps - 1) * BH, BH * sizeof(T),
+                         cudaMemcpyDeviceToDevice, stream);
 }
 
 }  // namespace
@@ -218,4 +228,22 @@ extern "C" int dl4j_lstm_seq_lean(const void* zx, const void* mask,
                                      steps, B, H, act, gate, s);
   return run_sequence<float, false>(zx, mask, h0, c0, rw, pf, pi, po, ys, hT, cT, cbuf, steps,
                                     B, H, act, gate, s);
+}
+
+// Runs the training forward: `steps` launches of lstm_step that also store
+// the residuals a, f, o, i, c ([steps, B, H] each), then copies c_T out of
+// the c stream. Unmasked only. Returns the CUDA error code of the first
+// launch or copy that failed, 0 when all were issued.
+extern "C" int dl4j_lstm_seq_train_fwd(const void* zx, const void* h0, const void* c0,
+                                       const void* rw, const void* pf, const void* pi,
+                                       const void* po, void* ys, void* a, void* f, void* o,
+                                       void* i, void* c, void* hT, void* cT, int steps,
+                                       int B, int H, int act, int gate, int bf16,
+                                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return run_sequence_train<__nv_bfloat16>(zx, h0, c0, rw, pf, pi, po, ys, a, f, o, i, c,
+                                             hT, cT, steps, B, H, act, gate, s);
+  return run_sequence_train<float>(zx, h0, c0, rw, pf, pi, po, ys, a, f, o, i, c, hT, cT,
+                                   steps, B, H, act, gate, s);
 }

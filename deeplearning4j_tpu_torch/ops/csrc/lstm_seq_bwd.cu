@@ -1,0 +1,316 @@
+// Peephole-LSTM sequence backward for Hopper (sm_90a).
+//
+// Replaces: deeplearning4j_tpu/ops/pallas_kernels.py:_seq_bwd (the
+// pallas_call of _seq_bwd_kernel), the backward rule of the sequence VJP.
+// Reverse time, t = T-1 .. 0, from the residuals of the training forward
+// (a, f, o, i, c [T, B, H], ys as h):
+//   c_prev, h_prev = c[t-1], ys[t-1]  (c0, h0 at t = 0)
+//   c  = f*c_prev + i*a,  cact = act(c)          (recomputed, not stored)
+//   dh = dys[t] + dh_carry,  dc = dc_carry       (dhT, dcT at t = T-1)
+//   do = dh*cact*gate'(o)
+//   dc_tot = dc + dh*o*act'(cact) + do*pO
+//   df = dc_tot*c_prev*gate'(f),  di = dc_tot*a*gate'(i),  da = dc_tot*i*act'(a)
+//   dzx[t] = [da, df, do, di]
+//   dh_carry = (dzx[t] @ RW^T)        (accumulated in f32, rounded to the type)
+//   dc_carry = dc_tot*f + df*pF + di*pI
+//   dRW += h_prev^T @ dzx[t]; dpF += sum_b df*c_prev; dpI += sum_b di*c_prev;
+//   dpO += sum_b do*c                 (all four accumulated in f32)
+// and returns dh0 = dh_carry, dc0 = dc_carry after t = 0. Derivatives are
+// taken from the activated values (y*(1-y) for the tanh-form sigmoid). In
+// bf16 every elementwise result is rounded where the plain PyTorch version
+// (ops/lstm_sequence.py:lstm_sequence_backward_reference) rounds it.
+//
+// What bounds it on this card: 2*B*4H*H*T operations for the recurrent
+// product and as many for dRW (68.7 GFLOP at T=256, B=64, H=512), against
+// about 380 MB of streams, so operations bound it (PERF.md row 7). As in the
+// forward, step t-1 needs all of step t's dzx, so the reverse loop is a chain
+// of small launches and latency, not the bound, sets its time.
+//
+// Design: the TPU grid runs in reverse order and keeps the dh/dc carries and
+// the f32 dRW sum in VMEM; Hopper blocks run in no order, so
+// - the reverse loop lives on the host: one launch of lstm_bwd_step per step.
+//   Each block owns kUnits hidden units x kRows batch rows and all four gate
+//   columns of those units (the forward's layout). dh_carry needs every 4H
+//   column of dzx[t+1], so the exchange goes through global memory: step t
+//   starts with the product dzx[t+1] @ RW^T for its own units and rows,
+//   tiled through shared memory. dc ping-pongs between two scratch buffers.
+//   One more launch (lstm_bwd_dh) computes dh0 = dzx[0] @ RW^T.
+// - the sums across time are second passes, in f32: drw_gemm walks the
+//   stored h_{t-1} (h0, then ys) and dzx streams once, as one product with
+//   depth T*B; each step kernel reduces its peephole terms over its rows into
+//   a per-step, per-row-block f32 slot, and peephole_reduce sums the slots.
+//   No atomics, so the result does not depend on the order blocks run in.
+// Later work: wgmma for both products, a persistent reverse loop.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace dl4j;
+
+constexpr int kUnits = 8;    // hidden units per block
+constexpr int kRows = 32;    // batch rows per block
+constexpr int kTileK = 64;   // depth of one shared-memory tile of dzx @ RW^T
+constexpr int kThreads = kUnits * kRows;
+
+// dzx[b, :] @ RW[j, :]^T for this thread's (b, j), accumulated in f32 over
+// the 4H columns, tiled through shared memory; every thread of the block
+// takes part. dzx may be null (returns 0).
+template <typename T>
+__device__ float dzx_rwt(const T* __restrict__ dzx, const T* __restrict__ rw, int B, int H,
+                         int b0, int j0, int r, int u) {
+  __shared__ float ds[kRows][kTileK + 1];  // +1: rows of one warp hit other banks
+  __shared__ float ws[kTileK][kUnits];
+  const int tid = threadIdx.x;
+  const size_t H4 = 4 * static_cast<size_t>(H);
+  float acc = 0.f;
+  if (dzx == nullptr) return acc;
+  for (size_t k0 = 0; k0 < H4; k0 += kTileK) {
+    for (int e = tid; e < kRows * kTileK; e += kThreads) {
+      const int rr = e / kTileK, kk = e % kTileK;
+      const int bb = b0 + rr;
+      const size_t k = k0 + kk;
+      ds[rr][kk] = (bb < B && k < H4) ? ld(dzx, static_cast<size_t>(bb) * H4 + k) : 0.f;
+    }
+    for (int e = tid; e < kTileK * kUnits; e += kThreads) {
+      const int uu = e / kTileK, kk = e % kTileK;
+      const int jj = j0 + uu;
+      const size_t k = k0 + kk;
+      ws[kk][uu] = (jj < H && k < H4) ? ld(rw, static_cast<size_t>(jj) * H4 + k) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 16
+    for (int kk = 0; kk < kTileK; ++kk) acc = fmaf(ds[r][kk], ws[kk][u], acc);
+    __syncthreads();
+  }
+  return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t = T-1
+              const T* __restrict__ dh_last,   // [B, H]: dhT, used at t = T-1
+              const T* __restrict__ dy,        // [B, H]: dys[t]
+              const T* __restrict__ dc_in,     // [B, H]: dc carried from t+1 (dcT)
+              const T* __restrict__ a_r, const T* __restrict__ f_r,
+              const T* __restrict__ o_r, const T* __restrict__ i_r,  // [B, H] at t
+              const T* __restrict__ c_prev,    // [B, H]: c[t-1], or c0
+              const T* __restrict__ rw,        // [H, 4H]
+              const T* __restrict__ pf, const T* __restrict__ pi,
+              const T* __restrict__ po,        // [H] each
+              T* __restrict__ dzx,             // [B, 4H]: dzx[t]
+              T* __restrict__ dc_out,          // [B, H]: dc carried to t-1 (dc0 at t = 0)
+              float* __restrict__ psum,        // [gridDim.y, 3, H]: this step's slots
+              int B, int H, int act, int gate) {
+  __shared__ float red[3][kRows][kUnits];
+  const int tid = threadIdx.x;
+  const int u = tid % kUnits;
+  const int r = tid / kUnits;
+  const int j0 = blockIdx.x * kUnits;
+  const int b0 = blockIdx.y * kRows;
+  const int j = j0 + u;
+  const int b = b0 + r;
+  const bool valid = b < B && j < H;
+  const size_t H4 = 4 * static_cast<size_t>(H);
+
+  const float rec = dzx_rwt<T>(dzx_next, rw, B, H, b0, j0, r, u);
+  float tf = 0.f, ti = 0.f, to = 0.f;  // this thread's peephole terms
+  if (valid) {
+    const size_t hidx = static_cast<size_t>(b) * H + j;
+    // dh_scr = (dzx @ RW^T).astype(dtype); dh = dy + dh_scr
+    const float dh_carry = dzx_next == nullptr ? ld(dh_last, hidx) : rnd<T>(rec);
+    const float dh = add<T>(ld(dy, hidx), dh_carry);
+    const float dc = ld(dc_in, hidx);
+    const float cp = ld(c_prev, hidx);
+    const float a = ld(a_r, hidx), f = ld(f_r, hidx), o = ld(o_r, hidx), i = ld(i_r, hidx);
+    const float c = add<T>(mul<T>(f, cp), mul<T>(i, a));
+    const float cact = activate<T>(act, c);
+    const float pF = ld(pf, j), pI = ld(pi, j), pO = ld(po, j);
+
+    const float d_o = mul<T>(mul<T>(dh, cact), derivative<T>(gate, o));
+    const float dc_tot = add<T>(add<T>(dc, mul<T>(mul<T>(dh, o), derivative<T>(act, cact))),
+                                mul<T>(d_o, pO));
+    const float d_f = mul<T>(mul<T>(dc_tot, cp), derivative<T>(gate, f));
+    const float d_i = mul<T>(mul<T>(dc_tot, a), derivative<T>(gate, i));
+    const float d_a = mul<T>(mul<T>(dc_tot, i), derivative<T>(act, a));
+
+    const size_t zrow = static_cast<size_t>(b) * H4;
+    st(dzx, zrow + j, d_a);
+    st(dzx, zrow + H + j, d_f);
+    st(dzx, zrow + 2 * static_cast<size_t>(H) + j, d_o);
+    st(dzx, zrow + 3 * static_cast<size_t>(H) + j, d_i);
+    st(dc_out, hidx, add<T>(add<T>(mul<T>(dc_tot, f), mul<T>(d_f, pF)), mul<T>(d_i, pI)));
+    tf = mul<T>(d_f, cp);
+    ti = mul<T>(d_i, cp);
+    to = mul<T>(d_o, c);
+  }
+  // peephole terms summed over this block's rows, in f32
+  red[0][r][u] = tf;
+  red[1][r][u] = ti;
+  red[2][r][u] = to;
+  __syncthreads();
+  if (r < 3 && j < H) {
+    float s = 0.f;
+    for (int rr = 0; rr < kRows; ++rr) s += red[r][rr][u];
+    psum[(static_cast<size_t>(blockIdx.y) * 3 + r) * H + j] = s;
+  }
+}
+
+// dh0 = (dzx[0] @ RW^T), rounded to the type
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_dh(const T* __restrict__ dzx, const T* __restrict__ rw, T* __restrict__ dh,
+            int B, int H) {
+  const int tid = threadIdx.x;
+  const int u = tid % kUnits;
+  const int r = tid / kUnits;
+  const int j0 = blockIdx.x * kUnits;
+  const int b0 = blockIdx.y * kRows;
+  const float rec = dzx_rwt<T>(dzx, rw, B, H, b0, j0, r, u);
+  if (b0 + r < B && j0 + u < H) st(dh, static_cast<size_t>(b0 + r) * H + j0 + u, rec);
+}
+
+constexpr int kGemmM = 64;   // rows of dRW (hidden units k) per block
+constexpr int kGemmN = 64;   // columns of dRW (gate columns) per block
+constexpr int kGemmR = 16;   // depth (time x batch rows) of one tile
+constexpr int kGemmThreads = 256;  // each thread holds a 4 x 4 block of dRW
+
+// dRW[k, n] = sum_r hprev[r, k] * dzx[r, n] over the R = T*B rows of the
+// stored streams, in f32, written once in the type; hprev row r is h0[r] for
+// r < B, else ys[r - B] (h_{t-1} of row r's step).
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+drw_gemm(const T* __restrict__ h0, const T* __restrict__ ys, const T* __restrict__ dzx,
+         T* __restrict__ drw, int R, int B, int H) {
+  __shared__ float as[kGemmR][kGemmM];
+  __shared__ float bs[kGemmR][kGemmN];
+  const int tid = threadIdx.x;
+  const int tm = (tid / (kGemmN / 4)) * 4;
+  const int tn = (tid % (kGemmN / 4)) * 4;
+  const int m0 = blockIdx.y * kGemmM;
+  const int n0 = blockIdx.x * kGemmN;
+  const int H4 = 4 * H;
+  float acc[4][4] = {};
+  for (int r0 = 0; r0 < R; r0 += kGemmR) {
+    for (int e = tid; e < kGemmR * kGemmM; e += kGemmThreads) {
+      const int rr = e / kGemmM, mm = e % kGemmM;
+      const int row = r0 + rr, k = m0 + mm;
+      float v = 0.f;
+      if (row < R && k < H)
+        v = row < B ? ld(h0, static_cast<size_t>(row) * H + k)
+                    : ld(ys, static_cast<size_t>(row - B) * H + k);
+      as[rr][mm] = v;
+    }
+    for (int e = tid; e < kGemmR * kGemmN; e += kGemmThreads) {
+      const int rr = e / kGemmN, nn = e % kGemmN;
+      const int row = r0 + rr, n = n0 + nn;
+      bs[rr][nn] = (row < R && n < H4) ? ld(dzx, static_cast<size_t>(row) * H4 + n) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kGemmR; ++rr) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        av[q] = as[rr][tm + q];
+        bv[q] = bs[rr][tn + q];
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int k = m0 + tm + x, n = n0 + tn + y;
+      if (k < H && n < H4) st(drw, static_cast<size_t>(k) * H4 + n, acc[x][y]);
+    }
+}
+
+// dpF, dpI, dpO[j] = sum over the `parts` slots of psum ([parts, 3, H]), in
+// f32, written once in the type
+template <typename T>
+__global__ void peephole_reduce(const float* __restrict__ psum, T* __restrict__ dpf,
+                                T* __restrict__ dpi, T* __restrict__ dpo, int parts, int H) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 3 * H) return;
+  const int g = idx / H, j = idx % H;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s += psum[(static_cast<size_t>(p) * 3 + g) * H + j];
+  st(g == 0 ? dpf : g == 1 ? dpi : dpo, j, s);
+}
+
+template <typename T>
+cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v,
+                         const void* ys_v, const void* a_v, const void* f_v, const void* o_v,
+                         const void* i_v, const void* c_v, const void* h0_v, const void* c0_v,
+                         const void* rw_v, const void* pf_v, const void* pi_v,
+                         const void* po_v, void* dzx_v, void* dh0_v, void* dc0_v,
+                         void* drw_v, void* dpf_v, void* dpi_v, void* dpo_v, void* dcbuf_v,
+                         void* psum_v, int steps, int B, int H, int act, int gate,
+                         cudaStream_t stream) {
+  const T* rw = static_cast<const T*>(rw_v);
+  const T* c = static_cast<const T*>(c_v);
+  T* dzx = static_cast<T*>(dzx_v);
+  T* dcbuf = static_cast<T*>(dcbuf_v);
+  float* psum = static_cast<float*>(psum_v);
+  const size_t BH = static_cast<size_t>(B) * H;
+  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
+  for (int t = steps - 1; t >= 0; --t) {
+    const size_t off = t * BH;
+    const T* dc_in = t == steps - 1 ? static_cast<const T*>(dcT_v) : dcbuf + ((t + 1) & 1) * BH;
+    T* dc_out = t == 0 ? static_cast<T*>(dc0_v) : dcbuf + (t & 1) * BH;
+    lstm_bwd_step<T><<<grid, kThreads, 0, stream>>>(
+        t == steps - 1 ? nullptr : dzx + 4 * (off + BH), static_cast<const T*>(dhT_v),
+        static_cast<const T*>(dys_v) + off, dc_in, static_cast<const T*>(a_v) + off,
+        static_cast<const T*>(f_v) + off, static_cast<const T*>(o_v) + off,
+        static_cast<const T*>(i_v) + off,
+        t == 0 ? static_cast<const T*>(c0_v) : c + off - BH, rw,
+        static_cast<const T*>(pf_v), static_cast<const T*>(pi_v),
+        static_cast<const T*>(po_v), dzx + 4 * off, dc_out,
+        psum + static_cast<size_t>(t) * grid.y * 3 * H, B, H, act, gate);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  lstm_bwd_dh<T><<<grid, kThreads, 0, stream>>>(dzx, rw, static_cast<T*>(dh0_v), B, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 ggrid((4 * H + kGemmN - 1) / kGemmN, (H + kGemmM - 1) / kGemmM);
+  drw_gemm<T><<<ggrid, kGemmThreads, 0, stream>>>(
+      static_cast<const T*>(h0_v), static_cast<const T*>(ys_v), dzx,
+      static_cast<T*>(drw_v), steps * B, B, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  peephole_reduce<T><<<(3 * H + 255) / 256, 256, 0, stream>>>(
+      psum, static_cast<T*>(dpf_v), static_cast<T*>(dpi_v), static_cast<T*>(dpo_v),
+      steps * static_cast<int>(grid.y), H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Runs the whole backward on `stream`: `steps` reverse-step launches, the dh0
+// product, the dRW product and the peephole reduction. `dcbuf` is scratch of
+// 2*B*H elements, `psum` f32 scratch of steps*ceil(B/32)*3*H. Returns the
+// CUDA error code of the first launch that failed, 0 when all launched.
+extern "C" int dl4j_lstm_seq_bwd(const void* dys, const void* dhT, const void* dcT,
+                                 const void* ys, const void* a, const void* f, const void* o,
+                                 const void* i, const void* c, const void* h0, const void* c0,
+                                 const void* rw, const void* pf, const void* pi,
+                                 const void* po, void* dzx, void* dh0, void* dc0, void* drw,
+                                 void* dpf, void* dpi, void* dpo, void* dcbuf, void* psum,
+                                 int steps, int B, int H, int act, int gate, int bf16,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return run_backward<__nv_bfloat16>(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, rw, pf, pi,
+                                       po, dzx, dh0, dc0, drw, dpf, dpi, dpo, dcbuf, psum,
+                                       steps, B, H, act, gate, s);
+  return run_backward<float>(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, rw, pf, pi, po, dzx,
+                             dh0, dc0, drw, dpf, dpi, dpo, dcbuf, psum, steps, B, H, act,
+                             gate, s);
+}

@@ -1,33 +1,41 @@
-"""Whole-sequence peephole LSTM, inference primal.
+"""Whole-sequence peephole LSTM: inference primal, training forward and
+backward.
 
-Port of the lean Pallas sequence kernel
-(``deeplearning4j_tpu/ops/pallas_kernels.py:_seq_lean_impl``): ``zx``
-[T, B, 4H] is the hoisted ``x @ W + b``; the op runs the recurrence and
-returns ``(ys [T, B, H], h_T, c_T)``. Gate columns are [a, f, o, i]; the
-peepholes pF and pI see c_{t-1}, pO sees c_t.
+Port of the Pallas sequence kernels of
+``deeplearning4j_tpu/ops/pallas_kernels.py``: ``zx`` [T, B, 4H] is the
+hoisted ``x @ W + b``; the op runs the recurrence and returns
+``(ys [T, B, H], h_T, c_T)``. Gate columns are [a, f, o, i]; the peepholes
+pF and pI see c_{t-1}, pO sees c_t.
 
-:func:`fused_lstm_sequence` and :func:`fused_lstm_sequence_masked` launch
-the hand-written CUDA kernel (``csrc/lstm_seq.cu``) for CUDA tensors and
-raise on anything it does not take. For CPU tensors they run the plain
-versions, :func:`lstm_sequence_reference` and
-:func:`lstm_sequence_masked_reference`, which do the same math as a loop
-over t and are what ``chip_smoke.py`` holds the kernel against.
+- :func:`fused_lstm_sequence` and :func:`fused_lstm_sequence_masked` are the
+  lean primal (``_seq_lean_impl``): CUDA kernel ``csrc/lstm_seq.cu``.
+- :class:`LstmSequenceFunction` is the custom VJP (``fused_lstm_sequence``'s
+  ``_seq_fwd``/``_seq_bwd``): under grad its forward runs the training
+  forward (``_seq_fwd_impl``, the residual-storing instantiation of the same
+  kernel), and its backward the reverse-time kernel ``csrc/lstm_seq_bwd.cu``
+  (``_seq_bwd``). :func:`lstm_sequence_apply` is the entry the layers call
+  and the one place that picks what runs: the Function under grad, the lean
+  primal otherwise.
+
+Every wrapper launches its kernel for CUDA tensors and raises on anything it
+does not take. For CPU tensors it runs the plain version
+(:func:`lstm_sequence_reference`, :func:`lstm_sequence_masked_reference`,
+:func:`lstm_sequence_train_reference`,
+:func:`lstm_sequence_backward_reference`), which does the same math as a loop
+over t and is what ``chip_smoke.py`` holds the kernel against.
 """
 
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from . import _build
 
-# count of wrapper calls that launched the kernel (each call runs T steps);
-# decode tickers and callers on other threads launch concurrently
-launches = {"lstm_seq_lean": 0, "lstm_seq_lean_masked": 0}
-_LAUNCHES_LOCK = threading.Lock()
+# count of wrapper calls that launched the kernel (each call runs T steps)
+launches = {"lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
+            "lstm_seq_train_fwd": 0, "lstm_seq_bwd": 0}
 
 
 def _sigmoid_tanh_form(x):
@@ -47,9 +55,21 @@ ACT = {
 }
 _ACT_CODES = {"tanh": 0, "sigmoid": 1, "hardsigmoid": 2, "relu": 3,
               "identity": 4}
+# derivatives from the activated value y (pallas_kernels._ACT), in y's dtype
+DACT = {
+    "tanh": lambda y: 1.0 - y * y,
+    "sigmoid": lambda y: y * (1.0 - y),
+    "hardsigmoid": lambda y: ((y > 0.0) & (y < 1.0)).to(y.dtype) * 0.2,
+    "relu": lambda y: (y > 0.0).to(y.dtype),
+    "identity": torch.ones_like,
+}
 
 Activation = Union[str, Callable[[torch.Tensor], torch.Tensor]]
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# (ys, a, f, o, i, c, h_T, c_T) of the training forward
+TrainResult = Tuple[torch.Tensor, ...]
+# (dzx, dh0, dc0, dRW, dpF, dpI, dpO) of the backward
+Grads = Tuple[torch.Tensor, ...]
 
 
 def supported_lstm_activations(act: str, gate: str) -> bool:
@@ -57,18 +77,25 @@ def supported_lstm_activations(act: str, gate: str) -> bool:
 
 
 # ------------------------------------------------------------ plain versions
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """Product accumulator (pallas_kernels._acc_dtype): at least f32, never
+    below the input dtype."""
+    return torch.float32 if dt.itemsize < 4 else dt
+
+
 def _cell(zx, h_prev, c_prev, RW, pF, pI, pO, act, gate):
     """One step of _cell_math: the recurrent product accumulates in at least
-    f32 and is rounded to the storage dtype before the add."""
+    f32 and is rounded to the storage dtype before the add. Returns
+    (h, c, a, f, o, i)."""
     H = c_prev.shape[-1]
-    acc = torch.float32 if zx.dtype.itemsize < 4 else zx.dtype
+    acc = _acc_dtype(zx.dtype)
     z = zx + torch.matmul(h_prev.to(acc), RW.to(acc)).to(zx.dtype)
     a = act(z[..., :H])
     f = gate(z[..., H:2 * H] + c_prev * pF)
     i = gate(z[..., 3 * H:] + c_prev * pI)
     c = f * c_prev + i * a
     o = gate(z[..., 2 * H:3 * H] + c * pO)
-    return o * act(c), c
+    return o * act(c), c, a, f, o, i
 
 
 def lstm_sequence_masked_reference(zx, mask, h0, c0, RW, pF, pI, pO,
@@ -82,7 +109,7 @@ def lstm_sequence_masked_reference(zx, mask, h0, c0, RW, pF, pI, pO,
     h, c = h0, c0
     ys = []
     for t in range(zx.shape[0]):
-        h_new, c_new = _cell(zx[t], h, c, RW, pF, pI, pO, act_fn, gate_fn)
+        h_new, c_new, *_ = _cell(zx[t], h, c, RW, pF, pI, pO, act_fn, gate_fn)
         if mask is not None:
             m = mask[t]
             h_new = m * h_new + (1.0 - m) * h
@@ -101,42 +128,102 @@ def lstm_sequence_reference(zx, h0, c0, RW, pF, pI, pO,
                                           act, gate)
 
 
+def lstm_sequence_train_reference(zx, h0, c0, RW, pF, pI, pO,
+                                  act: str = "tanh",
+                                  gate: str = "sigmoid") -> TrainResult:
+    """Plain version of the training forward (``_seq_fwd_kernel``): the
+    unmasked recurrence, also returning the residuals a, f, o, i, c
+    [T, B, H]. Returns (ys, a, f, o, i, c, h_T, c_T)."""
+    T, B, _ = zx.shape
+    H = h0.shape[-1]
+    if T == 0:
+        empty = zx.new_empty((0, B, H))
+        return (empty,) * 6 + (h0, c0)
+    h, c = h0, c0
+    streams = [[] for _ in range(6)]  # ys a f o i c
+    for t in range(T):
+        h, c, a, f, o, i = _cell(zx[t], h, c, RW, pF, pI, pO, ACT[act], ACT[gate])
+        for s, v in zip(streams, (h, a, f, o, i, c)):
+            s.append(v)
+    return tuple(torch.stack(s) for s in streams) + (h, c)
+
+
+def lstm_sequence_backward_reference(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
+                                     RW, pF, pI, pO, act: str = "tanh",
+                                     gate: str = "sigmoid") -> Grads:
+    """Plain version of the backward (``_seq_bwd_kernel``), an explicit
+    reverse loop at the kernel's rounding points: c and act(c) recomputed
+    from the gates; ``dh`` rounded to the dtype after the product
+    accumulated in at least f32; dRW and the peephole sums accumulated in at
+    least f32 and rounded at the end. Returns (dzx, dh0, dc0, dRW, dpF, dpI,
+    dpO)."""
+    act_fn, dact = ACT[act], DACT[act]
+    dgate = DACT[gate]
+    dt = ys.dtype
+    acc = _acc_dtype(dt)
+    T, B, H = ys.shape
+    RWt = RW.to(acc).t()
+    dRW = torch.zeros(RW.shape, dtype=acc, device=RW.device)
+    dp = [torch.zeros(pF.shape, dtype=acc, device=pF.device) for _ in range(3)]
+    dzx = []
+    dh_carry, dc = dhT, dcT
+    for t in reversed(range(T)):
+        c_prev = c0 if t == 0 else c[t - 1]
+        h_prev = h0 if t == 0 else ys[t - 1]
+        ct = f[t] * c_prev + i[t] * a[t]
+        cact = act_fn(ct)
+        dh = dys[t] + dh_carry
+        d_o = dh * cact * dgate(o[t])
+        dc_tot = dc + dh * o[t] * dact(cact) + d_o * pO
+        d_f = dc_tot * c_prev * dgate(f[t])
+        d_i = dc_tot * a[t] * dgate(i[t])
+        d_a = dc_tot * i[t] * dact(a[t])
+        dz = torch.cat([d_a, d_f, d_o, d_i], dim=-1)
+        dzx.append(dz)
+        dh_carry = torch.matmul(dz.to(acc), RWt).to(dt)
+        dc = dc_tot * f[t] + d_f * pF + d_i * pI
+        dRW += torch.matmul(h_prev.to(acc).t(), dz.to(acc))
+        for s, term in zip(dp, (d_f * c_prev, d_i * c_prev, d_o * ct)):
+            s += term.to(acc).sum(0)
+    dzx = torch.stack(dzx[::-1]) if dzx else ys.new_zeros((T, B, 4 * H))
+    return (dzx, dh_carry, dc, dRW.to(dt)) + tuple(s.to(dt) for s in dp)
+
+
 # ------------------------------------------------------------------ kernel
-def _bind() -> Callable:
-    fn = _build.load("lstm_seq").dl4j_lstm_seq_lean
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def _check_tensors(lead: str, tensors: dict, act: str, gate: str) -> None:
+    """Raise on what the kernels do not take. ``tensors`` maps each name to
+    (tensor, expected shape); all must be contiguous and share the dtype and
+    device of the ``lead`` tensor."""
+    if act not in _ACT_CODES or gate not in _ACT_CODES:
+        raise NotImplementedError(
+            f"the CUDA LSTM sequence kernels take activations "
+            f"{sorted(_ACT_CODES)}; got act={act!r}, gate={gate!r}")
+    ref = tensors[lead][0]
+    if ref.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA LSTM sequence kernels take float32 or "
+                        f"bfloat16, not {ref.dtype}")
+    for name, (t, shape) in tensors.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, {lead} on {ref.device}")
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name} is {t.dtype}, {lead} is {ref.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _check(zx, mask, h0, c0, RW, pF, pI, pO, act, gate) -> None:
-    if act not in _ACT_CODES or gate not in _ACT_CODES:
-        raise NotImplementedError(
-            f"the CUDA LSTM sequence kernel takes activations "
-            f"{sorted(_ACT_CODES)}; got act={act!r}, gate={gate!r}")
-    if zx.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the CUDA LSTM sequence kernel takes float32 or "
-                        f"bfloat16, not {zx.dtype}")
     if zx.dim() != 3 or zx.shape[2] % 4:
         raise ValueError(f"zx must be [T, B, 4H], got {tuple(zx.shape)}")
     T, B, H4 = zx.shape
     H = H4 // 4
-    shapes = {"h0": (h0, (B, H)), "c0": (c0, (B, H)), "RW": (RW, (H, H4)),
-              "pF": (pF, (H,)), "pI": (pI, (H,)), "pO": (pO, (H,))}
+    tensors = {"zx": (zx, (T, B, H4)), "h0": (h0, (B, H)), "c0": (c0, (B, H)),
+               "RW": (RW, (H, H4)), "pF": (pF, (H,)), "pI": (pI, (H,)),
+               "pO": (pO, (H,))}
     if mask is not None:
-        shapes["mask"] = (mask, (T, B, 1))
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    for name, t in [("zx", zx)] + [(k, v[0]) for k, v in shapes.items()]:
-        if t.device != zx.device:
-            raise ValueError(f"{name} is on {t.device}, zx on {zx.device}")
-        if t.dtype != zx.dtype:
-            raise TypeError(f"{name} is {t.dtype}, zx is {zx.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        tensors["mask"] = (mask, (T, B, 1))
+    _check_tensors("zx", tensors, act, gate)
 
 
 def _launch(name, zx, mask, h0, c0, RW, pF, pI, pO, act, gate) -> Result:
@@ -145,23 +232,61 @@ def _launch(name, zx, mask, h0, c0, RW, pF, pI, pO, act, gate) -> Result:
     H = H4 // 4
     if T == 0:
         return zx.new_empty((0, B, H)), h0.clone(), c0.clone()
-    ys = torch.empty((T, B, H), dtype=zx.dtype, device=zx.device)
-    hT = torch.empty((B, H), dtype=zx.dtype, device=zx.device)
-    cT = torch.empty((B, H), dtype=zx.dtype, device=zx.device)
-    cbuf = torch.empty((2, B, H), dtype=zx.dtype, device=zx.device)
-    fn = _bind()
-    with torch.cuda.device(zx.device):
-        stream = torch.cuda.current_stream(zx.device).cuda_stream
-        err = fn(zx.data_ptr(), None if mask is None else mask.data_ptr(),
-                 h0.data_ptr(), c0.data_ptr(), RW.data_ptr(), pF.data_ptr(),
-                 pI.data_ptr(), pO.data_ptr(), ys.data_ptr(), hT.data_ptr(),
-                 cT.data_ptr(), cbuf.data_ptr(), T, B, H, _ACT_CODES[act],
-                 _ACT_CODES[gate], int(zx.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    with _LAUNCHES_LOCK:
-        launches[name] += 1
+    ys, hT, cT = (zx.new_empty(s) for s in ((T, B, H), (B, H), (B, H)))
+    cbuf = zx.new_empty((2, B, H))
+    fn = _build.bind("lstm_seq", "dl4j_lstm_seq_lean", 12, 6)
+    _build.launch(launches, name, fn, zx.device, zx, mask, h0, c0, RW, pF, pI,
+                  pO, ys, hT, cT, cbuf, T, B, H, _ACT_CODES[act],
+                  _ACT_CODES[gate], int(zx.dtype == torch.bfloat16))
     return ys, hT, cT
+
+
+def _launch_train_fwd(zx, h0, c0, RW, pF, pI, pO, act, gate) -> TrainResult:
+    _check(zx, None, h0, c0, RW, pF, pI, pO, act, gate)
+    T, B, H4 = zx.shape
+    H = H4 // 4
+    if T == 0:
+        empty = zx.new_empty((0, B, H))
+        return (empty,) * 6 + (h0.clone(), c0.clone())
+    ys, a, f, o, i, c = (zx.new_empty((T, B, H)) for _ in range(6))
+    hT, cT = zx.new_empty((B, H)), zx.new_empty((B, H))
+    fn = _build.bind("lstm_seq", "dl4j_lstm_seq_train_fwd", 15, 6)
+    _build.launch(launches, "lstm_seq_train_fwd", fn, zx.device, zx, h0, c0,
+                  RW, pF, pI, pO, ys, a, f, o, i, c, hT, cT, T, B, H,
+                  _ACT_CODES[act], _ACT_CODES[gate],
+                  int(zx.dtype == torch.bfloat16))
+    return ys, a, f, o, i, c, hT, cT
+
+
+def _launch_bwd(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO,
+                act, gate) -> Grads:
+    if ys.dim() != 3:
+        raise ValueError(f"ys must be [T, B, H], got {tuple(ys.shape)}")
+    T, B, H = ys.shape
+    seq, state = (T, B, H), (B, H)
+    _check_tensors("ys", {"ys": (ys, seq), "dys": (dys, seq), "dhT": (dhT, state),
+                  "dcT": (dcT, state), "a": (a, seq), "f": (f, seq),
+                  "o": (o, seq), "i": (i, seq), "c": (c, seq),
+                  "h0": (h0, state), "c0": (c0, state),
+                  "RW": (RW, (H, 4 * H)), "pF": (pF, (H,)), "pI": (pI, (H,)),
+                  "pO": (pO, (H,))}, act, gate)
+    dzx = ys.new_empty((T, B, 4 * H))
+    dh0, dc0 = ys.new_empty((B, H)), ys.new_empty((B, H))
+    dRW = ys.new_empty((H, 4 * H))
+    dpF, dpI, dpO = (ys.new_empty((H,)) for _ in range(3))
+    if T == 0:
+        return (dzx, dhT.clone(), dcT.clone(), dRW.zero_(), dpF.zero_(),
+                dpI.zero_(), dpO.zero_())
+    dcbuf = ys.new_empty((2, B, H))
+    row_blocks = -(-B // 32)  # csrc/lstm_seq_bwd.cu: kRows
+    psum = torch.empty((T * row_blocks * 3 * H,), dtype=torch.float32,
+                       device=ys.device)
+    fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_bwd", 24, 6)
+    _build.launch(launches, "lstm_seq_bwd", fn, ys.device, dys, dhT, dcT, ys,
+                  a, f, o, i, c, h0, c0, RW, pF, pI, pO, dzx, dh0, dc0, dRW,
+                  dpF, dpI, dpO, dcbuf, psum, T, B, H, _ACT_CODES[act],
+                  _ACT_CODES[gate], int(ys.dtype == torch.bfloat16))
+    return dzx, dh0, dc0, dRW, dpF, dpI, dpO
 
 
 def fused_lstm_sequence(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
@@ -190,3 +315,78 @@ def variant(t: torch.Tensor) -> str:
     """What runs for a tensor on ``t``'s device: "seqfused" (the kernel) on
     CUDA, "reference" (the plain version) elsewhere. A report, not a knob."""
     return "seqfused" if t.is_cuda else "reference"
+
+
+def lstm_sequence_train_forward(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
+                                gate: str = "sigmoid") -> TrainResult:
+    """Training forward: (ys, a, f, o, i, c, h_T, c_T). CUDA tensors run the
+    kernel; CPU tensors the plain version."""
+    if zx.is_cuda:
+        return _launch_train_fwd(zx, h0, c0, RW, pF, pI, pO, act, gate)
+    return lstm_sequence_train_reference(zx, h0, c0, RW, pF, pI, pO, act, gate)
+
+
+def lstm_sequence_backward(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, RW, pF,
+                           pI, pO, act: str = "tanh",
+                           gate: str = "sigmoid") -> Grads:
+    """Backward from the training forward's residuals: (dzx, dh0, dc0, dRW,
+    dpF, dpI, dpO). CUDA tensors run the kernel; CPU tensors the plain
+    version."""
+    fn = _launch_bwd if ys.is_cuda else lstm_sequence_backward_reference
+    return fn(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO, act,
+              gate)
+
+
+class LstmSequenceFunction(torch.autograd.Function):
+    """The sequence op under autograd, over (zx, h0, c0, RW, pF, pI, pO);
+    ``act``/``gate`` are names and take no gradient. Its forward runs the
+    training forward (residuals kept for the backward) when an input needs a
+    gradient, the lean primal otherwise; its backward runs the reverse-time
+    backward. Outputs (ys, h_T, c_T)."""
+
+    @staticmethod
+    def forward(ctx, zx, h0, c0, RW, pF, pI, pO, act, gate):
+        ctx.act, ctx.gate = act, gate
+        if not any(ctx.needs_input_grad[:7]):
+            return fused_lstm_sequence(zx, h0, c0, RW, pF, pI, pO, act, gate)
+        ys, a, f, o, i, c, hT, cT = lstm_sequence_train_forward(
+            zx, h0, c0, RW, pF, pI, pO, act, gate)
+        ctx.save_for_backward(ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO)
+        return ys, hT, cT
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO = ctx.saved_tensors
+        dys, dhT, dcT = (torch.zeros_like(like) if g is None else g.contiguous()
+                         for g, like in ((dys, ys), (dhT, h0), (dcT, c0)))
+        grads = lstm_sequence_backward(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
+                                       RW, pF, pI, pO, ctx.act, ctx.gate)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad)) + (None, None)
+
+
+def lstm_sequence_apply(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
+                        gate: str = "sigmoid",
+                        mask: Optional[torch.Tensor] = None) -> Result:
+    """The sequence op as the layers call it, and the one place that picks
+    what runs (``mask`` [T, B, 1] or None). With no gradient to keep (grad
+    mode off, or no input requiring one) the lean primal, as
+    ``fused_lstm_sequence``'s custom VJP splits primal and forward rule.
+    Under grad: unmasked, :class:`LstmSequenceFunction` (training forward and
+    backward kernels); masked, which has no kernel yet (rows 8-9 of PERF.md's
+    table), the plain masked version under autograd for CPU tensors, and
+    NotImplementedError for CUDA ones."""
+    tensors = (zx, h0, c0, RW, pF, pI, pO)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        if mask is None:
+            return fused_lstm_sequence(*tensors, act, gate)
+        return fused_lstm_sequence_masked(zx, mask, *tensors[1:], act, gate)
+    if mask is None:
+        return LstmSequenceFunction.apply(*tensors, act, gate)
+    if zx.is_cuda:
+        raise NotImplementedError(
+            "masked LSTM training has no CUDA kernel yet: it needs the masked "
+            "sequence forward and backward (_seq_masked_fwd_impl and "
+            "_seq_masked_bwd, rows 8 and 9 of PERF.md's kernel table); train "
+            "without a features mask, or on the CPU")
+    return lstm_sequence_masked_reference(zx, mask, *tensors[1:], act, gate)

@@ -149,7 +149,7 @@ def test_nvcc_missing_raises(monkeypatch):
 
 
 def test_kernel_codes_match_cuda_source():
-    src = (PORT / "ops" / "csrc" / "lstm_seq.cu").read_text()
+    src = (PORT / "ops" / "csrc" / "common.cuh").read_text()  # shared enum
     for name, code in ls._ACT_CODES.items():
         k = {"tanh": "kTanh", "sigmoid": "kSigmoid", "hardsigmoid": "kHardSigmoid",
              "relu": "kRelu", "identity": "kIdentity"}[name]
