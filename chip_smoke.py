@@ -5,16 +5,20 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version at the shapes the serving and
-training paths give it, then drives both paths through the port's entry
-points at full width (char-RNN: vocab 96, hidden 512, 2 layers, B=64, T=256):
-serving (output/predict, decode with 8 slots) and training (fit with SGD,
-standard backprop and TBPTT(50), f32 and bf16 compute, on the card and on
-the CPU from the same seed params and data). It checks the results and the
-kernel launch counts of each path, and times the kernels and the training
-update. Every phase prints one JSON line and raises on failure; the last line
-is {"ok": true, "device": {...}}. It exits non-zero, printing no result,
-where CUDA or the port's package is missing. It imports no JAX and nothing
-of the JAX package.
+training paths give it, then drives the paths through the port's entry
+points at full width (char-RNN: vocab 96, hidden 512, 2 layers, B=64,
+T=256): serving (output/predict, decode with 8 slots); training with SGD
+(fit, standard backprop and TBPTT(50), f32 and bf16 compute, on the card and
+on the CPU from the same seed params and data); and the char-RNN's own
+training recipe (``char_rnn()`` defaults: Adam at lr 1e-3, TBPTT(50), on
+variable-length text padded by ``BucketingSequenceIterator`` to T=128 or
+256, so through the masked LSTM kernels), then ``evaluate`` and a
+write/restore/continue of a checkpoint. It checks the results and the kernel
+launch counts of each path, and times the kernels and the training update.
+Every phase prints one JSON line and raises on failure; the last line is
+{"ok": true, "device": {...}}. It exits non-zero, printing no result, where
+CUDA or the port's package is missing. It imports no JAX and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+STARTED = time.perf_counter()
 
 # full width of the served char-RNN (bench.py's char-RNN configuration)
 VOCAB, HIDDEN, LAYERS, BATCH, STEPS = 96, 512, 2, 64, 256
@@ -35,8 +40,13 @@ SLOTS, DECODE_CHARS = 8, 32
 SEED = 1234
 DEVICE = "cuda"
 # training: SGD at this rate, TBPTT segments of 50 steps (five and a 6-step
-# tail per batch); 3 batches compared with the CPU, 2 more timed
-TBPTT, LR, TRAIN_BATCHES, TIMED_BATCHES = 50, 0.1, 3, 2
+# tail per batch); batches compared with the CPU by mode (3 of each before
+# the training recipe's phase came, which needed the time), 2 more timed
+TBPTT, LR, TIMED_BATCHES = 50, 0.1, 2
+TRAIN_BATCHES = {"standard": 2, "tbptt": 1}
+# repetitions of a plain version when it is timed: it runs 10-30x slower than
+# its kernel, and its time is only reported
+PLAIN_REPS = {"reps": 3, "warmup": 1}
 UPDATES_PER_BATCH = {"standard": 1, "tbptt": -(-STEPS // TBPTT)}
 # softmax-xent rows: a standard batch (B*T) and a TBPTT segment (B*50)
 SXENT_ROWS = (BATCH * STEPS, BATCH * TBPTT)
@@ -103,11 +113,27 @@ KERNELS = {
     "lstm_seq_bwd": (CSRC + "lstm_seq_bwd.cu", PALLAS + "603"),
     "softmax_xent_fwd": (CSRC + "softmax_xent.cu", PALLAS + "946"),
     "softmax_xent_bwd": (CSRC + "softmax_xent.cu", PALLAS + "968"),
+    "lstm_seq_masked_train_fwd": (CSRC + "lstm_seq.cu", PALLAS + "772"),
+    "lstm_seq_masked_bwd": (CSRC + "lstm_seq_bwd.cu", PALLAS + "828"),
+    "adam_update": (CSRC + "adam.cu", PALLAS + "1044"),
 }
+# the char-RNN's own training recipe (char_rnn() defaults: Adam, lr 1e-3,
+# TBPTT(50)): next-char sequences of the seeded sentence, lengths drawn from
+# the seed, RECIPE_SHORT of them in 96..128 and RECIPE_LONG in 129..256,
+# bucketed by BucketingSequenceIterator into batches of 64 padded to 128 or
+# 256: one batch of each, 3 + 6 = 9 updates an epoch
+RECIPE_BUCKETS, RECIPE_SHORT, RECIPE_LONG = (128, 256), 64, 64
+RECIPE_LR = 1e-3  # char_rnn()'s default, checked against the built conf
+# the Adam kernel against its plain version: each output's max |err| over its
+# max |ref|. Both round each operation once in f32; torch divides by a
+# scalar as a multiplication by its reciprocal, one rounding more.
+ADAM_REL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - STARTED, **fields}),
+          flush=True)
 
 
 def gpu_line() -> str:
@@ -154,25 +180,36 @@ def bound(T: int, B: int, H: int, dtype: str, masked: bool):
     return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype)
 
 
-def bound_train_fwd(T: int, B: int, H: int, dtype: str):
-    """Row 6: zx, h0, c0, RW and the peepholes read; ys and the residuals
-    a, f, o, i, c ([T, B, H] each), hT and cT written; the recurrent
-    product's 2*B*H*4H*T operations."""
+def bound_train_fwd(T: int, B: int, H: int, dtype: str, masked: bool = False):
+    """Rows 6 and 8: zx, h0, c0, RW and the peepholes (and the [T, B] mask)
+    read; ys and the residuals a, f, o, i, c ([T, B, H] each), hT and cT
+    written; the recurrent product's 2*B*H*4H*T operations (masked too: the
+    gates of a masked step are residuals the function returns)."""
     item = 4 if dtype == "float32" else 2
-    elems = T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + 6 * T * B * H + 2 * B * H
+    elems = (T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + 6 * T * B * H + 2 * B * H
+             + (T * B if masked else 0))
     return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype)
 
 
-def bound_bwd(T: int, B: int, H: int, dtype: str):
-    """Row 7: dys, ys (as h_{t-1}), a, f, o, i, c (as c_{t-1}) [T, B, H],
-    dhT, dcT, h0, c0, RW and the peepholes read; dzx [T, B, 4H], dh0, dc0,
-    dRW and the three peephole grads written. Operations: the recurrent
-    product dzx @ RW^T (2*B*4H*H per step) and dRW (2*H*4H per row of the
-    T*B rows)."""
+def bound_bwd(T: int, B: int, H: int, dtype: str, live: float = 1.0,
+              masked: bool = False):
+    """Rows 7 and 9: dys, ys (as h_{t-1}), a, f, o, i, c (as c_{t-1})
+    [T, B, H], dhT, dcT, h0, c0, RW and the peepholes (and the [T, B] mask)
+    read; dzx [T, B, 4H], dh0, dc0, dRW and the three peephole grads
+    written. Operations: the recurrent product dzx @ RW^T (2*4H*H per row
+    and step) and dRW (2*H*4H per row and step), for the ``live`` share of
+    the T*B (step, row) pairs whose mask is 1: a masked pair's dzx is 0 and
+    needs neither (the dh carried through it is scratch, not an output)."""
     item = 4 if dtype == "float32" else 2
     elems = (7 * T * B * H + 4 * B * H + H * 4 * H + 3 * H
-             + T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H)
-    return roofline(elems * item, 2 * (2.0 * B * 4 * H * H * T), dtype)
+             + T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + (T * B if masked else 0))
+    return roofline(elems * item, 2 * (2.0 * B * 4 * H * H * T) * live, dtype)
+
+
+def bound_adam(n: int):
+    """Row 12 over ``n`` f32 elements: g, m, v read and u, m', v' written
+    (24 bytes an element), about 12 operations an element."""
+    return roofline(24.0 * n, 12.0 * n, "float32")
 
 
 def bound_sxent(N: int, C: int, dtype: str, backward: bool):
@@ -309,50 +346,71 @@ def max_abs(got, want) -> float:
     return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
 
 
+def train_mask(torch, T: int, dtype: str, seed: int):
+    """A [T, BATCH, 1] features mask with every pattern a padded batch and
+    its TBPTT segments give, and more: row 0 all zeros, row 1 leading zeros,
+    row 2 an interior gap, the other rows ragged lengths (trailing zeros)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(max(1, T // 3), T + 1, BATCH)
+    rows = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float64)
+    rows[0] = 0.0
+    rows[1, :max(1, T // 4)] = 0.0
+    rows[2, T // 3:max(T // 3 + 1, T // 2)] = 0.0
+    return torch.as_tensor(rows.T[..., None], dtype=getattr(torch, dtype),
+                           device=DEVICE).contiguous()
+
+
 def phase_kernels_train(torch, ls, sx):
     """The training kernels against their plain versions on the same CUDA
-    tensors: row 6 on every output including the residuals, row 7 on all
-    seven grads from random upstream grads, at T=256, T=50 and the 6-step
-    tail; rows 10-11 at both row counts with one-hot and soft labels, f32 and
-    bf16 inputs. Returns the max abs error of each (kernel, dtype, size)."""
+    tensors: rows 6 and 8 (unmasked and masked training forward) on every
+    output including the residuals, rows 7 and 9 on all seven grads from
+    random upstream grads, at T=256, T=50 and the 6-step tail, rows 8-9 with
+    a mask of all zeros, leading, interior and trailing zeros
+    (``train_mask``); rows 10-11 at both row counts with one-hot and soft
+    labels, f32 and bf16 inputs. Returns the max abs error of each (kernel,
+    dtype, size)."""
     import numpy as np
 
     errs = {}
     for dtype in ("float32", "bfloat16"):
         dt, lim = getattr(torch, dtype), KERNEL_ATOL[dtype]
         for T in (STEPS, TBPTT, TAIL):
-            args = seq_inputs(torch, T, BATCH, HIDDEN, dtype, False, SEED + 7 * T)
-            got = ls.lstm_sequence_train_forward(*args)
-            want = ls.lstm_sequence_train_reference(*args)
-            torch.cuda.synchronize()
-            names = ("ys", "a", "f", "o", "i", "c", "hT", "cT")
-            errs[("lstm_seq_train_fwd", dtype, T)] = max_abs(got, want)
-            if dtype == "bfloat16":
-                check_rel("lstm_seq_train_fwd", T, names, got, want)
-            else:
-                e = {n: float((g.float() - w.float()).abs().max())
-                     for n, g, w in zip(names, got, want)}
-                check("lstm_seq_train_fwd", dtype, e, dict.fromkeys(e, lim), T=T,
-                      B=BATCH, H=HIDDEN)
-            rng = np.random.default_rng(SEED + T)
-            up = [torch.as_tensor(rng.normal(0.0, 0.1, shape), dtype=dt, device=DEVICE)
-                  for shape in ((T, BATCH, HIDDEN), (BATCH, HIDDEN), (BATCH, HIDDEN))]
-            zx, h0, c0, RW, pF, pI, pO = args
-            res = tuple(want[:6]) + (h0, c0, RW, pF, pI, pO)
-            got = ls.lstm_sequence_backward(*up, *res)
-            ref = ls.lstm_sequence_backward_reference(*up, *res)
-            torch.cuda.synchronize()
-            names = ("dzx", "dh0", "dc0") + SUMMED_GRADS
-            errs[("lstm_seq_bwd", dtype, T)] = max_abs(got, ref)
-            if dtype == "bfloat16":
-                check_rel("lstm_seq_bwd", T, names, got, ref)
-                continue
-            e = {}
-            for n, g, w in zip(names, got, ref):
-                diff = float((g.float() - w.float()).abs().max())
-                e[n] = diff / float(w.float().abs().max()) if n in SUMMED_GRADS else diff
-            check("lstm_seq_bwd", dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH,
-                  H=HIDDEN, summed_grads_relative_to_largest=list(SUMMED_GRADS))
+            for masked in (False, True):
+                fwd, bwd = (("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd") if masked
+                            else ("lstm_seq_train_fwd", "lstm_seq_bwd"))
+                args = seq_inputs(torch, T, BATCH, HIDDEN, dtype, False, SEED + 7 * T)
+                mask = train_mask(torch, T, dtype, SEED + T) if masked else None
+                got = ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:])
+                want = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:])
+                torch.cuda.synchronize()
+                names = ("ys", "a", "f", "o", "i", "c", "hT", "cT")
+                errs[(fwd, dtype, T)] = max_abs(got, want)
+                if dtype == "bfloat16":
+                    check_rel(fwd, T, names, got, want)
+                else:
+                    e = {n: float((g.float() - w.float()).abs().max())
+                         for n, g, w in zip(names, got, want)}
+                    check(fwd, dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH, H=HIDDEN)
+                rng = np.random.default_rng(SEED + T)
+                up = [torch.as_tensor(rng.normal(0.0, 0.1, shape), dtype=dt, device=DEVICE)
+                      for shape in ((T, BATCH, HIDDEN), (BATCH, HIDDEN), (BATCH, HIDDEN))]
+                res = tuple(want[:6]) + tuple(args[1:])
+                got = ls.lstm_sequence_masked_backward(*up, mask, *res)
+                ref = ls.lstm_sequence_masked_backward_reference(*up, mask, *res)
+                torch.cuda.synchronize()
+                names = ("dzx", "dh0", "dc0") + SUMMED_GRADS
+                errs[(bwd, dtype, T)] = max_abs(got, ref)
+                if dtype == "bfloat16":
+                    check_rel(bwd, T, names, got, ref)
+                    continue
+                e = {}
+                for n, g, w in zip(names, got, ref):
+                    diff = float((g.float() - w.float()).abs().max())
+                    e[n] = diff / float(w.float().abs().max()) if n in SUMMED_GRADS else diff
+                check(bwd, dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH,
+                      H=HIDDEN, summed_grads_relative_to_largest=list(SUMMED_GRADS))
         for N in SXENT_ROWS:
             for labels in ("one_hot", "soft"):
                 x, lab = sxent_inputs(torch, N, dtype, labels, SEED + N)
@@ -376,12 +434,43 @@ def phase_kernels_train(torch, ls, sx):
     return errs
 
 
+def time_pair(torch, name, kern, plain, lib, b_ms, b_by, card, **fields):
+    """Time ``kern`` and ``plain`` (plain, kernel, kernel, plain; the lesser
+    median of each) and ``lib`` twice; emit one time_kernel line and return
+    the kernels-line numbers."""
+    plain_1, ms_1 = median_ms(plain, **PLAIN_REPS), median_ms(kern)
+    ms_2, plain_2 = median_ms(kern), median_ms(plain, **PLAIN_REPS)
+    lib_runs = [median_ms(lib), median_ms(lib)] if lib is not None else None
+    emit("time_kernel", kernel=name, ms_runs=[ms_1, ms_2], plain_ms_runs=[plain_1, plain_2],
+         library_ms_runs=lib_runs, bound_ms=b_ms, bound_by=b_by, gpu=card, **fields)
+    return dict(ms=min(ms_1, ms_2), plain_ms=min(plain_1, plain_2), bound_ms=b_ms,
+                bound_by=b_by, library_ms=min(lib_runs) if lib_runs else None)
+
+
+def time_adam(torch, ad, card):
+    """Row 12 over the char-RNN's 14 leaves (one update's launches) beside
+    its plain version, its bound and torch.optim.Adam(fused=True).step() on
+    the same leaves as the library yardstick (it also adds u to the
+    params)."""
+    leaves, sc = adam_inputs(torch, SEED + 1)
+    params = [torch.nn.Parameter(torch.zeros_like(g)) for g, _, _ in leaves]
+    for p, (g, _, _) in zip(params, leaves):
+        p.grad = g
+    opt = torch.optim.Adam(params, lr=sc[0], betas=(sc[3], sc[4]), eps=sc[5], fused=True)
+    n = sum(g.numel() for g, _, _ in leaves)
+    return time_pair(
+        torch, "adam_update",
+        lambda: [ad.fused_adam_update(g, m, v, *sc) for g, m, v in leaves],
+        lambda: [ad.adam_update_reference(g, m, v, *sc) for g, m, v in leaves],
+        opt.step, *bound_adam(n), card, dtype="float32", leaves=len(leaves), elements=n)
+
+
 def time_train_kernels(torch, ls, sx, card):
     """ms of each training kernel at the main path's shapes (T=256, B=64;
-    N=B*T rows) beside its plain version, its bound and, for rows 10-11, the
-    one PyTorch call that computes the same function (cross_entropy with
-    probability targets: forward, and forward plus backward into both
-    inputs)."""
+    N=B*T rows; rows 8-9 with ``train_mask``) beside its plain version, its
+    bound and, for rows 10-11, the one PyTorch call that computes the same
+    function (cross_entropy with probability targets: forward, and forward
+    plus backward into both inputs)."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -404,6 +493,10 @@ def time_train_kernels(torch, ls, sx, card):
             xg.grad = lg.grad = None
             F.cross_entropy(xg, lg, reduction="none").backward(gl)
 
+        mask = train_mask(torch, STEPS, dtype, SEED + STEPS)
+        mres = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:])
+        mres = tuple(mres[:6]) + tuple(args[1:])
+        live = float(mask.float().mean())
         cases = (
             ("lstm_seq_train_fwd", lambda: ls.lstm_sequence_train_forward(*args),
              lambda: ls.lstm_sequence_train_reference(*args), None,
@@ -411,6 +504,13 @@ def time_train_kernels(torch, ls, sx, card):
             ("lstm_seq_bwd", lambda: ls.lstm_sequence_backward(*up, *res),
              lambda: ls.lstm_sequence_backward_reference(*up, *res), None,
              bound_bwd(STEPS, BATCH, HIDDEN, dtype)),
+            ("lstm_seq_masked_train_fwd",
+             lambda: ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:]),
+             lambda: ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:]), None,
+             bound_train_fwd(STEPS, BATCH, HIDDEN, dtype, masked=True)),
+            ("lstm_seq_masked_bwd", lambda: ls.lstm_sequence_masked_backward(*up, mask, *mres),
+             lambda: ls.lstm_sequence_masked_backward_reference(*up, mask, *mres), None,
+             bound_bwd(STEPS, BATCH, HIDDEN, dtype, live=live, masked=True)),
             ("softmax_xent_fwd", lambda: sx.fused_softmax_xent(x, lab),
              lambda: sx.softmax_xent_reference(x, lab),
              lambda: F.cross_entropy(x, lab, reduction="none"),
@@ -420,15 +520,10 @@ def time_train_kernels(torch, ls, sx, card):
              bound_sxent(N, VOCAB, dtype, True)),
         )
         for name, kern, plain, lib, (b_ms, b_by) in cases:
-            plain_1, ms_1 = median_ms(plain), median_ms(kern)
-            ms_2, plain_2 = median_ms(kern), median_ms(plain)
-            lib_runs = [median_ms(lib), median_ms(lib)] if lib is not None else None
-            times[(name, dtype)] = dict(
-                ms=min(ms_1, ms_2), plain_ms=min(plain_1, plain_2), bound_ms=b_ms,
-                bound_by=b_by, library_ms=min(lib_runs) if lib_runs else None)
-            emit("time_kernel", kernel=name, dtype=dtype, T=STEPS, B=BATCH, H=HIDDEN,
-                 N=N, C=VOCAB, ms_runs=[ms_1, ms_2], plain_ms_runs=[plain_1, plain_2],
-                 library_ms_runs=lib_runs, bound_ms=b_ms, bound_by=b_by, gpu=card)
+            times[(name, dtype)] = time_pair(
+                torch, name, kern, plain, lib, b_ms, b_by, card, dtype=dtype, T=STEPS,
+                B=BATCH, H=HIDDEN, N=N, C=VOCAB,
+                mask_live_share=live if "masked" in name else None)
     return times
 
 
@@ -447,6 +542,48 @@ def sxent_inputs(torch, N, dtype, labels, seed):
     dt = getattr(torch, dtype)
     return (torch.as_tensor(x, dtype=dt, device=DEVICE).contiguous(),
             torch.as_tensor(lab, dtype=dt, device=DEVICE).contiguous())
+
+
+def adam_inputs(torch, seed):
+    """One (g, m, v) f32 triple on the card per param leaf of the full-width
+    char-RNN (14 leaves, 3,398,752 elements), from a numpy seed, and the
+    scalars (lr, bc1, bc2, b1, b2, eps) of its third Adam update."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import char_rnn
+    from deeplearning4j_tpu_torch.nn.updaters import bias_corrections
+
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for layer in char_rnn_params(char_rnn(VOCAB, HIDDEN, LAYERS), seed):
+        for k in sorted(layer):
+            shape = np.shape(layer[k])
+            arrs = (rng.normal(0.0, 1e-2, shape), rng.normal(0.0, 1e-3, shape),
+                    np.abs(rng.normal(0.0, 1e-4, shape)))
+            leaves.append(tuple(torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                                for a in arrs))
+    bc1, bc2 = bias_corrections(3, 0.9, 0.999, torch.float32)
+    return leaves, (RECIPE_LR, bc1, bc2, 0.9, 0.999, 1e-8)
+
+
+def phase_adam(torch, ad):
+    """Row 12 against its plain version on the char-RNN's 14 leaves: each
+    output's max |err| over its max |ref| (ADAM_REL). Returns the max abs
+    error."""
+    leaves, sc = adam_inputs(torch, SEED)
+    rel, abs_err = dict.fromkeys(("u", "m", "v"), 0.0), 0.0
+    for g, m, v in leaves:
+        got = ad.fused_adam_update(g, m, v, *sc)
+        want = ad.adam_update_reference(g, m, v, *sc)
+        for n, a, b in zip(rel, got, want):
+            err = float((a - b).abs().max())
+            abs_err = max(abs_err, err)
+            rel[n] = max(rel[n], err / float(b.abs().max()))
+    torch.cuda.synchronize()
+    check("adam_update", "float32", rel, dict.fromkeys(rel, ADAM_REL), leaves=len(leaves),
+          elements=sum(g.numel() for g, _, _ in leaves), max_abs_err=abs_err,
+          relative_to_largest=True)
+    return abs_err
 
 
 class LossRecorder:
@@ -491,7 +628,8 @@ def phase_train(torch, mode, dtype, host_params, card):
     conf = char_rnn(VOCAB, HIDDEN, LAYERS, tbptt_length=TBPTT, dtype=dtype)
     conf.updater = {"updater": "sgd", "learning_rate": LR}
     conf.backprop_type = mode
-    batches = char_batches(TRAIN_BATCHES + TIMED_BATCHES, SEED + 1)
+    compared = TRAIN_BATCHES[mode]
+    batches = char_batches(compared + TIMED_BATCHES, SEED + 1)
     runs = {}
     for dev in ("cuda", "cpu"):
         net = load_jax_params(MultiLayerNetwork(conf, device=dev), host_params)
@@ -501,7 +639,7 @@ def phase_train(torch, mode, dtype, host_params, card):
             torch.cuda.synchronize()
             ops.reset_counters()
         t0 = time.perf_counter()
-        for x, y in batches[:TRAIN_BATCHES]:
+        for x, y in batches[:compared]:
             net.fit((x, y))
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -513,10 +651,11 @@ def phase_train(torch, mode, dtype, host_params, card):
         runs[dev] = (net, losses, params, seconds)
     net, losses, params, gpu_s = runs["cuda"]
     _, cpu_losses, cpu_params, cpu_s = runs["cpu"]
-    updates = TRAIN_BATCHES * UPDATES_PER_BATCH[mode]
+    updates = compared * UPDATES_PER_BATCH[mode]
     expected = {"lstm_seq_train_fwd": LAYERS * updates, "lstm_seq_bwd": LAYERS * updates,
                 "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
-                "lstm_seq_lean": 0, "lstm_seq_lean_masked": 0}
+                "lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
+                "lstm_seq_masked_train_fwd": 0, "lstm_seq_masked_bwd": 0, "adam_update": 0}
     loss_err = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
     param_err = max(float(np.abs(p[k] - q[k]).max())
                     for p, q in zip(params, cpu_params) for k in p)
@@ -532,14 +671,14 @@ def phase_train(torch, mode, dtype, host_params, card):
           and launches == expected and net.iteration == updates)
     net.set_listeners()
     times = []
-    for x, y in batches[TRAIN_BATCHES:]:
+    for x, y in batches[compared:]:
         t0 = time.perf_counter()
         net.fit((x, y))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     batch_ms = statistics.median(times)
     ms_per_update = batch_ms / UPDATES_PER_BATCH[mode]
-    emit(f"train_{mode}", dtype=dtype, batches=TRAIN_BATCHES, updates=updates,
+    emit(f"train_{mode}", dtype=dtype, batches=compared, updates=updates,
          losses=losses.tolist(), cpu_losses=cpu_losses.tolist(),
          max_loss_rel_err_vs_cpu=loss_err, loss_rtol=TRAIN_LOSS_RTOL[dtype],
          max_param_abs_err_vs_cpu=param_err, param_atol=TRAIN_PARAM_ATOL[dtype],
@@ -551,6 +690,211 @@ def phase_train(torch, mode, dtype, host_params, card):
     if not ok:
         raise AssertionError(f"training {mode} {dtype} failed its checks")
     return launches, ms_per_update, net, batches[0]
+
+
+def recipe_sequences():
+    """The recipe's text: (features [L, VOCAB], labels [L, VOCAB]) next-char
+    pairs of the seeded sentence, RECIPE_SHORT lengths in 96..128 and
+    RECIPE_LONG in 129..256 drawn from the seed, in shuffled order, each
+    starting at a random place in the sentence."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    sentence = rng.integers(0, VOCAB, SENTENCE)
+    lengths = np.concatenate([rng.integers(96, 129, RECIPE_SHORT),
+                              rng.integers(129, 257, RECIPE_LONG)])
+    rng.shuffle(lengths)
+    out = []
+    for n in lengths:
+        seq = sentence[(rng.integers(0, SENTENCE) + np.arange(n + 1)) % SENTENCE]
+        out.append((one_hot(seq[:-1], VOCAB), one_hot(seq[1:], VOCAB)))
+    return out
+
+
+def recipe_readings(run, ref, seed_params):
+    """A recipe run on the card against the same run on the CPU: the losses
+    of every update relative to the CPU's, each param tensor's change from
+    the seed params relative to the norm of the CPU's change (an update left
+    out reads 1), the largest absolute param difference, and the count of
+    elements that differ by more than lr/10."""
+    import numpy as np
+
+    _, losses, params = run
+    _, ref_losses, ref_params = ref
+    diffs = [np.abs(p[k] - q[k]) for p, q in zip(params, ref_params) for k in p]
+    return {
+        "loss_rel": float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses))),
+        "change_rel": max(float(np.linalg.norm(p[k] - q[k])
+                                / np.linalg.norm(q[k] - p0[k].astype(np.float32)))
+                          for p, q, p0 in zip(params, ref_params, seed_params) for k in p),
+        "max_param_abs": max(float(d.max()) for d in diffs),
+        "elements_over_lr_tenth": int(sum(int((d > RECIPE_LR / 10).sum()) for d in diffs)),
+    }
+
+
+# The recipe on the card against the same recipe on the CPU. Adam makes each
+# element's step about +-lr wherever the gradient's sign is uncertain: in
+# bf16 compute, 2.3% of the 3.4M elements end more than lr/10 apart and the
+# largest difference is 2.5 lr. So the params are held by their change
+# relative to its norm and by counts, not elementwise at f32 precision.
+# Limits per reading, between what the correct kernels read on the H100
+# (f32: loss 3.6e-6, change 1.4e-5, max 1.0e-5, 0 elements; bf16: 5.0e-3,
+# 0.027, 2.5e-3, 76,806 elements) and what a wrong Adam, b1 and b2 swapped
+# or no bias correction, run on the card in the same phase reads (f32 and
+# bf16 alike: loss 0.14-0.20, change 0.47-6.3, max 0.0067-0.049, 3.08M-3.28M
+# elements); the phase fails if a wrong Adam passes.
+RECIPE_LIMITS = {
+    "float32": {"loss_rel": 5e-5, "change_rel": 1e-4, "max_param_abs": 2e-4,
+                "elements_over_lr_tenth": 100},
+    "bfloat16": {"loss_rel": 2e-2, "change_rel": 0.15, "max_param_abs": 5e-3,
+                 "elements_over_lr_tenth": 500000},
+}
+# evaluate() accuracy, card against CPU, over the 24,576 rows of one epoch
+# (read on the H100: f32 equal, bf16 1.2e-3 apart)
+EVAL_ACC_ATOL = {"float32": 1e-3, "bfloat16": 1e-2}
+RECIPE_FAULTS = ("adam_b1_b2_swapped", "no_bias_correction")
+
+
+def phase_train_recipe(torch, dtype, host_params, card):
+    """The char-RNN's own training recipe at full width from the seed params:
+    ``fit`` over the bucketed, padded batches on the card and on the CPU,
+    held by ``recipe_readings``; the card's launch counts exactly; the same
+    run with a wrong Adam, which the limits must catch; ``evaluate`` on both;
+    a checkpoint written on the card, restored on the card and on the CPU,
+    the card's restored net continuing exactly as the original; then one
+    timed epoch. Returns (launch counts, ms per update, the card's net, the
+    iterator)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (BucketingSequenceIterator, MultiLayerNetwork,
+                                          char_rnn, load_jax_params, ops, params_to_numpy,
+                                          restore_model, write_model)
+    from deeplearning4j_tpu_torch.nn import updaters
+
+    conf = char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dtype)
+    assert (conf.updater["updater"], conf.updater["learning_rate"], conf.backprop_type,
+            conf.tbptt_fwd_length, conf.tbptt_back_length) == (
+                "adam", RECIPE_LR, "tbptt", TBPTT, TBPTT), conf.updater
+    seqs = recipe_sequences()
+    it = BucketingSequenceIterator(seqs, batch=BATCH, boundaries=RECIPE_BUCKETS)
+    shapes = [ds.features.shape[:2] for ds in it]
+    if sorted(shapes) != [(BATCH, 128), (BATCH, 256)]:
+        raise AssertionError(f"recipe batches {shapes}")
+    updates = sum(-(-t // TBPTT) for _, t in shapes)
+    real_chars = sum(len(x) for x, _ in seqs)
+    padded_chars = sum(b * t for b, t in shapes)
+
+    def train(dev, fault=None):
+        net = load_jax_params(MultiLayerNetwork(conf, device=dev), host_params)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        updater = net._updater_ready()
+        real_bc = updaters.bias_corrections
+        if fault == "adam_b1_b2_swapped":
+            b1, b2, eps = updater.adam
+            updater.adam = (b2, b1, eps)
+        elif fault == "no_bias_correction":
+            updaters.bias_corrections = lambda *a: (1.0, 1.0)
+        launches = None
+        try:
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                ops.reset_counters()
+            t0 = time.perf_counter()
+            net.fit(it)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = ops.counters()
+            seconds = time.perf_counter() - t0
+        finally:
+            updaters.bias_corrections = real_bc
+        net.set_listeners()
+        losses = np.array([float(l) for l in rec.losses])
+        return (net, losses, params_to_numpy(net)), launches, seconds
+
+    gpu_run, launches, gpu_s = train("cuda")
+    cpu, _, cpu_s = train("cpu")
+    net, losses, _ = gpu_run
+    cpu_losses = cpu[1]
+    readings = recipe_readings(gpu_run, cpu, host_params)
+    lim = RECIPE_LIMITS[dtype]
+    within = all(readings[k] <= lim[k] for k in lim)  # NaN fails too
+    faults = {}
+    for fault in RECIPE_FAULTS:
+        faults[fault] = recipe_readings(train("cuda", fault)[0], cpu, host_params)
+        faults[fault]["caught"] = not all(faults[fault][k] <= lim[k] for k in lim)
+    expected = {"lstm_seq_masked_train_fwd": LAYERS * updates,
+                "lstm_seq_masked_bwd": LAYERS * updates,
+                "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
+                "adam_update": updates * sum(len(p) for p in net.layer_params),
+                "lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
+                "lstm_seq_train_fwd": 0, "lstm_seq_bwd": 0}
+    loss_fall = float(cpu_losses[:3].mean() - cpu_losses[-3:].mean())
+
+    # evaluate(): accuracy over every step of every padded row, as the JAX
+    # package counts it
+    evals = {dev: n.evaluate(it) for dev, n in (("cuda", net), ("cpu", cpu[0]))}
+    acc = {dev: ev.accuracy() for dev, ev in evals.items()}
+    acc_err = abs(acc["cuda"] - acc["cpu"])
+
+    # checkpoint: written on the card, restored on the card and on the CPU;
+    # the card's restored net and the original take the next batch alike
+    first = next(iter(it))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "char_rnn.zip")
+        write_model(net, path)
+        back = restore_model(path)
+        on_cpu = restore_model(path, device="cpu")
+    restored_counts = {"written": [net.iteration, net.epoch],
+                       "cuda": [back.iteration, back.epoch],
+                       "cpu": [on_cpu.iteration, on_cpu.epoch]}
+    cpu_restore_err = max(
+        max(float(np.abs(p[k] - q[k]).max()) for p, q in
+            zip(params_to_numpy(net), params_to_numpy(on_cpu)) for k in p),
+        max(float((a.float().cpu() - b.float()).abs().max()) for a, b in
+            zip(net.updater_state_leaves(), on_cpu.updater_state_leaves())))
+    resumed = []
+    for n in (net, back):
+        rec = LossRecorder()
+        n.set_listeners(rec)
+        n.fit(first)
+        n.set_listeners()
+        resumed.append(([float(l) for l in rec.losses], params_to_numpy(n)))
+    resume_err = max(float(np.abs(p[k] - q[k]).max())
+                     for p, q in zip(resumed[0][1], resumed[1][1]) for k in p)
+    resume_loss_err = max(abs(a - b) for a, b in zip(resumed[0][0], resumed[1][0]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(it)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    ms_per_update = epoch_s * 1e3 / updates
+
+    ok = (losses.shape == (updates,) and bool(np.isfinite(losses).all()) and within
+          and all(f["caught"] for f in faults.values()) and loss_fall > 0.0
+          and launches == expected
+          and restored_counts["cuda"] == restored_counts["cpu"] == restored_counts["written"]
+          and acc_err <= EVAL_ACC_ATOL[dtype] and cpu_restore_err == 0.0
+          and resume_err == 0.0 and resume_loss_err == 0.0)
+    emit("train_recipe", dtype=dtype, batches=[list(x) for x in shapes], updates=updates,
+         losses=losses.tolist(), cpu_losses=cpu_losses.tolist(), cpu_loss_fall=loss_fall,
+         readings_vs_cpu=readings, limits=lim, faults_vs_cpu=faults,
+         kernel_launches=launches, expected_launches=expected,
+         evaluate_accuracy=acc, evaluate_accuracy_atol=EVAL_ACC_ATOL[dtype],
+         evaluate_examples=evals["cuda"].examples,
+         checkpoint_iteration_epoch=restored_counts,
+         checkpoint_cpu_restore_max_abs_err=cpu_restore_err,
+         resume_max_param_abs_err=resume_err, resume_max_loss_abs_err=resume_loss_err,
+         compared_epoch_s=gpu_s, cpu_epoch_s=cpu_s, timed_epoch_s=epoch_s,
+         ms_per_update=ms_per_update, real_chars_per_s=real_chars / epoch_s,
+         padded_chars_per_s=padded_chars / epoch_s, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"training recipe {dtype} failed its checks")
+    return launches, ms_per_update, net, it
 
 
 def profile(torch, fn):
@@ -616,6 +960,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch import (DecodeServer, MultiLayerNetwork, char_rnn,
                                           load_jax_params, ops)
     from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import adam as ad
     from deeplearning4j_tpu_torch.ops import lstm_sequence as ls
     from deeplearning4j_tpu_torch.ops import softmax_xent as sx
 
@@ -637,6 +982,7 @@ def main() -> int:
     # ---- 2. each kernel against its plain version
     errs = phase_kernels(torch, ls)
     errs.update(phase_kernels_train(torch, ls, sx))
+    errs[("adam_update", "float32", "leaves")] = phase_adam(torch, ad)
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
     confs = {dt: char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dt)
@@ -719,6 +1065,16 @@ def main() -> int:
         if not launches[name]:
             raise AssertionError(f"{name} did not launch on the training path")
 
+    # ---- 4c. the training recipe: Adam over padded batches (rows 8, 9, 12)
+    recipe = {dtype: phase_train_recipe(torch, dtype, host_params, card)
+              for dtype in ("float32", "bfloat16")}
+    for name in ("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd", "adam_update"):
+        launches[name] = sum(run[0][name] for run in recipe.values())
+        if not launches[name]:
+            raise AssertionError(f"{name} did not launch on the training recipe's path")
+    for name in ("softmax_xent_fwd", "softmax_xent_bwd"):  # both training paths
+        launches[name] += sum(run[0][name] for run in recipe.values())
+
     # ---- 5. times
     times = {}
     for dtype in ("float32", "bfloat16"):
@@ -730,10 +1086,10 @@ def main() -> int:
             else:
                 kern = lambda: ls.fused_lstm_sequence(*args)  # noqa: E731
                 plain = lambda: ls.lstm_sequence_reference(*args)  # noqa: E731
-            plain_ms_1 = median_ms(plain)
+            plain_ms_1 = median_ms(plain, **PLAIN_REPS)
             ms_1 = median_ms(kern)
             ms_2 = median_ms(kern)
-            plain_ms_2 = median_ms(plain)
+            plain_ms_2 = median_ms(plain, **PLAIN_REPS)
             b_ms, b_by = bound(T, B, HIDDEN, dtype, masked)
             name = "lstm_seq_lean_masked" if masked else "lstm_seq_lean"
             times[(name, dtype)] = dict(
@@ -754,6 +1110,11 @@ def main() -> int:
              ms_runs=runs, gpu=card)
 
     times.update(time_train_kernels(torch, ls, sx, card))
+    times[("adam_update", "float32")] = time_adam(torch, ad, card)
+    emit("recipe_update_share", gpu=card, **{
+        dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
+                "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
+        for dtype, run in recipe.items()})
 
     net = nets["float32"]
     emit("profile", what="output() f32 B=64 T=256", gpu=card,
@@ -761,6 +1122,10 @@ def main() -> int:
     _, _, train_net, (tx, ty) = train[("standard", "float32")]
     emit("profile", what="fit() one standard SGD update, f32 B=64 T=256", gpu=card,
          **profile(torch, lambda: train_net.fit((tx, ty))))
+    _, _, recipe_net, recipe_it = recipe["float32"]
+    long_batch = next(ds for ds in recipe_it if ds.features.shape[1] == STEPS)
+    emit("profile", what="fit() one bucketed Adam TBPTT batch, f32 B=64 T=256 (6 updates)",
+         gpu=card, **profile(torch, lambda: recipe_net.fit(long_batch)))
     server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
 
     def decode_all():
@@ -785,7 +1150,10 @@ def main() -> int:
               "lstm_seq_train_fwd": ("lstm_seq_train_fwd", "float32", STEPS),
               "lstm_seq_bwd": ("lstm_seq_bwd", "float32", STEPS),
               "softmax_xent_fwd": ("softmax_xent_fwd", "float32", SXENT_ROWS[0]),
-              "softmax_xent_bwd": ("softmax_xent_bwd", "float32", SXENT_ROWS[0])}
+              "softmax_xent_bwd": ("softmax_xent_bwd", "float32", SXENT_ROWS[0]),
+              "lstm_seq_masked_train_fwd": ("lstm_seq_masked_train_fwd", "float32", STEPS),
+              "lstm_seq_masked_bwd": ("lstm_seq_masked_bwd", "float32", STEPS),
+              "adam_update": ("adam_update", "float32", "leaves")}
     for name, (source, replaces) in KERNELS.items():
         t = times[(name, "float32")]
         lines.append({
@@ -796,9 +1164,13 @@ def main() -> int:
             "dtype": "float32"})
     print(json.dumps({"kernels": lines, "launches": launches,
                       "library_ms_note": "no single PyTorch call computes the "
-                      "peephole LSTM (torch.nn.LSTM has no peepholes); rows 10-11: "
-                      "cross_entropy with probability targets, forward and "
-                      "forward+backward"}), flush=True)
+                      "peephole LSTM (torch.nn.LSTM has no peepholes), masked or not; "
+                      "rows 10-11: cross_entropy with probability targets, forward and "
+                      "forward+backward; row 12: torch.optim.Adam(fused=True).step() "
+                      "over the same 14 leaves, which also adds u to the params",
+                      "adam_update_ms_covers": "the 14 leaves of one update",
+                      "script_seconds": time.perf_counter() - STARTED}),
+          flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

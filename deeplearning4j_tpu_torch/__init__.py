@@ -3,13 +3,18 @@
 It grows beside the JAX package, slice by slice, and imports nothing of it
 and no JAX. It serves the char-RNN (``MultiLayerNetwork.output``, ``predict``
 and ``rnn_time_step``, ``serving.decode.DecodeServer``) and trains it
-(``MultiLayerNetwork.fit``, standard backprop and TBPTT, with SGD, momentum
-or Nesterov), with the LSTM recurrence, its backward and the softmax
-cross-entropy in hand-written CUDA kernels (``ops/csrc/``). Entry points run
-on the card unless the caller passes ``device="cpu"``.
+(``MultiLayerNetwork.fit``, standard backprop and TBPTT, with Adam, SGD,
+momentum or Nesterov, on padded variable-length batches of
+``BucketingSequenceIterator`` as on fixed-length ones), evaluates it
+(``evaluate``) and checkpoints it in the JAX package's zip layout
+(``write_model``, ``restore_model``). The LSTM recurrence, masked or not, its
+backward, the softmax cross-entropy and the Adam update run in hand-written
+CUDA kernels (``ops/csrc/``). Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
-from .datasets.iterators import DataSet
+from .datasets.iterators import BucketingSequenceIterator, DataSet, pad_to_bucket
+from .eval.evaluation import Evaluation
 from .interop.jax_params import load_jax_model_zip, load_jax_params, params_to_numpy
 from .models.char_rnn import char_rnn
 from .nn.conf.inputs import InputType
@@ -19,11 +24,14 @@ from .nn.layers.recurrent import GravesBidirectionalLSTM, GravesLSTM, RnnOutputL
 from .nn.multilayer import MultiLayerNetwork
 from .nn.updaters import UpdaterConfig
 from .serving.decode import DecodeServer
+from .utils.serialization import restore_model, write_model
 
 __all__ = [
+    "BucketingSequenceIterator",
     "DataSet",
     "DecodeServer",
     "DenseLayer",
+    "Evaluation",
     "GravesBidirectionalLSTM",
     "GravesLSTM",
     "InputType",
@@ -35,5 +43,8 @@ __all__ = [
     "char_rnn",
     "load_jax_model_zip",
     "load_jax_params",
+    "pad_to_bucket",
     "params_to_numpy",
+    "restore_model",
+    "write_model",
 ]

@@ -1,12 +1,12 @@
 """Minibatches for ``fit`` (counterpart of
-``deeplearning4j_tpu/datasets/iterators.py``, its ``DataSet`` and
-``as_iterator`` only).
+``deeplearning4j_tpu/datasets/iterators.py``: its ``DataSet``,
+``as_iterator``, ``pad_to_bucket`` and ``BucketingSequenceIterator``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -33,3 +33,79 @@ def as_iterator(data) -> Iterable[DataSet]:
     if isinstance(data, tuple) and len(data) == 2:
         return [DataSet(data[0], data[1])]
     return data
+
+
+def pad_to_bucket(x, boundaries: Sequence[int]):
+    """Pad a [B, T, F] (or [T, F]) sequence batch to the smallest bucket
+    boundary >= T. Returns ``(padded, mask, t)``: ``mask`` is the [B, bound]
+    (or [bound]) features mask and ``t`` the real length (slice the model's
+    output with ``out[..., :t, :]``). Pass both to ``rnn_time_step``: masked
+    steps hold the recurrent state."""
+    x = np.asarray(x)
+    t_axis = x.ndim - 2
+    t = x.shape[t_axis]
+    bound = next((b for b in sorted(int(b) for b in boundaries) if t <= b), None)
+    if bound is None:
+        raise ValueError(f"sequence length {t} exceeds the largest bucket "
+                         f"{max(boundaries)}; add a larger boundary or truncate")
+    pad = [(0, 0)] * x.ndim
+    pad[t_axis] = (0, bound - t)
+    mask = np.zeros(x.shape[:t_axis] + (bound,), dtype=np.float32)
+    mask[..., :t] = 1.0
+    return np.pad(x, pad), mask, t
+
+
+class BucketingSequenceIterator:
+    """Variable-length sequences in batches padded to a fixed set of lengths.
+
+    Each sequence goes to the smallest bucket boundary >= its length and is
+    padded to it, with a features mask (and a labels mask for per-step
+    labels); each batch is drawn from one bucket. ``sequences``: (features
+    [T, F], labels [T, C] per step or [C] per sequence) pairs. A sequence
+    longer than the largest boundary goes to that bucket, truncated."""
+
+    def __init__(self, sequences, batch: int,
+                 boundaries: Sequence[int] = (32, 64, 128, 256),
+                 drop_remainder: bool = False):
+        self.sequences = list(sequences)
+        self.batch = int(batch)
+        self.boundaries = sorted(int(b) for b in boundaries)
+        if not self.boundaries:
+            raise ValueError("need at least one bucket boundary")
+        self.drop_remainder = drop_remainder
+
+    def _bucket_of(self, length: int) -> int:
+        return next((b for b in self.boundaries if length <= b), self.boundaries[-1])
+
+    @staticmethod
+    def _pad(feats, labels, bound: int):
+        f = np.asarray(feats, dtype=np.float32)[:bound]
+        fp = np.zeros((bound,) + f.shape[1:], dtype=np.float32)
+        fp[:f.shape[0]] = f
+        fmask = np.zeros(bound, dtype=np.float32)
+        fmask[:f.shape[0]] = 1.0
+        lab = np.asarray(labels, dtype=np.float32)
+        if lab.ndim != 2:
+            return fp, fmask, lab, None
+        lab = lab[:bound]  # per-step labels pad, with a mask alongside
+        lp = np.zeros((bound,) + lab.shape[1:], dtype=np.float32)
+        lp[:lab.shape[0]] = lab
+        lmask = np.zeros(bound, dtype=np.float32)
+        lmask[:lab.shape[0]] = 1.0
+        return fp, fmask, lp, lmask
+
+    def __iter__(self):
+        buckets: dict = {}
+        for feats, labels in self.sequences:
+            bound = self._bucket_of(np.asarray(feats).shape[0])
+            buckets.setdefault(bound, []).append((feats, labels))
+        for bound in self.boundaries:
+            items = buckets.get(bound, [])
+            for s in range(0, len(items), self.batch):
+                chunk = items[s:s + self.batch]
+                if self.drop_remainder and len(chunk) < self.batch:
+                    continue
+                padded = [self._pad(f, lab, bound) for f, lab in chunk]
+                fs, fm, ls, lm = (np.stack([p[j] for p in padded]) if padded[0][j] is not None
+                                  else None for j in range(4))
+                yield DataSet(fs, ls, fm, lm)

@@ -4,20 +4,16 @@
 tuple of per-layer dicts of arrays, e.g. ``jax_net.params``);
 :func:`params_to_numpy` is the way back, for comparing trained params.
 :func:`load_jax_model_zip` reads a zip written by the JAX package's
-``utils/serialization.write_model`` (``configuration.json`` and
-``coefficients.npz``) with zipfile and numpy only.
+``utils/serialization.write_model`` through the port's one zip reader,
+``utils.serialization.restore_model``.
 """
 
 from __future__ import annotations
 
-import io
-import json
-import zipfile
 from typing import Dict, List, Sequence
 
 import numpy as np
 
-from ..nn.conf.multi_layer import MultiLayerConfiguration
 from ..nn.multilayer import MultiLayerNetwork
 
 
@@ -51,29 +47,15 @@ def load_jax_params(net: MultiLayerNetwork,
 
 def params_to_numpy(net: MultiLayerNetwork) -> List[Dict[str, np.ndarray]]:
     """The net's params as one dict of host float32 arrays per layer, in the
-    JAX layout (what :func:`load_jax_params` takes)."""
-    return [{k: v.detach().float().cpu().numpy() for k, v in p.items()}
+    JAX layout (what :func:`load_jax_params` takes): copies, which later
+    updates of the net leave as they are."""
+    return [{k: np.array(v.detach().float().cpu().numpy()) for k, v in p.items()}
             for p in net.layer_params]
 
 
 def load_jax_model_zip(path: str, device="cuda") -> MultiLayerNetwork:
-    """A port net from a JAX ``write_model`` zip of a MultiLayerNetwork."""
-    with zipfile.ZipFile(path, "r") as zf:
-        meta = json.loads(zf.read("meta.json"))
-        if meta.get("model_class") != "MultiLayerNetwork":
-            raise ValueError(f"{path}: model class {meta.get('model_class')!r} is "
-                             "not ported (MultiLayerNetwork only)")
-        conf = MultiLayerConfiguration.from_json(zf.read("configuration.json").decode())
-        with zf.open("coefficients.npz") as f:
-            data = np.load(io.BytesIO(f.read()))
-            leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
-    net = MultiLayerNetwork(conf, device=device).init()
-    # the JAX leaves are tree_leaves of a tuple of dicts: layer by layer,
-    # each dict in sorted key order
-    keys = [sorted(p) for p in net.layer_params]
-    if len(leaves) != sum(len(k) for k in keys):
-        raise ValueError(f"{path}: {len(leaves)} leaves, the config expects "
-                         f"{sum(len(k) for k in keys)}")
-    it = iter(leaves)
-    params = [{k: next(it) for k in layer_keys} for layer_keys in keys]
-    return load_jax_params(net, params)
+    """A port net from a JAX ``write_model`` zip of a MultiLayerNetwork, its
+    updater state, iteration and epoch included."""
+    from ..utils.serialization import restore_model  # noqa: PLC0415 - it imports this module
+
+    return restore_model(path, device=device)

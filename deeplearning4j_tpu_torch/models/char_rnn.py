@@ -1,20 +1,17 @@
 """Char-RNN: stacked GravesLSTM language model (counterpart of
-``deeplearning4j_tpu/models/char_rnn.py``): the same layers and settings,
-and a JSON config that either package reads."""
+``deeplearning4j_tpu/models/char_rnn.py``): the same layers and settings
+(Adam, TBPTT), a JSON config that either package reads, and the same
+``CharIterator``."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..datasets.iterators import DataSet
 from ..nn.conf.inputs import InputType
 from ..nn.conf.multi_layer import MultiLayerConfiguration
 from ..nn.layers.recurrent import GravesLSTM, RnnOutputLayer
-
-
-def _adam(learning_rate: float) -> dict:
-    """The JAX package's ``UpdaterConfig(updater="adam", learning_rate=lr)``
-    as its JSON dict; kept for the round-trip, not acted on."""
-    return {"updater": "adam", "learning_rate": learning_rate}
+from ..nn.updaters import UpdaterConfig
 
 
 def char_rnn(
@@ -37,7 +34,7 @@ def char_rnn(
     return MultiLayerConfiguration(
         layers=layers,
         input_type=InputType.recurrent(vocab_size),
-        updater=_adam(learning_rate),
+        updater=UpdaterConfig(updater="adam", learning_rate=learning_rate).to_dict(),
         backprop_type="tbptt",
         tbptt_fwd_length=tbptt_length,
         tbptt_back_length=tbptt_length,
@@ -47,8 +44,8 @@ def char_rnn(
 
 
 class CharIterator:
-    """Text -> one-hot next-char-prediction minibatches: yields
-    (features [B, T, V], labels [B, T, V]) numpy pairs, labels shifted by 1."""
+    """Text -> one-hot next-char-prediction minibatches: yields DataSets of
+    features [B, T, V] and labels [B, T, V] shifted by one character."""
 
     def __init__(self, text: str, seq_length: int = 50, batch_size: int = 32,
                  seed: int = 0):
@@ -81,4 +78,4 @@ class CharIterator:
             seq = self.encoded[s : s + T + 1]
             x[b, np.arange(T), seq[:-1]] = 1.0
             y[b, np.arange(T), seq[1:]] = 1.0
-        return x, y
+        return DataSet(x, y)

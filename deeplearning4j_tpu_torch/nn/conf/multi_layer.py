@@ -2,9 +2,9 @@
 ``deeplearning4j_tpu/nn/conf/multi_layer.py``): the same JSON string
 configures both packages.
 
-``updater``, ``backprop_type``, ``tbptt_*``, ``remat`` and ``loss_scale``
-are training settings: parsed and kept as they are, not acted on.
-``updater`` stays the plain dict of the JSON.
+``updater``, ``backprop_type``, ``tbptt_*`` and ``loss_scale`` are the
+training settings ``MultiLayerNetwork.fit`` acts on; ``updater`` stays the
+plain dict of the JSON. ``remat`` is kept as it is, not acted on.
 """
 
 from __future__ import annotations

@@ -8,10 +8,10 @@ h_t = o * act(c_t). Data is [batch, time, features]. The input projection
 ``torch.matmul`` under autograd, as the JAX package leaves it to XLA; the
 recurrence is the sequence op of ``ops`` (the CUDA kernels on the card,
 their plain versions on the CPU), through ``ops.lstm_sequence_apply``, which
-picks what runs: under grad the unmasked recurrence runs
-``ops.LstmSequenceFunction`` (training forward and backward kernels); masked
-training has no kernel yet (rows 8-9 of PERF.md's table): on the CPU it runs
-the plain masked version under autograd, on CUDA it raises.
+picks what runs: under grad ``ops.LstmSequenceFunction`` (training forward
+and backward kernels, masked or not), the lean primal otherwise. The
+bidirectional layer's reverse direction runs the same op on time-flipped
+input and a time-flipped mask.
 """
 
 from __future__ import annotations

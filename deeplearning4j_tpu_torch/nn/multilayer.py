@@ -10,14 +10,19 @@ an explicit device. It runs on the card unless the caller passes
   path does; bfloat16 results come back as float32, which holds them
   exactly. They run under ``torch.no_grad()``, so the LSTM layers launch the
   lean sequence kernel.
-- ``fit`` trains on an (x, y) pair, a ``DataSet`` or an iterable of either,
-  one update per batch (``backprop_type="standard"``) or one per time
-  segment (``"tbptt"``). The params are trainable leaves in
-  ``params_dtype``; each step casts them to the compute dtype under
-  autograd, and the loss head runs in f32 on f32 params as in the JAX
-  package. The updater (``conf.updater``, the JAX JSON dict) is built at the
-  first fit; updates run in an f32 island (``updaters.optimizer_update``)
-  and are written into the leaves in place.
+- ``fit`` trains on an (x, y) pair, a ``DataSet`` or an iterable of either
+  (e.g. a ``BucketingSequenceIterator`` of padded, masked batches), one
+  update per batch (``backprop_type="standard"``) or one per time segment
+  (``"tbptt"``). The params are trainable leaves in ``params_dtype``; each
+  step casts them to the compute dtype under autograd, and the loss head
+  runs in f32 on f32 params as in the JAX package. The updater
+  (``conf.updater``, the JAX JSON dict) is built when first needed; updates
+  run in an f32 island (``updaters.optimizer_update``) and are written into
+  the leaves in place. ``updater_state_leaves`` and
+  ``set_updater_state_leaves`` read and set its state as the leaves of the
+  JAX package's optax state (``utils/serialization.py`` saves them).
+- ``evaluate`` runs ``output`` over a dataset and returns an
+  ``Evaluation``.
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import numpy as np
 import torch
 
 from ..datasets.iterators import DataSet, as_iterator
+from ..eval.evaluation import Evaluation
 from .conf.multi_layer import MultiLayerConfiguration
-from .updaters import UpdaterConfig, optimizer_update, scaled_loss, unscale_grads
+from .updaters import (UpdaterConfig, opt_state_from_leaves, opt_state_leaves,
+                       optimizer_update, scaled_loss, unscale_grads)
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -70,7 +77,7 @@ class MultiLayerNetwork(torch.nn.Module):
         self.iteration = 0  # updates taken
         self.epoch = 0  # passes of fit over its data
         self._last_loss: Optional[torch.Tensor] = None
-        self._updater = None  # built from conf.updater at the first fit
+        self._updater = None  # built from conf.updater when first needed
         self._opt_state = None
         self._generator: Optional[torch.Generator] = None  # dropout draws
         self.listeners: List = []
@@ -228,6 +235,17 @@ class MultiLayerNetwork(torch.nn.Module):
         """Class indices (argmax over the last axis) as int32."""
         return to_host(torch.argmax(self.forward(x), dim=-1).to(torch.int32))
 
+    def evaluate(self, data, top_n: int = 1) -> Evaluation:
+        """Classification evaluation of ``output`` over ``data`` (as ``fit``
+        takes it). As in the JAX package, the features mask goes to
+        ``output`` and the labels mask is not applied: time-series outputs
+        count every step of every row."""
+        ev = Evaluation(top_n=top_n)
+        for ds in as_iterator(data):
+            ds = ds if isinstance(ds, DataSet) else DataSet(*ds)
+            ev.eval(ds.labels, self.output(ds.features, features_mask=ds.features_mask))
+        return ev
+
     def score(self, dataset=None) -> float:
         """Loss on a dataset (inference mode: no dropout), or the last
         training loss."""
@@ -252,10 +270,7 @@ class MultiLayerNetwork(torch.nn.Module):
         ``data``: an (x, y) tuple, a DataSet, or an iterable of either (an
         iterator with ``reset()`` is reset before each epoch). One update per
         batch, or per time segment under TBPTT."""
-        self.init()
-        if self._updater is None:
-            self._updater = UpdaterConfig.from_dict(self.conf.updater).build()
-            self._opt_state = self._updater.init(self._leaves())
+        self._updater_ready()
         for _ in range(epochs):
             it = as_iterator(data)
             if hasattr(it, "reset"):
@@ -264,6 +279,28 @@ class MultiLayerNetwork(torch.nn.Module):
                 self._fit_batch(ds if isinstance(ds, DataSet) else DataSet(*ds))
             self.epoch += 1
         return self
+
+    def _updater_ready(self):
+        """The updater of ``conf.updater``, built with a fresh state the
+        first time it is needed after ``init``."""
+        self.init()
+        if self._updater is None:
+            self._updater = UpdaterConfig.from_dict(self.conf.updater).build()
+            self._opt_state = self._updater.init(self._leaves())
+        return self._updater
+
+    def updater_state_leaves(self) -> List[torch.Tensor]:
+        """The updater state as the leaves of the JAX package's optax state
+        (``jax.tree_util.tree_leaves(net.opt_state)`` there): moments in the
+        params' dtype, counts as int32 scalars."""
+        self._updater_ready()
+        return opt_state_leaves(self._opt_state)
+
+    def set_updater_state_leaves(self, leaves) -> None:
+        """Set the updater state from leaves in that order (arrays or
+        tensors); the next update continues from it."""
+        self._opt_state = opt_state_from_leaves(self._updater_ready(), self._leaves(),
+                                                leaves)
 
     def _step(self, x, y, labels_mask, features_mask, rnn_state=None):
         """One update from the loss on (x, y): backward, unscale, update the

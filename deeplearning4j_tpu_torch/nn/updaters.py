@@ -10,15 +10,20 @@ same steps:
 - :func:`gradient_normalization` by every mode;
 - :class:`UpdaterConfig` is the same JSON dict; ``build()`` gives an
   :class:`Updater` for ``sgd``, ``momentum`` and ``nesterovs`` (optax's
-  ``sgd`` with and without ``trace``) and ``none``/``noop`` (optax's
+  ``sgd`` with and without ``trace``), ``adam`` (optax's ``adam``, each
+  leaf updated by the Adam kernel ``ops.fused_adam_update`` as the JAX
+  package's fused path does) and ``none``/``noop`` (optax's
   ``set_to_zero``). The optax chain is ``(normalization, core)``, and the
   learning rate of update k is ``schedule(k)``.
+- :func:`opt_state_leaves` and :func:`opt_state_from_leaves` read and build
+  the state as the leaves of the optax state, in ``jax.tree_util`` order
+  (what ``updaterState.npz`` holds).
 - :func:`optimizer_update` is the f32 update island of the JAX package:
   with any bf16 leaf, grads, state and params are upcast, updated in f32 and
   cast back per leaf; with f32 only it is ``update`` plus ``p + u``.
 
 Params, grads and updates are lists of per-layer dicts of tensors, as the
-JAX package's are tuples of dicts. Adam and the other updaters come in later
+JAX package's are tuples of dicts. The other optax updaters come in later
 slices of the port and raise ``NotImplementedError`` here.
 """
 
@@ -26,20 +31,19 @@ from __future__ import annotations
 
 import math
 from dataclasses import asdict, dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from ..ops import adam as _adam
 
 Tree = List[Dict[str, torch.Tensor]]
 
-# updaters of the JAX package that the port does not run yet, and the slice
-# that brings each (ROADMAP.md)
-_LATER = {
-    "adam": "port slice 3 (with the Adam kernel, row 12 of PERF.md's table)",
-    **{name: "a slice after port slice 3 (ROADMAP.md Queue 1)"
-       for name in ("adamw", "adamax", "adadelta", "adagrad", "rmsprop",
-                    "lamb", "lion")},
-}
+# updaters of the JAX package that the port does not run yet (ROADMAP.md
+# Queue 1)
+_LATER = ("adamw", "adamax", "adadelta", "adagrad", "rmsprop", "lamb", "lion")
+_PORTED = ("sgd", "momentum", "nesterovs", "adam", "none", "noop")
 
 
 # ---------------------------------------------------------------------------
@@ -171,10 +175,9 @@ class UpdaterConfig:
         name = self.updater.lower()
         if name in _LATER:
             raise NotImplementedError(
-                f"updater '{self.updater}' is not ported yet: it comes with "
-                f"{_LATER[name]}; the port trains with sgd, momentum, "
-                f"nesterovs and none")
-        if name not in ("sgd", "momentum", "nesterovs", "none", "noop"):
+                f"updater '{self.updater}' is not ported yet (ROADMAP.md Queue 1); "
+                f"the port trains with {', '.join(_PORTED)}")
+        if name not in _PORTED:
             raise ValueError(f"Unknown updater '{self.updater}'")
         sched = build_schedule(
             self.learning_rate, self.lr_policy, self.lr_policy_decay_rate,
@@ -185,27 +188,52 @@ class UpdaterConfig:
             schedule=sched, momentum=momentum, nesterov=name == "nesterovs",
             zero=name in ("none", "noop"),
             normalize=gradient_normalization(
-                self.gradient_normalization, self.gradient_normalization_threshold))
+                self.gradient_normalization, self.gradient_normalization_threshold),
+            adam=(self.beta1, self.beta2, self.epsilon) if name == "adam" else None)
+
+
+def _zeros_like(tree: Tree) -> Tree:
+    return [{k: torch.zeros_like(v) for k, v in layer.items()} for layer in tree]
+
+
+def bias_corrections(count: int, b1: float, b2: float,
+                     dtype: torch.dtype) -> Tuple[float, float]:
+    """(1 - b1**count, 1 - b2**count) as the JAX package computes them for
+    its Adam kernel: in ``promote_types(dtype, float32)`` (f32 for f32 and
+    bf16 leaves, f64 for f64), the int32 count as the exponent."""
+    sdt = torch.promote_types(dtype, torch.float32)
+    t = torch.tensor(count, dtype=torch.int32)
+    return tuple(float(1.0 - torch.tensor(b, dtype=sdt) ** t) for b in (b1, b2))
 
 
 @dataclass
 class Updater:
-    """optax's ``chain(normalization, sgd(schedule, momentum, nesterov))``
-    (or ``set_to_zero``) with its state as a plain dict: ``count`` (the
-    schedule's step) and ``trace`` (the momentum buffers, a gradient-shaped
-    list, or None)."""
+    """optax's ``chain(normalization, core)`` with the core's state as a
+    plain dict that holds what the optax state holds: {} for ``set_to_zero``
+    (``zero``); else ``count`` (the schedule's step,
+    ``ScaleByScheduleState.count``), with ``trace`` (momentum and nesterovs:
+    ``TraceState``, a gradient-shaped list) or ``adam`` (``ScaleByAdamState``
+    as {"count", "mu", "nu"}). The core is ``sgd(schedule, momentum,
+    nesterov)``, ``adam(schedule, b1, b2, eps)`` (``adam`` = (b1, b2, eps))
+    or ``set_to_zero``."""
 
     schedule: Callable[[int], float]
     momentum: Optional[float]
     nesterov: bool
     zero: bool
     normalize: Callable[[Tree], Tree]
+    adam: Optional[Tuple[float, float, float]] = None
 
     def init(self, params: Tree) -> dict:
-        trace = None
-        if self.momentum is not None and not self.zero:
-            trace = [{k: torch.zeros_like(v) for k, v in layer.items()} for layer in params]
-        return {"count": 0, "trace": trace}
+        if self.zero:
+            return {}
+        state: dict = {"count": 0}
+        if self.adam is not None:
+            state["adam"] = {"count": 0, "mu": _zeros_like(params),
+                             "nu": _zeros_like(params)}
+        elif self.momentum is not None:
+            state["trace"] = _zeros_like(params)
+        return state
 
     def update(self, grads: Tree, state: dict):
         """(updates, new_state): updates are to be added to the params."""
@@ -213,20 +241,111 @@ class Updater:
         if self.zero:
             return [{k: torch.zeros_like(g) for k, g in layer.items()}
                     for layer in grads], state
-        trace = state["trace"]
+        new = {**state, "count": state["count"] + 1}
+        if self.adam is not None:
+            updates, new["adam"] = self._adam(grads, state)
+            return updates, new
         if self.momentum is not None:
             mu = self.momentum
             # optax.trace: t = g + mu * t; nesterov takes g + mu * t as well
-            trace = [{k: g + mu * t[k] for k, g in layer.items()}
-                     for layer, t in zip(grads, trace)]
+            new["trace"] = [{k: g + mu * t[k] for k, g in layer.items()}
+                            for layer, t in zip(grads, state["trace"])]
             if self.nesterov:
                 grads = [{k: g + mu * t[k] for k, g in layer.items()}
-                         for layer, t in zip(grads, trace)]
+                         for layer, t in zip(grads, new["trace"])]
             else:
-                grads = trace
+                grads = new["trace"]
         step = -self.schedule(state["count"])
-        updates = [{k: step * g for k, g in layer.items()} for layer in grads]
-        return updates, {"count": state["count"] + 1, "trace": trace}
+        return [{k: step * g for k, g in layer.items()} for layer in grads], new
+
+    def _adam(self, grads: Tree, state: dict):
+        """optax's scale_by_adam, then the schedule: one Adam kernel launch
+        per leaf, as the JAX package's fused path runs it. Returns (updates,
+        the new ScaleByAdamState)."""
+        b1, b2, eps = self.adam
+        adam = state["adam"]
+        count = adam["count"] + 1  # optax.safe_int32_increment
+        lr = self.schedule(state["count"])
+        leaves = _tree_leaves(grads)
+        dtype = leaves[0].dtype if leaves else torch.float32
+        bc1, bc2 = bias_corrections(count, b1, b2, dtype)
+        updates, mu, nu = [], [], []
+        for layer, m_l, v_l in zip(grads, adam["mu"], adam["nu"]):
+            outs = {k: _adam.fused_adam_update(g, m_l[k], v_l[k], lr, bc1, bc2,
+                                               b1, b2, eps)
+                    for k, g in layer.items()}
+            for tree, j in ((updates, 0), (mu, 1), (nu, 2)):
+                tree.append({k: o[j] for k, o in outs.items()})
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+def _tree_leaves(tree: Tree) -> List[torch.Tensor]:
+    """The leaves of a param-shaped list in jax.tree_util order: layer by
+    layer, each dict in sorted key order."""
+    return [layer[k] for layer in tree for k in sorted(layer)]
+
+
+def _host_array(a) -> np.ndarray:
+    """A host array of a leaf; ml_dtypes types (JAX's bf16) widen to f32."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.kind == "V" else a
+
+
+def opt_state_leaves(state: dict) -> List[torch.Tensor]:
+    """The leaves of the optax state that ``state`` stands for, in
+    ``jax.tree_util.tree_leaves`` order, counts as int32 scalars. With optax
+    0.2.6 the chain's state is ``(EmptyState(), core)``, core
+    ``EmptyState()`` for none, ``(EmptyState(), ScaleByScheduleState(count))``
+    for sgd, ``(TraceState(trace), ScaleByScheduleState(count))`` for
+    momentum and nesterovs, and ``(ScaleByAdamState(count, mu, nu),
+    ScaleByScheduleState(count))`` for adam."""
+    out: List[torch.Tensor] = []
+    if "adam" in state:
+        adam = state["adam"]
+        out += ([torch.tensor(adam["count"], dtype=torch.int32)]
+                + _tree_leaves(adam["mu"]) + _tree_leaves(adam["nu"]))
+    if "trace" in state:
+        out += _tree_leaves(state["trace"])
+    if "count" in state:
+        out.append(torch.tensor(state["count"], dtype=torch.int32))
+    return out
+
+
+def opt_state_from_leaves(updater: Updater, params: Tree, leaves: Sequence) -> dict:
+    """The state of ``updater`` for ``params`` whose :func:`opt_state_leaves`
+    are ``leaves`` (arrays or tensors, e.g. a JAX net's
+    ``jax.tree_util.tree_leaves(opt_state)``). Each float leaf takes its
+    param's dtype and device; shapes and the count of leaves are checked."""
+    state = updater.init(params)
+    want = len(opt_state_leaves(state))
+    if len(leaves) != want:
+        raise ValueError(f"{len(leaves)} updater state leaves, the updater "
+                         f"expects {want}")
+    it = iter(_host_array(a) for a in leaves)
+
+    def tree() -> Tree:
+        out = []
+        for i, layer in enumerate(params):
+            got = {}
+            for k in sorted(layer):
+                a = next(it)
+                if tuple(a.shape) != tuple(layer[k].shape):
+                    raise ValueError(f"updater state of layer {i} {k}: shape "
+                                     f"{tuple(a.shape)}, expected {tuple(layer[k].shape)}")
+                got[k] = torch.tensor(a).to(layer[k].device, layer[k].dtype)
+            out.append({k: got[k] for k in layer})
+        return out
+
+    if "adam" in state:
+        state["adam"] = {"count": int(next(it)), "mu": tree(), "nu": tree()}
+    if "trace" in state:
+        state["trace"] = tree()
+    if "count" in state:
+        state["count"] = int(next(it))
+    return state
 
 
 # ---------------------------------------------------------------------------

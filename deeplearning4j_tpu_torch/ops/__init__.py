@@ -10,8 +10,10 @@ reports which of the two ran, under the JAX package's variant names
 
 from __future__ import annotations
 
+from . import adam as _adam
 from . import lstm_sequence as _lstm_sequence
 from . import softmax_xent as _softmax_xent
+from .adam import adam_update_reference, fused_adam_update
 from .lstm_sequence import (
     LstmSequenceFunction,
     fused_lstm_sequence,
@@ -19,7 +21,11 @@ from .lstm_sequence import (
     lstm_sequence_apply,
     lstm_sequence_backward,
     lstm_sequence_backward_reference,
+    lstm_sequence_masked_backward,
+    lstm_sequence_masked_backward_reference,
     lstm_sequence_masked_reference,
+    lstm_sequence_masked_train_forward,
+    lstm_sequence_masked_train_reference,
     lstm_sequence_reference,
     lstm_sequence_train_forward,
     lstm_sequence_train_reference,
@@ -38,12 +44,12 @@ from .softmax_xent import (
 def counters() -> dict:
     """A snapshot of every kernel's launch count, by kernel name (each op
     module keeps its own ``launches`` dict)."""
-    return {**_lstm_sequence.launches, **_softmax_xent.launches}
+    return {**_lstm_sequence.launches, **_softmax_xent.launches, **_adam.launches}
 
 
 def reset_counters() -> None:
     """Set every kernel's launch count to 0."""
-    for counts in (_lstm_sequence.launches, _softmax_xent.launches):
+    for counts in (_lstm_sequence.launches, _softmax_xent.launches, _adam.launches):
         for name in counts:
             counts[name] = 0
 
@@ -59,13 +65,19 @@ def softmax_xent_rows(labels2d, preout2d):
 __all__ = [
     "LstmSequenceFunction",
     "SoftmaxXentFunction",
+    "adam_update_reference",
     "counters",
+    "fused_adam_update",
     "fused_lstm_sequence",
     "fused_lstm_sequence_masked",
     "lstm_sequence_apply",
     "lstm_sequence_backward",
     "lstm_sequence_backward_reference",
+    "lstm_sequence_masked_backward",
+    "lstm_sequence_masked_backward_reference",
     "lstm_sequence_masked_reference",
+    "lstm_sequence_masked_train_forward",
+    "lstm_sequence_masked_train_reference",
     "lstm_sequence_reference",
     "lstm_sequence_train_forward",
     "lstm_sequence_train_reference",

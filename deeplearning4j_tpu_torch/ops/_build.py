@@ -114,13 +114,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bind(lib: str, symbol: str, n_ptrs: int, n_ints: int) -> Callable:
+def bind(lib: str, symbol: str, n_ptrs: int, n_ints: int,
+         n_floats: int = 0) -> Callable:
     """C entry ``symbol`` of library ``lib``, taking ``n_ptrs`` pointers,
-    ``n_ints`` ints and the stream, returning a CUDA error code."""
+    ``n_ints`` ints, ``n_floats`` floats and the stream, returning a CUDA
+    error code."""
     fn = getattr(load(lib), symbol)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 

@@ -7,7 +7,11 @@
 // _seq_fwd_impl (the pallas_call of _seq_fwd_kernel), the forward rule of
 // the sequence VJP, which also writes a, f, o, i and c of every step
 // (dl4j_lstm_seq_train_fwd, the kStoreResiduals instantiation of the same
-// step kernel). For each step t:
+// step kernel); and _seq_masked_fwd_impl (the pallas_call of
+// _seq_fwd_kernel_masked), the forward rule of the masked VJP
+// (dl4j_lstm_seq_masked_train_fwd, kMasked and kStoreResiduals: a, f, o, i
+// are stored at every step, masked or not, and the c stream holds the c
+// carried on, after the mask). For each step t:
 //   z = zx[t] + h_prev @ RW                  (product accumulated in f32)
 //   a = act(z[:, :H])
 //   f = gate(z[:, H:2H] + c_prev * pF),  i = gate(z[:, 3H:] + c_prev * pI)
@@ -171,16 +175,18 @@ cudaError_t run_sequence(const void* zx_v, const void* mask_v, const void* h0_v,
   return cudaSuccess;
 }
 
-// Training forward, unmasked: as run_sequence, and every step also stores
-// a, f, o, i and c into [steps, B, H] streams; c[t-1] is c_prev of step t.
-template <typename T>
-cudaError_t run_sequence_train(const void* zx_v, const void* h0_v, const void* c0_v,
-                               const void* rw_v, const void* pf_v, const void* pi_v,
-                               const void* po_v, void* ys_v, void* a_v, void* f_v,
-                               void* o_v, void* i_v, void* c_v, void* hT_v, void* cT_v,
-                               int steps, int B, int H, int act, int gate,
+// Training forward: as run_sequence, and every step also stores a, f, o, i
+// and c into [steps, B, H] streams; c[t-1] is c_prev of step t. `mask_v` is
+// null for the unmasked mode.
+template <typename T, bool kMasked>
+cudaError_t run_sequence_train(const void* zx_v, const void* mask_v, const void* h0_v,
+                               const void* c0_v, const void* rw_v, const void* pf_v,
+                               const void* pi_v, const void* po_v, void* ys_v, void* a_v,
+                               void* f_v, void* o_v, void* i_v, void* c_v, void* hT_v,
+                               void* cT_v, int steps, int B, int H, int act, int gate,
                                cudaStream_t stream) {
   const T* zx = static_cast<const T*>(zx_v);
+  const T* mask = static_cast<const T*>(mask_v);
   T* ys = static_cast<T*>(ys_v);
   T* c = static_cast<T*>(c_v);
   const size_t BH = static_cast<size_t>(B) * H;
@@ -189,8 +195,9 @@ cudaError_t run_sequence_train(const void* zx_v, const void* h0_v, const void* c
     const size_t off = t * BH;
     const T* hp = t == 0 ? static_cast<const T*>(h0_v) : ys + off - BH;
     const T* cp = t == 0 ? static_cast<const T*>(c0_v) : c + off - BH;
-    lstm_step<T, false, true><<<grid, kThreads, 0, stream>>>(
-        zx + 4 * off, nullptr, hp, cp, static_cast<const T*>(rw_v),
+    lstm_step<T, kMasked, true><<<grid, kThreads, 0, stream>>>(
+        zx + 4 * off, kMasked ? mask + static_cast<size_t>(t) * B : nullptr, hp, cp,
+        static_cast<const T*>(rw_v),
         static_cast<const T*>(pf_v), static_cast<const T*>(pi_v),
         static_cast<const T*>(po_v), ys + off, c + off,
         t == steps - 1 ? static_cast<T*>(hT_v) : nullptr, static_cast<T*>(a_v) + off,
@@ -232,8 +239,8 @@ extern "C" int dl4j_lstm_seq_lean(const void* zx, const void* mask,
 
 // Runs the training forward: `steps` launches of lstm_step that also store
 // the residuals a, f, o, i, c ([steps, B, H] each), then copies c_T out of
-// the c stream. Unmasked only. Returns the CUDA error code of the first
-// launch or copy that failed, 0 when all were issued.
+// the c stream. Returns the CUDA error code of the first launch or copy that
+// failed, 0 when all were issued.
 extern "C" int dl4j_lstm_seq_train_fwd(const void* zx, const void* h0, const void* c0,
                                        const void* rw, const void* pf, const void* pi,
                                        const void* po, void* ys, void* a, void* f, void* o,
@@ -242,8 +249,28 @@ extern "C" int dl4j_lstm_seq_train_fwd(const void* zx, const void* h0, const voi
                                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return run_sequence_train<__nv_bfloat16>(zx, h0, c0, rw, pf, pi, po, ys, a, f, o, i, c,
-                                             hT, cT, steps, B, H, act, gate, s);
-  return run_sequence_train<float>(zx, h0, c0, rw, pf, pi, po, ys, a, f, o, i, c, hT, cT,
-                                   steps, B, H, act, gate, s);
+    return run_sequence_train<__nv_bfloat16, false>(zx, nullptr, h0, c0, rw, pf, pi, po, ys,
+                                                    a, f, o, i, c, hT, cT, steps, B, H, act,
+                                                    gate, s);
+  return run_sequence_train<float, false>(zx, nullptr, h0, c0, rw, pf, pi, po, ys, a, f, o,
+                                          i, c, hT, cT, steps, B, H, act, gate, s);
+}
+
+// The masked training forward (`mask` [steps, B]; a step whose mask is 0
+// holds h and c): as dl4j_lstm_seq_train_fwd, the c stream and c_T after the
+// mask, a, f, o, i before it.
+extern "C" int dl4j_lstm_seq_masked_train_fwd(const void* zx, const void* mask,
+                                              const void* h0, const void* c0, const void* rw,
+                                              const void* pf, const void* pi, const void* po,
+                                              void* ys, void* a, void* f, void* o, void* i,
+                                              void* c, void* hT, void* cT, int steps, int B,
+                                              int H, int act, int gate, int bf16,
+                                              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return run_sequence_train<__nv_bfloat16, true>(zx, mask, h0, c0, rw, pf, pi, po, ys, a,
+                                                   f, o, i, c, hT, cT, steps, B, H, act,
+                                                   gate, s);
+  return run_sequence_train<float, true>(zx, mask, h0, c0, rw, pf, pi, po, ys, a, f, o, i, c,
+                                         hT, cT, steps, B, H, act, gate, s);
 }

@@ -1,9 +1,12 @@
 // Peephole-LSTM sequence backward for Hopper (sm_90a).
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_kernels.py:_seq_bwd (the
-// pallas_call of _seq_bwd_kernel), the backward rule of the sequence VJP.
-// Reverse time, t = T-1 .. 0, from the residuals of the training forward
-// (a, f, o, i, c [T, B, H], ys as h):
+// pallas_call of _seq_bwd_kernel), the backward rule of the sequence VJP
+// (dl4j_lstm_seq_bwd); and _seq_masked_bwd (the pallas_call of
+// _seq_bwd_kernel_masked), that of the masked VJP (dl4j_lstm_seq_masked_bwd,
+// the kMasked instantiation of the same kernels). Reverse time, t = T-1 .. 0,
+// from the residuals of the training forward (a, f, o, i, c [T, B, H], ys
+// as h):
 //   c_prev, h_prev = c[t-1], ys[t-1]  (c0, h0 at t = 0)
 //   c  = f*c_prev + i*a,  cact = act(c)          (recomputed, not stored)
 //   dh = dys[t] + dh_carry,  dc = dc_carry       (dhT, dcT at t = T-1)
@@ -15,7 +18,12 @@
 //   dc_carry = dc_tot*f + df*pF + di*pI
 //   dRW += h_prev^T @ dzx[t]; dpF += sum_b df*c_prev; dpI += sum_b di*c_prev;
 //   dpO += sum_b do*c                 (all four accumulated in f32)
-// and returns dh0 = dh_carry, dc0 = dc_carry after t = 0. Derivatives are
+// and returns dh0 = dh_carry, dc0 = dc_carry after t = 0. Masked, with m the
+// step's mask: the gate math takes dh := m*dh and dc := m*dc (c recomputed is
+// then the pre-mask c), and what the mask held passes through to t-1:
+//   dc_carry += (1-m)*dc,   dh_carry = (dzx[t] @ RW^T) + (1-m)*dh,
+// dh and dc taken before the mask (dh0 and dc0 the same after t = 0). dzx is
+// 0 at a masked step, so dRW and the peephole sums need no change. Derivatives are
 // taken from the activated values (y*(1-y) for the tanh-form sigmoid). In
 // bf16 every elementwise result is rounded where the plain PyTorch version
 // (ops/lstm_sequence.py:lstm_sequence_backward_reference) rounds it.
@@ -34,7 +42,10 @@
 //   column of dzx[t+1], so the exchange goes through global memory: step t
 //   starts with the product dzx[t+1] @ RW^T for its own units and rows,
 //   tiled through shared memory. dc ping-pongs between two scratch buffers.
-//   One more launch (lstm_bwd_dh) computes dh0 = dzx[0] @ RW^T.
+//   One more launch (lstm_bwd_dh) computes dh0 = dzx[0] @ RW^T. Masked,
+//   step t also needs (1-m[t+1])*dh of step t+1 in its carry: step t+1
+//   stores its pre-mask dh in a [2, B, H] ping-pong buffer, which step t
+//   reads (the same element, so the same thread, one launch later).
 // - the sums across time are second passes, in f32: drw_gemm walks the
 //   stored h_{t-1} (h0, then ys) and dzx streams once, as one product with
 //   depth T*B; each step kernel reduces its peephole terms over its rows into
@@ -86,7 +97,7 @@ __device__ float dzx_rwt(const T* __restrict__ dzx, const T* __restrict__ rw, in
   return acc;
 }
 
-template <typename T>
+template <typename T, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t = T-1
               const T* __restrict__ dh_last,   // [B, H]: dhT, used at t = T-1
@@ -98,6 +109,10 @@ lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t =
               const T* __restrict__ rw,        // [H, 4H]
               const T* __restrict__ pf, const T* __restrict__ pi,
               const T* __restrict__ po,        // [H] each
+              const T* __restrict__ m_t,       // [B]: mask of step t (masked only)
+              const T* __restrict__ m_next,    // [B]: mask of t+1; null at t = T-1
+              const T* __restrict__ dh_next,   // [B, H]: pre-mask dh of t+1 (masked only)
+              T* __restrict__ dh_out,          // [B, H]: this step's pre-mask dh (masked only)
               T* __restrict__ dzx,             // [B, 4H]: dzx[t]
               T* __restrict__ dc_out,          // [B, H]: dc carried to t-1 (dc0 at t = 0)
               float* __restrict__ psum,        // [gridDim.y, 3, H]: this step's slots
@@ -117,10 +132,27 @@ lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t =
   float tf = 0.f, ti = 0.f, to = 0.f;  // this thread's peephole terms
   if (valid) {
     const size_t hidx = static_cast<size_t>(b) * H + j;
-    // dh_scr = (dzx @ RW^T).astype(dtype); dh = dy + dh_scr
-    const float dh_carry = dzx_next == nullptr ? ld(dh_last, hidx) : rnd<T>(rec);
-    const float dh = add<T>(ld(dy, hidx), dh_carry);
-    const float dc = ld(dc_in, hidx);
+    // dh_scr = (dzx @ RW^T).astype(dtype), plus (1-m)*dh of t+1 when masked;
+    // dh = dy + dh_scr
+    float dh_carry = ld(dh_last, hidx);
+    if (dzx_next != nullptr) {
+      dh_carry = rnd<T>(rec);
+      if (kMasked)
+        dh_carry = add<T>(dh_carry, mul<T>(sub<T>(1.0f, ld(m_next, b)), ld(dh_next, hidx)));
+    }
+    float dh = add<T>(ld(dy, hidx), dh_carry);
+    float dc = ld(dc_in, hidx);
+    // masked: the gate math sees m*dh and m*dc; (1-m)*dc passes to t-1 here,
+    // (1-m)*dh through dh_out to step t-1's carry
+    const float dh_t = dh, dc_t = dc;
+    float keep = 0.0f;
+    if (kMasked) {
+      const float m = ld(m_t, b);
+      keep = sub<T>(1.0f, m);
+      dh = mul<T>(m, dh_t);
+      dc = mul<T>(m, dc_t);
+      st(dh_out, hidx, dh_t);
+    }
     const float cp = ld(c_prev, hidx);
     const float a = ld(a_r, hidx), f = ld(f_r, hidx), o = ld(o_r, hidx), i = ld(i_r, hidx);
     const float c = add<T>(mul<T>(f, cp), mul<T>(i, a));
@@ -139,7 +171,9 @@ lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t =
     st(dzx, zrow + H + j, d_f);
     st(dzx, zrow + 2 * static_cast<size_t>(H) + j, d_o);
     st(dzx, zrow + 3 * static_cast<size_t>(H) + j, d_i);
-    st(dc_out, hidx, add<T>(add<T>(mul<T>(dc_tot, f), mul<T>(d_f, pF)), mul<T>(d_i, pI)));
+    float dc_next = add<T>(add<T>(mul<T>(dc_tot, f), mul<T>(d_f, pF)), mul<T>(d_i, pI));
+    if (kMasked) dc_next = add<T>(dc_next, mul<T>(keep, dc_t));
+    st(dc_out, hidx, dc_next);
     tf = mul<T>(d_f, cp);
     ti = mul<T>(d_i, cp);
     to = mul<T>(d_o, c);
@@ -156,18 +190,24 @@ lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t =
   }
 }
 
-// dh0 = (dzx[0] @ RW^T), rounded to the type
-template <typename T>
+// dh0 = (dzx[0] @ RW^T), rounded to the type; masked, plus (1-m[0])*dh of
+// step 0 (`m0` [B], `dh_step0` [B, H], both null unmasked)
+template <typename T, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
-lstm_bwd_dh(const T* __restrict__ dzx, const T* __restrict__ rw, T* __restrict__ dh,
-            int B, int H) {
+lstm_bwd_dh(const T* __restrict__ dzx, const T* __restrict__ rw, const T* __restrict__ m0,
+            const T* __restrict__ dh_step0, T* __restrict__ dh, int B, int H) {
   const int tid = threadIdx.x;
   const int u = tid % kUnits;
   const int r = tid / kUnits;
   const int j0 = blockIdx.x * kUnits;
   const int b0 = blockIdx.y * kRows;
   const float rec = dzx_rwt<T>(dzx, rw, B, H, b0, j0, r, u);
-  if (b0 + r < B && j0 + u < H) st(dh, static_cast<size_t>(b0 + r) * H + j0 + u, rec);
+  const int b = b0 + r;
+  if (b >= B || j0 + u >= H) return;
+  const size_t hidx = static_cast<size_t>(b) * H + j0 + u;
+  float v = rnd<T>(rec);
+  if (kMasked) v = add<T>(v, mul<T>(sub<T>(1.0f, ld(m0, b)), ld(dh_step0, hidx)));
+  st(dh, hidx, v);
 }
 
 constexpr int kGemmM = 64;   // rows of dRW (hidden units k) per block
@@ -244,19 +284,22 @@ __global__ void peephole_reduce(const float* __restrict__ psum, T* __restrict__ 
   st(g == 0 ? dpf : g == 1 ? dpi : dpo, j, s);
 }
 
-template <typename T>
+// mask_v [steps, B] and dhbuf_v (2*B*H scratch) are null unmasked
+template <typename T, bool kMasked>
 cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v,
-                         const void* ys_v, const void* a_v, const void* f_v, const void* o_v,
-                         const void* i_v, const void* c_v, const void* h0_v, const void* c0_v,
-                         const void* rw_v, const void* pf_v, const void* pi_v,
-                         const void* po_v, void* dzx_v, void* dh0_v, void* dc0_v,
-                         void* drw_v, void* dpf_v, void* dpi_v, void* dpo_v, void* dcbuf_v,
-                         void* psum_v, int steps, int B, int H, int act, int gate,
-                         cudaStream_t stream) {
+                         const void* mask_v, const void* ys_v, const void* a_v,
+                         const void* f_v, const void* o_v, const void* i_v, const void* c_v,
+                         const void* h0_v, const void* c0_v, const void* rw_v,
+                         const void* pf_v, const void* pi_v, const void* po_v, void* dzx_v,
+                         void* dh0_v, void* dc0_v, void* drw_v, void* dpf_v, void* dpi_v,
+                         void* dpo_v, void* dcbuf_v, void* dhbuf_v, void* psum_v, int steps,
+                         int B, int H, int act, int gate, cudaStream_t stream) {
   const T* rw = static_cast<const T*>(rw_v);
   const T* c = static_cast<const T*>(c_v);
+  const T* mask = static_cast<const T*>(mask_v);
   T* dzx = static_cast<T*>(dzx_v);
   T* dcbuf = static_cast<T*>(dcbuf_v);
+  T* dhbuf = static_cast<T*>(dhbuf_v);
   float* psum = static_cast<float*>(psum_v);
   const size_t BH = static_cast<size_t>(B) * H;
   const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
@@ -264,19 +307,25 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
     const size_t off = t * BH;
     const T* dc_in = t == steps - 1 ? static_cast<const T*>(dcT_v) : dcbuf + ((t + 1) & 1) * BH;
     T* dc_out = t == 0 ? static_cast<T*>(dc0_v) : dcbuf + (t & 1) * BH;
-    lstm_bwd_step<T><<<grid, kThreads, 0, stream>>>(
-        t == steps - 1 ? nullptr : dzx + 4 * (off + BH), static_cast<const T*>(dhT_v),
+    const bool last = t == steps - 1;
+    lstm_bwd_step<T, kMasked><<<grid, kThreads, 0, stream>>>(
+        last ? nullptr : dzx + 4 * (off + BH), static_cast<const T*>(dhT_v),
         static_cast<const T*>(dys_v) + off, dc_in, static_cast<const T*>(a_v) + off,
         static_cast<const T*>(f_v) + off, static_cast<const T*>(o_v) + off,
         static_cast<const T*>(i_v) + off,
         t == 0 ? static_cast<const T*>(c0_v) : c + off - BH, rw,
         static_cast<const T*>(pf_v), static_cast<const T*>(pi_v),
-        static_cast<const T*>(po_v), dzx + 4 * off, dc_out,
+        static_cast<const T*>(po_v), kMasked ? mask + static_cast<size_t>(t) * B : nullptr,
+        kMasked && !last ? mask + static_cast<size_t>(t + 1) * B : nullptr,
+        kMasked ? dhbuf + ((t + 1) & 1) * BH : nullptr,
+        kMasked ? dhbuf + (t & 1) * BH : nullptr, dzx + 4 * off, dc_out,
         psum + static_cast<size_t>(t) * grid.y * 3 * H, B, H, act, gate);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  lstm_bwd_dh<T><<<grid, kThreads, 0, stream>>>(dzx, rw, static_cast<T*>(dh0_v), B, H);
+  lstm_bwd_dh<T, kMasked><<<grid, kThreads, 0, stream>>>(
+      dzx, rw, kMasked ? mask : nullptr, kMasked ? dhbuf : nullptr, static_cast<T*>(dh0_v),
+      B, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 ggrid((4 * H + kGemmN - 1) / kGemmN, (H + kGemmM - 1) / kGemmM);
@@ -307,10 +356,35 @@ extern "C" int dl4j_lstm_seq_bwd(const void* dys, const void* dhT, const void* d
                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return run_backward<__nv_bfloat16>(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, rw, pf, pi,
-                                       po, dzx, dh0, dc0, drw, dpf, dpi, dpo, dcbuf, psum,
-                                       steps, B, H, act, gate, s);
-  return run_backward<float>(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, rw, pf, pi, po, dzx,
-                             dh0, dc0, drw, dpf, dpi, dpo, dcbuf, psum, steps, B, H, act,
-                             gate, s);
+    return run_backward<__nv_bfloat16, false>(dys, dhT, dcT, nullptr, ys, a, f, o, i, c, h0,
+                                              c0, rw, pf, pi, po, dzx, dh0, dc0, drw, dpf,
+                                              dpi, dpo, dcbuf, nullptr, psum, steps, B, H,
+                                              act, gate, s);
+  return run_backward<float, false>(dys, dhT, dcT, nullptr, ys, a, f, o, i, c, h0, c0, rw, pf,
+                                    pi, po, dzx, dh0, dc0, drw, dpf, dpi, dpo, dcbuf, nullptr,
+                                    psum, steps, B, H, act, gate, s);
+}
+
+// The masked backward (rows of `mask` [steps, B] that are 0 pass dh and dc
+// through to the step before): as dl4j_lstm_seq_bwd, with `dhbuf` scratch of
+// 2*B*H elements for the pre-mask dh that each step hands to the one before.
+extern "C" int dl4j_lstm_seq_masked_bwd(const void* dys, const void* dhT, const void* dcT,
+                                        const void* mask, const void* ys, const void* a,
+                                        const void* f, const void* o, const void* i,
+                                        const void* c, const void* h0, const void* c0,
+                                        const void* rw, const void* pf, const void* pi,
+                                        const void* po, void* dzx, void* dh0, void* dc0,
+                                        void* drw, void* dpf, void* dpi, void* dpo,
+                                        void* dcbuf, void* dhbuf, void* psum, int steps,
+                                        int B, int H, int act, int gate, int bf16,
+                                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return run_backward<__nv_bfloat16, true>(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0,
+                                             rw, pf, pi, po, dzx, dh0, dc0, drw, dpf, dpi,
+                                             dpo, dcbuf, dhbuf, psum, steps, B, H, act, gate,
+                                             s);
+  return run_backward<float, true>(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0, rw, pf, pi,
+                                   po, dzx, dh0, dc0, drw, dpf, dpi, dpo, dcbuf, dhbuf, psum,
+                                   steps, B, H, act, gate, s);
 }

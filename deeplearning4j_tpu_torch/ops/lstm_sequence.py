@@ -1,28 +1,33 @@
 """Whole-sequence peephole LSTM: inference primal, training forward and
-backward.
+backward, unmasked and masked.
 
 Port of the Pallas sequence kernels of
 ``deeplearning4j_tpu/ops/pallas_kernels.py``: ``zx`` [T, B, 4H] is the
 hoisted ``x @ W + b``; the op runs the recurrence and returns
 ``(ys [T, B, H], h_T, c_T)``. Gate columns are [a, f, o, i]; the peepholes
-pF and pI see c_{t-1}, pO sees c_t.
+pF and pI see c_{t-1}, pO sees c_t. With a ``mask`` [T, B, 1], a step whose
+mask is 0 holds h/c.
 
 - :func:`fused_lstm_sequence` and :func:`fused_lstm_sequence_masked` are the
   lean primal (``_seq_lean_impl``): CUDA kernel ``csrc/lstm_seq.cu``.
-- :class:`LstmSequenceFunction` is the custom VJP (``fused_lstm_sequence``'s
-  ``_seq_fwd``/``_seq_bwd``): under grad its forward runs the training
-  forward (``_seq_fwd_impl``, the residual-storing instantiation of the same
+- :class:`LstmSequenceFunction` is the custom VJP of both
+  ``fused_lstm_sequence`` (``_seq_fwd``/``_seq_bwd``) and
+  ``fused_lstm_sequence_masked`` (``_seq_masked_fwd``/``_seq_masked_bwd``):
+  under grad its forward runs the training forward (``_seq_fwd_impl`` or
+  ``_seq_masked_fwd_impl``, residual-storing instantiations of the same
   kernel), and its backward the reverse-time kernel ``csrc/lstm_seq_bwd.cu``
-  (``_seq_bwd``). :func:`lstm_sequence_apply` is the entry the layers call
-  and the one place that picks what runs: the Function under grad, the lean
-  primal otherwise.
+  (``_seq_bwd``, or its masked instantiation for ``_seq_masked_bwd``).
+  :func:`lstm_sequence_apply` is the entry the layers call and the one place
+  that picks what runs: the Function under grad, the lean primal otherwise.
 
 Every wrapper launches its kernel for CUDA tensors and raises on anything it
 does not take. For CPU tensors it runs the plain version
 (:func:`lstm_sequence_reference`, :func:`lstm_sequence_masked_reference`,
 :func:`lstm_sequence_train_reference`,
-:func:`lstm_sequence_backward_reference`), which does the same math as a loop
-over t and is what ``chip_smoke.py`` holds the kernel against.
+:func:`lstm_sequence_masked_train_reference`,
+:func:`lstm_sequence_backward_reference`,
+:func:`lstm_sequence_masked_backward_reference`), which does the same math as
+a loop over t and is what ``chip_smoke.py`` holds the kernel against.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from . import _build
 
 # count of wrapper calls that launched the kernel (each call runs T steps)
 launches = {"lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
-            "lstm_seq_train_fwd": 0, "lstm_seq_bwd": 0}
+            "lstm_seq_train_fwd": 0, "lstm_seq_bwd": 0,
+            "lstm_seq_masked_train_fwd": 0, "lstm_seq_masked_bwd": 0}
 
 
 def _sigmoid_tanh_form(x):
@@ -98,6 +104,14 @@ def _cell(zx, h_prev, c_prev, RW, pF, pI, pO, act, gate):
     return o * act(c), c, a, f, o, i
 
 
+def _hold(mask, t, new, old):
+    """A masked step holds the state: m*new + (1-m)*old (``mask`` None: new)."""
+    if mask is None:
+        return new
+    m = mask[t]
+    return m * new + (1.0 - m) * old
+
+
 def lstm_sequence_masked_reference(zx, mask, h0, c0, RW, pF, pI, pO,
                                    act: Activation = "tanh",
                                    gate: Activation = "sigmoid") -> Result:
@@ -110,11 +124,7 @@ def lstm_sequence_masked_reference(zx, mask, h0, c0, RW, pF, pI, pO,
     ys = []
     for t in range(zx.shape[0]):
         h_new, c_new, *_ = _cell(zx[t], h, c, RW, pF, pI, pO, act_fn, gate_fn)
-        if mask is not None:
-            m = mask[t]
-            h_new = m * h_new + (1.0 - m) * h
-            c_new = m * c_new + (1.0 - m) * c
-        h, c = h_new, c_new
+        h, c = _hold(mask, t, h_new, h), _hold(mask, t, c_new, c)
         ys.append(h)
     ys = torch.stack(ys) if ys else zx.new_empty((0,) + tuple(h0.shape))
     return ys, h, c
@@ -128,12 +138,14 @@ def lstm_sequence_reference(zx, h0, c0, RW, pF, pI, pO,
                                           act, gate)
 
 
-def lstm_sequence_train_reference(zx, h0, c0, RW, pF, pI, pO,
-                                  act: str = "tanh",
-                                  gate: str = "sigmoid") -> TrainResult:
-    """Plain version of the training forward (``_seq_fwd_kernel``): the
-    unmasked recurrence, also returning the residuals a, f, o, i, c
-    [T, B, H]. Returns (ys, a, f, o, i, c, h_T, c_T)."""
+def lstm_sequence_masked_train_reference(zx, mask, h0, c0, RW, pF, pI, pO,
+                                         act: str = "tanh",
+                                         gate: str = "sigmoid") -> TrainResult:
+    """Plain version of the masked training forward
+    (``_seq_fwd_kernel_masked``; ``mask`` None for ``_seq_fwd_kernel``): the
+    recurrence, also returning the residuals a, f, o, i and c [T, B, H]; a, f,
+    o, i as computed at every step, c (like ys) after the mask. Returns (ys,
+    a, f, o, i, c, h_T, c_T)."""
     T, B, _ = zx.shape
     H = h0.shape[-1]
     if T == 0:
@@ -142,21 +154,34 @@ def lstm_sequence_train_reference(zx, h0, c0, RW, pF, pI, pO,
     h, c = h0, c0
     streams = [[] for _ in range(6)]  # ys a f o i c
     for t in range(T):
-        h, c, a, f, o, i = _cell(zx[t], h, c, RW, pF, pI, pO, ACT[act], ACT[gate])
+        h_new, c_new, a, f, o, i = _cell(zx[t], h, c, RW, pF, pI, pO, ACT[act],
+                                         ACT[gate])
+        h, c = _hold(mask, t, h_new, h), _hold(mask, t, c_new, c)
         for s, v in zip(streams, (h, a, f, o, i, c)):
             s.append(v)
     return tuple(torch.stack(s) for s in streams) + (h, c)
 
 
-def lstm_sequence_backward_reference(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
-                                     RW, pF, pI, pO, act: str = "tanh",
-                                     gate: str = "sigmoid") -> Grads:
-    """Plain version of the backward (``_seq_bwd_kernel``), an explicit
-    reverse loop at the kernel's rounding points: c and act(c) recomputed
-    from the gates; ``dh`` rounded to the dtype after the product
-    accumulated in at least f32; dRW and the peephole sums accumulated in at
-    least f32 and rounded at the end. Returns (dzx, dh0, dc0, dRW, dpF, dpI,
-    dpO)."""
+def lstm_sequence_train_reference(zx, h0, c0, RW, pF, pI, pO,
+                                  act: str = "tanh",
+                                  gate: str = "sigmoid") -> TrainResult:
+    """Plain version of the unmasked training forward (``_seq_fwd_kernel``)."""
+    return lstm_sequence_masked_train_reference(zx, None, h0, c0, RW, pF, pI,
+                                                pO, act, gate)
+
+
+def lstm_sequence_masked_backward_reference(dys, dhT, dcT, mask, ys, a, f, o,
+                                            i, c, h0, c0, RW, pF, pI, pO,
+                                            act: str = "tanh",
+                                            gate: str = "sigmoid") -> Grads:
+    """Plain version of the masked backward (``_seq_bwd_kernel_masked``;
+    ``mask`` None for ``_seq_bwd_kernel``), an explicit reverse loop at the
+    kernel's rounding points: c and act(c) recomputed from the gates (the
+    pre-mask c); ``dh`` rounded to the dtype after the product accumulated in
+    at least f32; dRW and the peephole sums accumulated in at least f32 and
+    rounded at the end. Masked, the gate math takes m*dh and m*dc, and
+    (1-m)*dh and (1-m)*dc pass through to the step before. Returns (dzx, dh0,
+    dc0, dRW, dpF, dpI, dpO)."""
     act_fn, dact = ACT[act], DACT[act]
     dgate = DACT[gate]
     dt = ys.dtype
@@ -166,13 +191,16 @@ def lstm_sequence_backward_reference(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
     dRW = torch.zeros(RW.shape, dtype=acc, device=RW.device)
     dp = [torch.zeros(pF.shape, dtype=acc, device=pF.device) for _ in range(3)]
     dzx = []
-    dh_carry, dc = dhT, dcT
+    dh_carry, dc_carry = dhT, dcT
     for t in reversed(range(T)):
         c_prev = c0 if t == 0 else c[t - 1]
         h_prev = h0 if t == 0 else ys[t - 1]
         ct = f[t] * c_prev + i[t] * a[t]
         cact = act_fn(ct)
-        dh = dys[t] + dh_carry
+        dh = dh_t = dys[t] + dh_carry
+        dc = dc_t = dc_carry
+        if mask is not None:
+            dh, dc = mask[t] * dh_t, mask[t] * dc_t
         d_o = dh * cact * dgate(o[t])
         dc_tot = dc + dh * o[t] * dact(cact) + d_o * pO
         d_f = dc_tot * c_prev * dgate(f[t])
@@ -181,12 +209,24 @@ def lstm_sequence_backward_reference(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
         dz = torch.cat([d_a, d_f, d_o, d_i], dim=-1)
         dzx.append(dz)
         dh_carry = torch.matmul(dz.to(acc), RWt).to(dt)
-        dc = dc_tot * f[t] + d_f * pF + d_i * pI
+        dc_carry = dc_tot * f[t] + d_f * pF + d_i * pI
+        if mask is not None:
+            keep = 1.0 - mask[t]
+            dh_carry = dh_carry + keep * dh_t
+            dc_carry = dc_carry + keep * dc_t
         dRW += torch.matmul(h_prev.to(acc).t(), dz.to(acc))
         for s, term in zip(dp, (d_f * c_prev, d_i * c_prev, d_o * ct)):
             s += term.to(acc).sum(0)
     dzx = torch.stack(dzx[::-1]) if dzx else ys.new_zeros((T, B, 4 * H))
-    return (dzx, dh_carry, dc, dRW.to(dt)) + tuple(s.to(dt) for s in dp)
+    return (dzx, dh_carry, dc_carry, dRW.to(dt)) + tuple(s.to(dt) for s in dp)
+
+
+def lstm_sequence_backward_reference(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
+                                     RW, pF, pI, pO, act: str = "tanh",
+                                     gate: str = "sigmoid") -> Grads:
+    """Plain version of the unmasked backward (``_seq_bwd_kernel``)."""
+    return lstm_sequence_masked_backward_reference(
+        dys, dhT, dcT, None, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO, act, gate)
 
 
 # ------------------------------------------------------------------ kernel
@@ -241,8 +281,8 @@ def _launch(name, zx, mask, h0, c0, RW, pF, pI, pO, act, gate) -> Result:
     return ys, hT, cT
 
 
-def _launch_train_fwd(zx, h0, c0, RW, pF, pI, pO, act, gate) -> TrainResult:
-    _check(zx, None, h0, c0, RW, pF, pI, pO, act, gate)
+def _launch_train_fwd(zx, mask, h0, c0, RW, pF, pI, pO, act, gate) -> TrainResult:
+    _check(zx, mask, h0, c0, RW, pF, pI, pO, act, gate)
     T, B, H4 = zx.shape
     H = H4 // 4
     if T == 0:
@@ -250,26 +290,33 @@ def _launch_train_fwd(zx, h0, c0, RW, pF, pI, pO, act, gate) -> TrainResult:
         return (empty,) * 6 + (h0.clone(), c0.clone())
     ys, a, f, o, i, c = (zx.new_empty((T, B, H)) for _ in range(6))
     hT, cT = zx.new_empty((B, H)), zx.new_empty((B, H))
-    fn = _build.bind("lstm_seq", "dl4j_lstm_seq_train_fwd", 15, 6)
-    _build.launch(launches, "lstm_seq_train_fwd", fn, zx.device, zx, h0, c0,
-                  RW, pF, pI, pO, ys, a, f, o, i, c, hT, cT, T, B, H,
-                  _ACT_CODES[act], _ACT_CODES[gate],
-                  int(zx.dtype == torch.bfloat16))
-    return ys, a, f, o, i, c, hT, cT
+    ints = (T, B, H, _ACT_CODES[act], _ACT_CODES[gate], int(zx.dtype == torch.bfloat16))
+    outs = (ys, a, f, o, i, c, hT, cT)
+    if mask is None:
+        fn = _build.bind("lstm_seq", "dl4j_lstm_seq_train_fwd", 15, 6)
+        _build.launch(launches, "lstm_seq_train_fwd", fn, zx.device, zx, h0, c0,
+                      RW, pF, pI, pO, *outs, *ints)
+    else:
+        fn = _build.bind("lstm_seq", "dl4j_lstm_seq_masked_train_fwd", 16, 6)
+        _build.launch(launches, "lstm_seq_masked_train_fwd", fn, zx.device, zx,
+                      mask, h0, c0, RW, pF, pI, pO, *outs, *ints)
+    return outs
 
 
-def _launch_bwd(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO,
+def _launch_bwd(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO,
                 act, gate) -> Grads:
     if ys.dim() != 3:
         raise ValueError(f"ys must be [T, B, H], got {tuple(ys.shape)}")
     T, B, H = ys.shape
     seq, state = (T, B, H), (B, H)
-    _check_tensors("ys", {"ys": (ys, seq), "dys": (dys, seq), "dhT": (dhT, state),
-                  "dcT": (dcT, state), "a": (a, seq), "f": (f, seq),
-                  "o": (o, seq), "i": (i, seq), "c": (c, seq),
-                  "h0": (h0, state), "c0": (c0, state),
-                  "RW": (RW, (H, 4 * H)), "pF": (pF, (H,)), "pI": (pI, (H,)),
-                  "pO": (pO, (H,))}, act, gate)
+    tensors = {"ys": (ys, seq), "dys": (dys, seq), "dhT": (dhT, state),
+               "dcT": (dcT, state), "a": (a, seq), "f": (f, seq), "o": (o, seq),
+               "i": (i, seq), "c": (c, seq), "h0": (h0, state), "c0": (c0, state),
+               "RW": (RW, (H, 4 * H)), "pF": (pF, (H,)), "pI": (pI, (H,)),
+               "pO": (pO, (H,))}
+    if mask is not None:
+        tensors["mask"] = (mask, (T, B, 1))
+    _check_tensors("ys", tensors, act, gate)
     dzx = ys.new_empty((T, B, 4 * H))
     dh0, dc0 = ys.new_empty((B, H)), ys.new_empty((B, H))
     dRW = ys.new_empty((H, 4 * H))
@@ -281,12 +328,19 @@ def _launch_bwd(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO,
     row_blocks = -(-B // 32)  # csrc/lstm_seq_bwd.cu: kRows
     psum = torch.empty((T * row_blocks * 3 * H,), dtype=torch.float32,
                        device=ys.device)
-    fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_bwd", 24, 6)
-    _build.launch(launches, "lstm_seq_bwd", fn, ys.device, dys, dhT, dcT, ys,
-                  a, f, o, i, c, h0, c0, RW, pF, pI, pO, dzx, dh0, dc0, dRW,
-                  dpF, dpI, dpO, dcbuf, psum, T, B, H, _ACT_CODES[act],
-                  _ACT_CODES[gate], int(ys.dtype == torch.bfloat16))
-    return dzx, dh0, dc0, dRW, dpF, dpI, dpO
+    grads = (dzx, dh0, dc0, dRW, dpF, dpI, dpO)
+    ints = (T, B, H, _ACT_CODES[act], _ACT_CODES[gate], int(ys.dtype == torch.bfloat16))
+    res = (ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO)
+    if mask is None:
+        fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_bwd", 24, 6)
+        _build.launch(launches, "lstm_seq_bwd", fn, ys.device, dys, dhT, dcT, *res,
+                      *grads, dcbuf, psum, *ints)
+    else:
+        dhbuf = ys.new_empty((2, B, H))  # each step's pre-mask dh, for the step before
+        fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_masked_bwd", 26, 6)
+        _build.launch(launches, "lstm_seq_masked_bwd", fn, ys.device, dys, dhT, dcT,
+                      mask, *res, *grads, dcbuf, dhbuf, psum, *ints)
+    return grads
 
 
 def fused_lstm_sequence(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
@@ -317,52 +371,74 @@ def variant(t: torch.Tensor) -> str:
     return "seqfused" if t.is_cuda else "reference"
 
 
+def lstm_sequence_masked_train_forward(zx, mask, h0, c0, RW, pF, pI, pO,
+                                       act: str = "tanh",
+                                       gate: str = "sigmoid") -> TrainResult:
+    """Training forward with ``mask`` [T, B, 1] (None: unmasked): (ys, a, f,
+    o, i, c, h_T, c_T). CUDA tensors run the kernel; CPU tensors the plain
+    version."""
+    fn = _launch_train_fwd if zx.is_cuda else lstm_sequence_masked_train_reference
+    return fn(zx, mask, h0, c0, RW, pF, pI, pO, act, gate)
+
+
 def lstm_sequence_train_forward(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
                                 gate: str = "sigmoid") -> TrainResult:
-    """Training forward: (ys, a, f, o, i, c, h_T, c_T). CUDA tensors run the
-    kernel; CPU tensors the plain version."""
-    if zx.is_cuda:
-        return _launch_train_fwd(zx, h0, c0, RW, pF, pI, pO, act, gate)
-    return lstm_sequence_train_reference(zx, h0, c0, RW, pF, pI, pO, act, gate)
+    """Unmasked training forward: (ys, a, f, o, i, c, h_T, c_T)."""
+    return lstm_sequence_masked_train_forward(zx, None, h0, c0, RW, pF, pI, pO,
+                                              act, gate)
+
+
+def lstm_sequence_masked_backward(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0,
+                                  c0, RW, pF, pI, pO, act: str = "tanh",
+                                  gate: str = "sigmoid") -> Grads:
+    """Backward from the masked training forward's residuals and its
+    ``mask`` (None: unmasked): (dzx, dh0, dc0, dRW, dpF, dpI, dpO). CUDA
+    tensors run the kernel; CPU tensors the plain version."""
+    fn = _launch_bwd if ys.is_cuda else lstm_sequence_masked_backward_reference
+    return fn(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO, act,
+              gate)
 
 
 def lstm_sequence_backward(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, RW, pF,
                            pI, pO, act: str = "tanh",
                            gate: str = "sigmoid") -> Grads:
-    """Backward from the training forward's residuals: (dzx, dh0, dc0, dRW,
-    dpF, dpI, dpO). CUDA tensors run the kernel; CPU tensors the plain
-    version."""
-    fn = _launch_bwd if ys.is_cuda else lstm_sequence_backward_reference
-    return fn(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO, act,
-              gate)
+    """Backward from the unmasked training forward's residuals."""
+    return lstm_sequence_masked_backward(dys, dhT, dcT, None, ys, a, f, o, i, c,
+                                         h0, c0, RW, pF, pI, pO, act, gate)
 
 
 class LstmSequenceFunction(torch.autograd.Function):
     """The sequence op under autograd, over (zx, h0, c0, RW, pF, pI, pO);
-    ``act``/``gate`` are names and take no gradient. Its forward runs the
-    training forward (residuals kept for the backward) when an input needs a
-    gradient, the lean primal otherwise; its backward runs the reverse-time
-    backward. Outputs (ys, h_T, c_T)."""
+    ``act``/``gate`` are names and ``mask`` [T, B, 1] (or None) a constant:
+    they take no gradient. Its forward runs the training forward (residuals
+    kept for the backward) when an input needs a gradient, the lean primal
+    otherwise; its backward runs the reverse-time backward, masked when the
+    forward was. Outputs (ys, h_T, c_T)."""
 
     @staticmethod
-    def forward(ctx, zx, h0, c0, RW, pF, pI, pO, act, gate):
+    def forward(ctx, zx, h0, c0, RW, pF, pI, pO, act, gate, mask=None):
         ctx.act, ctx.gate = act, gate
         if not any(ctx.needs_input_grad[:7]):
-            return fused_lstm_sequence(zx, h0, c0, RW, pF, pI, pO, act, gate)
-        ys, a, f, o, i, c, hT, cT = lstm_sequence_train_forward(
-            zx, h0, c0, RW, pF, pI, pO, act, gate)
-        ctx.save_for_backward(ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO)
+            if mask is None:
+                return fused_lstm_sequence(zx, h0, c0, RW, pF, pI, pO, act, gate)
+            return fused_lstm_sequence_masked(zx, mask, h0, c0, RW, pF, pI, pO, act,
+                                              gate)
+        ys, a, f, o, i, c, hT, cT = lstm_sequence_masked_train_forward(
+            zx, mask, h0, c0, RW, pF, pI, pO, act, gate)
+        saved = (ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO)
+        ctx.save_for_backward(*saved, *(() if mask is None else (mask,)))
         return ys, hT, cT
 
     @staticmethod
     def backward(ctx, dys, dhT, dcT):
-        ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO = ctx.saved_tensors
+        ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO, *mask = ctx.saved_tensors
         dys, dhT, dcT = (torch.zeros_like(like) if g is None else g.contiguous()
                          for g, like in ((dys, ys), (dhT, h0), (dcT, c0)))
-        grads = lstm_sequence_backward(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
-                                       RW, pF, pI, pO, ctx.act, ctx.gate)
+        grads = lstm_sequence_masked_backward(
+            dys, dhT, dcT, mask[0] if mask else None, ys, a, f, o, i, c, h0,
+            c0, RW, pF, pI, pO, ctx.act, ctx.gate)
         return tuple(g if need else None
-                     for g, need in zip(grads, ctx.needs_input_grad)) + (None, None)
+                     for g, need in zip(grads, ctx.needs_input_grad)) + (None,) * 3
 
 
 def lstm_sequence_apply(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
@@ -370,23 +446,13 @@ def lstm_sequence_apply(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
                         mask: Optional[torch.Tensor] = None) -> Result:
     """The sequence op as the layers call it, and the one place that picks
     what runs (``mask`` [T, B, 1] or None). With no gradient to keep (grad
-    mode off, or no input requiring one) the lean primal, as
+    mode off, or no input requiring one) the lean primal, masked or not, as
     ``fused_lstm_sequence``'s custom VJP splits primal and forward rule.
-    Under grad: unmasked, :class:`LstmSequenceFunction` (training forward and
-    backward kernels); masked, which has no kernel yet (rows 8-9 of PERF.md's
-    table), the plain masked version under autograd for CPU tensors, and
-    NotImplementedError for CUDA ones."""
+    Under grad, :class:`LstmSequenceFunction`: the training forward and
+    backward kernels, masked or not."""
     tensors = (zx, h0, c0, RW, pF, pI, pO)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
         if mask is None:
             return fused_lstm_sequence(*tensors, act, gate)
         return fused_lstm_sequence_masked(zx, mask, *tensors[1:], act, gate)
-    if mask is None:
-        return LstmSequenceFunction.apply(*tensors, act, gate)
-    if zx.is_cuda:
-        raise NotImplementedError(
-            "masked LSTM training has no CUDA kernel yet: it needs the masked "
-            "sequence forward and backward (_seq_masked_fwd_impl and "
-            "_seq_masked_bwd, rows 8 and 9 of PERF.md's kernel table); train "
-            "without a features mask, or on the CPU")
-    return lstm_sequence_masked_reference(zx, mask, *tensors[1:], act, gate)
+    return LstmSequenceFunction.apply(*tensors, act, gate, mask)

@@ -20,6 +20,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.models.char_rnn import CharIterator as jax_char_iterator  # noqa: E402
 from deeplearning4j_tpu.models.char_rnn import char_rnn as jax_char_rnn  # noqa: E402
 from deeplearning4j_tpu.utils.serialization import write_model  # noqa: E402
 
@@ -280,11 +281,21 @@ def test_unported_layer_is_refused():
 
 
 def test_char_iterator_batches():
-    it = pt.models.char_rnn.CharIterator("hello world, hello port " * 4,
-                                         seq_length=5, batch_size=3)
-    x, y = next(it)
+    """The port's CharIterator yields the JAX package's DataSets, batch for
+    batch from the same seed."""
+    text = "hello world, hello port " * 4
+    it = pt.models.char_rnn.CharIterator(text, seq_length=5, batch_size=3)
+    batches = list(it)
+    theirs = list(jax_char_iterator(text, seq_length=5, batch_size=3))
+    assert len(batches) == len(theirs) > 1
+    ds = batches[0]
+    assert isinstance(ds, pt.DataSet)
+    x, y = ds.features, ds.labels
     assert x.shape == y.shape == (3, 5, it.vocab_size)
     np.testing.assert_array_equal(x[:, 1:], y[:, :-1])
+    for mine, jds in zip(batches, theirs):
+        np.testing.assert_array_equal(mine.features, jds.features)
+        np.testing.assert_array_equal(mine.labels, jds.labels)
 
 
 # ------------------------------------------------------------------ device

@@ -20,7 +20,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
-from deeplearning4j_tpu.datasets.iterators import DataSet as JaxDataSet  # noqa: E402
+import deeplearning4j_tpu.ops as jax_ops  # noqa: E402
+from deeplearning4j_tpu.datasets.iterators import (  # noqa: E402
+    BucketingSequenceIterator as JaxBucketingIterator,
+    DataSet as JaxDataSet,
+)
 from deeplearning4j_tpu.nn import updaters as jax_updaters  # noqa: E402
 from deeplearning4j_tpu.ops import kernel_select  # noqa: E402
 
@@ -208,12 +212,101 @@ def test_bidirectional_training_matches_jax(jax_path):
 
 @pytest.mark.parametrize("mode", ["standard", "tbptt"])
 def test_masked_training_on_cpu_matches_jax(mode, jax_path):
-    """Masked training has no kernel yet (rows 8-9); on the CPU the port
-    trains through the plain masked version under autograd."""
+    """Masked SGD training: the masked sequence op under grad (the JAX scan
+    path here; its masked Pallas kernels in the bucketed Adam tests)."""
     jax_path("scan_reference")
     jnet, pnet = _pair(_conf(mode))
     _fit_both(jnet, pnet, _batches(2, seed=5, masks=True))
     _assert_same_training(jnet, pnet)
+
+
+def _sequences(n=8, seed=20):
+    """Next-char (features [L, V], labels [L, V]) pairs of lengths 2 to T+2."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        seq = rng.integers(0, V, int(rng.integers(3, T + 4)))
+        out.append((np.eye(V, dtype=np.float32)[seq[:-1]],
+                    np.eye(V, dtype=np.float32)[seq[1:]]))
+    return out
+
+
+BUCKETS = (4, T + 2)  # padded batches of T=4 and T=9, each with both masks
+
+
+@pytest.fixture
+def adam_calls(monkeypatch):
+    """Counts the JAX package's calls of its fused Adam update (at trace
+    time: the train step is jitted)."""
+    calls = []
+    real = jax_ops.fused_adam_update
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(jax_ops, "fused_adam_update", spy)
+    return calls
+
+
+@pytest.mark.parametrize("path", sorted(JAX_PATHS))
+@pytest.mark.parametrize("mode", ["standard", "tbptt"])
+def test_bucketed_adam_training_matches_jax(mode, path, jax_path, adam_calls):
+    """The char-RNN's recipe: Adam over padded variable-length batches of
+    the bucketing iterator (features and labels masks), two epochs. On the
+    JAX side the fused path runs the masked sequence kernels (rows 8-9) and
+    the fused Adam update (the spy sees it), the reference path the scan and
+    optax.adam."""
+    jax_path(path)
+    seqs = _sequences()
+    pit = pt.BucketingSequenceIterator(seqs, batch=B, boundaries=BUCKETS)
+    jit = JaxBucketingIterator(seqs, batch=B, boundaries=BUCKETS)
+    batches = list(pit)
+    assert {ds.features.shape[1] for ds in batches} == set(BUCKETS)
+    for mine, theirs in zip(batches, jit):
+        for field in ("features", "labels", "features_mask", "labels_mask"):
+            np.testing.assert_array_equal(getattr(mine, field), getattr(theirs, field))
+    jnet, pnet = _pair(_conf(mode, {"updater": "adam", "learning_rate": 0.01}))
+    jnet.fit(jit, epochs=2)
+    pnet.fit(pit, epochs=2)
+    assert pnet.epoch == 2
+    _assert_same_training(jnet, pnet)
+    assert bool(adam_calls) == (path == "seq_fused")
+
+
+def test_evaluate_matches_jax(jax_path):
+    """evaluate() over the padded batches: the same confusion matrix as the
+    JAX package's Evaluation (padded steps counted too, no labels mask, as
+    there)."""
+    jax_path("scan_reference")
+    seqs = _sequences(seed=21)
+    jnet, pnet = _pair(_conf("tbptt", {"updater": "adam", "learning_rate": 0.05}))
+    _fit_both(jnet, pnet, [(ds.features, ds.labels, ds.features_mask, ds.labels_mask)
+                           for ds in pt.BucketingSequenceIterator(seqs, B, BUCKETS)])
+    mine = pnet.evaluate(pt.BucketingSequenceIterator(seqs, B, BUCKETS), top_n=3)
+    theirs = jnet.evaluate(JaxBucketingIterator(seqs, B, BUCKETS), top_n=3)
+    assert isinstance(mine, pt.Evaluation)
+    np.testing.assert_array_equal(mine.confusion.matrix, theirs.confusion.matrix)
+    assert mine.examples == theirs.examples == sum(
+        ds.features.shape[0] * ds.features.shape[1]
+        for ds in pt.BucketingSequenceIterator(seqs, B, BUCKETS))
+    for metric in ("accuracy", "top_n_accuracy", "precision", "recall", "f1"):
+        assert getattr(mine, metric)() == pytest.approx(getattr(theirs, metric)(), abs=1e-12)
+    assert mine.false_positive_rate(0) == pytest.approx(theirs.false_positive_rate(0))
+    assert mine.stats() == theirs.stats()
+    x, y, _, _ = _batches(1, seed=22)[0]
+    ev = pnet.evaluate((x, y))
+    assert ev.examples == B * T
+
+
+def test_pad_to_bucket_matches_jax():
+    from deeplearning4j_tpu.datasets.iterators import pad_to_bucket as jax_pad
+
+    x = np.random.default_rng(0).normal(size=(2, 5, 3)).astype(np.float32)
+    for got, want in zip(pt.pad_to_bucket(x, (4, 8, 16)), jax_pad(x, (4, 8, 16))):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="exceeds"):
+        pt.pad_to_bucket(x, (2, 4))
 
 
 def test_bf16_compute_trains_close_to_jax(jax_path):
@@ -294,12 +387,19 @@ def test_inference_keeps_the_lean_primal():
     assert all(t.grad_fn is None for st in net._rnn_state for t in st.values())
 
 
-def test_adam_and_later_updaters_raise_on_fit_but_still_serve():
+def test_adam_fits_and_later_updaters_raise():
+    """The char-RNN's own updater, Adam, trains; the optax updaters of later
+    slices still raise."""
     x, y, _, _ = _batches(1)[0]
     net = pt.MultiLayerNetwork(pt.char_rnn(V, H), device="cpu").init()  # the adam default
-    assert net.output(x).shape == (B, T, V)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        net.fit((x, y))
+    before = pt.params_to_numpy(net)
+    net.fit((x, y))
+    assert net.iteration == -(-T // 50) and np.isfinite(net.score())
+    after = pt.params_to_numpy(net)
+    # the first Adam step moves a param by at most lr (1e-3), plus the f32
+    # rounding of the param itself
+    step = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(after, before) for k in a)
+    assert 5e-4 < step <= 1.001e-3
     for name in ("adamw", "rmsprop", "adagrad"):
         with pytest.raises(NotImplementedError, match=name):
             pt.UpdaterConfig(updater=name).build()
@@ -439,8 +539,19 @@ def test_cuda_fit_launches_the_kernels_and_matches_cpu(cuda_device, mode):
 
 
 @pytest.mark.cuda
-def test_cuda_adam_raises(cuda_device):
-    x, y, _, _ = _batches(1)[0]
-    net = pt.MultiLayerNetwork(pt.char_rnn(V, H), device=cuda_device).init()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        net.fit((x, y))
+def test_cuda_adam_launches_the_kernel(cuda_device):
+    """The default char-RNN trains with Adam on the card: one Adam launch per
+    param leaf and update, and the card's steps match the CPU's."""
+    batches = _batches(2, seed=15)
+    host = pt.params_to_numpy(pt.MultiLayerNetwork(pt.char_rnn(V, H), device="cpu").init())
+    nets = {}
+    for dev in ("cpu", cuda_device):
+        net = pt.MultiLayerNetwork(pt.char_rnn(V, H), device=dev).init(params=host)
+        net.set_listeners(Recorder())
+        before = pt.ops.counters()["adam_update"]
+        for x, y, _, _ in batches:
+            net.fit((x, y))
+        nets[str(dev)] = (net, pt.ops.counters()["adam_update"] - before)
+    (cpu, _), (gpu, adam_launches) = nets["cpu"], nets[str(cuda_device)]
+    assert adam_launches == gpu.iteration * sum(len(p) for p in gpu.layer_params)
+    np.testing.assert_allclose(gpu.listeners[0].losses, cpu.listeners[0].losses, rtol=1e-4)

@@ -154,16 +154,16 @@ def test_primal_and_forward_rule_split():
 
 
 def test_apply_with_a_mask_picks_the_masked_version():
-    """With a mask the op runs the plain masked version under autograd when
-    an input needs a gradient (on the CPU; rows 8-9 have no kernel yet), the
-    lean masked primal otherwise; both give the masked reference's values."""
+    """With a mask the op runs the masked training forward under the
+    Function when an input needs a gradient, the lean masked primal
+    otherwise; both give the masked reference's values."""
     arrs = [torch.from_numpy(a) for a in _inputs(np.float32, seed=3)]
     mask = torch.from_numpy(
         (np.arange(T)[:, None] < np.array([T, 4, 2])[None, :]).astype(np.float32)[..., None])
     want = ls.lstm_sequence_masked_reference(arrs[0], mask, *arrs[1:])
     leaves = [a.clone().requires_grad_() for a in arrs]
     trained = ops.lstm_sequence_apply(*leaves, mask=mask)
-    assert trained[0].grad_fn is not None
+    assert type(trained[0].grad_fn).__name__ == "LstmSequenceFunctionBackward"
     with torch.no_grad():
         lean = ops.lstm_sequence_apply(*leaves, mask=mask)
     assert lean[0].grad_fn is None
@@ -227,8 +227,8 @@ def test_layer_param_grads_match_jax(kind, pallas, dtype, monkeypatch, tmp_path)
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
 def test_masked_layer_training_on_cpu_matches_jax(dtype, monkeypatch, tmp_path):
-    """Masked training has no kernel yet (rows 8-9): on the CPU the port runs
-    the plain masked version under autograd."""
+    """Masked training through the layer against the JAX scan path (the
+    Pallas path and more masks: tests/test_torch_lstm_seq_masked_train.py)."""
     monkeypatch.setenv("DL4J_TPU_PALLAS", "0")
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "cal.json"))
     jlayer, player, params = _layer_pair("lstm", dtype, seed=13)
@@ -302,13 +302,22 @@ def test_cuda_training_kernels_match_plain_versions(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_masked_training_raises(cuda_device):
+def test_cuda_masked_training_launches_the_kernels(cuda_device):
+    """Masked training on the card runs the masked training forward and
+    backward kernels (rows 8-9) and no unmasked or lean one."""
     conf = pt.char_rnn(V, H, 1)
     conf.updater = {"updater": "sgd", "learning_rate": 0.1}
     conf.backprop_type = "standard"
     net = pt.MultiLayerNetwork(conf, device=cuda_device).init()
     rng = np.random.default_rng(0)
     x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
-    ds = pt.DataSet(x, x, features_mask=np.ones((B, T), np.float32))
-    with pytest.raises(NotImplementedError, match="rows 8 and 9"):
-        net.fit(ds)
+    fm = (np.arange(T)[None, :] < np.array([T, 4, 2])[:, None]).astype(np.float32)
+    ds = pt.DataSet(x, x, features_mask=fm, labels_mask=fm)
+    ops.reset_counters()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    launched = ops.counters()
+    assert launched["lstm_seq_masked_train_fwd"] == launched["lstm_seq_masked_bwd"] == 1
+    assert launched["lstm_seq_train_fwd"] == launched["lstm_seq_bwd"] == 0
+    assert launched["lstm_seq_lean"] == launched["lstm_seq_lean_masked"] == 0
+    assert np.isfinite(net.score())
