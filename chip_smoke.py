@@ -13,7 +13,12 @@ on the CPU from the same seed params and data); and the char-RNN's own
 training recipe (``char_rnn()`` defaults: Adam at lr 1e-3, TBPTT(50), on
 variable-length text padded by ``BucketingSequenceIterator`` to T=128 or
 256, so through the masked LSTM kernels), then ``evaluate`` and a
-write/restore/continue of a checkpoint. It checks the results and the kernel
+write/restore/continue of a checkpoint. Then a causal self-attention net
+(two blocks of SelfAttention and LayerNorm, n_out 512, 8 heads, over the
+same vocab; B=4, T=4096): the flash-attention kernels against their plain
+versions and two wrong ones, ``output``/``predict`` with and without
+padding, bucketed Adam training (T up to 4096) against the CPU at T<=512,
+``evaluate`` and an exact resume. It checks the results and the kernel
 launch counts of each path, and times the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, where
@@ -23,6 +28,7 @@ JAX package.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import statistics
@@ -652,10 +658,10 @@ def phase_train(torch, mode, dtype, host_params, card):
     net, losses, params, gpu_s = runs["cuda"]
     _, cpu_losses, cpu_params, cpu_s = runs["cpu"]
     updates = compared * UPDATES_PER_BATCH[mode]
-    expected = {"lstm_seq_train_fwd": LAYERS * updates, "lstm_seq_bwd": LAYERS * updates,
-                "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
-                "lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
-                "lstm_seq_masked_train_fwd": 0, "lstm_seq_masked_bwd": 0, "adam_update": 0}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"lstm_seq_train_fwd": LAYERS * updates,
+                     "lstm_seq_bwd": LAYERS * updates,
+                     "softmax_xent_fwd": updates, "softmax_xent_bwd": updates})
     loss_err = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
     param_err = max(float(np.abs(p[k] - q[k]).max())
                     for p, q in zip(params, cpu_params) for k in p)
@@ -711,7 +717,7 @@ def recipe_sequences():
     return out
 
 
-def recipe_readings(run, ref, seed_params):
+def recipe_readings(run, ref, seed_params, lr=RECIPE_LR):
     """A recipe run on the card against the same run on the CPU: the losses
     of every update relative to the CPU's, each param tensor's change from
     the seed params relative to the norm of the CPU's change (an update left
@@ -728,7 +734,7 @@ def recipe_readings(run, ref, seed_params):
                                 / np.linalg.norm(q[k] - p0[k].astype(np.float32)))
                           for p, q, p0 in zip(params, ref_params, seed_params) for k in p),
         "max_param_abs": max(float(d.max()) for d in diffs),
-        "elements_over_lr_tenth": int(sum(int((d > RECIPE_LR / 10).sum()) for d in diffs)),
+        "elements_over_lr_tenth": int(sum(int((d > lr / 10).sum()) for d in diffs)),
     }
 
 
@@ -826,12 +832,11 @@ def phase_train_recipe(torch, dtype, host_params, card):
     for fault in RECIPE_FAULTS:
         faults[fault] = recipe_readings(train("cuda", fault)[0], cpu, host_params)
         faults[fault]["caught"] = not all(faults[fault][k] <= lim[k] for k in lim)
-    expected = {"lstm_seq_masked_train_fwd": LAYERS * updates,
-                "lstm_seq_masked_bwd": LAYERS * updates,
-                "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
-                "adam_update": updates * sum(len(p) for p in net.layer_params),
-                "lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
-                "lstm_seq_train_fwd": 0, "lstm_seq_bwd": 0}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"lstm_seq_masked_train_fwd": LAYERS * updates,
+                     "lstm_seq_masked_bwd": LAYERS * updates,
+                     "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
+                     "adam_update": updates * sum(len(p) for p in net.layer_params)})
     loss_fall = float(cpu_losses[:3].mean() - cpu_losses[-3:].mean())
 
     # evaluate(): accuracy over every step of every padded row, as the JAX
@@ -895,6 +900,467 @@ def phase_train_recipe(torch, dtype, host_params, card):
     if not ok:
         raise AssertionError(f"training recipe {dtype} failed its checks")
     return launches, ms_per_update, net, it
+
+
+# ---- the causal self-attention slice: the transformer block of
+# examples/long_context.py without its MoE layer, two blocks deep, over the
+# char-RNN's vocabulary, at bench.py:510's attention shape (B=4, 8 heads,
+# T=4096, head dim 64, causal), so n_out 512; Adam at lr 3e-3 (the example's)
+ATTN_B, ATTN_HEADS, ATTN_T, ATTN_D = 4, 8, 4096, 64
+ATTN_N = ATTN_HEADS * ATTN_D
+ATTN_LR = 3e-3
+ATTN_BUCKETS = (2048, 4096)  # training text: 4 sequences of 1024-2048 and 4 of 2049-4096
+ATTN_CPU_BUCKETS = (256, 512)  # card against CPU: the CPU's plain attention is O(T^2)
+FLASH = "deeplearning4j_tpu/ops/flash_attention.py:"
+ATTN_KERNELS = {
+    "flash_attn_fwd": (CSRC + "flash_attn.cu", FLASH + "187"),
+    "flash_attn_bwd_dq": (CSRC + "flash_attn_bwd.cu", FLASH + "217"),
+    "flash_attn_bwd_dkv": (CSRC + "flash_attn_bwd.cu", FLASH + "233"),
+}
+# rows 13-15 against their plain versions on the same CUDA tensors: each
+# output's max |err| over the larger of its max |ref| and 1 (the inputs'
+# scale: at T=1, dq and dk are 0 up to the rounding of dp - delta). f32
+# differs only in the order of the sums (worst reading on the H100 3.6e-6,
+# dk); bf16 rounds out, dq, dk, dv once, so a sum in
+# another order can land on the neighbouring bf16, at most 2^-7 of the
+# largest value. The phase computes two wrong plain versions (the backward
+# with delta left out, the forward with the key mask ignored) and fails
+# unless both read above these limits.
+ATTN_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+ATTN_CASES = [(D, T) for D in (4, 16, 64, 128) for T in (1, 200, 4096)]
+# training on the card against the same training on the CPU at T <= 512, by
+# the recipe's four readings (recipe_readings), lr = 3e-3. Limits between
+# what the correct kernels read on the H100 (f32: losses 7.6e-7, change
+# 1.6e-4, largest difference 5.5e-4, 1 element over lr/10; bf16: 3.8e-4,
+# 0.040, 0.0122, 11,705 of 1,510,496) and the same training on the card
+# with delta left out of the backward kernels, run in the same phase, which
+# must fail them. bf16's largest difference is near the most Adam allows (2
+# lr for each of 4 updates, 0.024), so the other three readings carry it.
+ATTN_TRAIN_LIMITS = {
+    "float32": {"loss_rel": 2e-5, "change_rel": 2e-3, "max_param_abs": 5e-3,
+                "elements_over_lr_tenth": 100},
+    "bfloat16": {"loss_rel": 1e-2, "change_rel": 0.2, "max_param_abs": 0.02,
+                 "elements_over_lr_tenth": 100000},
+}
+
+
+def attention_conf(dtype):
+    from deeplearning4j_tpu_torch import (InputType, LayerNormLayer, MultiLayerConfiguration,
+                                          RnnOutputLayer, SelfAttentionLayer)
+
+    def attn():
+        return SelfAttentionLayer(n_out=ATTN_N, n_heads=ATTN_HEADS, causal=True,
+                                  attention_impl="flash")
+
+    return MultiLayerConfiguration(
+        layers=[attn(), LayerNormLayer(), attn(), LayerNormLayer(),
+                RnnOutputLayer(n_out=VOCAB, activation="softmax", loss="mcxent")],
+        input_type=InputType.recurrent(VOCAB),
+        updater={"updater": "adam", "learning_rate": ATTN_LR}, seed=SEED, dtype=dtype)
+
+
+def attention_params(seed):
+    """Random weights of the attention net from a numpy seed, one dict of
+    arrays per layer in the JAX package's layout: xavier-normal projections,
+    zero biases, LayerNorm's gamma 1 and beta 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def w(n_in, n_out):
+        return rng.normal(0.0, (2.0 / (n_in + n_out)) ** 0.5, (n_in, n_out))
+
+    params = []
+    n_in = VOCAB
+    for _ in range(2):
+        params.append({"Wq": w(n_in, ATTN_N), "Wk": w(n_in, ATTN_N), "Wv": w(n_in, ATTN_N),
+                       "Wo": w(ATTN_N, ATTN_N), "bo": np.zeros(ATTN_N)})
+        params.append({"gamma": np.ones(ATTN_N), "beta": np.zeros(ATTN_N)})
+        n_in = ATTN_N
+    params.append({"W": w(ATTN_N, VOCAB), "b": np.zeros(VOCAB)})
+    return params
+
+
+def attn_mask(torch, B, T):
+    """A [B, T] key mask with row 0 all zeros, row 1 leading zeros, row 2 an
+    interior gap and row 3 trailing zeros (the rest all ones)."""
+    import numpy as np
+
+    m = np.ones((B, T), np.float32)
+    m[0] = 0.0
+    m[1, :max(1, T // 4)] = 0.0
+    m[2, T // 3:max(T // 3 + 1, T // 2)] = 0.0
+    m[3, max(1, 3 * T // 4):] = 0.0
+    return torch.as_tensor(m, device=DEVICE)
+
+
+def attn_inputs(torch, B, H, T, D, dtype, seed):
+    """q, k, v and an upstream gradient [B, H, T, D], unit normals from a
+    numpy seed, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return [torch.as_tensor(rng.normal(0.0, 1.0, (B, H, T, D)), dtype=dt, device=DEVICE)
+            for _ in range(4)]
+
+
+def attn_readings(got, want) -> dict:
+    """Per output: max |err| over the larger of max |ref| and 1."""
+    return {n: float((g.float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1.0) for n, g, w in zip(
+                ("out", "lse", "dq", "dk", "dv"), got, want)}
+
+
+def phase_kernels_attention(torch, fa):
+    """Rows 13-15 against their plain versions on the same CUDA tensors: f32
+    and bf16, causal and not, D in {4, 16, 64, 128}, T in {1, 200, 4096} at
+    B=4, H=2 with ``attn_mask``, and the main shape (B=4, H=8, T=4096, D=64,
+    causal) with and without it. Then the wrong plain versions, which the
+    limits must catch. Returns the max abs error of each kernel (f32, main
+    shape)."""
+    errs, worst, n_cases = {}, {}, 0
+    for dtype in ("float32", "bfloat16"):
+        lim = ATTN_REL[dtype]
+        worst[dtype] = {}
+        cases = [(2, D, T, c, True) for D, T in ATTN_CASES for c in (False, True)]
+        cases += [(ATTN_HEADS, ATTN_D, ATTN_T, True, m) for m in (False, True)]
+        for H, D, T, causal, masked in cases:
+            q, k, v, g = attn_inputs(torch, ATTN_B, H, T, D, dtype, SEED + T + D)
+            mask = attn_mask(torch, ATTN_B, T) if masked else None
+            out, lse = fa.flash_attention_forward(q, k, v, mask, causal)
+            dq, delta = fa.flash_attention_dq(q, k, v, mask, out, lse, g, causal)
+            dk, dv = fa.flash_attention_dkv(q, k, v, mask, lse, delta, g, causal)
+            torch.cuda.synchronize()
+            r_out, r_lse = fa.flash_attention_reference(q, k, v, mask, causal)
+            want = (r_out, r_lse) + fa.flash_attention_backward_reference(
+                q, k, v, mask, r_out, r_lse, g, causal)
+            got = (out, lse, dq, dk, dv)
+            e = attn_readings(got, want)
+            n_cases += 1
+            for n, r in e.items():
+                worst[dtype][n] = max(worst[dtype].get(n, 0.0), r)
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+            check("flash_attn", dtype, e, dict.fromkeys(e, lim), B=ATTN_B, H=H, T=T, D=D,
+                  causal=causal, masked=masked, finite=finite,
+                  relative_to_max_of_largest_and_1=True)
+            if not finite:
+                raise AssertionError(f"flash_attn {dtype} H={H} T={T} D={D}: not finite")
+            if (H, T) == (ATTN_HEADS, ATTN_T) and dtype == "float32":
+                for name, outs in (("flash_attn_fwd", (0, 1)), ("flash_attn_bwd_dq", (2,)),
+                                   ("flash_attn_bwd_dkv", (3, 4))):
+                    errs[(name, dtype, masked)] = max(
+                        float((got[i].float() - want[i].float()).abs().max()) for i in outs)
+        # wrong plain versions on a masked causal case: what a kernel that
+        # left delta out, or ignored the key mask, would read
+        q, k, v, g = attn_inputs(torch, ATTN_B, 2, 200, ATTN_D, dtype, SEED)
+        mask = attn_mask(torch, ATTN_B, 200)
+        r_out, r_lse = fa.flash_attention_reference(q, k, v, mask, True)
+        right = fa.flash_attention_backward_reference(q, k, v, mask, r_out, r_lse, g, True)
+        no_delta = fa.flash_attention_backward_reference(
+            q, k, v, mask, torch.zeros_like(r_out), r_lse, g, True)
+        no_mask = fa.flash_attention_reference(q, k, v, None, True)
+        wrong = {"bwd_without_delta": attn_readings((r_out, r_lse) + no_delta,
+                                                    (r_out, r_lse) + right),
+                 "fwd_mask_ignored": attn_readings(no_mask + right, (r_out, r_lse) + right)}
+        caught = {"bwd_without_delta": min(wrong["bwd_without_delta"][n] for n in ("dq", "dk")),
+                  "fwd_mask_ignored": min(wrong["fwd_mask_ignored"][n] for n in ("out", "lse"))}
+        ok = all(v > lim for v in caught.values())
+        emit("kernel_limits", kernel="flash_attn", dtype=dtype, limit=lim, wrong_readings=wrong,
+             smallest_reading_of_each_wrong_version=caught, caught=ok)
+        if not ok:
+            raise AssertionError(f"flash_attn {dtype}: the limit {lim} does not catch {caught}")
+    emit("kernels_attention", cases=n_cases, worst_reading_by_dtype=worst, limits=ATTN_REL,
+         wrong_versions_caught=True, ok=True)
+    return errs
+
+
+def bound_attention(kernel: str, dtype: str, shape, causal=True):
+    """Least time of rows 13-15 on attention of [B, H, T, D] inputs without a
+    key mask: each [B, H, T, D] input read once and output written once, the
+    [B, H, T] f32 row vectors too; 2*D operations per (row, key) pair for
+    each product, over T(T+1)/2 pairs a head under causal masking (two
+    products for row 13: q k^T and p v; three for row 14: s, dp, ds k; four
+    for row 15: s, p^T dO, dp, ds^T q) at the dtype's peak."""
+    B, H, T, D = shape
+    item = 4 if dtype == "float32" else 2
+    tensors, rows, products = {"flash_attn_fwd": (4, 1, 2), "flash_attn_bwd_dq": (6, 2, 3),
+                               "flash_attn_bwd_dkv": (6, 2, 4)}[kernel]
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    return roofline(tensors * B * H * T * D * item + rows * B * H * T * 4,
+                    products * 2.0 * D * pairs, dtype)
+
+
+def attention_text(n_short, n_long, lo, mid, hi, seed):
+    """Next-char (features [L, VOCAB], labels [L, VOCAB]) pairs of a seeded
+    sentence repeated: ``n_short`` lengths in lo..mid and ``n_long`` in
+    mid+1..hi drawn from the seed, shuffled."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sentence = rng.integers(0, VOCAB, SENTENCE)
+    lengths = np.concatenate([rng.integers(lo, mid + 1, n_short),
+                              rng.integers(mid + 1, hi + 1, n_long)])
+    rng.shuffle(lengths)
+    out = []
+    for n in lengths:
+        seq = sentence[(rng.integers(0, SENTENCE) + np.arange(n + 1)) % SENTENCE]
+        out.append((one_hot(seq[:-1], VOCAB), one_hot(seq[1:], VOCAB)))
+    return out
+
+
+def phase_serve_attention(torch, card):
+    """``output`` and ``predict`` of the attention net at full width, B=4,
+    T=4096, and ``output`` of padded requests (trailing zeros in the
+    features mask): shape, rows that sum to 1, exactly 2 row-13 launches per
+    call and no other kernel, the real steps of the padded requests as in the
+    full ones (causal attention never sees a later key), and the card
+    against the CPU at T=512. Returns the launch counts."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, ops
+
+    rng = np.random.default_rng(SEED + 3)
+    x = one_hot(rng.integers(0, VOCAB, (ATTN_B, ATTN_T)), VOCAB)
+    lengths = np.array([ATTN_T, 3000, 2048, 777])
+    fmask = (np.arange(ATTN_T)[None, :] < lengths[:, None]).astype(np.float32)
+    host = attention_params(SEED)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = attention_conf(dtype)
+        net = load_jax_params(MultiLayerNetwork(conf), host)
+        per_call = {}
+        results = {}
+        for call, fn in (("output", lambda: net.output(x)), ("predict", lambda: net.predict(x)),
+                         ("output_padded", lambda: net.output(x, features_mask=fmask))):
+            torch.cuda.synchronize()
+            ops.reset_counters()
+            results[call] = fn()
+            torch.cuda.synchronize()
+            per_call[call] = {k: v for k, v in ops.counters().items() if v}
+        probs, cls, padded = results["output"], results["predict"], results["output_padded"]
+        for counts in per_call.values():
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        real = fmask > 0
+        padded_err = float(np.abs(padded[real] - probs[real]).max())
+        cpu = load_jax_params(MultiLayerNetwork(conf, device="cpu"), host)
+        t_cpu = ATTN_CPU_BUCKETS[-1]
+        short_mask = (np.arange(t_cpu)[None, :] < np.array([t_cpu, 400, 300, 77])[:, None])
+        cpu_err = max(float(np.abs(net.output(x[:, :t_cpu], features_mask=m)
+                                   - cpu.output(x[:, :t_cpu], features_mask=m)).max())
+                      for m in (None, short_mask.astype(np.float32)))
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            net.output(x)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ok = (probs.shape == (ATTN_B, ATTN_T, VOCAB) and bool(np.isfinite(probs).all())
+              and bool(np.isfinite(padded).all())
+              and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-2
+              and cls.shape == (ATTN_B, ATTN_T) and bool((cls == probs.argmax(-1)).all())
+              and all(c == {"flash_attn_fwd": 2} for c in per_call.values())
+              and padded_err <= 1e-6 and cpu_err <= SERVE_ATOL[dtype])
+        emit("serve_attention", dtype=dtype, B=ATTN_B, T=ATTN_T, n_out=ATTN_N,
+             heads=ATTN_HEADS, shape=list(probs.shape), launches_per_call=per_call,
+             padded_real_steps_max_abs_diff=padded_err, padded_lengths=lengths.tolist(),
+             max_abs_err_vs_cpu_at_T512=cpu_err, atol=SERVE_ATOL[dtype],
+             output_ms_runs=runs, output_ms_median=statistics.median(runs), ok=ok, gpu=card)
+        if not ok:
+            raise AssertionError(f"attention serving {dtype} failed its checks")
+    return launches
+
+
+def phase_train_attention(torch, dtype, card):
+    """The attention net's training at full width from the seed params:
+    ``fit`` over BucketingSequenceIterator(4, (2048, 4096)) on the card with
+    exact launch counts per update; the same training at T <= 512 on the
+    card and on the CPU, held by ``recipe_readings`` (losses must fall);
+    ``evaluate`` on both; a checkpoint of the full-T net restored on the card
+    (continuing exactly as the original) and on the CPU (exactly the same
+    params and Adam state); one timed epoch. Returns (launch counts, ms per
+    update, the card's net, the iterator)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (BucketingSequenceIterator, MultiLayerNetwork,
+                                          load_jax_params, ops, params_to_numpy,
+                                          restore_model, write_model)
+
+    fa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
+    conf = attention_conf(dtype)
+    host = attention_params(SEED)
+    it = BucketingSequenceIterator(attention_text(4, 4, 1024, 2048, 4096, SEED + 4),
+                                   batch=ATTN_B, boundaries=ATTN_BUCKETS)
+    shapes = [ds.features.shape[:2] for ds in it]
+    if sorted(shapes) != [(ATTN_B, b) for b in ATTN_BUCKETS]:
+        raise AssertionError(f"attention batches {shapes}")
+    updates = len(shapes)
+    net = load_jax_params(MultiLayerNetwork(conf), host)
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    net.fit(it)
+    torch.cuda.synchronize()
+    launches = ops.counters()
+    net.set_listeners()
+    losses = np.array([float(l) for l in rec.losses])
+    leaves = sum(len(p) for p in net.layer_params)
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"flash_attn_fwd": 2 * updates, "flash_attn_bwd_dq": 2 * updates,
+                     "flash_attn_bwd_dkv": 2 * updates, "softmax_xent_fwd": updates,
+                     "softmax_xent_bwd": updates, "adam_update": leaves * updates})
+
+    # the card against the CPU at T <= 512, two epochs
+    small = BucketingSequenceIterator(attention_text(4, 4, 128, 256, 512, SEED + 5),
+                                      batch=ATTN_B, boundaries=ATTN_CPU_BUCKETS)
+
+    def train_small(dev):
+        n = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+        r = LossRecorder()
+        n.set_listeners(r)
+        n.fit(small, epochs=2)
+        n.set_listeners()
+        return n, np.array([float(l) for l in r.losses]), params_to_numpy(n)
+
+    runs = {dev: train_small(dev) for dev in ("cuda", "cpu")}
+    readings = recipe_readings(runs["cuda"], runs["cpu"], host, lr=ATTN_LR)
+    lim = ATTN_TRAIN_LIMITS[dtype]
+    within = all(readings[k] <= lim[k] for k in lim)  # NaN fails too
+    # the same training on the card with delta left out of the backward
+    # kernels (the dq kernel handed out = 0), which the limits must catch
+    real_dq = fa.flash_attention_dq
+    fa.flash_attention_dq = lambda q, k, v, m, out, *a: real_dq(q, k, v, m,
+                                                                torch.zeros_like(out), *a)
+    try:
+        fault = recipe_readings(train_small("cuda"), runs["cpu"], host, lr=ATTN_LR)
+    finally:
+        fa.flash_attention_dq = real_dq
+    fault["caught"] = not all(fault[k] <= lim[k] for k in lim)
+    cpu_losses = runs["cpu"][1]
+    loss_fall = float(cpu_losses[:2].mean() - cpu_losses[-2:].mean())
+    acc = {dev: runs[dev][0].evaluate(small).accuracy() for dev in runs}
+    acc_err = abs(acc["cuda"] - acc["cpu"])
+
+    # checkpoint of the full-T net
+    first = next(iter(it))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "attention.zip")
+        write_model(net, path)
+        back = restore_model(path)
+        on_cpu = restore_model(path, device="cpu")
+    iterations = {"written": net.iteration, "cuda": back.iteration, "cpu": on_cpu.iteration}
+    cpu_restore_err = max(
+        max(float(np.abs(p[k] - q[k]).max()) for p, q in
+            zip(params_to_numpy(net), params_to_numpy(on_cpu)) for k in p),
+        max(float((a.float().cpu() - b.float()).abs().max()) for a, b in
+            zip(net.updater_state_leaves(), on_cpu.updater_state_leaves())))
+    resumed = []
+    for n in (net, back):
+        r = LossRecorder()
+        n.set_listeners(r)
+        n.fit(first)
+        n.set_listeners()
+        resumed.append(([float(l) for l in r.losses], params_to_numpy(n)))
+    resume_err = max(float(np.abs(p[k] - q[k]).max())
+                     for p, q in zip(resumed[0][1], resumed[1][1]) for k in p)
+    resume_loss_err = max(abs(a - b) for a, b in zip(resumed[0][0], resumed[1][0]))
+
+    epochs_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it)
+        torch.cuda.synchronize()
+        epochs_s.append(time.perf_counter() - t0)
+    epoch_s = statistics.median(epochs_s)
+    real_tokens = sum(len(x) for x, _ in it.sequences)
+    padded_tokens = sum(b * t for b, t in shapes)
+    ok = (losses.shape == (updates,) and bool(np.isfinite(losses).all())
+          and launches == expected and within and fault["caught"] and loss_fall > 0.0
+          and acc_err <= EVAL_ACC_ATOL[dtype] and cpu_restore_err == 0.0
+          and resume_err == 0.0 and resume_loss_err == 0.0
+          and len(set(iterations.values())) == 1)
+    emit("train_attention", dtype=dtype, batches=[list(s) for s in shapes], updates=updates,
+         losses=losses.tolist(), kernel_launches=launches, expected_launches=expected,
+         param_leaves=leaves, compared_at_T512={
+             "batches": [list(ds.features.shape[:2]) for ds in small], "updates": 2 * len(
+                 list(small)), "cpu_losses": cpu_losses.tolist(),
+             "card_losses": runs["cuda"][1].tolist()},
+         readings_vs_cpu=readings, limits=lim, fault_bwd_without_delta_vs_cpu=fault,
+         cpu_loss_fall=loss_fall,
+         evaluate_accuracy=acc, evaluate_accuracy_atol=EVAL_ACC_ATOL[dtype],
+         checkpoint_iterations=iterations, checkpoint_cpu_restore_max_abs_err=cpu_restore_err,
+         resume_max_param_abs_err=resume_err, resume_max_loss_abs_err=resume_loss_err,
+         timed_epoch_s_runs=epochs_s, ms_per_update=epoch_s * 1e3 / updates,
+         real_tokens_per_s=real_tokens / epoch_s, padded_tokens_per_s=padded_tokens / epoch_s,
+         ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"attention training {dtype} failed its checks")
+    return launches, epoch_s * 1e3 / updates, net, it
+
+
+def time_attention(torch, fa, card):
+    """ms of rows 13-15 at the main shape (B=4, H=8, T=4096, D=64, causal, no
+    key mask), f32 and bf16, beside the plain versions, the bounds and
+    scaled_dot_product_attention (forward for row 13; forward plus backward,
+    more work than either backward kernel, for rows 14-15); then forward plus
+    backward tokens/s at bench.py:510's measurement (bf16, loss sum(out^2))."""
+    import torch.nn.functional as F
+
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, g = attn_inputs(torch, ATTN_B, ATTN_HEADS, ATTN_T, ATTN_D, dtype, SEED)
+        out, lse = fa.flash_attention_forward(q, k, v, None, True)
+        _, delta = fa.flash_attention_dq(q, k, v, None, out, lse, g, True)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            qg.grad = kg.grad = vg.grad = None
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(g)
+
+        cases = (
+            ("flash_attn_fwd", lambda: fa.flash_attention_forward(q, k, v, None, True),
+             lambda: fa.flash_attention_reference(q, k, v, None, True),
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+            ("flash_attn_bwd_dq", lambda: fa.flash_attention_dq(q, k, v, None, out, lse, g, True),
+             lambda: fa.flash_attention_dq_reference(q, k, v, None, out, lse, g, True),
+             sdpa_fwd_bwd),
+            ("flash_attn_bwd_dkv",
+             lambda: fa.flash_attention_dkv(q, k, v, None, lse, delta, g, True),
+             lambda: fa.flash_attention_dkv_reference(q, k, v, None, lse, delta, g, True),
+             sdpa_fwd_bwd),
+        )
+        for name, kern, plain, lib in cases:
+            times[(name, dtype)] = time_pair(
+                torch, name, kern, plain, lib, *bound_attention(name, dtype, q.shape), card,
+                dtype=dtype, B=ATTN_B, H=ATTN_HEADS, T=ATTN_T, D=ATTN_D, causal=True)
+
+    # forward + backward through the autograd Function, bench.py's loss
+    from deeplearning4j_tpu_torch import ops
+
+    q, k, v, _ = attn_inputs(torch, ATTN_B, ATTN_HEADS, ATTN_T, ATTN_D, "bfloat16", SEED + 1)
+    qg, kg, vg = (t.mul(0.3).requires_grad_() for t in (q, k, v))
+
+    def step(attn):
+        qg.grad = kg.grad = vg.grad = None
+        (attn(qg, kg, vg).float() ** 2).sum().backward()
+
+    flash_ms = median_ms(lambda: step(lambda a, b, c: ops.flash_attention(a, b, c, causal=True)))
+    sdpa_ms = median_ms(lambda: step(
+        lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True)))
+    emit("time_attention", kernel_ms={f"{n} {d}": t["ms"] for (n, d), t in times.items()},
+         bound_ms={f"{n} {d}": t["bound_ms"] for (n, d), t in times.items()},
+         train_step_dtype="bfloat16", B=ATTN_B, H=ATTN_HEADS, T=ATTN_T, D=ATTN_D,
+         causal=True, step_ms=flash_ms, tokens_per_s=ATTN_B * ATTN_T / (flash_ms / 1e3),
+         sdpa_step_ms=sdpa_ms, sdpa_tokens_per_s=ATTN_B * ATTN_T / (sdpa_ms / 1e3),
+         note="query positions per second of forward+backward, as bench.py's "
+              "flash_attention_train_tokens_per_sec counts them; sdpa is timed only",
+         gpu=card)
+    return times
 
 
 def profile(torch, fn):
@@ -964,6 +1430,9 @@ def main() -> int:
     from deeplearning4j_tpu_torch.ops import lstm_sequence as ls
     from deeplearning4j_tpu_torch.ops import softmax_xent as sx
 
+    # the module, which ops' function of the same name shadows as an attribute
+    fa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
+
     # ---- 1. environment and build
     card = gpu_line()
     print(card, flush=True)
@@ -977,12 +1446,14 @@ def main() -> int:
          build_seconds_by_source=build_s)
     for name in build_s:
         log = _build.lib_path(name).with_suffix(".log").read_text()
-        emit("ptxas", source=name, report=[l for l in log.splitlines() if "ptxas" in l])
+        emit("ptxas", source=name,
+             report=[l.strip() for l in log.splitlines() if "ptxas" in l or "spill" in l])
 
     # ---- 2. each kernel against its plain version
     errs = phase_kernels(torch, ls)
     errs.update(phase_kernels_train(torch, ls, sx))
     errs[("adam_update", "float32", "leaves")] = phase_adam(torch, ad)
+    errs.update(phase_kernels_attention(torch, fa))
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
     confs = {dt: char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dt)
@@ -1075,6 +1546,18 @@ def main() -> int:
     for name in ("softmax_xent_fwd", "softmax_xent_bwd"):  # both training paths
         launches[name] += sum(run[0][name] for run in recipe.values())
 
+    # ---- 4d. the attention net: serving, then training (rows 13-15; 10-12)
+    serve_launches = phase_serve_attention(torch, card)
+    attn_train = {dtype: phase_train_attention(torch, dtype, card)
+                  for dtype in ("float32", "bfloat16")}
+    for name in ATTN_KERNELS:
+        launches[name] = (serve_launches.get(name, 0)
+                          + sum(run[0][name] for run in attn_train.values()))
+        if not launches[name]:
+            raise AssertionError(f"{name} did not launch on the attention path")
+    for name in ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"):
+        launches[name] += sum(run[0][name] for run in attn_train.values())
+
     # ---- 5. times
     times = {}
     for dtype in ("float32", "bfloat16"):
@@ -1111,6 +1594,7 @@ def main() -> int:
 
     times.update(time_train_kernels(torch, ls, sx, card))
     times[("adam_update", "float32")] = time_adam(torch, ad, card)
+    times.update(time_attention(torch, fa, card))
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -1126,6 +1610,10 @@ def main() -> int:
     long_batch = next(ds for ds in recipe_it if ds.features.shape[1] == STEPS)
     emit("profile", what="fit() one bucketed Adam TBPTT batch, f32 B=64 T=256 (6 updates)",
          gpu=card, **profile(torch, lambda: recipe_net.fit(long_batch)))
+    _, _, attn_net, attn_it = attn_train["float32"]
+    attn_batch = next(ds for ds in attn_it if ds.features.shape[1] == ATTN_T)
+    emit("profile", what="fit() one Adam update of the attention net, f32 B=4 T=4096",
+         gpu=card, **profile(torch, lambda: attn_net.fit(attn_batch)))
     server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
 
     def decode_all():
@@ -1154,7 +1642,10 @@ def main() -> int:
               "lstm_seq_masked_train_fwd": ("lstm_seq_masked_train_fwd", "float32", STEPS),
               "lstm_seq_masked_bwd": ("lstm_seq_masked_bwd", "float32", STEPS),
               "adam_update": ("adam_update", "float32", "leaves")}
-    for name, (source, replaces) in KERNELS.items():
+    for name in ATTN_KERNELS:  # the main shape, with and without the key mask
+        shapes[name] = (name, "float32")
+        errs[shapes[name]] = max(errs[(name, "float32", m)] for m in (False, True))
+    for name, (source, replaces) in {**KERNELS, **ATTN_KERNELS}.items():
         t = times[(name, "float32")]
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1167,7 +1658,10 @@ def main() -> int:
                       "peephole LSTM (torch.nn.LSTM has no peepholes), masked or not; "
                       "rows 10-11: cross_entropy with probability targets, forward and "
                       "forward+backward; row 12: torch.optim.Adam(fused=True).step() "
-                      "over the same 14 leaves, which also adds u to the params",
+                      "over the same 14 leaves, which also adds u to the params; rows "
+                      "13-15: scaled_dot_product_attention(is_causal=True), forward for "
+                      "row 13 and forward+backward (more work than either backward "
+                      "kernel) for rows 14-15",
                       "adam_update_ms_covers": "the 14 leaves of one update",
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)

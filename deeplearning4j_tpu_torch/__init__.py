@@ -7,9 +7,11 @@ and ``rnn_time_step``, ``serving.decode.DecodeServer``) and trains it
 momentum or Nesterov, on padded variable-length batches of
 ``BucketingSequenceIterator`` as on fixed-length ones), evaluates it
 (``evaluate``) and checkpoints it in the JAX package's zip layout
-(``write_model``, ``restore_model``). The LSTM recurrence, masked or not, its
-backward, the softmax cross-entropy and the Adam update run in hand-written
-CUDA kernels (``ops/csrc/``). Entry points run on the card unless the caller
+(``write_model``, ``restore_model``). It serves and trains causal
+self-attention networks the same ways (``SelfAttentionLayer``,
+``LayerNormLayer``). The LSTM recurrence, masked or not, its backward, flash
+attention and its backward, the softmax cross-entropy and the Adam update run
+in hand-written CUDA kernels (``ops/csrc/``). Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
@@ -19,6 +21,7 @@ from .interop.jax_params import load_jax_model_zip, load_jax_params, params_to_n
 from .models.char_rnn import char_rnn
 from .nn.conf.inputs import InputType
 from .nn.conf.multi_layer import MultiLayerConfiguration
+from .nn.layers.attention import LayerNormLayer, SelfAttentionLayer
 from .nn.layers.dense import DenseLayer, OutputLayer
 from .nn.layers.recurrent import GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer
 from .nn.multilayer import MultiLayerNetwork
@@ -35,10 +38,12 @@ __all__ = [
     "GravesBidirectionalLSTM",
     "GravesLSTM",
     "InputType",
+    "LayerNormLayer",
     "MultiLayerConfiguration",
     "MultiLayerNetwork",
     "OutputLayer",
     "RnnOutputLayer",
+    "SelfAttentionLayer",
     "UpdaterConfig",
     "char_rnn",
     "load_jax_model_zip",

@@ -1,2 +1,2 @@
 """Layer implementations; importing this registers every ported layer."""
-from . import dense, recurrent  # noqa: F401
+from . import attention, dense, recurrent  # noqa: F401

@@ -11,9 +11,22 @@ reports which of the two ran, under the JAX package's variant names
 from __future__ import annotations
 
 from . import adam as _adam
+from . import flash_attention as _flash_attention
 from . import lstm_sequence as _lstm_sequence
 from . import softmax_xent as _softmax_xent
 from .adam import adam_update_reference, fused_adam_update
+from .flash_attention import (
+    FlashAttentionFunction,
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_dkv,
+    flash_attention_dkv_reference,
+    flash_attention_dq,
+    flash_attention_dq_reference,
+    flash_attention_forward,
+    flash_attention_reference,
+)
 from .lstm_sequence import (
     LstmSequenceFunction,
     fused_lstm_sequence,
@@ -41,15 +54,18 @@ from .softmax_xent import (
 )
 
 
+_COUNTED = (_lstm_sequence, _softmax_xent, _adam, _flash_attention)
+
+
 def counters() -> dict:
     """A snapshot of every kernel's launch count, by kernel name (each op
     module keeps its own ``launches`` dict)."""
-    return {**_lstm_sequence.launches, **_softmax_xent.launches, **_adam.launches}
+    return {name: n for module in _COUNTED for name, n in module.launches.items()}
 
 
 def reset_counters() -> None:
     """Set every kernel's launch count to 0."""
-    for counts in (_lstm_sequence.launches, _softmax_xent.launches, _adam.launches):
+    for counts in (module.launches for module in _COUNTED):
         for name in counts:
             counts[name] = 0
 
@@ -63,10 +79,20 @@ def softmax_xent_rows(labels2d, preout2d):
 
 
 __all__ = [
+    "FlashAttentionFunction",
     "LstmSequenceFunction",
     "SoftmaxXentFunction",
     "adam_update_reference",
     "counters",
+    "flash_attention",
+    "flash_attention_backward",
+    "flash_attention_backward_reference",
+    "flash_attention_dkv",
+    "flash_attention_dkv_reference",
+    "flash_attention_dq",
+    "flash_attention_dq_reference",
+    "flash_attention_forward",
+    "flash_attention_reference",
     "fused_adam_update",
     "fused_lstm_sequence",
     "fused_lstm_sequence_masked",
