@@ -18,8 +18,15 @@ write/restore/continue of a checkpoint. Then a causal self-attention net
 same vocab; B=4, T=4096): the flash-attention kernels against their plain
 versions and two wrong ones, ``output``/``predict`` with and without
 padding, bucketed Adam training (T up to 4096) against the CPU at T<=512,
-``evaluate`` and an exact resume. It checks the results and the kernel
-launch counts of each path, and times the kernels and the training update.
+``evaluate`` and an exact resume. Then AlexNet (``alexnet_conf()`` at its
+own widths, 224x224x3 images, 1000 classes, B=128, random weights from the
+seed): the LRN kernels against their plain versions and two wrong ones,
+softmax-xent at N=128, C=1000, ``output``/``predict`` (card against CPU on
+8 images), Nesterov training at lr 1e-2 (card against CPU on 8 images with
+dropout 0, a faulty LRN backward the limits must catch, ``evaluate``, an
+exact resume; then the conf's dropout 0.5 at B=128, timed). It checks the
+results and the kernel launch counts of each path, and times the kernels
+and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, where
 CUDA or the port's package is missing. It imports no JAX and nothing of the
@@ -533,17 +540,17 @@ def time_train_kernels(torch, ls, sx, card):
     return times
 
 
-def sxent_inputs(torch, N, dtype, labels, seed):
-    """Logits [N, VOCAB] and one-hot or soft (softmax of random) labels, both
+def sxent_inputs(torch, N, dtype, labels, seed, C=VOCAB):
+    """Logits [N, C] and one-hot or soft (softmax of random) labels, both
     in ``dtype``, on the card from a numpy seed."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    x = rng.normal(0.0, 2.0, (N, VOCAB))
+    x = rng.normal(0.0, 2.0, (N, C))
     if labels == "one_hot":
-        lab = np.eye(VOCAB)[rng.integers(0, VOCAB, N)]
+        lab = np.eye(C)[rng.integers(0, C, N)]
     else:
-        z = rng.normal(0.0, 1.0, (N, VOCAB))
+        z = rng.normal(0.0, 1.0, (N, C))
         lab = np.exp(z) / np.exp(z).sum(-1, keepdims=True)
     dt = getattr(torch, dtype)
     return (torch.as_tensor(x, dtype=dt, device=DEVICE).contiguous(),
@@ -1363,9 +1370,472 @@ def time_attention(torch, fa, card):
     return times
 
 
-def profile(torch, fn):
+# ---- the AlexNet slice: alexnet_conf() at its own widths (224x224x3 images,
+# 1000 classes, 62.4M params), B=128 as the repo's CNN bench uses
+# (bench.py:180); Nesterov at lr 1e-2 and dropout 0.5 (the conf's). Images
+# and labels are synthetic, drawn from the seed: raw pixel values 0-255, as
+# an image reader yields them before any normalizer, at which LRN's window
+# sums weigh on its output.
+ALEX_B, ALEX_CPU_B, ALEX_UPDATES = 128, 8, 3
+LRN_K, LRN_N, LRN_ALPHA, LRN_BETA = 2.0, 5, 1e-4, 0.75
+LRN_SHAPES = {"lrn1": (ALEX_B, 56, 56, 96), "lrn2": (ALEX_B, 27, 27, 256)}
+LRN_KERNELS = {
+    "lrn_fwd": (CSRC + "lrn.cu", PALLAS + "292"),
+    "lrn_bwd": (CSRC + "lrn.cu", PALLAS + "315"),
+}
+# rows 3-4 against their plain versions on the same CUDA tensors: each
+# output's max |err| over its max |ref|. Both round at the same points and
+# take the same powf, so f32 and bf16 read 0 up to a power's last bit,
+# which in bf16 can move a value by one step (2^-8 of the largest). The
+# phase computes two wrong plain versions, the backward's window not
+# reflected (n=4) and dx without its second term, which must read above.
+LRN_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+LRN_CASES = [(C, n) for C in (3, 33, 96, 256) for n in (1, 4, 5)]
+LRN_ROWS = 1001  # no tile of rows (4096 // C of them) divides it
+# softmax-xent at AlexNet's loss head: N=128 rows of C=1000 classes
+ALEX_SXENT = (ALEX_B, 1000)
+# training on the card against the same training on the CPU (B=8, dropout 0,
+# 3 updates of one batch): each update's loss relative to the CPU's, and
+# each param tensor's change from the seed params relative to the norm of
+# the CPU's change (an update left out reads 1), after the first update (the
+# gradient's accuracy) and after the third. Random labels make the
+# gradients sums that cancel, and three steps of lr 1e-2 amplify rounding:
+# f32 on the CPU against a f64 oracle reads loss 3.1e-4, first change
+# 4.2e-3 and third 0.059; with LRN's backward missing its second term it
+# reads 0.022, 0.166 and 0.389 (scripts/alexnet_train_sensitivity.py). In
+# bf16 the rounding of the activations moves the changes by 0.27-0.29 of
+# their norm, about what that fault does (0.32-0.43), but not the loss
+# (3.1e-3 against 0.026). The card against the CPU read f32 1.5e-4, 3.4e-3
+# and 0.091, bf16 loss 2.2e-3 (the fault on the card: f32 0.022, 0.166,
+# 0.393, bf16 loss 0.026) on NVIDIA H100 80GB HBM3 at 700 W. The same faulty
+# training runs on the card in the phase and must fail the limits: f32 on
+# every reading, bf16 on the loss; bf16's changes are held only against an
+# update left out or wrong (1).
+ALEX_TRAIN_LIMITS = {
+    "float32": {"loss_rel": 2e-3, "first_change_rel": 3e-2, "change_rel": 0.25},
+    "bfloat16": {"loss_rel": 1e-2, "first_change_rel": 0.6, "change_rel": 0.6},
+}
+# kernel families of an AlexNet update, by a substring of their names
+ALEX_PROFILE_GROUPS = [
+    ("lrn, rows 3-4", r"lrn_(fwd|bwd)"), ("softmax_xent, rows 10-11", r"sxent_"),
+    ("copies", r"(?i)memcpy|copy|transpose|nchwtonhwc|nhwctonchw"),
+    ("convolution fprop", r"(?i)fprop|convolve"), ("convolution dgrad", r"(?i)dgrad"),
+    ("convolution wgrad", r"(?i)wgrad"), ("fft", r"(?i)fft|cf32"),
+    ("gemm", r"(?i)gemm|gemv"), ("max pool", r"(?i)max_pool"),
+]
+# served probabilities, card against CPU on 8 images: max |err| over max |p|
+ALEX_SERVE_REL = {"float32": 1e-5, "bfloat16": 3e-2}
+ALEX_TIMED = {"warmup": 2, "timed": 3}
+
+
+def bound_lrn(shape, dtype: str, backward: bool, with_d: bool = True):
+    """Rows 3-4 over x of ``shape``: the forward reads x and writes y (and d
+    in training), n + 6 operations an element (x*x, n window adds, alpha*s
+    and k + it, the power as two, x * it); the backward reads x, d and g and
+    writes dx, n + 10 an element (g*x, its product with a power, n adds, a
+    second power, g times it, (2ab)*x times the sum, the difference)."""
+    import math
+
+    elems = math.prod(shape)
+    item = 4 if dtype == "float32" else 2
+    if backward:
+        return roofline(4 * elems * item, (LRN_N + 10.0) * elems, "float32")
+    return roofline((3 if with_d else 2) * elems * item, (LRN_N + 6.0) * elems, "float32")
+
+
+def lrn_inputs(torch, shape, dtype, seed, scale=30.0):
+    """x at the scale of ReLU'd convolution outputs (where the window sums
+    weigh on y and dx) and an upstream gradient g, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return (torch.as_tensor(rng.normal(0.0, scale, shape), dtype=dt, device=DEVICE),
+            torch.as_tensor(rng.normal(0.0, 1.0, shape), dtype=dt, device=DEVICE))
+
+
+def lrn_readings(got, want) -> dict:
+    return {n: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            for n, g, w in zip(("y", "y_serving", "d", "dx"), got, want)}
+
+
+def phase_kernels_lrn(torch, lr, sx):
+    """Rows 3-4 against their plain versions on the same CUDA tensors, f32
+    and bf16: AlexNet's two LRN shapes (n=5), and C in {3, 33, 96, 256} with
+    n in {1, 4, 5} over 1001 rows; the training forward (y and d), the
+    serving forward (y alone) and the backward from a random g. Then the two
+    wrong plain versions, which the limits must catch, and softmax-xent
+    (rows 10-11) at AlexNet's loss head, N=128, C=1000. Returns the max abs
+    error of each kernel (f32, LRN 1's shape)."""
+    import numpy as np
+
+    errs, worst, n_cases = {}, {}, 0
+    for dtype in ("float32", "bfloat16"):
+        lim = LRN_REL[dtype]
+        worst[dtype] = {}
+        cases = [(shape, LRN_N) for shape in LRN_SHAPES.values()]
+        cases += [((LRN_ROWS, C), n) for C, n in LRN_CASES]
+        for shape, n in cases:
+            x, g = lrn_inputs(torch, shape, dtype, SEED + shape[-1] + n)
+            y, d = lr.lrn_forward(x, LRN_K, n, LRN_ALPHA, LRN_BETA)
+            y_serving, _ = lr.lrn_forward(x, LRN_K, n, LRN_ALPHA, LRN_BETA, with_d=False)
+            dx = lr.lrn_backward(x, d, g, LRN_K, n, LRN_ALPHA, LRN_BETA)
+            torch.cuda.synchronize()
+            ry, rd = lr.lrn_reference(x, LRN_K, n, LRN_ALPHA, LRN_BETA)
+            rdx = lr.lrn_backward_reference(x, rd, g, LRN_K, n, LRN_ALPHA, LRN_BETA)
+            got, want = (y, y_serving, d, dx), (ry, ry, rd, rdx)
+            e = lrn_readings(got, want)
+            n_cases += 1
+            for k, r in e.items():
+                worst[dtype][k] = max(worst[dtype].get(k, 0.0), r)
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+            check("lrn", dtype, e, dict.fromkeys(e, lim), shape=list(shape), n=n,
+                  finite=finite, relative_to_largest=True)
+            if not finite:
+                raise AssertionError(f"lrn {dtype} {shape} n={n}: not finite")
+            if shape == LRN_SHAPES["lrn1"] and dtype == "float32":
+                errs[("lrn_fwd", dtype)] = max(
+                    float((a.float() - b.float()).abs().max()) for a, b in zip(got[:3], want[:3]))
+                errs[("lrn_bwd", dtype)] = float((dx.float() - rdx.float()).abs().max())
+        # wrong plain versions: what a kernel that summed the backward over W
+        # itself (not reflected; n=4), or left dx's second term out, reads
+        x, g = lrn_inputs(torch, (LRN_ROWS, 96), dtype, SEED)
+        ry, rd = lr.lrn_reference(x, LRN_K, 4, LRN_ALPHA, LRN_BETA)
+        right = lr.lrn_backward_reference(x, rd, g, LRN_K, 4, LRN_ALPHA, LRN_BETA)
+        c = lr._const
+        t = g * x * rd ** float(c(-LRN_BETA - 1.0, x.dtype))
+        first = g * rd ** float(c(-LRN_BETA, x.dtype))
+        unreflected = first - c(2.0 * LRN_ALPHA * LRN_BETA, x.dtype) * x * lr._window_sum(
+            t, 4, 4 // 2)
+        wrong = {"window_not_reflected": float((unreflected.float() - right.float()).abs().max()
+                                               / right.float().abs().max()),
+                 "no_second_term": float((first.float() - right.float()).abs().max()
+                                         / right.float().abs().max())}
+        ok = all(v > lim for v in wrong.values())
+        emit("kernel_limits", kernel="lrn", dtype=dtype, limit=lim, wrong_readings=wrong,
+             caught=ok)
+        if not ok:
+            raise AssertionError(f"lrn {dtype}: the limit {lim} does not catch {wrong}")
+        # rows 10-11 at AlexNet's loss head
+        N, C = ALEX_SXENT
+        x, lab = sxent_inputs(torch, N, dtype, "one_hot", SEED + C, C=C)
+        gl = torch.as_tensor(np.random.default_rng(C).normal(0.0, 1.0, N),
+                             dtype=torch.float32, device=DEVICE)
+        out = {"loss": (sx.fused_softmax_xent(x, lab), sx.softmax_xent_reference(x, lab))}
+        for k, a, b in zip(("dx", "dl"), sx.softmax_xent_backward(x, lab, gl),
+                           sx.softmax_xent_backward_reference(x, lab, gl)):
+            out[k] = (a, b)
+        torch.cuda.synchronize()
+        e = {k: float((a.float() - b.float()).abs().max()) for k, (a, b) in out.items()}
+        tol = {k: KERNEL_ATOL["float32"] if a.dtype == torch.float32 else 2.0 ** -8
+               for k, (a, _) in out.items()}
+        check("softmax_xent", dtype, e, tol, N=N, C=C, labels="one_hot")
+    emit("kernels_lrn", cases=n_cases, worst_reading_by_dtype=worst, limits=LRN_REL,
+         wrong_versions_caught=True, ok=True)
+    return errs
+
+
+def alexnet_params(conf, seed):
+    """Random AlexNet weights from a numpy seed in the JAX package's layout
+    (conv W [kh, kw, in, out], dense W [in, out]; {} for LRN and pooling):
+    N(0, 0.01) as Krizhevsky et al. (2012) initialized them, and zero
+    biases. At pixel-scale images, LRN 1 then sees activations of about 10,
+    and three Nesterov updates of one batch lower its loss."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    params = []
+    for layer, it in zip(conf.layers, conf.layer_input_types()):
+        kind = type(layer).__name__
+        if kind == "ConvolutionLayer":
+            shape = (*layer.kernel, it.channels, layer.n_out)
+        elif kind in ("DenseLayer", "OutputLayer"):
+            shape = (it.flat_size(), layer.n_out)
+        else:
+            params.append({})
+            continue
+        params.append({"W": rng.normal(0.0, 0.01, shape), "b": np.zeros(layer.n_out)})
+    return params
+
+
+def alexnet_images(n, seed):
+    """``n`` NHWC images of raw pixel values 0-255 and one-hot labels of
+    1000 classes, from a numpy seed, as float32 host arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8).astype(np.float32)
+    return x, one_hot(rng.integers(0, 1000, n), 1000)
+
+
+def phase_serve_alexnet(torch, host, card):
+    """``output`` and ``predict`` of AlexNet at B=128, f32 and bf16: shape,
+    rows that sum to 1, predict as output's argmax, exactly 2 row-3 launches
+    (the serving forward) and no other kernel per call; the card against the
+    CPU on 8 of the images; host-clock ms of output(), median of 5. Returns
+    the launch counts."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, alexnet_conf, load_jax_params, ops
+
+    x, _ = alexnet_images(ALEX_B, SEED + 5)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = alexnet_conf(dtype=dtype)
+        net = load_jax_params(MultiLayerNetwork(conf), host)
+        per_call, results = {}, {}
+        for call, fn in (("output", lambda: net.output(x)), ("predict", lambda: net.predict(x))):
+            torch.cuda.synchronize()
+            ops.reset_counters()
+            results[call] = fn()
+            torch.cuda.synchronize()
+            per_call[call] = {k: v for k, v in ops.counters().items() if v}
+        for counts in per_call.values():
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        probs, cls = results["output"], results["predict"]
+        cpu = load_jax_params(MultiLayerNetwork(conf, device="cpu"), host)
+        t0 = time.perf_counter()
+        cpu_probs = cpu.output(x[:ALEX_CPU_B])
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float(np.abs(net.output(x[:ALEX_CPU_B]) - cpu_probs).max()
+                        / np.abs(cpu_probs).max())
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            net.output(x)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ok = (probs.shape == (ALEX_B, 1000) and bool(np.isfinite(probs).all())
+              and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-2
+              and cls.shape == (ALEX_B,) and bool((cls == probs.argmax(-1)).all())
+              and all(c == {"lrn_fwd": 2} for c in per_call.values())
+              and cpu_err <= ALEX_SERVE_REL[dtype])
+        emit("serve_alexnet", dtype=dtype, B=ALEX_B, shape=list(probs.shape),
+             launches_per_call=per_call, max_err_vs_cpu_over_max_prob=cpu_err,
+             cpu_batch=ALEX_CPU_B, limit=ALEX_SERVE_REL[dtype], cpu_output_s=cpu_s,
+             top_prob_max=float(probs.max()),
+             output_ms_runs=runs, output_ms_median=statistics.median(runs), ok=ok, gpu=card)
+        if not ok:
+            raise AssertionError(f"AlexNet serving {dtype} failed its checks")
+    return launches
+
+
+def alexnet_readings(run, ref, seed_params) -> dict:
+    """Training on the card against the CPU: each update's loss relative to
+    the CPU's, and each tensor's change from the seed params relative to the
+    norm of the CPU's change, after the first update and after the last
+    (the largest over the tensors, and the tensor that reads it)."""
+    import numpy as np
+
+    def change(params, ref_params):
+        by = {f"{i}.{k}": float(np.linalg.norm(p[k] - q[k])
+                                / np.linalg.norm(q[k] - p0[k].astype(np.float32)))
+              for i, (p, q, p0) in enumerate(zip(params, ref_params, seed_params)) for k in p}
+        worst = max(by, key=by.get)
+        return by[worst], worst
+
+    losses, first, params = run
+    ref_losses, ref_first, ref_params = ref
+    first_rel, first_at = change(first, ref_first)
+    last_rel, last_at = change(params, ref_params)
+    return {"loss_rel": float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses))),
+            "first_change_rel": first_rel, "change_rel": last_rel,
+            "first_change_worst_tensor": first_at, "change_worst_tensor": last_at}
+
+
+def alexnet_resume(torch, net, x, y) -> dict:
+    """A checkpoint of ``net`` written, restored on the card (the next
+    update, with cuDNN deterministic for both, exactly as the original's)
+    and on the CPU (exactly the same params and Nesterov trace)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import params_to_numpy, restore_model, write_model
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "alexnet.zip")
+        write_model(net, path)
+        back = restore_model(path)
+        on_cpu = restore_model(path, device="cpu")
+    iterations = {"written": net.iteration, "cuda": back.iteration, "cpu": on_cpu.iteration}
+    cpu_err = max(
+        max(float(np.abs(p[k] - q[k]).max()) for p, q in
+            zip(params_to_numpy(net), params_to_numpy(on_cpu)) for k in p),
+        max(float((a.float().cpu() - b.float()).abs().max()) for a, b in
+            zip(net.updater_state_leaves(), on_cpu.updater_state_leaves())))
+    torch.backends.cudnn.deterministic = True
+    try:
+        resumed = []
+        for n in (net, back):
+            n.fit((x, y))
+            resumed.append((n.score(), params_to_numpy(n)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    param_err = max(float(np.abs(p[k] - q[k]).max())
+                    for p, q in zip(resumed[0][1], resumed[1][1]) for k in p)
+    loss_err = abs(resumed[0][0] - resumed[1][0])
+    return dict(iterations=iterations, cpu_restore_max_abs_err=cpu_err,
+                resume_max_param_abs_err=param_err, resume_loss_abs_err=loss_err,
+                seconds=time.perf_counter() - t0,
+                ok=(cpu_err == 0.0 and param_err == 0.0 and loss_err == 0.0
+                    and len(set(iterations.values())) == 1))
+
+
+def phase_train_alexnet(torch, lr, dtype, host, card):
+    """AlexNet's training from the seed params. The card against the CPU:
+    the conf with dropout 0, Nesterov at lr 1e-2, 3 updates of one B=8
+    batch (the loss must fall), held by ``alexnet_readings``; the same on the
+    card with LRN's backward missing its second term must fail the limits.
+    ``evaluate`` on both; in f32, ``alexnet_resume`` of the card's net. Then
+    the conf itself (dropout 0.5) at B=128: exact launches per update, ms per
+    update and images/s, median of 3 timed updates after 2 warm-up ones (the
+    host's images, as ``fit`` takes them), and 3 more with the batch on the
+    card. Returns (launch counts of the timed B=128 updates, ms per update,
+    the B=128 net, its batch)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (DataSet, MultiLayerNetwork, alexnet_conf,
+                                          load_jax_params, ops, params_to_numpy)
+
+    lim = ALEX_TRAIN_LIMITS[dtype]
+    x8, y8 = alexnet_images(ALEX_CPU_B, SEED + 6)
+    conf0 = alexnet_conf(dtype=dtype, dropout=0.0)
+
+    def train_small(dev):
+        n = load_jax_params(MultiLayerNetwork(conf0, device=dev), host)
+        r = LossRecorder()
+        n.set_listeners(r)
+        n.fit((x8, y8))
+        first = params_to_numpy(n)
+        for _ in range(ALEX_UPDATES - 1):
+            n.fit((x8, y8))
+        n.set_listeners()
+        return n, np.array([float(l) for l in r.losses]), first, params_to_numpy(n)
+
+    t0 = time.perf_counter()
+    runs = {dev: train_small(dev) for dev in ("cuda", "cpu")}
+    compared_s = time.perf_counter() - t0
+    readings = alexnet_readings(runs["cuda"][1:], runs["cpu"][1:], host)
+    within = all(readings[k] <= lim[k] for k in lim)  # NaN fails too
+    real_bwd = lr.lrn_backward
+    c = lr._const
+    lr.lrn_backward = lambda x, d, g, k, n, a, b: g * d ** float(c(-b, x.dtype))
+    try:
+        fault = alexnet_readings(train_small("cuda")[1:], runs["cpu"][1:], host)
+    finally:
+        lr.lrn_backward = real_bwd
+    fault["caught"] = not all(fault[k] <= lim[k] for k in lim)
+    cpu_losses = runs["cpu"][1]
+    loss_fall = float(cpu_losses[0] - cpu_losses[-1])
+    card_fall = float(runs["cuda"][1][0] - runs["cuda"][1][-1])
+    data = DataSet(x8, y8)
+    acc = {dev: runs[dev][0].evaluate(data).accuracy() for dev in runs}
+
+    # f32 only: the zip holds the same f32 master params in either dtype, and
+    # writing and reading 62.4M params takes ~40 s
+    resume = alexnet_resume(torch, runs["cuda"][0], x8, y8) if dtype == "float32" else None
+
+    # the conf itself (dropout 0.5) at B=128
+    conf = alexnet_conf(dtype=dtype)
+    net = load_jax_params(MultiLayerNetwork(conf), host)
+    batch = alexnet_images(ALEX_B, SEED + 7)
+    for _ in range(ALEX_TIMED["warmup"]):
+        net.fit(batch)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    times, losses = [], []
+    for _ in range(ALEX_TIMED["timed"]):
+        t0 = time.perf_counter()
+        net.fit(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score())
+    launches = ops.counters()
+    timed = ALEX_TIMED["timed"]
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"lrn_fwd": 2 * timed, "lrn_bwd": 2 * timed, "softmax_xent_fwd": timed,
+                     "softmax_xent_bwd": timed})
+    ms = statistics.median(times)
+    # the same updates with the batch already on the card: what the host's
+    # copy of the 77 MB of images costs an update
+    on_card = tuple(torch.as_tensor(a, device=DEVICE) for a in batch)
+    card_times = []
+    for _ in range(ALEX_TIMED["timed"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(on_card)
+        torch.cuda.synchronize()
+        card_times.append((time.perf_counter() - t0) * 1e3)
+    ok = (within and fault["caught"] and loss_fall > 0.0 and card_fall > 0.0
+          and launches == expected and bool(np.isfinite(losses).all())
+          and acc["cuda"] == acc["cpu"] and (resume is None or resume["ok"]))
+    emit("train_alexnet", dtype=dtype, compared_batch=ALEX_CPU_B, compared_updates=ALEX_UPDATES,
+         cpu_losses=cpu_losses.tolist(), card_losses=runs["cuda"][1].tolist(),
+         cpu_loss_fall=loss_fall, readings_vs_cpu=readings, limits=lim,
+         fault_lrn_bwd_without_second_term_vs_cpu=fault, compared_s=compared_s,
+         evaluate_accuracy=acc, checkpoint=resume, B=ALEX_B, dropout=0.5,
+         timed_losses=losses, kernel_launches=launches, expected_launches=expected,
+         update_ms_runs=times, ms_per_update=ms, images_per_s=ALEX_B / (ms / 1e3),
+         batch_on_card_ms_runs=card_times,
+         batch_on_card_ms_per_update=statistics.median(card_times), ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"AlexNet training {dtype} failed its checks")
+    return launches, ms, net, batch
+
+
+def time_lrn(torch, lr, card):
+    """ms of rows 3-4 at LRN 1's shape (the table's) and LRN 2's, f32 and
+    bf16, beside the plain versions, the bounds and F.local_response_norm on
+    the same channels-last view (torch divides alpha by n: it is given
+    alpha*n): its forward for row 3, its forward plus backward for row 4.
+    The serving forward (y alone) is timed beside the training one."""
+    import torch.nn.functional as F
+
+    times = {}
+    args = (LRN_K, LRN_N, LRN_ALPHA, LRN_BETA)
+    for dtype in ("float32", "bfloat16"):
+        for where, shape in LRN_SHAPES.items():
+            x, g = lrn_inputs(torch, shape, dtype, SEED)
+            _, d = lr.lrn_forward(x, *args)
+            xg = x.clone().requires_grad_()
+
+            def lib_fwd(x=x):
+                return F.local_response_norm(x.permute(0, 3, 1, 2), LRN_N,
+                                             alpha=LRN_ALPHA * LRN_N, beta=LRN_BETA, k=LRN_K)
+
+            def lib_fwd_bwd(xg=xg, g=g):
+                xg.grad = None
+                lib_fwd(xg).backward(g.permute(0, 3, 1, 2))
+
+            serving_ms = median_ms(lambda: lr.lrn_forward(x, *args, with_d=False))
+            cases = (
+                ("lrn_fwd", lambda: lr.lrn_forward(x, *args), lambda: lr.lrn_reference(x, *args),
+                 lib_fwd, bound_lrn(shape, dtype, False)),
+                ("lrn_bwd", lambda: lr.lrn_backward(x, d, g, *args),
+                 lambda: lr.lrn_backward_reference(x, d, g, *args), lib_fwd_bwd,
+                 bound_lrn(shape, dtype, True)),
+            )
+            for name, kern, plain, lib, (b_ms, b_by) in cases:
+                extra = {}
+                if name == "lrn_fwd":
+                    extra = dict(serving_ms=serving_ms,
+                                 serving_bound_ms=bound_lrn(shape, dtype, False, False)[0])
+                t = time_pair(torch, name, kern, plain, lib, b_ms, b_by, card, dtype=dtype,
+                              layer=where, shape=list(shape), n=LRN_N, **extra)
+                times[(name, dtype, where)] = t
+    return times
+
+
+def profile(torch, fn, top: int = 6, groups=None):
     """Run ``fn`` under torch.profiler: wall ms, the card's busy ms (sum of
-    kernel intervals on the one stream) and the top kernels by time."""
+    kernel intervals on the one stream), the ``top`` kernels by time, the
+    copies and layout changes (memcpys, copy and transpose kernels), and
+    the ms and launches of each of ``groups`` ((label, regex of the kernel
+    name) pairs; a kernel counts in the first that matches, else "other")."""
+    import re
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1384,9 +1854,19 @@ def profile(torch, fn):
             by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
             by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
-    top = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()), key=lambda r: -r[1])
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / wall_ms if wall_ms else None, top_kernels=top[:6])
+    rows = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()), key=lambda r: -r[1])
+    copying = re.compile(r"(?i)memcpy|copy|transpose|nchwtonhwc|nhwctonchw")
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               idle_share=1.0 - busy_ms / wall_ms if wall_ms else None, top_kernels=rows[:top],
+               copies=[r for r in rows if copying.search(r[0])])
+    if groups:
+        sums = defaultdict(lambda: [0.0, 0])
+        for n, (ms, c) in by_name.items():
+            label = next((lb for lb, rx in groups if re.search(rx, n)), "other")
+            sums[label][0] += ms
+            sums[label][1] += c
+        out["groups"] = dict(sums)
+    return out
 
 
 def one_hot(idx, vocab):
@@ -1423,15 +1903,16 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from deeplearning4j_tpu_torch import (DecodeServer, MultiLayerNetwork, char_rnn,
-                                          load_jax_params, ops)
+    from deeplearning4j_tpu_torch import (DecodeServer, MultiLayerNetwork, alexnet_conf,
+                                          char_rnn, load_jax_params, ops)
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import adam as ad
     from deeplearning4j_tpu_torch.ops import lstm_sequence as ls
     from deeplearning4j_tpu_torch.ops import softmax_xent as sx
 
-    # the module, which ops' function of the same name shadows as an attribute
+    # the modules, which ops' functions of the same names shadow as attributes
     fa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
+    lr = importlib.import_module("deeplearning4j_tpu_torch.ops.lrn")
 
     # ---- 1. environment and build
     card = gpu_line()
@@ -1454,6 +1935,7 @@ def main() -> int:
     errs.update(phase_kernels_train(torch, ls, sx))
     errs[("adam_update", "float32", "leaves")] = phase_adam(torch, ad)
     errs.update(phase_kernels_attention(torch, fa))
+    errs.update(phase_kernels_lrn(torch, lr, sx))
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
     confs = {dt: char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dt)
@@ -1558,6 +2040,19 @@ def main() -> int:
     for name in ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"):
         launches[name] += sum(run[0][name] for run in attn_train.values())
 
+    # ---- 4e. AlexNet: serving, then training (rows 3-4; 10-11)
+    alex_host = alexnet_params(alexnet_conf(), SEED)
+    alex_serve = phase_serve_alexnet(torch, alex_host, card)
+    alex_train = {dtype: phase_train_alexnet(torch, lr, dtype, alex_host, card)
+                  for dtype in ("float32", "bfloat16")}
+    for name in LRN_KERNELS:
+        launches[name] = (alex_serve.get(name, 0)
+                          + sum(run[0][name] for run in alex_train.values()))
+        if not launches[name]:
+            raise AssertionError(f"{name} did not launch on the AlexNet path")
+    for name in ("softmax_xent_fwd", "softmax_xent_bwd"):
+        launches[name] += sum(run[0][name] for run in alex_train.values())
+
     # ---- 5. times
     times = {}
     for dtype in ("float32", "bfloat16"):
@@ -1595,6 +2090,9 @@ def main() -> int:
     times.update(time_train_kernels(torch, ls, sx, card))
     times[("adam_update", "float32")] = time_adam(torch, ad, card)
     times.update(time_attention(torch, fa, card))
+    lrn_times = time_lrn(torch, lr, card)
+    for name in LRN_KERNELS:  # the table's shape: LRN 1
+        times[(name, "float32")] = lrn_times[(name, "float32", "lrn1")]
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -1614,6 +2112,10 @@ def main() -> int:
     attn_batch = next(ds for ds in attn_it if ds.features.shape[1] == ATTN_T)
     emit("profile", what="fit() one Adam update of the attention net, f32 B=4 T=4096",
          gpu=card, **profile(torch, lambda: attn_net.fit(attn_batch)))
+    _, _, alex_net, alex_batch = alex_train["float32"]
+    emit("profile", what="fit() one Nesterov update of AlexNet, f32 B=128, dropout 0.5",
+         gpu=card, **profile(torch, lambda: alex_net.fit(alex_batch), top=14,
+                             groups=ALEX_PROFILE_GROUPS))
     server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
 
     def decode_all():
@@ -1645,7 +2147,9 @@ def main() -> int:
     for name in ATTN_KERNELS:  # the main shape, with and without the key mask
         shapes[name] = (name, "float32")
         errs[shapes[name]] = max(errs[(name, "float32", m)] for m in (False, True))
-    for name, (source, replaces) in {**KERNELS, **ATTN_KERNELS}.items():
+    for name in LRN_KERNELS:  # LRN 1's shape
+        shapes[name] = (name, "float32")
+    for name, (source, replaces) in {**KERNELS, **ATTN_KERNELS, **LRN_KERNELS}.items():
         t = times[(name, "float32")]
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1661,7 +2165,9 @@ def main() -> int:
                       "over the same 14 leaves, which also adds u to the params; rows "
                       "13-15: scaled_dot_product_attention(is_causal=True), forward for "
                       "row 13 and forward+backward (more work than either backward "
-                      "kernel) for rows 14-15",
+                      "kernel) for rows 14-15; rows 3-4: F.local_response_norm on the "
+                      "same channels-last view (alpha times n), forward for row 3 and "
+                      "forward+backward for row 4, at LRN 1's shape [128, 56, 56, 96]",
                       "adam_update_ms_covers": "the 14 leaves of one update",
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)

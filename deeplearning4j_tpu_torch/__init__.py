@@ -9,20 +9,26 @@ momentum or Nesterov, on padded variable-length batches of
 (``evaluate``) and checkpoints it in the JAX package's zip layout
 (``write_model``, ``restore_model``). It serves and trains causal
 self-attention networks the same ways (``SelfAttentionLayer``,
-``LayerNormLayer``). The LSTM recurrence, masked or not, its backward, flash
-attention and its backward, the softmax cross-entropy and the Adam update run
-in hand-written CUDA kernels (``ops/csrc/``). Entry points run on the card unless the caller
-passes ``device="cpu"``.
+``LayerNormLayer``), and AlexNet (``alexnet_conf``: ``ConvolutionLayer``,
+``LocalResponseNormalization``, ``SubsamplingLayer`` over NHWC images). The
+LSTM recurrence, masked or not, its backward, flash attention and its
+backward, LRN and its backward, the softmax cross-entropy and the Adam update
+run in hand-written CUDA kernels (``ops/csrc/``). Entry points run on the
+card unless the caller passes ``device="cpu"``.
 """
 
 from .datasets.iterators import BucketingSequenceIterator, DataSet, pad_to_bucket
 from .eval.evaluation import Evaluation
 from .interop.jax_params import load_jax_model_zip, load_jax_params, params_to_numpy
+from .models.alexnet import alexnet_conf
 from .models.char_rnn import char_rnn
 from .nn.conf.inputs import InputType
 from .nn.conf.multi_layer import MultiLayerConfiguration
 from .nn.layers.attention import LayerNormLayer, SelfAttentionLayer
+from .nn.layers.convolution import ConvolutionLayer
 from .nn.layers.dense import DenseLayer, OutputLayer
+from .nn.layers.normalization import LocalResponseNormalization
+from .nn.layers.pooling import SubsamplingLayer
 from .nn.layers.recurrent import GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer
 from .nn.multilayer import MultiLayerNetwork
 from .nn.updaters import UpdaterConfig
@@ -31,6 +37,7 @@ from .utils.serialization import restore_model, write_model
 
 __all__ = [
     "BucketingSequenceIterator",
+    "ConvolutionLayer",
     "DataSet",
     "DecodeServer",
     "DenseLayer",
@@ -39,12 +46,15 @@ __all__ = [
     "GravesLSTM",
     "InputType",
     "LayerNormLayer",
+    "LocalResponseNormalization",
     "MultiLayerConfiguration",
     "MultiLayerNetwork",
     "OutputLayer",
     "RnnOutputLayer",
     "SelfAttentionLayer",
+    "SubsamplingLayer",
     "UpdaterConfig",
+    "alexnet_conf",
     "char_rnn",
     "load_jax_model_zip",
     "load_jax_params",

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from . import adam as _adam
 from . import flash_attention as _flash_attention
+from . import lrn as _lrn
 from . import lstm_sequence as _lstm_sequence
 from . import softmax_xent as _softmax_xent
 from .adam import adam_update_reference, fused_adam_update
@@ -26,6 +27,14 @@ from .flash_attention import (
     flash_attention_dq_reference,
     flash_attention_forward,
     flash_attention_reference,
+)
+from .lrn import (
+    LrnFunction,
+    fused_lrn,
+    lrn_backward,
+    lrn_backward_reference,
+    lrn_forward,
+    lrn_reference,
 )
 from .lstm_sequence import (
     LstmSequenceFunction,
@@ -54,7 +63,7 @@ from .softmax_xent import (
 )
 
 
-_COUNTED = (_lstm_sequence, _softmax_xent, _adam, _flash_attention)
+_COUNTED = (_lstm_sequence, _softmax_xent, _adam, _flash_attention, _lrn)
 
 
 def counters() -> dict:
@@ -70,6 +79,14 @@ def reset_counters() -> None:
             counts[name] = 0
 
 
+def lrn(x, k: float = 2.0, n: int = 5, alpha: float = 1e-4, beta: float = 0.75):
+    """Cross-channel LRN over the trailing axis (the JAX package's
+    ``ops.lrn``): the kernels on CUDA, the plain versions on the CPU. There
+    is no variant to pick; this function shadows the ``ops.lrn`` module as an
+    attribute of ``ops``."""
+    return fused_lrn(x, k, n, alpha, beta)
+
+
 def softmax_xent_rows(labels2d, preout2d):
     """Per-row softmax cross-entropy for 2D [N, C] logits/labels (the JAX
     package's argument order): the kernels on CUDA, the plain versions on
@@ -80,6 +97,7 @@ def softmax_xent_rows(labels2d, preout2d):
 
 __all__ = [
     "FlashAttentionFunction",
+    "LrnFunction",
     "LstmSequenceFunction",
     "SoftmaxXentFunction",
     "adam_update_reference",
@@ -94,8 +112,14 @@ __all__ = [
     "flash_attention_forward",
     "flash_attention_reference",
     "fused_adam_update",
+    "fused_lrn",
     "fused_lstm_sequence",
     "fused_lstm_sequence_masked",
+    "lrn",
+    "lrn_backward",
+    "lrn_backward_reference",
+    "lrn_forward",
+    "lrn_reference",
     "lstm_sequence_apply",
     "lstm_sequence_backward",
     "lstm_sequence_backward_reference",

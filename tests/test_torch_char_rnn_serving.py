@@ -274,8 +274,8 @@ def test_same_json_configures_both_packages(conf_name):
 
 def test_unported_layer_is_refused():
     conf = dj.MultiLayerConfiguration(
-        layers=[dj.ConvolutionLayer(n_out=4, kernel=(3, 3))],
-        input_type=dj.InputType.convolutional(8, 8, 1))
+        layers=[dj.AutoEncoder(n_out=4)],
+        input_type=dj.InputType.feed_forward(8))
     with pytest.raises(ValueError, match="not ported"):
         pt.MultiLayerConfiguration.from_json(conf.to_json())
 
