@@ -24,9 +24,14 @@ seed): the LRN kernels against their plain versions and two wrong ones,
 softmax-xent at N=128, C=1000, ``output``/``predict`` (card against CPU on
 8 images), Nesterov training at lr 1e-2 (card against CPU on 8 images with
 dropout 0, a faulty LRN backward the limits must catch, ``evaluate``, an
-exact resume; then the conf's dropout 0.5 at B=128, timed). It checks the
-results and the kernel launch counts of each path, and times the kernels
-and the training update.
+exact resume; then the conf's dropout 0.5 at B=128, timed). Then the
+char-RNN again on the per-step cell route (``lstm_variant="fusedcell"``):
+the cell kernels against their plain versions (every activation pair, B
+1-67, H 130 and 512) and two wrong ones, ``output``/``predict`` and decode
+against the CPU and the seqfused route, SGD (standard and TBPTT) and the
+recipe against the CPU's cell route and, in f32, the card's seqfused route.
+It checks the results and the kernel launch counts of each path, and times
+the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, where
 CUDA or the port's package is missing. It imports no JAX and nothing of the
@@ -626,6 +631,25 @@ def char_batches(n: int, seed: int):
     return out
 
 
+def sgd_readings(run, ref, seed_params) -> dict:
+    """An SGD run (net, losses, params) against a reference run: the losses
+    of every update relative to the reference's, the largest absolute param
+    difference, and each param tensor's change from the seed params relative
+    to the norm of the reference's change, so an update left out reads 1."""
+    import numpy as np
+
+    _, losses, params = run
+    _, ref_losses, ref_params = ref
+    return {
+        "loss_rel": float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses))),
+        "param_abs": max(float(np.abs(p[k] - q[k]).max())
+                         for p, q in zip(params, ref_params) for k in p),
+        "change_rel": max(float(np.linalg.norm(p[k] - q[k])
+                                / np.linalg.norm(q[k] - p0[k].astype(np.float32)))
+                          for p, q, p0 in zip(params, ref_params, seed_params) for k in p),
+    }
+
+
 def phase_train(torch, mode, dtype, host_params, card):
     """Train the char-RNN from the seed params on the card and on the CPU
     from the same batches; hold the per-update losses, the final params and
@@ -669,14 +693,8 @@ def phase_train(torch, mode, dtype, host_params, card):
     expected.update({"lstm_seq_train_fwd": LAYERS * updates,
                      "lstm_seq_bwd": LAYERS * updates,
                      "softmax_xent_fwd": updates, "softmax_xent_bwd": updates})
-    loss_err = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
-    param_err = max(float(np.abs(p[k] - q[k]).max())
-                    for p, q in zip(params, cpu_params) for k in p)
-    # each tensor's change from the seed params, card against CPU, over the
-    # norm of the CPU's change: an update left out reads 1
-    step_err = max(float(np.linalg.norm(p[k] - q[k])
-                         / np.linalg.norm(q[k] - p0[k].astype(np.float32)))
-                   for p, q, p0 in zip(params, cpu_params, host_params) for k in p)
+    r = sgd_readings((net, losses, params), (None, cpu_losses, cpu_params), host_params)
+    loss_err, param_err, step_err = r["loss_rel"], r["param_abs"], r["change_rel"]
     loss_fall = float(cpu_losses[0] - cpu_losses[-1])
     ok = (losses.shape == (updates,) and bool(np.isfinite(losses).all())
           and loss_err <= TRAIN_LOSS_RTOL[dtype] and param_err <= TRAIN_PARAM_ATOL[dtype]
@@ -743,6 +761,10 @@ def recipe_readings(run, ref, seed_params, lr=RECIPE_LR):
         "max_param_abs": max(float(d.max()) for d in diffs),
         "elements_over_lr_tenth": int(sum(int((d > lr / 10).sum()) for d in diffs)),
     }
+
+
+def within_limits(readings: dict, limits: dict) -> bool:
+    return all(readings[k] <= limits[k] for k in limits)  # NaN fails too
 
 
 # The recipe on the card against the same recipe on the CPU. Adam makes each
@@ -834,11 +856,11 @@ def phase_train_recipe(torch, dtype, host_params, card):
     cpu_losses = cpu[1]
     readings = recipe_readings(gpu_run, cpu, host_params)
     lim = RECIPE_LIMITS[dtype]
-    within = all(readings[k] <= lim[k] for k in lim)  # NaN fails too
+    within = within_limits(readings, lim)
     faults = {}
     for fault in RECIPE_FAULTS:
         faults[fault] = recipe_readings(train("cuda", fault)[0], cpu, host_params)
-        faults[fault]["caught"] = not all(faults[fault][k] <= lim[k] for k in lim)
+        faults[fault]["caught"] = not within_limits(faults[fault], lim)
     expected = dict.fromkeys(launches, 0)
     expected.update({"lstm_seq_masked_train_fwd": LAYERS * updates,
                      "lstm_seq_masked_bwd": LAYERS * updates,
@@ -907,6 +929,373 @@ def phase_train_recipe(torch, dtype, host_params, card):
     if not ok:
         raise AssertionError(f"training recipe {dtype} failed its checks")
     return launches, ms_per_update, net, it
+
+
+# ---- the per-step cell (rows 1-2): the char-RNN above on the route
+# lstm_variant="fusedcell", a loop of one cell launch per layer and step
+CELL_KERNELS = {
+    "lstm_cell_fwd": (CSRC + "lstm_cell.cu", PALLAS + "168"),
+    "lstm_cell_bwd": (CSRC + "lstm_cell.cu", PALLAS + "202"),
+}
+CELL_ACTS = ("tanh", "sigmoid", "hardsigmoid", "relu", "identity")
+CELL_CASES = [(B, H) for B in (1, SLOTS, BATCH, 67) for H in (130, HIDDEN)]
+CELL_FWD = ("h", "c", "a", "f", "o", "i", "cact")
+CELL_BWD = ("dzx", "dh_prev", "dc_prev", "dRW", "dpF", "dpI", "dpO")
+# rows 1-2 against their plain versions on the same CUDA tensors, every
+# output by max |err| / max |ref| and mean |err| / mean |ref|. f32 differs
+# only in the order of the products' sums (and an FMA the compiler may
+# contract in the forward's gate sums): about 1e-7 of the largest value. In
+# bf16 the elementwise math rounds where the plain version rounds, so a
+# reading comes only from a product that a sum in another order rounds to
+# the neighbouring bf16, at most 2^-8 of an element, in few elements: the
+# sequence kernels' limits for a short sequence (BF16_TRAIN_REL["tail"]).
+# The phase computes two wrong plain versions, the forward with o reading
+# c_prev instead of c through pO and the backward without df*pF in dc_prev,
+# and fails unless both read above these limits.
+CELL_REL = {"float32": {"max": 1e-5, "mean": 1e-5}, "bfloat16": BF16_TRAIN_REL["tail"]}
+CELL_FAULTS = ("o_sees_c_prev", "dc_prev_without_df_pF")
+
+
+def bound_cell(B: int, H: int, dtype: str, backward: bool):
+    """Row 1: zx [B, 4H], h_prev, c_prev, RW and the peepholes read, seven
+    [B, H] outputs written, the product's 2*B*H*4H operations. Row 2: the
+    residuals a, f, o, i, act(c), c_prev, c, h_prev, dh and dc [B, H], RW and
+    the peepholes read; dzx [B, 4H], dh_prev, dc_prev, dRW [H, 4H] and the
+    three peephole grads written; two products of 2*B*4H*H operations."""
+    item = 4 if dtype == "float32" else 2
+    if backward:
+        elems = 10 * B * H + 2 * (H * 4 * H + 3 * H) + B * 4 * H + 2 * B * H
+        return roofline(elems * item, 2 * (2.0 * B * 4 * H * H), dtype)
+    elems = B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + 7 * B * H
+    return roofline(elems * item, 2.0 * B * H * 4 * H, dtype)
+
+
+def cell_inputs(torch, B, H, dtype, seed):
+    """One step's (zx, h_prev, c_prev, RW, pF, pI, pO) on the card, scaled as
+    seq_inputs scales them (non-zero peepholes), and upstream (dh, dc)."""
+    import numpy as np
+
+    args = seq_inputs(torch, 1, B, H, dtype, False, seed)
+    args[0] = args[0][0].contiguous()
+    rng = np.random.default_rng(seed + 1)
+    up = [torch.as_tensor(rng.normal(0.0, 0.1, (B, H)), dtype=getattr(torch, dtype),
+                          device=DEVICE) for _ in range(2)]
+    return args, up
+
+
+def cell_residuals(args, fwd):
+    """The backward's residuals from a forward's (h, c, a, f, o, i, act(c))."""
+    zx, h_prev, c_prev, RW, pF, pI, pO = args
+    return tuple(fwd[2:7]) + (c_prev, fwd[1], h_prev, RW, pF, pI, pO)
+
+
+def cell_wrong(lc, fault, args, res, up, act="tanh", gate="sigmoid"):
+    """A wrong plain version of row 1 (o_sees_c_prev) or row 2
+    (dc_prev_without_df_pF), for the limits to catch."""
+    import torch
+
+    if fault == "o_sees_c_prev":
+        zx, h_prev, c_prev, RW, pF, pI, pO = args
+        H = c_prev.shape[-1]
+        A, G = lc.ACT[act], lc.ACT[gate]
+        z = zx + torch.matmul(h_prev.float(), RW.float()).to(zx.dtype)
+        a = A(z[:, :H])
+        f = G(z[:, H:2 * H] + c_prev * pF)
+        i = G(z[:, 3 * H:] + c_prev * pI)
+        c = f * c_prev + i * a
+        o = G(z[:, 2 * H:3 * H] + c_prev * pO)
+        return (o * A(c), c, a, f, o, i, A(c))
+    a, f, o, i, cact, c_prev, c, h_prev, RW, pF, pI, pO = res
+    grads = list(lc.lstm_cell_backward_reference(*res, *up, act, gate))
+    H = c_prev.shape[-1]
+    dc_tot = up[1] + up[0] * o * lc.DACT[act](cact) + grads[0][:, 2 * H:3 * H] * pO
+    grads[2] = dc_tot * f + grads[0][:, 3 * H:] * pI
+    return tuple(grads)
+
+
+def rel_readings(got, want, names) -> dict:
+    """Each output's max |err| / max |ref| and mean |err| / mean |ref| (0/0
+    reads 0), and its max abs error."""
+    out = {}
+    for n, g, w in zip(names, got, want):
+        err, ref = (g.float() - w.float()).abs(), w.float().abs()
+        mx, mn = float(ref.max()), float(ref.mean())
+        out[n] = {"max_rel": float(err.max()) / mx if mx else float(err.max()),
+                  "mean_rel": float(err.mean()) / mn if mn else float(err.mean()),
+                  "max_abs": float(err.max())}
+    return out
+
+
+def within(readings: dict, lim: dict) -> bool:
+    return all(r["max_rel"] <= lim["max"] and r["mean_rel"] <= lim["mean"]
+               for r in readings.values())  # NaN fails too
+
+
+def phase_kernels_cell(torch, lc):
+    """Rows 1-2 against their plain versions on the same CUDA tensors, f32 and
+    bf16, at every (B, H) of CELL_CASES and every activation pair; one line
+    per dtype and shape with the worst reading of each output over the
+    pairs. Then the two wrong plain versions at the main shape, which the
+    limits must catch. Returns the max abs error of each kernel at the main
+    shape in f32 (the kernels line)."""
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        lim = CELL_REL[dtype]
+        for B, H in CELL_CASES:
+            worst: dict = {}
+            args, up = cell_inputs(torch, B, H, dtype, SEED + B + H)
+            for act in CELL_ACTS:
+                for gate in CELL_ACTS:
+                    got = lc.lstm_cell_forward(*args, act, gate)
+                    want = lc.lstm_cell_forward_reference(*args, act, gate)
+                    res = cell_residuals(args, want)
+                    grads = lc.lstm_cell_backward(*res, *up, act, gate)
+                    ref = lc.lstm_cell_backward_reference(*res, *up, act, gate)
+                    torch.cuda.synchronize()
+                    r = rel_readings(list(got) + list(grads), list(want) + list(ref),
+                                     CELL_FWD + CELL_BWD)
+                    for n, v in r.items():
+                        w = worst.setdefault(n, dict.fromkeys(v, 0.0))
+                        for k in v:
+                            w[k] = max(w[k], v[k]) if v[k] == v[k] else v[k]  # keep NaN
+            ok = within(worst, lim)
+            emit("kernel_vs_plain", kernel="lstm_cell_fwd+lstm_cell_bwd", dtype=dtype, B=B,
+                 H=H, activation_pairs=len(CELL_ACTS) ** 2, worst_by_output=worst,
+                 limit_max_rel=lim["max"], limit_mean_rel=lim["mean"], ok=ok)
+            if not ok:
+                raise AssertionError(f"lstm_cell {dtype} B={B} H={H}: outside {lim}: {worst}")
+            if (B, H) == (BATCH, HIDDEN) and dtype == "float32":
+                errs["lstm_cell_fwd"] = max(worst[n]["max_abs"] for n in CELL_FWD)
+                errs["lstm_cell_bwd"] = max(worst[n]["max_abs"] for n in CELL_BWD)
+        args, up = cell_inputs(torch, BATCH, HIDDEN, dtype, SEED)
+        got = lc.lstm_cell_forward(*args)
+        want = lc.lstm_cell_forward_reference(*args)
+        res = cell_residuals(args, want)
+        grads = lc.lstm_cell_backward(*res, *up)
+        torch.cuda.synchronize()
+        faults = {}
+        for fault in CELL_FAULTS:
+            wrong = cell_wrong(lc, fault, args, res, up)
+            kern, names = (got, CELL_FWD) if fault == "o_sees_c_prev" else (grads, CELL_BWD)
+            r = rel_readings(kern, wrong, names)
+            bad = {n: v for n, v in r.items() if not within({n: v}, lim)}
+            faults[fault] = {"outputs_outside_the_limits": bad, "caught": bool(bad)}
+        ok = all(f["caught"] for f in faults.values())
+        emit("kernel_vs_wrong_plain", kernel="lstm_cell_fwd+lstm_cell_bwd", dtype=dtype,
+             B=BATCH, H=HIDDEN, faults=faults, limit_max_rel=lim["max"],
+             limit_mean_rel=lim["mean"], ok=ok)
+        if not ok:
+            raise AssertionError(f"lstm_cell {dtype}: a wrong plain version passed {faults}")
+    return errs
+
+
+def cell_launches(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def phase_serve_cell(torch, confs, host_params, x, seq_net, card):
+    """The fusedcell net served at B=64, T=256: output/predict in f32 and
+    bf16 against the same net on the CPU, in f32 also against the seqfused
+    net on the card (``seq_net``), with exactly STEPS * LAYERS row-1
+    launches per call and no other kernel; then DecodeServer with 8 slots
+    against each session alone, one row-1 launch per layer and tick. Counts
+    from 0. Returns the main path's launches."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import DecodeServer, MultiLayerNetwork, load_jax_params, ops
+
+    nets = {dt: load_jax_params(MultiLayerNetwork(c, lstm_variant="fusedcell"), host_params)
+            for dt, c in confs.items()}
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    served = {}
+    for dt, net in nets.items():
+        before = ops.counters()
+        t0 = time.perf_counter()
+        probs = net.output(x)
+        output_ms = (time.perf_counter() - t0) * 1e3
+        cls = net.predict(x)
+        torch.cuda.synchronize()
+        served[dt] = (probs, cls, cell_launches(before, ops.counters()), output_ms)
+    server = DecodeServer(nets["float32"], capacity=SLOTS, max_delay_ms=2.0)
+    before = ops.counters()
+    trajectories, decode_s = decode_sessions(server)
+    ticks = server.ticks
+    server.stop()
+    torch.cuda.synchronize()
+    decode_launches = cell_launches(before, ops.counters())
+    launches = ops.counters()
+
+    seq_probs = seq_net.output(x)
+    per_call = {"lstm_cell_fwd": STEPS * LAYERS}
+    for dt, (probs, cls, rose, output_ms) in served.items():
+        cpu = load_jax_params(MultiLayerNetwork(confs[dt], device="cpu",
+                                                lstm_variant="fusedcell"), host_params)
+        ref = cpu.output(x)
+        err = float(np.abs(probs - ref).max())
+        seq_err = float(np.abs(probs - seq_probs).max()) if dt == "float32" else None
+        expected = {"lstm_cell_fwd": 2 * STEPS * LAYERS}  # output and predict
+        ok = (probs.shape == (BATCH, STEPS, VOCAB) and bool(np.isfinite(probs).all())
+              and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-2
+              and cls.shape == (BATCH, STEPS) and rose == expected
+              and err <= SERVE_ATOL[dt] and (seq_err is None or seq_err <= SERVE_ATOL[dt]))
+        emit("serve_cell", dtype=dt, shape=list(probs.shape), kernel_launches=rose,
+             expected_launches=expected, launches_per_call=per_call,
+             max_abs_err_vs_cpu=err, max_abs_err_vs_seqfused_on_card=seq_err,
+             atol=SERVE_ATOL[dt], argmax_agree_vs_cpu=float((cls == ref.argmax(-1)).mean()),
+             first_output_ms=output_ms, ok=ok, gpu=card)
+        if not ok:
+            raise AssertionError(f"serving the fusedcell net {dt} failed its checks")
+
+    alone_err, same_tokens = decode_vs_alone(nets["float32"], trajectories)
+    expected = {"lstm_cell_fwd": ticks * LAYERS}
+    ok = same_tokens and alone_err <= DECODE_ATOL and decode_launches == expected
+    emit("decode_server_cell", sessions=SLOTS, chars_each=DECODE_CHARS, ticks=ticks,
+         seconds=decode_s, tokens_per_s=SLOTS * DECODE_CHARS / decode_s,
+         kernel_launches=decode_launches, expected_launches=expected,
+         same_tokens_as_alone=same_tokens, max_abs_err_vs_alone=alone_err,
+         atol=DECODE_ATOL, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("fusedcell decode sessions differ from running alone")
+    return launches
+
+
+def cell_train_run(torch, conf, dev, route, host_params, data, timed=False):
+    """``fit`` over ``data`` (a list of (x, y) batches or an iterator) from the
+    seed params on ``dev`` and ``route``. Returns ((net, losses, params),
+    the card's launches counted from 0, and, when ``timed``, ms per update of
+    one more pass over the same data)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, ops, params_to_numpy
+
+    net = load_jax_params(MultiLayerNetwork(conf, device=dev, lstm_variant=route),
+                          host_params)
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    launches = None
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        ops.reset_counters()
+    for batch in (data if isinstance(data, list) else [data]):
+        net.fit(batch)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        launches = ops.counters()
+    net.set_listeners()
+    run = (net, np.array([float(l) for l in rec.losses]), params_to_numpy(net))
+    ms = None
+    if timed:
+        t0 = time.perf_counter()
+        for batch in (data if isinstance(data, list) else [data]):
+            net.fit(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(run[1])
+    return run, launches, ms
+
+
+def phase_train_cell(torch, dtype, host_params, card):
+    """The fusedcell char-RNN trained at full width on the card and on the CPU
+    from the seed params: SGD ``fit`` standard (1 batch, T=256) and TBPTT(50)
+    (1 batch, 6 updates), held by phase_train's limits (TRAIN_LOSS_RTOL,
+    TRAIN_PARAM_ATOL, TRAIN_STEP_RTOL), and the recipe (Adam over the
+    bucketed padded batches, one epoch of 9 updates), held by
+    RECIPE_LIMITS; in f32 each also against the card's seqfused run by the
+    same limits. Exact launches of rows 1-2 per update (one per layer and
+    step), and none of the sequence kernels. Then one more timed epoch of
+    the recipe on each card route. Returns (the main path's launches, ms per
+    recipe update by route, the standard SGD net and its batch)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import BucketingSequenceIterator, char_rnn
+
+    sgd_limits = {"loss_rel": TRAIN_LOSS_RTOL[dtype], "param_abs": TRAIN_PARAM_ATOL[dtype],
+                  "change_rel": TRAIN_STEP_RTOL[dtype]}
+    batch = char_batches(1, SEED + 3)
+    it = BucketingSequenceIterator(recipe_sequences(), batch=BATCH, boundaries=RECIPE_BUCKETS)
+    segments = {"standard": [STEPS], "tbptt": [TBPTT] * (STEPS // TBPTT) + [TAIL],
+                "recipe": [min(TBPTT, t - t0) for t in RECIPE_BUCKETS
+                           for t0 in range(0, t, TBPTT)]}
+    total: dict = {}
+    recipe_ms, sgd_net = {}, None
+    for what in ("standard", "tbptt", "recipe"):
+        if what == "recipe":
+            conf = char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dtype)
+            data, readings, limits = it, recipe_readings, RECIPE_LIMITS[dtype]
+        else:
+            conf = char_rnn(VOCAB, HIDDEN, LAYERS, tbptt_length=TBPTT, dtype=dtype)
+            conf.updater = {"updater": "sgd", "learning_rate": LR}
+            conf.backprop_type = what
+            data, readings, limits = batch, sgd_readings, sgd_limits
+        timed = what == "recipe"
+        run, launches, ms = cell_train_run(torch, conf, "cuda", "fusedcell", host_params,
+                                           data, timed)
+        t0 = time.perf_counter()
+        cpu, _, _ = cell_train_run(torch, conf, "cpu", "fusedcell", host_params, data)
+        cpu_s = time.perf_counter() - t0
+        vs = {"cpu_fusedcell": readings(run, cpu, host_params)}
+        seq_ms = None
+        if dtype == "float32":
+            seq, _, seq_ms = cell_train_run(torch, conf, "cuda", "seqfused", host_params, data,
+                                            timed)
+            vs["card_seqfused"] = readings(run, seq, host_params)
+        updates = len(segments[what])
+        steps = sum(segments[what])
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"lstm_cell_fwd": LAYERS * steps, "lstm_cell_bwd": LAYERS * steps,
+                         "softmax_xent_fwd": updates, "softmax_xent_bwd": updates})
+        if what == "recipe":
+            expected["adam_update"] = updates * sum(len(p) for p in run[0].layer_params)
+        losses = run[1]
+        ok = (losses.shape == (updates,) and bool(np.isfinite(losses).all())
+              and all(within_limits(r, limits) for r in vs.values())
+              and launches == expected)
+        emit("train_cell", what=what, dtype=dtype, updates=updates, steps_per_layer=steps,
+             losses=losses.tolist(), cpu_losses=cpu[1].tolist(), readings=vs, limits=limits,
+             kernel_launches={k: v for k, v in launches.items() if v},
+             expected_launches={k: v for k, v in expected.items() if v},
+             launches_per_update={k: v / updates for k, v in launches.items() if v},
+             cpu_seconds=cpu_s, ms_per_update_fusedcell=ms, ms_per_update_seqfused=seq_ms,
+             ok=ok, gpu=card)
+        if not ok:
+            raise AssertionError(f"training the fusedcell net ({what}, {dtype}) failed")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        if what == "recipe":
+            recipe_ms = {"fusedcell": ms, "seqfused": seq_ms}
+        if what == "standard":
+            sgd_net = run[0]
+    return total, recipe_ms, sgd_net, batch[0]
+
+
+def time_cell(torch, lc, times, card):
+    """Rows 1-2 at the main shape (B=64; row 1 also at the decode tick's B=8)
+    beside their plain versions and bounds (no single PyTorch call computes
+    the peephole cell: library none), and one step of each beside row 5's
+    decode launch and row 7's time per step."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for B, rows in ((BATCH, ("lstm_cell_fwd", "lstm_cell_bwd")), (SLOTS, ("lstm_cell_fwd",))):
+            args, up = cell_inputs(torch, B, HIDDEN, dtype, SEED)
+            res = cell_residuals(args, lc.lstm_cell_forward_reference(*args))
+            for name in rows:
+                if name == "lstm_cell_fwd":
+                    kern = lambda: lc.lstm_cell_forward(*args)  # noqa: E731
+                    plain = lambda: lc.lstm_cell_forward_reference(*args)  # noqa: E731
+                else:
+                    kern = lambda: lc.lstm_cell_backward(*res, *up)  # noqa: E731
+                    plain = lambda: lc.lstm_cell_backward_reference(*res, *up)  # noqa: E731
+                b_ms, b_by = bound_cell(B, HIDDEN, dtype, name == "lstm_cell_bwd")
+                out[(name, dtype, B)] = time_pair(torch, name, kern, plain, None, b_ms, b_by,
+                                                  card, dtype=dtype, B=B, H=HIDDEN)
+        emit("cell_vs_sequence", dtype=dtype, gpu=card,
+             cell_fwd_ms_b8=out[("lstm_cell_fwd", dtype, SLOTS)]["ms"],
+             seq_lean_masked_ms_t1_b8=times[("lstm_seq_lean_masked", dtype)]["ms"],
+             cell_fwd_ms_b64=out[("lstm_cell_fwd", dtype, BATCH)]["ms"],
+             seq_train_fwd_ms_per_step=times[("lstm_seq_train_fwd", dtype)]["ms"] / STEPS,
+             cell_bwd_ms_b64=out[("lstm_cell_bwd", dtype, BATCH)]["ms"],
+             seq_bwd_ms_per_step=times[("lstm_seq_bwd", dtype)]["ms"] / STEPS)
+    return out
 
 
 # ---- the causal self-attention slice: the transformer block of
@@ -1236,7 +1625,7 @@ def phase_train_attention(torch, dtype, card):
     runs = {dev: train_small(dev) for dev in ("cuda", "cpu")}
     readings = recipe_readings(runs["cuda"], runs["cpu"], host, lr=ATTN_LR)
     lim = ATTN_TRAIN_LIMITS[dtype]
-    within = all(readings[k] <= lim[k] for k in lim)  # NaN fails too
+    within = within_limits(readings, lim)
     # the same training on the card with delta left out of the backward
     # kernels (the dq kernel handed out = 0), which the limits must catch
     real_dq = fa.flash_attention_dq
@@ -1246,7 +1635,7 @@ def phase_train_attention(torch, dtype, card):
         fault = recipe_readings(train_small("cuda"), runs["cpu"], host, lr=ATTN_LR)
     finally:
         fa.flash_attention_dq = real_dq
-    fault["caught"] = not all(fault[k] <= lim[k] for k in lim)
+    fault["caught"] = not within_limits(fault, lim)
     cpu_losses = runs["cpu"][1]
     loss_fall = float(cpu_losses[:2].mean() - cpu_losses[-2:].mean())
     acc = {dev: runs[dev][0].evaluate(small).accuracy() for dev in runs}
@@ -1719,7 +2108,7 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
     runs = {dev: train_small(dev) for dev in ("cuda", "cpu")}
     compared_s = time.perf_counter() - t0
     readings = alexnet_readings(runs["cuda"][1:], runs["cpu"][1:], host)
-    within = all(readings[k] <= lim[k] for k in lim)  # NaN fails too
+    within = within_limits(readings, lim)
     real_bwd = lr.lrn_backward
     c = lr._const
     lr.lrn_backward = lambda x, d, g, k, n, a, b: g * d ** float(c(-b, x.dtype))
@@ -1727,7 +2116,7 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
         fault = alexnet_readings(train_small("cuda")[1:], runs["cpu"][1:], host)
     finally:
         lr.lrn_backward = real_bwd
-    fault["caught"] = not all(fault[k] <= lim[k] for k in lim)
+    fault["caught"] = not within_limits(fault, lim)
     cpu_losses = runs["cpu"][1]
     loss_fall = float(cpu_losses[0] - cpu_losses[-1])
     card_fall = float(runs["cuda"][1][0] - runs["cuda"][1][-1])
@@ -1890,6 +2279,42 @@ def decode_session(server, first: int, out: dict, key: int) -> None:
     out[key] = np.stack(rows)
 
 
+def decode_sessions(server):
+    """SLOTS sessions of DECODE_CHARS chars each through ``server`` at once,
+    session s starting from char s. Returns ({s: rows}, seconds)."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=decode_session, args=(server, s, out, s))
+               for s in range(SLOTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    seconds = time.perf_counter() - t0
+    if len(out) != SLOTS:
+        raise AssertionError(f"{len(out)} of {SLOTS} decode sessions finished")
+    return out, seconds
+
+
+def decode_vs_alone(net, trajectories):
+    """Each decode session's rows against the same session run alone through
+    ``net.rnn_time_step``: (max abs difference, whether every token agrees)."""
+    import numpy as np
+
+    alone_err, same_tokens = 0.0, True
+    for s, rows in trajectories.items():
+        net.rnn_clear_previous_state()
+        tok, alone = s, []
+        for _ in range(DECODE_CHARS):
+            row = net.rnn_time_step(one_hot(np.array([tok]), VOCAB))[0]
+            alone.append(row)
+            tok = int(np.argmax(row))
+        alone = np.stack(alone)
+        alone_err = max(alone_err, float(np.abs(alone - rows).max()))
+        same_tokens &= bool((alone.argmax(-1) == rows.argmax(-1)).all())
+    return alone_err, same_tokens
+
+
 def main() -> int:
     import torch
 
@@ -1913,6 +2338,7 @@ def main() -> int:
     # the modules, which ops' functions of the same names shadow as attributes
     fa = importlib.import_module("deeplearning4j_tpu_torch.ops.flash_attention")
     lr = importlib.import_module("deeplearning4j_tpu_torch.ops.lrn")
+    lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
 
     # ---- 1. environment and build
     card = gpu_line()
@@ -1936,6 +2362,7 @@ def main() -> int:
     errs[("adam_update", "float32", "leaves")] = phase_adam(torch, ad)
     errs.update(phase_kernels_attention(torch, fa))
     errs.update(phase_kernels_lrn(torch, lr, sx))
+    cell_errs = phase_kernels_cell(torch, lc)
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
     confs = {dt: char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dt)
@@ -1955,15 +2382,7 @@ def main() -> int:
         rose = ls.launches["lstm_seq_lean"] - before
         served[dt] = (probs, cls, rose)
     server = DecodeServer(nets["float32"], capacity=SLOTS, max_delay_ms=2.0)
-    trajectories: dict = {}
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=decode_session, args=(server, s, trajectories, s))
-               for s in range(SLOTS)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=300)
-    decode_s = time.perf_counter() - t0
+    trajectories, decode_s = decode_sessions(server)
     ticks = server.ticks
     server.stop()
     launches = ops.counters()
@@ -1983,20 +2402,7 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"serving {dt} failed its checks")
 
-    alone_err, same_tokens = 0.0, True
-    if len(trajectories) != SLOTS:
-        raise AssertionError(f"{len(trajectories)} of {SLOTS} decode sessions finished")
-    net = nets["float32"]
-    for s, rows in trajectories.items():
-        net.rnn_clear_previous_state()
-        tok, alone = s, []
-        for _ in range(DECODE_CHARS):
-            row = net.rnn_time_step(one_hot(np.array([tok]), VOCAB))[0]
-            alone.append(row)
-            tok = int(np.argmax(row))
-        alone = np.stack(alone)
-        alone_err = max(alone_err, float(np.abs(alone - rows).max()))
-        same_tokens &= bool((alone.argmax(-1) == rows.argmax(-1)).all())
+    alone_err, same_tokens = decode_vs_alone(nets["float32"], trajectories)
     ok = same_tokens and alone_err <= DECODE_ATOL and launches["lstm_seq_lean_masked"] > 0
     emit("decode_server", sessions=SLOTS, chars_each=DECODE_CHARS, ticks=ticks,
          seconds=decode_s, tokens_per_s=SLOTS * DECODE_CHARS / decode_s,
@@ -2006,6 +2412,9 @@ def main() -> int:
         raise AssertionError("decode sessions differ from running alone")
     if not (launches["lstm_seq_lean"] and launches["lstm_seq_lean_masked"]):
         raise AssertionError(f"a kernel of the serving path did not launch: {launches}")
+
+    # ---- 4a. the cell route served and decoding (row 1): counts from 0
+    cell_serve = phase_serve_cell(torch, confs, host_params, x, nets["float32"], card)
 
     # ---- 4b. the training path: each run counts from 0 (phase_train)
     train = {}
@@ -2027,6 +2436,17 @@ def main() -> int:
             raise AssertionError(f"{name} did not launch on the training recipe's path")
     for name in ("softmax_xent_fwd", "softmax_xent_bwd"):  # both training paths
         launches[name] += sum(run[0][name] for run in recipe.values())
+
+    # ---- 4c2. the cell route trained: SGD and the recipe (rows 1-2; 10-12)
+    cell_train = {dtype: phase_train_cell(torch, dtype, host_params, card)
+                  for dtype in ("float32", "bfloat16")}
+    for name in CELL_KERNELS:
+        launches[name] = (cell_serve[name]
+                          + sum(run[0][name] for run in cell_train.values()))
+        if not launches[name]:
+            raise AssertionError(f"{name} did not launch on the cell route")
+    for name in ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"):
+        launches[name] += sum(run[0][name] for run in cell_train.values())
 
     # ---- 4d. the attention net: serving, then training (rows 13-15; 10-12)
     serve_launches = phase_serve_attention(torch, card)
@@ -2088,6 +2508,14 @@ def main() -> int:
              ms_runs=runs, gpu=card)
 
     times.update(time_train_kernels(torch, ls, sx, card))
+    cell_times = time_cell(torch, lc, times, card)
+    for name in CELL_KERNELS:  # the table's shape: B=64
+        times[(name, "float32")] = cell_times[(name, "float32", BATCH)]
+    emit("recipe_update_by_route", gpu=card, **{
+        dtype: {"fusedcell_ms_per_update": cell_train[dtype][1]["fusedcell"],
+                "seqfused_ms_per_update_same_phase": cell_train[dtype][1]["seqfused"],
+                "seqfused_ms_per_update_train_recipe": recipe[dtype][1]}
+        for dtype in cell_train})
     times[("adam_update", "float32")] = time_adam(torch, ad, card)
     times.update(time_attention(torch, fa, card))
     lrn_times = time_lrn(torch, lr, card)
@@ -2108,6 +2536,10 @@ def main() -> int:
     long_batch = next(ds for ds in recipe_it if ds.features.shape[1] == STEPS)
     emit("profile", what="fit() one bucketed Adam TBPTT batch, f32 B=64 T=256 (6 updates)",
          gpu=card, **profile(torch, lambda: recipe_net.fit(long_batch)))
+    _, _, cell_net, (cx, cy) = cell_train["float32"]
+    emit("profile", what="fit() one standard SGD update on the fusedcell route, f32 B=64 "
+         "T=256 (512 launches of each cell row)", gpu=card,
+         **profile(torch, lambda: cell_net.fit((cx, cy)), top=8))
     _, _, attn_net, attn_it = attn_train["float32"]
     attn_batch = next(ds for ds in attn_it if ds.features.shape[1] == ATTN_T)
     emit("profile", what="fit() one Adam update of the attention net, f32 B=4 T=4096",
@@ -2118,19 +2550,8 @@ def main() -> int:
                              groups=ALEX_PROFILE_GROUPS))
     server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
 
-    def decode_all():
-        out: dict = {}
-        ths = [threading.Thread(target=decode_session, args=(server, s, out, s))
-               for s in range(SLOTS)]
-        for th in ths:
-            th.start()
-        for th in ths:
-            th.join(timeout=300)
-        if len(out) != SLOTS:
-            raise AssertionError(f"{len(out)} of {SLOTS} decode sessions finished")
-
     emit("profile", what=f"decode {SLOTS} sessions x {DECODE_CHARS} chars f32", gpu=card,
-         **profile(torch, decode_all))
+         **profile(torch, lambda: decode_sessions(server)))
     server.stop()
 
     # ---- 6. the kernels of the paths (f32, at the main path's shapes)
@@ -2149,7 +2570,11 @@ def main() -> int:
         errs[shapes[name]] = max(errs[(name, "float32", m)] for m in (False, True))
     for name in LRN_KERNELS:  # LRN 1's shape
         shapes[name] = (name, "float32")
-    for name, (source, replaces) in {**KERNELS, **ATTN_KERNELS, **LRN_KERNELS}.items():
+    for name in CELL_KERNELS:  # B=64, H=512
+        shapes[name] = (name, "float32")
+        errs[shapes[name]] = cell_errs[name]
+    for name, (source, replaces) in {**KERNELS, **ATTN_KERNELS, **LRN_KERNELS,
+                                     **CELL_KERNELS}.items():
         t = times[(name, "float32")]
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2167,7 +2592,8 @@ def main() -> int:
                       "row 13 and forward+backward (more work than either backward "
                       "kernel) for rows 14-15; rows 3-4: F.local_response_norm on the "
                       "same channels-last view (alpha times n), forward for row 3 and "
-                      "forward+backward for row 4, at LRN 1's shape [128, 56, 56, 96]",
+                      "forward+backward for row 4, at LRN 1's shape [128, 56, 56, 96]; "
+                      "rows 1-2: none (torch.nn.LSTMCell has no peepholes)",
                       "adam_update_ms_covers": "the 14 leaves of one update",
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)

@@ -13,8 +13,11 @@ self-attention networks the same ways (``SelfAttentionLayer``,
 ``LocalResponseNormalization``, ``SubsamplingLayer`` over NHWC images). The
 LSTM recurrence, masked or not, its backward, flash attention and its
 backward, LRN and its backward, the softmax cross-entropy and the Adam update
-run in hand-written CUDA kernels (``ops/csrc/``). Entry points run on the
-card unless the caller passes ``device="cpu"``.
+run in hand-written CUDA kernels (``ops/csrc/``); the LSTM layers run either
+the whole-sequence kernels (the default) or, with
+``MultiLayerNetwork(..., lstm_variant="fusedcell")``, one per-step cell
+kernel launch per step. Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from .datasets.iterators import BucketingSequenceIterator, DataSet, pad_to_bucket

@@ -7,11 +7,19 @@ h_t = o * act(c_t). Data is [batch, time, features]. The input projection
 ``x @ W + b`` for all steps is one product, computed time-major and left to
 ``torch.matmul`` under autograd, as the JAX package leaves it to XLA; the
 recurrence is the sequence op of ``ops`` (the CUDA kernels on the card,
-their plain versions on the CPU), through ``ops.lstm_sequence_apply``, which
-picks what runs: under grad ``ops.LstmSequenceFunction`` (training forward
-and backward kernels, masked or not), the lean primal otherwise. The
-bidirectional layer's reverse direction runs the same op on time-flipped
-input and a time-flipped mask.
+their plain versions on the CPU) on one of two routes, which the caller
+picks with ``lstm_variant``:
+
+- "seqfused" (the default): ``ops.lstm_sequence_apply`` runs the whole
+  sequence, under grad ``ops.LstmSequenceFunction`` (training forward and
+  backward kernels, masked or not), the lean primal otherwise;
+- "fusedcell": a loop over the T steps calls ``ops.fused_lstm_cell`` (the
+  per-step cell kernels, under grad ``ops.LstmCellFunction``) and masks
+  outside the kernel, as the JAX package's scan does under its "fusedcell"
+  variant.
+
+The bidirectional layer's reverse direction runs the same route on
+time-flipped input and a time-flipped mask.
 """
 
 from __future__ import annotations
@@ -31,14 +39,38 @@ from .dense import DenseLayer
 RecurrentState = Dict[str, torch.Tensor]
 
 
+def _cell_scan(zx, m, h, c, RW, pF, pI, pO, act: str, gate: str,
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The "fusedcell" route over ``zx`` [T, B, 4H] (``m`` [T, B, 1] or
+    None): ``ops.fused_lstm_cell`` at each step, then, with a mask,
+    h = m*h + (1-m)*h_prev and the same for c (the JAX scan body). Returns
+    (ys [T, B, H], h_T, c_T)."""
+    masks = m.unbind(0) if m is not None else (None,) * zx.shape[0]
+    ys = []
+    for z, m_t in zip(zx.unbind(0), masks):
+        h_new, c_new = ops.fused_lstm_cell(z, h, c, RW, pF, pI, pO, act, gate)
+        if m_t is not None:
+            h_new = m_t * h_new + (1.0 - m_t) * h
+            c_new = m_t * c_new + (1.0 - m_t) * c
+        h, c = h_new, c_new
+        ys.append(h)
+    if not ys:
+        return zx.new_empty((0,) + tuple(h.shape)), h, c
+    return torch.stack(ys), h, c
+
+
 def _lstm_scan(prefix: str, params: Params, x: torch.Tensor, h0: torch.Tensor,
                c0: torch.Tensor, act_name: str, gate_name: str,
                mask: Optional[torch.Tensor], reverse: bool = False,
+               variant: str = "seqfused",
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run one LSTM direction over ``x`` [B, T, n_in]; returns
     (y [B, T, H], h_T, c_T). ``prefix`` selects the direction's weights ("" or
     "bwd_"). Masked steps (``mask`` [B, T] == 0) carry h/c unchanged. A
-    reverse direction is the forward op on time-flipped input."""
+    reverse direction is the forward route on time-flipped input.
+    ``variant`` is the route, "seqfused" or "fusedcell" (ValueError
+    otherwise)."""
+    ops.check_lstm_variant(variant)
     p = prefix
     W, RW, b = params[p + "W"], params[p + "RW"], params[p + "b"]
     pF, pI, pO = params[p + "pF"], params[p + "pI"], params[p + "pO"]
@@ -52,8 +84,11 @@ def _lstm_scan(prefix: str, params: Params, x: torch.Tensor, h0: torch.Tensor,
     act, gate = act_name.lower(), gate_name.lower()
     if (ops.supported_lstm_activations(act, gate)
             and is_builtin(act) and is_builtin(gate)):
-        ys, h, c = ops.lstm_sequence_apply(zx, h0, c0, RW, pF, pI, pO, act, gate,
-                                           mask=m)
+        if variant == "fusedcell":
+            ys, h, c = _cell_scan(zx, m, h0, c0, RW, pF, pI, pO, act, gate)
+        else:
+            ys, h, c = ops.lstm_sequence_apply(zx, h0, c0, RW, pF, pI, pO, act, gate,
+                                               mask=m)
     elif zx.is_cuda:
         raise NotImplementedError(
             f"LSTM activations ({act_name}, {gate_name}) have no CUDA kernel; "
@@ -115,18 +150,20 @@ class GravesLSTM(BaseLayer):
     def apply_seq(self, params: Params, x: torch.Tensor, rstate: RecurrentState,
                   *, mask: Optional[torch.Tensor] = None, train: bool = False,
                   generator: Optional[torch.Generator] = None,
+                  lstm_variant: str = "seqfused",
                   ) -> Tuple[torch.Tensor, RecurrentState]:
         x = maybe_dropout(x, self.dropout, train, generator)
         h0 = rstate["h"].to(x.dtype).contiguous()
         c0 = rstate["c"].to(x.dtype).contiguous()
         y, h, c = _lstm_scan("", params, x, h0, c0, self.activation,
-                             self.gate_activation, mask)
+                             self.gate_activation, mask, variant=lstm_variant)
         return y, {"h": h, "c": c}
 
-    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None,
+              lstm_variant: str = "seqfused"):
         rstate = self.init_recurrent_state(x.shape[0], x.dtype, x.device)
         y, _ = self.apply_seq(params, x, rstate, mask=mask, train=train,
-                              generator=generator)
+                              generator=generator, lstm_variant=lstm_variant)
         return y, state
 
 
@@ -143,17 +180,19 @@ class GravesBidirectionalLSTM(GravesLSTM):
         return p
 
     def apply_seq(self, params, x, rstate, *, mask=None, train=False,
-                  generator=None):
+                  generator=None, lstm_variant="seqfused"):
         raise NotImplementedError(
             "Bidirectional LSTM has no streaming or TBPTT state")
 
-    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None,
+              lstm_variant: str = "seqfused"):
         x = maybe_dropout(x, self.dropout, train, generator)
         zeros = torch.zeros((x.shape[0], self.n_out), dtype=x.dtype, device=x.device)
         y_f, _, _ = _lstm_scan("", params, x, zeros, zeros, self.activation,
-                               self.gate_activation, mask)
+                               self.gate_activation, mask, variant=lstm_variant)
         y_b, _, _ = _lstm_scan("bwd_", params, x, zeros, zeros, self.activation,
-                               self.gate_activation, mask, reverse=True)
+                               self.gate_activation, mask, reverse=True,
+                               variant=lstm_variant)
         return y_f + y_b, state
 
 

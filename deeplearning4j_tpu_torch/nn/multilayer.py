@@ -4,6 +4,9 @@ inference, streaming and training.
 The network is an ``nn.Module`` holding one ``nn.ParameterDict`` per layer on
 an explicit device. It runs on the card unless the caller passes
 ``device="cpu"``; with the default device and no CUDA, construction raises.
+``lstm_variant`` picks the route of every LSTM layer: "seqfused" (the
+default, the whole-sequence kernels) or "fusedcell" (a loop of per-step cell
+kernels); any other value raises ValueError. It is not part of the conf.
 
 - ``output``, ``predict`` and ``rnn_time_step`` take host arrays (or
   tensors) and return host numpy arrays, as the JAX package's inference fast
@@ -32,9 +35,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import ops
 from ..datasets.iterators import DataSet, as_iterator
 from ..eval.evaluation import Evaluation
 from .conf.multi_layer import MultiLayerConfiguration
+from .layers.recurrent import GravesLSTM
 from .updaters import (UpdaterConfig, opt_state_from_leaves, opt_state_leaves,
                        optimizer_update, scaled_loss, unscale_grads)
 
@@ -60,8 +65,10 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 class MultiLayerNetwork(torch.nn.Module):
     """Sequential network over a :class:`MultiLayerConfiguration`."""
 
-    def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
+    def __init__(self, conf: MultiLayerConfiguration, device="cuda",
+                 lstm_variant: str = "seqfused"):
         super().__init__()
+        self.lstm_variant = ops.check_lstm_variant(lstm_variant)
         if conf.dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"dtype={conf.dtype!r} is not supported "
                              f"(use {sorted(_COMPUTE_DTYPES)})")
@@ -173,19 +180,21 @@ class MultiLayerNetwork(torch.nn.Module):
         """Forward through layers [0, upto). Returns (out, new_rnn_state);
         ``rnn_state`` (one dict per layer, {} for stateless layers) threads
         LSTM h/c across streaming calls and TBPTT segments. ``train`` turns
-        dropout on."""
+        dropout on. LSTM layers take the route ``self.lstm_variant``."""
         layers = self.conf.layers
         n = len(layers) if upto is None else upto
         gen = self._generator if train else None
         new_rnn = list(rnn_state) if rnn_state is not None else None
         for i in range(n):
+            kw = ({"lstm_variant": self.lstm_variant}
+                  if isinstance(layers[i], GravesLSTM) else {})
             if new_rnn is not None and new_rnn[i]:
                 x, new_rnn[i] = layers[i].apply_seq(params[i], x, new_rnn[i],
                                                     mask=features_mask, train=train,
-                                                    generator=gen)
+                                                    generator=gen, **kw)
             else:
                 x, _ = layers[i].apply(params[i], x, {}, mask=features_mask,
-                                       train=train, generator=gen)
+                                       train=train, generator=gen, **kw)
         return x, (tuple(new_rnn) if new_rnn is not None else None)
 
     def _loss(self, x, y, labels_mask=None, features_mask=None, rnn_state=None,

@@ -3,9 +3,12 @@ PyTorch for CPU tensors.
 
 Counterpart of ``deeplearning4j_tpu/ops/__init__.py``. There is no knob and
 no fallback: a CUDA tensor goes to the kernel, which raises on what it does
-not take; a CPU tensor goes to the kernel's plain version. ``variant(t)``
-reports which of the two ran, under the JAX package's variant names
-("seqfused" for the sequence kernels, "reference" for the plain math).
+not take; a CPU tensor goes to the kernel's plain version. ``variant(t,
+lstm_variant)`` reports which of the two runs, under the JAX package's
+variant names ("seqfused" for the sequence kernels, "fusedcell" for the
+per-step cell kernels, "reference" for the plain math). The LSTM route is
+the caller's explicit choice (``MultiLayerNetwork(..., lstm_variant=...)``),
+never an environment variable.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 from . import adam as _adam
 from . import flash_attention as _flash_attention
 from . import lrn as _lrn
+from . import lstm_cell as _lstm_cell
 from . import lstm_sequence as _lstm_sequence
 from . import softmax_xent as _softmax_xent
 from .adam import adam_update_reference, fused_adam_update
@@ -36,8 +40,18 @@ from .lrn import (
     lrn_forward,
     lrn_reference,
 )
+from .lstm_cell import (
+    LstmCellFunction,
+    fused_lstm_cell,
+    lstm_cell_backward,
+    lstm_cell_backward_reference,
+    lstm_cell_forward,
+    lstm_cell_forward_reference,
+)
 from .lstm_sequence import (
+    LSTM_VARIANTS,
     LstmSequenceFunction,
+    check_lstm_variant,
     fused_lstm_sequence,
     fused_lstm_sequence_masked,
     lstm_sequence_apply,
@@ -63,7 +77,7 @@ from .softmax_xent import (
 )
 
 
-_COUNTED = (_lstm_sequence, _softmax_xent, _adam, _flash_attention, _lrn)
+_COUNTED = (_lstm_sequence, _softmax_xent, _adam, _flash_attention, _lrn, _lstm_cell)
 
 
 def counters() -> dict:
@@ -77,6 +91,18 @@ def reset_counters() -> None:
     for counts in (module.launches for module in _COUNTED):
         for name in counts:
             counts[name] = 0
+
+
+def lstm_cell(zx, h_prev, c_prev, RW, pF, pI, pO, act_name: str = "tanh",
+              gate_name: str = "sigmoid"):
+    """One LSTM step (h, c) (the JAX package's ``ops.lstm_cell``): the cell
+    kernels on CUDA, their plain versions on the CPU. Unknown activations
+    raise ValueError, as there; there is no VMEM budget to fall back from
+    (the JAX ``_cell_fits``), so every shape runs the cell. This function
+    shadows the ``ops.lstm_cell`` module as an attribute of ``ops``."""
+    if not supported_lstm_activations(act_name, gate_name):
+        raise ValueError(f"Unknown LSTM activations ({act_name}, {gate_name})")
+    return fused_lstm_cell(zx, h_prev, c_prev, RW, pF, pI, pO, act_name, gate_name)
 
 
 def lrn(x, k: float = 2.0, n: int = 5, alpha: float = 1e-4, beta: float = 0.75):
@@ -97,10 +123,13 @@ def softmax_xent_rows(labels2d, preout2d):
 
 __all__ = [
     "FlashAttentionFunction",
+    "LSTM_VARIANTS",
     "LrnFunction",
+    "LstmCellFunction",
     "LstmSequenceFunction",
     "SoftmaxXentFunction",
     "adam_update_reference",
+    "check_lstm_variant",
     "counters",
     "flash_attention",
     "flash_attention_backward",
@@ -113,6 +142,7 @@ __all__ = [
     "flash_attention_reference",
     "fused_adam_update",
     "fused_lrn",
+    "fused_lstm_cell",
     "fused_lstm_sequence",
     "fused_lstm_sequence_masked",
     "lrn",
@@ -120,6 +150,11 @@ __all__ = [
     "lrn_backward_reference",
     "lrn_forward",
     "lrn_reference",
+    "lstm_cell",
+    "lstm_cell_backward",
+    "lstm_cell_backward_reference",
+    "lstm_cell_forward",
+    "lstm_cell_forward_reference",
     "lstm_sequence_apply",
     "lstm_sequence_backward",
     "lstm_sequence_backward_reference",

@@ -51,8 +51,8 @@ __device__ __forceinline__ float activate(int kind, float x) {
       const float t = rnd<T>(tanhf(rnd<T>(0.5f * x)));
       return rnd<T>(0.5f * rnd<T>(t + 1.0f));
     }
-    case kHardSigmoid:  // clip(0.2 * x + 0.5, 0, 1)
-      return fminf(fmaxf(rnd<T>(rnd<T>(0.2f * x) + 0.5f), 0.0f), 1.0f);
+    case kHardSigmoid:  // clip(0.2 * x + 0.5, 0, 1), 0.2 rounded to the type as JAX does
+      return fminf(fmaxf(rnd<T>(rnd<T>(rnd<T>(0.2f) * x) + 0.5f), 0.0f), 1.0f);
     case kRelu:
       return fmaxf(x, 0.0f);
     default:

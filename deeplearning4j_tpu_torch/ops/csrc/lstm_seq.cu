@@ -45,106 +45,9 @@
 // work: a persistent kernel with RW split across SMs and wgmma for the
 // recurrent product.
 
-#include "common.cuh"
+#include "lstm.cuh"
 
 namespace {
-
-using namespace dl4j;
-
-constexpr int kUnits = 8;    // hidden units per block
-constexpr int kRows = 32;    // batch rows per block
-constexpr int kTileK = 64;   // depth of one shared-memory tile of h_prev @ RW
-constexpr int kThreads = kUnits * kRows;
-constexpr int kCols = 4 * kUnits;  // RW columns a block reads: 4 gates x kUnits
-
-template <typename T, bool kMasked, bool kStoreResiduals>
-__global__ void __launch_bounds__(kThreads)
-lstm_step(const T* __restrict__ zx,      // [B, 4H] of this step
-          const T* __restrict__ mask,    // [B] of this step (masked only)
-          const T* __restrict__ h_prev,  // [B, H]
-          const T* __restrict__ c_prev,  // [B, H]
-          const T* __restrict__ rw,      // [H, 4H]
-          const T* __restrict__ pf, const T* __restrict__ pi,
-          const T* __restrict__ po,      // [H] each
-          T* __restrict__ h_out,         // [B, H]: ys[t]
-          T* __restrict__ c_out,         // [B, H]
-          T* __restrict__ h_last,        // [B, H]: hT on the last step, else null
-          T* __restrict__ a_out, T* __restrict__ f_out,
-          T* __restrict__ o_out,
-          T* __restrict__ i_out,         // [B, H] each: residuals (kStoreResiduals)
-          int B, int H, int act, int gate) {
-  __shared__ float hs[kRows][kTileK + 1];  // +1: rows of one warp hit other banks
-  __shared__ float ws[kTileK][kCols];
-
-  const int tid = threadIdx.x;
-  const int u = tid % kUnits;
-  const int r = tid / kUnits;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
-  const int j = j0 + u;
-  const int b = b0 + r;
-  const size_t H4 = 4 * static_cast<size_t>(H);
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < H; k0 += kTileK) {
-    for (int e = tid; e < kRows * kTileK; e += kThreads) {
-      const int rr = e / kTileK, kk = e % kTileK;
-      const int bb = b0 + rr, k = k0 + kk;
-      hs[rr][kk] = (bb < B && k < H) ? ld(h_prev, static_cast<size_t>(bb) * H + k) : 0.f;
-    }
-    for (int e = tid; e < kTileK * kCols; e += kThreads) {
-      const int kk = e / kCols, col = e % kCols;
-      const int g = col / kUnits, jj = j0 + col % kUnits;
-      const int k = k0 + kk;
-      ws[kk][col] = (k < H && jj < H)
-                        ? ld(rw, static_cast<size_t>(k) * H4 + static_cast<size_t>(g) * H + jj)
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 16
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float hv = hs[r][kk];
-      acc[0] = fmaf(hv, ws[kk][u], acc[0]);
-      acc[1] = fmaf(hv, ws[kk][kUnits + u], acc[1]);
-      acc[2] = fmaf(hv, ws[kk][2 * kUnits + u], acc[2]);
-      acc[3] = fmaf(hv, ws[kk][3 * kUnits + u], acc[3]);
-    }
-    __syncthreads();
-  }
-  if (b >= B || j >= H) return;
-
-  const size_t zrow = static_cast<size_t>(b) * H4;
-  const size_t hidx = static_cast<size_t>(b) * H + j;
-  const float hp = ld(h_prev, hidx);
-  const float cp = ld(c_prev, hidx);
-  // z = zx + (h_prev @ RW).astype(dtype), as _cell_math rounds it
-  const float za = rnd<T>(ld(zx, zrow + j) + rnd<T>(acc[0]));
-  const float zf = rnd<T>(ld(zx, zrow + H + j) + rnd<T>(acc[1]));
-  const float zo = rnd<T>(ld(zx, zrow + 2 * static_cast<size_t>(H) + j) + rnd<T>(acc[2]));
-  const float zi = rnd<T>(ld(zx, zrow + 3 * static_cast<size_t>(H) + j) + rnd<T>(acc[3]));
-
-  const float a = activate<T>(act, za);
-  const float f = activate<T>(gate, rnd<T>(zf + rnd<T>(cp * ld(pf, j))));
-  const float i = activate<T>(gate, rnd<T>(zi + rnd<T>(cp * ld(pi, j))));
-  float c = rnd<T>(rnd<T>(f * cp) + rnd<T>(i * a));
-  const float o = activate<T>(gate, rnd<T>(zo + rnd<T>(c * ld(po, j))));
-  float h = rnd<T>(o * activate<T>(act, c));
-  if (kMasked) {
-    const float m = ld(mask, b);
-    const float keep = rnd<T>(1.0f - m);
-    h = rnd<T>(rnd<T>(m * h) + rnd<T>(keep * hp));
-    c = rnd<T>(rnd<T>(m * c) + rnd<T>(keep * cp));
-  }
-  st(h_out, hidx, h);
-  st(c_out, hidx, c);
-  if (h_last != nullptr) st(h_last, hidx, h);
-  if (kStoreResiduals) {
-    st(a_out, hidx, a);
-    st(f_out, hidx, f);
-    st(o_out, hidx, o);
-    st(i_out, hidx, i);
-  }
-}
 
 template <typename T, bool kMasked>
 cudaError_t run_sequence(const void* zx_v, const void* mask_v, const void* h0_v,
@@ -167,8 +70,8 @@ cudaError_t run_sequence(const void* zx_v, const void* mask_v, const void* h0_v,
         zx + t * 4 * BH, kMasked ? mask + static_cast<size_t>(t) * B : nullptr,
         hp, cp, static_cast<const T*>(rw_v), static_cast<const T*>(pf_v),
         static_cast<const T*>(pi_v), static_cast<const T*>(po_v), ys + t * BH, co,
-        last ? static_cast<T*>(hT_v) : nullptr, nullptr, nullptr, nullptr, nullptr, B, H,
-        act, gate);
+        last ? static_cast<T*>(hT_v) : nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        B, H, act, gate);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -202,7 +105,7 @@ cudaError_t run_sequence_train(const void* zx_v, const void* mask_v, const void*
         static_cast<const T*>(po_v), ys + off, c + off,
         t == steps - 1 ? static_cast<T*>(hT_v) : nullptr, static_cast<T*>(a_v) + off,
         static_cast<T*>(f_v) + off, static_cast<T*>(o_v) + off, static_cast<T*>(i_v) + off,
-        B, H, act, gate);
+        nullptr, B, H, act, gate);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -53,49 +53,9 @@
 //   No atomics, so the result does not depend on the order blocks run in.
 // Later work: wgmma for both products, a persistent reverse loop.
 
-#include "common.cuh"
+#include "lstm.cuh"
 
 namespace {
-
-using namespace dl4j;
-
-constexpr int kUnits = 8;    // hidden units per block
-constexpr int kRows = 32;    // batch rows per block
-constexpr int kTileK = 64;   // depth of one shared-memory tile of dzx @ RW^T
-constexpr int kThreads = kUnits * kRows;
-
-// dzx[b, :] @ RW[j, :]^T for this thread's (b, j), accumulated in f32 over
-// the 4H columns, tiled through shared memory; every thread of the block
-// takes part. dzx may be null (returns 0).
-template <typename T>
-__device__ float dzx_rwt(const T* __restrict__ dzx, const T* __restrict__ rw, int B, int H,
-                         int b0, int j0, int r, int u) {
-  __shared__ float ds[kRows][kTileK + 1];  // +1: rows of one warp hit other banks
-  __shared__ float ws[kTileK][kUnits];
-  const int tid = threadIdx.x;
-  const size_t H4 = 4 * static_cast<size_t>(H);
-  float acc = 0.f;
-  if (dzx == nullptr) return acc;
-  for (size_t k0 = 0; k0 < H4; k0 += kTileK) {
-    for (int e = tid; e < kRows * kTileK; e += kThreads) {
-      const int rr = e / kTileK, kk = e % kTileK;
-      const int bb = b0 + rr;
-      const size_t k = k0 + kk;
-      ds[rr][kk] = (bb < B && k < H4) ? ld(dzx, static_cast<size_t>(bb) * H4 + k) : 0.f;
-    }
-    for (int e = tid; e < kTileK * kUnits; e += kThreads) {
-      const int uu = e / kTileK, kk = e % kTileK;
-      const int jj = j0 + uu;
-      const size_t k = k0 + kk;
-      ws[kk][uu] = (jj < H && k < H4) ? ld(rw, static_cast<size_t>(jj) * H4 + k) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 16
-    for (int kk = 0; kk < kTileK; ++kk) acc = fmaf(ds[r][kk], ws[kk][u], acc);
-    __syncthreads();
-  }
-  return acc;
-}
 
 template <typename T, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
@@ -117,7 +77,6 @@ lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t =
               T* __restrict__ dc_out,          // [B, H]: dc carried to t-1 (dc0 at t = 0)
               float* __restrict__ psum,        // [gridDim.y, 3, H]: this step's slots
               int B, int H, int act, int gate) {
-  __shared__ float red[3][kRows][kUnits];
   const int tid = threadIdx.x;
   const int u = tid % kUnits;
   const int r = tid / kUnits;
@@ -126,7 +85,6 @@ lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t =
   const int j = j0 + u;
   const int b = b0 + r;
   const bool valid = b < B && j < H;
-  const size_t H4 = 4 * static_cast<size_t>(H);
 
   const float rec = dzx_rwt<T>(dzx_next, rw, B, H, b0, j0, r, u);
   float tf = 0.f, ti = 0.f, to = 0.f;  // this thread's peephole terms
@@ -157,131 +115,17 @@ lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t =
     const float a = ld(a_r, hidx), f = ld(f_r, hidx), o = ld(o_r, hidx), i = ld(i_r, hidx);
     const float c = add<T>(mul<T>(f, cp), mul<T>(i, a));
     const float cact = activate<T>(act, c);
-    const float pF = ld(pf, j), pI = ld(pi, j), pO = ld(po, j);
-
-    const float d_o = mul<T>(mul<T>(dh, cact), derivative<T>(gate, o));
-    const float dc_tot = add<T>(add<T>(dc, mul<T>(mul<T>(dh, o), derivative<T>(act, cact))),
-                                mul<T>(d_o, pO));
-    const float d_f = mul<T>(mul<T>(dc_tot, cp), derivative<T>(gate, f));
-    const float d_i = mul<T>(mul<T>(dc_tot, a), derivative<T>(gate, i));
-    const float d_a = mul<T>(mul<T>(dc_tot, i), derivative<T>(act, a));
-
-    const size_t zrow = static_cast<size_t>(b) * H4;
-    st(dzx, zrow + j, d_a);
-    st(dzx, zrow + H + j, d_f);
-    st(dzx, zrow + 2 * static_cast<size_t>(H) + j, d_o);
-    st(dzx, zrow + 3 * static_cast<size_t>(H) + j, d_i);
-    float dc_next = add<T>(add<T>(mul<T>(dc_tot, f), mul<T>(d_f, pF)), mul<T>(d_i, pI));
+    const GateGrads g = gate_grads<T>(dh, dc, a, f, o, i, cact, cp, ld(pf, j), ld(pi, j),
+                                      ld(po, j), act, gate);
+    store_dzx(dzx, g, b, j, H);
+    float dc_next = g.dc_prev;
     if (kMasked) dc_next = add<T>(dc_next, mul<T>(keep, dc_t));
     st(dc_out, hidx, dc_next);
-    tf = mul<T>(d_f, cp);
-    ti = mul<T>(d_i, cp);
-    to = mul<T>(d_o, c);
+    tf = mul<T>(g.d_f, cp);
+    ti = mul<T>(g.d_i, cp);
+    to = mul<T>(g.d_o, c);
   }
-  // peephole terms summed over this block's rows, in f32
-  red[0][r][u] = tf;
-  red[1][r][u] = ti;
-  red[2][r][u] = to;
-  __syncthreads();
-  if (r < 3 && j < H) {
-    float s = 0.f;
-    for (int rr = 0; rr < kRows; ++rr) s += red[r][rr][u];
-    psum[(static_cast<size_t>(blockIdx.y) * 3 + r) * H + j] = s;
-  }
-}
-
-// dh0 = (dzx[0] @ RW^T), rounded to the type; masked, plus (1-m[0])*dh of
-// step 0 (`m0` [B], `dh_step0` [B, H], both null unmasked)
-template <typename T, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_dh(const T* __restrict__ dzx, const T* __restrict__ rw, const T* __restrict__ m0,
-            const T* __restrict__ dh_step0, T* __restrict__ dh, int B, int H) {
-  const int tid = threadIdx.x;
-  const int u = tid % kUnits;
-  const int r = tid / kUnits;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
-  const float rec = dzx_rwt<T>(dzx, rw, B, H, b0, j0, r, u);
-  const int b = b0 + r;
-  if (b >= B || j0 + u >= H) return;
-  const size_t hidx = static_cast<size_t>(b) * H + j0 + u;
-  float v = rnd<T>(rec);
-  if (kMasked) v = add<T>(v, mul<T>(sub<T>(1.0f, ld(m0, b)), ld(dh_step0, hidx)));
-  st(dh, hidx, v);
-}
-
-constexpr int kGemmM = 64;   // rows of dRW (hidden units k) per block
-constexpr int kGemmN = 64;   // columns of dRW (gate columns) per block
-constexpr int kGemmR = 16;   // depth (time x batch rows) of one tile
-constexpr int kGemmThreads = 256;  // each thread holds a 4 x 4 block of dRW
-
-// dRW[k, n] = sum_r hprev[r, k] * dzx[r, n] over the R = T*B rows of the
-// stored streams, in f32, written once in the type; hprev row r is h0[r] for
-// r < B, else ys[r - B] (h_{t-1} of row r's step).
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-drw_gemm(const T* __restrict__ h0, const T* __restrict__ ys, const T* __restrict__ dzx,
-         T* __restrict__ drw, int R, int B, int H) {
-  __shared__ float as[kGemmR][kGemmM];
-  __shared__ float bs[kGemmR][kGemmN];
-  const int tid = threadIdx.x;
-  const int tm = (tid / (kGemmN / 4)) * 4;
-  const int tn = (tid % (kGemmN / 4)) * 4;
-  const int m0 = blockIdx.y * kGemmM;
-  const int n0 = blockIdx.x * kGemmN;
-  const int H4 = 4 * H;
-  float acc[4][4] = {};
-  for (int r0 = 0; r0 < R; r0 += kGemmR) {
-    for (int e = tid; e < kGemmR * kGemmM; e += kGemmThreads) {
-      const int rr = e / kGemmM, mm = e % kGemmM;
-      const int row = r0 + rr, k = m0 + mm;
-      float v = 0.f;
-      if (row < R && k < H)
-        v = row < B ? ld(h0, static_cast<size_t>(row) * H + k)
-                    : ld(ys, static_cast<size_t>(row - B) * H + k);
-      as[rr][mm] = v;
-    }
-    for (int e = tid; e < kGemmR * kGemmN; e += kGemmThreads) {
-      const int rr = e / kGemmN, nn = e % kGemmN;
-      const int row = r0 + rr, n = n0 + nn;
-      bs[rr][nn] = (row < R && n < H4) ? ld(dzx, static_cast<size_t>(row) * H4 + n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kGemmR; ++rr) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        av[q] = as[rr][tm + q];
-        bv[q] = bs[rr][tn + q];
-      }
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int k = m0 + tm + x, n = n0 + tn + y;
-      if (k < H && n < H4) st(drw, static_cast<size_t>(k) * H4 + n, acc[x][y]);
-    }
-}
-
-// dpF, dpI, dpO[j] = sum over the `parts` slots of psum ([parts, 3, H]), in
-// f32, written once in the type
-template <typename T>
-__global__ void peephole_reduce(const float* __restrict__ psum, T* __restrict__ dpf,
-                                T* __restrict__ dpi, T* __restrict__ dpo, int parts, int H) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 3 * H) return;
-  const int g = idx / H, j = idx % H;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p) s += psum[(static_cast<size_t>(p) * 3 + g) * H + j];
-  st(g == 0 ? dpf : g == 1 ? dpi : dpo, j, s);
+  peephole_partials(tf, ti, to, psum, H);
 }
 
 // mask_v [steps, B] and dhbuf_v (2*B*H scratch) are null unmasked

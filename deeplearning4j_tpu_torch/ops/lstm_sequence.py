@@ -50,12 +50,19 @@ def _sigmoid_tanh_form(x):
     return 0.5 * (torch.tanh(0.5 * x) + 1.0)
 
 
+def _hard_sigmoid(x):
+    """clip(0.2 * x + 0.5, 0, 1) with 0.2 in x's dtype, as JAX rounds a
+    Python constant to a bf16 array's dtype (torch would multiply by the f32
+    0.2 and round once)."""
+    return torch.clamp(torch.tensor(0.2, dtype=x.dtype) * x + 0.5, 0.0, 1.0)
+
+
 # the activations the kernel takes (pallas_kernels._ACT_KERNEL), with the
-# codes of csrc/lstm_seq.cu's Act enum
+# codes of csrc/common.cuh's Act enum
 ACT = {
     "tanh": torch.tanh,
     "sigmoid": _sigmoid_tanh_form,
-    "hardsigmoid": lambda x: torch.clamp(0.2 * x + 0.5, 0.0, 1.0),
+    "hardsigmoid": _hard_sigmoid,
     "relu": torch.relu,
     "identity": lambda x: x,
 }
@@ -236,11 +243,11 @@ def _check_tensors(lead: str, tensors: dict, act: str, gate: str) -> None:
     device of the ``lead`` tensor."""
     if act not in _ACT_CODES or gate not in _ACT_CODES:
         raise NotImplementedError(
-            f"the CUDA LSTM sequence kernels take activations "
+            f"the CUDA LSTM kernels take activations "
             f"{sorted(_ACT_CODES)}; got act={act!r}, gate={gate!r}")
     ref = tensors[lead][0]
     if ref.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the CUDA LSTM sequence kernels take float32 or "
+        raise TypeError(f"the CUDA LSTM kernels take float32 or "
                         f"bfloat16, not {ref.dtype}")
     for name, (t, shape) in tensors.items():
         if tuple(t.shape) != shape:
@@ -365,10 +372,27 @@ def fused_lstm_sequence_masked(zx, mask, h0, c0, RW, pF, pI, pO,
                                           act, gate)
 
 
-def variant(t: torch.Tensor) -> str:
-    """What runs for a tensor on ``t``'s device: "seqfused" (the kernel) on
-    CUDA, "reference" (the plain version) elsewhere. A report, not a knob."""
-    return "seqfused" if t.is_cuda else "reference"
+# the LSTM routes a caller can ask for (MultiLayerNetwork's lstm_variant):
+# the sequence kernels (the default), or the per-step cell kernels
+# (ops/lstm_cell.py). No route runs the plain version on the card.
+LSTM_VARIANTS = ("seqfused", "fusedcell")
+
+
+def check_lstm_variant(lstm_variant: str) -> str:
+    """``lstm_variant`` if it names a route of :data:`LSTM_VARIANTS`; raises
+    ValueError on any other value, "reference" included."""
+    if lstm_variant not in LSTM_VARIANTS:
+        raise ValueError(f"lstm_variant must be one of {LSTM_VARIANTS}, got "
+                         f"{lstm_variant!r}")
+    return lstm_variant
+
+
+def variant(t: torch.Tensor, lstm_variant: str = "seqfused") -> str:
+    """What runs for a tensor on ``t``'s device under the route
+    ``lstm_variant``: its kernels ("seqfused" or "fusedcell") on CUDA,
+    "reference" (the plain versions) elsewhere. A report, not a knob."""
+    route = check_lstm_variant(lstm_variant)
+    return route if t.is_cuda else "reference"
 
 
 def lstm_sequence_masked_train_forward(zx, mask, h0, c0, RW, pF, pI, pO,
