@@ -16,7 +16,7 @@ variable-length text padded by ``BucketingSequenceIterator`` to T=128 or
 write/restore/continue of a checkpoint. Then a causal self-attention net
 (two blocks of SelfAttention and LayerNorm, n_out 512, 8 heads, over the
 same vocab; B=4, T=4096): the flash-attention kernels against their plain
-versions and two wrong ones, ``output``/``predict`` with and without
+versions and three wrong ones, ``output``/``predict`` with and without
 padding, bucketed Adam training (T up to 4096) against the CPU at T<=512,
 ``evaluate`` and an exact resume. Then AlexNet (``alexnet_conf()`` at its
 own widths, 224x224x3 images, 1000 classes, B=128, random weights from the
@@ -120,6 +120,11 @@ DECODE_ATOL = 1e-5  # a decode session's outputs, batched against alone (f32)
 # dense operations/s for f32 outside the tensor cores and for bf16
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# f32-accurate products on the tensor cores: 3xTF32 takes three TF32
+# products (495 TFLOP/s dense) for each, 165 TFLOP/s. The flash kernels
+# (rows 13-15) are bounded at it; rows 1-2 and 5-9, whose products still run
+# on the CUDA cores, at PEAK_OPS_PER_S["float32"].
+F32_TC_OPS_PER_S = 495e12 / 3
 
 # each kernel: its source and the pallas_call it replaces
 CSRC = "deeplearning4j_tpu_torch/ops/csrc/"
@@ -179,11 +184,11 @@ def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def roofline(nbytes: float, ops: float, dtype: str):
+def roofline(nbytes: float, ops: float, dtype: str, ops_per_s: float = None):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over HBM
-    and the operations at the dtype's peak."""
+    and the operations at the dtype's peak (or at ``ops_per_s``)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    ops_ms = ops / (ops_per_s or PEAK_OPS_PER_S[dtype]) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -1316,14 +1321,17 @@ ATTN_KERNELS = {
 # rows 13-15 against their plain versions on the same CUDA tensors: each
 # output's max |err| over the larger of its max |ref| and 1 (the inputs'
 # scale: at T=1, dq and dk are 0 up to the rounding of dp - delta). f32
-# differs only in the order of the sums (worst reading on the H100 3.6e-6,
-# dk); bf16 rounds out, dq, dk, dv once, so a sum in
-# another order can land on the neighbouring bf16, at most 2^-7 of the
-# largest value. The phase computes two wrong plain versions (the backward
-# with delta left out, the forward with the key mask ignored) and fails
-# unless both read above these limits.
+# differs in the order of the sums and, in rows 13 and 15, by the 3xTF32
+# products (about 2^-21 of each product); bf16 rounds out, dq, dk, dv once,
+# so a sum in another order can land on the neighbouring bf16, at most 2^-7
+# of the largest value, and rows 13 and 15 round p and ds to bf16 (2^-9 of
+# each) before their products. The phase computes three wrong plain
+# versions (the backward with delta left out, the forward with the key mask
+# ignored, causal masking off by one on the diagonal) and fails unless each
+# reads above these limits. The cases cover every instantiated head dim and
+# T on both sides of the 64-row tiles of rows 13 and 15.
 ATTN_REL = {"float32": 1e-4, "bfloat16": 1e-2}
-ATTN_CASES = [(D, T) for D in (4, 16, 64, 128) for T in (1, 200, 4096)]
+ATTN_CASES = [(D, T) for D in (4, 8, 16, 32, 64, 128) for T in (1, 63, 65, 200, 4096)]
 # training on the card against the same training on the CPU at T <= 512, by
 # the recipe's four readings (recipe_readings), lr = 3e-3. Limits between
 # what the correct kernels read on the H100 (f32: losses 7.6e-7, change
@@ -1410,11 +1418,10 @@ def attn_readings(got, want) -> dict:
 
 def phase_kernels_attention(torch, fa):
     """Rows 13-15 against their plain versions on the same CUDA tensors: f32
-    and bf16, causal and not, D in {4, 16, 64, 128}, T in {1, 200, 4096} at
-    B=4, H=2 with ``attn_mask``, and the main shape (B=4, H=8, T=4096, D=64,
-    causal) with and without it. Then the wrong plain versions, which the
-    limits must catch. Returns the max abs error of each kernel (f32, main
-    shape)."""
+    and bf16, causal and not, ``ATTN_CASES`` at B=4, H=2 with ``attn_mask``,
+    and the main shape (B=4, H=8, T=4096, D=64, causal) with and without it.
+    Then the wrong plain versions, which the limits must catch. Returns the
+    max abs error of each kernel (f32, main shape)."""
     errs, worst, n_cases = {}, {}, 0
     for dtype in ("float32", "bfloat16"):
         lim = ATTN_REL[dtype]
@@ -1448,7 +1455,8 @@ def phase_kernels_attention(torch, fa):
                     errs[(name, dtype, masked)] = max(
                         float((got[i].float() - want[i].float()).abs().max()) for i in outs)
         # wrong plain versions on a masked causal case: what a kernel that
-        # left delta out, or ignored the key mask, would read
+        # left delta out, ignored the key mask, or admitted key i+1 to row i
+        # would read
         q, k, v, g = attn_inputs(torch, ATTN_B, 2, 200, ATTN_D, dtype, SEED)
         mask = attn_mask(torch, ATTN_B, 200)
         r_out, r_lse = fa.flash_attention_reference(q, k, v, mask, True)
@@ -1456,11 +1464,14 @@ def phase_kernels_attention(torch, fa):
         no_delta = fa.flash_attention_backward_reference(
             q, k, v, mask, torch.zeros_like(r_out), r_lse, g, True)
         no_mask = fa.flash_attention_reference(q, k, v, None, True)
+        off_by_one = causal_off_by_one(torch, fa, q, k, v, mask, g)
         wrong = {"bwd_without_delta": attn_readings((r_out, r_lse) + no_delta,
                                                     (r_out, r_lse) + right),
-                 "fwd_mask_ignored": attn_readings(no_mask + right, (r_out, r_lse) + right)}
+                 "fwd_mask_ignored": attn_readings(no_mask + right, (r_out, r_lse) + right),
+                 "causal_off_by_one": attn_readings(off_by_one, (r_out, r_lse) + right)}
         caught = {"bwd_without_delta": min(wrong["bwd_without_delta"][n] for n in ("dq", "dk")),
-                  "fwd_mask_ignored": min(wrong["fwd_mask_ignored"][n] for n in ("out", "lse"))}
+                  "fwd_mask_ignored": min(wrong["fwd_mask_ignored"][n] for n in ("out", "lse")),
+                  "causal_off_by_one": min(wrong["causal_off_by_one"].values())}
         ok = all(v > lim for v in caught.values())
         emit("kernel_limits", kernel="flash_attn", dtype=dtype, limit=lim, wrong_readings=wrong,
              smallest_reading_of_each_wrong_version=caught, caught=ok)
@@ -1471,20 +1482,44 @@ def phase_kernels_attention(torch, fa):
     return errs
 
 
+def causal_off_by_one(torch, fa, q, k, v, mask, g):
+    """(out, lse, dq, dk, dv) of the plain versions under causal masking
+    that admits key i+1 to row i (the diagonal one key too far)."""
+    right_valid = fa._valid
+
+    def shifted(key_mask, T, causal, device):
+        valid = torch.tril(torch.ones((1, 1, T, T), dtype=torch.bool, device=device),
+                           diagonal=1)
+        if key_mask is not None:
+            valid = valid & (key_mask > 0)[:, None, None, :]
+        return valid
+
+    fa._valid = shifted
+    try:
+        out, lse = fa.flash_attention_reference(q, k, v, mask, True)
+        return (out, lse) + fa.flash_attention_backward_reference(q, k, v, mask, out, lse, g,
+                                                                   True)
+    finally:
+        fa._valid = right_valid
+
+
 def bound_attention(kernel: str, dtype: str, shape, causal=True):
     """Least time of rows 13-15 on attention of [B, H, T, D] inputs without a
     key mask: each [B, H, T, D] input read once and output written once, the
     [B, H, T] f32 row vectors too; 2*D operations per (row, key) pair for
     each product, over T(T+1)/2 pairs a head under causal masking (two
     products for row 13: q k^T and p v; three for row 14: s, dp, ds k; four
-    for row 15: s, p^T dO, dp, ds^T q) at the dtype's peak."""
+    for row 15: s, p^T dO, dp, ds^T q), in bf16 at the bf16 tensor-core
+    peak, in f32 at the f32-accurate tensor-core rate (3xTF32,
+    ``F32_TC_OPS_PER_S``)."""
     B, H, T, D = shape
     item = 4 if dtype == "float32" else 2
     tensors, rows, products = {"flash_attn_fwd": (4, 1, 2), "flash_attn_bwd_dq": (6, 2, 3),
                                "flash_attn_bwd_dkv": (6, 2, 4)}[kernel]
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     return roofline(tensors * B * H * T * D * item + rows * B * H * T * 4,
-                    products * 2.0 * D * pairs, dtype)
+                    products * 2.0 * D * pairs, dtype,
+                    F32_TC_OPS_PER_S if dtype == "float32" else None)
 
 
 def attention_text(n_short, n_long, lo, mid, hi, seed):
@@ -2218,6 +2253,97 @@ def time_lrn(torch, lr, card):
     return times
 
 
+# kernels whose products must run on the tensor cores (rows 13 and 15)
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, stack and spill bytes of each entry function, from the
+    ``-Xptxas -v`` lines of an nvcc build log."""
+    import re
+
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            out[current] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1) if m.group(1) in out else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and current:
+            out[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            out[current]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma(lib) -> dict:
+    """HMMA instructions of each function in ``cuobjdump --dump-sass`` of a
+    built library."""
+    from deeplearning4j_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            counts[current] = 0
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def demangle(names) -> dict:
+    """Readable names of mangled C++ symbols (the toolkit's cu++filt)."""
+    from deeplearning4j_tpu_torch.ops import _build
+
+    names = list(names)
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
+    out = subprocess.run([tool], input="\n".join(names), check=True, capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out))
+
+
+def phase_sass(build_s: dict) -> None:
+    """Per kernel entry of every built library: registers and spills (the
+    build's ``-Xptxas -v``) and the HMMA instructions in its SASS. Fails if
+    an entry of rows 13 or 15 (``TENSOR_CORE_KERNELS``) has no HMMA or
+    spills."""
+    from deeplearning4j_tpu_torch.ops import _build
+
+    report, bad = {}, []
+    for name in build_s:
+        lib = _build.lib_path(name)
+        regs = ptxas_report(lib.with_suffix(".log").read_text())
+        hmma = sass_hmma(lib)
+        readable = demangle(sorted(set(regs) | set(hmma)))
+        entries = {}
+        for fn in sorted(set(regs) | set(hmma)):
+            fields = dict(regs.get(fn, {}), hmma=hmma.get(fn, 0))
+            entries[readable[fn]] = fields
+            if any(k in fn for k in TENSOR_CORE_KERNELS) and (
+                    fields["hmma"] == 0 or fields.get("spill_stores", 0)
+                    or fields.get("spill_loads", 0)):
+                bad.append(readable[fn])
+        report[name] = entries
+        emit("sass", source=name, entries=entries)
+    ok = not bad and all(any(k in e for lib in report.values() for e in lib)
+                         for k in TENSOR_CORE_KERNELS)
+    emit("sass_tensor_cores", kernels=list(TENSOR_CORE_KERNELS), failing=bad, ok=ok)
+    if not ok:
+        raise AssertionError(f"kernels of rows 13/15 without HMMA or with spills: {bad}")
+
+
 def profile(torch, fn, top: int = 6, groups=None):
     """Run ``fn`` under torch.profiler: wall ms, the card's busy ms (sum of
     kernel intervals on the one stream), the ``top`` kernels by time, the
@@ -2351,10 +2477,7 @@ def main() -> int:
          device=torch.cuda.get_device_name(0), matmul_allow_tf32=False,
          cudnn_allow_tf32=False, build_seconds=time.perf_counter() - t0,
          build_seconds_by_source=build_s)
-    for name in build_s:
-        log = _build.lib_path(name).with_suffix(".log").read_text()
-        emit("ptxas", source=name,
-             report=[l.strip() for l in log.splitlines() if "ptxas" in l or "spill" in l])
+    phase_sass(build_s)
 
     # ---- 2. each kernel against its plain version
     errs = phase_kernels(torch, ls)

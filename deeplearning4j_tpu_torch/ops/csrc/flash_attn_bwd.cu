@@ -22,23 +22,46 @@
 // kernel does three products of 2*D operations (recompute s, dp, ds k), the
 // dk/dv kernel four (s, p^T dO, dp, ds^T q); at the main path's shape (B=4,
 // H=8, T=4096, D=64, causal) that is 103 and 137 GFLOP against a few
-// hundred MB: 1.54 and 2.05 ms at the 67 TFLOP/s f32 CUDA-core rate, 0.104
-// and 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate.
+// hundred MB: 0.104 and 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate;
+// in f32 1.54 ms for the dq kernel at the 67 TFLOP/s rate of the CUDA cores
+// it runs on, 0.624 and 0.833 ms at the 165 TFLOP/s of f32-accurate
+// tensor-core products (3xTF32).
 //
-// Design, simple and right first (PERF.md rows 14-15), in the layout of the
-// forward (flash_attn.cuh): the dq kernel is one block per (query tile,
-// head), its rows' q, dO and dq in registers, looping over tiles of 32 keys
-// and values staged in shared memory; the dk/dv kernel one block per (key
-// tile, head), its keys' k, v, dk and dv in registers, looping over tiles
-// of 32 query rows of q and dO (with their lse and delta) in shared memory.
-// Each output element has one owner thread, so there are no atomics and the
-// results do not depend on the order of the blocks. Under causal masking
-// the dq kernel skips key tiles above its last row and the dk/dv kernel
-// query tiles before its first key; in the Pallas kernels those tiles add
-// p = 0 exactly. The Pallas kernels' scaling of each tile's product before
-// it is added to dq and dk is kept. Rows past T are neither computed into
-// the sums nor stored (the Pallas wrapper pads them with dO = 0, which adds
-// exactly nothing).
+// The dq kernel (PERF.md row 14), simple and right first, in the layout of
+// flash_attn.cuh: one block per (query tile, head), its rows' q, dO and dq
+// in registers, looping over tiles of 32 keys and values staged in shared
+// memory as f32, f32 FMAs on the CUDA cores. Under causal masking it skips
+// the key tiles above its last row (in the Pallas kernel they add p = 0
+// exactly); rows past T are neither computed into the sums nor stored. It
+// writes delta, which the dk/dv kernel reads after it.
+//
+// The dk/dv kernel (PERF.md row 15) runs its products on the tensor cores
+// by mma.sync (flash_mma.cuh). One block of 4 warps per (64-key tile,
+// head); a warp owns 16 keys and their dK and dV accumulators in
+// registers. The block's K and V are copied once; Q and dO come in tiles
+// of query rows (64; 32 in bf16 at D = 64; 16 at D = 128, see Dkv) through
+// a 2-stage cp.async ring, with their lse and delta. The scores are formed
+// transposed, S^T = K Q^T, so that P^T and dS^T land in C fragments with
+// the keys as rows and feed the next products as A fragments:
+//   P^T = exp(S^T * scale - lse); dV += P^T dO
+//   dP^T = V dO^T; dS^T = P^T (dP^T - delta); dK += (dS^T Q) * scale
+// one tile's products added at a time as the Pallas kernel adds them. bf16
+// rounds P^T and dS^T to bf16 (2^-9 of each) for their products; f32 takes
+// every product in 3xTF32. A query past T has q = 0 and lse = 0 in the
+// ring, which would give p = 1, so it is masked explicitly, as are keys
+// that are not real and (causal) queries before the key. Under causal
+// masking the loop starts at the first query tile that can see the block's
+// keys, and a warp skips a sub-tile of queries wholly before its keys (it
+// would add exactly 0). D < 16 is zero-padded in shared memory. Each output
+// element has one owner, so there are no atomics and the result does not
+// depend on the order of the blocks.
+//
+// Measured (chip_smoke.py at the main shape, NVIDIA H100 80GB HBM3,
+// 700.00 W): the dk/dv kernel f32 3.965 ms against 7.549 for the CUDA-core
+// design it replaced (21% of the bound), bf16 1.142 ms against 7.510 (12%
+// of the bound; SDPA's whole forward and backward 0.733 ms); 168 registers
+// a thread in bf16 (three blocks an SM), 221 in f32, no spills. The dq
+// kernel: f32 6.561 ms, bf16 6.669 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +70,7 @@
 #include <cstddef>
 
 #include "flash_attn.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -116,71 +140,140 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
+namespace tc = dl4j_mma;
+
+// tiles and shared memory of flash_bwd_dkv: K and V of the block's keys
+// [BK][S], a ring of two Q and two dO tiles [BQ][S], two tiles of lse and
+// of delta [BQ]. A warp takes a stage's queries SUB at a time, so that its
+// P^T, dP^T, dK and dV stay in registers: at D = 64, 32 (bf16 within 168
+// registers, three blocks an SM; f32 in stages of 64, the loop over the two
+// halves not unrolled, which keeps the 3xTF32 code small); at D = 128,
+// where dK and dV alone take 128 registers, 16. kMinBlocks, the blocks an
+// SM must hold, caps the registers a thread takes (65536 / (128
+// kMinBlocks)).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct Dkv {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int BK = tc::kWarps * tc::kWarpRows;
+  static constexpr int BQ = D == 128 ? 16 : (D == 64 && kBf16 ? 32 : 64);
+  static constexpr int SUB = D == 64 ? 32 : BQ;
+  static constexpr int kMinBlocks = kBf16 && D == 64 ? 3 : 1;
+  static constexpr int DP = tc::dpad<D>(), S = tc::stride<T, D>();
+  static constexpr size_t kSmem = static_cast<size_t>(2 * BK + 4 * BQ) * S * sizeof(T) +
+                                  4 * BQ * sizeof(float);
+};
+
+// query tile `tile` (q, dO, lse, delta) into stage tile % 2 of the ring:
+// one cp.async group
+template <typename T, int D>
+__device__ __forceinline__ void issue_q(T* qs, T* gs, float* ls, float* ds, const T* q,
+                                        const T* g, const float* lrow, const float* drow,
+                                        int q0, int tile, int T_len) {
+  using F = Dkv<T, D>;
+  const int st = tile & 1;
+  tc::load_rows<T, D, F::BQ, F::S>(qs + st * F::BQ * F::S, q, q0, T_len);
+  tc::load_rows<T, D, F::BQ, F::S>(gs + st * F::BQ * F::S, g, q0, T_len);
+  tc::load_vec<F::BQ>(ls + st * F::BQ, lrow, q0, T_len);
+  tc::load_vec<F::BQ>(ds + st * F::BQ, drow, q0, T_len);
+  tc::cp_commit();
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(tc::kBlock, Dkv<T, D>::kMinBlocks)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const float* __restrict__ mask, const T* __restrict__ g,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dk, T* __restrict__ dv, int H, int T_len, int causal,
               float scale) {
-  using L = Layout<D>;
-  __shared__ __align__(16) float qs[kTile * L::RS];
-  __shared__ __align__(16) float gs[kTile * L::RS];
-  __shared__ float lse_s[kTile], delta_s[kTile];
+  using F = Dkv<T, D>;
+  constexpr int BQ = F::BQ, SUB = F::SUB, S = F::S, NJ = SUB / 8, NN = F::DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + F::BK * S;
+  T* qs = vs + F::BK * S;   // [2][BQ][S]
+  T* gs = qs + 2 * BQ * S;  // [2][BQ][S]
+  float* ls = reinterpret_cast<float*>(gs + 2 * BQ * S);  // [2][BQ]
+  float* ds = ls + 2 * BQ;                                 // [2][BQ]
 
   const int bh = blockIdx.x, b = bh / H;
-  const int key0 = blockIdx.y * L::ROWS;  // the first key tiles are the heaviest
-  const int part = threadIdx.x % L::TPR;
-  const int c = key0 + threadIdx.x / L::TPR;  // this thread's key
+  const int key0 = blockIdx.y * F::BK;  // the first key tiles are the heaviest
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane >> 2, t = lane & 3;
+  const int wkey = key0 + warp * tc::kWarpRows;  // this warp's first key
   const size_t base = static_cast<size_t>(bh) * T_len * D;
+  const float* lrow = lse + static_cast<size_t>(bh) * T_len;
+  const float* drow = delta + static_cast<size_t>(bh) * T_len;
 
-  float kr[L::DT], vr[L::DT], dka[L::DT], dva[L::DT], tmp[L::DT];
-  load_slice<D>(kr, k + base, c, part, T_len);
-  load_slice<D>(vr, v + base, c, part, T_len);
+  tc::zero_pad<T, D, 2 * F::BK + 4 * BQ, S>(ks);
+  // whether this lane's keys (rows g and g+8) are real
+  bool real[2];
 #pragma unroll
-  for (int i = 0; i < L::DT; ++i) dka[i] = dva[i] = 0.f;
-  const bool real = key_ok(mask, b, c, T_len);
+  for (int r = 0; r < 2; ++r) real[r] = key_ok(mask, b, wkey + gr + 8 * r, T_len);
 
   // under causal masking no row before key0 sees a key of this block
-  const int first = causal ? (key0 / kTile) * kTile : 0;
-  for (int q0 = first; q0 < T_len; q0 += kTile) {
-    __syncthreads();
-    stage<D>(qs, q + base, q0, T_len);
-    stage<D>(gs, g + base, q0, T_len);
-    if (threadIdx.x < kTile) {
-      const int rq = q0 + threadIdx.x;
-      const size_t at = static_cast<size_t>(bh) * T_len + rq;
-      lse_s[threadIdx.x] = rq < T_len ? lse[at] : 0.f;
-      delta_s[threadIdx.x] = rq < T_len ? delta[at] : 0.f;
-    }
-    __syncthreads();
+  const int first = causal ? (key0 / BQ) * BQ : 0;
+  const int n_tiles = (T_len - first + BQ - 1) / BQ;
+  tc::load_rows<T, D, F::BK, S>(ks, k + base, key0, T_len);
+  tc::load_rows<T, D, F::BK, S>(vs, v + base, key0, T_len);
+  issue_q<T, D>(qs, gs, ls, ds, q + base, g + base, lrow, drow, first, 0, T_len);
 
-#pragma unroll
-    for (int i = 0; i < L::DT; ++i) tmp[i] = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < kTile; ++i) {
-      const int rq = q0 + i;
-      const float* qi = qs + i * L::RS + part * L::SLICE;
-      const float* gi = gs + i * L::RS + part * L::SLICE;
-      const float s = row_sum<L::TPR>(dot<L::DT>(kr, qi)) * scale;
-      const bool ok = real && rq < T_len && (!causal || rq >= c);
-      const float p = ok ? expf(s - lse_s[i]) : 0.f;  // exp(-1e30 - lse) is 0
-      axpy<L::DT>(dva, p, gi);
-      const float dp = row_sum<L::TPR>(dot<L::DT>(vr, gi));
-      axpy<L::DT>(tmp, p * (dp - delta_s[i]), qi);
+  float dka[NN][4] = {}, dva[NN][4] = {};
+  const T* kw = ks + warp * tc::kWarpRows * S;
+  const T* vw = vs + warp * tc::kWarpRows * S;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      issue_q<T, D>(qs, gs, ls, ds, q + base, g + base, lrow, drow, first + (it + 1) * BQ,
+                    it + 1, T_len);
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
     }
+    __syncthreads();
+    const int st = it & 1;
+#pragma unroll 1
+    for (int h = 0; h < BQ / SUB; ++h) {
+      const int q0 = first + it * BQ + h * SUB;  // this sub-tile's first query
+      // under causal masking a sub-tile wholly before the warp's keys adds 0
+      if (causal && q0 + SUB <= wkey) continue;
+      const T* qt = qs + (st * BQ + h * SUB) * S;
+      const T* gt = gs + (st * BQ + h * SUB) * S;
+      const float* lt = ls + st * BQ + h * SUB;
+      const float* dt = ds + st * BQ + h * SUB;
+
+      // P^T = exp(S^T * scale - lse): keys in rows, the sub-tile's queries
+      // in columns; a query past T (q = 0, lse = 0 would give p = 1), a key
+      // that is not real, or (causal) a query before the key gives p = 0
+      float p[NJ][4] = {};
+      tc::mma_nt<F::DP, NJ, S, S>(p, kw, qt);
+      const bool edge = q0 + SUB > T_len || (causal && q0 < wkey + tc::kWarpRows);
 #pragma unroll
-    for (int i = 0; i < L::DT; ++i) dka[i] = __fadd_rn(dka[i], __fmul_rn(tmp[i], scale));
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          bool ok = real[e >> 1];
+          if (edge)
+            ok = ok && q0 + col < T_len && (!causal || q0 + col >= wkey + gr + 8 * (e >> 1));
+          p[j][e] = ok ? expf(p[j][e] * scale - lt[col]) : 0.f;
+        }
+      }
+      // dV += P^T dO
+      tc::mma_pv<SUB, NN, S>(dva, p, gt, 1.f, 1.f, 1.f);
+      // dP^T = V dO^T; dS^T = P^T (dP^T - delta)
+      float dp[NJ][4] = {};
+      tc::mma_nt<F::DP, NJ, S, S>(dp, vw, gt);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - dt[8 * j + 2 * t + (e & 1)]);
+      }
+      // dK += (dS^T Q) * scale
+      tc::mma_pv<SUB, NN, S>(dka, dp, qt, 1.f, 1.f, scale);
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
   }
 
-  if (c < T_len) {
-    const size_t out = base + static_cast<size_t>(c) * D + part * L::DT;
-#pragma unroll
-    for (int i = 0; i < L::DT; ++i) {
-      dl4j::st(dk, out + i, dka[i]);
-      dl4j::st(dv, out + i, dva[i]);
-    }
-  }
+  tc::store_rows<T, D, NN>(dk + base, dka, wkey, T_len, 1.f, 1.f);
+  tc::store_rows<T, D, NN>(dv + base, dva, wkey, T_len, 1.f, 1.f);
 }
 
 template <typename T, int D>
@@ -196,13 +289,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
         static_cast<const float*>(mask), static_cast<const T*>(o), static_cast<const T*>(g),
         static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<T*>(dq), H,
         T_len, causal, scale);
-  } else {
-    flash_bwd_dkv<T, D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const float*>(mask), static_cast<const T*>(g),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, T_len, causal, scale);
+    return cudaGetLastError();
   }
+  using F = Dkv<T, D>;
+  if (!tc::aligned<T>(D, {q, k, v, g, dk, dv})) return cudaErrorMisalignedAddress;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid_dkv(BH, (T_len + F::BK - 1) / F::BK);
+  flash_bwd_dkv<T, D><<<grid_dkv, tc::kBlock, F::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(mask), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, T_len, causal, scale);
   return cudaGetLastError();
 }
 
