@@ -235,6 +235,14 @@ def bound_adam(n: int):
     return roofline(24.0 * n, 12.0 * n, "float32")
 
 
+def adam_launches(net) -> int:
+    """Row-12 launches of one Adam update of ``net``: one per MAX_LEAVES
+    param leaves (ceil(leaves / MAX_LEAVES))."""
+    from deeplearning4j_tpu_torch.ops.adam import MAX_LEAVES
+
+    return -(-sum(len(p) for p in net.layer_params) // MAX_LEAVES)
+
+
 def bound_sxent(N: int, C: int, dtype: str, backward: bool):
     """Rows 10-11 (logits and labels of one dtype, math in f32): forward
     reads x and labels and writes the f32 row losses, 7 operations an
@@ -471,21 +479,31 @@ def time_pair(torch, name, kern, plain, lib, b_ms, b_by, card, **fields):
 
 
 def time_adam(torch, ad, card):
-    """Row 12 over the char-RNN's 14 leaves (one update's launches) beside
-    its plain version, its bound and torch.optim.Adam(fused=True).step() on
-    the same leaves as the library yardstick (it also adds u to the
-    params)."""
+    """Row 12 over the char-RNN's 14 leaves (one update: one grouped call,
+    one launch) beside its plain version leaf by leaf, its bound and
+    torch.optim.Adam(fused=True).step() on the same leaves as the library
+    yardstick (it also adds u to the params)."""
     leaves, sc = adam_inputs(torch, SEED + 1)
-    params = [torch.nn.Parameter(torch.zeros_like(g)) for g, _, _ in leaves]
-    for p, (g, _, _) in zip(params, leaves):
+    gs, ms, vs = (list(x) for x in zip(*leaves))
+    params = [torch.nn.Parameter(torch.zeros_like(g)) for g in gs]
+    for p, g in zip(params, gs):
         p.grad = g
     opt = torch.optim.Adam(params, lr=sc[0], betas=(sc[3], sc[4]), eps=sc[5], fused=True)
-    n = sum(g.numel() for g, _, _ in leaves)
+    n = sum(g.numel() for g in gs)
+
+    def call():
+        return ad.fused_adam_update_leaves(gs, ms, vs, *sc)
+
+    # the kernel's own time on the card, apart from the host's part of a call
+    prof = profile(torch, lambda: [call() for _ in range(10)])
+    device_ms = sum(r[1] for r in prof["top_kernels"] if "adam_multi" in r[0]) / 10
+    emit("profile", what="10 grouped Adam calls over the char-RNN's 14 leaves", gpu=card,
+         adam_multi_device_ms_per_call=device_ms, **prof)
     return time_pair(
-        torch, "adam_update",
-        lambda: [ad.fused_adam_update(g, m, v, *sc) for g, m, v in leaves],
+        torch, "adam_update", call,
         lambda: [ad.adam_update_reference(g, m, v, *sc) for g, m, v in leaves],
-        opt.step, *bound_adam(n), card, dtype="float32", leaves=len(leaves), elements=n)
+        opt.step, *bound_adam(n), card, dtype="float32", leaves=len(leaves), elements=n,
+        launches_per_call=-(-len(leaves) // ad.MAX_LEAVES), kernel_device_ms=device_ms)
 
 
 def time_train_kernels(torch, ls, sx, card):
@@ -567,46 +585,80 @@ def sxent_inputs(torch, N, dtype, labels, seed, C=VOCAB):
             torch.as_tensor(lab, dtype=dt, device=DEVICE).contiguous())
 
 
-def adam_inputs(torch, seed):
-    """One (g, m, v) f32 triple on the card per param leaf of the full-width
-    char-RNN (14 leaves, 3,398,752 elements), from a numpy seed, and the
-    scalars (lr, bc1, bc2, b1, b2, eps) of its third Adam update."""
+def adam_inputs(torch, seed, shapes=None):
+    """One (g, m, v) f32 triple on the card per leaf of ``shapes`` (default:
+    the param leaves of the full-width char-RNN, 14 leaves, 3,398,752
+    elements), from a numpy seed, and the scalars (lr, bc1, bc2, b1, b2,
+    eps) of its third Adam update."""
     import numpy as np
 
     from deeplearning4j_tpu_torch import char_rnn
     from deeplearning4j_tpu_torch.nn.updaters import bias_corrections
 
+    if shapes is None:
+        shapes = [np.shape(layer[k]) for layer in char_rnn_params(
+            char_rnn(VOCAB, HIDDEN, LAYERS), seed) for k in sorted(layer)]
     rng = np.random.default_rng(seed)
     leaves = []
-    for layer in char_rnn_params(char_rnn(VOCAB, HIDDEN, LAYERS), seed):
-        for k in sorted(layer):
-            shape = np.shape(layer[k])
-            arrs = (rng.normal(0.0, 1e-2, shape), rng.normal(0.0, 1e-3, shape),
-                    np.abs(rng.normal(0.0, 1e-4, shape)))
-            leaves.append(tuple(torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
-                                for a in arrs))
+    for shape in shapes:
+        arrs = (rng.normal(0.0, 1e-2, shape), rng.normal(0.0, 1e-3, shape),
+                np.abs(rng.normal(0.0, 1e-4, shape)))
+        leaves.append(tuple(torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                            for a in arrs))
     bc1, bc2 = bias_corrections(3, 0.9, 0.999, torch.float32)
     return leaves, (RECIPE_LR, bc1, bc2, 0.9, 0.999, 1e-8)
 
 
-def phase_adam(torch, ad):
-    """Row 12 against its plain version on the char-RNN's 14 leaves: each
-    output's max |err| over its max |ref| (ADAM_REL). Returns the max abs
-    error."""
+def adam_cases(torch, ad):
+    """Row 12's cases, each one grouped call, as (name, leaves, launches it
+    must make), and the Adam scalars. The char-RNN's 14 leaves and the
+    attention net's 16; an edge list (sizes 1, 3, 5, 1023, 4097, a leaf of
+    2^20 + 3 elements, and a leaf that starts one float into its storage,
+    which takes the scalar route); and MAX_LEAVES + 5 leaves, two
+    launches."""
+    import numpy as np
+
     leaves, sc = adam_inputs(torch, SEED)
-    rel, abs_err = dict.fromkeys(("u", "m", "v"), 0.0), 0.0
-    for g, m, v in leaves:
-        got = ad.fused_adam_update(g, m, v, *sc)
-        want = ad.adam_update_reference(g, m, v, *sc)
-        for n, a, b in zip(rel, got, want):
-            err = float((a - b).abs().max())
-            abs_err = max(abs_err, err)
-            rel[n] = max(rel[n], err / float(b.abs().max()))
-    torch.cuda.synchronize()
-    check("adam_update", "float32", rel, dict.fromkeys(rel, ADAM_REL), leaves=len(leaves),
-          elements=sum(g.numel() for g, _, _ in leaves), max_abs_err=abs_err,
-          relative_to_largest=True)
-    return abs_err
+    attention = [np.shape(a) for layer in attention_params(SEED) for _, a in sorted(
+        layer.items())]
+    attn_leaves, _ = adam_inputs(torch, SEED + 2, attention)
+    edge, _ = adam_inputs(torch, SEED + 3, [(1,), (3,), (5,), (1023,), (4097,), (2 ** 20 + 3,),
+                                            (3, 7), (1025,)])
+    edge[-1] = tuple(t[1:] for t in edge[-1])  # one float in: not 16-byte aligned
+    many, _ = adam_inputs(torch, SEED + 4, [(37 * (i + 1),) for i in range(ad.MAX_LEAVES + 5)])
+    return [("char_rnn", leaves, 1), ("attention", attn_leaves, 1), ("edge", edge, 1),
+            ("more_than_max_leaves", many, 2)], sc
+
+
+def phase_adam(torch, ad):
+    """Row 12 against its plain version (leaf by leaf) on ``adam_cases``:
+    each output's max |err| over its max |ref| (ADAM_REL), and each grouped
+    call's launches. Returns the max abs error on the char-RNN's leaves."""
+    cases, sc = adam_cases(torch, ad)
+    char_rnn_err = None
+    for name, leaves, want_launches in cases:
+        gs, ms, vs = (list(x) for x in zip(*leaves))
+        before = ad.launches["adam_update"]
+        got = ad.fused_adam_update_leaves(gs, ms, vs, *sc)
+        launched = ad.launches["adam_update"] - before
+        rel, abs_err = dict.fromkeys(("u", "m", "v"), 0.0), 0.0
+        for i, (g, m, v) in enumerate(leaves):
+            want = ad.adam_update_reference(g, m, v, *sc)
+            for n, a, b in zip(rel, (got[0][i], got[1][i], got[2][i]), want):
+                if a.shape != b.shape:
+                    raise AssertionError(f"adam_update {name} leaf {i}: {a.shape}, {b.shape}")
+                err = float((a - b).abs().max())
+                abs_err = max(abs_err, err)
+                rel[n] = max(rel[n], err / float(b.abs().max()))
+        torch.cuda.synchronize()
+        check("adam_update", "float32", rel, dict.fromkeys(rel, ADAM_REL), case=name,
+              leaves=len(leaves), elements=sum(g.numel() for g in gs), max_abs_err=abs_err,
+              launches=launched, relative_to_largest=True)
+        if launched != want_launches:
+            raise AssertionError(f"adam_update {name}: {launched} launches, not {want_launches}")
+        if name == "char_rnn":
+            char_rnn_err = abs_err
+    return char_rnn_err
 
 
 class LossRecorder:
@@ -870,7 +922,7 @@ def phase_train_recipe(torch, dtype, host_params, card):
     expected.update({"lstm_seq_masked_train_fwd": LAYERS * updates,
                      "lstm_seq_masked_bwd": LAYERS * updates,
                      "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
-                     "adam_update": updates * sum(len(p) for p in net.layer_params)})
+                     "adam_update": updates * adam_launches(net)})
     loss_fall = float(cpu_losses[:3].mean() - cpu_losses[-3:].mean())
 
     # evaluate(): accuracy over every step of every padded row, as the JAX
@@ -1250,7 +1302,7 @@ def phase_train_cell(torch, dtype, host_params, card):
         expected.update({"lstm_cell_fwd": LAYERS * steps, "lstm_cell_bwd": LAYERS * steps,
                          "softmax_xent_fwd": updates, "softmax_xent_bwd": updates})
         if what == "recipe":
-            expected["adam_update"] = updates * sum(len(p) for p in run[0].layer_params)
+            expected["adam_update"] = updates * adam_launches(run[0])
         losses = run[1]
         ok = (losses.shape == (updates,) and bool(np.isfinite(losses).all())
               and all(within_limits(r, limits) for r in vs.values())
@@ -1643,7 +1695,7 @@ def phase_train_attention(torch, dtype, card):
     expected = dict.fromkeys(launches, 0)
     expected.update({"flash_attn_fwd": 2 * updates, "flash_attn_bwd_dq": 2 * updates,
                      "flash_attn_bwd_dkv": 2 * updates, "softmax_xent_fwd": updates,
-                     "softmax_xent_bwd": updates, "adam_update": leaves * updates})
+                     "softmax_xent_bwd": updates, "adam_update": adam_launches(net) * updates})
 
     # the card against the CPU at T <= 512, two epochs
     small = BucketingSequenceIterator(attention_text(4, 4, 128, 256, 512, SEED + 5),
@@ -2253,8 +2305,8 @@ def time_lrn(torch, lr, card):
     return times
 
 
-# kernels whose products must run on the tensor cores (rows 13 and 15)
-TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+# kernels whose products must run on the tensor cores (rows 13-15)
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def ptxas_report(log: str) -> dict:
@@ -2317,7 +2369,7 @@ def demangle(names) -> dict:
 def phase_sass(build_s: dict) -> None:
     """Per kernel entry of every built library: registers and spills (the
     build's ``-Xptxas -v``) and the HMMA instructions in its SASS. Fails if
-    an entry of rows 13 or 15 (``TENSOR_CORE_KERNELS``) has no HMMA or
+    an entry of rows 13-15 (``TENSOR_CORE_KERNELS``) has no HMMA or
     spills."""
     from deeplearning4j_tpu_torch.ops import _build
 
@@ -2341,7 +2393,7 @@ def phase_sass(build_s: dict) -> None:
                          for k in TENSOR_CORE_KERNELS)
     emit("sass_tensor_cores", kernels=list(TENSOR_CORE_KERNELS), failing=bad, ok=ok)
     if not ok:
-        raise AssertionError(f"kernels of rows 13/15 without HMMA or with spills: {bad}")
+        raise AssertionError(f"kernels of rows 13-15 without HMMA or with spills: {bad}")
 
 
 def profile(torch, fn, top: int = 6, groups=None):

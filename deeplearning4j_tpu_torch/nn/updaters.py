@@ -10,9 +10,10 @@ same steps:
 - :func:`gradient_normalization` by every mode;
 - :class:`UpdaterConfig` is the same JSON dict; ``build()`` gives an
   :class:`Updater` for ``sgd``, ``momentum`` and ``nesterovs`` (optax's
-  ``sgd`` with and without ``trace``), ``adam`` (optax's ``adam``, each
-  leaf updated by the Adam kernel ``ops.fused_adam_update`` as the JAX
-  package's fused path does) and ``none``/``noop`` (optax's
+  ``sgd`` with and without ``trace``), ``adam`` (optax's ``adam``, with
+  the arithmetic of the JAX package's fused path, every leaf of an update
+  in one grouped call, ``ops.adam.fused_adam_update_leaves``) and
+  ``none``/``noop`` (optax's
   ``set_to_zero``). The optax chain is ``(normalization, core)``, and the
   learning rate of update k is ``schedule(k)``.
 - :func:`opt_state_leaves` and :func:`opt_state_from_leaves` read and build
@@ -259,9 +260,10 @@ class Updater:
         return [{k: step * g for k, g in layer.items()} for layer in grads], new
 
     def _adam(self, grads: Tree, state: dict):
-        """optax's scale_by_adam, then the schedule: one Adam kernel launch
-        per leaf, as the JAX package's fused path runs it. Returns (updates,
-        the new ScaleByAdamState)."""
+        """optax's scale_by_adam, then the schedule: one grouped Adam call
+        over every leaf (one kernel launch per ``MAX_LEAVES`` leaves on the
+        card), with the JAX package's fused path's arithmetic. Returns
+        (updates, the new ScaleByAdamState)."""
         b1, b2, eps = self.adam
         adam = state["adam"]
         count = adam["count"] + 1  # optax.safe_int32_increment
@@ -269,13 +271,10 @@ class Updater:
         leaves = _tree_leaves(grads)
         dtype = leaves[0].dtype if leaves else torch.float32
         bc1, bc2 = bias_corrections(count, b1, b2, dtype)
-        updates, mu, nu = [], [], []
-        for layer, m_l, v_l in zip(grads, adam["mu"], adam["nu"]):
-            outs = {k: _adam.fused_adam_update(g, m_l[k], v_l[k], lr, bc1, bc2,
-                                               b1, b2, eps)
-                    for k, g in layer.items()}
-            for tree, j in ((updates, 0), (mu, 1), (nu, 2)):
-                tree.append({k: o[j] for k, o in outs.items()})
+        ms = _tree_leaves(adam["mu"])
+        vs = _tree_leaves(adam["nu"])
+        outs = _adam.fused_adam_update_leaves(leaves, ms, vs, lr, bc1, bc2, b1, b2, eps)
+        updates, mu, nu = (_unflatten(grads, o) for o in outs)
         return updates, {"count": count, "mu": mu, "nu": nu}
 
 
@@ -283,6 +282,14 @@ def _tree_leaves(tree: Tree) -> List[torch.Tensor]:
     """The leaves of a param-shaped list in jax.tree_util order: layer by
     layer, each dict in sorted key order."""
     return [layer[k] for layer in tree for k in sorted(layer)]
+
+
+def _unflatten(tree: Tree, leaves: Sequence[torch.Tensor]) -> Tree:
+    """A list shaped as ``tree`` holding ``leaves`` (``_tree_leaves``
+    order), each dict in the key order of ``tree``'s."""
+    it = iter(leaves)
+    at = [{k: next(it) for k in sorted(layer)} for layer in tree]
+    return [{k: a[k] for k in layer} for layer, a in zip(tree, at)]
 
 
 def _host_array(a) -> np.ndarray:

@@ -85,19 +85,6 @@ struct Fwd {
       static_cast<size_t>(BQ + 4 * BK) * S * sizeof(T) + 2 * BK * sizeof(float);
 };
 
-// key tile `tile` (and its mask) into stage tile % 2 of the ring: one
-// cp.async group
-template <typename T, int D>
-__device__ __forceinline__ void issue_kv(T* ks, T* vs, float* ms, const T* k, const T* v,
-                                         const float* mrow, int tile, int T_len) {
-  using F = Fwd<T, D>;
-  const int st = tile & 1, k0 = tile * F::BK;
-  load_rows<T, D, F::BK, F::S>(ks + st * F::BK * F::S, k, k0, T_len);
-  load_rows<T, D, F::BK, F::S>(vs + st * F::BK * F::S, v, k0, T_len);
-  if (mrow != nullptr) load_vec<F::BK>(ms + st * F::BK, mrow, k0, T_len);
-  cp_commit();
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kBlock, Fwd<T, D>::kMinBlocks)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -122,13 +109,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int last_row = min(row0 + F::BQ, T_len) - 1;
   const int n_tiles = ((causal ? last_row + 1 : T_len) + BK - 1) / BK;
   load_rows<T, D, F::BQ, S>(qs, q + base, row0, T_len);
-  issue_kv<T, D>(ks, vs, ms, k + base, v + base, mrow, 0, T_len);
+  issue_kv<T, D, BK, S>(ks, vs, ms, k + base, v + base, mrow, 0, T_len);
 
   float o[NN][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   for (int it = 0; it < n_tiles; ++it) {
     if (it + 1 < n_tiles) {
-      issue_kv<T, D>(ks, vs, ms, k + base, v + base, mrow, it + 1, T_len);
+      issue_kv<T, D, BK, S>(ks, vs, ms, k + base, v + base, mrow, it + 1, T_len);
       cp_wait<1>();
     } else {
       cp_wait<0>();

@@ -22,21 +22,40 @@
 // kernel does three products of 2*D operations (recompute s, dp, ds k), the
 // dk/dv kernel four (s, p^T dO, dp, ds^T q); at the main path's shape (B=4,
 // H=8, T=4096, D=64, causal) that is 103 and 137 GFLOP against a few
-// hundred MB: 0.104 and 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate;
-// in f32 1.54 ms for the dq kernel at the 67 TFLOP/s rate of the CUDA cores
-// it runs on, 0.624 and 0.833 ms at the 165 TFLOP/s of f32-accurate
-// tensor-core products (3xTF32).
+// hundred MB: 0.104 and 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate,
+// 0.624 and 0.833 ms at the 165 TFLOP/s of f32-accurate tensor-core
+// products (3xTF32).
 //
-// The dq kernel (PERF.md row 14), simple and right first, in the layout of
-// flash_attn.cuh: one block per (query tile, head), its rows' q, dO and dq
-// in registers, looping over tiles of 32 keys and values staged in shared
-// memory as f32, f32 FMAs on the CUDA cores. Under causal masking it skips
-// the key tiles above its last row (in the Pallas kernel they add p = 0
-// exactly); rows past T are neither computed into the sums nor stored. It
-// writes delta, which the dk/dv kernel reads after it.
+// Both kernels run their products on the tensor cores by mma.sync
+// (flash_mma.cuh): bf16 as m16n8k16 with f32 sums, rounding P, dS and dS^T
+// to bf16 (2^-9 of each) where they become operands; f32 as m16n8k8 TF32 in
+// 3xTF32. D < 16 is zero-padded in shared memory. Each output element has
+// one owner, so there are no atomics and the result does not depend on the
+// order of the blocks. Tensors must be aligned to min(16, D * size) bytes
+// (a cp.async copy); the launch returns cudaErrorMisalignedAddress
+// otherwise.
 //
-// The dk/dv kernel (PERF.md row 15) runs its products on the tensor cores
-// by mma.sync (flash_mma.cuh). One block of 4 warps per (64-key tile,
+// The dq kernel (PERF.md row 14) has the forward's shape. One block of 4
+// warps per (64-query tile, head), heaviest tiles first; a warp owns 16
+// query rows and their dQ accumulator in registers. The block's Q and dO
+// are copied once into shared memory (the A operands); K and V come in
+// tiles of 64 keys (32 in f32 at D = 128) through a 2-stage cp.async ring
+// with the key mask beside them. A prologue forms delta for the block's
+// rows (two threads a row, dO and O read from device memory), stores it for
+// rows below T and keeps it in shared memory, where a lane finds its rows g
+// and g+8. Per key tile, a warp SUB keys at a time:
+//   S = Q K^T (mma_nt); P = exp(S * scale - lse), 0 where the key is not
+//   real (past T it is zero-filled, and s = 0 would give exp(-lse)), is
+//   masked or (causal) lies after the row: only the last tile, masked tiles
+//   and the diagonal need the test;
+//   dP = dO V^T (mma_nt); dS = P (dP - delta);
+//   dQ += (dS K) * scale (mma_pv: dS packed from C to A fragments, K read by
+//   ldmatrix.trans in bf16, in the relabelled k order in f32).
+// Under causal masking the loop ends at the tile of the block's last row,
+// and a warp skips a sub-tile wholly after its rows (it would add exactly
+// 0). A row past T reads zeros and is not stored.
+//
+// The dk/dv kernel (PERF.md row 15): one block of 4 warps per (64-key tile,
 // head); a warp owns 16 keys and their dK and dV accumulators in
 // registers. The block's K and V are copied once; Q and dO come in tiles
 // of query rows (64; 32 in bf16 at D = 64; 16 at D = 128, see Dkv) through
@@ -45,23 +64,23 @@
 // the keys as rows and feed the next products as A fragments:
 //   P^T = exp(S^T * scale - lse); dV += P^T dO
 //   dP^T = V dO^T; dS^T = P^T (dP^T - delta); dK += (dS^T Q) * scale
-// one tile's products added at a time as the Pallas kernel adds them. bf16
-// rounds P^T and dS^T to bf16 (2^-9 of each) for their products; f32 takes
-// every product in 3xTF32. A query past T has q = 0 and lse = 0 in the
-// ring, which would give p = 1, so it is masked explicitly, as are keys
-// that are not real and (causal) queries before the key. Under causal
-// masking the loop starts at the first query tile that can see the block's
-// keys, and a warp skips a sub-tile of queries wholly before its keys (it
-// would add exactly 0). D < 16 is zero-padded in shared memory. Each output
-// element has one owner, so there are no atomics and the result does not
-// depend on the order of the blocks.
+// one tile's products added at a time as the Pallas kernel adds them. A
+// query past T has q = 0 and lse = 0 in the ring, which would give p = 1,
+// so it is masked explicitly, as are keys that are not real and (causal)
+// queries before the key. Under causal masking the loop starts at the
+// first query tile that can see the block's keys, and a warp skips a
+// sub-tile of queries wholly before its keys (it would add exactly 0).
 //
 // Measured (chip_smoke.py at the main shape, NVIDIA H100 80GB HBM3,
 // 700.00 W): the dk/dv kernel f32 3.965 ms against 7.549 for the CUDA-core
 // design it replaced (21% of the bound), bf16 1.142 ms against 7.510 (12%
 // of the bound; SDPA's whole forward and backward 0.733 ms); 168 registers
 // a thread in bf16 (three blocks an SM), 221 in f32, no spills. The dq
-// kernel: f32 6.561 ms, bf16 6.669 ms.
+// kernel: f32 3.358 ms against 6.561 for the CUDA-core design it replaced
+// (a row over D/16 threads, f32 FMAs; now 19% of the bound), bf16 0.690 ms
+// against 6.669 (15% of the bound; SDPA's whole forward and backward
+// 0.775 ms); 122 registers a thread in bf16 (four blocks an SM), 253 in
+// f32, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,78 +88,146 @@
 #include <cmath>
 #include <cstddef>
 
-#include "flash_attn.cuh"
+#include "common.cuh"
 #include "flash_mma.cuh"
 
 namespace {
 
-using namespace dl4j_flash;
+namespace tc = dl4j_mma;
+
+// tiles and shared memory of flash_bwd_dq: Q and dO of the block's rows
+// [BQ][S], a ring of two K and two V tiles [BK][S], two tiles of the key
+// mask [BK], the rows' delta [BQ]. A warp takes a stage's keys SUB at a
+// time, so that its P, dP and dQ stay in registers: 32 at D >= 64. BK is 32
+// for f32 at D = 128, as in the forward. kMinBlocks, the blocks an SM must
+// hold, caps the registers a thread takes (65536 / (128 kMinBlocks)).
+template <typename T, int D>
+struct Dq {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int BQ = tc::kWarps * tc::kWarpRows;
+  static constexpr int BK = !kBf16 && D == 128 ? 32 : 64;
+  static constexpr int SUB = D >= 64 ? 32 : BK;
+  static constexpr int kMinBlocks = kBf16 ? (D <= 64 ? 4 : 2) : 1;
+  static constexpr int DP = tc::dpad<D>(), S = tc::stride<T, D>();
+  static constexpr size_t kSmem = static_cast<size_t>(2 * BQ + 4 * BK) * S * sizeof(T) +
+                                  (2 * BK + BQ) * sizeof(float);
+  static_assert(tc::kBlock == 2 * BQ, "the delta prologue takes two threads a row");
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(tc::kBlock, Dq<T, D>::kMinBlocks)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const float* __restrict__ mask, const T* __restrict__ o, const T* __restrict__ g,
              const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
              int H, int T_len, int causal, float scale) {
-  using L = Layout<D>;
-  __shared__ __align__(16) float ks[kTile * L::RS];
-  __shared__ __align__(16) float vs[kTile * L::RS];
-  __shared__ bool kval[kTile];
+  using F = Dq<T, D>;
+  constexpr int BQ = F::BQ, BK = F::BK, SUB = F::SUB, S = F::S, NJ = SUB / 8, NN = F::DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* gs = qs + BQ * S;
+  T* ks = gs + BQ * S;      // [2][BK][S]
+  T* vs = ks + 2 * BK * S;  // [2][BK][S]
+  float* ms = reinterpret_cast<float*>(vs + 2 * BK * S);  // [2][BK]
+  float* dsm = ms + 2 * BK;                                // [BQ]
 
   const int bh = blockIdx.x, b = bh / H;
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * L::ROWS;  // heaviest tiles first
-  const int part = threadIdx.x % L::TPR;
-  const int r = row0 + threadIdx.x / L::TPR;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane >> 2, t = lane & 3;
+  const int wrow = row0 + warp * tc::kWarpRows;  // this warp's first row
   const size_t base = static_cast<size_t>(bh) * T_len * D;
+  const float* mrow = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * T_len;
 
-  float qr[L::DT], dor[L::DT], dqa[L::DT], tmp[L::DT];
-  load_slice<D>(qr, q + base, r, part, T_len);
-  load_slice<D>(dor, g + base, r, part, T_len);
-  load_slice<D>(tmp, o + base, r, part, T_len);  // this row's out, for delta
-  float dsum = 0.f;
-#pragma unroll
-  for (int i = 0; i < L::DT; ++i) dsum = fmaf(dor[i], tmp[i], dsum);
-  const float delta_r = row_sum<L::TPR>(dsum);
-  float lse_r = 0.f;
-  if (r < T_len) {
-    lse_r = lse[static_cast<size_t>(bh) * T_len + r];
-    if (part == 0) delta[static_cast<size_t>(bh) * T_len + r] = delta_r;
-  }
-#pragma unroll
-  for (int i = 0; i < L::DT; ++i) dqa[i] = 0.f;
+  tc::zero_pad<T, D, 2 * BQ + 4 * BK, S>(qs);
+  const int last_row = min(row0 + BQ, T_len) - 1;
+  const int n_tiles = ((causal ? last_row + 1 : T_len) + BK - 1) / BK;
+  tc::load_rows<T, D, BQ, S>(qs, q + base, row0, T_len);
+  tc::load_rows<T, D, BQ, S>(gs, g + base, row0, T_len);
+  tc::issue_kv<T, D, BK, S>(ks, vs, ms, k + base, v + base, mrow, 0, T_len);
 
-  const int last_row = min(row0 + L::ROWS, T_len) - 1;
-  const int n_keys = causal ? last_row + 1 : T_len;
-  for (int k0 = 0; k0 < n_keys; k0 += kTile) {
-    __syncthreads();
-    stage<D>(ks, k + base, k0, T_len);
-    stage<D>(vs, v + base, k0, T_len);
-    if (threadIdx.x < kTile) kval[threadIdx.x] = key_ok(mask, b, k0 + threadIdx.x, T_len);
-    __syncthreads();
-
+  // delta of the block's rows while the copies fly: two threads a row, each
+  // half of the elements; stored for rows below T by one of them, and kept
+  {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = row0 + r;
+    float part = 0.f;
+    if (row < T_len) {
+      const size_t at = base + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int i = 0; i < L::DT; ++i) tmp[i] = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < kTile; ++j) {
-      const float* kj = ks + j * L::RS + part * L::SLICE;
-      const float s = row_sum<L::TPR>(dot<L::DT>(qr, kj)) * scale;
-      const bool ok = kval[j] && (!causal || r >= k0 + j);
-      const float p = ok ? expf(s - lse_r) : 0.f;  // exp(-1e30 - lse) is 0
-      const float dp = row_sum<L::TPR>(dot<L::DT>(dor, vs + j * L::RS + part * L::SLICE));
-      axpy<L::DT>(tmp, p * (dp - delta_r), kj);
+      for (int j = 0; j < D / 2; ++j) {
+        const size_t i = at + 2 * j + half;
+        part = fmaf(dl4j::ld(g, i), dl4j::ld(o, i), part);
+      }
     }
+    const float sum = part + __shfl_xor_sync(0xffffffffu, part, 1);
+    if (half == 0) {
+      dsm[r] = sum;
+      if (row < T_len) delta[static_cast<size_t>(bh) * T_len + row] = sum;
+    }
+  }
+  __syncthreads();
+  // this lane's rows g and g+8: their delta and lse (0 past T)
+  float dl[2], ll[2];
 #pragma unroll
-    for (int i = 0; i < L::DT; ++i) dqa[i] = __fadd_rn(dqa[i], __fmul_rn(tmp[i], scale));
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + gr + 8 * r;
+    dl[r] = dsm[warp * tc::kWarpRows + gr + 8 * r];
+    ll[r] = row < T_len ? lse[static_cast<size_t>(bh) * T_len + row] : 0.f;
   }
 
-  if (r < T_len) {
-    const size_t out = base + static_cast<size_t>(r) * D + part * L::DT;
+  float dqa[NN][4] = {};
+  const T* qw = qs + warp * tc::kWarpRows * S;
+  const T* gw = gs + warp * tc::kWarpRows * S;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      tc::issue_kv<T, D, BK, S>(ks, vs, ms, k + base, v + base, mrow, it + 1, T_len);
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    __syncthreads();
+    const int st = it & 1;
+#pragma unroll 1
+    for (int h = 0; h < BK / SUB; ++h) {
+      const int k0 = it * BK + h * SUB;  // this sub-tile's first key
+      // under causal masking a sub-tile wholly after the warp's rows adds 0
+      if (causal && k0 >= wrow + tc::kWarpRows) continue;
+      const T* kt = ks + (st * BK + h * SUB) * S;
+      const T* vt = vs + (st * BK + h * SUB) * S;
+      const float* mt = ms + st * BK + h * SUB;
+
+      // P = exp(S * scale - lse); a key past T (zero-filled: s = 0 would
+      // give exp(-lse)), masked, or (causal) after the row gives p = 0
+      float p[NJ][4] = {};
+      tc::mma_nt<F::DP, NJ, S, S>(p, qw, kt);
+      const bool edge = k0 + SUB > T_len || mrow != nullptr || (causal && k0 + SUB - 1 > wrow);
 #pragma unroll
-    for (int i = 0; i < L::DT; ++i) dl4j::st(dq, out + i, dqa[i]);
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = true;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            ok = key < T_len && (mrow == nullptr || mt[key - k0] > 0.f) &&
+                 (!causal || key <= wrow + gr + 8 * (e >> 1));
+          }
+          p[j][e] = ok ? expf(p[j][e] * scale - ll[e >> 1]) : 0.f;
+        }
+      }
+      // dP = dO V^T; dS = P (dP - delta)
+      float dp[NJ][4] = {};
+      tc::mma_nt<F::DP, NJ, S, S>(dp, gw, vt);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - dl[e >> 1]);
+      }
+      // dQ += (dS K) * scale
+      tc::mma_pv<SUB, NN, S>(dqa, dp, kt, 1.f, 1.f, scale);
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
   }
+
+  tc::store_rows<T, D, NN>(dq + base, dqa, wrow, T_len, 1.f, 1.f);
 }
-
-namespace tc = dl4j_mma;
 
 // tiles and shared memory of flash_bwd_dkv: K and V of the block's keys
 // [BK][S], a ring of two Q and two dO tiles [BQ][S], two tiles of lse and
@@ -207,7 +294,7 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   // whether this lane's keys (rows g and g+8) are real
   bool real[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) real[r] = key_ok(mask, b, wkey + gr + 8 * r, T_len);
+  for (int r = 0; r < 2; ++r) real[r] = tc::key_ok(mask, b, wkey + gr + 8 * r, T_len);
 
   // under causal masking no row before key0 sees a key of this block
   const int first = causal ? (key0 / BQ) * BQ : 0;
@@ -281,10 +368,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
                    const void* o, const void* g, const void* lse, void* delta, void* dq,
                    void* dk, void* dv, int BH, int H, int T_len, int causal, float scale,
                    cudaStream_t stream) {
-  using L = Layout<D>;
-  const dim3 grid(BH, (T_len + L::ROWS - 1) / L::ROWS);
   if (dq != nullptr) {
-    flash_bwd_dq<T, D><<<grid, kThreads, 0, stream>>>(
+    using F = Dq<T, D>;
+    if (!tc::aligned<T>(D, {q, k, v, o, g, dq})) return cudaErrorMisalignedAddress;
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
+    if (e != cudaSuccess) return e;
+    const dim3 grid(BH, (T_len + F::BQ - 1) / F::BQ);
+    flash_bwd_dq<T, D><<<grid, tc::kBlock, F::kSmem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const float*>(mask), static_cast<const T*>(o), static_cast<const T*>(g),
         static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<T*>(dq), H,

@@ -1,10 +1,10 @@
 // Tensor-core pieces shared by the flash-attention forward (flash_attn.cu)
-// and dk/dv backward (flash_attn_bwd.cu): the mma.sync fragment helpers,
-// the cp.async tile ring, the tf32 split, and the masked online softmax on
-// accumulator fragments.
+// and the dq and dk/dv backward kernels (flash_attn_bwd.cu): the mma.sync
+// fragment helpers, the cp.async tile ring, the tf32 split, the masked
+// online softmax on accumulator fragments, and the key test.
 //
 // Layout. A block is four warps; a warp owns 16 rows (query rows in the
-// forward, key rows in dk/dv) and computes with mma.sync, whose fragments
+// forward and dq, key rows in dk/dv) and computes with mma.sync, whose fragments
 // (PTX ISA, "Matrix fragments for mma.m16n8k16 / m16n8k8") give lane
 // l = 4 g + t (g = l / 4, t = l % 4) these elements:
 //   C, m16n8 (f32):   c0, c1 at row g, columns 2t, 2t+1; c2, c3 at row g+8
@@ -19,13 +19,14 @@
 //
 // Products. mma_nt forms C = A B^T with A (16 rows of the warp) and B (the
 // tile) both row-major in shared memory over the head dim: S = Q K^T in the
-// forward, S^T = K Q^T and dP^T = V dO^T in dk/dv. mma_pv forms
-// C = C * alpha + beta * (P X) with P the previous product's C fragments
-// and X row-major [k][n] in shared memory: O += P V, dV += P^T dO and
-// dK += (dS^T Q) * scale, one tile's product added at a time as the Pallas
-// kernels add it. In bf16 the C fragments of P pack straight into A
-// fragments (two bf16 per register, columns 2t, 2t+1 are the A fragment's k
-// pair) and X is read by ldmatrix.trans; B of mma_nt by ldmatrix. In f32
+// forward and dq, dP = dO V^T in dq, S^T = K Q^T and dP^T = V dO^T in dk/dv.
+// mma_pv forms C = C * alpha + beta * (P X) with P the previous product's C
+// fragments and X row-major [k][n] in shared memory: O += P V,
+// dQ += (dS K) * scale, dV += P^T dO and dK += (dS^T Q) * scale, one tile's
+// product added at a time as the Pallas kernels add it. In bf16 the C
+// fragments of P pack straight into A fragments (two bf16 per register,
+// columns 2t, 2t+1 are the A fragment's k pair) and X is read by
+// ldmatrix.trans; B of mma_nt by ldmatrix. In f32
 // every product is 3xTF32: x = hi + lo with hi = tf32(x) and
 // lo = tf32(x - hi) (cvt.rna), and a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b,
 // small terms first, each product exact in the f32 accumulator; the lo lo
@@ -125,6 +126,25 @@ __device__ __forceinline__ void zero_pad(T* buf) {
   if constexpr (kPad > 0) {
     for (int i = threadIdx.x; i < R * kPad; i += kBlock) set_zero(buf[(i / kPad) * S + D + i % kPad]);
   }
+}
+
+// key tile `tile` (keys [tile BK, tile BK + BK) of k and v, and their mask
+// when there is one) into stage tile % 2 of a ring of two [BK][S] tiles
+// each: one cp.async group
+template <typename T, int D, int BK, int S>
+__device__ __forceinline__ void issue_kv(T* ks, T* vs, float* ms, const T* k, const T* v,
+                                         const float* mrow, int tile, int T_len) {
+  const int st = tile & 1, k0 = tile * BK;
+  load_rows<T, D, BK, S>(ks + st * BK * S, k, k0, T_len);
+  load_rows<T, D, BK, S>(vs + st * BK * S, v, k0, T_len);
+  if (mrow != nullptr) load_vec<BK>(ms + st * BK, mrow, k0, T_len);
+  cp_commit();
+}
+
+// whether key c of batch row b is a real key: inside T and, with a key mask
+// [B, T], mask > 0 (flash_attention.py: kmask > 0)
+__device__ __forceinline__ bool key_ok(const float* mask, int b, int c, int T_len) {
+  return c < T_len && (mask == nullptr || mask[static_cast<size_t>(b) * T_len + c] > 0.f);
 }
 
 // ------------------------------------------------------------- fragments

@@ -1,0 +1,81 @@
+"""Time the training updates of chip_smoke.py's attention net and char-RNN
+recipe on the GPU, so that two checkouts can be compared on one card.
+
+Run it from the root of a checkout: the port's package and ``chip_smoke.py``
+(its configurations, seeded weights and data) are imported from the working
+directory, so the same script times a parent commit unpacked elsewhere:
+
+    python3 scripts/torch_train_update_time.py
+    (cd /path/to/parent && python3 /path/to/this/scripts/torch_train_update_time.py)
+
+Compare two checkouts in one process order on one card (parent, change,
+change, parent): hosts differ between machines far more than the card does.
+Prints one JSON line: the card's name and power limit, and for f32 and bf16
+the ms per update of each timed epoch of ``fit`` over the attention net's
+bucketed batches (B=4, T 2048 and 4096, 2 updates an epoch) and over the
+char-RNN recipe's (B=64, T 128 and 256 in TBPTT(50), 9 updates an epoch),
+after one warm-up epoch.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def epochs_ms(torch, net, it, updates: int, n: int):
+    """ms per update of each of ``n`` timed epochs of ``net.fit(it)``."""
+    net.fit(it)  # warm-up: kernels loaded, allocator filled
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / updates)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--epochs", type=int, default=5, help="timed epochs of each net")
+    args = ap.parse_args()
+    root = os.getcwd()
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_train_update_time: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch import (BucketingSequenceIterator, MultiLayerNetwork,
+                                          char_rnn, load_jax_params)
+    from deeplearning4j_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(["lstm_seq", "lstm_seq_bwd", "softmax_xent", "adam", "flash_attn",
+                  "flash_attn_bwd"])
+    attn_it = BucketingSequenceIterator(cs.attention_text(4, 4, 1024, 2048, 4096, cs.SEED + 4),
+                                        batch=cs.ATTN_B, boundaries=cs.ATTN_BUCKETS)
+    rnn_it = BucketingSequenceIterator(cs.recipe_sequences(), batch=cs.BATCH,
+                                       boundaries=cs.RECIPE_BUCKETS)
+    rnn_updates = sum(-(-ds.features.shape[1] // cs.TBPTT) for ds in rnn_it)
+    result = {"root": root, "gpu": cs.gpu_line(), "epochs": args.epochs,
+              "attention_ms_per_update": {}, "char_rnn_recipe_ms_per_update": {}}
+    for dtype in ("float32", "bfloat16"):
+        net = load_jax_params(MultiLayerNetwork(cs.attention_conf(dtype)),
+                              cs.attention_params(cs.SEED))
+        result["attention_ms_per_update"][dtype] = epochs_ms(
+            torch, net, attn_it, len(list(attn_it)), args.epochs)
+        conf = char_rnn(cs.VOCAB, cs.HIDDEN, cs.LAYERS, dtype=dtype)
+        net = load_jax_params(MultiLayerNetwork(conf), cs.char_rnn_params(conf, cs.SEED))
+        result["char_rnn_recipe_ms_per_update"][dtype] = epochs_ms(
+            torch, net, rnn_it, rnn_updates, args.epochs)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

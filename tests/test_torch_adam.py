@@ -15,6 +15,8 @@ in x64 mode. The state's leaves must be those of the optax state, in
 is no card.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -221,6 +223,96 @@ def test_state_leaves_refuse_a_mismatch():
         net.set_updater_state_leaves(bad)
 
 
+# a scalar, an empty leaf, sizes around the kernel's float4 and 4096-element
+# chunks, and 2-D leaves (one of them empty)
+LEAF_SHAPES = [(), (0,), (1,), (3,), (5,), (4097,), (7, 9), (2, 0), (64, 33)]
+
+
+def _leaves(shapes, dtype, seed):
+    return [list(torch.from_numpy(a) for a in _leaf(s, dtype, seed + i))
+            for i, s in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+def test_grouped_update_equals_reference_leaf_by_leaf(dtype):
+    """On the CPU the grouped call is the plain version per leaf, bit for
+    bit, in the leaves' order and shapes."""
+    leaves = _leaves(LEAF_SHAPES, dtype, seed=20)
+    gs, ms, vs = (list(x) for x in zip(*leaves))
+    before = ops.counters()["adam_update"]
+    got = adam.fused_adam_update_leaves(gs, ms, vs, 1e-3, 0.19, 0.00299, B1, B2, EPS)
+    assert ops.counters()["adam_update"] == before
+    assert all(len(x) == len(LEAF_SHAPES) for x in got)
+    for i, (g, m, v) in enumerate(leaves):
+        want = adam.adam_update_reference(g, m, v, 1e-3, 0.19, 0.00299, B1, B2, EPS)
+        for gt, w in zip((got[0][i], got[1][i], got[2][i]), want):
+            assert gt.shape == w.shape and gt.dtype == w.dtype
+            assert torch.equal(gt, w)
+    assert adam.fused_adam_update_leaves([], [], [], 1e-3, 0.19, 0.00299, B1, B2,
+                                         EPS) == ([], [], [])
+
+
+def test_grouped_update_argument_checks():
+    g = torch.zeros(4)
+    args = (1e-3, 0.1, 0.001, B1, B2, EPS)
+    with pytest.raises(ValueError, match="2 gradients"):
+        adam.fused_adam_update_leaves([g, g], [g], [g], *args)
+    with pytest.raises(ValueError, match="meta"):
+        adam.fused_adam_update_leaves([g, g], [g, torch.zeros(4, device="meta")], [g, g],
+                                      *args)
+    with pytest.raises(ValueError, match=r"\(2, 2\)"):
+        adam.fused_adam_update_leaves([g], [g], [torch.zeros(2, 2)], *args)
+    # what the kernel takes, checked before a CUDA launch
+    with pytest.raises(TypeError, match="float32"):
+        adam._check_leaves([g], [g.double()], [g], kernel=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam._check_leaves([g], [g], [torch.zeros(4, 2)[:, 0]], kernel=True)
+    adam._check_leaves([g], [g], [g], kernel=True)
+    adam._check_leaves([g], [g.double()], [torch.zeros(4, 2)[:, 0]], kernel=False)
+
+
+def test_launch_table_as_the_c_entry_reads_it(monkeypatch):
+    """The CUDA launch's host side on CPU tensors, with a stand-in for
+    ``dl4j_adam_update_multi`` that reads the table of pointers and counts
+    as the C entry does and runs the plain version on that memory: one call
+    per MAX_LEAVES non-empty leaves, every output a 16-byte-aligned view of
+    its leaf's shape, the same values as the plain version."""
+    calls = []
+
+    def entry(g, m, v, u, m2, v2, n, k, lr, bc1, bc2, b1, omb1, b2, omb2, eps):
+        assert (omb1, omb2) == (1.0 - b1, 1.0 - b2)
+        ptrs = [list((ctypes.c_int64 * k).from_address(a)) for a in (g, m, v, u, m2, v2, n)]
+        calls.append(k)
+        for j in range(k):
+            arr = [torch.from_numpy(np.ctypeslib.as_array(
+                (ctypes.c_float * ptrs[6][j]).from_address(p[j]))) for p in ptrs[:6]]
+            for out, val in zip(arr[3:], adam.adam_update_reference(
+                    *arr[:3], lr, bc1, bc2, b1, b2, eps)):
+                out.copy_(val)
+        return 0
+
+    def launch(counts, name, fn, device, *a):
+        assert fn(*a) == 0
+        counts[name] += 1
+
+    monkeypatch.setattr(adam._build, "bind", lambda *a: entry)
+    monkeypatch.setattr(adam._build, "launch", launch)
+    shapes = LEAF_SHAPES + [(11,)] * adam.MAX_LEAVES
+    leaves = _leaves(shapes, np.float32, seed=30)
+    gs, ms, vs = (list(x) for x in zip(*leaves))
+    before = ops.counters()["adam_update"]
+    got = adam._launch(gs, ms, vs, 1e-3, 0.19, 0.00299, B1, B2, EPS)
+    live = sum(1 for s in shapes if np.prod(s, dtype=int) > 0)
+    assert calls == [adam.MAX_LEAVES, live - adam.MAX_LEAVES]
+    assert ops.counters()["adam_update"] == before + 2
+    for i, (g, m, v) in enumerate(leaves):
+        want = adam.adam_update_reference(g, m, v, 1e-3, 0.19, 0.00299, B1, B2, EPS)
+        for gt, w in zip((got[0][i], got[1][i], got[2][i]), want):
+            assert gt.shape == w.shape and gt.is_contiguous()
+            assert gt.numel() == 0 or gt.data_ptr() % 16 == 0
+            assert torch.equal(gt, w)
+
+
 # ------------------------------------------------------------------- card
 @pytest.fixture
 def cuda_device():
@@ -244,6 +336,27 @@ def test_cuda_adam_kernel_matches_plain(cuda_device, n):
         torch.cuda.synchronize()
         assert ops.counters()["adam_update"] == before + 1
         for gt, w in zip(got, want):
+            torch.testing.assert_close(gt, w, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_update_launches_once_per_max_leaves(cuda_device):
+    """More than MAX_LEAVES leaves, one of them a view one float into its
+    storage (no 16-byte loads) and two empty: two launches, every output
+    equal to the plain version's on the same tensors."""
+    shapes = LEAF_SHAPES + [(1 << 20,)] + [(11,)] * adam.MAX_LEAVES
+    leaves = [[t.to(cuda_device) for t in leaf] for leaf in _leaves(shapes, np.float32, 40)]
+    g, m, v = (torch.as_tensor(a, device=cuda_device) for a in _leaf((1024,), np.float32, 7))
+    leaves.append([g[1:], m[1:], v[1:]])
+    gs, ms, vs = (list(x) for x in zip(*leaves))
+    before = ops.counters()["adam_update"]
+    got = adam.fused_adam_update_leaves(gs, ms, vs, 1e-3, 0.19, 0.00299, B1, B2, EPS)
+    torch.cuda.synchronize()
+    assert ops.counters()["adam_update"] == before + 2
+    for i, (g, m, v) in enumerate(leaves):
+        want = adam.adam_update_reference(g, m, v, 1e-3, 0.19, 0.00299, B1, B2, EPS)
+        for gt, w in zip((got[0][i], got[1][i], got[2][i]), want):
+            assert gt.shape == w.shape
             torch.testing.assert_close(gt, w, rtol=1e-6, atol=1e-9)
 
 

@@ -362,7 +362,7 @@ def test_cuda_net_launches_the_kernels_and_matches_cpu(cuda_device):
     cpu.fit(ds)
     counts = ops.counters()
     assert (counts["flash_attn_fwd"], counts["flash_attn_bwd_dq"],
-            counts["flash_attn_bwd_dkv"], counts["adam_update"]) == (2, 2, 2, 16)
+            counts["flash_attn_bwd_dkv"], counts["adam_update"]) == (2, 2, 2, 1)
     for a, b in zip(pt.params_to_numpy(card), pt.params_to_numpy(cpu)):
         for k in a:
             np.testing.assert_allclose(a[k], b[k], atol=1e-4)

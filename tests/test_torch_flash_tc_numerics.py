@@ -1,19 +1,21 @@
-"""The rounding of the tensor-core flash kernels (rows 13 and 15), emulated
-on the CPU and held against the JAX kernels and the port's plain versions.
+"""The rounding of the tensor-core flash kernels (rows 13-15), emulated on
+the CPU and held against the JAX kernels and the port's plain versions.
 
-The forward (``csrc/flash_attn.cu``) and the dk/dv backward
+The forward (``csrc/flash_attn.cu``) and the dq and dk/dv backward kernels
 (``csrc/flash_attn_bwd.cu``) take their products on the tensor cores. This
 file repeats their arithmetic in plain torch, in the kernels' tiles of 64
-keys (forward, online softmax with its guards) and 64 query rows (dk/dv):
+keys (forward, online softmax with its guards; dq) and 64 query rows
+(dk/dv):
 
 - bf16: the products of bf16 inputs are exact with an f32 sum; P and dS are
-  rounded to bf16 before the products that take them (P V, P^T dO, dS^T Q);
+  rounded to bf16 before the products that take them (P V, dS K, P^T dO,
+  dS^T Q);
 - f32: every product is 3xTF32, hi·hi + hi·lo + lo·hi with hi = tf32(x)
   and lo = tf32(x - hi), tf32 rounding done on the bits as ``cvt.rna``
   rounds (to nearest, ties away from zero).
 
-The emulation feeds the forward's out and lse to the port's plain dq (row
-14, unchanged) and its delta to the emulated dk/dv, as the kernels run in
+The emulation feeds the forward's out and lse to the emulated dq, which
+forms delta, and that delta to the emulated dk/dv, as the kernels run in
 order on the card. Out, lse, dq, dk and dv are held against the JAX flash
 kernels in interpret mode (``tests/test_torch_flash_attention.py`` runs
 them the same way, here with blocks of 64) and against the port's plain
@@ -100,6 +102,26 @@ def emulate_forward(q, k, v, mask, causal, scale, dtype, passes=3):
     return (acc / l_safe[..., None]).to(q.dtype), lse
 
 
+def emulate_dq(q, k, v, mask, out, lse, g, causal, scale, dtype, passes=3, tile=TILE):
+    """Row 14: (dq in the input type, delta f32), key tiles of ``tile``;
+    delta = rowsum(dO * O) in f32, then per tile P = exp(S * scale - lse)
+    (0 where the key is not real), dS = P (dP - delta) and
+    dq += (dS K) * scale."""
+    T = q.shape[2]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    delta = (gf * out.float()).sum(-1)
+    valid = fa._valid(mask, T, causal, q.device)
+    dq = torch.zeros(qf.shape)
+    for k0 in range(0, T, tile):
+        kt, vt = kf[..., k0:k0 + tile, :], vf[..., k0:k0 + tile, :]
+        s = product(qf, kt.transpose(-1, -2), dtype, passes) * scale
+        p = torch.where(valid[..., k0:k0 + tile], torch.exp(s - lse[..., None]), 0.0)
+        dp = product(gf, vt.transpose(-1, -2), dtype, passes)
+        ds = p * (dp - delta[..., None])
+        dq = dq + product(operand(ds, dtype), kt, dtype, passes) * scale
+    return dq.to(q.dtype), delta
+
+
 def emulate_dkv(q, k, v, mask, lse, delta, g, causal, scale, dtype, passes=3):
     """Row 15: (dk, dv) in the input type, query tiles of 64; the scores
     transposed, keys in rows."""
@@ -122,10 +144,10 @@ def emulate_dkv(q, k, v, mask, lse, delta, g, causal, scale, dtype, passes=3):
 
 def emulate(q, k, v, mask, g, causal, dtype, passes=3):
     """(out, lse, dq, dk, dv) of the kernels in their launch order: the
-    forward, the dq kernel (its plain version) with delta, then dk/dv."""
+    forward, the dq kernel with delta, then dk/dv."""
     scale = q.shape[-1] ** -0.5
     out, lse = emulate_forward(q, k, v, mask, causal, scale, dtype, passes)
-    dq, delta = fa.flash_attention_dq_reference(q, k, v, mask, out, lse, g, causal, scale)
+    dq, delta = emulate_dq(q, k, v, mask, out, lse, g, causal, scale, dtype, passes)
     dk, dv = emulate_dkv(q, k, v, mask, lse, delta, g, causal, scale, dtype, passes)
     return out, lse, dq, dk, dv
 
@@ -223,7 +245,7 @@ def test_tf32_rounds_to_nearest_ties_away():
 def test_emulation_rounds_where_the_kernels_round(dtype):
     """The emulation is not the plain version: P and dS are rounded (bf16)
     and the products split (f32), so the outputs differ from the f32 plain
-    versions, by less than the limit."""
+    versions (dq, dk and dv among them), by less than the limit."""
     arrays, mask = _inputs(200, 64, dtype, True, seed=3)
     q, k, v, g = (torch.tensor(a).to(getattr(torch, dtype)) for a in arrays)
     tm = torch.tensor(mask)
@@ -231,7 +253,8 @@ def test_emulation_rounds_where_the_kernels_round(dtype):
     out, lse = fa.flash_attention_reference(q, k, v, tm, True)
     plain = (out, lse) + fa.flash_attention_backward_reference(q, k, v, tm, out, lse, g, True)
     r = readings(_numpy(got), _numpy(plain))
-    assert r["dk"] > 0 and r["dv"] > 0 and max(r.values()) <= ATTN_REL[dtype], r
+    assert r["dq"] > 0 and r["dk"] > 0 and r["dv"] > 0, r
+    assert max(r.values()) <= ATTN_REL[dtype], r
 
 
 def test_one_tf32_pass_would_not_hold_the_f32_limit():
@@ -246,3 +269,24 @@ def test_one_tf32_pass_would_not_hold_the_f32_limit():
                                                                       g, False))
     assert max(readings(one, plain).values()) > ATTN_REL["float32"]
     assert max(readings(three, plain).values()) <= ATTN_REL["float32"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_emulated_dq_in_the_kernels_tiles_within_limits(D, dtype):
+    """Row 14 at every instantiated head dim, in the tiles its kernel takes
+    (32 keys in f32 at D = 128, else 64), on a causal masked case that is
+    ragged past two tiles: against the plain dq and delta from the plain
+    forward's out and lse, at ``ATTN_REL``."""
+    arrays, mask = _inputs(130, D, dtype, True, seed=7 + D)
+    q, k, v, g = (torch.tensor(a).to(getattr(torch, dtype)) for a in arrays)
+    tm = torch.tensor(mask)
+    out, lse = fa.flash_attention_reference(q, k, v, tm, True)
+    tile = 32 if dtype == "float32" and D == 128 else TILE
+    got = emulate_dq(q, k, v, tm, out, lse, g, True, D ** -0.5, dtype, tile=tile)
+    want = fa.flash_attention_dq_reference(q, k, v, tm, out, lse, g, True)
+    assert torch.equal(got[1], want[1])  # delta: the same f32 sum
+    dq, ref = got[0].double(), want[0].double()
+    r = float((dq - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+    assert 0 < r <= ATTN_REL[dtype], r
+    assert not got[0][1].float().any()  # a batch row with no real key: dq = 0
