@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version at the shapes the serving and
-training paths give it, then drives the paths through the port's entry
+training paths give it (the sequence backward also against two wrong
+products the limits must catch), then drives the paths through the port's entry
 points at full width (char-RNN: vocab 96, hidden 512, 2 layers, B=64,
 T=256): serving (output/predict, decode with 8 slots); training with SGD
 (fit, standard backprop and TBPTT(50), f32 and bf16 compute, on the card and
@@ -68,6 +69,12 @@ PLAIN_REPS = {"reps": 3, "warmup": 1}
 UPDATES_PER_BATCH = {"standard": 1, "tbptt": -(-STEPS // TBPTT)}
 # softmax-xent rows: a standard batch (B*T) and a TBPTT segment (B*50)
 SXENT_ROWS = (BATCH * STEPS, BATCH * TBPTT)
+# rows 10-11 held against their plain versions at [N, C]: the char-RNN's
+# two row counts (rows in registers, 16-byte loads); C=97, whose rows start
+# unaligned (rows in registers, element loads); C=1500, wider than the
+# register kernels (the forward's loop kernel). AlexNet's C=1000 is held in
+# phase_kernels_lrn.
+SXENT_CASES = tuple((N, VOCAB) for N in SXENT_ROWS) + ((1001, 97), (128, 1500))
 
 # stated tolerances, max abs error against the plain version on the same
 # CUDA tensors: f32 differs only in the order of the recurrent product's sum;
@@ -82,6 +89,7 @@ KERNEL_ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # held at the f32 limit and their bf16 outputs (dx, dl of bf16 inputs) at
 # one bf16 step of values below 1.
 SUMMED_GRADS = ("dRW", "dpF", "dpI", "dpO")
+BWD_NAMES = ("dzx", "dh0", "dc0") + SUMMED_GRADS
 # the LSTM training kernels in bf16, each output (and each gate column
 # a, f, o, i of dzx) relative to its own size: max |err| / max |ref| and
 # mean |err| / mean |ref|. An absolute limit would be as large as a typical
@@ -122,8 +130,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # f32-accurate products on the tensor cores: 3xTF32 takes three TF32
 # products (495 TFLOP/s dense) for each, 165 TFLOP/s. The flash kernels
-# (rows 13-15) are bounded at it; rows 1-2 and 5-9, whose products still run
-# on the CUDA cores, at PEAK_OPS_PER_S["float32"].
+# (rows 13-15) and the sequence backward (rows 7 and 9, whose products can
+# run there) are bounded at it; rows 1-2, 5, 6 and 8, whose products still
+# run on the CUDA cores, at PEAK_OPS_PER_S["float32"].
 F32_TC_OPS_PER_S = 495e12 / 3
 
 # each kernel: its source and the pallas_call it replaces
@@ -222,11 +231,13 @@ def bound_bwd(T: int, B: int, H: int, dtype: str, live: float = 1.0,
     written. Operations: the recurrent product dzx @ RW^T (2*4H*H per row
     and step) and dRW (2*H*4H per row and step), for the ``live`` share of
     the T*B (step, row) pairs whose mask is 1: a masked pair's dzx is 0 and
-    needs neither (the dh carried through it is scratch, not an output)."""
+    needs neither (the dh carried through it is scratch, not an output).
+    f32 at the 3xTF32 rate, bf16 at its tensor-core peak."""
     item = 4 if dtype == "float32" else 2
     elems = (7 * T * B * H + 4 * B * H + H * 4 * H + 3 * H
              + T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + (T * B if masked else 0))
-    return roofline(elems * item, 2 * (2.0 * B * 4 * H * H * T) * live, dtype)
+    return roofline(elems * item, 2 * (2.0 * B * 4 * H * H * T) * live, dtype,
+                    F32_TC_OPS_PER_S if dtype == "float32" else None)
 
 
 def bound_adam(n: int):
@@ -344,12 +355,11 @@ def check(name: str, dtype: str, errs: dict, tol: dict, **fields) -> float:
     return max(errs.values())
 
 
-def check_rel(name: str, T: int, names, got, want) -> None:
-    """A bf16 LSTM training kernel against its plain version: each output,
-    and each gate column of dzx, by max |err| / max |ref| and mean |err| /
-    mean |ref| (BF16_TRAIN_REL). Emits one kernel_vs_plain line with the
-    readings, the limits and max |ref| beside them, and raises past a
-    limit."""
+def bf16_readings(T: int, names, got, want):
+    """A bf16 LSTM training kernel's outputs against its plain version's:
+    each output, and each gate column of dzx, by max |err| / max |ref| and
+    mean |err| / mean |ref|. Returns (readings, the BF16_TRAIN_REL limits of
+    T, the readings past them)."""
     parts = []
     for n, g, w in zip(names, got, want):
         parts.append((n, g, w))
@@ -366,11 +376,60 @@ def check_rel(name: str, T: int, names, got, want) -> None:
         readings[n] = r
         if not (r["max_rel"] <= lim["max"] and r["mean_rel"] <= lim["mean"]):
             bad[n] = r  # NaN fails too
+    return readings, lim, bad
+
+
+def check_rel(name: str, T: int, names, got, want) -> None:
+    """A bf16 LSTM training kernel against its plain version
+    (``bf16_readings``, BF16_TRAIN_REL). Emits one kernel_vs_plain line with
+    the readings, the limits and max |ref| beside them, and raises past a
+    limit."""
+    readings, lim, bad = bf16_readings(T, names, got, want)
     emit("kernel_vs_plain", kernel=name, dtype="bfloat16", T=T, B=BATCH, H=HIDDEN,
          relative_by_output=readings, limit_max_rel=lim["max"],
          limit_mean_rel=lim["mean"], ok=not bad)
     if bad:
         raise AssertionError(f"{name} bfloat16 T={T}: outside the limits {lim}: {bad}")
+
+
+def f32_bwd_readings(got, want) -> dict:
+    """Rows 7 and 9 in f32 against the plain version: max abs error of dzx,
+    dh0 and dc0; of dRW and the peephole grads over their largest element."""
+    e = {}
+    for n, g, w in zip(BWD_NAMES, got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        e[n] = diff / float(w.float().abs().max()) if n in SUMMED_GRADS else diff
+    return e
+
+
+def tf32(x):
+    """x (f32) rounded to tf32 as cvt.rna rounds: to nearest, ties away."""
+    import torch
+
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+# the per-step product of rows 7 and 9 done wrong, each of which must read
+# past the limits: the first k chunk of every block (1024 bytes of a row:
+# 256 f32, 512 bf16 values) left out; in f32, one TF32 product in place of
+# 3xTF32
+BWD_PRODUCT_FAULTS = {"float32": ("k_chunk_dropped", "one_tf32_pass"),
+                      "bfloat16": ("k_chunk_dropped",)}
+
+
+def bwd_product_fault(fault: str, dtype: str):
+    """``product(dz, RWt)`` for the plain backward (both in f32) with
+    ``fault``."""
+    chunk = 1024 // (4 if dtype == "float32" else 2)
+
+    def product(dz, rwt):
+        if fault == "k_chunk_dropped":
+            dz = dz.clone()
+            dz[:, :chunk] = 0.0
+            return dz @ rwt
+        return tf32(dz) @ tf32(rwt)
+
+    return product
 
 
 def max_abs(got, want) -> float:
@@ -399,9 +458,10 @@ def phase_kernels_train(torch, ls, sx):
     output including the residuals, rows 7 and 9 on all seven grads from
     random upstream grads, at T=256, T=50 and the 6-step tail, rows 8-9 with
     a mask of all zeros, leading, interior and trailing zeros
-    (``train_mask``); rows 10-11 at both row counts with one-hot and soft
-    labels, f32 and bf16 inputs. Returns the max abs error of each (kernel,
-    dtype, size)."""
+    (``train_mask``), and at T=50 the wrong products of rows 7 and 9
+    (``bwd_faults_caught``); rows 10-11 at both row counts with one-hot and
+    soft labels and at the other ``SXENT_CASES``, f32 and bf16 inputs.
+    Returns the max abs error of each (kernel, dtype, size)."""
     import numpy as np
 
     errs = {}
@@ -431,38 +491,72 @@ def phase_kernels_train(torch, ls, sx):
                 got = ls.lstm_sequence_masked_backward(*up, mask, *res)
                 ref = ls.lstm_sequence_masked_backward_reference(*up, mask, *res)
                 torch.cuda.synchronize()
-                names = ("dzx", "dh0", "dc0") + SUMMED_GRADS
                 errs[(bwd, dtype, T)] = max_abs(got, ref)
                 if dtype == "bfloat16":
-                    check_rel(bwd, T, names, got, ref)
+                    check_rel(bwd, T, BWD_NAMES, got, ref)
+                else:
+                    e = f32_bwd_readings(got, ref)
+                    check(bwd, dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH,
+                          H=HIDDEN, summed_grads_relative_to_largest=list(SUMMED_GRADS))
+                if T == TBPTT and not masked:
+                    bwd_faults_caught(ls, dtype, T, up, res, ref)
+        for N, C in SXENT_CASES:
+            for labels in ("one_hot", "soft") if C == VOCAB else ("one_hot",):
+                e = sxent_case(torch, sx, N, C, dtype, labels, SEED + N + C)
+                if C != VOCAB:
                     continue
-                e = {}
-                for n, g, w in zip(names, got, ref):
-                    diff = float((g.float() - w.float()).abs().max())
-                    e[n] = diff / float(w.float().abs().max()) if n in SUMMED_GRADS else diff
-                check(bwd, dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH,
-                      H=HIDDEN, summed_grads_relative_to_largest=list(SUMMED_GRADS))
-        for N in SXENT_ROWS:
-            for labels in ("one_hot", "soft"):
-                x, lab = sxent_inputs(torch, N, dtype, labels, SEED + N)
-                g = torch.as_tensor(np.random.default_rng(N).normal(0.0, 1.0, N),
-                                    dtype=torch.float32, device=DEVICE)
-                out = {"loss": (sx.fused_softmax_xent(x, lab),
-                                sx.softmax_xent_reference(x, lab))}
-                for n, k, w in zip(("dx", "dl"), sx.softmax_xent_backward(x, lab, g),
-                                   sx.softmax_xent_backward_reference(x, lab, g)):
-                    out[n] = (k, w)
-                torch.cuda.synchronize()
-                e = {n: float((k.float() - w.float()).abs().max())
-                     for n, (k, w) in out.items()}
-                tol = {n: KERNEL_ATOL["float32"] if k.dtype == torch.float32 else 2.0 ** -8
-                       for n, (k, _) in out.items()}
-                check("softmax_xent", dtype, e, tol, N=N, C=VOCAB, labels=labels)
                 for name, keys in (("softmax_xent_fwd", ("loss",)),
                                    ("softmax_xent_bwd", ("dx", "dl"))):
                     key = (name, dtype, N)
                     errs[key] = max(errs.get(key, 0.0), max(e[k] for k in keys))
     return errs
+
+
+def bwd_faults_caught(ls, dtype, T, up, res, ref) -> None:
+    """The plain backward with each wrong product of BWD_PRODUCT_FAULTS,
+    read against the right one as the kernel is: emits one kernel_limits
+    line and raises unless every one reads past the limits."""
+    wrong = {}
+    for fault in BWD_PRODUCT_FAULTS[dtype]:
+        got = ls.lstm_sequence_masked_backward_reference(
+            *up, None, *res, product=bwd_product_fault(fault, dtype))
+        if dtype == "bfloat16":
+            readings, _, bad = bf16_readings(T, BWD_NAMES, got, ref)
+            wrong[fault] = {"outputs_past_limits": sorted(bad),
+                            "worst_max_rel": max(r["max_rel"] for r in readings.values())}
+            caught = bool(bad)
+        else:
+            e = f32_bwd_readings(got, ref)
+            wrong[fault] = {"worst": max(e.values()), "by_output": e}
+            caught = wrong[fault]["worst"] > KERNEL_ATOL[dtype]
+        wrong[fault]["caught"] = caught
+    ok = all(w["caught"] for w in wrong.values())
+    emit("kernel_limits", kernel="lstm_seq_bwd", dtype=dtype, T=T, B=BATCH, H=HIDDEN,
+         limit=KERNEL_ATOL[dtype] if dtype == "float32" else BF16_TRAIN_REL["long"],
+         wrong_readings=wrong, caught=ok)
+    if not ok:
+        raise AssertionError(f"lstm_seq_bwd {dtype}: the limits do not catch {wrong}")
+
+
+def sxent_case(torch, sx, N, C, dtype, labels, seed) -> dict:
+    """Rows 10-11 against their plain versions at [N, C] (loss, dx, dl from
+    a random g): f32 outputs at the f32 limit, bf16 ones at one bf16 step
+    of values below 1. Emits the kernel_vs_plain line; returns the errors."""
+    import numpy as np
+
+    x, lab = sxent_inputs(torch, N, dtype, labels, seed, C=C)
+    g = torch.as_tensor(np.random.default_rng(seed).normal(0.0, 1.0, N),
+                        dtype=torch.float32, device=DEVICE)
+    out = {"loss": (sx.fused_softmax_xent(x, lab), sx.softmax_xent_reference(x, lab))}
+    for n, k, w in zip(("dx", "dl"), sx.softmax_xent_backward(x, lab, g),
+                       sx.softmax_xent_backward_reference(x, lab, g)):
+        out[n] = (k, w)
+    torch.cuda.synchronize()
+    e = {n: float((k.float() - w.float()).abs().max()) for n, (k, w) in out.items()}
+    tol = {n: KERNEL_ATOL["float32"] if k.dtype == torch.float32 else 2.0 ** -8
+           for n, (k, _) in out.items()}
+    check("softmax_xent", dtype, e, tol, N=N, C=C, labels=labels)
+    return e
 
 
 def time_pair(torch, name, kern, plain, lib, b_ms, b_by, card, **fields):
@@ -499,11 +593,13 @@ def time_adam(torch, ad, card):
     device_ms = sum(r[1] for r in prof["top_kernels"] if "adam_multi" in r[0]) / 10
     emit("profile", what="10 grouped Adam calls over the char-RNN's 14 leaves", gpu=card,
          adam_multi_device_ms_per_call=device_ms, **prof)
-    return time_pair(
+    t = time_pair(
         torch, "adam_update", call,
         lambda: [ad.adam_update_reference(g, m, v, *sc) for g, m, v in leaves],
         opt.step, *bound_adam(n), card, dtype="float32", leaves=len(leaves), elements=n,
         launches_per_call=-(-len(leaves) // ad.MAX_LEAVES), kernel_device_ms=device_ms)
+    t["kernel_device_ms"] = device_ms
+    return t
 
 
 def time_train_kernels(torch, ls, sx, card):
@@ -560,12 +656,45 @@ def time_train_kernels(torch, ls, sx, card):
              lambda: sx.softmax_xent_backward_reference(x, lab, g), lib_fwd_bwd,
              bound_sxent(N, VOCAB, dtype, True)),
         )
+        device_ms = sxent_device_ms(torch, sx, x, lab, g, card, dtype)
         for name, kern, plain, lib, (b_ms, b_by) in cases:
+            extra = {"kernel_device_ms": device_ms[name]} if name in device_ms else {}
             times[(name, dtype)] = time_pair(
                 torch, name, kern, plain, lib, b_ms, b_by, card, dtype=dtype, T=STEPS,
                 B=BATCH, H=HIDDEN, N=N, C=VOCAB,
-                mask_live_share=live if "masked" in name else None)
+                mask_live_share=live if "masked" in name else None, **extra)
+            times[(name, dtype)].update(extra)
+        if dtype == "float32":  # where one backward call's card time goes
+            emit("profile", what="one lstm_sequence_backward call, f32 T=256 B=64 H=512",
+                 gpu=card, **profile(torch, cases[1][1], groups=BWD_PROFILE_GROUPS))
     return times
+
+
+# rows 7 and 9's kernels, for the profile's split of one backward call
+BWD_PROFILE_GROUPS = [("step kernel (T launches)", r"lstm_bwd_step"),
+                      ("dh0 product", r"lstm_bwd_dh"), ("drw_gemm", r"drw_gemm"),
+                      ("peephole_reduce", r"peephole_reduce")]
+
+
+def sxent_device_ms(torch, sx, x, lab, g, card, dtype) -> dict:
+    """Rows 10 and 11's own time on the card a call (10 calls of each under
+    the profiler, apart from the host's part of a call), and cross_entropy's
+    kernels over 10 calls beside them; emits one profile line each."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, call, rx in (
+            ("softmax_xent_fwd", lambda: sx.fused_softmax_xent(x, lab), r"sxent_fwd"),
+            ("softmax_xent_bwd", lambda: sx.softmax_xent_backward(x, lab, g), r"sxent_bwd"),
+            ("cross_entropy", lambda: F.cross_entropy(x, lab, reduction="none"), r".")):
+        for _ in range(3):  # the profiler at times records none of a call's kernels
+            prof = profile(torch, lambda: [call() for _ in range(10)], groups=[(name, rx)])
+            if name in prof["groups"]:
+                break
+        out[name] = prof["groups"][name][0] / 10 if name in prof["groups"] else None
+        emit("profile", what=f"10 calls of {name}, {dtype} N={x.shape[0]} C={x.shape[1]}",
+             gpu=card, device_ms_per_call=out[name], **prof)
+    return out
 
 
 def sxent_inputs(torch, N, dtype, labels, seed, C=VOCAB):
@@ -1943,8 +2072,6 @@ def phase_kernels_lrn(torch, lr, sx):
     wrong plain versions, which the limits must catch, and softmax-xent
     (rows 10-11) at AlexNet's loss head, N=128, C=1000. Returns the max abs
     error of each kernel (f32, LRN 1's shape)."""
-    import numpy as np
-
     errs, worst, n_cases = {}, {}, 0
     for dtype in ("float32", "bfloat16"):
         lim = LRN_REL[dtype]
@@ -1993,19 +2120,7 @@ def phase_kernels_lrn(torch, lr, sx):
         if not ok:
             raise AssertionError(f"lrn {dtype}: the limit {lim} does not catch {wrong}")
         # rows 10-11 at AlexNet's loss head
-        N, C = ALEX_SXENT
-        x, lab = sxent_inputs(torch, N, dtype, "one_hot", SEED + C, C=C)
-        gl = torch.as_tensor(np.random.default_rng(C).normal(0.0, 1.0, N),
-                             dtype=torch.float32, device=DEVICE)
-        out = {"loss": (sx.fused_softmax_xent(x, lab), sx.softmax_xent_reference(x, lab))}
-        for k, a, b in zip(("dx", "dl"), sx.softmax_xent_backward(x, lab, gl),
-                           sx.softmax_xent_backward_reference(x, lab, gl)):
-            out[k] = (a, b)
-        torch.cuda.synchronize()
-        e = {k: float((a.float() - b.float()).abs().max()) for k, (a, b) in out.items()}
-        tol = {k: KERNEL_ATOL["float32"] if a.dtype == torch.float32 else 2.0 ** -8
-               for k, (a, _) in out.items()}
-        check("softmax_xent", dtype, e, tol, N=N, C=C, labels="one_hot")
+        sxent_case(torch, sx, *ALEX_SXENT, dtype, "one_hot", SEED + ALEX_SXENT[1])
     emit("kernels_lrn", cases=n_cases, worst_reading_by_dtype=worst, limits=LRN_REL,
          wrong_versions_caught=True, ok=True)
     return errs
@@ -2305,8 +2420,10 @@ def time_lrn(torch, lr, card):
     return times
 
 
-# kernels whose products must run on the tensor cores (rows 13-15)
-TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# kernels whose products must run on the tensor cores (rows 13-15; rows 7
+# and 9's step kernel and dh0 product)
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "lstm_bwd_step_mma",
+                       "lstm_bwd_dh_mma")
 
 
 def ptxas_report(log: str) -> dict:
@@ -2369,8 +2486,8 @@ def demangle(names) -> dict:
 def phase_sass(build_s: dict) -> None:
     """Per kernel entry of every built library: registers and spills (the
     build's ``-Xptxas -v``) and the HMMA instructions in its SASS. Fails if
-    an entry of rows 13-15 (``TENSOR_CORE_KERNELS``) has no HMMA or
-    spills."""
+    an entry of ``TENSOR_CORE_KERNELS`` (rows 13-15, rows 7 and 9's
+    products) has no HMMA or spills."""
     from deeplearning4j_tpu_torch.ops import _build
 
     report, bad = {}, []
@@ -2393,7 +2510,7 @@ def phase_sass(build_s: dict) -> None:
                          for k in TENSOR_CORE_KERNELS)
     emit("sass_tensor_cores", kernels=list(TENSOR_CORE_KERNELS), failing=bad, ok=ok)
     if not ok:
-        raise AssertionError(f"kernels of rows 13-15 without HMMA or with spills: {bad}")
+        raise AssertionError(f"tensor-core kernels without HMMA or with spills: {bad}")
 
 
 def profile(torch, fn, top: int = 6, groups=None):
@@ -2756,7 +2873,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": errs[shapes[name]],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
-            "dtype": "float32"})
+            "dtype": "float32", "kernel_device_ms": t.get("kernel_device_ms")})
     print(json.dumps({"kernels": lines, "launches": launches,
                       "library_ms_note": "no single PyTorch call computes the "
                       "peephole LSTM (torch.nn.LSTM has no peepholes), masked or not; "
@@ -2770,6 +2887,8 @@ def main() -> int:
                       "forward+backward for row 4, at LRN 1's shape [128, 56, 56, 96]; "
                       "rows 1-2: none (torch.nn.LSTMCell has no peepholes)",
                       "adam_update_ms_covers": "the 14 leaves of one update",
+                      "kernel_device_ms_note": "rows 10-12: the kernel's own time on the "
+                      "card a call, from the profiler (null where not measured)",
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

@@ -8,9 +8,12 @@ carries a hash of its source, the headers beside it and the flags, so an
 edited source builds anew and an unchanged one is loaded as it is.
 :func:`build` starts one nvcc per missing library, all at once.
 
-:func:`bind` declares a C entry's arguments; :func:`launch` calls it on the
-current stream and counts the launch. Nothing here runs at import: the CPU
-tests import every module on machines that have no nvcc.
+:func:`bind` declares a C entry's arguments once and keeps the function;
+:func:`launch` calls it on the current stream and counts the launch. Both
+are on every kernel call's path, so after the first call neither takes the
+build lock nor enters a device context it is already in. Nothing here runs
+at import: the CPU tests import every module on machines that have no
+nvcc.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -36,6 +39,9 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the bound C entries by (library, symbol): filled once each, read without
+# a lock (one dict lookup under the GIL)
+_FNS: Dict[Tuple[str, str], Callable] = {}
 # guards the op modules' launch counters: decode tickers and callers on other
 # threads launch concurrently
 _COUNT_LOCK = threading.Lock()
@@ -118,25 +124,32 @@ def bind(lib: str, symbol: str, n_ptrs: int, n_ints: int,
          n_floats: int = 0) -> Callable:
     """C entry ``symbol`` of library ``lib``, taking ``n_ptrs`` pointers,
     ``n_ints`` ints, ``n_floats`` floats and the stream, returning a CUDA
-    error code."""
-    fn = getattr(load(lib), symbol)
-    if fn.argtypes is None:
+    error code. The library is loaded (built first if it is missing) and
+    the arguments declared on the first call only."""
+    fn = _FNS.get((lib, symbol))
+    if fn is None:
+        fn = getattr(load(lib), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        _FNS[(lib, symbol)] = fn
     return fn
 
 
 def launch(counts: Dict[str, int], name: str, fn: Callable, device, *args) -> None:
     """Call ``fn`` with ``args`` (tensors as their pointers, None as null)
-    and the current stream of ``device``; raise on a launch error, else add
+    and the current stream of ``device``, inside ``device``'s context only
+    when it is not the current device; raise on a launch error, else add
     one to ``counts[name]``."""
     import torch  # noqa: PLC0415 - the build helpers above need no torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], stream)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        err = fn(*ptrs, torch.cuda.current_stream(current).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     with _COUNT_LOCK:

@@ -1,7 +1,8 @@
 // Tensor-core pieces shared by the flash-attention forward (flash_attn.cu)
-// and the dq and dk/dv backward kernels (flash_attn_bwd.cu): the mma.sync
-// fragment helpers, the cp.async tile ring, the tf32 split, the masked
-// online softmax on accumulator fragments, and the key test.
+// and the dq and dk/dv backward kernels (flash_attn_bwd.cu): the cp.async
+// tile ring, mma_pv, the masked online softmax on accumulator fragments,
+// and the key test, over the primitives of mma_sync.cuh (cp.async,
+// ldmatrix, mma.sync, the tf32 split, mma_nt).
 //
 // Layout. A block is four warps; a warp owns 16 rows (query rows in the
 // forward and dq, key rows in dk/dv) and computes with mma.sync, whose fragments
@@ -45,12 +46,11 @@
 // copied to.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstddef>
 #include <cstdint>
 #include <initializer_list>
+
+#include "mma_sync.cuh"
 
 namespace dl4j_mma {
 
@@ -64,33 +64,6 @@ __host__ __device__ constexpr int dpad() { return D < 16 ? 16 : D; }
 // shared row stride in elements: the padded head dim and 16 bytes
 template <typename T, int D>
 __host__ __device__ constexpr int stride() { return dpad<D>() + 16 / static_cast<int>(sizeof(T)); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- cp.async
-// BYTES from src to dst in shared memory, or zeros where !pred
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) {
-  const int n = pred ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(n)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // rows [r0, r0 + R) of src [T, D] into dst (R rows of stride S), zeros past
 // row T; consecutive threads copy consecutive 16-byte pieces
@@ -147,103 +120,7 @@ __device__ __forceinline__ bool key_ok(const float* mask, int b, int c, int T_le
   return c < T_len && (mask == nullptr || mask[static_cast<size_t>(b) * T_len + c] > 0.f);
 }
 
-// ------------------------------------------------------------- fragments
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b, m16n8k16, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b, m16n8k8, tf32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo, both tf32 (round to nearest, ties away, as cvt.rna rounds)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// c += a b in 3xTF32: the two small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh[0], bh[1]);
-  mma_tf32(c, ah, bl[0], bl[1]);
-  mma_tf32(c, ah, bh[0], bh[1]);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // --------------------------------------------------------------- products
-// c[j] += A[16 x K] B[8 NJ x K]^T (columns 8j..8j+7); A's 16 rows from a
-// (stride SA), B's 8 NJ rows from b (stride SB), both row-major in shared
-// memory; K a multiple of 16
-template <int K, int NJ, int SA, int SB>
-__device__ __forceinline__ void mma_nt(float (&c)[NJ][4], const __nv_bfloat16* a,
-                                       const __nv_bfloat16* b) {
-  static_assert(K % 16 == 0 && NJ % 2 == 0, "bf16 tiles: k16 steps, pairs of n8");
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (lane & 15) * SA + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int p = 0; p < NJ / 2; ++p) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * SB + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(c[2 * p], af, bf[0], bf[1]);
-      mma_bf16(c[2 * p + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int K, int NJ, int SA, int SB>
-__device__ __forceinline__ void mma_nt(float (&c)[NJ][4], const float* a, const float* b) {
-  static_assert(K % 8 == 0, "tf32 tiles: k8 steps");
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < K / 8; ++kk) {
-    uint32_t ah[4], al[4];
-    split(a[g * SA + kk * 8 + t], ah[0], al[0]);
-    split(a[(g + 8) * SA + kk * 8 + t], ah[1], al[1]);
-    split(a[g * SA + kk * 8 + t + 4], ah[2], al[2]);
-    split(a[(g + 8) * SA + kk * 8 + t + 4], ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      uint32_t bh[2], bl[2];
-      split(b[(8 * j + g) * SB + kk * 8 + t], bh[0], bl[0]);
-      split(b[(8 * j + g) * SB + kk * 8 + t + 4], bh[1], bl[1]);
-      mma_3xtf32(c[j], ah, al, bh, bl);
-    }
-  }
-}
-
 // c[n] = c[n] * alpha + beta * (P X)[:, 8n..8n+7], P [16 x K] in the C
 // fragments p (k in columns), X [K x 8 NN] row-major in shared memory
 // (stride SX); alpha0 scales row g, alpha1 row g+8

@@ -1,6 +1,8 @@
 // Kernels shared by the peephole-LSTM sources: the forward step (lstm_seq.cu
-// runs it T times a call, lstm_cell.cu once) and the backward's products and
-// reductions (lstm_seq_bwd.cu over a sequence, lstm_cell.cu over one step).
+// runs it T times a call, lstm_cell.cu once) and the backward's gate math,
+// products and reductions (lstm_cell.cu over one step; lstm_seq_bwd.cu takes
+// the gate math, drw_gemm and peephole_reduce, and forms its per-step
+// product on the tensor cores).
 // Both follow _cell_math (deeplearning4j_tpu/ops/pallas_kernels.py:87-101)
 // and its backward, so they round at the same points.
 //

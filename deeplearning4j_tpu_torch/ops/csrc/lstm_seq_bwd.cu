@@ -36,96 +36,352 @@
 //
 // Design: the TPU grid runs in reverse order and keeps the dh/dc carries and
 // the f32 dRW sum in VMEM; Hopper blocks run in no order, so
-// - the reverse loop lives on the host: one launch of lstm_bwd_step per step.
-//   Each block owns kUnits hidden units x kRows batch rows and all four gate
-//   columns of those units (the forward's layout). dh_carry needs every 4H
-//   column of dzx[t+1], so the exchange goes through global memory: step t
-//   starts with the product dzx[t+1] @ RW^T for its own units and rows,
-//   tiled through shared memory. dc ping-pongs between two scratch buffers.
-//   One more launch (lstm_bwd_dh) computes dh0 = dzx[0] @ RW^T. Masked,
-//   step t also needs (1-m[t+1])*dh of step t+1 in its carry: step t+1
-//   stores its pre-mask dh in a [2, B, H] ping-pong buffer, which step t
-//   reads (the same element, so the same thread, one launch later).
+// - the reverse loop lives on the host: one launch of lstm_bwd_step_mma per
+//   step. Each block owns kBwdRows batch rows x kBwdUnits hidden units and
+//   all four gate columns of those units. dh_carry needs every 4H column of
+//   dzx[t+1], so the exchange goes through global memory: step t starts
+//   with the product dzx[t+1] @ RW^T for its rows and units, a C = A B^T of
+//   two row-major operands over k = 4H, on the tensor cores (mma.sync:
+//   mma_sync.cuh's mma_nt in bf16, m16n8k16 with f32 sums; in f32 its
+//   3xTF32 with each k step's sum added to the f32 sum, mma_nt_f32_steps). The
+//   k axis streams through a kStages-deep cp.async ring of 1 KB chunks
+//   (A: the block's rows of dzx[t+1], B: its units' rows of RW, both read
+//   from L2), so the next chunks' copies overlap the current chunk's
+//   products. A 16 x 16 tile gives 128 blocks at B=64, H=512, one per SM;
+//   the dzx slab is read H/16 times a step (the CUDA-core kernel it
+//   replaced: H/8) and RW B/16 times. Each block's eight warps split every
+//   chunk into eight k slices, and the slices' partial products are added
+//   through shared memory in slice order. (scripts/torch_lstm_bwd_tiles.py
+//   times other tiles, rings and chunks on the card; PERF.md §6, PR 10,
+//   gives what it read: 32 or 64 rows a block took longer a step, and the
+//   ring's depth and the chunk's size moved it little.) No atomics: the
+//   result does not depend on the order blocks run in. Then each lane runs
+//   the gate epilogue for its element of the tile, its operands loaded
+//   before the product. dc ping-pongs between two scratch buffers. One more launch (lstm_bwd_dh_mma) computes dh0 = dzx[0] @ RW^T
+//   with the same product. Masked, step t also needs (1-m[t+1])*dh of step
+//   t+1 in its carry: step t+1 stores its pre-mask dh in a [2, B, H]
+//   ping-pong buffer, which step t reads (the same element, so the same
+//   lane, one launch later).
 // - the sums across time are second passes, in f32: drw_gemm walks the
 //   stored h_{t-1} (h0, then ys) and dzx streams once, as one product with
 //   depth T*B; each step kernel reduces its peephole terms over its rows into
 //   a per-step, per-row-block f32 slot, and peephole_reduce sums the slots.
-//   No atomics, so the result does not depend on the order blocks run in.
-// Later work: wgmma for both products, a persistent reverse loop.
+// Later work: a persistent reverse loop, wgmma and TMA, drw_gemm on the
+// tensor cores.
 
 #include "lstm.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
-template <typename T, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_step(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t = T-1
-              const T* __restrict__ dh_last,   // [B, H]: dhT, used at t = T-1
-              const T* __restrict__ dy,        // [B, H]: dys[t]
-              const T* __restrict__ dc_in,     // [B, H]: dc carried from t+1 (dcT)
-              const T* __restrict__ a_r, const T* __restrict__ f_r,
-              const T* __restrict__ o_r, const T* __restrict__ i_r,  // [B, H] at t
-              const T* __restrict__ c_prev,    // [B, H]: c[t-1], or c0
-              const T* __restrict__ rw,        // [H, 4H]
-              const T* __restrict__ pf, const T* __restrict__ pi,
-              const T* __restrict__ po,        // [H] each
-              const T* __restrict__ m_t,       // [B]: mask of step t (masked only)
-              const T* __restrict__ m_next,    // [B]: mask of t+1; null at t = T-1
-              const T* __restrict__ dh_next,   // [B, H]: pre-mask dh of t+1 (masked only)
-              T* __restrict__ dh_out,          // [B, H]: this step's pre-mask dh (masked only)
-              T* __restrict__ dzx,             // [B, 4H]: dzx[t]
-              T* __restrict__ dc_out,          // [B, H]: dc carried to t-1 (dc0 at t = 0)
-              float* __restrict__ psum,        // [gridDim.y, 3, H]: this step's slots
-              int B, int H, int act, int gate) {
-  const int tid = threadIdx.x;
-  const int u = tid % kUnits;
-  const int r = tid / kUnits;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
-  const int j = j0 + u;
-  const int b = b0 + r;
-  const bool valid = b < B && j < H;
+// The per-step product's tile. kBwdRows is also the row block of the
+// peephole partials: psum is [steps, ceil(B / kBwdRows), 3, H]
+// (ops/lstm_sequence.py: BWD_ROW_BLOCK must equal it).
+constexpr int kBwdRows = 16;    // batch rows per block: m16 row tiles
+constexpr int kBwdUnits = 16;   // hidden units per block: two n8 tiles
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kRowTiles = kBwdRows / 16;
+constexpr int kSlices = kBwdWarps / kRowTiles;  // k slices of a chunk, a warp each
+constexpr int kPairs = 8 / kSlices;  // elements of its row tile's 16 x 16 a lane ends with
+constexpr int kStages = 4;      // depth of the cp.async ring
+static_assert(kBwdRows % 16 == 0 && kBwdWarps % kRowTiles == 0 && 8 % kSlices == 0,
+              "each row tile's C fragments split evenly over its slices");
 
-  const float rec = dzx_rwt<T>(dzx_next, rw, B, H, b0, j0, r, u);
-  float tf = 0.f, ti = 0.f, to = 0.f;  // this thread's peephole terms
-  if (valid) {
-    const size_t hidx = static_cast<size_t>(b) * H + j;
-    // dh_scr = (dzx @ RW^T).astype(dtype), plus (1-m)*dh of t+1 when masked;
-    // dh = dy + dh_scr
-    float dh_carry = ld(dh_last, hidx);
-    if (dzx_next != nullptr) {
-      dh_carry = rnd<T>(rec);
-      if (kMasked)
-        dh_carry = add<T>(dh_carry, mul<T>(sub<T>(1.0f, ld(m_next, b)), ld(dh_next, hidx)));
-    }
-    float dh = add<T>(ld(dy, hidx), dh_carry);
-    float dc = ld(dc_in, hidx);
-    // masked: the gate math sees m*dh and m*dc; (1-m)*dc passes to t-1 here,
-    // (1-m)*dh through dh_out to step t-1's carry
-    const float dh_t = dh, dc_t = dc;
-    float keep = 0.0f;
-    if (kMasked) {
-      const float m = ld(m_t, b);
-      keep = sub<T>(1.0f, m);
-      dh = mul<T>(m, dh_t);
-      dc = mul<T>(m, dc_t);
-      st(dh_out, hidx, dh_t);
-    }
-    const float cp = ld(c_prev, hidx);
-    const float a = ld(a_r, hidx), f = ld(f_r, hidx), o = ld(o_r, hidx), i = ld(i_r, hidx);
-    const float c = add<T>(mul<T>(f, cp), mul<T>(i, a));
-    const float cact = activate<T>(act, c);
-    const GateGrads g = gate_grads<T>(dh, dc, a, f, o, i, cact, cp, ld(pf, j), ld(pi, j),
-                                      ld(po, j), act, gate);
-    store_dzx(dzx, g, b, j, H);
-    float dc_next = g.dc_prev;
-    if (kMasked) dc_next = add<T>(dc_next, mul<T>(keep, dc_t));
-    st(dc_out, hidx, dc_next);
-    tf = mul<T>(g.d_f, cp);
-    ti = mul<T>(g.d_i, cp);
-    to = mul<T>(g.d_o, c);
+// k elements of one chunk: 1024 bytes of a row in either type
+template <typename T>
+constexpr int kChunk = 1024 / static_cast<int>(sizeof(T));
+// shared row stride in elements: the chunk and 16 bytes, so the rows one
+// ldmatrix (or one tf32 fragment load) reads fall on different banks
+template <typename T>
+constexpr int kStride = kChunk<T> + 16 / static_cast<int>(sizeof(T));
+template <typename T>
+constexpr int kStageElems = (kBwdRows + kBwdUnits) * kStride<T>;
+template <typename T>
+constexpr size_t kSmemBytes = kStages * kStageElems<T> * sizeof(T);
+// after the loop the ring holds the slices' partial products
+// [kSlices][kRowTiles][16][16] and the peephole terms [3][kBwdRows][kBwdUnits]
+constexpr int kRedFloats = kSlices * kRowTiles * 16 * 16;
+static_assert((kRedFloats + 3 * kBwdRows * kBwdUnits) * sizeof(float) <= kSmemBytes<float>
+                  && kSmemBytes<float> == kSmemBytes<__nv_bfloat16>,
+              "the reductions fit in the ring, which is as large in either type");
+
+// chunk `k0` of the block's rows of dzx (rows b0.., stage rows 0..31) and
+// of RW (rows j0.., stage rows 32..47) into `stage`, zeros past B, H and
+// K = 4H; 16-byte copies when `wide`, else 4-byte ones
+template <typename T, int kBytes>
+__device__ __forceinline__ void copy_chunk(T* stage, const T* dzx, const T* rw, int B, int H,
+                                           int b0, int j0, int k0) {
+  constexpr int kPer = kBytes / static_cast<int>(sizeof(T));  // elements a copy
+  constexpr int kCopies = kChunk<T> / kPer;                    // copies a row
+  const int K = 4 * H;
+  for (int i = threadIdx.x; i < (kBwdRows + kBwdUnits) * kCopies; i += kBwdThreads) {
+    const int r = i / kCopies, c = (i % kCopies) * kPer;
+    const bool is_a = r < kBwdRows;
+    const int row = is_a ? b0 + r : j0 + r - kBwdRows;
+    const T* src = is_a ? dzx : rw;
+    const bool in = row < (is_a ? B : H) && k0 + c < K;
+    dl4j_mma::cp_async<kBytes>(stage + r * kStride<T> + c,
+                               in ? src + static_cast<size_t>(row) * K + k0 + c : src, in);
   }
-  peephole_partials(tf, ti, to, psum, H);
+}
+
+// chunk `chunk` of k into its stage of the ring
+template <typename T>
+__device__ __forceinline__ void issue_chunk(T* smem, int chunk, const T* dzx, const T* rw, int B,
+                                            int H, int b0, int j0, bool wide) {
+  T* stage = smem + (chunk % kStages) * kStageElems<T>;
+  if (wide)
+    copy_chunk<T, 16>(stage, dzx, rw, B, H, b0, j0, chunk * kChunk<T>);
+  else
+    copy_chunk<T, 4>(stage, dzx, rw, B, H, b0, j0, chunk * kChunk<T>);
+}
+
+// c[n] += A[16 x K] B[16 x K]^T (columns 8n..8n+7) in f32: mma_nt's
+// 3xTF32 (lo hi, hi lo, hi hi), but each k step of 8 summed by the tensor
+// cores from zero and added to c by an f32 add. (Summed in one tensor-core
+// accumulator over k = 4H, as mma_nt sums, the product drifted from an f64
+// product well past the plain f32 version, and the f32 Adam recipe left its
+// limits against the CPU in chip_smoke.py: the accumulator's own adds do
+// not round to nearest.)
+template <int K, int SA, int SB>
+__device__ __forceinline__ void mma_nt_f32_steps(float (&c)[2][4], const float* a, const float* b) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    dl4j_mma::split(a[g * SA + kk * 8 + t], ah[0], al[0]);
+    dl4j_mma::split(a[(g + 8) * SA + kk * 8 + t], ah[1], al[1]);
+    dl4j_mma::split(a[g * SA + kk * 8 + t + 4], ah[2], al[2]);
+    dl4j_mma::split(a[(g + 8) * SA + kk * 8 + t + 4], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t bh[2], bl[2];
+      dl4j_mma::split(b[(8 * n + g) * SB + kk * 8 + t], bh[0], bl[0]);
+      dl4j_mma::split(b[(8 * n + g) * SB + kk * 8 + t + 4], bh[1], bl[1]);
+      float step[4] = {0.f, 0.f, 0.f, 0.f};
+      dl4j_mma::mma_3xtf32(step, ah, al, bh, bl);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += step[e];
+    }
+  }
+}
+
+// one warp's k slice of a chunk: C += A B^T, A its 16 rows of dzx, B the
+// block's 16 rows of RW
+template <int K, int SA, int SB>
+__device__ __forceinline__ void slice_product(float (&c)[2][4], const float* a, const float* b) {
+  mma_nt_f32_steps<K, SA, SB>(c, a, b);
+}
+template <int K, int SA, int SB>
+__device__ __forceinline__ void slice_product(float (&c)[2][4], const __nv_bfloat16* a,
+                                              const __nv_bfloat16* b) {
+  dl4j_mma::mma_nt<K, 2, SA, SB>(c, a, b);
+}
+
+// the block row and unit of this lane's element p (< kPairs) of the block's
+// product: of the eight C-fragment elements a lane of a row tile holds
+// (q = 4 n + 2 rh + e: n8 tile n, row g + 8 rh, column 2t + e), slice s
+// ends with q = kPairs s .. kPairs s + kPairs - 1 (one q each at 16 rows)
+__device__ __forceinline__ void lane_elem(int p, int& row, int& col) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rtile = warp % kRowTiles, slice = warp / kRowTiles;
+  const int q = kPairs * slice + p;
+  row = 16 * rtile + (lane >> 2) + 8 * ((q >> 1) & 1);
+  col = 8 * (q >> 2) + 2 * (lane & 3) + (q & 1);
+}
+
+// dzx[b, :] @ RW[j, :]^T for this lane's elements (lane_elem), accumulated in
+// f32 on the tensor cores; every thread of the block takes part
+template <typename T>
+__device__ __forceinline__ void block_product(const T* __restrict__ dzx,
+                                              const T* __restrict__ rw, int B, int H, int b0,
+                                              int j0, bool wide, T* smem, float* red,
+                                              float (&rec)[kPairs]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rtile = warp % kRowTiles, slice = warp / kRowTiles;
+  constexpr int kKw = kChunk<T> / kSlices;  // k of one warp's slice of a chunk
+  float c[2][4] = {};
+  const int chunks = (4 * H + kChunk<T> - 1) / kChunk<T>;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) issue_chunk(smem, s, dzx, rw, B, H, b0, j0, wide);
+    dl4j_mma::cp_commit();
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    dl4j_mma::cp_wait<kStages - 2>();
+    // chunk ch has landed, and every warp is done with chunk ch - 1, whose
+    // stage the next copy fills
+    __syncthreads();
+    if (ch + kStages - 1 < chunks)
+      issue_chunk(smem, ch + kStages - 1, dzx, rw, B, H, b0, j0, wide);
+    dl4j_mma::cp_commit();
+    const T* stage = smem + (ch % kStages) * kStageElems<T>;
+    slice_product<kKw, kStride<T>, kStride<T>>(c, stage + 16 * rtile * kStride<T> + slice * kKw,
+                                               stage + kBwdRows * kStride<T> + slice * kKw);
+  }
+  dl4j_mma::cp_wait<0>();
+  __syncthreads();  // the ring is free: it takes the partial products
+  const int g = lane >> 2, t = lane & 3;
+  float* mine = red + (slice * kRowTiles + rtile) * 256;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    mine[g * 16 + 8 * n + 2 * t] = c[n][0];
+    mine[g * 16 + 8 * n + 2 * t + 1] = c[n][1];
+    mine[(g + 8) * 16 + 8 * n + 2 * t] = c[n][2];
+    mine[(g + 8) * 16 + 8 * n + 2 * t + 1] = c[n][3];
+  }
+  __syncthreads();
+  // the slices' partials of each of this lane's elements, added in order
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    int row, col;
+    lane_elem(p, row, col);
+    rec[p] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSlices; ++q)
+      rec[p] += red[(q * kRowTiles + rtile) * 256 + (row % 16) * 16 + col];
+  }
+}
+
+template <typename T, bool kMasked>
+__global__ void __launch_bounds__(kBwdThreads)
+lstm_bwd_step_mma(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at t = T-1
+                  const T* __restrict__ dh_last,   // [B, H]: dhT, used at t = T-1
+                  const T* __restrict__ dy,        // [B, H]: dys[t]
+                  const T* __restrict__ dc_in,     // [B, H]: dc carried from t+1 (dcT)
+                  const T* __restrict__ a_r, const T* __restrict__ f_r,
+                  const T* __restrict__ o_r, const T* __restrict__ i_r,  // [B, H] at t
+                  const T* __restrict__ c_prev,    // [B, H]: c[t-1], or c0
+                  const T* __restrict__ rw,        // [H, 4H]
+                  const T* __restrict__ pf, const T* __restrict__ pi,
+                  const T* __restrict__ po,        // [H] each
+                  const T* __restrict__ m_t,       // [B]: mask of step t (masked only)
+                  const T* __restrict__ m_next,    // [B]: mask of t+1; null at t = T-1
+                  const T* __restrict__ dh_next,   // [B, H]: pre-mask dh of t+1 (masked only)
+                  T* __restrict__ dh_out,          // [B, H]: this step's pre-mask dh (masked only)
+                  T* __restrict__ dzx,             // [B, 4H]: dzx[t]
+                  T* __restrict__ dc_out,          // [B, H]: dc carried to t-1 (dc0 at t = 0)
+                  float* __restrict__ psum,        // [gridDim.y, 3, H]: this step's slots
+                  int B, int H, int act, int gate, int wide) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw);
+  float* terms = red + kRedFloats;  // [3][kBwdRows][kBwdUnits]
+  const int j0 = blockIdx.x * kBwdUnits;
+  const int b0 = blockIdx.y * kBwdRows;
+
+  // this lane's operands, loaded before the product so that their latency
+  // hides behind it
+  float in_dy[kPairs], in_dc[kPairs], in_a[kPairs], in_f[kPairs], in_o[kPairs],
+      in_i[kPairs], in_cp[kPairs], in_carry[kPairs], in_m[kPairs], in_keep_next[kPairs];
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    int row, col;
+    lane_elem(e, row, col);
+    const int b = b0 + row, j = j0 + col;
+    if (b >= B || j >= H) continue;
+    const size_t hidx = static_cast<size_t>(b) * H + j;
+    in_dy[e] = ld(dy, hidx);
+    in_dc[e] = ld(dc_in, hidx);
+    in_a[e] = ld(a_r, hidx);
+    in_f[e] = ld(f_r, hidx);
+    in_o[e] = ld(o_r, hidx);
+    in_i[e] = ld(i_r, hidx);
+    in_cp[e] = ld(c_prev, hidx);
+    // dhT at t = T-1; masked, the pre-mask dh of t+1 that (1-m[t+1]) keeps
+    in_carry[e] = dzx_next == nullptr ? ld(dh_last, hidx) : kMasked ? ld(dh_next, hidx) : 0.f;
+    in_keep_next[e] = kMasked && dzx_next != nullptr ? sub<T>(1.0f, ld(m_next, b)) : 0.f;
+    in_m[e] = kMasked ? ld(m_t, b) : 1.f;
+  }
+
+  float rec[kPairs] = {};
+  if (dzx_next != nullptr)  // the same for the whole block
+    block_product<T>(dzx_next, rw, B, H, b0, j0, wide != 0, smem, red, rec);
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    int row, col;
+    lane_elem(e, row, col);
+    const int b = b0 + row, j = j0 + col;
+    float tf = 0.f, ti = 0.f, to = 0.f;  // this element's peephole terms
+    if (b < B && j < H) {
+      const size_t hidx = static_cast<size_t>(b) * H + j;
+      // dh_scr = (dzx @ RW^T).astype(dtype), plus (1-m)*dh of t+1 when
+      // masked; dh = dy + dh_scr
+      float dh_carry = in_carry[e];
+      if (dzx_next != nullptr) {
+        dh_carry = rnd<T>(rec[e]);
+        if (kMasked) dh_carry = add<T>(dh_carry, mul<T>(in_keep_next[e], in_carry[e]));
+      }
+      float dh = add<T>(in_dy[e], dh_carry);
+      float dc = in_dc[e];
+      // masked: the gate math sees m*dh and m*dc; (1-m)*dc passes to t-1
+      // here, (1-m)*dh through dh_out to step t-1's carry
+      const float dh_t = dh, dc_t = dc;
+      float keep = 0.0f;
+      if (kMasked) {
+        const float m = in_m[e];
+        keep = sub<T>(1.0f, m);
+        dh = mul<T>(m, dh_t);
+        dc = mul<T>(m, dc_t);
+        st(dh_out, hidx, dh_t);
+      }
+      const float cp = in_cp[e];
+      const float a = in_a[e], f = in_f[e], o = in_o[e], i = in_i[e];
+      const float c = add<T>(mul<T>(f, cp), mul<T>(i, a));
+      const float cact = activate<T>(act, c);
+      const GateGrads g = gate_grads<T>(dh, dc, a, f, o, i, cact, cp, ld(pf, j), ld(pi, j),
+                                        ld(po, j), act, gate);
+      store_dzx(dzx, g, b, j, H);
+      float dc_next = g.dc_prev;
+      if (kMasked) dc_next = add<T>(dc_next, mul<T>(keep, dc_t));
+      st(dc_out, hidx, dc_next);
+      tf = mul<T>(g.d_f, cp);
+      ti = mul<T>(g.d_i, cp);
+      to = mul<T>(g.d_o, c);
+    }
+    terms[(0 * kBwdRows + row) * kBwdUnits + col] = tf;
+    terms[(1 * kBwdRows + row) * kBwdUnits + col] = ti;
+    terms[(2 * kBwdRows + row) * kBwdUnits + col] = to;
+  }
+  __syncthreads();
+  // the peephole terms summed over the block's rows in order, in f32, into
+  // psum[blockIdx.y][3][H]
+  const int tid = threadIdx.x;
+  if (tid < 3 * kBwdUnits && j0 + tid % kBwdUnits < H) {
+    const int term = tid / kBwdUnits, u = tid % kBwdUnits;
+    float s = 0.f;
+    for (int rr = 0; rr < kBwdRows; ++rr) s += terms[(term * kBwdRows + rr) * kBwdUnits + u];
+    psum[(static_cast<size_t>(blockIdx.y) * 3 + term) * H + j0 + u] = s;
+  }
+}
+
+// dh = (dzx @ RW^T), rounded to the type; masked, plus (1-m)*dh_in (`m` [B]
+// and `dh_in` [B, H], both null unmasked). Grid as lstm_bwd_step_mma's.
+template <typename T, bool kMasked>
+__global__ void __launch_bounds__(kBwdThreads)
+lstm_bwd_dh_mma(const T* __restrict__ dzx, const T* __restrict__ rw, const T* __restrict__ m,
+                const T* __restrict__ dh_in, T* __restrict__ dh, int B, int H, int wide) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int j0 = blockIdx.x * kBwdUnits;
+  const int b0 = blockIdx.y * kBwdRows;
+  float rec[kPairs];
+  block_product<T>(dzx, rw, B, H, b0, j0, wide != 0, reinterpret_cast<T*>(smem_raw),
+                   reinterpret_cast<float*>(smem_raw), rec);
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    int row, col;
+    lane_elem(e, row, col);
+    const int b = b0 + row, j = j0 + col;
+    if (b >= B || j >= H) continue;
+    const size_t hidx = static_cast<size_t>(b) * H + j;
+    float v = rnd<T>(rec[e]);
+    if (kMasked) v = add<T>(v, mul<T>(sub<T>(1.0f, ld(m, b)), ld(dh_in, hidx)));
+    st(dh, hidx, v);
+  }
+}
+
+bool aligned_to(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // mask_v [steps, B] and dhbuf_v (2*B*H scratch) are null unmasked
@@ -146,13 +402,26 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
   T* dhbuf = static_cast<T*>(dhbuf_v);
   float* psum = static_cast<float*>(psum_v);
   const size_t BH = static_cast<size_t>(B) * H;
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
+  // the product's copies: 16 bytes where every row of dzx and RW starts
+  // 16-byte aligned, else 4 (a row is 4H elements: even, so 4-byte pieces
+  // always fit it)
+  const size_t row_bytes = 4 * static_cast<size_t>(H) * sizeof(T);
+  if (!aligned_to(rw, 4) || !aligned_to(dzx, 4)) return cudaErrorMisalignedAddress;
+  const int wide = row_bytes % 16 == 0 && aligned_to(rw, 16) && aligned_to(dzx, 16);
+  const int smem = static_cast<int>(kSmemBytes<T>);
+  cudaError_t err = cudaFuncSetAttribute(lstm_bwd_step_mma<T, kMasked>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(lstm_bwd_dh_mma<T, kMasked>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((H + kBwdUnits - 1) / kBwdUnits, (B + kBwdRows - 1) / kBwdRows);
   for (int t = steps - 1; t >= 0; --t) {
     const size_t off = t * BH;
     const T* dc_in = t == steps - 1 ? static_cast<const T*>(dcT_v) : dcbuf + ((t + 1) & 1) * BH;
     T* dc_out = t == 0 ? static_cast<T*>(dc0_v) : dcbuf + (t & 1) * BH;
     const bool last = t == steps - 1;
-    lstm_bwd_step<T, kMasked><<<grid, kThreads, 0, stream>>>(
+    lstm_bwd_step_mma<T, kMasked><<<grid, kBwdThreads, smem, stream>>>(
         last ? nullptr : dzx + 4 * (off + BH), static_cast<const T*>(dhT_v),
         static_cast<const T*>(dys_v) + off, dc_in, static_cast<const T*>(a_v) + off,
         static_cast<const T*>(f_v) + off, static_cast<const T*>(o_v) + off,
@@ -163,14 +432,14 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
         kMasked && !last ? mask + static_cast<size_t>(t + 1) * B : nullptr,
         kMasked ? dhbuf + ((t + 1) & 1) * BH : nullptr,
         kMasked ? dhbuf + (t & 1) * BH : nullptr, dzx + 4 * off, dc_out,
-        psum + static_cast<size_t>(t) * grid.y * 3 * H, B, H, act, gate);
-    const cudaError_t err = cudaGetLastError();
+        psum + static_cast<size_t>(t) * grid.y * 3 * H, B, H, act, gate, wide);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  lstm_bwd_dh<T, kMasked><<<grid, kThreads, 0, stream>>>(
+  lstm_bwd_dh_mma<T, kMasked><<<grid, kBwdThreads, smem, stream>>>(
       dzx, rw, kMasked ? mask : nullptr, kMasked ? dhbuf : nullptr, static_cast<T*>(dh0_v),
-      B, H);
-  cudaError_t err = cudaGetLastError();
+      B, H, wide);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 ggrid((4 * H + kGemmN - 1) / kGemmN, (H + kGemmM - 1) / kGemmM);
   drw_gemm<T><<<ggrid, kGemmThreads, 0, stream>>>(
@@ -188,7 +457,7 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
 
 // Runs the whole backward on `stream`: `steps` reverse-step launches, the dh0
 // product, the dRW product and the peephole reduction. `dcbuf` is scratch of
-// 2*B*H elements, `psum` f32 scratch of steps*ceil(B/32)*3*H. Returns the
+// 2*B*H elements, `psum` f32 scratch of steps*ceil(B/kBwdRows)*3*H. Returns the
 // CUDA error code of the first launch that failed, 0 when all launched.
 extern "C" int dl4j_lstm_seq_bwd(const void* dys, const void* dhT, const void* dcT,
                                  const void* ys, const void* a, const void* f, const void* o,

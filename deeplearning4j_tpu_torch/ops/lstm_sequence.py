@@ -44,6 +44,11 @@ launches = {"lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
             "lstm_seq_masked_train_fwd": 0, "lstm_seq_masked_bwd": 0}
 
 
+# batch rows a block of the backward's step kernel owns, and so the row block
+# of its per-step peephole partials (csrc/lstm_seq_bwd.cu: kBwdRows)
+BWD_ROW_BLOCK = 16
+
+
 def _sigmoid_tanh_form(x):
     """sigmoid as 0.5 * (tanh(x / 2) + 1), the form the Pallas kernels use;
     it saturates to exactly 0/1 where torch.sigmoid keeps tiny values."""
@@ -180,17 +185,21 @@ def lstm_sequence_train_reference(zx, h0, c0, RW, pF, pI, pO,
 def lstm_sequence_masked_backward_reference(dys, dhT, dcT, mask, ys, a, f, o,
                                             i, c, h0, c0, RW, pF, pI, pO,
                                             act: str = "tanh",
-                                            gate: str = "sigmoid") -> Grads:
+                                            gate: str = "sigmoid",
+                                            product: Optional[Callable] = None) -> Grads:
     """Plain version of the masked backward (``_seq_bwd_kernel_masked``;
     ``mask`` None for ``_seq_bwd_kernel``), an explicit reverse loop at the
     kernel's rounding points: c and act(c) recomputed from the gates (the
     pre-mask c); ``dh`` rounded to the dtype after the product accumulated in
     at least f32; dRW and the peephole sums accumulated in at least f32 and
     rounded at the end. Masked, the gate math takes m*dh and m*dc, and
-    (1-m)*dh and (1-m)*dc pass through to the step before. Returns (dzx, dh0,
-    dc0, dRW, dpF, dpI, dpO)."""
+    (1-m)*dh and (1-m)*dc pass through to the step before. ``product(dz,
+    RWt)`` forms the recurrent product in the accumulator dtype (default
+    ``torch.matmul``; ``chip_smoke.py`` passes wrong ones the limits must
+    catch). Returns (dzx, dh0, dc0, dRW, dpF, dpI, dpO)."""
     act_fn, dact = ACT[act], DACT[act]
     dgate = DACT[gate]
+    product = product or torch.matmul
     dt = ys.dtype
     acc = _acc_dtype(dt)
     T, B, H = ys.shape
@@ -215,7 +224,7 @@ def lstm_sequence_masked_backward_reference(dys, dhT, dcT, mask, ys, a, f, o,
         d_a = dc_tot * i[t] * dact(a[t])
         dz = torch.cat([d_a, d_f, d_o, d_i], dim=-1)
         dzx.append(dz)
-        dh_carry = torch.matmul(dz.to(acc), RWt).to(dt)
+        dh_carry = product(dz.to(acc), RWt).to(dt)
         dc_carry = dc_tot * f[t] + d_f * pF + d_i * pI
         if mask is not None:
             keep = 1.0 - mask[t]
@@ -332,8 +341,7 @@ def _launch_bwd(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO,
         return (dzx, dhT.clone(), dcT.clone(), dRW.zero_(), dpF.zero_(),
                 dpI.zero_(), dpO.zero_())
     dcbuf = ys.new_empty((2, B, H))
-    row_blocks = -(-B // 32)  # csrc/lstm_seq_bwd.cu: kRows
-    psum = torch.empty((T * row_blocks * 3 * H,), dtype=torch.float32,
+    psum = torch.empty((T * -(-B // BWD_ROW_BLOCK) * 3 * H,), dtype=torch.float32,
                        device=ys.device)
     grads = (dzx, dh0, dc0, dRW, dpF, dpI, dpO)
     ints = (T, B, H, _ACT_CODES[act], _ACT_CODES[gate], int(ys.dtype == torch.bfloat16))

@@ -62,24 +62,27 @@ def softmax_xent_backward_reference(
 
 
 # ------------------------------------------------------------------ kernels
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(preout: torch.Tensor, labels: torch.Tensor,
            g: Optional[torch.Tensor] = None) -> None:
-    if preout.dim() != 2 or tuple(labels.shape) != tuple(preout.shape):
+    """Raise on what the kernels do not take, one pass over the tensors."""
+    shape, device = preout.shape, preout.device
+    if preout.dim() != 2 or labels.shape != shape:
         raise ValueError(f"preout and labels must both be [N, C], got "
-                         f"{tuple(preout.shape)} and {tuple(labels.shape)}")
-    for name, t in (("preout", preout), ("labels", labels)):
-        if t.dtype not in (torch.float32, torch.bfloat16):
+                         f"{tuple(shape)} and {tuple(labels.shape)}")
+    if g is not None and (g.shape != shape[:1] or g.dtype != torch.float32):
+        raise ValueError(f"g must be float32 [{shape[0]}], got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    for name, t in (("preout", preout), ("labels", labels), ("g", g)):
+        if t is None:
+            continue
+        if name != "g" and t.dtype not in _DTYPES:
             raise TypeError(f"the CUDA softmax-xent kernels take float32 or "
                             f"bfloat16 {name}, not {t.dtype}")
-    tensors = [("preout", preout), ("labels", labels)]
-    if g is not None:
-        tensors.append(("g", g))
-        if tuple(g.shape) != (preout.shape[0],) or g.dtype != torch.float32:
-            raise ValueError(f"g must be float32 [{preout.shape[0]}], got "
-                             f"{g.dtype} {tuple(g.shape)}")
-    for name, t in tensors:
-        if t.device != preout.device:
-            raise ValueError(f"{name} is on {t.device}, preout on {preout.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, preout on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -112,6 +115,14 @@ def _kernel_bwd(preout: torch.Tensor, labels: torch.Tensor,
     return dx, dl
 
 
+def softmax_xent_forward(preout: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """[N] row losses: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if preout.is_cuda:
+        return _kernel_fwd(preout, labels)
+    return softmax_xent_reference(preout, labels)
+
+
 def softmax_xent_backward(preout: torch.Tensor, labels: torch.Tensor,
                           g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(d preout, d labels) from the row gradient ``g``: the kernel for CUDA
@@ -128,9 +139,7 @@ class SoftmaxXentFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, preout, labels):
         ctx.save_for_backward(preout, labels)
-        if preout.is_cuda:
-            return _kernel_fwd(preout, labels)
-        return softmax_xent_reference(preout, labels)
+        return softmax_xent_forward(preout, labels)
 
     @staticmethod
     def backward(ctx, g):
@@ -143,5 +152,8 @@ class SoftmaxXentFunction(torch.autograd.Function):
 def fused_softmax_xent(preout: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
     """[N] row losses of ``preout``, ``labels`` [N, C] in the compute dtype,
-    differentiable in both."""
-    return SoftmaxXentFunction.apply(preout, labels)
+    differentiable in both: under grad through :class:`SoftmaxXentFunction`,
+    otherwise :func:`softmax_xent_forward` alone, with no autograd node."""
+    if torch.is_grad_enabled() and (preout.requires_grad or labels.requires_grad):
+        return SoftmaxXentFunction.apply(preout, labels)
+    return softmax_xent_forward(preout, labels)

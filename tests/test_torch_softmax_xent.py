@@ -188,3 +188,81 @@ def test_cuda_kernels_refuse_f64(cuda_device):
     x = torch.zeros((4, 5), dtype=torch.float64, device=cuda_device)
     with pytest.raises(TypeError):
         ops.fused_softmax_xent(x, x)
+
+
+def _faulty(fault):
+    """(preout, labels, g) on the CPU with one thing the kernels refuse."""
+    x, lab, g = torch.zeros((4, 6)), torch.zeros((4, 6)), torch.zeros(4)
+    if fault == "preout_1d":
+        x = torch.zeros(24)
+    elif fault == "shapes_differ":
+        lab = torch.zeros((4, 7))
+    elif fault == "preout_f64":
+        x = x.double()
+    elif fault == "labels_f16":
+        lab = lab.half()
+    elif fault == "g_shape":
+        g = torch.zeros(5)
+    elif fault == "g_bf16":
+        g = g.bfloat16()
+    elif fault == "labels_elsewhere":
+        lab = torch.zeros((4, 6), device="meta")
+    elif fault == "g_elsewhere":
+        g = torch.zeros(4, device="meta")
+    elif fault == "preout_strided":
+        x = torch.zeros((6, 4)).t()
+    elif fault == "labels_strided":
+        lab = torch.zeros((4, 12))[:, ::2]
+    elif fault == "g_strided":
+        g = torch.zeros(8)[::2]
+    return x, lab, g
+
+
+@pytest.mark.parametrize("fault,error", [
+    ("preout_1d", ValueError), ("shapes_differ", ValueError), ("preout_f64", TypeError),
+    ("labels_f16", TypeError), ("g_shape", ValueError), ("g_bf16", ValueError),
+    ("labels_elsewhere", ValueError), ("g_elsewhere", ValueError),
+    ("preout_strided", ValueError), ("labels_strided", ValueError), ("g_strided", ValueError)])
+def test_check_raises_on_what_the_kernels_refuse(fault, error):
+    """The kernels' one-pass check raises the type it always raised for
+    each refused input, on CPU tensors (the CUDA wrappers call it first)."""
+    x, lab, g = _faulty(fault)
+    with pytest.raises(error):
+        sx._check(x, lab, g)
+    if not fault.startswith("g_"):
+        with pytest.raises(error):
+            sx._check(x, lab)
+    sx._check(*_faulty("none"))  # and takes what they take
+
+
+def test_bind_resolves_a_symbol_once(monkeypatch):
+    """bind loads the library and declares the entry's arguments on its first
+    call only; later calls return the same function without the build
+    lock."""
+    from deeplearning4j_tpu_torch.ops import _build
+
+    class Entry:
+        argtypes = restype = None
+
+    class Lib:
+        dl4j_fake = Entry()
+
+    loads = []
+    monkeypatch.setattr(_build, "_FNS", {})
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or Lib)
+    first = _build.bind("fake", "dl4j_fake", 2, 1, 1)
+    again = _build.bind("fake", "dl4j_fake", 2, 1, 1)
+    assert first is again is Lib.dl4j_fake and loads == ["fake"]
+    assert len(first.argtypes) == 2 + 1 + 1 + 1  # pointers, int, float, stream
+    assert first.restype is not None
+
+
+def test_forward_without_grad_builds_no_graph():
+    """Without a gradient to take, the forward runs alone (no autograd node)
+    and equals the Function's value."""
+    x, lab = (torch.from_numpy(a) for a in _rows(np.float32, "soft", seed=5))
+    plain = ops.fused_softmax_xent(x, lab)
+    assert plain.grad_fn is None
+    tracked = ops.fused_softmax_xent(x.clone().requires_grad_(), lab)
+    assert type(tracked.grad_fn).__name__ == "SoftmaxXentFunctionBackward"
+    torch.testing.assert_close(plain, tracked.detach(), rtol=0, atol=0)
