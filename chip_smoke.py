@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version at the shapes the serving and
-training paths give it (the sequence backward also against two wrong
-products the limits must catch), then drives the paths through the port's entry
+training paths give it (the LSTM sequence forward and backward and the
+cell forward also against two wrong products the limits must catch), then
+drives the paths through the port's entry
 points at full width (char-RNN: vocab 96, hidden 512, 2 layers, B=64,
 T=256): serving (output/predict, decode with 8 slots); training with SGD
 (fit, standard backprop and TBPTT(50), f32 and bf16 compute, on the card and
@@ -28,7 +29,7 @@ dropout 0, a faulty LRN backward the limits must catch, ``evaluate``, an
 exact resume; then the conf's dropout 0.5 at B=128, timed). Then the
 char-RNN again on the per-step cell route (``lstm_variant="fusedcell"``):
 the cell kernels against their plain versions (every activation pair, B
-1-67, H 130 and 512) and two wrong ones, ``output``/``predict`` and decode
+1-67, H 129, 130 and 512) and four wrong ones, ``output``/``predict`` and decode
 against the CPU and the seqfused route, SGD (standard and TBPTT) and the
 recipe against the CPU's cell route and, in f32, the card's seqfused route.
 It checks the results and the kernel launch counts of each path, and times
@@ -129,10 +130,11 @@ DECODE_ATOL = 1e-5  # a decode session's outputs, batched against alone (f32)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # f32-accurate products on the tensor cores: 3xTF32 takes three TF32
-# products (495 TFLOP/s dense) for each, 165 TFLOP/s. The flash kernels
-# (rows 13-15) and the sequence backward (rows 7 and 9, whose products can
-# run there) are bounded at it; rows 1-2, 5, 6 and 8, whose products still
-# run on the CUDA cores, at PEAK_OPS_PER_S["float32"].
+# products (495 TFLOP/s dense) for each, 165 TFLOP/s. Every f32 product of
+# the hand kernels runs there, and is bounded at it: the flash kernels (rows
+# 13-15), the LSTM's forward step (rows 1, 5, 6 and 8), the sequence
+# backward (rows 7 and 9) and the cell backward (row 2, whose dh_prev
+# product runs there and whose dRW product could).
 F32_TC_OPS_PER_S = 495e12 / 3
 
 # each kernel: its source and the pallas_call it replaces
@@ -201,15 +203,22 @@ def roofline(nbytes: float, ops: float, dtype: str, ops_per_s: float = None):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def tc_rate(dtype: str):
+    """The peak of a product on the tensor cores: 3xTF32 for f32, bf16's
+    own (None: PEAK_OPS_PER_S)."""
+    return F32_TC_OPS_PER_S if dtype == "float32" else None
+
+
 def bound(T: int, B: int, H: int, dtype: str, masked: bool):
     """Least time for one layer-forward of the sequence op: each input read
     once and each output written once over HBM, or the recurrent product's
-    2*B*H*4H*T operations at the dtype's peak, whichever is larger. The
-    dependency from one step to the next is not in it."""
+    2*B*H*4H*T operations at the tensor cores' peak (f32 at the 3xTF32
+    rate), whichever is larger. The dependency from one step to the next is
+    not in it."""
     item = 4 if dtype == "float32" else 2
     elems = (T * B * 4 * H + (T * B if masked else 0) + 4 * B * H
              + H * 4 * H + 3 * H + T * B * H)
-    return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype)
+    return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype, tc_rate(dtype))
 
 
 def bound_train_fwd(T: int, B: int, H: int, dtype: str, masked: bool = False):
@@ -220,7 +229,7 @@ def bound_train_fwd(T: int, B: int, H: int, dtype: str, masked: bool = False):
     item = 4 if dtype == "float32" else 2
     elems = (T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + 6 * T * B * H + 2 * B * H
              + (T * B if masked else 0))
-    return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype)
+    return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype, tc_rate(dtype))
 
 
 def bound_bwd(T: int, B: int, H: int, dtype: str, live: float = 1.0,
@@ -237,7 +246,7 @@ def bound_bwd(T: int, B: int, H: int, dtype: str, live: float = 1.0,
     elems = (7 * T * B * H + 4 * B * H + H * 4 * H + 3 * H
              + T * B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + (T * B if masked else 0))
     return roofline(elems * item, 2 * (2.0 * B * 4 * H * H * T) * live, dtype,
-                    F32_TC_OPS_PER_S if dtype == "float32" else None)
+                    tc_rate(dtype))
 
 
 def bound_adam(n: int):
@@ -339,6 +348,15 @@ def phase_kernels(torch, ls):
                 raise AssertionError(f"{name} {dtype} T={T} B={B}: max abs err "
                                      f"{err} > {KERNEL_ATOL[dtype]} or not finite")
             errs[(name, dtype, T, B)] = err
+            if (T, B) == (STEPS, BATCH):  # the limit must catch wrong products
+                zx, mask, rest = (args[0], args[1], args[2:]) if masked else (
+                    args[0], None, args[1:])
+                fwd_faults_caught(
+                    name, dtype, lambda product: ls.lstm_sequence_masked_reference(
+                        zx, mask, *rest, "tanh", "sigmoid", product),
+                    want, lambda got, ref: ({"max_abs_err": max_abs(got, ref)},
+                                            max_abs(got, ref) <= KERNEL_ATOL[dtype]),
+                    dict(T=T, B=B, H=HIDDEN, limit=KERNEL_ATOL[dtype]))
     return errs
 
 
@@ -409,27 +427,46 @@ def tf32(x):
     return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-# the per-step product of rows 7 and 9 done wrong, each of which must read
-# past the limits: the first k chunk of every block (1024 bytes of a row:
-# 256 f32, 512 bf16 values) left out; in f32, one TF32 product in place of
-# 3xTF32
-BWD_PRODUCT_FAULTS = {"float32": ("k_chunk_dropped", "one_tf32_pass"),
-                      "bfloat16": ("k_chunk_dropped",)}
+# the LSTM kernels' per-step products done wrong, each of which must read
+# past the limits: the first k chunk of every block left out (a chunk of a
+# row of the left operand, lstm_mma.cuh's: 1024 bytes in the backward of
+# rows 7 and 9, kChunk; 512 in the forward step of rows 1, 5, 6 and 8,
+# kFwdChunkBytes); in f32, one TF32 product in place of 3xTF32
+PRODUCT_FAULTS = {"float32": ("k_chunk_dropped", "one_tf32_pass"),
+                  "bfloat16": ("k_chunk_dropped",)}
+BWD_CHUNK_BYTES, FWD_CHUNK_BYTES = 1024, 512
 
 
-def bwd_product_fault(fault: str, dtype: str):
-    """``product(dz, RWt)`` for the plain backward (both in f32) with
-    ``fault``."""
-    chunk = 1024 // (4 if dtype == "float32" else 2)
+def product_fault(fault: str, dtype: str, chunk_bytes: int):
+    """``product(a, b)`` = a @ b (both in f32, k the last axis of a) for a
+    plain version, with ``fault``."""
+    chunk = chunk_bytes // (4 if dtype == "float32" else 2)
 
-    def product(dz, rwt):
+    def product(a, b):
         if fault == "k_chunk_dropped":
-            dz = dz.clone()
-            dz[:, :chunk] = 0.0
-            return dz @ rwt
-        return tf32(dz) @ tf32(rwt)
+            a = a.clone()
+            a[..., :chunk] = 0.0
+            return a @ b
+        return tf32(a) @ tf32(b)
 
     return product
+
+
+def fwd_faults_caught(name: str, dtype: str, wrong_fn, want, limit, fields) -> None:
+    """``wrong_fn(product)`` (the plain forward) with each wrong product of
+    PRODUCT_FAULTS, read against ``want`` (the right plain version's
+    outputs) as the kernel is, by ``limit(got, want)`` (a dict of
+    readings and whether they are within the limit): emits one
+    kernel_limits line and raises unless every one reads past the limit."""
+    wrong = {}
+    for fault in PRODUCT_FAULTS[dtype]:
+        readings, within_limit = limit(
+            wrong_fn(product_fault(fault, dtype, FWD_CHUNK_BYTES)), want)
+        wrong[fault] = {"readings": readings, "caught": not within_limit}
+    ok = all(w["caught"] for w in wrong.values())
+    emit("kernel_limits", kernel=name, dtype=dtype, wrong_readings=wrong, caught=ok, **fields)
+    if not ok:
+        raise AssertionError(f"{name} {dtype}: the limits do not catch {wrong}")
 
 
 def max_abs(got, want) -> float:
@@ -513,13 +550,13 @@ def phase_kernels_train(torch, ls, sx):
 
 
 def bwd_faults_caught(ls, dtype, T, up, res, ref) -> None:
-    """The plain backward with each wrong product of BWD_PRODUCT_FAULTS,
+    """The plain backward with each wrong product of PRODUCT_FAULTS,
     read against the right one as the kernel is: emits one kernel_limits
     line and raises unless every one reads past the limits."""
     wrong = {}
-    for fault in BWD_PRODUCT_FAULTS[dtype]:
+    for fault in PRODUCT_FAULTS[dtype]:
         got = ls.lstm_sequence_masked_backward_reference(
-            *up, None, *res, product=bwd_product_fault(fault, dtype))
+            *up, None, *res, product=product_fault(fault, dtype, BWD_CHUNK_BYTES))
         if dtype == "bfloat16":
             readings, _, bad = bf16_readings(T, BWD_NAMES, got, ref)
             wrong[fault] = {"outputs_past_limits": sorted(bad),
@@ -664,7 +701,9 @@ def time_train_kernels(torch, ls, sx, card):
                 B=BATCH, H=HIDDEN, N=N, C=VOCAB,
                 mask_live_share=live if "masked" in name else None, **extra)
             times[(name, dtype)].update(extra)
-        if dtype == "float32":  # where one backward call's card time goes
+        if dtype == "float32":  # where one forward and one backward call's card time goes
+            emit("profile", what="one lstm_sequence_train_forward call, f32 T=256 B=64 H=512",
+                 gpu=card, **profile(torch, cases[0][1], groups=LSTM_PROFILE_GROUPS))
             emit("profile", what="one lstm_sequence_backward call, f32 T=256 B=64 H=512",
                  gpu=card, **profile(torch, cases[1][1], groups=BWD_PROFILE_GROUPS))
     return times
@@ -674,6 +713,14 @@ def time_train_kernels(torch, ls, sx, card):
 BWD_PROFILE_GROUPS = [("step kernel (T launches)", r"lstm_bwd_step"),
                       ("dh0 product", r"lstm_bwd_dh"), ("drw_gemm", r"drw_gemm"),
                       ("peephole_reduce", r"peephole_reduce")]
+# the LSTM's kernels, for the profiles' split of a training forward, an
+# update or an output() (the forward step of rows 1, 5, 6 and 8 first)
+LSTM_PROFILE_GROUPS = [("forward step (rows 1, 5, 6, 8)", r"lstm_step_mma"),
+                       ("backward step (rows 7, 9)", r"lstm_bwd_step"),
+                       ("dh product (dh0; row 2's dh_prev)", r"lstm_bwd_dh"),
+                       ("cell_bwd_gates (row 2)", r"cell_bwd_gates"),
+                       ("drw_gemm", r"drw_gemm"), ("peephole_reduce", r"peephole_reduce"),
+                       ("softmax_xent", r"softmax_xent"), ("adam", r"adam")]
 
 
 def sxent_device_ms(torch, sx, x, lab, g, card, dtype) -> dict:
@@ -1124,7 +1171,10 @@ CELL_KERNELS = {
     "lstm_cell_bwd": (CSRC + "lstm_cell.cu", PALLAS + "202"),
 }
 CELL_ACTS = ("tanh", "sigmoid", "hardsigmoid", "relu", "identity")
-CELL_CASES = [(B, H) for B in (1, SLOTS, BATCH, 67) for H in (130, HIDDEN)]
+# H=130: rows of h and RW start only 8- (f32) or 4-byte (bf16) aligned, so
+# the products copy 4 bytes at a time; H=129 in bf16: only 2-byte aligned,
+# so the forward step copies one element at a time
+CELL_CASES = [(B, H) for B in (1, SLOTS, BATCH, 67) for H in (129, 130, HIDDEN)]
 CELL_FWD = ("h", "c", "a", "f", "o", "i", "cact")
 CELL_BWD = ("dzx", "dh_prev", "dc_prev", "dRW", "dpF", "dpI", "dpO")
 # rows 1-2 against their plain versions on the same CUDA tensors, every
@@ -1137,7 +1187,8 @@ CELL_BWD = ("dzx", "dh_prev", "dc_prev", "dRW", "dpF", "dpI", "dpO")
 # sequence kernels' limits for a short sequence (BF16_TRAIN_REL["tail"]).
 # The phase computes two wrong plain versions, the forward with o reading
 # c_prev instead of c through pO and the backward without df*pF in dc_prev,
-# and fails unless both read above these limits.
+# and the forward with each wrong product of PRODUCT_FAULTS, and fails
+# unless every one reads above these limits.
 CELL_REL = {"float32": {"max": 1e-5, "mean": 1e-5}, "bfloat16": BF16_TRAIN_REL["tail"]}
 CELL_FAULTS = ("o_sees_c_prev", "dc_prev_without_df_pF")
 
@@ -1147,13 +1198,14 @@ def bound_cell(B: int, H: int, dtype: str, backward: bool):
     [B, H] outputs written, the product's 2*B*H*4H operations. Row 2: the
     residuals a, f, o, i, act(c), c_prev, c, h_prev, dh and dc [B, H], RW and
     the peepholes read; dzx [B, 4H], dh_prev, dc_prev, dRW [H, 4H] and the
-    three peephole grads written; two products of 2*B*4H*H operations."""
+    three peephole grads written; two products of 2*B*4H*H operations.
+    Products at the tensor cores' peak (f32 at the 3xTF32 rate)."""
     item = 4 if dtype == "float32" else 2
     if backward:
         elems = 10 * B * H + 2 * (H * 4 * H + 3 * H) + B * 4 * H + 2 * B * H
-        return roofline(elems * item, 2 * (2.0 * B * 4 * H * H), dtype)
+        return roofline(elems * item, 2 * (2.0 * B * 4 * H * H), dtype, tc_rate(dtype))
     elems = B * 4 * H + 2 * B * H + H * 4 * H + 3 * H + 7 * B * H
-    return roofline(elems * item, 2.0 * B * H * 4 * H, dtype)
+    return roofline(elems * item, 2.0 * B * H * 4 * H, dtype, tc_rate(dtype))
 
 
 def cell_inputs(torch, B, H, dtype, seed):
@@ -1272,6 +1324,16 @@ def phase_kernels_cell(torch, lc):
              limit_mean_rel=lim["mean"], ok=ok)
         if not ok:
             raise AssertionError(f"lstm_cell {dtype}: a wrong plain version passed {faults}")
+
+        def cell_limit(wrong, ref, lim=lim):
+            r = rel_readings(wrong, ref, CELL_FWD)
+            return r, within(r, lim)
+
+        fwd_faults_caught(
+            "lstm_cell_fwd", dtype,
+            lambda product: lc.lstm_cell_forward_reference(*args, product=product), want,
+            cell_limit, dict(B=BATCH, H=HIDDEN, limit_max_rel=lim["max"],
+                             limit_mean_rel=lim["mean"]))
     return errs
 
 
@@ -1699,8 +1761,7 @@ def bound_attention(kernel: str, dtype: str, shape, causal=True):
                                "flash_attn_bwd_dkv": (6, 2, 4)}[kernel]
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     return roofline(tensors * B * H * T * D * item + rows * B * H * T * 4,
-                    products * 2.0 * D * pairs, dtype,
-                    F32_TC_OPS_PER_S if dtype == "float32" else None)
+                    products * 2.0 * D * pairs, dtype, tc_rate(dtype))
 
 
 def attention_text(n_short, n_long, lo, mid, hi, seed):
@@ -2420,10 +2481,16 @@ def time_lrn(torch, lr, card):
     return times
 
 
-# kernels whose products must run on the tensor cores (rows 13-15; rows 7
-# and 9's step kernel and dh0 product)
-TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "lstm_bwd_step_mma",
-                       "lstm_bwd_dh_mma")
+# kernels whose products must run on the tensor cores (rows 13-15; the LSTM
+# forward step of rows 1, 5, 6 and 8; rows 7 and 9's step kernel and dh0
+# product, which row 2 also launches), and the libraries each must be in
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "lstm_step_mma",
+                       "lstm_bwd_step_mma", "lstm_bwd_dh_mma")
+TENSOR_CORE_LIBS = {"flash_attn": ("flash_fwd",),
+                    "flash_attn_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
+                    "lstm_seq": ("lstm_step_mma",),
+                    "lstm_cell": ("lstm_step_mma", "lstm_bwd_dh_mma"),
+                    "lstm_seq_bwd": ("lstm_bwd_step_mma", "lstm_bwd_dh_mma")}
 
 
 def ptxas_report(log: str) -> dict:
@@ -2486,8 +2553,9 @@ def demangle(names) -> dict:
 def phase_sass(build_s: dict) -> None:
     """Per kernel entry of every built library: registers and spills (the
     build's ``-Xptxas -v``) and the HMMA instructions in its SASS. Fails if
-    an entry of ``TENSOR_CORE_KERNELS`` (rows 13-15, rows 7 and 9's
-    products) has no HMMA or spills."""
+    an entry of ``TENSOR_CORE_KERNELS`` (rows 13-15, the LSTM's forward step
+    and backward products) has no HMMA or spills, or a library of
+    ``TENSOR_CORE_LIBS`` lacks one of its entries."""
     from deeplearning4j_tpu_torch.ops import _build
 
     report, bad = {}, []
@@ -2506,11 +2574,14 @@ def phase_sass(build_s: dict) -> None:
                 bad.append(readable[fn])
         report[name] = entries
         emit("sass", source=name, entries=entries)
-    ok = not bad and all(any(k in e for lib in report.values() for e in lib)
-                         for k in TENSOR_CORE_KERNELS)
-    emit("sass_tensor_cores", kernels=list(TENSOR_CORE_KERNELS), failing=bad, ok=ok)
+    missing = [f"{lib}: {k}" for lib, keys in TENSOR_CORE_LIBS.items() for k in keys
+               if not any(k in e for e in report.get(lib, {}))]
+    ok = not bad and not missing
+    emit("sass_tensor_cores", kernels=list(TENSOR_CORE_KERNELS), failing=bad,
+         missing=missing, ok=ok)
     if not ok:
-        raise AssertionError(f"tensor-core kernels without HMMA or with spills: {bad}")
+        raise AssertionError(f"tensor-core kernels without HMMA or with spills: {bad}; "
+                             f"missing: {missing}")
 
 
 def profile(torch, fn, top: int = 6, groups=None):
@@ -2820,18 +2891,19 @@ def main() -> int:
 
     net = nets["float32"]
     emit("profile", what="output() f32 B=64 T=256", gpu=card,
-         **profile(torch, lambda: net.output(x)))
+         **profile(torch, lambda: net.output(x), groups=LSTM_PROFILE_GROUPS))
     _, _, train_net, (tx, ty) = train[("standard", "float32")]
     emit("profile", what="fit() one standard SGD update, f32 B=64 T=256", gpu=card,
-         **profile(torch, lambda: train_net.fit((tx, ty))))
+         **profile(torch, lambda: train_net.fit((tx, ty)), groups=LSTM_PROFILE_GROUPS))
     _, _, recipe_net, recipe_it = recipe["float32"]
     long_batch = next(ds for ds in recipe_it if ds.features.shape[1] == STEPS)
     emit("profile", what="fit() one bucketed Adam TBPTT batch, f32 B=64 T=256 (6 updates)",
-         gpu=card, **profile(torch, lambda: recipe_net.fit(long_batch)))
+         gpu=card, **profile(torch, lambda: recipe_net.fit(long_batch),
+                             groups=LSTM_PROFILE_GROUPS))
     _, _, cell_net, (cx, cy) = cell_train["float32"]
     emit("profile", what="fit() one standard SGD update on the fusedcell route, f32 B=64 "
          "T=256 (512 launches of each cell row)", gpu=card,
-         **profile(torch, lambda: cell_net.fit((cx, cy)), top=8))
+         **profile(torch, lambda: cell_net.fit((cx, cy)), top=8, groups=LSTM_PROFILE_GROUPS))
     _, _, attn_net, attn_it = attn_train["float32"]
     attn_batch = next(ds for ds in attn_it if ds.features.shape[1] == ATTN_T)
     emit("profile", what="fit() one Adam update of the attention net, f32 B=4 T=4096",

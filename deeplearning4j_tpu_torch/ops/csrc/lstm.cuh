@@ -1,15 +1,14 @@
-// Kernels shared by the peephole-LSTM sources: the forward step (lstm_seq.cu
-// runs it T times a call, lstm_cell.cu once) and the backward's gate math,
-// products and reductions (lstm_cell.cu over one step; lstm_seq_bwd.cu takes
-// the gate math, drw_gemm and peephole_reduce, and forms its per-step
-// product on the tensor cores).
-// Both follow _cell_math (deeplearning4j_tpu/ops/pallas_kernels.py:87-101)
-// and its backward, so they round at the same points.
+// What the peephole-LSTM sources share besides their tensor-core products
+// (lstm_mma.cuh): the backward's gate math (gate_grads, store_dzx), the dRW
+// product over time x batch rows (drw_gemm) and the peephole reductions
+// (peephole_partials, peephole_reduce). lstm_cell.cu takes all of them,
+// lstm_seq_bwd.cu all but peephole_partials. They follow the backward of
+// _cell_math (deeplearning4j_tpu/ops/pallas_kernels.py:87-101, :122-133),
+// so they round at the same points.
 //
-// Layout: a block owns kUnits hidden units x kRows batch rows and all four
-// gate columns [a, f, o, i] of those units, so the gate math and the c/h
-// update stay in registers with no exchange between blocks. Products are
-// tiled through shared memory and accumulated in f32.
+// Layout of the cell backward's gate kernel (lstm_cell.cu: cell_bwd_gates
+// and its peephole partials): a block owns kUnits hidden units x kRows batch
+// rows, a thread one (row, unit).
 #pragma once
 
 #include "common.cuh"
@@ -21,111 +20,8 @@ namespace {
 using namespace dl4j;
 
 constexpr int kUnits = 8;    // hidden units per block
-constexpr int kRows = 32;    // batch rows per block
-constexpr int kTileK = 64;   // depth of one shared-memory tile of a product
+constexpr int kRows = 32;    // batch rows per block (ops/lstm_cell.py: CELL_ROW_BLOCK)
 constexpr int kThreads = kUnits * kRows;
-constexpr int kCols = 4 * kUnits;  // RW columns a forward block reads: 4 gates x kUnits
-
-// One forward step:
-//   z = zx + h_prev @ RW                  (product accumulated in f32, rounded)
-//   a = act(z[:, :H])
-//   f = gate(z[:, H:2H] + c_prev * pF),  i = gate(z[:, 3H:] + c_prev * pI)
-//   c = f * c_prev + i * a
-//   o = gate(z[:, 2H:3H] + c * pO),      h = o * act(c)
-//   masked: h = m*h + (1-m)*h_prev, c = m*c + (1-m)*c_prev
-// In bf16 every elementwise result is rounded to bf16 where the plain PyTorch
-// version rounds it. h_last, cact_out and the residual pointers may be null.
-template <typename T, bool kMasked, bool kStoreResiduals>
-__global__ void __launch_bounds__(kThreads)
-lstm_step(const T* __restrict__ zx,      // [B, 4H] of this step
-          const T* __restrict__ mask,    // [B] of this step (masked only)
-          const T* __restrict__ h_prev,  // [B, H]
-          const T* __restrict__ c_prev,  // [B, H]
-          const T* __restrict__ rw,      // [H, 4H]
-          const T* __restrict__ pf, const T* __restrict__ pi,
-          const T* __restrict__ po,      // [H] each
-          T* __restrict__ h_out,         // [B, H]
-          T* __restrict__ c_out,         // [B, H]
-          T* __restrict__ h_last,        // [B, H]: a second copy of h, or null
-          T* __restrict__ a_out, T* __restrict__ f_out,
-          T* __restrict__ o_out,
-          T* __restrict__ i_out,         // [B, H] each: residuals (kStoreResiduals)
-          T* __restrict__ cact_out,      // [B, H]: act(c) (kStoreResiduals), or null
-          int B, int H, int act, int gate) {
-  __shared__ float hs[kRows][kTileK + 1];  // +1: rows of one warp hit other banks
-  __shared__ float ws[kTileK][kCols];
-
-  const int tid = threadIdx.x;
-  const int u = tid % kUnits;
-  const int r = tid / kUnits;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
-  const int j = j0 + u;
-  const int b = b0 + r;
-  const size_t H4 = 4 * static_cast<size_t>(H);
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < H; k0 += kTileK) {
-    for (int e = tid; e < kRows * kTileK; e += kThreads) {
-      const int rr = e / kTileK, kk = e % kTileK;
-      const int bb = b0 + rr, k = k0 + kk;
-      hs[rr][kk] = (bb < B && k < H) ? ld(h_prev, static_cast<size_t>(bb) * H + k) : 0.f;
-    }
-    for (int e = tid; e < kTileK * kCols; e += kThreads) {
-      const int kk = e / kCols, col = e % kCols;
-      const int g = col / kUnits, jj = j0 + col % kUnits;
-      const int k = k0 + kk;
-      ws[kk][col] = (k < H && jj < H)
-                        ? ld(rw, static_cast<size_t>(k) * H4 + static_cast<size_t>(g) * H + jj)
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 16
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float hv = hs[r][kk];
-      acc[0] = fmaf(hv, ws[kk][u], acc[0]);
-      acc[1] = fmaf(hv, ws[kk][kUnits + u], acc[1]);
-      acc[2] = fmaf(hv, ws[kk][2 * kUnits + u], acc[2]);
-      acc[3] = fmaf(hv, ws[kk][3 * kUnits + u], acc[3]);
-    }
-    __syncthreads();
-  }
-  if (b >= B || j >= H) return;
-
-  const size_t zrow = static_cast<size_t>(b) * H4;
-  const size_t hidx = static_cast<size_t>(b) * H + j;
-  const float hp = ld(h_prev, hidx);
-  const float cp = ld(c_prev, hidx);
-  // z = zx + (h_prev @ RW).astype(dtype), as _cell_math rounds it
-  const float za = rnd<T>(ld(zx, zrow + j) + rnd<T>(acc[0]));
-  const float zf = rnd<T>(ld(zx, zrow + H + j) + rnd<T>(acc[1]));
-  const float zo = rnd<T>(ld(zx, zrow + 2 * static_cast<size_t>(H) + j) + rnd<T>(acc[2]));
-  const float zi = rnd<T>(ld(zx, zrow + 3 * static_cast<size_t>(H) + j) + rnd<T>(acc[3]));
-
-  const float a = activate<T>(act, za);
-  const float f = activate<T>(gate, rnd<T>(zf + rnd<T>(cp * ld(pf, j))));
-  const float i = activate<T>(gate, rnd<T>(zi + rnd<T>(cp * ld(pi, j))));
-  float c = rnd<T>(rnd<T>(f * cp) + rnd<T>(i * a));
-  const float o = activate<T>(gate, rnd<T>(zo + rnd<T>(c * ld(po, j))));
-  const float cact = activate<T>(act, c);
-  float h = rnd<T>(o * cact);
-  if (kMasked) {
-    const float m = ld(mask, b);
-    const float keep = rnd<T>(1.0f - m);
-    h = rnd<T>(rnd<T>(m * h) + rnd<T>(keep * hp));
-    c = rnd<T>(rnd<T>(m * c) + rnd<T>(keep * cp));
-  }
-  st(h_out, hidx, h);
-  st(c_out, hidx, c);
-  if (h_last != nullptr) st(h_last, hidx, h);
-  if (kStoreResiduals) {
-    st(a_out, hidx, a);
-    st(f_out, hidx, f);
-    st(o_out, hidx, o);
-    st(i_out, hidx, i);
-    if (cact_out != nullptr) st(cact_out, hidx, cact);
-  }
-}
 
 // The gate gradients of one (row, unit) from its step's activated values
 // (the backward of _cell_math, pallas_kernels._bwd_kernel :122-133), each op
@@ -162,59 +58,6 @@ __device__ __forceinline__ void store_dzx(T* __restrict__ dzx, const GateGrads& 
   st(dzx, zrow + H + j, g.d_f);
   st(dzx, zrow + 2 * static_cast<size_t>(H) + j, g.d_o);
   st(dzx, zrow + 3 * static_cast<size_t>(H) + j, g.d_i);
-}
-
-// dzx[b, :] @ RW[j, :]^T for this thread's (b, j), accumulated in f32 over
-// the 4H columns, tiled through shared memory; every thread of the block
-// takes part. dzx may be null (returns 0).
-template <typename T>
-__device__ float dzx_rwt(const T* __restrict__ dzx, const T* __restrict__ rw, int B, int H,
-                         int b0, int j0, int r, int u) {
-  __shared__ float ds[kRows][kTileK + 1];  // +1: rows of one warp hit other banks
-  __shared__ float ws[kTileK][kUnits];
-  const int tid = threadIdx.x;
-  const size_t H4 = 4 * static_cast<size_t>(H);
-  float acc = 0.f;
-  if (dzx == nullptr) return acc;
-  for (size_t k0 = 0; k0 < H4; k0 += kTileK) {
-    for (int e = tid; e < kRows * kTileK; e += kThreads) {
-      const int rr = e / kTileK, kk = e % kTileK;
-      const int bb = b0 + rr;
-      const size_t k = k0 + kk;
-      ds[rr][kk] = (bb < B && k < H4) ? ld(dzx, static_cast<size_t>(bb) * H4 + k) : 0.f;
-    }
-    for (int e = tid; e < kTileK * kUnits; e += kThreads) {
-      const int uu = e / kTileK, kk = e % kTileK;
-      const int jj = j0 + uu;
-      const size_t k = k0 + kk;
-      ws[kk][uu] = (jj < H && k < H4) ? ld(rw, static_cast<size_t>(jj) * H4 + k) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 16
-    for (int kk = 0; kk < kTileK; ++kk) acc = fmaf(ds[r][kk], ws[kk][u], acc);
-    __syncthreads();
-  }
-  return acc;
-}
-
-// dh = (dzx @ RW^T), rounded to the type; masked, plus (1-m)*dh_in (`m` [B]
-// and `dh_in` [B, H], both null unmasked). Grid as lstm_step's.
-template <typename T, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_dh(const T* __restrict__ dzx, const T* __restrict__ rw, const T* __restrict__ m,
-            const T* __restrict__ dh_in, T* __restrict__ dh, int B, int H) {
-  const int tid = threadIdx.x;
-  const int u = tid % kUnits;
-  const int r = tid / kUnits;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
-  const float rec = dzx_rwt<T>(dzx, rw, B, H, b0, j0, r, u);
-  const int b = b0 + r;
-  if (b >= B || j0 + u >= H) return;
-  const size_t hidx = static_cast<size_t>(b) * H + j0 + u;
-  float v = rnd<T>(rec);
-  if (kMasked) v = add<T>(v, mul<T>(sub<T>(1.0f, ld(m, b)), ld(dh_in, hidx)));
-  st(dh, hidx, v);
 }
 
 constexpr int kGemmM = 64;   // rows of dRW (hidden units k) per block

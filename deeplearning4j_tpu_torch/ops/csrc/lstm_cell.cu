@@ -27,24 +27,26 @@
 //
 // What bounds it on this card: one step at B=64, H=512 reads RW (4 MiB f32)
 // and does 2*B*H*4H operations (134 MFLOP) forward and twice that backward,
-// a bound of 2.0 and 4.0 us in f32 (operations), 0.88 and 1.57 us in bf16
-// (bytes). A block of the forward, or of the dh_prev product, runs a serial
-// loop over the product's depth (H, or 4H), so latency, not the bound, sets
-// the time, as in the sequence kernels (PERF.md rows 5-9); the caller's
-// Python loop over T adds a host round trip per step.
+// a bound of 0.81 and 1.6 us in f32 (operations at the 3xTF32 rate), 0.88
+// and 1.57 us in bf16 (bytes). One launch, or four, cannot fill the card
+// with so little work, so latency, not the bound, sets the time, as in the
+// sequence kernels (PERF.md rows 5-9); the caller's Python loop over T adds
+// a host round trip per step.
 //
-// Design: the forward is lstm_seq.cu's step kernel (lstm.cuh's lstm_step,
-// the residual-storing instantiation, also writing act(c)), launched once.
-// The backward is four launches on the caller's stream: cell_bwd_gates (the
-// elementwise gate math, lstm_step's block layout, and the peephole terms
+// Design: the forward is lstm_seq.cu's step kernel (lstm_mma.cuh's
+// lstm_step_mma, the residual-storing instantiation, also writing act(c)),
+// launched once: its product on the tensor cores. The backward is four
+// launches on the caller's stream: cell_bwd_gates (the elementwise gate
+// math, lstm.cuh's kUnits x kRows block layout, and the peephole terms
 // summed over the block's rows into an f32 slot per row block), then
-// lstm_bwd_dh (dh_prev from dzx), drw_gemm (dRW over R = B rows) and
-// peephole_reduce (the slots summed), shared with the sequence backward.
-// No atomics: the result does not depend on the order blocks run in.
-// Later work: wgmma for both products, and one persistent launch for a
-// sequence of cells.
+// lstm_bwd_dh_mma (dh_prev = dzx @ RW^T on the tensor cores, the sequence
+// backward's dh0 product from lstm_mma.cuh), drw_gemm (dRW over R = B rows)
+// and peephole_reduce (the slots summed), shared with the sequence
+// backward. No atomics: the result does not depend on the order blocks run
+// in. Later work: drw_gemm on the tensor cores, and one persistent launch
+// for a sequence of cells.
 
-#include "lstm.cuh"
+#include "lstm_mma.cuh"
 
 namespace {
 
@@ -84,19 +86,22 @@ cell_bwd_gates(const T* __restrict__ a_r, const T* __restrict__ f_r,
   peephole_partials(tf, ti, to, psum, H);
 }
 
-dim3 step_grid(int B, int H) { return dim3((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows); }
-
 template <typename T>
 cudaError_t run_forward(const void* zx, const void* h_prev, const void* c_prev, const void* rw,
                         const void* pf, const void* pi, const void* po, void* h, void* c,
                         void* a, void* f, void* o, void* i, void* cact, int B, int H, int act,
                         int gate, cudaStream_t stream) {
-  lstm_step<T, false, true><<<step_grid(B, H), kThreads, 0, stream>>>(
-      static_cast<const T*>(zx), nullptr, static_cast<const T*>(h_prev),
-      static_cast<const T*>(c_prev), static_cast<const T*>(rw), static_cast<const T*>(pf),
-      static_cast<const T*>(pi), static_cast<const T*>(po), static_cast<T*>(h),
-      static_cast<T*>(c), nullptr, static_cast<T*>(a), static_cast<T*>(f),
-      static_cast<T*>(o), static_cast<T*>(i), static_cast<T*>(cact), B, H, act, gate);
+  int copy_bytes;
+  const cudaError_t err = fwd_copy_bytes<T, false, true>(rw, h_prev, h_prev, H, &copy_bytes);
+  if (err != cudaSuccess) return err;
+  lstm_step_mma<T, false, true>
+      <<<fwd_grid(B, H), kFwdThreads, static_cast<int>(kFwdSmemBytes<T>), stream>>>(
+          static_cast<const T*>(zx), nullptr, static_cast<const T*>(h_prev),
+          static_cast<const T*>(c_prev), static_cast<const T*>(rw), static_cast<const T*>(pf),
+          static_cast<const T*>(pi), static_cast<const T*>(po), static_cast<T*>(h),
+          static_cast<T*>(c), nullptr, static_cast<T*>(a), static_cast<T*>(f),
+          static_cast<T*>(o), static_cast<T*>(i), static_cast<T*>(cact), B, H, act, gate,
+          copy_bytes);
   return cudaGetLastError();
 }
 
@@ -111,7 +116,7 @@ cudaError_t run_backward(const void* a, const void* f, const void* o, const void
   const T* rw = static_cast<const T*>(rw_v);
   T* dzx = static_cast<T*>(dzx_v);
   float* psum = static_cast<float*>(psum_v);
-  const dim3 grid = step_grid(B, H);
+  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
   cell_bwd_gates<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(f), static_cast<const T*>(o),
       static_cast<const T*>(i), static_cast<const T*>(cact), static_cast<const T*>(c_prev),
@@ -120,8 +125,16 @@ cudaError_t run_backward(const void* a, const void* f, const void* o, const void
       static_cast<T*>(dc_prev), psum, B, H, act, gate);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  lstm_bwd_dh<T, false><<<grid, kThreads, 0, stream>>>(dzx, rw, nullptr, nullptr,
-                                                       static_cast<T*>(dh_prev), B, H);
+  int wide;
+  err = bwd_copy_wide<T>(dzx, rw, H, &wide);
+  if (err != cudaSuccess) return err;
+  const int smem = static_cast<int>(kSmemBytes<T>);
+  err = cudaFuncSetAttribute(lstm_bwd_dh_mma<T, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 dh_grid((H + kBwdUnits - 1) / kBwdUnits, (B + kBwdRows - 1) / kBwdRows);
+  lstm_bwd_dh_mma<T, false><<<dh_grid, kBwdThreads, smem, stream>>>(
+      dzx, rw, nullptr, nullptr, static_cast<T*>(dh_prev), B, H, wide);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const T* hp = static_cast<const T*>(h_prev);
@@ -154,7 +167,8 @@ extern "C" int dl4j_lstm_cell_fwd(const void* zx, const void* h_prev, const void
 
 // One step backward on `stream` (B, H > 0): the gate math, the dh_prev and dRW
 // products and the peephole reduction, four launches. `psum` is f32 scratch
-// of ceil(B/32)*3*H. Returns the CUDA error code of the first launch that
+// of ceil(B/kRows)*3*H (lstm.cuh's kRows, 32: ops/lstm_cell.py's
+// CELL_ROW_BLOCK). Returns the CUDA error code of the first launch that
 // failed, 0 when all launched.
 extern "C" int dl4j_lstm_cell_bwd(const void* a, const void* f, const void* o, const void* i,
                                   const void* cact, const void* c_prev, const void* c,

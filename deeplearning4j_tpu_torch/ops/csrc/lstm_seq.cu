@@ -26,26 +26,30 @@
 // What bounds it on this card: each step reads all of RW (H x 4H: 4 MiB f32,
 // 2 MiB bf16 at H=512) and does 2*B*H*4H operations, but step t+1 needs all
 // of step t's h. At the batch sizes served (B=64 full batch, B=8 decode
-// ticks) one step is far too small to fill the card, so the sequence is
-// latency-bound, not bound by bytes or operations: PERF.md records ~40 us
-// per step at both B=8 and B=64, so the time is the serial K loop of one
-// block (tile load, sync, FMAs, sync), not the launch and not the work. RW
-// (4 MiB) stays in the 50 MB L2 from one step to the next.
+// ticks) one step is far too small to fill the card, so the sequence is a
+// chain of T small launches and latency, not bytes or operations, sets its
+// time (PERF.md rows 5, 6 and 8). RW stays in the 50 MB L2 from one step to
+// the next.
 //
 // Design: a TPU grid runs in order and carries h/c in VMEM; Hopper blocks run
-// in no order, so the time loop lives on the host. One C call runs T step
-// launches on the caller's stream. Each block owns kUnits hidden units and
-// kRows batch rows and computes all four gate columns of those units, so the
-// gate math and the c/h update stay in registers with no exchange between
-// blocks. The h_prev @ RW product is tiled through shared memory. ys[t-1]
-// is h_prev for step t; c ping-pongs between two scratch buffers, or, in the
-// training forward, is the c residual stream itself. The residuals add
-// 5*T*B*H stored elements and no operations, so the training forward is
-// bound as the lean one is (PERF.md row 6). Later
-// work: a persistent kernel with RW split across SMs and wgmma for the
-// recurrent product.
+// in no order, so the time loop lives on the host. One C call runs T launches
+// of lstm_mma.cuh's lstm_step_mma on the caller's stream. Each block owns
+// kFwdRows batch rows x kFwdUnits hidden units and all four gate columns of
+// those units, so the gate math and the c/h update stay in the block with no
+// exchange between blocks. The h_prev @ RW product runs on the tensor cores
+// (mma.sync: bf16 m16n8k16 with f32 sums, f32 in 3xTF32 with each k step's
+// sum added to the f32 sum): k = H streams through a cp.async ring in
+// 512-byte chunks of h_prev's rows (A) and RW's rows at the block's columns
+// (B), each chunk split into eight k slices, a warp each, whose partial
+// products are added through shared memory in slice order. A 16 x 16 tile
+// gives 128 blocks at B=64, H=512, one per SM
+// (scripts/torch_lstm_fwd_tiles.py times other tiles, rings and chunks).
+// ys[t-1] is h_prev for step t; c ping-pongs between two scratch buffers,
+// or, in the training forward, is the c residual stream itself. The
+// residuals add 5*T*B*H stored elements and no operations. Later work: a
+// persistent kernel with RW split across SMs, wgmma.
 
-#include "lstm.cuh"
+#include "lstm_mma.cuh"
 
 namespace {
 
@@ -60,19 +64,22 @@ cudaError_t run_sequence(const void* zx_v, const void* mask_v, const void* h0_v,
   T* ys = static_cast<T*>(ys_v);
   T* cbuf = static_cast<T*>(cbuf_v);
   const size_t BH = static_cast<size_t>(B) * H;
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
+  int copy_bytes;
+  cudaError_t err = fwd_copy_bytes<T, kMasked, false>(rw_v, h0_v, ys_v, H, &copy_bytes);
+  if (err != cudaSuccess) return err;
+  const int smem = static_cast<int>(kFwdSmemBytes<T>);
   for (int t = 0; t < steps; ++t) {
     const bool last = t == steps - 1;
     const T* hp = t == 0 ? static_cast<const T*>(h0_v) : ys + (t - 1) * BH;
     const T* cp = t == 0 ? static_cast<const T*>(c0_v) : cbuf + ((t - 1) & 1) * BH;
     T* co = last ? static_cast<T*>(cT_v) : cbuf + (t & 1) * BH;
-    lstm_step<T, kMasked, false><<<grid, kThreads, 0, stream>>>(
+    lstm_step_mma<T, kMasked, false><<<fwd_grid(B, H), kFwdThreads, smem, stream>>>(
         zx + t * 4 * BH, kMasked ? mask + static_cast<size_t>(t) * B : nullptr,
         hp, cp, static_cast<const T*>(rw_v), static_cast<const T*>(pf_v),
         static_cast<const T*>(pi_v), static_cast<const T*>(po_v), ys + t * BH, co,
         last ? static_cast<T*>(hT_v) : nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-        B, H, act, gate);
-    const cudaError_t err = cudaGetLastError();
+        B, H, act, gate, copy_bytes);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -93,20 +100,23 @@ cudaError_t run_sequence_train(const void* zx_v, const void* mask_v, const void*
   T* ys = static_cast<T*>(ys_v);
   T* c = static_cast<T*>(c_v);
   const size_t BH = static_cast<size_t>(B) * H;
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
+  int copy_bytes;
+  cudaError_t err = fwd_copy_bytes<T, kMasked, true>(rw_v, h0_v, ys_v, H, &copy_bytes);
+  if (err != cudaSuccess) return err;
+  const int smem = static_cast<int>(kFwdSmemBytes<T>);
   for (int t = 0; t < steps; ++t) {
     const size_t off = t * BH;
     const T* hp = t == 0 ? static_cast<const T*>(h0_v) : ys + off - BH;
     const T* cp = t == 0 ? static_cast<const T*>(c0_v) : c + off - BH;
-    lstm_step<T, kMasked, true><<<grid, kThreads, 0, stream>>>(
+    lstm_step_mma<T, kMasked, true><<<fwd_grid(B, H), kFwdThreads, smem, stream>>>(
         zx + 4 * off, kMasked ? mask + static_cast<size_t>(t) * B : nullptr, hp, cp,
         static_cast<const T*>(rw_v),
         static_cast<const T*>(pf_v), static_cast<const T*>(pi_v),
         static_cast<const T*>(po_v), ys + off, c + off,
         t == steps - 1 ? static_cast<T*>(hT_v) : nullptr, static_cast<T*>(a_v) + off,
         static_cast<T*>(f_v) + off, static_cast<T*>(o_v) + off, static_cast<T*>(i_v) + off,
-        nullptr, B, H, act, gate);
-    const cudaError_t err = cudaGetLastError();
+        nullptr, B, H, act, gate, copy_bytes);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   // c_T is the last row of the c stream
@@ -116,7 +126,7 @@ cudaError_t run_sequence_train(const void* zx_v, const void* mask_v, const void*
 
 }  // namespace
 
-// Runs the whole sequence: `steps` launches of lstm_step on `stream`. `mask` is
+// Runs the whole sequence: `steps` launches of lstm_step_mma on `stream`. `mask` is
 // null for the unmasked mode. `cbuf` is scratch of 2*B*H elements. Returns
 // the CUDA error code of the first launch that failed, 0 when all launched.
 extern "C" int dl4j_lstm_seq_lean(const void* zx, const void* mask,
@@ -140,7 +150,7 @@ extern "C" int dl4j_lstm_seq_lean(const void* zx, const void* mask,
                                     B, H, act, gate, s);
 }
 
-// Runs the training forward: `steps` launches of lstm_step that also store
+// Runs the training forward: `steps` launches of lstm_step_mma that also store
 // the residuals a, f, o, i, c ([steps, B, H] each), then copies c_T out of
 // the c stream. Returns the CUDA error code of the first launch or copy that
 // failed, 0 when all were issued.

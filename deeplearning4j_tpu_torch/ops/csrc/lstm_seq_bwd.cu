@@ -57,8 +57,11 @@
 //   ring's depth and the chunk's size moved it little.) No atomics: the
 //   result does not depend on the order blocks run in. Then each lane runs
 //   the gate epilogue for its element of the tile, its operands loaded
-//   before the product. dc ping-pongs between two scratch buffers. One more launch (lstm_bwd_dh_mma) computes dh0 = dzx[0] @ RW^T
-//   with the same product. Masked, step t also needs (1-m[t+1])*dh of step
+//   before the product. The product (block_product, its copies and
+//   fragments) lives in lstm_mma.cuh, which lstm_cell.cu shares for the
+//   cell's dh_prev and whose forward step lstm_seq.cu runs. dc ping-pongs
+//   between two scratch buffers. One more launch (lstm_bwd_dh_mma, also in
+//   lstm_mma.cuh) computes dh0 = dzx[0] @ RW^T with the same product. Masked, step t also needs (1-m[t+1])*dh of step
 //   t+1 in its carry: step t+1 stores its pre-mask dh in a [2, B, H]
 //   ping-pong buffer, which step t reads (the same element, so the same
 //   lane, one launch later).
@@ -69,179 +72,9 @@
 // Later work: a persistent reverse loop, wgmma and TMA, drw_gemm on the
 // tensor cores.
 
-#include "lstm.cuh"
-#include "mma_sync.cuh"
+#include "lstm_mma.cuh"
 
 namespace {
-
-// The per-step product's tile. kBwdRows is also the row block of the
-// peephole partials: psum is [steps, ceil(B / kBwdRows), 3, H]
-// (ops/lstm_sequence.py: BWD_ROW_BLOCK must equal it).
-constexpr int kBwdRows = 16;    // batch rows per block: m16 row tiles
-constexpr int kBwdUnits = 16;   // hidden units per block: two n8 tiles
-constexpr int kBwdWarps = 8;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kRowTiles = kBwdRows / 16;
-constexpr int kSlices = kBwdWarps / kRowTiles;  // k slices of a chunk, a warp each
-constexpr int kPairs = 8 / kSlices;  // elements of its row tile's 16 x 16 a lane ends with
-constexpr int kStages = 4;      // depth of the cp.async ring
-static_assert(kBwdRows % 16 == 0 && kBwdWarps % kRowTiles == 0 && 8 % kSlices == 0,
-              "each row tile's C fragments split evenly over its slices");
-
-// k elements of one chunk: 1024 bytes of a row in either type
-template <typename T>
-constexpr int kChunk = 1024 / static_cast<int>(sizeof(T));
-// shared row stride in elements: the chunk and 16 bytes, so the rows one
-// ldmatrix (or one tf32 fragment load) reads fall on different banks
-template <typename T>
-constexpr int kStride = kChunk<T> + 16 / static_cast<int>(sizeof(T));
-template <typename T>
-constexpr int kStageElems = (kBwdRows + kBwdUnits) * kStride<T>;
-template <typename T>
-constexpr size_t kSmemBytes = kStages * kStageElems<T> * sizeof(T);
-// after the loop the ring holds the slices' partial products
-// [kSlices][kRowTiles][16][16] and the peephole terms [3][kBwdRows][kBwdUnits]
-constexpr int kRedFloats = kSlices * kRowTiles * 16 * 16;
-static_assert((kRedFloats + 3 * kBwdRows * kBwdUnits) * sizeof(float) <= kSmemBytes<float>
-                  && kSmemBytes<float> == kSmemBytes<__nv_bfloat16>,
-              "the reductions fit in the ring, which is as large in either type");
-
-// chunk `k0` of the block's rows of dzx (rows b0.., stage rows 0..31) and
-// of RW (rows j0.., stage rows 32..47) into `stage`, zeros past B, H and
-// K = 4H; 16-byte copies when `wide`, else 4-byte ones
-template <typename T, int kBytes>
-__device__ __forceinline__ void copy_chunk(T* stage, const T* dzx, const T* rw, int B, int H,
-                                           int b0, int j0, int k0) {
-  constexpr int kPer = kBytes / static_cast<int>(sizeof(T));  // elements a copy
-  constexpr int kCopies = kChunk<T> / kPer;                    // copies a row
-  const int K = 4 * H;
-  for (int i = threadIdx.x; i < (kBwdRows + kBwdUnits) * kCopies; i += kBwdThreads) {
-    const int r = i / kCopies, c = (i % kCopies) * kPer;
-    const bool is_a = r < kBwdRows;
-    const int row = is_a ? b0 + r : j0 + r - kBwdRows;
-    const T* src = is_a ? dzx : rw;
-    const bool in = row < (is_a ? B : H) && k0 + c < K;
-    dl4j_mma::cp_async<kBytes>(stage + r * kStride<T> + c,
-                               in ? src + static_cast<size_t>(row) * K + k0 + c : src, in);
-  }
-}
-
-// chunk `chunk` of k into its stage of the ring
-template <typename T>
-__device__ __forceinline__ void issue_chunk(T* smem, int chunk, const T* dzx, const T* rw, int B,
-                                            int H, int b0, int j0, bool wide) {
-  T* stage = smem + (chunk % kStages) * kStageElems<T>;
-  if (wide)
-    copy_chunk<T, 16>(stage, dzx, rw, B, H, b0, j0, chunk * kChunk<T>);
-  else
-    copy_chunk<T, 4>(stage, dzx, rw, B, H, b0, j0, chunk * kChunk<T>);
-}
-
-// c[n] += A[16 x K] B[16 x K]^T (columns 8n..8n+7) in f32: mma_nt's
-// 3xTF32 (lo hi, hi lo, hi hi), but each k step of 8 summed by the tensor
-// cores from zero and added to c by an f32 add. (Summed in one tensor-core
-// accumulator over k = 4H, as mma_nt sums, the product drifted from an f64
-// product well past the plain f32 version, and the f32 Adam recipe left its
-// limits against the CPU in chip_smoke.py: the accumulator's own adds do
-// not round to nearest.)
-template <int K, int SA, int SB>
-__device__ __forceinline__ void mma_nt_f32_steps(float (&c)[2][4], const float* a, const float* b) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < K / 8; ++kk) {
-    uint32_t ah[4], al[4];
-    dl4j_mma::split(a[g * SA + kk * 8 + t], ah[0], al[0]);
-    dl4j_mma::split(a[(g + 8) * SA + kk * 8 + t], ah[1], al[1]);
-    dl4j_mma::split(a[g * SA + kk * 8 + t + 4], ah[2], al[2]);
-    dl4j_mma::split(a[(g + 8) * SA + kk * 8 + t + 4], ah[3], al[3]);
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      uint32_t bh[2], bl[2];
-      dl4j_mma::split(b[(8 * n + g) * SB + kk * 8 + t], bh[0], bl[0]);
-      dl4j_mma::split(b[(8 * n + g) * SB + kk * 8 + t + 4], bh[1], bl[1]);
-      float step[4] = {0.f, 0.f, 0.f, 0.f};
-      dl4j_mma::mma_3xtf32(step, ah, al, bh, bl);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[n][e] += step[e];
-    }
-  }
-}
-
-// one warp's k slice of a chunk: C += A B^T, A its 16 rows of dzx, B the
-// block's 16 rows of RW
-template <int K, int SA, int SB>
-__device__ __forceinline__ void slice_product(float (&c)[2][4], const float* a, const float* b) {
-  mma_nt_f32_steps<K, SA, SB>(c, a, b);
-}
-template <int K, int SA, int SB>
-__device__ __forceinline__ void slice_product(float (&c)[2][4], const __nv_bfloat16* a,
-                                              const __nv_bfloat16* b) {
-  dl4j_mma::mma_nt<K, 2, SA, SB>(c, a, b);
-}
-
-// the block row and unit of this lane's element p (< kPairs) of the block's
-// product: of the eight C-fragment elements a lane of a row tile holds
-// (q = 4 n + 2 rh + e: n8 tile n, row g + 8 rh, column 2t + e), slice s
-// ends with q = kPairs s .. kPairs s + kPairs - 1 (one q each at 16 rows)
-__device__ __forceinline__ void lane_elem(int p, int& row, int& col) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rtile = warp % kRowTiles, slice = warp / kRowTiles;
-  const int q = kPairs * slice + p;
-  row = 16 * rtile + (lane >> 2) + 8 * ((q >> 1) & 1);
-  col = 8 * (q >> 2) + 2 * (lane & 3) + (q & 1);
-}
-
-// dzx[b, :] @ RW[j, :]^T for this lane's elements (lane_elem), accumulated in
-// f32 on the tensor cores; every thread of the block takes part
-template <typename T>
-__device__ __forceinline__ void block_product(const T* __restrict__ dzx,
-                                              const T* __restrict__ rw, int B, int H, int b0,
-                                              int j0, bool wide, T* smem, float* red,
-                                              float (&rec)[kPairs]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rtile = warp % kRowTiles, slice = warp / kRowTiles;
-  constexpr int kKw = kChunk<T> / kSlices;  // k of one warp's slice of a chunk
-  float c[2][4] = {};
-  const int chunks = (4 * H + kChunk<T> - 1) / kChunk<T>;
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < chunks) issue_chunk(smem, s, dzx, rw, B, H, b0, j0, wide);
-    dl4j_mma::cp_commit();
-  }
-  for (int ch = 0; ch < chunks; ++ch) {
-    dl4j_mma::cp_wait<kStages - 2>();
-    // chunk ch has landed, and every warp is done with chunk ch - 1, whose
-    // stage the next copy fills
-    __syncthreads();
-    if (ch + kStages - 1 < chunks)
-      issue_chunk(smem, ch + kStages - 1, dzx, rw, B, H, b0, j0, wide);
-    dl4j_mma::cp_commit();
-    const T* stage = smem + (ch % kStages) * kStageElems<T>;
-    slice_product<kKw, kStride<T>, kStride<T>>(c, stage + 16 * rtile * kStride<T> + slice * kKw,
-                                               stage + kBwdRows * kStride<T> + slice * kKw);
-  }
-  dl4j_mma::cp_wait<0>();
-  __syncthreads();  // the ring is free: it takes the partial products
-  const int g = lane >> 2, t = lane & 3;
-  float* mine = red + (slice * kRowTiles + rtile) * 256;
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    mine[g * 16 + 8 * n + 2 * t] = c[n][0];
-    mine[g * 16 + 8 * n + 2 * t + 1] = c[n][1];
-    mine[(g + 8) * 16 + 8 * n + 2 * t] = c[n][2];
-    mine[(g + 8) * 16 + 8 * n + 2 * t + 1] = c[n][3];
-  }
-  __syncthreads();
-  // the slices' partials of each of this lane's elements, added in order
-#pragma unroll
-  for (int p = 0; p < kPairs; ++p) {
-    int row, col;
-    lane_elem(p, row, col);
-    rec[p] = 0.f;
-#pragma unroll
-    for (int q = 0; q < kSlices; ++q)
-      rec[p] += red[(q * kRowTiles + rtile) * 256 + (row % 16) * 16 + col];
-  }
-}
 
 template <typename T, bool kMasked>
 __global__ void __launch_bounds__(kBwdThreads)
@@ -355,35 +188,6 @@ lstm_bwd_step_mma(const T* __restrict__ dzx_next,  // [B, 4H]: dzx[t+1]; null at
   }
 }
 
-// dh = (dzx @ RW^T), rounded to the type; masked, plus (1-m)*dh_in (`m` [B]
-// and `dh_in` [B, H], both null unmasked). Grid as lstm_bwd_step_mma's.
-template <typename T, bool kMasked>
-__global__ void __launch_bounds__(kBwdThreads)
-lstm_bwd_dh_mma(const T* __restrict__ dzx, const T* __restrict__ rw, const T* __restrict__ m,
-                const T* __restrict__ dh_in, T* __restrict__ dh, int B, int H, int wide) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int j0 = blockIdx.x * kBwdUnits;
-  const int b0 = blockIdx.y * kBwdRows;
-  float rec[kPairs];
-  block_product<T>(dzx, rw, B, H, b0, j0, wide != 0, reinterpret_cast<T*>(smem_raw),
-                   reinterpret_cast<float*>(smem_raw), rec);
-#pragma unroll
-  for (int e = 0; e < kPairs; ++e) {
-    int row, col;
-    lane_elem(e, row, col);
-    const int b = b0 + row, j = j0 + col;
-    if (b >= B || j >= H) continue;
-    const size_t hidx = static_cast<size_t>(b) * H + j;
-    float v = rnd<T>(rec[e]);
-    if (kMasked) v = add<T>(v, mul<T>(sub<T>(1.0f, ld(m, b)), ld(dh_in, hidx)));
-    st(dh, hidx, v);
-  }
-}
-
-bool aligned_to(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 // mask_v [steps, B] and dhbuf_v (2*B*H scratch) are null unmasked
 template <typename T, bool kMasked>
 cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v,
@@ -402,15 +206,12 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
   T* dhbuf = static_cast<T*>(dhbuf_v);
   float* psum = static_cast<float*>(psum_v);
   const size_t BH = static_cast<size_t>(B) * H;
-  // the product's copies: 16 bytes where every row of dzx and RW starts
-  // 16-byte aligned, else 4 (a row is 4H elements: even, so 4-byte pieces
-  // always fit it)
-  const size_t row_bytes = 4 * static_cast<size_t>(H) * sizeof(T);
-  if (!aligned_to(rw, 4) || !aligned_to(dzx, 4)) return cudaErrorMisalignedAddress;
-  const int wide = row_bytes % 16 == 0 && aligned_to(rw, 16) && aligned_to(dzx, 16);
+  int wide;
+  cudaError_t err = bwd_copy_wide<T>(dzx, rw, H, &wide);
+  if (err != cudaSuccess) return err;
   const int smem = static_cast<int>(kSmemBytes<T>);
-  cudaError_t err = cudaFuncSetAttribute(lstm_bwd_step_mma<T, kMasked>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(lstm_bwd_step_mma<T, kMasked>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(lstm_bwd_dh_mma<T, kMasked>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

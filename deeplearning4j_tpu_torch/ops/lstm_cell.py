@@ -28,7 +28,7 @@ summed in at least f32 (``jnp.sum`` of a bf16 product) and rounded once.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -39,6 +39,10 @@ from .lstm_sequence import _ACT_CODES, ACT, DACT, _acc_dtype, _cell, _check_tens
 # backward is four launches of one C call)
 launches = {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0}
 
+# batch rows a block of the backward's gate kernel owns, and so the row block
+# of its peephole partials (csrc/lstm.cuh: kRows)
+CELL_ROW_BLOCK = 32
+
 # (h, c, a, f, o, i, act(c)) of the forward
 CellResult = Tuple[torch.Tensor, ...]
 # (dzx, dh_prev, dc_prev, dRW, dpF, dpI, dpO) of the backward
@@ -47,10 +51,13 @@ CellGrads = Tuple[torch.Tensor, ...]
 
 # ------------------------------------------------------------ plain versions
 def lstm_cell_forward_reference(zx, h_prev, c_prev, RW, pF, pI, pO,
-                                act: str = "tanh", gate: str = "sigmoid") -> CellResult:
+                                act: str = "tanh", gate: str = "sigmoid",
+                                product: Optional[Callable] = None) -> CellResult:
     """Plain version of row 1 (``_fwd_kernel``): (h, c, a, f, o, i, act(c)),
-    each contiguous, as the kernel writes them."""
-    h, c, a, f, o, i = _cell(zx, h_prev, c_prev, RW, pF, pI, pO, ACT[act], ACT[gate])
+    each contiguous, as the kernel writes them. ``product`` as
+    ``lstm_sequence._cell`` takes it."""
+    h, c, a, f, o, i = _cell(zx, h_prev, c_prev, RW, pF, pI, pO, ACT[act], ACT[gate],
+                             product)
     return tuple(t.contiguous() for t in (h, c, a, f, o, i, ACT[act](c)))
 
 
@@ -120,7 +127,7 @@ def _launch_backward(a, f, o, i, cact, c_prev, c, h_prev, RW, pF, pI, pO, dh, dc
     grads = (dzx, dh_prev, dc_prev, dRW) + dps
     if B == 0 or H == 0:
         return grads
-    psum = torch.empty((-(-B // 32) * 3 * H,), dtype=torch.float32,  # csrc/lstm.cuh: kRows
+    psum = torch.empty((-(-B // CELL_ROW_BLOCK) * 3 * H,), dtype=torch.float32,
                        device=dh.device)
     fn = _build.bind("lstm_cell", "dl4j_lstm_cell_bwd", 22, 5)
     _build.launch(launches, "lstm_cell_bwd", fn, dh.device, a, f, o, i, cact, c_prev, c,

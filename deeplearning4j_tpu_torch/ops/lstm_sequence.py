@@ -101,13 +101,16 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
     return torch.float32 if dt.itemsize < 4 else dt
 
 
-def _cell(zx, h_prev, c_prev, RW, pF, pI, pO, act, gate):
+def _cell(zx, h_prev, c_prev, RW, pF, pI, pO, act, gate,
+          product: Optional[Callable] = None):
     """One step of _cell_math: the recurrent product accumulates in at least
-    f32 and is rounded to the storage dtype before the add. Returns
+    f32 and is rounded to the storage dtype before the add. ``product(h,
+    RW)`` forms it in the accumulator dtype (default ``torch.matmul``;
+    ``chip_smoke.py`` passes wrong ones the limits must catch). Returns
     (h, c, a, f, o, i)."""
     H = c_prev.shape[-1]
     acc = _acc_dtype(zx.dtype)
-    z = zx + torch.matmul(h_prev.to(acc), RW.to(acc)).to(zx.dtype)
+    z = zx + (product or torch.matmul)(h_prev.to(acc), RW.to(acc)).to(zx.dtype)
     a = act(z[..., :H])
     f = gate(z[..., H:2 * H] + c_prev * pF)
     i = gate(z[..., 3 * H:] + c_prev * pI)
@@ -126,16 +129,18 @@ def _hold(mask, t, new, old):
 
 def lstm_sequence_masked_reference(zx, mask, h0, c0, RW, pF, pI, pO,
                                    act: Activation = "tanh",
-                                   gate: Activation = "sigmoid") -> Result:
+                                   gate: Activation = "sigmoid",
+                                   product: Optional[Callable] = None) -> Result:
     """Plain version of the masked kernel (``mask`` [T, B, 1], or None for
     the unmasked one): a masked step holds h/c. ``act``/``gate`` are names
-    of :data:`ACT` or callables."""
+    of :data:`ACT` or callables; ``product`` as :func:`_cell` takes it."""
     act_fn = ACT[act] if isinstance(act, str) else act
     gate_fn = ACT[gate] if isinstance(gate, str) else gate
     h, c = h0, c0
     ys = []
     for t in range(zx.shape[0]):
-        h_new, c_new, *_ = _cell(zx[t], h, c, RW, pF, pI, pO, act_fn, gate_fn)
+        h_new, c_new, *_ = _cell(zx[t], h, c, RW, pF, pI, pO, act_fn, gate_fn,
+                                 product)
         h, c = _hold(mask, t, h_new, h), _hold(mask, t, c_new, c)
         ys.append(h)
     ys = torch.stack(ys) if ys else zx.new_empty((0,) + tuple(h0.shape))

@@ -4,9 +4,10 @@ per-step product, on one NVIDIA GPU.
 
     python3 scripts/torch_lstm_bwd_tiles.py
 
-Builds copies of ``ops/csrc/lstm_seq_bwd.cu`` with other values of its tile
-constants (batch rows a block ``kBwdRows``, ring depth ``kStages``, bytes a
-row of one chunk ``kChunk``) into ``build/torch_kernels/tiles/``, runs each
+Builds copies of ``ops/csrc/lstm_seq_bwd.cu`` whose ``lstm_mma.cuh`` has
+other values of the product's tile constants (batch rows a block
+``kBwdRows``, ring depth ``kStages``, bytes a row of one chunk ``kChunk``)
+into ``build/torch_kernels/tiles/``, runs each
 through the port's wrapper on the char-RNN's shape (T=256, B=64, H=512, f32
 and bf16, unmasked), checks it against the plain version, and prints one
 JSON line per variant: ms per call (two medians), the step kernel's and the
@@ -42,15 +43,15 @@ def build(variants):
         d.mkdir(parents=True)
         for f in _build.CSRC.iterdir():
             shutil.copy(f, d)
-        src = d / "lstm_seq_bwd.cu"
-        text = src.read_text()
+        src, hdr = d / "lstm_seq_bwd.cu", d / "lstm_mma.cuh"
+        text = hdr.read_text()
         for old, new in (("kBwdRows = 16;", f"kBwdRows = {rows};"),
                          ("kStages = 4;", f"kStages = {stages};"),
                          ("kChunk = 1024 /", f"kChunk = {chunk} /")):
             if old not in text:
-                raise RuntimeError(f"{src}: no {old!r} to vary")
+                raise RuntimeError(f"{hdr}: no {old!r} to vary")
             text = text.replace(old, new)
-        src.write_text(text)
+        hdr.write_text(text)
         out[(rows, stages, chunk)] = d / "lib.so"
         procs[(rows, stages, chunk)] = subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(src)],

@@ -1,5 +1,6 @@
 """Time the training updates of chip_smoke.py's attention net and char-RNN
-recipe on the GPU, so that two checkouts can be compared on one card.
+recipe, the char-RNN's SGD update and its ``output()``, on the GPU, so that
+two checkouts can be compared on one card.
 
 Run it from the root of a checkout: the port's package and ``chip_smoke.py``
 (its configurations, seeded weights and data) are imported from the working
@@ -14,7 +15,11 @@ Prints one JSON line: the card's name and power limit, and for f32 and bf16
 the ms per update of each timed epoch of ``fit`` over the attention net's
 bucketed batches (B=4, T 2048 and 4096, 2 updates an epoch) and over the
 char-RNN recipe's (B=64, T 128 and 256 in TBPTT(50), 9 updates an epoch),
-after one warm-up epoch.
+after one warm-up epoch; the ms of each of as many ``output()`` calls of
+the char-RNN at B=64, T=256 (host clock, the copies to and from the card
+included, as ``chip_smoke.py``'s ``time_output``), and, in f32 only, of as
+many standard (full-sequence) SGD updates of it at B=64, T=256 (each a
+``fit`` of one batch), each after one warm-up call.
 """
 
 import argparse
@@ -37,12 +42,27 @@ def epochs_ms(torch, net, it, updates: int, n: int):
     return out
 
 
+def calls_ms(torch, fn, n: int):
+    """ms of each of ``n`` calls of ``fn`` after one warm-up call, each
+    ended by a synchronize."""
+    fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--epochs", type=int, default=5, help="timed epochs of each net")
     args = ap.parse_args()
     root = os.getcwd()
     sys.path.insert(0, root)
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -63,7 +83,11 @@ def main() -> int:
                                        boundaries=cs.RECIPE_BUCKETS)
     rnn_updates = sum(-(-ds.features.shape[1] // cs.TBPTT) for ds in rnn_it)
     result = {"root": root, "gpu": cs.gpu_line(), "epochs": args.epochs,
-              "attention_ms_per_update": {}, "char_rnn_recipe_ms_per_update": {}}
+              "attention_ms_per_update": {}, "char_rnn_recipe_ms_per_update": {},
+              "char_rnn_output_ms": {}, "char_rnn_sgd_standard_ms_per_update": {}}
+    rng = np.random.default_rng(cs.SEED)
+    x = cs.one_hot(rng.integers(0, cs.VOCAB, (cs.BATCH, cs.STEPS)), cs.VOCAB)
+    sgd_batches = cs.char_batches(args.epochs + 1, cs.SEED + 1)
     for dtype in ("float32", "bfloat16"):
         net = load_jax_params(MultiLayerNetwork(cs.attention_conf(dtype)),
                               cs.attention_params(cs.SEED))
@@ -73,6 +97,16 @@ def main() -> int:
         net = load_jax_params(MultiLayerNetwork(conf), cs.char_rnn_params(conf, cs.SEED))
         result["char_rnn_recipe_ms_per_update"][dtype] = epochs_ms(
             torch, net, rnn_it, rnn_updates, args.epochs)
+        result["char_rnn_output_ms"][dtype] = calls_ms(torch, lambda: net.output(x),
+                                                       args.epochs)
+        if dtype == "float32":
+            conf = char_rnn(cs.VOCAB, cs.HIDDEN, cs.LAYERS, tbptt_length=cs.TBPTT, dtype=dtype)
+            conf.updater = {"updater": "sgd", "learning_rate": cs.LR}
+            conf.backprop_type = "standard"
+            net = load_jax_params(MultiLayerNetwork(conf), cs.char_rnn_params(conf, cs.SEED))
+            it = iter(sgd_batches)
+            result["char_rnn_sgd_standard_ms_per_update"][dtype] = calls_ms(
+                torch, lambda: net.fit(next(it)), args.epochs)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -55,12 +55,14 @@ from test_torch_flash_tc_numerics import split  # noqa: E402
 from deeplearning4j_tpu_torch.ops import _build  # noqa: E402
 from deeplearning4j_tpu_torch.ops import lstm_sequence as ls  # noqa: E402
 
-SOURCE = (Path(ls.__file__).parent / "csrc" / "lstm_seq_bwd.cu").read_text()
+# the product's tile lives in the header lstm_seq_bwd.cu shares with the
+# forward step and the cell backward
+SOURCE = (Path(ls.__file__).parent / "csrc" / "lstm_mma.cuh").read_text()
 
 
 def _const(name: str) -> int:
     m = re.search(rf"constexpr int {name} = (\d+)", SOURCE)
-    assert m, f"lstm_seq_bwd.cu defines no {name}"
+    assert m, f"lstm_mma.cuh defines no {name}"
     return int(m.group(1))
 
 
