@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version at the shapes the serving and
 training paths give it (the LSTM sequence forward and backward and the
-cell forward also against two wrong products the limits must catch), then
+cell forward also against two wrong products the limits must catch; the
+backward's dRW product also alone, at R = T*B from 64 to 16384 rows, and
+against two wrong dRW products in the sequence and cell backwards), then
 drives the paths through the port's entry
 points at full width (char-RNN: vocab 96, hidden 512, 2 layers, B=64,
 T=256): serving (output/predict, decode with 8 slots); training with SGD
@@ -151,6 +153,11 @@ KERNELS = {
     "lstm_seq_masked_bwd": (CSRC + "lstm_seq_bwd.cu", PALLAS + "828"),
     "adam_update": (CSRC + "adam.cu", PALLAS + "1044"),
 }
+# the backward's dRW product (rows 2, 7 and 9 launch it inside their C
+# entries; ops.lstm_sequence.drw_product alone): the sum of h_prev^T dzx of
+# _seq_bwd_kernel (pallas_kernels.py:427-429, in the pallas_call at :603),
+# of its masked twin (:828) and of the cell's _bwd_kernel (:137-139, :202)
+DRW_KERNELS = {"drw_product": (CSRC + "lstm_drw.cuh", PALLAS + "603")}
 # the char-RNN's own training recipe (char_rnn() defaults: Adam, lr 1e-3,
 # TBPTT(50)): next-char sequences of the seeded sentence, lengths drawn from
 # the seed, RECIPE_SHORT of them in 96..128 and RECIPE_LONG in 129..256,
@@ -435,6 +442,20 @@ def tf32(x):
 PRODUCT_FAULTS = {"float32": ("k_chunk_dropped", "one_tf32_pass"),
                   "bfloat16": ("k_chunk_dropped",)}
 BWD_CHUNK_BYTES, FWD_CHUNK_BYTES = 1024, 512
+# the dRW product done wrong (the ``drw`` hook of the plain backwards), each
+# of which must read past the limits: the first r tile of R left out (128
+# bytes of a column, lstm_drw.cuh's kDrwTileBytes: 32 rows in f32, 64 in
+# bf16); in f32, one TF32 product in place of 3xTF32
+DRW_FAULTS = {"float32": ("drw_r_tile_dropped", "drw_one_tf32_pass"),
+              "bfloat16": ("drw_r_tile_dropped",)}
+DRW_TILE_BYTES = 128
+# the dRW product alone against its plain version (phase_kernels_drw): R =
+# T*B rows at B=64 for the cell's one step, the TBPTT tail, a TBPTT segment
+# and a whole sequence; H=130 and 129 start rows of h only 8- (f32) or
+# 4-byte (bf16) and 4- or 2-byte aligned (the 4-byte and element copies).
+# f32 at the f32 limit over dRW's largest element, bf16 at the short
+# sequences' relative limits (dRW is rounded once from an f32 sum)
+DRW_CASES = [(T, H) for H in (HIDDEN, 130, 129) for T in (1, TAIL, TBPTT, STEPS)]
 
 
 def product_fault(fault: str, dtype: str, chunk_bytes: int):
@@ -450,6 +471,28 @@ def product_fault(fault: str, dtype: str, chunk_bytes: int):
         return tf32(a) @ tf32(b)
 
     return product
+
+
+def drw_fault(fault: str, dtype: str):
+    """``drw(h0, ys, dzx)`` = dRW (as the plain backwards' ``drw`` hook takes
+    it) with ``fault`` of DRW_FAULTS, from the f32 product of the stacked
+    rows."""
+    import torch
+
+    rows = DRW_TILE_BYTES // (4 if dtype == "float32" else 2)
+
+    def drw(h0, ys, dzx):
+        H = h0.shape[-1]
+        hp = torch.cat([h0[None], ys[:dzx.shape[0] - 1]]).reshape(-1, H).float()
+        dz = dzx.reshape(-1, 4 * H).float()
+        if fault == "drw_r_tile_dropped":
+            hp = hp.clone()
+            hp[:rows] = 0.0
+        else:
+            hp, dz = tf32(hp), tf32(dz)
+        return (hp.t() @ dz).to(dzx.dtype)
+
+    return drw
 
 
 def fwd_faults_caught(name: str, dtype: str, wrong_fn, want, limit, fields) -> None:
@@ -550,13 +593,15 @@ def phase_kernels_train(torch, ls, sx):
 
 
 def bwd_faults_caught(ls, dtype, T, up, res, ref) -> None:
-    """The plain backward with each wrong product of PRODUCT_FAULTS,
-    read against the right one as the kernel is: emits one kernel_limits
-    line and raises unless every one reads past the limits."""
+    """The plain backward with each wrong product of PRODUCT_FAULTS and
+    each wrong dRW product of DRW_FAULTS, read against the right one as the
+    kernel is: emits one kernel_limits line and raises unless every one
+    reads past the limits."""
     wrong = {}
-    for fault in PRODUCT_FAULTS[dtype]:
-        got = ls.lstm_sequence_masked_backward_reference(
-            *up, None, *res, product=product_fault(fault, dtype, BWD_CHUNK_BYTES))
+    for fault in PRODUCT_FAULTS[dtype] + DRW_FAULTS[dtype]:
+        hook = ({"drw": drw_fault(fault, dtype)} if fault in DRW_FAULTS[dtype] else
+                {"product": product_fault(fault, dtype, BWD_CHUNK_BYTES)})
+        got = ls.lstm_sequence_masked_backward_reference(*up, None, *res, **hook)
         if dtype == "bfloat16":
             readings, _, bad = bf16_readings(T, BWD_NAMES, got, ref)
             wrong[fault] = {"outputs_past_limits": sorted(bad),
@@ -573,6 +618,115 @@ def bwd_faults_caught(ls, dtype, T, up, res, ref) -> None:
          wrong_readings=wrong, caught=ok)
     if not ok:
         raise AssertionError(f"lstm_seq_bwd {dtype}: the limits do not catch {wrong}")
+
+
+def drw_inputs(torch, T, H, dtype, seed):
+    """(h0 [B, H], ys [T, B, H], dzx [T, B, 4H]) of one dRW product on the
+    card from a numpy seed, scaled as the training backward's (h in
+    (-1, 1), gate grads ~1e-2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    arrs = (np.tanh(rng.normal(0.0, 1.0, (BATCH, H))),
+            np.tanh(rng.normal(0.0, 1.0, (T, BATCH, H))),
+            rng.normal(0.0, 1e-2, (T, BATCH, 4 * H)))
+    return [torch.as_tensor(a, dtype=getattr(torch, dtype), device=DEVICE) for a in arrs]
+
+
+def drw_within(r: dict, dtype: str) -> bool:
+    """dRW's reading (``rel_readings``) within its limit: f32 max |err| over
+    its largest element, bf16 the short sequences' relative limits."""
+    if dtype == "float32":
+        return r["max_rel"] <= KERNEL_ATOL[dtype]  # NaN fails too
+    lim = BF16_TRAIN_REL["tail"]
+    return r["max_rel"] <= lim["max"] and r["mean_rel"] <= lim["mean"]
+
+
+def phase_kernels_drw(torch, ls):
+    """The dRW product alone (``drw_product``) against its plain version on
+    the same CUDA tensors at every (T, H) of DRW_CASES, f32 and bf16, one
+    line each; at T=256, H=512 also the wrong products of DRW_FAULTS, which
+    the limits must catch. Returns the max abs error at T=256, H=512 by
+    dtype (the kernels line takes f32's)."""
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        for T, H in DRW_CASES:
+            h0, ys, dzx = drw_inputs(torch, T, H, dtype, SEED + T + H)
+            got = ls.drw_product(h0, ys, dzx)
+            want = ls.drw_product_reference(h0, ys, dzx)
+            torch.cuda.synchronize()
+            r = rel_readings([got], [want], ["dRW"])["dRW"]
+            ok = got.shape == (H, 4 * H) and got.dtype == want.dtype and drw_within(r, dtype)
+            fields = dict(kernel="drw_product", dtype=dtype, T=T, B=BATCH, R=T * BATCH, H=H,
+                          slices=ls.drw_slices(T * BATCH, H), readings=r,
+                          limit=(KERNEL_ATOL[dtype] if dtype == "float32"
+                                 else BF16_TRAIN_REL["tail"]))
+            emit("kernel_vs_plain", ok=ok, **fields)
+            if not ok:
+                raise AssertionError(f"drw_product {dtype} T={T} H={H}: {r} outside the limit")
+            if (T, H) == (STEPS, HIDDEN):
+                errs[dtype] = r["max_abs"]
+                wrong = {}
+                for fault in DRW_FAULTS[dtype]:
+                    wr = rel_readings([drw_fault(fault, dtype)(h0, ys, dzx)], [want],
+                                      ["dRW"])["dRW"]
+                    wrong[fault] = {"readings": wr, "caught": not drw_within(wr, dtype)}
+                caught = all(w["caught"] for w in wrong.values())
+                emit("kernel_limits", kernel="drw_product", dtype=dtype, T=T, B=BATCH, H=H,
+                     limit=fields["limit"], wrong_readings=wrong, caught=caught)
+                if not caught:
+                    raise AssertionError(f"drw_product {dtype}: the limits do not catch {wrong}")
+    return errs
+
+
+def kernel_device_ms(torch, fn, pattern: str, calls: int = 10):
+    """ms a call of ``fn`` spends on the card in the kernels whose names match
+    ``pattern`` (``calls`` calls under the profiler), or None where three
+    tries of the profiler reported none of them (it has dropped a window's
+    device events now and then)."""
+    for _ in range(3):
+        groups = profile(torch, lambda: [fn() for _ in range(calls)],
+                         groups=[("kernels", pattern)])["groups"]
+        if "kernels" in groups:
+            return groups["kernels"][0] / calls
+    return None
+
+
+def bound_drw(R: int, H: int, dtype: str):
+    """The dRW product over R rows: h_prev [R, H] and dzx [R, 4H] read,
+    dRW [H, 4H] written; 2*R*H*4H operations at the tensor cores' peak (f32
+    at the 3xTF32 rate)."""
+    item = 4 if dtype == "float32" else 2
+    return roofline((R * H + R * 4 * H + H * 4 * H) * item, 2.0 * R * H * 4 * H, dtype,
+                    tc_rate(dtype))
+
+
+def time_drw(torch, ls, card):
+    """The dRW product at the sequence backward's R = 16384 (T=256, B=64)
+    and the cell's R = 64, H=512, both dtypes, beside its plain version, its
+    bound, its time on the card (10 calls under the profiler) and
+    torch.matmul(hp.t(), dz) over the same rows stacked contiguous (the
+    library yardstick; f32 without TF32)."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for T in (STEPS, 1):
+            h0, ys, dzx = drw_inputs(torch, T, HIDDEN, dtype, SEED)
+            hp = torch.cat([h0[None], ys[:T - 1]]).reshape(-1, HIDDEN).contiguous()
+            dz = dzx.reshape(-1, 4 * HIDDEN).contiguous()
+            R = T * BATCH
+
+            def call(h0=h0, ys=ys, dzx=dzx):
+                return ls.drw_product(h0, ys, dzx)
+
+            device_ms = kernel_device_ms(torch, call, r"drw_mma|drw_reduce")
+            t = time_pair(torch, "drw_product", call,
+                          lambda h0=h0, ys=ys, dzx=dzx: ls.drw_product_reference(h0, ys, dzx),
+                          lambda hp=hp, dz=dz: torch.matmul(hp.t(), dz),
+                          *bound_drw(R, HIDDEN, dtype), card, dtype=dtype, T=T, B=BATCH, R=R,
+                          H=HIDDEN, slices=ls.drw_slices(R, HIDDEN), kernel_device_ms=device_ms)
+            t["kernel_device_ms"] = device_ms
+            out[(dtype, R)] = t
+    return out
 
 
 def sxent_case(torch, sx, N, C, dtype, labels, seed) -> dict:
@@ -711,7 +865,8 @@ def time_train_kernels(torch, ls, sx, card):
 
 # rows 7 and 9's kernels, for the profile's split of one backward call
 BWD_PROFILE_GROUPS = [("step kernel (T launches)", r"lstm_bwd_step"),
-                      ("dh0 product", r"lstm_bwd_dh"), ("drw_gemm", r"drw_gemm"),
+                      ("dh0 product", r"lstm_bwd_dh"),
+                      ("dRW product (drw_mma, drw_reduce)", r"drw_mma|drw_reduce"),
                       ("peephole_reduce", r"peephole_reduce")]
 # the LSTM's kernels, for the profiles' split of a training forward, an
 # update or an output() (the forward step of rows 1, 5, 6 and 8 first)
@@ -719,7 +874,8 @@ LSTM_PROFILE_GROUPS = [("forward step (rows 1, 5, 6, 8)", r"lstm_step_mma"),
                        ("backward step (rows 7, 9)", r"lstm_bwd_step"),
                        ("dh product (dh0; row 2's dh_prev)", r"lstm_bwd_dh"),
                        ("cell_bwd_gates (row 2)", r"cell_bwd_gates"),
-                       ("drw_gemm", r"drw_gemm"), ("peephole_reduce", r"peephole_reduce"),
+                       ("dRW product (drw_mma, drw_reduce)", r"drw_mma|drw_reduce"),
+                       ("peephole_reduce", r"peephole_reduce"),
                        ("softmax_xent", r"softmax_xent"), ("adam", r"adam")]
 
 
@@ -924,7 +1080,7 @@ def phase_train(torch, mode, dtype, host_params, card):
     updates = compared * UPDATES_PER_BATCH[mode]
     expected = dict.fromkeys(launches, 0)
     expected.update({"lstm_seq_train_fwd": LAYERS * updates,
-                     "lstm_seq_bwd": LAYERS * updates,
+                     "lstm_seq_bwd": LAYERS * updates, "drw_product": LAYERS * updates,
                      "softmax_xent_fwd": updates, "softmax_xent_bwd": updates})
     r = sgd_readings((net, losses, params), (None, cpu_losses, cpu_params), host_params)
     loss_err, param_err, step_err = r["loss_rel"], r["param_abs"], r["change_rel"]
@@ -1096,7 +1252,7 @@ def phase_train_recipe(torch, dtype, host_params, card):
         faults[fault]["caught"] = not within_limits(faults[fault], lim)
     expected = dict.fromkeys(launches, 0)
     expected.update({"lstm_seq_masked_train_fwd": LAYERS * updates,
-                     "lstm_seq_masked_bwd": LAYERS * updates,
+                     "lstm_seq_masked_bwd": LAYERS * updates, "drw_product": LAYERS * updates,
                      "softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
                      "adam_update": updates * adam_launches(net)})
     loss_fall = float(cpu_losses[:3].mean() - cpu_losses[-3:].mean())
@@ -1187,8 +1343,9 @@ CELL_BWD = ("dzx", "dh_prev", "dc_prev", "dRW", "dpF", "dpI", "dpO")
 # sequence kernels' limits for a short sequence (BF16_TRAIN_REL["tail"]).
 # The phase computes two wrong plain versions, the forward with o reading
 # c_prev instead of c through pO and the backward without df*pF in dc_prev,
-# and the forward with each wrong product of PRODUCT_FAULTS, and fails
-# unless every one reads above these limits.
+# the backward with each wrong dRW product of DRW_FAULTS, and the forward
+# with each wrong product of PRODUCT_FAULTS, and fails unless every one
+# reads above these limits.
 CELL_REL = {"float32": {"max": 1e-5, "mean": 1e-5}, "bfloat16": BF16_TRAIN_REL["tail"]}
 CELL_FAULTS = ("o_sees_c_prev", "dc_prev_without_df_pF")
 
@@ -1229,8 +1386,14 @@ def cell_residuals(args, fwd):
 
 def cell_wrong(lc, fault, args, res, up, act="tanh", gate="sigmoid"):
     """A wrong plain version of row 1 (o_sees_c_prev) or row 2
-    (dc_prev_without_df_pF), for the limits to catch."""
+    (dc_prev_without_df_pF, or a wrong dRW product of DRW_FAULTS), for the
+    limits to catch."""
     import torch
+
+    if fault in DRW_FAULTS["float32"]:
+        dtype = str(res[0].dtype).removeprefix("torch.")
+        return lc.lstm_cell_backward_reference(*res, *up, act, gate,
+                                               drw=drw_fault(fault, dtype))
 
     if fault == "o_sees_c_prev":
         zx, h_prev, c_prev, RW, pF, pI, pO = args
@@ -1312,7 +1475,7 @@ def phase_kernels_cell(torch, lc):
         grads = lc.lstm_cell_backward(*res, *up)
         torch.cuda.synchronize()
         faults = {}
-        for fault in CELL_FAULTS:
+        for fault in CELL_FAULTS + DRW_FAULTS[dtype]:
             wrong = cell_wrong(lc, fault, args, res, up)
             kern, names = (got, CELL_FWD) if fault == "o_sees_c_prev" else (grads, CELL_BWD)
             r = rel_readings(kern, wrong, names)
@@ -1491,6 +1654,7 @@ def phase_train_cell(torch, dtype, host_params, card):
         steps = sum(segments[what])
         expected = dict.fromkeys(launches, 0)
         expected.update({"lstm_cell_fwd": LAYERS * steps, "lstm_cell_bwd": LAYERS * steps,
+                         "drw_product": LAYERS * steps,
                          "softmax_xent_fwd": updates, "softmax_xent_bwd": updates})
         if what == "recipe":
             expected["adam_update"] = updates * adam_launches(run[0])
@@ -2482,15 +2646,17 @@ def time_lrn(torch, lr, card):
 
 
 # kernels whose products must run on the tensor cores (rows 13-15; the LSTM
-# forward step of rows 1, 5, 6 and 8; rows 7 and 9's step kernel and dh0
-# product, which row 2 also launches), and the libraries each must be in
+# forward step of rows 1, 5, 6 and 8; rows 7 and 9's step kernel, dh0
+# product and dRW product, the last two of which row 2 also launches), and
+# the libraries each must be in (with drw_reduce, which adds dRW's slices)
 TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "lstm_step_mma",
-                       "lstm_bwd_step_mma", "lstm_bwd_dh_mma")
+                       "lstm_bwd_step_mma", "lstm_bwd_dh_mma", "drw_mma")
 TENSOR_CORE_LIBS = {"flash_attn": ("flash_fwd",),
                     "flash_attn_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
                     "lstm_seq": ("lstm_step_mma",),
-                    "lstm_cell": ("lstm_step_mma", "lstm_bwd_dh_mma"),
-                    "lstm_seq_bwd": ("lstm_bwd_step_mma", "lstm_bwd_dh_mma")}
+                    "lstm_cell": ("lstm_step_mma", "lstm_bwd_dh_mma", "drw_mma", "drw_reduce"),
+                    "lstm_seq_bwd": ("lstm_bwd_step_mma", "lstm_bwd_dh_mma", "drw_mma",
+                                     "drw_reduce")}
 
 
 def ptxas_report(log: str) -> dict:
@@ -2722,6 +2888,7 @@ def main() -> int:
     # ---- 2. each kernel against its plain version
     errs = phase_kernels(torch, ls)
     errs.update(phase_kernels_train(torch, ls, sx))
+    drw_errs = phase_kernels_drw(torch, ls)
     errs[("adam_update", "float32", "leaves")] = phase_adam(torch, ad)
     errs.update(phase_kernels_attention(torch, fa))
     errs.update(phase_kernels_lrn(torch, lr, sx))
@@ -2784,7 +2951,7 @@ def main() -> int:
     for mode in ("standard", "tbptt"):
         for dtype in ("float32", "bfloat16"):
             train[(mode, dtype)] = phase_train(torch, mode, dtype, host_params, card)
-    for name in ("lstm_seq_train_fwd", "lstm_seq_bwd", "softmax_xent_fwd",
+    for name in ("lstm_seq_train_fwd", "lstm_seq_bwd", "drw_product", "softmax_xent_fwd",
                  "softmax_xent_bwd"):
         launches[name] = sum(run[0][name] for run in train.values())
         if not launches[name]:
@@ -2797,7 +2964,7 @@ def main() -> int:
         launches[name] = sum(run[0][name] for run in recipe.values())
         if not launches[name]:
             raise AssertionError(f"{name} did not launch on the training recipe's path")
-    for name in ("softmax_xent_fwd", "softmax_xent_bwd"):  # both training paths
+    for name in ("drw_product", "softmax_xent_fwd", "softmax_xent_bwd"):  # both paths
         launches[name] += sum(run[0][name] for run in recipe.values())
 
     # ---- 4c2. the cell route trained: SGD and the recipe (rows 1-2; 10-12)
@@ -2808,7 +2975,7 @@ def main() -> int:
                           + sum(run[0][name] for run in cell_train.values()))
         if not launches[name]:
             raise AssertionError(f"{name} did not launch on the cell route")
-    for name in ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"):
+    for name in ("drw_product", "softmax_xent_fwd", "softmax_xent_bwd", "adam_update"):
         launches[name] += sum(run[0][name] for run in cell_train.values())
 
     # ---- 4d. the attention net: serving, then training (rows 13-15; 10-12)
@@ -2872,6 +3039,8 @@ def main() -> int:
 
     times.update(time_train_kernels(torch, ls, sx, card))
     cell_times = time_cell(torch, lc, times, card)
+    drw_times = time_drw(torch, ls, card)
+    times[("drw_product", "float32")] = drw_times[("float32", STEPS * BATCH)]
     for name in CELL_KERNELS:  # the table's shape: B=64
         times[(name, "float32")] = cell_times[(name, "float32", BATCH)]
     emit("recipe_update_by_route", gpu=card, **{
@@ -2937,8 +3106,10 @@ def main() -> int:
     for name in CELL_KERNELS:  # B=64, H=512
         shapes[name] = (name, "float32")
         errs[shapes[name]] = cell_errs[name]
+    shapes["drw_product"] = ("drw_product", "float32")  # R=16384, H=512
+    errs[shapes["drw_product"]] = drw_errs["float32"]
     for name, (source, replaces) in {**KERNELS, **ATTN_KERNELS, **LRN_KERNELS,
-                                     **CELL_KERNELS}.items():
+                                     **CELL_KERNELS, **DRW_KERNELS}.items():
         t = times[(name, "float32")]
         lines.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2957,10 +3128,12 @@ def main() -> int:
                       "kernel) for rows 14-15; rows 3-4: F.local_response_norm on the "
                       "same channels-last view (alpha times n), forward for row 3 and "
                       "forward+backward for row 4, at LRN 1's shape [128, 56, 56, 96]; "
-                      "rows 1-2: none (torch.nn.LSTMCell has no peepholes)",
+                      "rows 1-2: none (torch.nn.LSTMCell has no peepholes); "
+                      "drw_product: torch.matmul(hp.t(), dz) over the same T*B rows "
+                      "stacked contiguous, f32 without TF32",
                       "adam_update_ms_covers": "the 14 leaves of one update",
-                      "kernel_device_ms_note": "rows 10-12: the kernel's own time on the "
-                      "card a call, from the profiler (null where not measured)",
+                      "kernel_device_ms_note": "rows 10-12 and drw_product: the kernel's own "
+                      "time on the card a call, from the profiler (null where not measured)",
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

@@ -9,7 +9,8 @@ edited source builds anew and an unchanged one is loaded as it is.
 :func:`build` starts one nvcc per missing library, all at once.
 
 :func:`bind` declares a C entry's arguments once and keeps the function;
-:func:`launch` calls it on the current stream and counts the launch. Both
+:func:`launch` calls it on the current stream and counts the launch
+(:func:`count` counts a launch that the C entry makes beside its own). Both
 are on every kernel call's path, so after the first call neither takes the
 build lock nor enters a device context it is already in. Nothing here runs
 at import: the CPU tests import every module on machines that have no
@@ -152,5 +153,11 @@ def launch(counts: Dict[str, int], name: str, fn: Callable, device, *args) -> No
             err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    count(counts, name)
+
+
+def count(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``: a launch, made by :func:`launch` or
+    inside the C entry it called."""
     with _COUNT_LOCK:
         counts[name] += 1

@@ -1,8 +1,8 @@
 // What the peephole-LSTM sources share besides their tensor-core products
-// (lstm_mma.cuh): the backward's gate math (gate_grads, store_dzx), the dRW
-// product over time x batch rows (drw_gemm) and the peephole reductions
-// (peephole_partials, peephole_reduce). lstm_cell.cu takes all of them,
-// lstm_seq_bwd.cu all but peephole_partials. They follow the backward of
+// (lstm_mma.cuh, lstm_drw.cuh): the backward's gate math (gate_grads,
+// store_dzx) and the peephole reductions (peephole_partials,
+// peephole_reduce). lstm_cell.cu takes all of them, lstm_seq_bwd.cu all but
+// peephole_partials. They follow the backward of
 // _cell_math (deeplearning4j_tpu/ops/pallas_kernels.py:87-101, :122-133),
 // so they round at the same points.
 //
@@ -58,67 +58,6 @@ __device__ __forceinline__ void store_dzx(T* __restrict__ dzx, const GateGrads& 
   st(dzx, zrow + H + j, g.d_f);
   st(dzx, zrow + 2 * static_cast<size_t>(H) + j, g.d_o);
   st(dzx, zrow + 3 * static_cast<size_t>(H) + j, g.d_i);
-}
-
-constexpr int kGemmM = 64;   // rows of dRW (hidden units k) per block
-constexpr int kGemmN = 64;   // columns of dRW (gate columns) per block
-constexpr int kGemmR = 16;   // depth (time x batch rows) of one tile
-constexpr int kGemmThreads = 256;  // each thread holds a 4 x 4 block of dRW
-
-// dRW[k, n] = sum_r hprev[r, k] * dzx[r, n] over R rows, in f32, written once
-// in the type; hprev row r is h0[r] for r < B, else ys[r - B] (over a
-// sequence, h_{t-1} of row r's step; over one step, R = B and ys is unused).
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-drw_gemm(const T* __restrict__ h0, const T* __restrict__ ys, const T* __restrict__ dzx,
-         T* __restrict__ drw, int R, int B, int H) {
-  __shared__ float as[kGemmR][kGemmM];
-  __shared__ float bs[kGemmR][kGemmN];
-  const int tid = threadIdx.x;
-  const int tm = (tid / (kGemmN / 4)) * 4;
-  const int tn = (tid % (kGemmN / 4)) * 4;
-  const int m0 = blockIdx.y * kGemmM;
-  const int n0 = blockIdx.x * kGemmN;
-  const int H4 = 4 * H;
-  float acc[4][4] = {};
-  for (int r0 = 0; r0 < R; r0 += kGemmR) {
-    for (int e = tid; e < kGemmR * kGemmM; e += kGemmThreads) {
-      const int rr = e / kGemmM, mm = e % kGemmM;
-      const int row = r0 + rr, k = m0 + mm;
-      float v = 0.f;
-      if (row < R && k < H)
-        v = row < B ? ld(h0, static_cast<size_t>(row) * H + k)
-                    : ld(ys, static_cast<size_t>(row - B) * H + k);
-      as[rr][mm] = v;
-    }
-    for (int e = tid; e < kGemmR * kGemmN; e += kGemmThreads) {
-      const int rr = e / kGemmN, nn = e % kGemmN;
-      const int row = r0 + rr, n = n0 + nn;
-      bs[rr][nn] = (row < R && n < H4) ? ld(dzx, static_cast<size_t>(row) * H4 + n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kGemmR; ++rr) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        av[q] = as[rr][tm + q];
-        bv[q] = bs[rr][tn + q];
-      }
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int k = m0 + tm + x, n = n0 + tn + y;
-      if (k < H && n < H4) st(drw, static_cast<size_t>(k) * H4 + n, acc[x][y]);
-    }
 }
 
 // dpF, dpI, dpO[j] = sum over the `parts` slots of psum ([parts, 3, H]), in

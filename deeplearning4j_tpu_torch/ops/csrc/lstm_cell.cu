@@ -40,13 +40,14 @@
 // math, lstm.cuh's kUnits x kRows block layout, and the peephole terms
 // summed over the block's rows into an f32 slot per row block), then
 // lstm_bwd_dh_mma (dh_prev = dzx @ RW^T on the tensor cores, the sequence
-// backward's dh0 product from lstm_mma.cuh), drw_gemm (dRW over R = B rows)
-// and peephole_reduce (the slots summed), shared with the sequence
-// backward. No atomics: the result does not depend on the order blocks run
-// in. Later work: drw_gemm on the tensor cores, and one persistent launch
-// for a sequence of cells.
+// backward's dh0 product from lstm_mma.cuh), drw_mma (dRW over R = B rows on
+// the tensor cores, the sequence backward's dRW product from lstm_drw.cuh;
+// drw_reduce too when the caller splits R) and peephole_reduce (the slots
+// summed), shared with the sequence backward. No atomics: the result does
+// not depend on the order blocks run in. Later work: one persistent launch,
+// or a CUDA graph, for a sequence of cells.
 
-#include "lstm_mma.cuh"
+#include "lstm_drw.cuh"
 
 namespace {
 
@@ -111,8 +112,8 @@ cudaError_t run_backward(const void* a, const void* f, const void* o, const void
                          const void* h_prev, const void* rw_v, const void* pf,
                          const void* pi, const void* po, const void* dh, const void* dc,
                          void* dzx_v, void* dh_prev, void* dc_prev, void* drw, void* dpf,
-                         void* dpi, void* dpo, void* psum_v, int B, int H, int act, int gate,
-                         cudaStream_t stream) {
+                         void* dpi, void* dpo, void* drw_part, void* psum_v, int B, int H,
+                         int act, int gate, int drw_slices, cudaStream_t stream) {
   const T* rw = static_cast<const T*>(rw_v);
   T* dzx = static_cast<T*>(dzx_v);
   float* psum = static_cast<float*>(psum_v);
@@ -137,10 +138,8 @@ cudaError_t run_backward(const void* a, const void* f, const void* o, const void
       dzx, rw, nullptr, nullptr, static_cast<T*>(dh_prev), B, H, wide);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const T* hp = static_cast<const T*>(h_prev);
-  const dim3 ggrid((4 * H + kGemmN - 1) / kGemmN, (H + kGemmM - 1) / kGemmM);
-  drw_gemm<T><<<ggrid, kGemmThreads, 0, stream>>>(hp, hp, dzx, static_cast<T*>(drw), B, B, H);
-  err = cudaGetLastError();
+  err = launch_drw<T>(h_prev, h_prev, dzx, drw, static_cast<float*>(drw_part), B, B, H,
+                      drw_slices, stream);
   if (err != cudaSuccess) return err;
   peephole_reduce<T><<<(3 * H + 255) / 256, 256, 0, stream>>>(
       psum, static_cast<T*>(dpf), static_cast<T*>(dpi), static_cast<T*>(dpo),
@@ -166,22 +165,25 @@ extern "C" int dl4j_lstm_cell_fwd(const void* zx, const void* h_prev, const void
 }
 
 // One step backward on `stream` (B, H > 0): the gate math, the dh_prev and dRW
-// products and the peephole reduction, four launches. `psum` is f32 scratch
-// of ceil(B/kRows)*3*H (lstm.cuh's kRows, 32: ops/lstm_cell.py's
-// CELL_ROW_BLOCK). Returns the CUDA error code of the first launch that
-// failed, 0 when all launched.
+// products and the peephole reduction, four launches (five when dRW's R = B
+// rows are split into `drw_slices` > 1 slices, with `drw_part` f32 scratch
+// of drw_slices*H*4H). `psum` is f32 scratch of ceil(B/kRows)*3*H (lstm.cuh's
+// kRows, 32: ops/lstm_cell.py's CELL_ROW_BLOCK). Returns the CUDA error code
+// of the first launch that failed, 0 when all launched.
 extern "C" int dl4j_lstm_cell_bwd(const void* a, const void* f, const void* o, const void* i,
                                   const void* cact, const void* c_prev, const void* c,
                                   const void* h_prev, const void* rw, const void* pf,
                                   const void* pi, const void* po, const void* dh,
                                   const void* dc, void* dzx, void* dh_prev, void* dc_prev,
-                                  void* drw, void* dpf, void* dpi, void* dpo, void* psum, int B,
-                                  int H, int act, int gate, int bf16, void* stream) {
+                                  void* drw, void* dpf, void* dpi, void* dpo, void* drw_part,
+                                  void* psum, int B, int H, int act, int gate, int drw_slices,
+                                  int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return run_backward<__nv_bfloat16>(a, f, o, i, cact, c_prev, c, h_prev, rw, pf, pi, po, dh,
-                                       dc, dzx, dh_prev, dc_prev, drw, dpf, dpi, dpo, psum, B,
-                                       H, act, gate, s);
+                                       dc, dzx, dh_prev, dc_prev, drw, dpf, dpi, dpo, drw_part,
+                                       psum, B, H, act, gate, drw_slices, s);
   return run_backward<float>(a, f, o, i, cact, c_prev, c, h_prev, rw, pf, pi, po, dh, dc, dzx,
-                             dh_prev, dc_prev, drw, dpf, dpi, dpo, psum, B, H, act, gate, s);
+                             dh_prev, dc_prev, drw, dpf, dpi, dpo, drw_part, psum, B, H, act,
+                             gate, drw_slices, s);
 }

@@ -65,14 +65,16 @@
 //   t+1 in its carry: step t+1 stores its pre-mask dh in a [2, B, H]
 //   ping-pong buffer, which step t reads (the same element, so the same
 //   lane, one launch later).
-// - the sums across time are second passes, in f32: drw_gemm walks the
-//   stored h_{t-1} (h0, then ys) and dzx streams once, as one product with
-//   depth T*B; each step kernel reduces its peephole terms over its rows into
-//   a per-step, per-row-block f32 slot, and peephole_reduce sums the slots.
-// Later work: a persistent reverse loop, wgmma and TMA, drw_gemm on the
-// tensor cores.
+// - the sums across time are second passes, in f32: dRW is one product of
+//   depth R = T*B over the stored h_{t-1} (h0, then ys) and dzx, on the
+//   tensor cores (lstm_drw.cuh's drw_mma, split into slices of R that
+//   drw_reduce adds in order when the caller asks for them); each step
+//   kernel reduces its peephole terms over its rows into a per-step,
+//   per-row-block f32 slot, and peephole_reduce sums the slots.
+// Later work: a persistent reverse loop, wgmma and TMA for the step's and
+// dRW's products.
 
-#include "lstm_mma.cuh"
+#include "lstm_drw.cuh"
 
 namespace {
 
@@ -196,8 +198,9 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
                          const void* h0_v, const void* c0_v, const void* rw_v,
                          const void* pf_v, const void* pi_v, const void* po_v, void* dzx_v,
                          void* dh0_v, void* dc0_v, void* drw_v, void* dpf_v, void* dpi_v,
-                         void* dpo_v, void* dcbuf_v, void* dhbuf_v, void* psum_v, int steps,
-                         int B, int H, int act, int gate, cudaStream_t stream) {
+                         void* dpo_v, void* dcbuf_v, void* dhbuf_v, void* drw_part_v,
+                         void* psum_v, int steps, int B, int H, int act, int gate,
+                         int drw_slices, cudaStream_t stream) {
   const T* rw = static_cast<const T*>(rw_v);
   const T* c = static_cast<const T*>(c_v);
   const T* mask = static_cast<const T*>(mask_v);
@@ -242,11 +245,8 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
       B, H, wide);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 ggrid((4 * H + kGemmN - 1) / kGemmN, (H + kGemmM - 1) / kGemmM);
-  drw_gemm<T><<<ggrid, kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(h0_v), static_cast<const T*>(ys_v), dzx,
-      static_cast<T*>(drw_v), steps * B, B, H);
-  err = cudaGetLastError();
+  err = launch_drw<T>(h0_v, ys_v, dzx, drw_v, static_cast<float*>(drw_part_v), steps * B, B,
+                      H, drw_slices, stream);
   if (err != cudaSuccess) return err;
   peephole_reduce<T><<<(3 * H + 255) / 256, 256, 0, stream>>>(
       psum, static_cast<T*>(dpf_v), static_cast<T*>(dpi_v), static_cast<T*>(dpo_v),
@@ -257,26 +257,28 @@ cudaError_t run_backward(const void* dys_v, const void* dhT_v, const void* dcT_v
 }  // namespace
 
 // Runs the whole backward on `stream`: `steps` reverse-step launches, the dh0
-// product, the dRW product and the peephole reduction. `dcbuf` is scratch of
-// 2*B*H elements, `psum` f32 scratch of steps*ceil(B/kBwdRows)*3*H. Returns the
-// CUDA error code of the first launch that failed, 0 when all launched.
+// product, the dRW product (drw_mma, and drw_reduce over `drw_slices` > 1
+// slices of R) and the peephole reduction. `dcbuf` is scratch of 2*B*H
+// elements, `drw_part` f32 scratch of drw_slices*H*4H (none for one slice),
+// `psum` f32 scratch of steps*ceil(B/kBwdRows)*3*H. Returns the CUDA error
+// code of the first launch that failed, 0 when all launched.
 extern "C" int dl4j_lstm_seq_bwd(const void* dys, const void* dhT, const void* dcT,
                                  const void* ys, const void* a, const void* f, const void* o,
                                  const void* i, const void* c, const void* h0, const void* c0,
                                  const void* rw, const void* pf, const void* pi,
                                  const void* po, void* dzx, void* dh0, void* dc0, void* drw,
-                                 void* dpf, void* dpi, void* dpo, void* dcbuf, void* psum,
-                                 int steps, int B, int H, int act, int gate, int bf16,
-                                 void* stream) {
+                                 void* dpf, void* dpi, void* dpo, void* dcbuf, void* drw_part,
+                                 void* psum, int steps, int B, int H, int act, int gate,
+                                 int drw_slices, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return run_backward<__nv_bfloat16, false>(dys, dhT, dcT, nullptr, ys, a, f, o, i, c, h0,
                                               c0, rw, pf, pi, po, dzx, dh0, dc0, drw, dpf,
-                                              dpi, dpo, dcbuf, nullptr, psum, steps, B, H,
-                                              act, gate, s);
+                                              dpi, dpo, dcbuf, nullptr, drw_part, psum, steps,
+                                              B, H, act, gate, drw_slices, s);
   return run_backward<float, false>(dys, dhT, dcT, nullptr, ys, a, f, o, i, c, h0, c0, rw, pf,
                                     pi, po, dzx, dh0, dc0, drw, dpf, dpi, dpo, dcbuf, nullptr,
-                                    psum, steps, B, H, act, gate, s);
+                                    drw_part, psum, steps, B, H, act, gate, drw_slices, s);
 }
 
 // The masked backward (rows of `mask` [steps, B] that are 0 pass dh and dc
@@ -289,16 +291,30 @@ extern "C" int dl4j_lstm_seq_masked_bwd(const void* dys, const void* dhT, const 
                                         const void* rw, const void* pf, const void* pi,
                                         const void* po, void* dzx, void* dh0, void* dc0,
                                         void* drw, void* dpf, void* dpi, void* dpo,
-                                        void* dcbuf, void* dhbuf, void* psum, int steps,
-                                        int B, int H, int act, int gate, int bf16,
-                                        void* stream) {
+                                        void* dcbuf, void* dhbuf, void* drw_part, void* psum,
+                                        int steps, int B, int H, int act, int gate,
+                                        int drw_slices, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return run_backward<__nv_bfloat16, true>(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0,
                                              rw, pf, pi, po, dzx, dh0, dc0, drw, dpf, dpi,
-                                             dpo, dcbuf, dhbuf, psum, steps, B, H, act, gate,
-                                             s);
+                                             dpo, dcbuf, dhbuf, drw_part, psum, steps, B, H,
+                                             act, gate, drw_slices, s);
   return run_backward<float, true>(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0, rw, pf, pi,
-                                   po, dzx, dh0, dc0, drw, dpf, dpi, dpo, dcbuf, dhbuf, psum,
-                                   steps, B, H, act, gate, s);
+                                   po, dzx, dh0, dc0, drw, dpf, dpi, dpo, dcbuf, dhbuf,
+                                   drw_part, psum, steps, B, H, act, gate, drw_slices, s);
+}
+
+// The dRW product alone (R = steps*B rows, each > 0): dRW [H, 4H] =
+// sum_r hprev[r]^T dzx[r], hprev row r h0[r] for r < B, else ys[r - B]
+// (ys [steps, B, H], of which the first steps-1 are read), with `part` as
+// dl4j_lstm_seq_bwd's `drw_part`. Returns the CUDA error code of the first
+// launch that failed, 0 when all launched.
+extern "C" int dl4j_drw_product(const void* h0, const void* ys, const void* dzx, void* drw,
+                                void* part, int R, int B, int H, int slices, int bf16,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if (bf16) return launch_drw<__nv_bfloat16>(h0, ys, dzx, drw, p, R, B, H, slices, s);
+  return launch_drw<float>(h0, ys, dzx, drw, p, R, B, H, slices, s);
 }

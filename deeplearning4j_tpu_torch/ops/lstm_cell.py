@@ -33,10 +33,13 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from . import _build
-from .lstm_sequence import _ACT_CODES, ACT, DACT, _acc_dtype, _cell, _check_tensors
+from .lstm_sequence import (_ACT_CODES, ACT, DACT, _acc_dtype, _cell, _check_tensors,
+                            _drw_scratch, drw_product_reference)
+from .lstm_sequence import launches as _seq_launches
 
 # count of wrapper calls that launched the kernels (one step each; the
-# backward is four launches of one C call)
+# backward is four launches of one C call, its dRW product also counted as
+# lstm_sequence's "drw_product")
 launches = {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0}
 
 # batch rows a block of the backward's gate kernel owns, and so the row block
@@ -62,12 +65,14 @@ def lstm_cell_forward_reference(zx, h_prev, c_prev, RW, pF, pI, pO,
 
 
 def lstm_cell_backward_reference(a, f, o, i, cact, c_prev, c, h_prev, RW, pF, pI, pO,
-                                 dh, dc, act: str = "tanh",
-                                 gate: str = "sigmoid") -> CellGrads:
+                                 dh, dc, act: str = "tanh", gate: str = "sigmoid",
+                                 drw: Optional[Callable] = None) -> CellGrads:
     """Plain version of row 2 (``_bwd_kernel``) from the residuals of
     ``_cell_fwd`` (a, f, o, i, act(c), c_prev, c, h_prev, RW, pF, pI, pO) and
     the upstream (dh, dc): (dzx, dh_prev, dc_prev, dRW, dpF, dpI, dpO) in
-    dh's dtype."""
+    dh's dtype. ``drw(h0, ys, dzx)`` forms dRW as
+    ``lstm_sequence_masked_backward_reference`` takes it, over one step
+    (default ``drw_product_reference``)."""
     dact, dgate = DACT[act], DACT[gate]
     dt = dh.dtype
     acc = _acc_dtype(dt)
@@ -79,7 +84,7 @@ def lstm_cell_backward_reference(a, f, o, i, cact, c_prev, c, h_prev, RW, pF, pI
     dzx = torch.cat([d_a, d_f, d_o, d_i], dim=-1)
     dc_prev = dc_tot * f + d_f * pF + d_i * pI
     dh_prev = torch.matmul(dzx.to(acc), RW.to(acc).t()).to(dt)
-    dRW = torch.matmul(h_prev.to(acc).t(), dzx.to(acc)).to(dt)
+    dRW = (drw or drw_product_reference)(h_prev, h_prev[None], dzx[None])
     # XLA on the CPU forms these products in f32 for the f32 sum of a bf16
     # jnp.sum (excess precision): the product is not rounded to the dtype
     dps = tuple((x.to(acc) * y.to(acc)).sum(0).to(dt)
@@ -127,12 +132,14 @@ def _launch_backward(a, f, o, i, cact, c_prev, c, h_prev, RW, pF, pI, pO, dh, dc
     grads = (dzx, dh_prev, dc_prev, dRW) + dps
     if B == 0 or H == 0:
         return grads
+    slices, drw_part = _drw_scratch(B, H, dh.device)
     psum = torch.empty((-(-B // CELL_ROW_BLOCK) * 3 * H,), dtype=torch.float32,
                        device=dh.device)
-    fn = _build.bind("lstm_cell", "dl4j_lstm_cell_bwd", 22, 5)
+    fn = _build.bind("lstm_cell", "dl4j_lstm_cell_bwd", 23, 6)
     _build.launch(launches, "lstm_cell_bwd", fn, dh.device, a, f, o, i, cact, c_prev, c,
-                  h_prev, RW, pF, pI, pO, dh, dc, *grads, psum, B, H, _ACT_CODES[act],
-                  _ACT_CODES[gate], int(dh.dtype == torch.bfloat16))
+                  h_prev, RW, pF, pI, pO, dh, dc, *grads, drw_part, psum, B, H,
+                  _ACT_CODES[act], _ACT_CODES[gate], slices, int(dh.dtype == torch.bfloat16))
+    _build.count(_seq_launches, "drw_product")  # the C entry launched the dRW product too
     return grads
 
 

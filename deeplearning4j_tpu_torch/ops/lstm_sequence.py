@@ -10,6 +10,9 @@ mask is 0 holds h/c.
 
 - :func:`fused_lstm_sequence` and :func:`fused_lstm_sequence_masked` are the
   lean primal (``_seq_lean_impl``): CUDA kernel ``csrc/lstm_seq.cu``.
+- :func:`drw_product` is the backward's dRW product alone (``dl4j_drw_product``,
+  the kernel ``csrc/lstm_drw.cuh``'s ``drw_mma`` that rows 2, 7 and 9 run
+  inside their backward), for timing and holding it alone.
 - :class:`LstmSequenceFunction` is the custom VJP of both
   ``fused_lstm_sequence`` (``_seq_fwd``/``_seq_bwd``) and
   ``fused_lstm_sequence_masked`` (``_seq_masked_fwd``/``_seq_masked_bwd``):
@@ -26,8 +29,9 @@ does not take. For CPU tensors it runs the plain version
 :func:`lstm_sequence_train_reference`,
 :func:`lstm_sequence_masked_train_reference`,
 :func:`lstm_sequence_backward_reference`,
-:func:`lstm_sequence_masked_backward_reference`), which does the same math as
-a loop over t and is what ``chip_smoke.py`` holds the kernel against.
+:func:`lstm_sequence_masked_backward_reference`, :func:`drw_product_reference`),
+which does the same math as a loop over t and is what ``chip_smoke.py`` holds
+the kernel against.
 """
 
 from __future__ import annotations
@@ -41,12 +45,38 @@ from . import _build
 # count of wrapper calls that launched the kernel (each call runs T steps)
 launches = {"lstm_seq_lean": 0, "lstm_seq_lean_masked": 0,
             "lstm_seq_train_fwd": 0, "lstm_seq_bwd": 0,
-            "lstm_seq_masked_train_fwd": 0, "lstm_seq_masked_bwd": 0}
+            "lstm_seq_masked_train_fwd": 0, "lstm_seq_masked_bwd": 0,
+            # the dRW product: one launch in each sequence or cell backward
+            # call (ops/lstm_cell.py counts the cell's here), or alone
+            "drw_product": 0}
 
 
 # batch rows a block of the backward's step kernel owns, and so the row block
 # of its per-step peephole partials (csrc/lstm_seq_bwd.cu: kBwdRows)
 BWD_ROW_BLOCK = 16
+
+# the dRW product's block tile, hidden units x gate columns of dRW
+# (csrc/lstm_drw.cuh: kDrwM, kDrwN), and how R is split: into as many
+# slices as keep about DRW_BLOCKS blocks busy (the H100's 132 SMs each take
+# one), each of at least DRW_SLICE_ROWS rows
+DRW_TILE = (128, 128)
+DRW_BLOCKS = 128
+DRW_SLICE_ROWS = 1024
+
+
+def drw_slices(R: int, H: int) -> int:
+    """Slices of the dRW product's R rows for H units: 1 unless the
+    output tiles leave blocks free and R is long enough to share."""
+    tiles = -(-H // DRW_TILE[0]) * -(-4 * H // DRW_TILE[1])
+    return max(1, min(DRW_BLOCKS // tiles, R // DRW_SLICE_ROWS))
+
+
+def _drw_scratch(R: int, H: int, device) -> Tuple[int, torch.Tensor]:
+    """(slices, the f32 scratch of their partials [slices, H, 4H]; empty,
+    a null pointer, for one slice)."""
+    slices = drw_slices(R, H)
+    n = slices * H * 4 * H if slices > 1 else 0
+    return slices, torch.empty((n,), dtype=torch.float32, device=device)
 
 
 def _sigmoid_tanh_form(x):
@@ -191,7 +221,8 @@ def lstm_sequence_masked_backward_reference(dys, dhT, dcT, mask, ys, a, f, o,
                                             i, c, h0, c0, RW, pF, pI, pO,
                                             act: str = "tanh",
                                             gate: str = "sigmoid",
-                                            product: Optional[Callable] = None) -> Grads:
+                                            product: Optional[Callable] = None,
+                                            drw: Optional[Callable] = None) -> Grads:
     """Plain version of the masked backward (``_seq_bwd_kernel_masked``;
     ``mask`` None for ``_seq_bwd_kernel``), an explicit reverse loop at the
     kernel's rounding points: c and act(c) recomputed from the gates (the
@@ -201,7 +232,9 @@ def lstm_sequence_masked_backward_reference(dys, dhT, dcT, mask, ys, a, f, o,
     (1-m)*dh and (1-m)*dc pass through to the step before. ``product(dz,
     RWt)`` forms the recurrent product in the accumulator dtype (default
     ``torch.matmul``; ``chip_smoke.py`` passes wrong ones the limits must
-    catch). Returns (dzx, dh0, dc0, dRW, dpF, dpI, dpO)."""
+    catch); ``drw(h0, ys, dzx)`` forms dRW from the stacked dzx (default
+    :func:`drw_product_reference`, the sum step by step; wrong ones too).
+    Returns (dzx, dh0, dc0, dRW, dpF, dpI, dpO)."""
     act_fn, dact = ACT[act], DACT[act]
     dgate = DACT[gate]
     product = product or torch.matmul
@@ -209,7 +242,6 @@ def lstm_sequence_masked_backward_reference(dys, dhT, dcT, mask, ys, a, f, o,
     acc = _acc_dtype(dt)
     T, B, H = ys.shape
     RWt = RW.to(acc).t()
-    dRW = torch.zeros(RW.shape, dtype=acc, device=RW.device)
     dp = [torch.zeros(pF.shape, dtype=acc, device=pF.device) for _ in range(3)]
     dzx = []
     dh_carry, dc_carry = dhT, dcT
@@ -235,11 +267,25 @@ def lstm_sequence_masked_backward_reference(dys, dhT, dcT, mask, ys, a, f, o,
             keep = 1.0 - mask[t]
             dh_carry = dh_carry + keep * dh_t
             dc_carry = dc_carry + keep * dc_t
-        dRW += torch.matmul(h_prev.to(acc).t(), dz.to(acc))
         for s, term in zip(dp, (d_f * c_prev, d_i * c_prev, d_o * ct)):
             s += term.to(acc).sum(0)
     dzx = torch.stack(dzx[::-1]) if dzx else ys.new_zeros((T, B, 4 * H))
-    return (dzx, dh_carry, dc_carry, dRW.to(dt)) + tuple(s.to(dt) for s in dp)
+    dRW = (drw or drw_product_reference)(h0, ys, dzx)
+    return (dzx, dh_carry, dc_carry, dRW) + tuple(s.to(dt) for s in dp)
+
+
+def drw_product_reference(h0, ys, dzx):
+    """Plain version of the dRW product: sum over t of h_prev^T dzx[t]
+    (h_prev = h0 at t = 0, else ys[t-1]; ``dzx`` [T, B, 4H], ``ys``
+    [T, B, H]), one step at a time from t = T-1 down as the reference
+    backward sums it, in at least f32, rounded to dzx's dtype."""
+    dt = dzx.dtype
+    acc = _acc_dtype(dt)
+    dRW = torch.zeros((h0.shape[-1], dzx.shape[-1]), dtype=acc, device=dzx.device)
+    for t in reversed(range(dzx.shape[0])):
+        h_prev = h0 if t == 0 else ys[t - 1]
+        dRW += torch.matmul(h_prev.to(acc).t(), dzx[t].to(acc))
+    return dRW.to(dt)
 
 
 def lstm_sequence_backward_reference(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
@@ -251,7 +297,8 @@ def lstm_sequence_backward_reference(dys, dhT, dcT, ys, a, f, o, i, c, h0, c0,
 
 
 # ------------------------------------------------------------------ kernel
-def _check_tensors(lead: str, tensors: dict, act: str, gate: str) -> None:
+def _check_tensors(lead: str, tensors: dict, act: str = "tanh",
+                   gate: str = "sigmoid") -> None:
     """Raise on what the kernels do not take. ``tensors`` maps each name to
     (tensor, expected shape); all must be contiguous and share the dtype and
     device of the ``lead`` tensor."""
@@ -346,21 +393,41 @@ def _launch_bwd(dys, dhT, dcT, mask, ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO,
         return (dzx, dhT.clone(), dcT.clone(), dRW.zero_(), dpF.zero_(),
                 dpI.zero_(), dpO.zero_())
     dcbuf = ys.new_empty((2, B, H))
+    slices, drw_part = _drw_scratch(T * B, H, ys.device)
     psum = torch.empty((T * -(-B // BWD_ROW_BLOCK) * 3 * H,), dtype=torch.float32,
                        device=ys.device)
     grads = (dzx, dh0, dc0, dRW, dpF, dpI, dpO)
-    ints = (T, B, H, _ACT_CODES[act], _ACT_CODES[gate], int(ys.dtype == torch.bfloat16))
+    ints = (T, B, H, _ACT_CODES[act], _ACT_CODES[gate], slices,
+            int(ys.dtype == torch.bfloat16))
     res = (ys, a, f, o, i, c, h0, c0, RW, pF, pI, pO)
     if mask is None:
-        fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_bwd", 24, 6)
+        fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_bwd", 25, 7)
         _build.launch(launches, "lstm_seq_bwd", fn, ys.device, dys, dhT, dcT, *res,
-                      *grads, dcbuf, psum, *ints)
+                      *grads, dcbuf, drw_part, psum, *ints)
     else:
         dhbuf = ys.new_empty((2, B, H))  # each step's pre-mask dh, for the step before
-        fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_masked_bwd", 26, 6)
+        fn = _build.bind("lstm_seq_bwd", "dl4j_lstm_seq_masked_bwd", 27, 7)
         _build.launch(launches, "lstm_seq_masked_bwd", fn, ys.device, dys, dhT, dcT,
-                      mask, *res, *grads, dcbuf, dhbuf, psum, *ints)
+                      mask, *res, *grads, dcbuf, dhbuf, drw_part, psum, *ints)
+    _build.count(launches, "drw_product")  # the C entry launched the dRW product too
     return grads
+
+
+def _launch_drw(h0, ys, dzx) -> torch.Tensor:
+    if dzx.dim() != 3 or dzx.shape[2] % 4:
+        raise ValueError(f"dzx must be [T, B, 4H], got {tuple(dzx.shape)}")
+    T, B, H4 = dzx.shape
+    H = H4 // 4
+    _check_tensors("dzx", {"dzx": (dzx, (T, B, H4)), "h0": (h0, (B, H)),
+                           "ys": (ys, (T, B, H))})
+    dRW = dzx.new_empty((H, H4))
+    if T == 0 or B == 0 or H == 0:
+        return dRW.zero_()
+    slices, part = _drw_scratch(T * B, H, dzx.device)
+    fn = _build.bind("lstm_seq_bwd", "dl4j_drw_product", 5, 5)
+    _build.launch(launches, "drw_product", fn, dzx.device, h0, ys, dzx, dRW, part, T * B, B,
+                  H, slices, int(dzx.dtype == torch.bfloat16))
+    return dRW
 
 
 def fused_lstm_sequence(zx, h0, c0, RW, pF, pI, pO, act: str = "tanh",
@@ -383,6 +450,16 @@ def fused_lstm_sequence_masked(zx, mask, h0, c0, RW, pF, pI, pO,
                        pO, act, gate)
     return lstm_sequence_masked_reference(zx, mask, h0, c0, RW, pF, pI, pO,
                                           act, gate)
+
+
+def drw_product(h0, ys, dzx) -> torch.Tensor:
+    """The backward's dRW [H, 4H] = sum over t of h_prev^T dzx[t] (h_prev =
+    h0 [B, H] at t = 0, else ys[t-1]; ``ys`` [T, B, H], ``dzx`` [T, B, 4H]),
+    summed in f32 and rounded to dzx's dtype. CUDA tensors run the kernel
+    (``drw_mma``, the one rows 2, 7 and 9 run); CPU tensors the plain
+    version."""
+    fn = _launch_drw if dzx.is_cuda else drw_product_reference
+    return fn(h0, ys, dzx)
 
 
 # the LSTM routes a caller can ask for (MultiLayerNetwork's lstm_variant):

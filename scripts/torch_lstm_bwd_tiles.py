@@ -10,10 +10,10 @@ other values of the product's tile constants (batch rows a block
 into ``build/torch_kernels/tiles/``, runs each
 through the port's wrapper on the char-RNN's shape (T=256, B=64, H=512, f32
 and bf16, unmasked), checks it against the plain version, and prints one
-JSON line per variant: ms per call (two medians), the step kernel's and the
-dh0 kernel's time on the card, and the largest error (dRW and the peephole
-grads relative to their largest element). The first variant is the
-source's own.
+JSON line per variant: ms per call (two medians), the step kernel's, the
+dh0 kernel's and the dRW product's time on the card, and the largest error
+(dRW and the peephole grads relative to their largest element). The first
+variant is the source's own.
 """
 
 import ctypes
@@ -80,7 +80,8 @@ def main() -> int:
     B, H, T = cs.BATCH, cs.HIDDEN, cs.STEPS
     key = ("lstm_seq_bwd", "dl4j_lstm_seq_bwd")
     own = ls.BWD_ROW_BLOCK
-    groups = [("step", r"lstm_bwd_step"), ("dh0", r"lstm_bwd_dh"), ("drw_gemm", r"drw_gemm")]
+    groups = [("step", r"lstm_bwd_step"), ("dh0", r"lstm_bwd_dh"),
+              ("drw", r"drw_mma|drw_reduce")]
     try:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
@@ -111,7 +112,7 @@ def main() -> int:
                     "rows": rows, "stages": stages, "chunk_bytes": chunk, "dtype": dtype,
                     "T": T, "B": B, "H": H, "ms_runs": ms,
                     "step_us": prof["step"][0] / prof["step"][1] * 1e3,
-                    "dh0_us": prof["dh0"][0] * 1e3, "drw_gemm_ms": prof["drw_gemm"][0],
+                    "dh0_us": prof["dh0"][0] * 1e3, "drw_ms": prof["drw"][0],
                     "max_err": err}), flush=True)
     finally:
         _build._FNS.pop(key, None)
