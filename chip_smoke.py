@@ -24,7 +24,8 @@ versions and three wrong ones, ``output``/``predict`` with and without
 padding, bucketed Adam training (T up to 4096) against the CPU at T<=512,
 ``evaluate`` and an exact resume. Then AlexNet (``alexnet_conf()`` at its
 own widths, 224x224x3 images, 1000 classes, B=128, random weights from the
-seed): the LRN kernels against their plain versions and two wrong ones,
+seed): the LRN kernels against their plain versions (C from 1 to 16384,
+views one element past 16 bytes) and two wrong ones,
 softmax-xent at N=128, C=1000, ``output``/``predict`` (card against CPU on
 8 images), Nesterov training at lr 1e-2 (card against CPU on 8 images with
 dropout 0, a faulty LRN backward the limits must catch, ``evaluate``, an
@@ -2220,8 +2221,10 @@ LRN_KERNELS = {
 # phase computes two wrong plain versions, the backward's window not
 # reflected (n=4) and dx without its second term, which must read above.
 LRN_REL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
-LRN_CASES = [(C, n) for C in (3, 33, 96, 256) for n in (1, 4, 5)]
-LRN_ROWS = 1001  # no tile of rows (4096 // C of them) divides it
+# every plan of ops/lrn.py: one channel, C below a vector, C not a multiple
+# of one (vectors cross rows), AlexNet's, and rows wider than a tile
+LRN_CASES = [(C, n) for C in (1, 3, 8, 33, 96, 256, 4100, 16384) for n in (1, 4, 5)]
+LRN_ROWS = 1001  # no tile (2048 elements) divides 1001 rows of these C
 # softmax-xent at AlexNet's loss head: N=128 rows of C=1000 classes
 ALEX_SXENT = (ALEX_B, 1000)
 # training on the card against the same training on the CPU (B=8, dropout 0,
@@ -2289,14 +2292,39 @@ def lrn_readings(got, want) -> dict:
             for n, g, w in zip(("y", "y_serving", "d", "dx"), got, want)}
 
 
+def lrn_offset_case(torch, lr, dtype: str, C: int, n: int, g_aligned: bool):
+    """Rows 3-4 on views that start one element past 16 bytes: x and g (and
+    so the forward's d), whose plan takes a head one element at a time and
+    16-byte vectors after it; or x alone, g aligned, whose backward takes
+    the narrow plan (one element an access). Returns (readings, finite,
+    the forward's and the backward's plans)."""
+    x, g = lrn_inputs(torch, (LRN_ROWS * C + 1,), dtype, SEED + C + n)
+    x = x[1:].view(LRN_ROWS, C)
+    g = g[1:].view(LRN_ROWS, C).clone() if g_aligned else g[1:].view(LRN_ROWS, C)
+    args = (LRN_K, n, LRN_ALPHA, LRN_BETA)
+    y, d = lr.lrn_forward(x, *args)
+    y_serving, _ = lr.lrn_forward(x, *args, with_d=False)
+    dx = lr.lrn_backward(x, d, g, *args)
+    torch.cuda.synchronize()
+    ry, rd = lr.lrn_reference(x, *args)
+    rdx = lr.lrn_backward_reference(x, d, g, *args)
+    got = (y, y_serving, d, dx)
+    size = x.element_size()
+    plans = [lr.plan(x.numel(), C, n, LRN_BETA, size, [t.data_ptr() for t in ts])
+             for ts in ((x, y, d), (x, d, g, dx))]
+    return (lrn_readings(got, (ry, ry, rd, rdx)),
+            all(bool(torch.isfinite(t.float()).all()) for t in got), plans)
+
+
 def phase_kernels_lrn(torch, lr, sx):
     """Rows 3-4 against their plain versions on the same CUDA tensors, f32
-    and bf16: AlexNet's two LRN shapes (n=5), and C in {3, 33, 96, 256} with
-    n in {1, 4, 5} over 1001 rows; the training forward (y and d), the
-    serving forward (y alone) and the backward from a random g. Then the two
-    wrong plain versions, which the limits must catch, and softmax-xent
-    (rows 10-11) at AlexNet's loss head, N=128, C=1000. Returns the max abs
-    error of each kernel (f32, LRN 1's shape)."""
+    and bf16: AlexNet's two LRN shapes (n=5), and C in LRN_CASES with n in
+    {1, 4, 5} over 1001 rows; the training forward (y and d), the serving
+    forward (y alone) and the backward from a random g. Views one element
+    past 16 bytes (x and g; x alone). Then the two wrong plain versions,
+    which the limits must catch, and softmax-xent (rows 10-11) at AlexNet's
+    loss head, N=128, C=1000. Returns the max abs error of each kernel (f32,
+    LRN 1's shape)."""
     errs, worst, n_cases = {}, {}, 0
     for dtype in ("float32", "bfloat16"):
         lim = LRN_REL[dtype]
@@ -2325,6 +2353,22 @@ def phase_kernels_lrn(torch, lr, sx):
                 errs[("lrn_fwd", dtype)] = max(
                     float((a.float() - b.float()).abs().max()) for a, b in zip(got[:3], want[:3]))
                 errs[("lrn_bwd", dtype)] = float((dx.float() - rdx.float()).abs().max())
+        for C, n in ((96, 5), (33, 4)):
+            for g_aligned in (False, True):
+                e, finite, plans = lrn_offset_case(torch, lr, dtype, C, n, g_aligned)
+                n_cases += 1
+                for k, r in e.items():
+                    worst[dtype][k] = max(worst[dtype].get(k, 0.0), r)
+                wide = 16 // (4 if dtype == "float32" else 2)
+                want_plans = (plans[0].vec == wide and plans[0].head == wide - 1
+                              and plans[1].vec == (1 if g_aligned else wide))
+                check("lrn", dtype, e, dict.fromkeys(e, lim), shape=[LRN_ROWS, C], n=n,
+                      view="x offset 1, g aligned" if g_aligned else "x and g offset 1",
+                      plans=[p._asdict() for p in plans], finite=finite,
+                      relative_to_largest=True)
+                if not (finite and want_plans):
+                    raise AssertionError(f"lrn {dtype} offset views C={C}: finite {finite}, "
+                                         f"plans {plans}")
         # wrong plain versions: what a kernel that summed the backward over W
         # itself (not reflected; n=4), or left dx's second term out, reads
         x, g = lrn_inputs(torch, (LRN_ROWS, 96), dtype, SEED)
@@ -2602,12 +2646,53 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
     return launches, ms, net, batch
 
 
-def time_lrn(torch, lr, card):
+def lrn_entry(dtype: str, backward: bool, with_d: bool = True) -> str:
+    """The readable name of the entry that AlexNet's LRN launches (n=5,
+    beta 0.75, contiguous: windows in registers)."""
+    t, v = ("float", 4) if dtype == "float32" else ("__nv_bfloat16", 8)
+    if backward:
+        return f"lrn_bwd<{t}, (int){v}, (int)5>"
+    return f"lrn_fwd<{t}, (bool){int(with_d)}, (int){v}, (int)5>"
+
+
+def static_issue_ms(torch, lr, sass: dict, entry: str, elems: int) -> dict:
+    """The time the card would take to issue an LRN entry's tile loop over
+    ``elems`` elements if every instruction of the loop ran: its SASS
+    instructions (``sass_counts``: the code a thread holds for its
+    TILE_ELEMS elements of a tile) once per warp of every tile, at one warp
+    instruction a clock on each of an SM's 4 schedulers, at the card's top
+    SM clock. The count is static: it holds powf's special-case blocks (a
+    zero, NaN, infinite or subnormal d), which no element here runs, so the
+    time is an upper estimate of what is issued, not a floor."""
+    loop = next(f["loop_instructions"] for name, f in sass.items() if entry in name)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = elems / lr.TILE_ELEMS / 32
+    return {"static_issue_ms": warps * loop / (4 * sms * mhz * 1e6) * 1e3,
+            "loop_instructions": loop, "instructions_per_element": loop / lr.TILE_ELEMS,
+            "sm_clock_max_mhz": mhz, "sms": sms}
+
+
+def in_a_row_ms(fn, calls: int = 20) -> float:
+    """ms a call of ``fn`` over ``calls`` calls in a row (median of 7): the
+    card's time, which the host's part of each call no longer delays."""
+    return median_ms(lambda: [fn() for _ in range(calls)]) / calls
+
+
+def time_lrn(torch, lr, card, sass: dict):
     """ms of rows 3-4 at LRN 1's shape (the table's) and LRN 2's, f32 and
     bf16, beside the plain versions, the bounds and F.local_response_norm on
     the same channels-last view (torch divides alpha by n: it is given
     alpha*n): its forward for row 3, its forward plus backward for row 4.
-    The serving forward (y alone) is timed beside the training one."""
+    The serving forward (y alone) is timed beside the training one, and
+    each also over 20 calls in a row (``ms_in_a_row``). Each line also
+    gives the time to issue the entry's tile loop as its SASS holds it
+    (``static_issue_ms``, from ``sass``: the lrn library's entries of
+    phase_sass), an upper estimate of what is issued."""
+    import math
+
     import torch.nn.functional as F
 
     times = {}
@@ -2617,6 +2702,7 @@ def time_lrn(torch, lr, card):
             x, g = lrn_inputs(torch, shape, dtype, SEED)
             _, d = lr.lrn_forward(x, *args)
             xg = x.clone().requires_grad_()
+            elems = math.prod(shape)
 
             def lib_fwd(x=x):
                 return F.local_response_norm(x.permute(0, 3, 1, 2), LRN_N,
@@ -2626,7 +2712,8 @@ def time_lrn(torch, lr, card):
                 xg.grad = None
                 lib_fwd(xg).backward(g.permute(0, 3, 1, 2))
 
-            serving_ms = median_ms(lambda: lr.lrn_forward(x, *args, with_d=False))
+            serving_ms = min(median_ms(lambda: lr.lrn_forward(x, *args, with_d=False))
+                             for _ in range(2))
             cases = (
                 ("lrn_fwd", lambda: lr.lrn_forward(x, *args), lambda: lr.lrn_reference(x, *args),
                  lib_fwd, bound_lrn(shape, dtype, False)),
@@ -2635,10 +2722,17 @@ def time_lrn(torch, lr, card):
                  bound_lrn(shape, dtype, True)),
             )
             for name, kern, plain, lib, (b_ms, b_by) in cases:
-                extra = {}
-                if name == "lrn_fwd":
-                    extra = dict(serving_ms=serving_ms,
-                                 serving_bound_ms=bound_lrn(shape, dtype, False, False)[0])
+                backward = name == "lrn_bwd"
+                extra = static_issue_ms(torch, lr, sass, lrn_entry(dtype, backward), elems)
+                extra["ms_in_a_row"] = in_a_row_ms(kern)
+                if not backward:
+                    extra.update(serving_ms=serving_ms,
+                                 serving_ms_in_a_row=in_a_row_ms(
+                                     lambda: lr.lrn_forward(x, *args, with_d=False)),
+                                 serving_bound_ms=bound_lrn(shape, dtype, False, False)[0],
+                                 serving_static_issue_ms=static_issue_ms(
+                                     torch, lr, sass, lrn_entry(dtype, False, False),
+                                     elems)["static_issue_ms"])
                 t = time_pair(torch, name, kern, plain, lib, b_ms, b_by, card, dtype=dtype,
                               layer=where, shape=list(shape), n=LRN_N, **extra)
                 times[(name, dtype, where)] = t
@@ -2651,6 +2745,8 @@ def time_lrn(torch, lr, card):
 # the libraries each must be in (with drw_reduce, which adds dRW's slices)
 TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "lstm_step_mma",
                        "lstm_bwd_step_mma", "lstm_bwd_dh_mma", "drw_mma")
+# kernels that must not spill (rows 3-4: their loads stay in registers)
+NO_SPILL_KERNELS = ("lrn_fwd", "lrn_bwd")
 TENSOR_CORE_LIBS = {"flash_attn": ("flash_fwd",),
                     "flash_attn_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
                     "lstm_seq": ("lstm_step_mma",),
@@ -2687,21 +2783,48 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def sass_hmma(lib) -> dict:
-    """HMMA instructions of each function in ``cuobjdump --dump-sass`` of a
-    built library."""
+def sass_counts(lib) -> dict:
+    """Per function of ``cuobjdump --dump-sass`` of a built library: its
+    HMMA instructions, all its instructions, and those of its largest loop
+    (from a backward branch's target to the branch) less the loops nested in
+    it: for the LRN kernels, the tile loop without the halo's, what a
+    thread issues for its elements of a tile, powf's special-case branches
+    included."""
+    import re
+
     from deeplearning4j_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(lib)], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    counts, current = {}, None
+    code = {}  # function -> [(address, instruction)]
+    current = None
     for line in sass.splitlines():
         if "Function :" in line:
             current = line.split("Function :", 1)[1].strip()
-            counts[current] = 0
-        elif current and "HMMA" in line:
-            counts[current] += 1
+            code[current] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if current and m:
+            code[current].append((int(m.group(1), 16), m.group(2)))
+    counts = {}
+    for fn, ins in code.items():
+        addrs = [a for a, _ in ins]
+        loops = []  # (first, last) instruction index of each backward branch's loop
+        for i, (a, text) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) <= a:
+                loops.append((next(j for j, b in enumerate(addrs) if b >= int(m.group(1), 16)),
+                              i))
+        loop = 0
+        if loops:  # the largest loop, less the loops nested in it (a tile's halo)
+            first, last = max(loops, key=lambda fl: fl[1] - fl[0])
+            inner = [(f, l) for f, l in loops if first < f and l < last]
+            outer = [(f, l) for f, l in inner
+                     if not any(f2 < f and l < l2 for f2, l2 in inner)]
+            loop = last - first + 1 - sum(l - f + 1 for f, l in outer)
+        counts[fn] = {"hmma": sum("HMMA" in t for _, t in ins), "instructions": len(ins),
+                      "loop_instructions": loop}
     return counts
 
 
@@ -2716,38 +2839,43 @@ def demangle(names) -> dict:
     return dict(zip(names, out))
 
 
-def phase_sass(build_s: dict) -> None:
+def phase_sass(build_s: dict) -> dict:
     """Per kernel entry of every built library: registers and spills (the
-    build's ``-Xptxas -v``) and the HMMA instructions in its SASS. Fails if
-    an entry of ``TENSOR_CORE_KERNELS`` (rows 13-15, the LSTM's forward step
-    and backward products) has no HMMA or spills, or a library of
-    ``TENSOR_CORE_LIBS`` lacks one of its entries."""
+    build's ``-Xptxas -v``), its SASS instructions, those of its largest
+    loop and its HMMA instructions. Fails if an entry of
+    ``TENSOR_CORE_KERNELS`` (rows 13-15, the LSTM's forward step and
+    backward products) has no HMMA or spills, an entry of
+    ``NO_SPILL_KERNELS`` (rows 3-4) spills, or a library of
+    ``TENSOR_CORE_LIBS`` lacks one of its entries. Returns the entries by
+    library and readable name."""
     from deeplearning4j_tpu_torch.ops import _build
 
     report, bad = {}, []
     for name in build_s:
         lib = _build.lib_path(name)
         regs = ptxas_report(lib.with_suffix(".log").read_text())
-        hmma = sass_hmma(lib)
-        readable = demangle(sorted(set(regs) | set(hmma)))
+        counts = sass_counts(lib)
+        readable = demangle(sorted(set(regs) | set(counts)))
         entries = {}
-        for fn in sorted(set(regs) | set(hmma)):
-            fields = dict(regs.get(fn, {}), hmma=hmma.get(fn, 0))
+        for fn in sorted(set(regs) | set(counts)):
+            fields = dict(regs.get(fn, {}), **counts.get(fn, {"hmma": 0}))
             entries[readable[fn]] = fields
-            if any(k in fn for k in TENSOR_CORE_KERNELS) and (
-                    fields["hmma"] == 0 or fields.get("spill_stores", 0)
-                    or fields.get("spill_loads", 0)):
+            spills = fields.get("spill_stores", 0) or fields.get("spill_loads", 0)
+            if any(k in fn for k in TENSOR_CORE_KERNELS) and (fields["hmma"] == 0 or spills):
+                bad.append(readable[fn])
+            if any(k in fn for k in NO_SPILL_KERNELS) and spills:
                 bad.append(readable[fn])
         report[name] = entries
         emit("sass", source=name, entries=entries)
     missing = [f"{lib}: {k}" for lib, keys in TENSOR_CORE_LIBS.items() for k in keys
                if not any(k in e for e in report.get(lib, {}))]
     ok = not bad and not missing
-    emit("sass_tensor_cores", kernels=list(TENSOR_CORE_KERNELS), failing=bad,
-         missing=missing, ok=ok)
+    emit("sass_tensor_cores", kernels=list(TENSOR_CORE_KERNELS),
+         no_spill_kernels=list(NO_SPILL_KERNELS), failing=bad, missing=missing, ok=ok)
     if not ok:
-        raise AssertionError(f"tensor-core kernels without HMMA or with spills: {bad}; "
-                             f"missing: {missing}")
+        raise AssertionError(f"tensor-core kernels without HMMA or kernels with spills: "
+                             f"{bad}; missing: {missing}")
+    return report
 
 
 def profile(torch, fn, top: int = 6, groups=None):
@@ -2883,7 +3011,7 @@ def main() -> int:
          device=torch.cuda.get_device_name(0), matmul_allow_tf32=False,
          cudnn_allow_tf32=False, build_seconds=time.perf_counter() - t0,
          build_seconds_by_source=build_s)
-    phase_sass(build_s)
+    sass = phase_sass(build_s)
 
     # ---- 2. each kernel against its plain version
     errs = phase_kernels(torch, ls)
@@ -3050,7 +3178,7 @@ def main() -> int:
         for dtype in cell_train})
     times[("adam_update", "float32")] = time_adam(torch, ad, card)
     times.update(time_attention(torch, fa, card))
-    lrn_times = time_lrn(torch, lr, card)
+    lrn_times = time_lrn(torch, lr, card, sass["lrn"])
     for name in LRN_KERNELS:  # the table's shape: LRN 1
         times[(name, "float32")] = lrn_times[(name, "float32", "lrn1")]
     emit("recipe_update_share", gpu=card, **{

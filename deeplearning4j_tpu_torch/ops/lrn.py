@@ -20,13 +20,18 @@ kernels of ``csrc/lrn.cu`` (float32 or bfloat16, at most 16384 channels) and
 raise on anything they do not take: ``TypeError`` on the dtype,
 ``ValueError`` on the shape, the device or the layout. The serving forward
 (no gradient wanted) writes y alone; the training forward also writes d,
-which the backward reads. For CPU tensors they run the plain versions,
-:func:`lrn_reference` and :func:`lrn_backward_reference`.
+which the backward reads. Each launch follows :func:`plan`: 16-byte
+accesses from the first element at which every pointer is 16-byte aligned,
+the elements before it (the head) and the ragged tail one at a time. The
+outputs are allocated at x's alignment modulo 16 bytes, so a view of x at
+any element offset keeps the 16-byte accesses. For CPU tensors they run
+the plain versions, :func:`lrn_reference` and :func:`lrn_backward_reference`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,14 +41,67 @@ from . import _build
 # count of wrapper calls that launched each kernel (one launch each)
 launches = {"lrn_fwd": 0, "lrn_bwd": 0}
 
-MAX_CHANNELS = 16384  # the kernels' shared-memory tile holds one row at least
+MAX_CHANNELS = 16384  # the widest channel axis the kernels are held to on the card
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# the tile of csrc/lrn.cu: TILE_THREADS threads a block (kThreads), each
+# holding TILE_ELEMS elements (kElems) of each input; windows of
+# FAST_N (kFastN) channels under beta FAST_BETA (kFastBeta) are summed in
+# registers, with powers whose exponents the compiler knows
+TILE_THREADS, TILE_ELEMS, FAST_N, FAST_BETA = 256, 8, 5, 0.75
+VEC_BYTES = 16
+
+
+class Plan(NamedTuple):
+    """How one launch walks rows*C elements (the C entries check it)."""
+
+    vec: int    # elements an access: 16 bytes of them, or 1 where pointers disagree
+    head: int   # elements before the first vector, taken one at a time
+    tile: int   # elements a tile: TILE_THREADS * TILE_ELEMS
+    fast: bool  # windows in registers: n, beta == FAST_N, FAST_BETA, every vector in a row
+    tiles: int  # tiles over the vectors (the last may be short)
+    tail: int   # elements after the last vector, taken one at a time
+
+
+def plan(total: int, C: int, n: int, beta: float, itemsize: int,
+         addrs: Sequence[int]) -> Plan:
+    """The launch plan of ``total`` elements of ``C`` channels, window ``n``
+    and power ``beta``, whose tensors start at ``addrs`` (bytes, each a
+    multiple of ``itemsize``). Where every address lies the same number of
+    elements past a 16-byte boundary, the vectors are 16 bytes and start at
+    the head, the first element 16-byte aligned in all of them; else they
+    are one element (the narrow plan)."""
+    wide = VEC_BYTES // itemsize
+    offsets = {(a % VEC_BYTES) // itemsize for a in addrs}
+    vec = wide if len(offsets) == 1 else 1
+    head = min(-offsets.pop() % wide, total) if vec > 1 else 0
+    nvec = (total - head) // vec
+    tile = TILE_THREADS * TILE_ELEMS
+    fast = n == FAST_N and beta == FAST_BETA and vec > 1 and head == 0 and C % vec == 0
+    return Plan(vec, head, tile, fast, -(-nvec * vec // tile), total - head - nvec * vec)
+
+
+def _empty_at(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialized contiguous tensor of x's shape and dtype whose address
+    lies as far past a 16-byte boundary as x's (on the card, where fresh
+    storage starts aligned), so the kernels take 16-byte accesses for both."""
+    off = (x.data_ptr() % VEC_BYTES) // x.element_size()
+    if off == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    return torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)[off:].view(x.shape)
 
 
 def _const(v: float, dtype: torch.dtype) -> torch.Tensor:
     """A Python constant as a 0-d tensor of ``dtype``: rounded to it, as JAX
     rounds a weakly typed scalar to the array's dtype."""
     return torch.tensor(v, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``float(_const(v, dtype))``, kept: a kernel's launch makes no tensor
+    for its constants."""
+    return float(_const(v, dtype))
 
 
 def _window_sum(x: torch.Tensor, n: int, lo: int) -> torch.Tensor:
@@ -108,30 +166,38 @@ def _check(x: torch.Tensor, n: int, **others: torch.Tensor) -> Tuple[int, int]:
     return rows, C
 
 
+def _plan_args(rows: int, C: int, n: int, beta: float, tensors) -> tuple:
+    """The plan of tensors [rows, C] as the C entries take it: bf16, vec,
+    head, tile, fast."""
+    x = tensors[0]
+    p = plan(rows * C, C, n, beta, x.element_size(), [t.data_ptr() for t in tensors])
+    return int(x.dtype == torch.bfloat16), p.vec, p.head, p.tile, int(p.fast)
+
+
 def _kernel_fwd(x, k, n, alpha, beta, with_d: bool):
     rows, C = _check(x, n)
-    y = torch.empty_like(x)
-    d = torch.empty_like(x) if with_d else None
+    y = _empty_at(x)
+    d = _empty_at(x) if with_d else None
     if rows == 0:
         return y, d
     dt = x.dtype
-    fn = _build.bind("lrn", "dl4j_lrn_fwd", 3, 4, 3)
+    fn = _build.bind("lrn", "dl4j_lrn_fwd", 3, 8, 3)
     _build.launch(launches, "lrn_fwd", fn, x.device, x, y, d, rows, C, n,
-                  int(dt == torch.bfloat16), float(_const(k, dt)),
-                  float(_const(alpha, dt)), float(_const(-beta, dt)))
+                  *_plan_args(rows, C, n, beta, [t for t in (x, y, d) if t is not None]),
+                  _rounded(k, dt), _rounded(alpha, dt), _rounded(-beta, dt))
     return y, d
 
 
 def _kernel_bwd(x, d, g, k, n, alpha, beta):
     rows, C = _check(x, n, d=d, g=g)
-    dx = torch.empty_like(x)
+    dx = _empty_at(x)
     if rows == 0:
         return dx
     dt = x.dtype
-    fn = _build.bind("lrn", "dl4j_lrn_bwd", 4, 4, 3)
+    fn = _build.bind("lrn", "dl4j_lrn_bwd", 4, 8, 3)
     _build.launch(launches, "lrn_bwd", fn, x.device, x, d, g, dx, rows, C, n,
-                  int(dt == torch.bfloat16), float(_const(-beta, dt)),
-                  float(_const(-beta - 1.0, dt)), float(_const(2.0 * alpha * beta, dt)))
+                  *_plan_args(rows, C, n, beta, [x, d, g, dx]), _rounded(-beta, dt),
+                  _rounded(-beta - 1.0, dt), _rounded(2.0 * alpha * beta, dt))
     return dx
 
 

@@ -19,7 +19,10 @@ after one warm-up epoch; the ms of each of as many ``output()`` calls of
 the char-RNN at B=64, T=256 (host clock, the copies to and from the card
 included, as ``chip_smoke.py``'s ``time_output``), and, in f32 only, of as
 many standard (full-sequence) SGD updates of it at B=64, T=256 (each a
-``fit`` of one batch), each after one warm-up call.
+``fit`` of one batch), each after one warm-up call; and the ms of each of as
+many AlexNet updates (``alexnet_conf()``, B=128, ``chip_smoke.py``'s seeded
+weights and images) with the batch already on the card, f32 and bf16, after
+one warm-up update: the path of the LRN kernels (rows 3-4).
 """
 
 import argparse
@@ -70,13 +73,13 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from deeplearning4j_tpu_torch import (BucketingSequenceIterator, MultiLayerNetwork,
-                                          char_rnn, load_jax_params)
+                                          alexnet_conf, char_rnn, load_jax_params)
     from deeplearning4j_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build(["lstm_seq", "lstm_seq_bwd", "softmax_xent", "adam", "flash_attn",
-                  "flash_attn_bwd"])
+                  "flash_attn_bwd", "lrn"])
     attn_it = BucketingSequenceIterator(cs.attention_text(4, 4, 1024, 2048, 4096, cs.SEED + 4),
                                         batch=cs.ATTN_B, boundaries=cs.ATTN_BUCKETS)
     rnn_it = BucketingSequenceIterator(cs.recipe_sequences(), batch=cs.BATCH,
@@ -84,10 +87,14 @@ def main() -> int:
     rnn_updates = sum(-(-ds.features.shape[1] // cs.TBPTT) for ds in rnn_it)
     result = {"root": root, "gpu": cs.gpu_line(), "epochs": args.epochs,
               "attention_ms_per_update": {}, "char_rnn_recipe_ms_per_update": {},
-              "char_rnn_output_ms": {}, "char_rnn_sgd_standard_ms_per_update": {}}
+              "char_rnn_output_ms": {}, "char_rnn_sgd_standard_ms_per_update": {},
+              "alexnet_batch_on_card_ms_per_update": {}}
     rng = np.random.default_rng(cs.SEED)
     x = cs.one_hot(rng.integers(0, cs.VOCAB, (cs.BATCH, cs.STEPS)), cs.VOCAB)
     sgd_batches = cs.char_batches(args.epochs + 1, cs.SEED + 1)
+    alex_host = cs.alexnet_params(alexnet_conf(), cs.SEED)
+    alex_batch = tuple(torch.as_tensor(a, device="cuda")
+                       for a in cs.alexnet_images(cs.ALEX_B, cs.SEED + 7))
     for dtype in ("float32", "bfloat16"):
         net = load_jax_params(MultiLayerNetwork(cs.attention_conf(dtype)),
                               cs.attention_params(cs.SEED))
@@ -107,6 +114,9 @@ def main() -> int:
             it = iter(sgd_batches)
             result["char_rnn_sgd_standard_ms_per_update"][dtype] = calls_ms(
                 torch, lambda: net.fit(next(it)), args.epochs)
+        net = load_jax_params(MultiLayerNetwork(alexnet_conf(dtype=dtype)), alex_host)
+        result["alexnet_batch_on_card_ms_per_update"][dtype] = calls_ms(
+            torch, lambda: net.fit(alex_batch), args.epochs)
     print(json.dumps(result), flush=True)
     return 0
 

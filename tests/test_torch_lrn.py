@@ -128,12 +128,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _at_offset(a, offset, device):
+    """a on the device as a contiguous view ``offset`` elements into its storage."""
+    buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=device)
+    out = buf[offset:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -8)])
 @pytest.mark.parametrize("n", [1, 4, 5])
-@pytest.mark.parametrize("shape", [(1001, 3), (2, 7, 9, 33), (4099, 96), (3, 5, 256)])
-def test_cuda_kernels_match_plain_versions(cuda_device, shape, n, dtype, rtol):
-    x, g = (torch.from_numpy(a).to(cuda_device, dtype) for a in _inputs(shape, 30.0, seed=n))
+@pytest.mark.parametrize("shape", [(1001, 3), (2, 7, 9, 33), (4099, 96), (3, 5, 256),
+                                   (1001, 8), (7, 4100)])
+@pytest.mark.parametrize("offset", ["none", "x_and_g", "x_only"])
+def test_cuda_kernels_match_plain_versions(cuda_device, offset, shape, n, dtype, rtol):
+    """Contiguous tensors, and views one element into their storage: x and g
+    (16-byte accesses after a head of single elements), or x alone (the
+    backward's pointers disagree: one element an access)."""
+    x, g = (torch.from_numpy(a).to(dtype) for a in _inputs(shape, 30.0, seed=n))
+    x = _at_offset(x, 0 if offset == "none" else 1, cuda_device)
+    g = _at_offset(g, 1 if offset == "x_and_g" else 0, cuda_device)
     before = ops.counters()
     y, d = lr.lrn_forward(x, K, n, 1e-4, BETA)
     y_serving, none = lr.lrn_forward(x, K, n, 1e-4, BETA, with_d=False)
@@ -141,8 +156,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, shape, n, dtype, rtol):
     torch.cuda.synchronize()
     ry, rd = lr.lrn_reference(x, K, n, 1e-4, BETA)
     rdx = lr.lrn_backward_reference(x, rd, g, K, n, 1e-4, BETA)
+    # and from the kernel's own d, the backward alone
+    rdx_own_d = lr.lrn_backward_reference(x, d, g, K, n, 1e-4, BETA)
     assert none is None
-    for got, want in ((y, ry), (y_serving, ry), (d, rd), (dx, rdx)):
+    for got, want in ((y, ry), (y_serving, ry), (d, rd), (dx, rdx), (dx, rdx_own_d)):
         err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
         assert err <= rtol
     after = ops.counters()
