@@ -29,7 +29,16 @@ views one element past 16 bytes) and two wrong ones,
 softmax-xent at N=128, C=1000, ``output``/``predict`` (card against CPU on
 8 images), Nesterov training at lr 1e-2 (card against CPU on 8 images with
 dropout 0, a faulty LRN backward the limits must catch, ``evaluate``, an
-exact resume; then the conf's dropout 0.5 at B=128, timed). Then the
+exact resume; then the conf's dropout 0.5 at B=128, timed). Then GoogLeNet
+(``googlenet_conf()``, a ComputationGraph of 9 inception merges, at its own
+widths, B=128): the LRN kernels also at its [128, 56, 56, 64] and [128, 56,
+56, 192], ``output``/``predict`` (card against CPU on 4 images, 2 LRN
+launches a call), Nesterov training with the two auxiliary heads (card
+against CPU on 4 images with dropout 0, 2 + 2 LRN launches and one
+softmax-xent forward and backward per head per update, a MergeVertex with
+two branches swapped and a faulty LRN backward the limits must catch,
+``evaluate`` per head, an exact resume; then the conf's dropout 0.4 at
+B=128, timed with the batch from the host and on the card). Then the
 char-RNN again on the per-step cell route (``lstm_variant="fusedcell"``):
 the cell kernels against their plain versions (every activation pair, B
 1-67, H 129, 130 and 512) and four wrong ones, ``output``/``predict`` and decode
@@ -2318,7 +2327,8 @@ def lrn_offset_case(torch, lr, dtype: str, C: int, n: int, g_aligned: bool):
 
 def phase_kernels_lrn(torch, lr, sx):
     """Rows 3-4 against their plain versions on the same CUDA tensors, f32
-    and bf16: AlexNet's two LRN shapes (n=5), and C in LRN_CASES with n in
+    and bf16: AlexNet's and GoogLeNet's two LRN shapes each (n=5), and C in
+    LRN_CASES with n in
     {1, 4, 5} over 1001 rows; the training forward (y and d), the serving
     forward (y alone) and the backward from a random g. Views one element
     past 16 bytes (x and g; x alone). Then the two wrong plain versions,
@@ -2329,7 +2339,7 @@ def phase_kernels_lrn(torch, lr, sx):
     for dtype in ("float32", "bfloat16"):
         lim = LRN_REL[dtype]
         worst[dtype] = {}
-        cases = [(shape, LRN_N) for shape in LRN_SHAPES.values()]
+        cases = [(shape, LRN_N) for shape in {**LRN_SHAPES, **GOOG_LRN_SHAPES}.values()]
         cases += [((LRN_ROWS, C), n) for C, n in LRN_CASES]
         for shape, n in cases:
             x, g = lrn_inputs(torch, shape, dtype, SEED + shape[-1] + n)
@@ -2480,17 +2490,27 @@ def phase_serve_alexnet(torch, host, card):
     return launches
 
 
-def alexnet_readings(run, ref, seed_params) -> dict:
+def named_tensors(params) -> dict:
+    """A network's host params by "layer.key" (a list, one dict per layer)
+    or "vertex.key" (a graph's dict by vertex name)."""
+    items = params.items() if isinstance(params, dict) else enumerate(params)
+    return {f"{n}.{k}": p[k] for n, p in items for k in p}
+
+
+def train_readings(run, ref, seed_params) -> dict:
     """Training on the card against the CPU: each update's loss relative to
     the CPU's, and each tensor's change from the seed params relative to the
     norm of the CPU's change, after the first update and after the last
     (the largest over the tensors, and the tensor that reads it)."""
     import numpy as np
 
+    seed = named_tensors(seed_params)
+
     def change(params, ref_params):
-        by = {f"{i}.{k}": float(np.linalg.norm(p[k] - q[k])
-                                / np.linalg.norm(q[k] - p0[k].astype(np.float32)))
-              for i, (p, q, p0) in enumerate(zip(params, ref_params, seed_params)) for k in p}
+        mine, theirs = named_tensors(params), named_tensors(ref_params)
+        by = {k: float(np.linalg.norm(mine[k] - q)
+                       / np.linalg.norm(q - seed[k].astype(np.float32)))
+              for k, q in theirs.items()}
         worst = max(by, key=by.get)
         return by[worst], worst
 
@@ -2503,10 +2523,11 @@ def alexnet_readings(run, ref, seed_params) -> dict:
             "first_change_worst_tensor": first_at, "change_worst_tensor": last_at}
 
 
-def alexnet_resume(torch, net, x, y) -> dict:
+def resume_check(torch, net, data) -> dict:
     """A checkpoint of ``net`` written, restored on the card (the next
-    update, with cuDNN deterministic for both, exactly as the original's)
-    and on the CPU (exactly the same params and Nesterov trace)."""
+    update on ``data``, with cuDNN deterministic for both, exactly as the
+    original's) and on the CPU (exactly the same params and Nesterov
+    trace)."""
     import os
     import tempfile
 
@@ -2514,32 +2535,33 @@ def alexnet_resume(torch, net, x, y) -> dict:
 
     from deeplearning4j_tpu_torch import params_to_numpy, restore_model, write_model
 
+    def arrays(n):
+        return list(named_tensors(params_to_numpy(n)).values())
+
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "alexnet.zip")
+        path = os.path.join(tmp, "model.zip")
         write_model(net, path)
         back = restore_model(path)
         on_cpu = restore_model(path, device="cpu")
     iterations = {"written": net.iteration, "cuda": back.iteration, "cpu": on_cpu.iteration}
     cpu_err = max(
-        max(float(np.abs(p[k] - q[k]).max()) for p, q in
-            zip(params_to_numpy(net), params_to_numpy(on_cpu)) for k in p),
+        max(float(np.abs(p - q).max()) for p, q in zip(arrays(net), arrays(on_cpu))),
         max(float((a.float().cpu() - b.float()).abs().max()) for a, b in
             zip(net.updater_state_leaves(), on_cpu.updater_state_leaves())))
     torch.backends.cudnn.deterministic = True
     try:
         resumed = []
         for n in (net, back):
-            n.fit((x, y))
-            resumed.append((n.score(), params_to_numpy(n)))
+            n.fit(data)
+            resumed.append((n.score(), arrays(n)))
     finally:
         torch.backends.cudnn.deterministic = False
-    param_err = max(float(np.abs(p[k] - q[k]).max())
-                    for p, q in zip(resumed[0][1], resumed[1][1]) for k in p)
+    param_err = max(float(np.abs(p - q).max()) for p, q in zip(resumed[0][1], resumed[1][1]))
     loss_err = abs(resumed[0][0] - resumed[1][0])
-    return dict(iterations=iterations, cpu_restore_max_abs_err=cpu_err,
-                resume_max_param_abs_err=param_err, resume_loss_abs_err=loss_err,
-                seconds=time.perf_counter() - t0,
+    return dict(model_class=type(net).__name__, iterations=iterations,
+                cpu_restore_max_abs_err=cpu_err, resume_max_param_abs_err=param_err,
+                resume_loss_abs_err=loss_err, seconds=time.perf_counter() - t0,
                 ok=(cpu_err == 0.0 and param_err == 0.0 and loss_err == 0.0
                     and len(set(iterations.values())) == 1))
 
@@ -2547,9 +2569,9 @@ def alexnet_resume(torch, net, x, y) -> dict:
 def phase_train_alexnet(torch, lr, dtype, host, card):
     """AlexNet's training from the seed params. The card against the CPU:
     the conf with dropout 0, Nesterov at lr 1e-2, 3 updates of one B=8
-    batch (the loss must fall), held by ``alexnet_readings``; the same on the
+    batch (the loss must fall), held by ``train_readings``; the same on the
     card with LRN's backward missing its second term must fail the limits.
-    ``evaluate`` on both; in f32, ``alexnet_resume`` of the card's net. Then
+    ``evaluate`` on both; in f32, ``resume_check`` of the card's net. Then
     the conf itself (dropout 0.5) at B=128: exact launches per update, ms per
     update and images/s, median of 3 timed updates after 2 warm-up ones (the
     host's images, as ``fit`` takes them), and 3 more with the batch on the
@@ -2578,13 +2600,13 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
     t0 = time.perf_counter()
     runs = {dev: train_small(dev) for dev in ("cuda", "cpu")}
     compared_s = time.perf_counter() - t0
-    readings = alexnet_readings(runs["cuda"][1:], runs["cpu"][1:], host)
+    readings = train_readings(runs["cuda"][1:], runs["cpu"][1:], host)
     within = within_limits(readings, lim)
     real_bwd = lr.lrn_backward
     c = lr._const
     lr.lrn_backward = lambda x, d, g, k, n, a, b: g * d ** float(c(-b, x.dtype))
     try:
-        fault = alexnet_readings(train_small("cuda")[1:], runs["cpu"][1:], host)
+        fault = train_readings(train_small("cuda")[1:], runs["cpu"][1:], host)
     finally:
         lr.lrn_backward = real_bwd
     fault["caught"] = not within_limits(fault, lim)
@@ -2596,7 +2618,7 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
 
     # f32 only: the zip holds the same f32 master params in either dtype, and
     # writing and reading 62.4M params takes ~40 s
-    resume = alexnet_resume(torch, runs["cuda"][0], x8, y8) if dtype == "float32" else None
+    resume = resume_check(torch, runs["cuda"][0], (x8, y8)) if dtype == "float32" else None
 
     # the conf itself (dropout 0.5) at B=128
     conf = alexnet_conf(dtype=dtype)
@@ -2646,6 +2668,288 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
     return launches, ms, net, batch
 
 
+# ---- the GoogLeNet slice: googlenet_conf() at its own widths (224x224x3
+# images, 1000 classes; 6,998,552 params, 13,378,280 with the two auxiliary
+# heads), a ComputationGraph of 9 inception merges; B=128 as AlexNet's, the
+# conf's Nesterov at lr 1e-2 and dropout 0.4. Its two LRN layers run rows 3-4
+# at [B, 56, 56, 64] and [B, 56, 56, 192], each head rows 10-11 at N=B,
+# C=1000. Images and labels are synthetic, as AlexNet's; every head of the
+# graph learns the same labels.
+GOOG_B, GOOG_CPU_B, GOOG_UPDATES = 128, 4, 3
+GOOG_LRN_SHAPES = {"googlenet_lrn1": (GOOG_B, 56, 56, 64),
+                   "googlenet_lrn2": (GOOG_B, 56, 56, 192)}
+# training on the card against the same training on the CPU (B=4, dropout 0,
+# the aux heads on, 3 updates of one batch), read as AlexNet's
+# (train_readings). The limits sit between what the right training reads and
+# what the phase's two wrong versions read on the card: a MergeVertex that
+# swaps its last two branches (the same channels in total, so every shape
+# holds) and LRN's backward without its second term. On the CPU against a
+# float64 oracle (scripts/googlenet_train_sensitivity.py) f32 reads loss
+# 7.6e-8, first change 8.4e-4, third 4.1e-3; with the swapped merge 2.9e-3,
+# 2.20, 1.90; without LRN's second term 3.4e-5, 0.56, 1.12. bf16 reads 1.2e-4,
+# 0.19, 0.099; 2.7e-3, 2.22, 1.90; 1.4e-4, 0.59, 1.11. So each dtype holds
+# both faults by the changes (bf16's first change only the merge: its own
+# rounding moves it by a third of what the LRN fault does), and the loss only
+# an update gone wrong.
+GOOG_TRAIN_LIMITS = {
+    "float32": {"loss_rel": 1e-3, "first_change_rel": 5e-2, "change_rel": 0.1},
+    "bfloat16": {"loss_rel": 1e-2, "first_change_rel": 0.6, "change_rel": 0.4},
+}
+GOOG_FAULTS = ("merge_branches_swapped", "lrn_bwd_without_second_term")
+# served probabilities, card against CPU on 4 images: max |err| over max |p|
+GOOG_SERVE_REL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def googlenet_params(conf, seed):
+    """Random GoogLeNet weights from a numpy seed, vertex name -> {"W", "b"}
+    in the JAX package's layout (conv W [kh, kw, in, out], dense W [in,
+    out]), drawn in topological order: convolutions N(0, 1/(2 fan_in)), the
+    aux heads' dense layers N(0, 2/fan_in), the output layers N(0, 0.01^2),
+    zero biases. On pixel-scale images both LRN layers then see inputs whose
+    window sums weigh on y (the phase's LRN fault shows it), and three
+    Nesterov updates at lr 1e-2 lower the loss."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vit = conf.vertex_input_types()
+    params = {}
+    for name in conf.topological_order():
+        layer = getattr(conf.vertices[name], "layer", None)
+        kind, it = type(layer).__name__, vit[name][0]
+        if kind == "ConvolutionLayer":
+            shape = (*layer.kernel, it.channels, layer.n_out)
+            std = np.sqrt(0.5 / np.prod(shape[:3]))
+        elif kind in ("DenseLayer", "OutputLayer"):
+            shape = (it.flat_size(), layer.n_out)
+            std = np.sqrt(2.0 / shape[0]) if kind == "DenseLayer" else 0.01
+        else:
+            continue
+        params[name] = {"W": rng.normal(0.0, std, shape), "b": np.zeros(layer.n_out)}
+    return params
+
+
+def googlenet_net(conf, host, device=DEVICE):
+    """A ComputationGraph of ``conf`` holding ``host``'s params of its
+    vertices."""
+    from deeplearning4j_tpu_torch import ComputationGraph, load_jax_params
+
+    return load_jax_params(ComputationGraph(conf, device=device),
+                           {n: p for n, p in host.items() if n in conf.vertices})
+
+
+def phase_serve_googlenet(torch, host, card):
+    """``output`` and ``predict`` of GoogLeNet (the conf as it is) at
+    B=128, f32 and bf16: shape, rows that sum to 1, predict as output's
+    argmax, exactly 2 row-3 launches (the serving forward) and no other
+    kernel per call; the card against the CPU on 4 of the images; host-clock
+    ms of output(), median of 5. Returns the launch counts."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import googlenet_conf, ops
+
+    x, _ = alexnet_images(GOOG_B, SEED + 8)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = googlenet_conf(dtype=dtype)
+        net = googlenet_net(conf, host)
+        per_call, results = {}, {}
+        for call, fn in (("output", lambda: net.output(x)), ("predict", lambda: net.predict(x))):
+            torch.cuda.synchronize()
+            ops.reset_counters()
+            results[call] = fn()
+            torch.cuda.synchronize()
+            per_call[call] = {k: v for k, v in ops.counters().items() if v}
+        for counts in per_call.values():
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        probs, cls = results["output"], results["predict"]
+        t0 = time.perf_counter()
+        cpu_probs = googlenet_net(conf, host, "cpu").output(x[:GOOG_CPU_B])
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float(np.abs(net.output(x[:GOOG_CPU_B]) - cpu_probs).max()
+                        / np.abs(cpu_probs).max())
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            net.output(x)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ok = (probs.shape == (GOOG_B, 1000) and bool(np.isfinite(probs).all())
+              and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-2
+              and cls.shape == (GOOG_B,) and bool((cls == probs.argmax(-1)).all())
+              and all(c == {"lrn_fwd": 2} for c in per_call.values())
+              and cpu_err <= GOOG_SERVE_REL[dtype])
+        emit("serve_googlenet", dtype=dtype, B=GOOG_B, shape=list(probs.shape),
+             launches_per_call=per_call, max_err_vs_cpu_over_max_prob=cpu_err,
+             cpu_batch=GOOG_CPU_B, limit=GOOG_SERVE_REL[dtype], cpu_output_s=cpu_s,
+             top_prob_max=float(probs.max()), output_ms_runs=runs,
+             output_ms_median=statistics.median(runs), ok=ok, gpu=card)
+        if not ok:
+            raise AssertionError(f"GoogLeNet serving {dtype} failed its checks")
+    return launches
+
+
+def swapped_merge(torch):
+    """A wrong MergeVertex.apply: its last two branches swapped."""
+    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+        ins = list(inputs)
+        ins[-2], ins[-1] = ins[-1], ins[-2]
+        return torch.cat(ins, dim=-1)
+    return apply
+
+
+def phase_train_googlenet(torch, lr, dtype, host, card):
+    """GoogLeNet's training from the seed params. The card against the CPU:
+    the conf with dropout 0 and the two aux heads, Nesterov at lr 1e-2, 3
+    updates of one B=4 batch (the loss must fall), held by
+    ``train_readings``; exactly 2 + 2 LRN launches and one softmax-xent
+    forward and backward per head per update; the same on the card with a
+    wrong version (each of GOOG_FAULTS) must fail the limits. ``evaluate`` (one
+    Evaluation a head) on both; in f32, ``resume_check`` of the card's net.
+    Then the conf itself (dropout 0.4, one head) at B=128: exact launches
+    per update, ms per update and images/s, median of 3 timed updates after
+    2 warm-up ones (the host's images, as ``fit`` takes them), and 3 more
+    with the batch on the card. Returns (launch counts of the B=4 and timed
+    B=128 updates, ms per update, the B=128 net, its batch)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiDataSet, googlenet_conf, ops, params_to_numpy
+    from deeplearning4j_tpu_torch.nn.graph import vertices
+
+    lim = GOOG_TRAIN_LIMITS[dtype]
+    x4, y4 = alexnet_images(GOOG_CPU_B, SEED + 9)
+    small = MultiDataSet([x4], [y4] * 3)
+    conf0 = googlenet_conf(dtype=dtype, dropout=0.0, aux_heads=True)
+    heads = len(conf0.network_outputs)
+
+    def train_small(dev):
+        n = googlenet_net(conf0, host, dev)
+        r = LossRecorder()
+        n.set_listeners(r)
+        n.fit(small)
+        first = params_to_numpy(n)
+        for _ in range(GOOG_UPDATES - 1):
+            n.fit(small)
+        n.set_listeners()
+        return n, np.array([float(l) for l in r.losses]), first, params_to_numpy(n)
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    runs = {"cuda": train_small("cuda")}
+    torch.cuda.synchronize()
+    small_launches = ops.counters()
+    runs["cpu"] = train_small("cpu")
+    compared_s = time.perf_counter() - t0
+    small_expected = dict.fromkeys(small_launches, 0)
+    small_expected.update({"lrn_fwd": 2 * GOOG_UPDATES, "lrn_bwd": 2 * GOOG_UPDATES,
+                           "softmax_xent_fwd": heads * GOOG_UPDATES,
+                           "softmax_xent_bwd": heads * GOOG_UPDATES})
+    readings = train_readings(runs["cuda"][1:], runs["cpu"][1:], host)
+    within = within_limits(readings, lim)
+    faults = {}
+    for fault in GOOG_FAULTS:
+        real_bwd, real_merge = lr.lrn_backward, vertices.MergeVertex.apply
+        c = lr._const
+        if fault == "merge_branches_swapped":
+            vertices.MergeVertex.apply = swapped_merge(torch)
+        else:
+            lr.lrn_backward = lambda x, d, g, k, n, a, b: g * d ** float(c(-b, x.dtype))
+        try:
+            faults[fault] = train_readings(train_small("cuda")[1:], runs["cpu"][1:], host)
+        finally:
+            lr.lrn_backward, vertices.MergeVertex.apply = real_bwd, real_merge
+        faults[fault]["caught"] = not within_limits(faults[fault], lim)
+    cpu_losses = runs["cpu"][1]
+    loss_fall = float(cpu_losses[0] - cpu_losses[-1])
+    card_fall = float(runs["cuda"][1][0] - runs["cuda"][1][-1])
+    acc = {dev: {h: ev.accuracy() for h, ev in runs[dev][0].evaluate(small).items()}
+           for dev in runs}
+    resume = resume_check(torch, runs["cuda"][0], small) if dtype == "float32" else None
+
+    # the conf itself (dropout 0.4, the main head) at B=128
+    net = googlenet_net(googlenet_conf(dtype=dtype), host)
+    batch = alexnet_images(GOOG_B, SEED + 10)
+    for _ in range(ALEX_TIMED["warmup"]):
+        net.fit(batch)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    times, losses = [], []
+    for _ in range(ALEX_TIMED["timed"]):
+        t0 = time.perf_counter()
+        net.fit(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score())
+    timed_launches = ops.counters()
+    timed = ALEX_TIMED["timed"]
+    expected = dict.fromkeys(timed_launches, 0)
+    expected.update({"lrn_fwd": 2 * timed, "lrn_bwd": 2 * timed, "softmax_xent_fwd": timed,
+                     "softmax_xent_bwd": timed})
+    ms = statistics.median(times)
+    on_card = tuple(torch.as_tensor(a, device=DEVICE) for a in batch)
+    card_times = []
+    for _ in range(ALEX_TIMED["timed"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(on_card)
+        torch.cuda.synchronize()
+        card_times.append((time.perf_counter() - t0) * 1e3)
+    ok = (within and all(f["caught"] for f in faults.values()) and loss_fall > 0.0
+          and card_fall > 0.0 and small_launches == small_expected
+          and timed_launches == expected and bool(np.isfinite(losses).all())
+          and acc["cuda"] == acc["cpu"] and (resume is None or resume["ok"]))
+    emit("train_googlenet", dtype=dtype, compared_batch=GOOG_CPU_B,
+         compared_updates=GOOG_UPDATES, heads=conf0.network_outputs,
+         cpu_losses=cpu_losses.tolist(), card_losses=runs["cuda"][1].tolist(),
+         cpu_loss_fall=loss_fall, readings_vs_cpu=readings, limits=lim,
+         faults_vs_cpu=faults, compared_s=compared_s, compared_launches=small_launches,
+         compared_expected_launches=small_expected, evaluate_accuracy=acc,
+         checkpoint=resume, B=GOOG_B, dropout=0.4, timed_losses=losses,
+         kernel_launches=timed_launches, expected_launches=expected, update_ms_runs=times,
+         ms_per_update=ms, images_per_s=GOOG_B / (ms / 1e3), batch_on_card_ms_runs=card_times,
+         batch_on_card_ms_per_update=statistics.median(card_times),
+         batch_on_card_images_per_s=GOOG_B / (statistics.median(card_times) / 1e3),
+         ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"GoogLeNet training {dtype} failed its checks")
+    launches = {k: small_launches.get(k, 0) + timed_launches.get(k, 0)
+                for k in set(small_launches) | set(timed_launches)}
+    return launches, ms, net, batch
+
+
+def time_sxent_head(torch, sx, card):
+    """ms of rows 10-11 at the image nets' loss head (N=128 rows, C=1000
+    classes), f32 and bf16, beside the plain versions, the bounds and
+    cross_entropy with probability targets (forward; forward+backward)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    times = {}
+    N, C = ALEX_SXENT
+    for dtype in ("float32", "bfloat16"):
+        x, lab = sxent_inputs(torch, N, dtype, "one_hot", SEED, C=C)
+        g = torch.as_tensor(np.random.default_rng(SEED).normal(0.0, 1.0, N),
+                            dtype=torch.float32, device=DEVICE)
+        xg, lg = x.clone().requires_grad_(), lab.clone().requires_grad_()
+        gl = g.to(x.dtype)
+
+        def lib_fwd_bwd():
+            xg.grad = lg.grad = None
+            F.cross_entropy(xg, lg, reduction="none").backward(gl)
+
+        for name, kern, plain, lib, backward in (
+                ("softmax_xent_fwd", lambda: sx.fused_softmax_xent(x, lab),
+                 lambda: sx.softmax_xent_reference(x, lab),
+                 lambda: F.cross_entropy(x, lab, reduction="none"), False),
+                ("softmax_xent_bwd", lambda: sx.softmax_xent_backward(x, lab, g),
+                 lambda: sx.softmax_xent_backward_reference(x, lab, g), lib_fwd_bwd, True)):
+            times[(name, dtype)] = time_pair(
+                torch, name, kern, plain, lib, *bound_sxent(N, C, dtype, backward), card,
+                dtype=dtype, N=N, C=C, layer="image nets' loss head (AlexNet, GoogLeNet)",
+                ms_in_a_row=in_a_row_ms(kern))
+    return times
+
+
 def lrn_entry(dtype: str, backward: bool, with_d: bool = True) -> str:
     """The readable name of the entry that AlexNet's LRN launches (n=5,
     beta 0.75, contiguous: windows in registers)."""
@@ -2682,8 +2986,8 @@ def in_a_row_ms(fn, calls: int = 20) -> float:
 
 
 def time_lrn(torch, lr, card, sass: dict):
-    """ms of rows 3-4 at LRN 1's shape (the table's) and LRN 2's, f32 and
-    bf16, beside the plain versions, the bounds and F.local_response_norm on
+    """ms of rows 3-4 at AlexNet's LRN 1 shape (the table's) and LRN 2's,
+    and at GoogLeNet's two, f32 and bf16, beside the plain versions, the bounds and F.local_response_norm on
     the same channels-last view (torch divides alpha by n: it is given
     alpha*n): its forward for row 3, its forward plus backward for row 4.
     The serving forward (y alone) is timed beside the training one, and
@@ -2698,7 +3002,7 @@ def time_lrn(torch, lr, card, sass: dict):
     times = {}
     args = (LRN_K, LRN_N, LRN_ALPHA, LRN_BETA)
     for dtype in ("float32", "bfloat16"):
-        for where, shape in LRN_SHAPES.items():
+        for where, shape in {**LRN_SHAPES, **GOOG_LRN_SHAPES}.items():
             x, g = lrn_inputs(torch, shape, dtype, SEED)
             _, d = lr.lrn_forward(x, *args)
             xg = x.clone().requires_grad_()
@@ -2989,7 +3293,7 @@ def main() -> int:
     import numpy as np
 
     from deeplearning4j_tpu_torch import (DecodeServer, MultiLayerNetwork, alexnet_conf,
-                                          char_rnn, load_jax_params, ops)
+                                          char_rnn, googlenet_conf, load_jax_params, ops)
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import adam as ad
     from deeplearning4j_tpu_torch.ops import lstm_sequence as ls
@@ -3131,6 +3435,18 @@ def main() -> int:
     for name in ("softmax_xent_fwd", "softmax_xent_bwd"):
         launches[name] += sum(run[0][name] for run in alex_train.values())
 
+    # ---- 4f. GoogLeNet, a ComputationGraph: serving, then training (rows 3-4; 10-11)
+    goog_host = googlenet_params(googlenet_conf(aux_heads=True), SEED)
+    goog_serve = phase_serve_googlenet(torch, goog_host, card)
+    goog_train = {dtype: phase_train_googlenet(torch, lr, dtype, goog_host, card)
+                  for dtype in ("float32", "bfloat16")}
+    for name in (*LRN_KERNELS, "softmax_xent_fwd", "softmax_xent_bwd"):
+        on_path = (goog_serve.get(name, 0)
+                   + sum(run[0].get(name, 0) for run in goog_train.values()))
+        if not on_path:
+            raise AssertionError(f"{name} did not launch on the GoogLeNet path")
+        launches[name] += on_path
+
     # ---- 5. times
     times = {}
     for dtype in ("float32", "bfloat16"):
@@ -3181,6 +3497,7 @@ def main() -> int:
     lrn_times = time_lrn(torch, lr, card, sass["lrn"])
     for name in LRN_KERNELS:  # the table's shape: LRN 1
         times[(name, "float32")] = lrn_times[(name, "float32", "lrn1")]
+    time_sxent_head(torch, sx, card)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -3209,6 +3526,15 @@ def main() -> int:
     emit("profile", what="fit() one Nesterov update of AlexNet, f32 B=128, dropout 0.5",
          gpu=card, **profile(torch, lambda: alex_net.fit(alex_batch), top=14,
                              groups=ALEX_PROFILE_GROUPS))
+    for dtype, (_, _, goog_net, goog_batch) in goog_train.items():
+        emit("profile", what=f"fit() one Nesterov update of GoogLeNet, {dtype} B=128, "
+             "dropout 0.4", gpu=card, **profile(torch, lambda: goog_net.fit(goog_batch),
+                                               top=14, groups=ALEX_PROFILE_GROUPS))
+    x_goog = alexnet_images(GOOG_B, SEED + 8)[0]
+    goog_serving = googlenet_net(googlenet_conf(), goog_host)
+    emit("profile", what="output() of GoogLeNet, f32 B=128", gpu=card,
+         **profile(torch, lambda: goog_serving.output(x_goog), top=14,
+                   groups=ALEX_PROFILE_GROUPS))
     server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
 
     emit("profile", what=f"decode {SLOTS} sessions x {DECODE_CHARS} chars f32", gpu=card,

@@ -10,8 +10,13 @@ momentum or Nesterov, on padded variable-length batches of
 (``write_model``, ``restore_model``). It serves and trains causal
 self-attention networks the same ways (``SelfAttentionLayer``,
 ``LayerNormLayer``), and AlexNet (``alexnet_conf``: ``ConvolutionLayer``,
-``LocalResponseNormalization``, ``SubsamplingLayer`` over NHWC images). The
-LSTM recurrence, masked or not, its backward, flash attention and its
+``LocalResponseNormalization``, ``SubsamplingLayer`` over NHWC images). It
+builds DAG networks (``ComputationGraphConfiguration``, its vertices and the
+input preprocessors, which ``MultiLayerConfiguration`` takes too) and
+serves, trains, evaluates and checkpoints them as ``ComputationGraph``,
+GoogLeNet among them (``googlenet_conf``: ``MergeVertex``,
+``GlobalPoolingLayer``, ``DropoutLayer``, multi-output training over
+``MultiDataSet``). The LSTM recurrence, masked or not, its backward, flash attention and its
 backward, LRN and its backward, the softmax cross-entropy and the Adam update
 run in hand-written CUDA kernels (``ops/csrc/``); the LSTM layers run either
 the whole-sequence kernels (the default) or, with
@@ -20,18 +25,47 @@ kernel launch per step. Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
-from .datasets.iterators import BucketingSequenceIterator, DataSet, pad_to_bucket
+from .datasets.iterators import (BucketingSequenceIterator, DataSet, MultiDataSet,
+                                 pad_to_bucket)
 from .eval.evaluation import Evaluation
 from .interop.jax_params import load_jax_model_zip, load_jax_params, params_to_numpy
 from .models.alexnet import alexnet_conf
 from .models.char_rnn import char_rnn
+from .models.googlenet import googlenet_conf
+from .nn.conf.computation_graph import ComputationGraphConfiguration, GraphBuilder
 from .nn.conf.inputs import InputType
 from .nn.conf.multi_layer import MultiLayerConfiguration
+from .nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor,
+    CnnToRnnPreProcessor,
+    ComposableInputPreProcessor,
+    FeedForwardToCnnPreProcessor,
+    FeedForwardToRnnPreProcessor,
+    RnnToCnnPreProcessor,
+    RnnToFeedForwardPreProcessor,
+)
+from .nn.graph import (
+    ComputationGraph,
+    DuplicateToTimeSeriesVertex,
+    ElementWiseVertex,
+    L2NormalizeVertex,
+    L2Vertex,
+    LastTimeStepVertex,
+    LayerVertex,
+    MergeVertex,
+    PreprocessorVertex,
+    ReshapeVertex,
+    ScaleVertex,
+    ShiftVertex,
+    StackVertex,
+    SubsetVertex,
+    UnstackVertex,
+)
 from .nn.layers.attention import LayerNormLayer, SelfAttentionLayer
 from .nn.layers.convolution import ConvolutionLayer
-from .nn.layers.dense import DenseLayer, OutputLayer
+from .nn.layers.dense import DenseLayer, DropoutLayer, OutputLayer
 from .nn.layers.normalization import LocalResponseNormalization
-from .nn.layers.pooling import SubsamplingLayer
+from .nn.layers.pooling import GlobalPoolingLayer, SubsamplingLayer
 from .nn.layers.recurrent import GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer
 from .nn.multilayer import MultiLayerNetwork
 from .nn.updaters import UpdaterConfig
@@ -40,25 +74,53 @@ from .utils.serialization import restore_model, write_model
 
 __all__ = [
     "BucketingSequenceIterator",
+    "CnnToFeedForwardPreProcessor",
+    "CnnToRnnPreProcessor",
+    "ComposableInputPreProcessor",
+    "ComputationGraph",
+    "ComputationGraphConfiguration",
     "ConvolutionLayer",
     "DataSet",
     "DecodeServer",
     "DenseLayer",
+    "DropoutLayer",
+    "DuplicateToTimeSeriesVertex",
+    "ElementWiseVertex",
     "Evaluation",
+    "FeedForwardToCnnPreProcessor",
+    "FeedForwardToRnnPreProcessor",
+    "GlobalPoolingLayer",
+    "GraphBuilder",
     "GravesBidirectionalLSTM",
     "GravesLSTM",
     "InputType",
+    "L2NormalizeVertex",
+    "L2Vertex",
+    "LastTimeStepVertex",
     "LayerNormLayer",
+    "LayerVertex",
     "LocalResponseNormalization",
+    "MergeVertex",
+    "MultiDataSet",
     "MultiLayerConfiguration",
     "MultiLayerNetwork",
     "OutputLayer",
+    "PreprocessorVertex",
+    "ReshapeVertex",
     "RnnOutputLayer",
+    "RnnToCnnPreProcessor",
+    "RnnToFeedForwardPreProcessor",
+    "ScaleVertex",
     "SelfAttentionLayer",
+    "ShiftVertex",
+    "StackVertex",
     "SubsamplingLayer",
+    "SubsetVertex",
+    "UnstackVertex",
     "UpdaterConfig",
     "alexnet_conf",
     "char_rnn",
+    "googlenet_conf",
     "load_jax_model_zip",
     "load_jax_params",
     "pad_to_bucket",

@@ -1,12 +1,13 @@
 """Minibatches for ``fit`` (counterpart of
 ``deeplearning4j_tpu/datasets/iterators.py``: its ``DataSet``,
-``as_iterator``, ``pad_to_bucket`` and ``BucketingSequenceIterator``).
+``MultiDataSet``, ``as_iterator``, ``pad_to_bucket`` and
+``BucketingSequenceIterator``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -24,11 +25,40 @@ class DataSet:
         return int(self.features.shape[0])
 
 
+@dataclass
+class MultiDataSet:
+    """Multi-input, multi-output minibatch (reference: ND4J MultiDataSet),
+    for ``ComputationGraph``: one array per network input and output, in
+    their declared order, and optional masks aligned with them."""
+
+    features: List[np.ndarray]
+    labels: List[np.ndarray]
+    features_masks: Optional[List[Optional[np.ndarray]]] = None
+    labels_masks: Optional[List[Optional[np.ndarray]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+
+def as_multi(ds) -> MultiDataSet:
+    """A batch as a MultiDataSet: a DataSet or an (x, y) pair becomes one
+    of one input and one output, its masks carried."""
+    if isinstance(ds, MultiDataSet):
+        return ds
+    if isinstance(ds, (tuple, list)) and len(ds) == 2:
+        ds = DataSet(ds[0], ds[1])
+    if isinstance(ds, DataSet):
+        return MultiDataSet(features=[ds.features], labels=[ds.labels],
+                            features_masks=[ds.features_mask],
+                            labels_masks=[ds.labels_mask])
+    raise TypeError(f"Cannot convert {type(ds).__name__} to MultiDataSet")
+
+
 def as_iterator(data) -> Iterable[DataSet]:
-    """Normalize fit() input: an (x, y) tuple or a DataSet becomes a
-    one-batch list; anything else is taken as an iterable of DataSets or of
-    (x, y) tuples."""
-    if isinstance(data, DataSet):
+    """Normalize fit() input: an (x, y) tuple, a DataSet or a MultiDataSet
+    becomes a one-batch list; anything else is taken as an iterable of
+    those."""
+    if isinstance(data, (DataSet, MultiDataSet)):
         return [data]
     if isinstance(data, tuple) and len(data) == 2:
         return [DataSet(data[0], data[1])]

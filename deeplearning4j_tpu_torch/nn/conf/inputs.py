@@ -23,6 +23,16 @@ class InputType:
     width: int = 0
     channels: int = 0
 
+    def __str__(self) -> str:  # compact form for summary() tables
+        if self.kind == "ff":
+            return f"ff({self.size})"
+        if self.kind == "rnn":
+            t = "?" if self.timesteps is None else self.timesteps
+            return f"rnn({self.size}, T={t})"
+        if self.kind in ("cnn", "cnn_flat"):
+            return f"{self.kind}({self.height}x{self.width}x{self.channels})"
+        return self.kind
+
     @staticmethod
     def feed_forward(size: int) -> "InputType":
         return InputType(kind="ff", size=int(size))

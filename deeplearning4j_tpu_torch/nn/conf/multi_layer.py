@@ -4,7 +4,9 @@ configures both packages.
 
 ``updater``, ``backprop_type``, ``tbptt_*`` and ``loss_scale`` are the
 training settings ``MultiLayerNetwork.fit`` acts on; ``updater`` stays the
-plain dict of the JSON. ``remat`` is kept as it is, not acted on.
+plain dict of the JSON. ``preprocessors`` maps a layer's index to the input
+preprocessor that reshapes its input (``conf/preprocessors.py``). ``remat``
+is kept as it is, not acted on.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, List, Optional
 
 from ..layers.base import BaseLayer, layer_from_dict
 from .inputs import InputType
+from .preprocessors import InputPreProcessor, preprocessor_from_dict
 
 
 @dataclass
@@ -32,18 +35,20 @@ class MultiLayerConfiguration:
     remat: bool = False
     params_dtype: Optional[str] = None  # "bfloat16" stores the params in bf16
     loss_scale: Optional[float] = None
-    # per-layer input preprocessors, as their JSON dicts; none is ported yet
-    preprocessors: Dict[int, dict] = field(default_factory=dict)
+    # per-layer-index input preprocessors (reference: nn/conf/preprocessor/*);
+    # stored as {"idx": {"@type": ...}} in JSON
+    preprocessors: Dict[int, InputPreProcessor] = field(default_factory=dict)
 
     def layer_input_types(self) -> List[InputType]:
-        """InputType seen by each layer."""
+        """InputType seen by each layer (preprocessors applied)."""
         if self.input_type is None:
             raise ValueError("input_type must be set for shape inference")
-        if self.preprocessors:
-            raise NotImplementedError("input preprocessors are not ported yet")
         its: List[InputType] = []
         cur = self.input_type
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            pre = self.preprocessors.get(i)
+            if pre is not None:
+                cur = pre.get_output_type(cur)
             its.append(cur)
             cur = layer.get_output_type(cur)
         return its
@@ -61,7 +66,7 @@ class MultiLayerConfiguration:
             "remat": self.remat,
             "params_dtype": self.params_dtype,
             "loss_scale": self.loss_scale,
-            "preprocessors": {str(k): v for k, v in self.preprocessors.items()},
+            "preprocessors": {str(k): v.to_dict() for k, v in self.preprocessors.items()},
         }
 
     def to_json(self) -> str:
@@ -81,7 +86,8 @@ class MultiLayerConfiguration:
             remat=d.get("remat", False),
             params_dtype=d.get("params_dtype"),
             loss_scale=d.get("loss_scale"),
-            preprocessors={int(k): v for k, v in (d.get("preprocessors") or {}).items()},
+            preprocessors={int(k): preprocessor_from_dict(v)
+                           for k, v in (d.get("preprocessors") or {}).items()},
         )
 
     @staticmethod

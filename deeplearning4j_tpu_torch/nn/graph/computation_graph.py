@@ -1,0 +1,325 @@
+"""ComputationGraph (counterpart of
+``deeplearning4j_tpu/nn/graph/computation_graph.py``): a DAG network,
+served and trained.
+
+The network is an ``nn.Module`` holding one ``nn.ParameterDict`` per vertex
+on an explicit device, sharing ``MultiLayerNetwork``'s helpers
+(``BaseNetwork``): the card unless the caller passes ``device="cpu"``, the
+compute and param dtypes, the listeners, the updater and its state.
+
+- The forward runs the vertices in ``conf.topological_order()``; the
+  initial params are drawn in that order from one generator seeded by
+  ``conf.seed``. A graph with a single features mask hands it to every
+  layer (the JAX package's one-mask convenience); ``LastTimeStepVertex``
+  reads its network input's own mask.
+- The params are held, updated and saved as the JAX package's params dict
+  keyed by vertex name is, in ``jax.tree_util.tree_leaves`` order: sorted
+  vertex name, then sorted param key. Vertices without params add no
+  leaves.
+- The training loss sums every network output's ``compute_loss`` (each an
+  output layer) over f32 inputs and f32 params, plus every vertex's
+  regularization; one update per batch.
+- ``output`` and ``predict`` take one array per network input and return
+  host arrays: one for a single-output graph, else a list.
+
+Graph TBPTT and ``rnn_time_step``, the staged ``fit_on_device`` and
+``warmup``, telemetry, ``memory_report``, ``preflight``, ``analyze_ir`` and
+``clone`` are not ported yet (ROADMAP.md Queue 1) and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ...datasets.iterators import MultiDataSet, as_iterator, as_multi
+from ...eval.evaluation import Evaluation
+from ..conf.computation_graph import ComputationGraphConfiguration
+from ..multilayer import BaseNetwork, to_host
+from .vertices import LayerVertex
+
+# losses whose heads ``evaluate`` scores as classifiers
+_CLASS_LOSSES = ("mcxent", "negativeloglikelihood", "xent", "binary_xent")
+
+
+def _later(what: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"ComputationGraph.{what} is not ported yet (ROADMAP.md Queue 1)")
+    method.__name__ = what
+    return method
+
+
+def _summary_table(rows, total: int) -> str:
+    """Fixed-width table and a totals line, as the JAX package prints it."""
+    widths = [max(len(r[c]) for r in rows) for c in range(len(rows[0]))]
+    lines = ["  ".join(v.ljust(w) for v, w in zip(r, widths)).rstrip() for r in rows]
+    lines.insert(1, "-" * max(len(l) for l in lines))
+    lines.append(f"Total params: {total:,}")
+    return "\n".join(lines)
+
+
+class ComputationGraph(BaseNetwork):
+    """DAG network over a :class:`ComputationGraphConfiguration`."""
+
+    def __init__(self, conf: ComputationGraphConfiguration, device="cuda"):
+        super().__init__(conf, device)
+        self._topo = conf.topological_order()
+        self._names = sorted(conf.vertices)  # the leaf order
+        self.vertex_params: Dict[str, torch.nn.ParameterDict] = {}
+        self._param_modules = torch.nn.ModuleList()  # the same, registered
+
+    # ------------------------------------------------------------------ init
+    def init(self, params: Optional[Dict[str, dict]] = None, force: bool = False,
+             generator: Optional[torch.Generator] = None) -> "ComputationGraph":
+        """Create the params: from ``params`` (vertex name -> dict of arrays;
+        a vertex without params may be left out), else drawn vertex by
+        vertex in topological order from ``generator`` (default: seeded by
+        ``conf.seed``). Resets the updater state and the iteration count."""
+        if self._initialized and not force and params is None:
+            return self
+        if params is None:
+            vit = self.conf.vertex_input_types()
+            gen = generator if generator is not None else torch.Generator().manual_seed(
+                self.conf.seed)
+            params = {name: self.conf.vertices[name].init_params(gen, *vit[name])
+                      for name in self._topo}
+        unknown = sorted(set(params) - set(self.conf.vertices))
+        if unknown:
+            raise ValueError(f"params for vertices the graph does not have: {unknown}")
+        self.vertex_params = {name: self._param_dict(params.get(name, {}))
+                              for name in self._topo}
+        self._param_modules = torch.nn.ModuleList(self.vertex_params[n] for n in self._names)
+        self._reset()
+        return self
+
+    def _leaves(self) -> List[dict]:
+        """The trainable params, one dict per vertex by sorted vertex name."""
+        return [dict(self.vertex_params[n].items()) for n in self._names]
+
+    def _cast_params(self) -> Dict[str, dict]:
+        """Params in the compute dtype, as casts of the leaves that autograd
+        follows (the leaf itself where the dtypes agree)."""
+        dt = self.compute_dtype
+        return {name: {k: v.to(dt) for k, v in p.items()}
+                for name, p in self.vertex_params.items()}
+
+    def _params(self) -> Dict[str, dict]:
+        """Params in the compute dtype for inference: cast once, and again
+        after every update."""
+        if self._compute_params is None:
+            with torch.no_grad():
+                self._compute_params = {name: {k: v.detach() for k, v in p.items()}
+                                        for name, p in self._cast_params().items()}
+        return self._compute_params
+
+    def _masks(self, masks) -> Optional[Dict[str, Optional[torch.Tensor]]]:
+        """Network-input name -> features mask on the device."""
+        if not masks:
+            return None
+        return {name: self._mask(m) for name, m in masks.items()}
+
+    def _input_masks(self, mds: MultiDataSet):
+        if mds.features_masks is None or all(m is None for m in mds.features_masks):
+            return None
+        return self._masks(dict(zip(self.conf.network_inputs, mds.features_masks)))
+
+    def _labels_masks(self, mds: MultiDataSet):
+        if mds.labels_masks is None or all(m is None for m in mds.labels_masks):
+            return None
+        return [self._labels_mask(m) for m in mds.labels_masks]
+
+    # ------------------------------------------------------- functional core
+    def _activations(self, params, inputs, masks=None, *, train: bool = False,
+                     skip=()) -> Dict[str, torch.Tensor]:
+        """The topological forward (reference: ComputationGraph's
+        feed-forward loop): every vertex's activation but those in
+        ``skip``. ``inputs`` align with ``conf.network_inputs``; ``masks``
+        maps network-input names to [b, t] masks. ``train`` turns dropout
+        on."""
+        conf = self.conf
+        acts = dict(zip(conf.network_inputs, inputs))
+        vmasks = dict(masks or {})
+        # the one-mask convenience: a single mask reaches every layer
+        non_null = [m for m in vmasks.values() if m is not None]
+        vmasks["features"] = non_null[0] if len(non_null) == 1 else None
+        gen = self._generator if train else None
+        for name in self._topo:
+            if name in skip:
+                continue
+            acts[name] = conf.vertices[name].apply(
+                params[name], [acts[src] for src in conf.vertex_inputs[name]],
+                train=train, generator=gen, masks=vmasks)
+        return acts
+
+    def _loss(self, inputs, labels, labels_masks=None, masks=None,
+              train: bool = True) -> torch.Tensor:
+        """The sum of the output layers' losses plus regularization
+        (reference: ComputationGraph.computeGradientAndScore). The vertices
+        run in the compute dtype; each output layer takes f32 inputs and
+        f32 params, as the JAX package upcasts bf16 there. An output layer
+        that no vertex reads is not run forward: its loss takes its input."""
+        conf = self.conf
+        outs = conf.network_outputs
+        for name in outs:
+            vertex = conf.vertices[name]
+            if not (isinstance(vertex, LayerVertex) and vertex.is_output_layer):
+                raise ValueError(f"Training output '{name}' is not an output layer vertex")
+        read = {src for ins in conf.vertex_inputs.values() for src in ins}
+        acts = self._activations(self._cast_params(), inputs, masks, train=train,
+                                 skip=set(outs) - read)
+        gen = self._generator if train else None
+        total = 0.0
+        for i, name in enumerate(outs):
+            vertex = conf.vertices[name]
+            h = vertex.layer_input([acts[src] for src in conf.vertex_inputs[name]])
+            h32 = h.float() if h.dtype == torch.bfloat16 else h
+            p = {k: v.float() if v.dtype == torch.bfloat16 else v
+                 for k, v in self.vertex_params[name].items()}
+            lm = labels_masks[i] if labels_masks is not None else None
+            total = total + vertex.layer.compute_loss(p, h32, labels[i], lm, train=train,
+                                                      generator=gen)
+        reg = sum(conf.vertices[n].regularization_loss(dict(self.vertex_params[n].items()))
+                  for n in self._topo)
+        return total + reg
+
+    def loss_fn(self, inputs, labels, *, train: bool = False, labels_masks=None,
+                masks=None) -> torch.Tensor:
+        """Scalar loss of the current params, differentiable: one array per
+        network input and output, masks as ``fit`` takes them."""
+        self.init()
+        lms = None if labels_masks is None else [self._labels_mask(m) for m in labels_masks]
+        return self._loss([self._input(x) for x in inputs], [self._labels(y) for y in labels],
+                          lms, self._masks(masks), train=train)
+
+    @torch.no_grad()
+    def forward(self, *inputs, masks=None) -> List[torch.Tensor]:
+        """Device-side inference: one tensor per network output."""
+        self.init()
+        acts = self._activations(self._params(), [self._input(x) for x in inputs],
+                                 self._masks(masks))
+        return [acts[o] for o in self.conf.network_outputs]
+
+    # -------------------------------------------------------------- inference
+    @staticmethod
+    def _as_inputs(inputs):
+        if len(inputs) == 1 and isinstance(inputs[0], (list, tuple)):
+            return tuple(inputs[0])
+        return inputs
+
+    def output(self, *inputs, masks=None):
+        """Output activations as host arrays (reference:
+        ComputationGraph.output): one array for a single-output graph, else
+        a list. ``inputs``: one array per network input (or one list of
+        them); ``masks``: network-input name -> features mask."""
+        outs = [to_host(o) for o in self.forward(*self._as_inputs(inputs), masks=masks)]
+        return outs[0] if len(outs) == 1 else outs
+
+    def predict(self, *inputs, masks=None):
+        """Class indices (argmax over the last axis) per output as int32:
+        one array for a single-output graph, else a list."""
+        outs = [to_host(torch.argmax(o, dim=-1).to(torch.int32))
+                for o in self.forward(*self._as_inputs(inputs), masks=masks)]
+        return outs[0] if len(outs) == 1 else outs
+
+    def score(self, dataset=None) -> float:
+        """Loss on a dataset (inference mode: no dropout), or the last
+        training loss."""
+        if dataset is None:
+            return float(self._last_loss) if self._last_loss is not None else float("nan")
+        mds = as_multi(dataset)
+        with torch.no_grad():
+            self.init()
+            return float(self._loss([self._input(x) for x in mds.features],
+                                    [self._labels(y) for y in mds.labels],
+                                    self._labels_masks(mds), self._input_masks(mds),
+                                    train=False))
+
+    def evaluate(self, data, top_n: int = 1):
+        """Classification evaluation of ``output`` over ``data`` (reference:
+        ComputationGraph.evaluate). A single-output graph returns one
+        :class:`Evaluation`; otherwise ``{output name: Evaluation}`` over
+        the classification heads (mcxent, negativeloglikelihood, xent,
+        binary_xent losses). As in the JAX package, labels masks are not
+        applied."""
+        outs = self.conf.network_outputs
+        single = len(outs) == 1
+        names = [n for n in outs
+                 if single or getattr(getattr(self.conf.vertices[n], "layer", None), "loss",
+                                      None) in _CLASS_LOSSES]
+        if not names:
+            losses = [getattr(getattr(self.conf.vertices[n], "layer", None), "loss", None)
+                      for n in outs]
+            raise ValueError(f"evaluate(): no classification output heads (losses: "
+                             f"{', '.join(map(str, losses))}); use score() for regression "
+                             "heads")
+        idx = {n: i for i, n in enumerate(outs)}
+        evs = {n: Evaluation(top_n=top_n) for n in names}
+        for ds in as_iterator(data):
+            mds = as_multi(ds)
+            got = self.output(*mds.features, masks=self._input_masks(mds))
+            got = got if isinstance(got, list) else [got]
+            if len(got) != len(mds.labels):
+                raise ValueError(f"{len(got)} outputs but {len(mds.labels)} label arrays")
+            for n, ev in evs.items():
+                ev.eval(mds.labels[idx[n]], got[idx[n]])
+        return evs[names[0]] if single else evs
+
+    def summary(self) -> str:
+        """Vertex table in topological order: name, type, inputs, output
+        type, param count (reference: ComputationGraph.summary())."""
+        self.init()
+        vit = self.conf.vertex_input_types()
+        rows = [("vertex", "type", "inputs", "out", "params")]
+        total = 0
+        for name in self._topo:
+            vertex = self.conf.vertices[name]
+            n = sum(v.numel() for v in self.vertex_params[name].values())
+            total += n
+            vtype = (type(vertex.layer).__name__ if isinstance(vertex, LayerVertex)
+                     else type(vertex).__name__)
+            rows.append((name, vtype, ",".join(self.conf.vertex_inputs[name]),
+                         str(vertex.get_output_type(*vit[name])), f"{n:,}"))
+        return _summary_table(rows, total)
+
+    # --------------------------------------------------------------- training
+    def fit(self, data, epochs: int = 1) -> "ComputationGraph":
+        """Train (reference: ComputationGraph.fit(MultiDataSet)).
+
+        ``data``: a MultiDataSet, a DataSet, an (x, y) tuple, or an iterable
+        of any of them (an iterator with ``reset()`` is reset before each
+        epoch). One update per batch."""
+        self._updater_ready()
+        for _ in range(epochs):
+            it = as_iterator(data)
+            if hasattr(it, "reset"):
+                it.reset()
+            for ds in it:
+                self._fit_batch(as_multi(ds))
+            self.epoch += 1
+        return self
+
+    def _fit_batch(self, mds: MultiDataSet) -> None:
+        if self.conf.backprop_type == "tbptt" and any(len(f.shape) == 3
+                                                      for f in mds.features):
+            raise NotImplementedError(
+                "TBPTT of a ComputationGraph is not ported yet (ROADMAP.md Queue 1)")
+        self._update(self._loss([self._input(x) for x in mds.features],
+                                [self._labels(y) for y in mds.labels],
+                                self._labels_masks(mds), self._input_masks(mds)))
+
+    # ------------------------------------------------- not ported yet (later)
+    rnn_time_step = _later("rnn_time_step")
+    fit_on_device = _later("fit_on_device")
+    warmup = _later("warmup")
+    set_telemetry = _later("set_telemetry")
+    memory_report = _later("memory_report")
+    preflight = _later("preflight")
+    analyze_ir = _later("analyze_ir")
+    clone = _later("clone")
+
+
+__all__ = ["ComputationGraph"]

@@ -1,4 +1,4 @@
-"""Dense and output layers (counterpart of
+"""Dense, output and dropout layers (counterpart of
 ``deeplearning4j_tpu/nn/layers/dense.py``)."""
 
 from __future__ import annotations
@@ -59,3 +59,14 @@ class OutputLayer(DenseLayer):
         x = maybe_dropout(x, self.dropout, train, generator)
         return get_loss(self.loss)(labels, self.pre_output(params, x),
                                    self.activation, mask)
+
+
+@register_layer
+@dataclass
+class DropoutLayer(BaseLayer):
+    """Dropout alone, no params (reference: conf/layers/DropoutLayer.java):
+    ``maybe_dropout`` of its input at rate ``dropout`` in training, the
+    input itself otherwise."""
+
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        return maybe_dropout(x, self.dropout, train, generator), state

@@ -1,4 +1,4 @@
-"""Pooling layer (counterpart of ``deeplearning4j_tpu/nn/layers/pooling.py``).
+"""Pooling layers (counterpart of ``deeplearning4j_tpu/nn/layers/pooling.py``).
 
 ``SubsamplingLayer`` pools NHWC images through the NCHW view that
 ``F.max_pool2d`` and ``F.avg_pool2d`` take (channels-last in memory, no
@@ -9,6 +9,8 @@ applied by ``F.pad`` first (none in truncate mode without padding, which is
 AlexNet's), and avg over padding divides by counts pooled from ones. Max
 pooling's gradient goes to the first largest element of each window in
 row-major order, in both packages (``tests/test_torch_cnn_layers.py``).
+``GlobalPoolingLayer`` reduces the spatial axes of an image or the time
+axis of a sequence, masked steps left out.
 """
 
 from __future__ import annotations
@@ -20,11 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..conf.inputs import InputType
-from .base import LATER, BaseLayer, register_layer
+from .base import BaseLayer, register_layer
 from .convolution import _pair, _same_pads, conv_output_size, nchw, nhwc, pad_nchw
-
-LATER.update(
-    GlobalPoolingLayer="it waits for a later slice of the port (ROADMAP.md Queue 1)")
 
 
 @register_layer
@@ -71,3 +70,42 @@ class SubsamplingLayer(BaseLayer):
             out = out / F.avg_pool2d(pad_nchw(ones, pads), self.kernel, self.stride,
                                      divisor_override=1)
         return nhwc(out), state
+
+
+@register_layer
+@dataclass
+class GlobalPoolingLayer(BaseLayer):
+    """Pools the spatial axes of NHWC images or the time axis of sequences
+    away (reference: GlobalPoolingLayer.java): [B,H,W,C] -> [B,C], [B,T,F]
+    -> [B,F], by max, avg, sum or pnorm. A [B, T] mask leaves masked steps
+    out of a sequence's reduction (reference: MaskedReductionUtil). No
+    params."""
+
+    pooling_type: str = "max"  # max | avg | sum | pnorm
+    pnorm: int = 2
+
+    def get_output_type(self, it: InputType) -> InputType:
+        if it.kind == "cnn":
+            return InputType.feed_forward(it.channels)
+        return InputType.feed_forward(it.size)
+
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        kind = self.pooling_type
+        if kind not in ("max", "avg", "sum", "pnorm"):
+            raise ValueError(f"Unknown pooling type '{kind}'")
+        dims = (1, 2) if x.dim() == 4 else (1,)
+        if mask is not None and x.dim() == 3:
+            m = mask.reshape(mask.shape[0], mask.shape[1], 1).to(x.dtype)
+            if kind == "max":
+                return torch.amax(torch.where(m > 0, x, float("-inf")), dim=dims), state
+            if kind == "avg":
+                return (torch.sum(x * m, dim=dims)
+                        / torch.clamp(torch.sum(m, dim=dims), min=1.0)), state
+            x = x * m
+        elif kind == "max":
+            return torch.amax(x, dim=dims), state
+        elif kind == "avg":
+            return torch.mean(x, dim=dims), state
+        if kind == "sum":
+            return torch.sum(x, dim=dims), state
+        return torch.sum(torch.abs(x) ** self.pnorm, dim=dims) ** (1.0 / self.pnorm), state

@@ -62,13 +62,16 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-class MultiLayerNetwork(torch.nn.Module):
-    """Sequential network over a :class:`MultiLayerConfiguration`."""
+class BaseNetwork(torch.nn.Module):
+    """What MultiLayerNetwork and ComputationGraph share: the device, the
+    compute and param dtypes, inputs and labels on the device, the
+    listeners, the updater and its state, and the update itself.
+    ``_leaves()`` (the trainable params as a list of dicts in the order of
+    the JAX package's ``jax.tree_util.tree_leaves``) is each network's
+    own."""
 
-    def __init__(self, conf: MultiLayerConfiguration, device="cuda",
-                 lstm_variant: str = "seqfused"):
+    def __init__(self, conf, device="cuda"):
         super().__init__()
-        self.lstm_variant = ops.check_lstm_variant(lstm_variant)
         if conf.dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"dtype={conf.dtype!r} is not supported "
                              f"(use {sorted(_COMPUTE_DTYPES)})")
@@ -77,10 +80,8 @@ class MultiLayerNetwork(torch.nn.Module):
                              "(use None, 'float32' or 'bfloat16')")
         self.conf = conf
         self.device = resolve_device(device)
-        self.layer_params = torch.nn.ModuleList()
         self._initialized = False
-        self._compute_params: Optional[List[dict]] = None
-        self._rnn_state = None  # streaming state: one dict per layer
+        self._compute_params = None
         self.iteration = 0  # updates taken
         self.epoch = 0  # passes of fit over its data
         self._last_loss: Optional[torch.Tensor] = None
@@ -89,7 +90,6 @@ class MultiLayerNetwork(torch.nn.Module):
         self._generator: Optional[torch.Generator] = None  # dropout draws
         self.listeners: List = []
 
-    # ------------------------------------------------------------------ init
     @property
     def params_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.conf.params_dtype == "bfloat16" else torch.float32
@@ -100,55 +100,29 @@ class MultiLayerNetwork(torch.nn.Module):
         as _compute_cast does)."""
         return _COMPUTE_DTYPES[self.conf.dtype]
 
-    def init(self, params: Optional[Sequence[dict]] = None, force: bool = False,
-             generator: Optional[torch.Generator] = None) -> "MultiLayerNetwork":
-        """Create the params: from ``params`` (one dict of arrays per layer),
-        else drawn from ``generator`` (default: seeded by ``conf.seed``).
-        Resets the updater state and the iteration count."""
-        if self._initialized and not force and params is None:
-            return self
-        input_types = self.conf.layer_input_types()
-        if params is None:
-            gen = generator if generator is not None else torch.Generator().manual_seed(
-                self.conf.seed)
-            params = [layer.init_params(gen, it)
-                      for layer, it in zip(self.conf.layers, input_types)]
-        if len(params) != len(self.conf.layers):
-            raise ValueError(f"{len(params)} param dicts for "
-                             f"{len(self.conf.layers)} layers")
-        self.layer_params = torch.nn.ModuleList(
-            torch.nn.ParameterDict({
-                k: torch.nn.Parameter(
-                    torch.as_tensor(v).to(self.device, self.params_dtype))
-                for k, v in p.items()})
-            for p in params)
+    def _param_dict(self, params: dict) -> torch.nn.ParameterDict:
+        """One layer's or vertex's params as trainable leaves on this
+        network's device, in ``params_dtype``."""
+        return torch.nn.ParameterDict({
+            k: torch.nn.Parameter(torch.as_tensor(v).to(self.device, self.params_dtype))
+            for k, v in params.items()})
+
+    def _reset(self) -> None:
+        """After new params: no cached casts, a fresh updater state, the
+        iteration count at 0 and the dropout generator reseeded."""
         self._initialized = True
         self._compute_params = None
-        self._rnn_state = None
         self._updater = None
         self._opt_state = None
         self.iteration = 0
         self._generator = torch.Generator(device=self.device).manual_seed(self.conf.seed)
-        return self
 
     def _leaves(self) -> List[dict]:
-        """The trainable params, one dict per layer."""
-        return [dict(p.items()) for p in self.layer_params]
+        raise NotImplementedError
 
-    def _cast_params(self) -> List[dict]:
-        """Params in the compute dtype, as casts of the leaves that autograd
-        follows (the leaf itself where the dtypes agree)."""
-        dt = self.compute_dtype
-        return [{k: v.to(dt) for k, v in p.items()} for p in self.layer_params]
-
-    def _params(self) -> List[dict]:
-        """Params in the compute dtype for inference: cast once, and again
-        after every update."""
-        if self._compute_params is None:
-            with torch.no_grad():
-                self._compute_params = [{k: v.detach() for k, v in p.items()}
-                                        for p in self._cast_params()]
-        return self._compute_params
+    def num_params(self) -> int:
+        self.init()
+        return sum(v.numel() for layer in self._leaves() for v in layer.values())
 
     def _input(self, x) -> torch.Tensor:
         """Host or device input on this net's device, floating input in the
@@ -174,10 +148,116 @@ class MultiLayerNetwork(torch.nn.Module):
     def _labels_mask(self, labels_mask) -> Optional[torch.Tensor]:
         return None if labels_mask is None else self._labels(labels_mask).float()
 
+    def set_listeners(self, *listeners) -> None:
+        """Objects whose ``iteration_done(net, iteration, loss)`` is called
+        after every update (the JAX package's IterationListener contract);
+        ``loss`` is the update's loss as a 0-d device tensor."""
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def _updater_ready(self):
+        """The updater of ``conf.updater``, built with a fresh state the
+        first time it is needed after ``init``."""
+        self.init()
+        if self._updater is None:
+            self._updater = UpdaterConfig.from_dict(self.conf.updater).build()
+            self._opt_state = self._updater.init(self._leaves())
+        return self._updater
+
+    def updater_state_leaves(self) -> List[torch.Tensor]:
+        """The updater state as the leaves of the JAX package's optax state
+        (``jax.tree_util.tree_leaves(net.opt_state)`` there): moments in the
+        params' dtype, counts as int32 scalars."""
+        self._updater_ready()
+        return opt_state_leaves(self._opt_state)
+
+    def set_updater_state_leaves(self, leaves) -> None:
+        """Set the updater state from leaves in that order (arrays or
+        tensors); the next update continues from it."""
+        self._opt_state = opt_state_from_leaves(self._updater_ready(), self._leaves(),
+                                                leaves)
+
+    def _update(self, loss: torch.Tensor) -> None:
+        """One update from ``loss``: backward, unscale, update the leaves in
+        place; then the listeners."""
+        ls = self.conf.loss_scale
+        leaves = self._leaves()
+        flat = [v for layer in leaves for v in layer.values()]
+        flat_grads = iter(torch.autograd.grad(scaled_loss(loss, ls), flat,
+                                              allow_unused=True, materialize_grads=True))
+        grads = unscale_grads([{k: next(flat_grads) for k in layer} for layer in leaves],
+                              ls)
+        _, self._opt_state, new_params = optimizer_update(
+            self._updater, grads, self._opt_state, leaves)
+        with torch.no_grad():
+            for layer, new in zip(leaves, new_params):
+                for k, v in layer.items():
+                    v.copy_(new[k])
+        self._compute_params = None
+        self._last_loss = loss.detach()
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration, self._last_loss)
+
+
+class MultiLayerNetwork(BaseNetwork):
+    """Sequential network over a :class:`MultiLayerConfiguration`."""
+
+    def __init__(self, conf: MultiLayerConfiguration, device="cuda",
+                 lstm_variant: str = "seqfused"):
+        super().__init__(conf, device)
+        self.lstm_variant = ops.check_lstm_variant(lstm_variant)
+        self.layer_params = torch.nn.ModuleList()
+        self._rnn_state = None  # streaming state: one dict per layer
+
+    # ------------------------------------------------------------------ init
+    def init(self, params: Optional[Sequence[dict]] = None, force: bool = False,
+             generator: Optional[torch.Generator] = None) -> "MultiLayerNetwork":
+        """Create the params: from ``params`` (one dict of arrays per layer),
+        else drawn from ``generator`` (default: seeded by ``conf.seed``).
+        Resets the updater state and the iteration count."""
+        if self._initialized and not force and params is None:
+            return self
+        input_types = self.conf.layer_input_types()
+        if params is None:
+            gen = generator if generator is not None else torch.Generator().manual_seed(
+                self.conf.seed)
+            params = [layer.init_params(gen, it)
+                      for layer, it in zip(self.conf.layers, input_types)]
+        if len(params) != len(self.conf.layers):
+            raise ValueError(f"{len(params)} param dicts for "
+                             f"{len(self.conf.layers)} layers")
+        self.layer_params = torch.nn.ModuleList(self._param_dict(p) for p in params)
+        self._rnn_state = None
+        self._reset()
+        return self
+
+    def _leaves(self) -> List[dict]:
+        """The trainable params, one dict per layer."""
+        return [dict(p.items()) for p in self.layer_params]
+
+    def _cast_params(self) -> List[dict]:
+        """Params in the compute dtype, as casts of the leaves that autograd
+        follows (the leaf itself where the dtypes agree)."""
+        dt = self.compute_dtype
+        return [{k: v.to(dt) for k, v in p.items()} for p in self.layer_params]
+
+    def _params(self) -> List[dict]:
+        """Params in the compute dtype for inference: cast once, and again
+        after every update."""
+        if self._compute_params is None:
+            with torch.no_grad():
+                self._compute_params = [{k: v.detach() for k, v in p.items()}
+                                        for p in self._cast_params()]
+        return self._compute_params
+
     # ------------------------------------------------------- functional core
     def _forward(self, params, x: torch.Tensor, features_mask=None, rnn_state=None,
                  *, upto: Optional[int] = None, train: bool = False):
-        """Forward through layers [0, upto). Returns (out, new_rnn_state);
+        """Forward through layers [0, upto), each after its input
+        preprocessor, if it has one. Returns (out, new_rnn_state);
         ``rnn_state`` (one dict per layer, {} for stateless layers) threads
         LSTM h/c across streaming calls and TBPTT segments. ``train`` turns
         dropout on. LSTM layers take the route ``self.lstm_variant``."""
@@ -186,6 +266,9 @@ class MultiLayerNetwork(torch.nn.Module):
         gen = self._generator if train else None
         new_rnn = list(rnn_state) if rnn_state is not None else None
         for i in range(n):
+            pre = self.conf.preprocessors.get(i)
+            if pre is not None:
+                x = pre.apply(x)
             kw = ({"lstm_variant": self.lstm_variant}
                   if isinstance(layers[i], GravesLSTM) else {})
             if new_rnn is not None and new_rnn[i]:
@@ -211,6 +294,9 @@ class MultiLayerNetwork(torch.nn.Module):
                 f"Last layer {type(out_layer).__name__} is not an output layer")
         h, new_rnn = self._forward(self._cast_params(), x, features_mask, rnn_state,
                                    upto=out_idx, train=train)
+        pre = self.conf.preprocessors.get(out_idx)
+        if pre is not None:
+            h = pre.apply(h)
         h32 = h.float() if h.dtype == torch.bfloat16 else h
         out_p = {k: v.float() if v.dtype == torch.bfloat16 else v
                  for k, v in self.layer_params[out_idx].items()}
@@ -264,15 +350,6 @@ class MultiLayerNetwork(torch.nn.Module):
             return float(self.loss_fn(dataset.features, dataset.labels))
 
     # --------------------------------------------------------------- training
-    def set_listeners(self, *listeners) -> None:
-        """Objects whose ``iteration_done(net, iteration, loss)`` is called
-        after every update (the JAX package's IterationListener contract);
-        ``loss`` is the update's loss as a 0-d device tensor."""
-        self.listeners = list(listeners)
-
-    def add_listener(self, listener) -> None:
-        self.listeners.append(listener)
-
     def fit(self, data, epochs: int = 1) -> "MultiLayerNetwork":
         """Train (reference: MultiLayerNetwork.fit(DataSetIterator)).
 
@@ -289,50 +366,11 @@ class MultiLayerNetwork(torch.nn.Module):
             self.epoch += 1
         return self
 
-    def _updater_ready(self):
-        """The updater of ``conf.updater``, built with a fresh state the
-        first time it is needed after ``init``."""
-        self.init()
-        if self._updater is None:
-            self._updater = UpdaterConfig.from_dict(self.conf.updater).build()
-            self._opt_state = self._updater.init(self._leaves())
-        return self._updater
-
-    def updater_state_leaves(self) -> List[torch.Tensor]:
-        """The updater state as the leaves of the JAX package's optax state
-        (``jax.tree_util.tree_leaves(net.opt_state)`` there): moments in the
-        params' dtype, counts as int32 scalars."""
-        self._updater_ready()
-        return opt_state_leaves(self._opt_state)
-
-    def set_updater_state_leaves(self, leaves) -> None:
-        """Set the updater state from leaves in that order (arrays or
-        tensors); the next update continues from it."""
-        self._opt_state = opt_state_from_leaves(self._updater_ready(), self._leaves(),
-                                                leaves)
-
     def _step(self, x, y, labels_mask, features_mask, rnn_state=None):
-        """One update from the loss on (x, y): backward, unscale, update the
-        leaves in place. Returns the new streaming state, detached."""
-        ls = self.conf.loss_scale
+        """One update from the loss on (x, y). Returns the new streaming
+        state, detached."""
         loss, new_rnn = self._loss(x, y, labels_mask, features_mask, rnn_state)
-        leaves = self._leaves()
-        flat = [v for layer in leaves for v in layer.values()]
-        flat_grads = iter(torch.autograd.grad(scaled_loss(loss, ls), flat,
-                                              allow_unused=True, materialize_grads=True))
-        grads = unscale_grads([{k: next(flat_grads) for k in layer} for layer in leaves],
-                              ls)
-        _, self._opt_state, new_params = optimizer_update(
-            self._updater, grads, self._opt_state, leaves)
-        with torch.no_grad():
-            for layer, new in zip(leaves, new_params):
-                for k, v in layer.items():
-                    v.copy_(new[k])
-        self._compute_params = None
-        self._last_loss = loss.detach()
-        self.iteration += 1
-        for lst in self.listeners:
-            lst.iteration_done(self, self.iteration, self._last_loss)
+        self._update(loss)
         if new_rnn is None:
             return None
         return tuple({k: t.detach() for k, t in st.items()} for st in new_rnn)

@@ -6,7 +6,8 @@ The zip holds ``configuration.json`` (the config's JSON), ``coefficients.npz``
 state), ``state.npz`` (layer state; the port's layers have none) and
 ``meta.json`` (model class, iteration, epoch). Leaves are stored as
 ``leaf_i`` in ``jax.tree_util.tree_leaves`` order: layer by layer, each
-layer's dict in sorted key order. bf16 leaves are widened to f32, which is
+layer's dict in sorted key order; for a ``ComputationGraph``, vertex by
+vertex in sorted name order, each in sorted key order. bf16 leaves are widened to f32, which is
 lossless, and cast back to the model's dtype on restore; the Adam and
 schedule counts are int32. A zip written by either package restores in the
 other, and training resumes from it with the updater state it had.
@@ -23,8 +24,14 @@ import numpy as np
 import torch
 
 from ..interop.jax_params import load_jax_params
+from ..nn.conf.computation_graph import ComputationGraphConfiguration
 from ..nn.conf.multi_layer import MultiLayerConfiguration
-from ..nn.multilayer import MultiLayerNetwork
+from ..nn.graph.computation_graph import ComputationGraph
+from ..nn.multilayer import BaseNetwork, MultiLayerNetwork
+
+# model class (meta.json's model_class) -> (network, its configuration)
+_MODELS = {"MultiLayerNetwork": (MultiLayerNetwork, MultiLayerConfiguration),
+           "ComputationGraph": (ComputationGraph, ComputationGraphConfiguration)}
 
 
 def _storable(leaf) -> np.ndarray:
@@ -47,43 +54,48 @@ def _load_leaves(zf: zipfile.ZipFile, name: str) -> List[np.ndarray]:
         return [data[f"leaf_{i}"] for i in range(len(data.files))]
 
 
-def write_model(net: MultiLayerNetwork, path: str) -> None:
-    """Save ``net`` with its updater state, iteration and epoch (reference:
-    ModelSerializer.writeModel)."""
+def write_model(net: BaseNetwork, path: str) -> None:
+    """Save a MultiLayerNetwork or ComputationGraph with its updater state,
+    iteration and epoch (reference: ModelSerializer.writeModel)."""
     net.init()
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("configuration.json", net.conf.to_json())
         _save_leaves(zf, "coefficients.npz",
-                     [layer[k] for layer in net.layer_params for k in sorted(layer)])
+                     [layer[k] for layer in net._leaves() for k in sorted(layer)])
         _save_leaves(zf, "updaterState.npz", net.updater_state_leaves())
         _save_leaves(zf, "state.npz", [])
         zf.writestr("meta.json", json.dumps({
-            "model_class": "MultiLayerNetwork", "iteration": net.iteration,
+            "model_class": type(net).__name__, "iteration": net.iteration,
             "epoch": net.epoch}))
 
 
-def restore_model(path: str, device="cuda") -> MultiLayerNetwork:
-    """A MultiLayerNetwork from a zip of :func:`write_model` or of the JAX
-    package's ``write_model`` (reference:
-    ModelSerializer.restoreMultiLayerNetwork): params, updater state,
-    iteration and epoch, on ``device``."""
+def restore_model(path: str, device="cuda") -> BaseNetwork:
+    """A MultiLayerNetwork or ComputationGraph from a zip of
+    :func:`write_model` or of the JAX package's ``write_model`` (reference:
+    ModelSerializer.restoreMultiLayerNetwork/restoreComputationGraph):
+    params, updater state, iteration and epoch, on ``device``."""
     with zipfile.ZipFile(path, "r") as zf:
         meta = json.loads(zf.read("meta.json"))
-        if meta.get("model_class") != "MultiLayerNetwork":
-            raise ValueError(f"{path}: model class {meta.get('model_class')!r} is "
-                             "not ported (MultiLayerNetwork only)")
-        conf = MultiLayerConfiguration.from_json(zf.read("configuration.json").decode())
+        model_class = meta.get("model_class")
+        if model_class not in _MODELS:
+            raise ValueError(f"{path}: model class {model_class!r} is not ported "
+                             f"(known: {', '.join(_MODELS)})")
+        cls, conf_cls = _MODELS[model_class]
+        conf = conf_cls.from_json(zf.read("configuration.json").decode())
         leaves = _load_leaves(zf, "coefficients.npz")
         updater_leaves = _load_leaves(zf, "updaterState.npz")
         if _load_leaves(zf, "state.npz"):
             raise ValueError(f"{path}: holds layer state, which no ported layer has")
-    net = MultiLayerNetwork(conf, device=device).init()
-    keys = [sorted(p) for p in net.layer_params]
+    net = cls(conf, device=device).init()
+    keys = [sorted(p) for p in net._leaves()]
     if len(leaves) != sum(len(k) for k in keys):
         raise ValueError(f"{path}: {len(leaves)} param leaves, the config expects "
                          f"{sum(len(k) for k in keys)}")
     it = iter(leaves)
-    load_jax_params(net, [{k: next(it) for k in layer_keys} for layer_keys in keys])
+    params = [{k: next(it) for k in layer_keys} for layer_keys in keys]
+    if isinstance(net, ComputationGraph):
+        params = dict(zip(net._names, params))
+    load_jax_params(net, params)
     net.set_updater_state_leaves(updater_leaves)
     net.iteration = int(meta.get("iteration", 0))
     net.epoch = int(meta.get("epoch", 0))

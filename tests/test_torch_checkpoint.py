@@ -184,9 +184,9 @@ def test_restore_refuses_what_it_cannot_load(tmp_path):
                 zf.writestr(n, data)
         return path
 
-    graph = variant("graph.zip", **{"meta.json": json.dumps({"model_class": "ComputationGraph"})})
+    other = variant("other.zip", **{"meta.json": json.dumps({"model_class": "Word2Vec"})})
     with pytest.raises(ValueError, match="not ported"):
-        pt.restore_model(graph, device="cpu")
+        pt.restore_model(other, device="cpu")
     short = variant("short.zip", **{"updaterState.npz": entries["state.npz"]})
     with pytest.raises(ValueError, match="updater state leaves"):
         pt.restore_model(short, device="cpu")
