@@ -38,7 +38,20 @@ against CPU on 4 images with dropout 0, 2 + 2 LRN launches and one
 softmax-xent forward and backward per head per update, a MergeVertex with
 two branches swapped and a faulty LRN backward the limits must catch,
 ``evaluate`` per head, an exact resume; then the conf's dropout 0.4 at
-B=128, timed with the batch from the host and on the card). Then the
+B=128, timed with the batch from the host and on the card). Then ResNet-50
+(``resnet50_conf()``, a ComputationGraph of 174 vertices with 53
+BatchNormalization layers, at bench.py's B=128, 224x224x3, 1000 classes):
+``output``/``predict`` on a running state that is not the initial one (card
+against CPU on 2 images, no hand-kernel launch), SGD at the conf's lr 0.1
+(card against CPU on 4 images, f32 and bf16, with BN's variance unbiased,
+its decay the wrong way round, eval on batch stats and a dropped shortcut
+that the limits must catch; one softmax-xent forward and backward per
+update; ``evaluate``; an exact resume through a zip with the layer state),
+timed updates from the host and on the card, peak memory and a profiled
+update. Then LeNet (``lenet_mnist_conf()``, B=64) and the MNIST MLP of
+examples/mlp_mnist.py (B=512), Adam on MultiLayerNetwork over the synthetic
+MNIST, card against CPU with two wrong Adams caught, one softmax-xent
+forward and backward and one Adam launch per update, timed. Then the
 char-RNN again on the per-step cell route (``lstm_variant="fusedcell"``):
 the cell kernels against their plain versions (every activation pair, B
 1-67, H 129, 130 and 512) and four wrong ones, ``output``/``predict`` and decode
@@ -773,12 +786,15 @@ def time_pair(torch, name, kern, plain, lib, b_ms, b_by, card, **fields):
                 bound_by=b_by, library_ms=min(lib_runs) if lib_runs else None)
 
 
-def time_adam(torch, ad, card):
-    """Row 12 over the char-RNN's 14 leaves (one update: one grouped call,
-    one launch) beside its plain version leaf by leaf, its bound and
-    torch.optim.Adam(fused=True).step() on the same leaves as the library
-    yardstick (it also adds u to the params)."""
-    leaves, sc = adam_inputs(torch, SEED + 1)
+def time_adam(torch, ad, card, shapes=None, what="the char-RNN's 14 leaves"):
+    """Row 12 over ``shapes``' leaves (default: the char-RNN's 14; one
+    update: one grouped call, one launch) beside its plain version leaf by
+    leaf, its bound and torch.optim.Adam(fused=True).step() on the same
+    leaves as the library yardstick (it also adds u to the params). The
+    gradients of convolution weights come in the strides of the main path
+    (``conv_grad_layout``), so the wrapper's copy of them is in the time."""
+    leaves, sc = adam_inputs(torch, SEED + 1, shapes)
+    leaves = conv_grad_layout(leaves)
     gs, ms, vs = (list(x) for x in zip(*leaves))
     params = [torch.nn.Parameter(torch.zeros_like(g)) for g in gs]
     for p, g in zip(params, gs):
@@ -792,12 +808,13 @@ def time_adam(torch, ad, card):
     # the kernel's own time on the card, apart from the host's part of a call
     prof = profile(torch, lambda: [call() for _ in range(10)])
     device_ms = sum(r[1] for r in prof["top_kernels"] if "adam_multi" in r[0]) / 10
-    emit("profile", what="10 grouped Adam calls over the char-RNN's 14 leaves", gpu=card,
+    emit("profile", what=f"10 grouped Adam calls over {what}", gpu=card,
          adam_multi_device_ms_per_call=device_ms, **prof)
     t = time_pair(
         torch, "adam_update", call,
         lambda: [ad.adam_update_reference(g, m, v, *sc) for g, m, v in leaves],
-        opt.step, *bound_adam(n), card, dtype="float32", leaves=len(leaves), elements=n,
+        opt.step, *bound_adam(n), card, dtype="float32", over=what, leaves=len(leaves),
+        elements=n,
         launches_per_call=-(-len(leaves) // ad.MAX_LEAVES), kernel_device_ms=device_ms)
     t["kernel_device_ms"] = device_ms
     return t
@@ -951,13 +968,23 @@ def adam_inputs(torch, seed, shapes=None):
     return leaves, (RECIPE_LR, bc1, bc2, 0.9, 0.999, 1e-8)
 
 
+def conv_grad_layout(leaves):
+    """(g, m, v) triples, each 4-D g [kh, kw, c_in, c_out] (a convolution's
+    weight gradient) with the same values in the strides that the
+    convolution's backward gives it: stored as [c_out, kh, kw, c_in], the
+    channels-last layout of torch's [c_out, c_in, kh, kw]."""
+    return [(g.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0) if g.dim() == 4 else g,
+             m, v) for g, m, v in leaves]
+
+
 def adam_cases(torch, ad):
     """Row 12's cases, each one grouped call, as (name, leaves, launches it
     must make), and the Adam scalars. The char-RNN's 14 leaves and the
     attention net's 16; an edge list (sizes 1, 3, 5, 1023, 4097, a leaf of
     2^20 + 3 elements, and a leaf that starts one float into its storage,
     which takes the scalar route); and MAX_LEAVES + 5 leaves, two
-    launches."""
+    launches; LeNet's 8 leaves (its convolutions' gradients in the main
+    path's strides) and the MNIST MLP's 4."""
     import numpy as np
 
     leaves, sc = adam_inputs(torch, SEED)
@@ -968,16 +995,19 @@ def adam_cases(torch, ad):
                                             (3, 7), (1025,)])
     edge[-1] = tuple(t[1:] for t in edge[-1])  # one float in: not 16-byte aligned
     many, _ = adam_inputs(torch, SEED + 4, [(37 * (i + 1),) for i in range(ad.MAX_LEAVES + 5)])
+    mnist = [(name, conv_grad_layout(adam_inputs(torch, SEED + 5 + i,
+                                                 mnist_leaf_shapes(conf))[0]), 1)
+             for i, (name, (_, conf)) in enumerate(mnist_models().items())]
     return [("char_rnn", leaves, 1), ("attention", attn_leaves, 1), ("edge", edge, 1),
-            ("more_than_max_leaves", many, 2)], sc
+            ("more_than_max_leaves", many, 2), *mnist], sc
 
 
 def phase_adam(torch, ad):
     """Row 12 against its plain version (leaf by leaf) on ``adam_cases``:
     each output's max |err| over its max |ref| (ADAM_REL), and each grouped
-    call's launches. Returns the max abs error on the char-RNN's leaves."""
+    call's launches. Returns the max abs error of each case by name."""
     cases, sc = adam_cases(torch, ad)
-    char_rnn_err = None
+    errs = {}
     for name, leaves, want_launches in cases:
         gs, ms, vs = (list(x) for x in zip(*leaves))
         before = ad.launches["adam_update"]
@@ -998,9 +1028,16 @@ def phase_adam(torch, ad):
               launches=launched, relative_to_largest=True)
         if launched != want_launches:
             raise AssertionError(f"adam_update {name}: {launched} launches, not {want_launches}")
-        if name == "char_rnn":
-            char_rnn_err = abs_err
-    return char_rnn_err
+        errs[name] = abs_err
+    return errs
+
+
+def phase_kernels_mnist(torch, sx):
+    """Rows 10-11 against their plain versions at the MNIST models' loss
+    heads (N = 64 and 512 rows, C = 10; f32). Returns the errors by
+    model."""
+    return {name: sxent_case(torch, sx, B, 10, "float32", "one_hot", SEED + B)
+            for name, (B, _) in mnist_models().items()}
 
 
 class LossRecorder:
@@ -2398,8 +2435,9 @@ def phase_kernels_lrn(torch, lr, sx):
              caught=ok)
         if not ok:
             raise AssertionError(f"lrn {dtype}: the limit {lim} does not catch {wrong}")
-        # rows 10-11 at AlexNet's loss head
-        sxent_case(torch, sx, *ALEX_SXENT, dtype, "one_hot", SEED + ALEX_SXENT[1])
+        # rows 10-11 at AlexNet's (GoogLeNet's, ResNet-50's) loss head
+        errs[("sxent_head", dtype)] = sxent_case(torch, sx, *ALEX_SXENT, dtype, "one_hot",
+                                                 SEED + ALEX_SXENT[1])
     emit("kernels_lrn", cases=n_cases, worst_reading_by_dtype=worst, limits=LRN_REL,
          wrong_versions_caught=True, ok=True)
     return errs
@@ -2526,8 +2564,8 @@ def train_readings(run, ref, seed_params) -> dict:
 def resume_check(torch, net, data) -> dict:
     """A checkpoint of ``net`` written, restored on the card (the next
     update on ``data``, with cuDNN deterministic for both, exactly as the
-    original's) and on the CPU (exactly the same params and Nesterov
-    trace)."""
+    original's: params and layer state) and on the CPU (exactly the same
+    params, updater trace and layer state)."""
     import os
     import tempfile
 
@@ -2548,13 +2586,14 @@ def resume_check(torch, net, data) -> dict:
     cpu_err = max(
         max(float(np.abs(p - q).max()) for p, q in zip(arrays(net), arrays(on_cpu))),
         max(float((a.float().cpu() - b.float()).abs().max()) for a, b in
-            zip(net.updater_state_leaves(), on_cpu.updater_state_leaves())))
+            zip(net.updater_state_leaves() + net.state_leaves(),
+                on_cpu.updater_state_leaves() + on_cpu.state_leaves())))
     torch.backends.cudnn.deterministic = True
     try:
         resumed = []
         for n in (net, back):
             n.fit(data)
-            resumed.append((n.score(), arrays(n)))
+            resumed.append((n.score(), arrays(n) + [t.cpu().numpy() for t in n.state_leaves()]))
     finally:
         torch.backends.cudnn.deterministic = False
     param_err = max(float(np.abs(p - q).max()) for p, q in zip(resumed[0][1], resumed[1][1]))
@@ -2564,6 +2603,26 @@ def resume_check(torch, net, data) -> dict:
                 resume_loss_abs_err=loss_err, seconds=time.perf_counter() - t0,
                 ok=(cpu_err == 0.0 and param_err == 0.0 and loss_err == 0.0
                     and len(set(iterations.values())) == 1))
+
+
+def timed_fit(torch, net, batch, warmup, timed):
+    """ms per ``fit`` of ``batch``, median of ``timed`` after ``warmup``
+    updates (host clock, synchronized), the launch counts of the timed
+    ones and their losses."""
+    from deeplearning4j_tpu_torch import ops
+
+    for _ in range(warmup):
+        net.fit(batch)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    times, losses = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        net.fit(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score())
+    return times, ops.counters(), losses
 
 
 def phase_train_alexnet(torch, lr, dtype, host, card):
@@ -2580,7 +2639,7 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
     import numpy as np
 
     from deeplearning4j_tpu_torch import (DataSet, MultiLayerNetwork, alexnet_conf,
-                                          load_jax_params, ops, params_to_numpy)
+                                          load_jax_params, params_to_numpy)
 
     lim = ALEX_TRAIN_LIMITS[dtype]
     x8, y8 = alexnet_images(ALEX_CPU_B, SEED + 6)
@@ -2624,18 +2683,7 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
     conf = alexnet_conf(dtype=dtype)
     net = load_jax_params(MultiLayerNetwork(conf), host)
     batch = alexnet_images(ALEX_B, SEED + 7)
-    for _ in range(ALEX_TIMED["warmup"]):
-        net.fit(batch)
-    torch.cuda.synchronize()
-    ops.reset_counters()
-    times, losses = [], []
-    for _ in range(ALEX_TIMED["timed"]):
-        t0 = time.perf_counter()
-        net.fit(batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(net.score())
-    launches = ops.counters()
+    times, launches, losses = timed_fit(torch, net, batch, **ALEX_TIMED)
     timed = ALEX_TIMED["timed"]
     expected = dict.fromkeys(launches, 0)
     expected.update({"lrn_fwd": 2 * timed, "lrn_bwd": 2 * timed, "softmax_xent_fwd": timed,
@@ -2644,13 +2692,7 @@ def phase_train_alexnet(torch, lr, dtype, host, card):
     # the same updates with the batch already on the card: what the host's
     # copy of the 77 MB of images costs an update
     on_card = tuple(torch.as_tensor(a, device=DEVICE) for a in batch)
-    card_times = []
-    for _ in range(ALEX_TIMED["timed"]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net.fit(on_card)
-        torch.cuda.synchronize()
-        card_times.append((time.perf_counter() - t0) * 1e3)
+    card_times, _, _ = timed_fit(torch, net, on_card, 0, timed)
     ok = (within and fault["caught"] and loss_fall > 0.0 and card_fall > 0.0
           and launches == expected and bool(np.isfinite(losses).all())
           and acc["cuda"] == acc["cpu"] and (resume is None or resume["ok"]))
@@ -2790,10 +2832,10 @@ def phase_serve_googlenet(torch, host, card):
 
 def swapped_merge(torch):
     """A wrong MergeVertex.apply: its last two branches swapped."""
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         ins = list(inputs)
         ins[-2], ins[-1] = ins[-1], ins[-2]
-        return torch.cat(ins, dim=-1)
+        return torch.cat(ins, dim=-1), state
     return apply
 
 
@@ -2869,31 +2911,14 @@ def phase_train_googlenet(torch, lr, dtype, host, card):
     # the conf itself (dropout 0.4, the main head) at B=128
     net = googlenet_net(googlenet_conf(dtype=dtype), host)
     batch = alexnet_images(GOOG_B, SEED + 10)
-    for _ in range(ALEX_TIMED["warmup"]):
-        net.fit(batch)
-    torch.cuda.synchronize()
-    ops.reset_counters()
-    times, losses = [], []
-    for _ in range(ALEX_TIMED["timed"]):
-        t0 = time.perf_counter()
-        net.fit(batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(net.score())
-    timed_launches = ops.counters()
+    times, timed_launches, losses = timed_fit(torch, net, batch, **ALEX_TIMED)
     timed = ALEX_TIMED["timed"]
     expected = dict.fromkeys(timed_launches, 0)
     expected.update({"lrn_fwd": 2 * timed, "lrn_bwd": 2 * timed, "softmax_xent_fwd": timed,
                      "softmax_xent_bwd": timed})
     ms = statistics.median(times)
     on_card = tuple(torch.as_tensor(a, device=DEVICE) for a in batch)
-    card_times = []
-    for _ in range(ALEX_TIMED["timed"]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net.fit(on_card)
-        torch.cuda.synchronize()
-        card_times.append((time.perf_counter() - t0) * 1e3)
+    card_times, _, _ = timed_fit(torch, net, on_card, 0, timed)
     ok = (within and all(f["caught"] for f in faults.values()) and loss_fall > 0.0
           and card_fall > 0.0 and small_launches == small_expected
           and timed_launches == expected and bool(np.isfinite(losses).all())
@@ -2917,16 +2942,504 @@ def phase_train_googlenet(torch, lr, dtype, host, card):
     return launches, ms, net, batch
 
 
+# ---- the ResNet slice: resnet50_conf() at its own widths and bench.py:180's
+# shape (B=128, 224x224x3 images, 1000 classes; 25,557,032 params; 53
+# BatchNormalization layers, whose running mean and variance are 106 state
+# tensors of 53,120 elements), a ComputationGraph of 174 vertices with 16
+# residual adds, the conf's SGD at lr 0.1. Its head runs rows 10-11 at N=B,
+# C=1000. Images and labels are synthetic, as AlexNet's.
+RES_B, RES_CPU_B, RES_SERVE_CPU_B, RES_UPDATES = 128, 4, 2, 3
+# served probabilities, card against CPU on 2 images, eval-mode BN on a
+# state that is not the initial one: max |err| over max |p|. Read on the
+# H100: f32 1.4e-5, bf16 3.8e-2 (53 layers of convolutions and BN, running
+# variances up to 1.6e4). On the CPU (f32 as the reference) bf16 itself
+# reads 0.17, the running stats replaced by the batch's 0.16, the initial
+# state 273. bf16's limit sits midway (in the logs) between its right
+# reading and that wrong one, which the phase runs on the card and must
+# fail (read there: f32 0.157, bf16 0.191): the limits hold the card to
+# its dtype's rounding
+RES_SERVE_REL = {"float32": 1e-4, "bfloat16": 0.08}
+# training on the card against the same training on the CPU (B=4, 3 updates
+# of one batch, the conf's lr 0.1), held by resnet_readings where it is
+# well conditioned: the first update. Set from the CPU against float64
+# (scripts/resnet_train_sensitivity.py): f32 reads a first loss of 1.0e-6,
+# each tensor's first change 0.023 (median over the 161 tensors) to 0.034,
+# the first running stats 7.8e-6, a var factor of 1.9e-5 and an eval score
+# of 5.2e-7; bf16 9.1e-3, 1.32 to 1.67, 0.045, 0.34 and 6.9e-4. bf16's
+# change cannot be held tighter: its forward's pooled features are 12% off
+# float64's, 87% of their part that differs from image to image, so its
+# gradients are uncorrelated with float64's (sqrt 2 = 1.41 for two
+# independent ones), at B=16 as at B=4 (f32 0.020 to 0.024, bf16 1.31 to
+# 2.29), and at any lr (the first change does not depend on it). The
+# later updates are read and not held: after the first the trajectory
+# moves with the rounding at every lr tried (f32's last change reads 1.59
+# at lr 0.1 and 0.98 at lr 0.001), so the phase holds only that the loss
+# falls.
+# Wrong, both dtypes: BN's variance unbiased reads a var factor of 1.0 and
+# 1.34 (f32 a first state of 1.8e-3 and an eval score of 2.7e-3 too); the
+# decay swapped a first state of 8.0; eval on batch stats an eval score of
+# 0.998; the shortcut dropped a first change of 40 and 47 (f32 a first
+# loss of 6.3e-3).
+RES_TRAIN_LIMITS = {
+    "float32": {"first_loss_rel": 1e-5, "first_change_rel": 0.1, "first_state_rel": 1e-4,
+                "first_var_factor": 1e-3, "eval_score_rel": 1e-5},
+    "bfloat16": {"first_loss_rel": 2e-2, "first_change_rel": 3.0, "first_state_rel": 0.15,
+                 "first_var_factor": 0.5, "eval_score_rel": 1e-2},
+}
+RES_FAULTS = ("bn_running_var_unbiased", "bn_decay_swapped", "bn_eval_on_batch_stats",
+              "shortcut_dropped")
+RES_PROFILE_GROUPS = ALEX_PROFILE_GROUPS[1:-2] + [
+    ("convolution, cutlass and xmma kernels", r"(?i)cutlass|xmma"),
+    *ALEX_PROFILE_GROUPS[-2:], ("reductions (BN stats, pools)", r"(?i)reduce"),
+    ("elementwise (BN, relu, adds, SGD)", r"(?i)elementwise")]
+
+
+def resnet_params(conf, seed):
+    """Random ResNet weights from a numpy seed, vertex name -> dict in the
+    JAX package's layout, drawn in topological order: convolutions
+    N(0, 2/fan_in) (the conf's "relu" init; no bias), BatchNormalization's
+    gamma 1 and beta 0 (the conf's init), the output layer N(0, 0.01^2)
+    with a zero bias."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vit = conf.vertex_input_types()
+    params = {}
+    for name in conf.topological_order():
+        layer = getattr(conf.vertices[name], "layer", None)
+        kind, it = type(layer).__name__, vit[name][0]
+        if kind == "ConvolutionLayer":
+            shape = (*layer.kernel, it.channels, layer.n_out)
+            params[name] = {"W": rng.normal(0.0, np.sqrt(2.0 / np.prod(shape[:3])), shape)}
+        elif kind == "BatchNormalization":
+            params[name] = {"gamma": np.ones(it.channels), "beta": np.zeros(it.channels)}
+        elif kind == "OutputLayer":
+            params[name] = {"W": rng.normal(0.0, 0.01, (it.flat_size(), layer.n_out)),
+                            "b": np.zeros(layer.n_out)}
+    return params
+
+
+def resnet_net(conf, host, state=None, device=DEVICE):
+    """A ComputationGraph of ``conf`` holding ``host``'s params and, given
+    ``state``, that layer state."""
+    from deeplearning4j_tpu_torch import ComputationGraph, load_jax_params
+
+    return load_jax_params(ComputationGraph(conf, device=device), host, state=state)
+
+
+def resnet_serving_state(host):
+    """A layer state that is not the initial one: the batch stats of 4
+    images of their own seed, taken on the card by one ``fit`` of the conf
+    with every BN's decay 0 and SGD at lr 0 (the params stay as they
+    are)."""
+    from deeplearning4j_tpu_torch import BatchNormalization, UpdaterConfig, resnet50_conf
+    from deeplearning4j_tpu_torch import state_to_numpy
+
+    conf = resnet50_conf(updater=UpdaterConfig(updater="sgd", learning_rate=0.0))
+    for vertex in conf.vertices.values():
+        if isinstance(getattr(vertex, "layer", None), BatchNormalization):
+            vertex.layer.decay = 0.0
+    net = resnet_net(conf, host)
+    net.fit(alexnet_images(RES_CPU_B, SEED + 14))
+    return state_to_numpy(net)
+
+
+def phase_serve_resnet50(torch, host, state, card):
+    """``output`` and ``predict`` of ResNet-50 (the conf as it is) at B=128,
+    f32 and bf16, with the running stats of ``state`` (mean != 0, var != 1,
+    so eval-mode BN is held): shape, rows that sum to 1, predict as
+    output's argmax, no hand-kernel launch a call; the card against the
+    CPU on 2 of the images, and the card under the wrong eval-mode BN
+    (normalizing by the batch's stats) failing that limit; host-clock ms
+    of output(), median of 5."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import ops, resnet50_conf
+
+    x, _ = alexnet_images(RES_B, SEED + 11)
+    means = np.concatenate([s["mean"] for s in state.values() if s])
+    varis = np.concatenate([s["var"] for s in state.values() if s])
+    for dtype in ("float32", "bfloat16"):
+        conf = resnet50_conf(dtype=dtype)
+        net = resnet_net(conf, host, state)
+        per_call, results = {}, {}
+        for call, fn in (("output", lambda: net.output(x)), ("predict", lambda: net.predict(x))):
+            torch.cuda.synchronize()
+            ops.reset_counters()
+            results[call] = fn()
+            torch.cuda.synchronize()
+            per_call[call] = {k: v for k, v in ops.counters().items() if v}
+        probs, cls = results["output"], results["predict"]
+        t0 = time.perf_counter()
+        cpu_probs = resnet_net(conf, host, state, "cpu").output(x[:RES_SERVE_CPU_B])
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float(np.abs(net.output(x[:RES_SERVE_CPU_B]) - cpu_probs).max()
+                        / np.abs(cpu_probs).max())
+        undo = resnet_fault("bn_eval_on_batch_stats")
+        try:
+            wrong_err = float(np.abs(net.output(x[:RES_SERVE_CPU_B]) - cpu_probs).max()
+                              / np.abs(cpu_probs).max())
+        finally:
+            undo()
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            net.output(x)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ok = (probs.shape == (RES_B, 1000) and bool(np.isfinite(probs).all())
+              and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-2
+              and cls.shape == (RES_B,) and bool((cls == probs.argmax(-1)).all())
+              and all(c == {} for c in per_call.values())
+              and float(np.abs(means).max()) > 0.0 and float(np.abs(varis - 1.0).max()) > 0.0
+              and cpu_err <= RES_SERVE_REL[dtype] < wrong_err)
+        emit("serve_resnet50", dtype=dtype, B=RES_B, shape=list(probs.shape),
+             launches_per_call=per_call, state_mean_abs_max=float(np.abs(means).max()),
+             state_var_range=[float(varis.min()), float(varis.max())],
+             max_err_vs_cpu_over_max_prob=cpu_err, cpu_batch=RES_SERVE_CPU_B,
+             eval_on_batch_stats_vs_cpu=wrong_err,
+             limit=RES_SERVE_REL[dtype], cpu_output_s=cpu_s, top_prob_max=float(probs.max()),
+             output_ms_runs=runs, output_ms_median=statistics.median(runs), ok=ok, gpu=card)
+        if not ok:
+            raise AssertionError(f"ResNet-50 serving {dtype} failed its checks")
+
+
+def bn_fault(fault: str, real):
+    """A wrong BatchNormalization.apply around the right one (``real``):
+    the running variance updated from the unbiased batch variance
+    (torch's convention), the decay the wrong way round (0.1*old +
+    0.9*batch), or eval mode normalizing by the batch's stats."""
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        if not train:
+            if fault == "bn_eval_on_batch_stats":
+                return real(self, params, x, state, mask=mask, train=True,
+                            generator=generator)[0], state
+            return real(self, params, x, state, mask=mask, train=False, generator=generator)
+        y, new = real(self, params, x, state, mask=mask, train=True, generator=generator)
+        d = self.decay
+        batch = {k: (new[k] - d * state[k]) / (1 - d) for k in new}
+        if fault == "bn_running_var_unbiased":
+            n = x.numel() // x.shape[-1]
+            new = {"mean": new["mean"],
+                   "var": d * state["var"] + (1 - d) * batch["var"] * (n / (n - 1))}
+        elif fault == "bn_decay_swapped":
+            new = {k: (1 - d) * state[k] + d * batch[k] for k in new}
+        return y, new
+    return apply
+
+
+def dropped_shortcut(real):
+    """A wrong ElementWiseVertex.apply: "add" returns its first input (a
+    block's branch) and drops the second (the shortcut)."""
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
+        if self.op == "add":
+            return inputs[0], state
+        return real(self, params, inputs, state, train=train, generator=generator, masks=masks)
+    return apply
+
+
+def resnet_fault(fault):
+    """Install ``fault`` (one of RES_FAULTS, or None); returns the undo."""
+    from deeplearning4j_tpu_torch import BatchNormalization
+    from deeplearning4j_tpu_torch.nn.graph import vertices
+
+    real_bn, real_add = BatchNormalization.apply, vertices.ElementWiseVertex.apply
+    if fault == "shortcut_dropped":
+        vertices.ElementWiseVertex.apply = dropped_shortcut(real_add)
+    elif fault is not None:
+        BatchNormalization.apply = bn_fault(fault, real_bn)
+
+    def undo():
+        BatchNormalization.apply, vertices.ElementWiseVertex.apply = real_bn, real_add
+    return undo
+
+
+def resnet_train_run(conf, host, batch, device, fault=None, updates=RES_UPDATES):
+    """``updates`` updates of one batch from the seed params on ``device``
+    under ``fault``: the net, the losses, the params and the layer state
+    after the first and the last update, the eval-mode score (the loss on
+    the batch with the running stats) of the seed params with the state
+    after the first update, the kernel launches of the updates, and each
+    BN layer's values a channel and decay."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import ops, params_to_numpy, state_to_numpy
+
+    undo = resnet_fault(fault)
+    try:
+        net = resnet_net(conf, host, device=device)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        ops.reset_counters()
+        net.fit(batch)
+        first, first_state = params_to_numpy(net), state_to_numpy(net)
+        for _ in range(updates - 1):
+            net.fit(batch)
+        launches = ops.counters()
+        net.set_listeners()
+        vit = conf.vertex_input_types()
+        bn = {n: (len(batch[0]) * vit[n][0].height * vit[n][0].width,
+                  conf.vertices[n].layer.decay) for n, s in first_state.items() if s}
+        return dict(net=net, losses=np.array([float(l) for l in rec.losses]), first=first,
+                    first_state=first_state, params=params_to_numpy(net),
+                    state=state_to_numpy(net),
+                    eval_score=resnet_net(conf, host, first_state, device).score(batch),
+                    launches=launches, bn=bn)
+    finally:
+        undo()
+
+
+def state_rel(state, ref) -> float:
+    """The largest ||state - ref's|| / ||ref's|| over the running means and
+    variances."""
+    import numpy as np
+
+    return max(float(np.linalg.norm(state[n][k] - s[k]) / np.linalg.norm(s[k]))
+               for n, s in ref.items() for k in s)
+
+
+def resnet_readings(run, ref, host) -> dict:
+    """``train_readings`` of the params and losses, and: ``first_loss_rel``,
+    the first update's loss (the forward at the seed params) relative to
+    the ref's; ``first_state_rel`` and ``state_rel``, the running stats
+    after the first and the last update; ``first_var_factor``, the batch
+    variances that the first update added to the running ones, (var -
+    decay) / (1 - decay) summed over each BN's channels, fitted to the
+    ref's as (1 + k/(n-1)) over the BN layers, n each one's values a
+    channel (least squares in the logs): the unbiased variance reads k = 1,
+    the biased one 0 plus rounding, which varies from layer to layer where
+    the factor does not; ``eval_score_rel``, the eval-mode score of the
+    seed params with the first update's running stats relative to the
+    ref's. RES_TRAIN_LIMITS hold the first update's readings; the later
+    ones (``loss_rel``, ``change_rel``, ``state_rel``) move with the
+    rounding at every lr (PERF.md) and are only reported."""
+    import numpy as np
+
+    out = train_readings((run["losses"], run["first"], run["params"]),
+                         (ref["losses"], ref["first"], ref["params"]), host)
+    out["first_loss_rel"] = float(abs(run["losses"][0] - ref["losses"][0])
+                                  / abs(ref["losses"][0]))
+    out["first_state_rel"] = state_rel(run["first_state"], ref["first_state"])
+    out["state_rel"] = state_rel(run["state"], ref["state"])
+    w, z = [], []
+    for n, (count, decay) in ref["bn"].items():  # the running var starts at 1
+        added = [np.sum(st[n]["var"].astype(np.float64) - decay) / (1 - decay)
+                 for st in (run["first_state"], ref["first_state"])]
+        w.append(np.log(count / (count - 1.0)))
+        z.append(np.log(added[0] / added[1]) if added[0] / added[1] > 0 else np.inf)
+    out["first_var_factor"] = abs(float(np.dot(w, z) / np.dot(w, w)))
+    out["eval_score_rel"] = abs(run["eval_score"] - ref["eval_score"]) / abs(ref["eval_score"])
+    return out
+
+
+def phase_train_resnet50(torch, dtype, host, card):
+    """ResNet-50's training from the seed params. The card against the CPU:
+    3 SGD updates of one B=4 batch (the loss must fall), held by
+    ``resnet_readings``; exactly one softmax-xent forward and backward per
+    update and no other hand-kernel launch; the same on the card under
+    each of RES_FAULTS must fail the limits. ``evaluate`` on both; in f32
+    ``resume_check`` of the card's net (params, updater and layer state
+    through a zip). Then the conf itself at B=128 (an out-of-memory error
+    fails the phase): ms per update and images/s, median of 3 after 2
+    warm-ups, from the host's images and with the batch on the
+    card; the peak of allocated memory; one profiled update. Returns the
+    launch counts of both parts and the B=128 ms per update."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import resnet50_conf
+
+    lim = RES_TRAIN_LIMITS[dtype]
+    conf = resnet50_conf(dtype=dtype)
+    small = alexnet_images(RES_CPU_B, SEED + 12)
+    t0 = time.perf_counter()
+    runs = {"cuda": resnet_train_run(conf, host, small, "cuda")}
+    small_launches = runs["cuda"]["launches"]
+    runs["cpu"] = resnet_train_run(conf, host, small, "cpu")
+    readings = resnet_readings(runs["cuda"], runs["cpu"], host)
+    within = within_limits(readings, lim)
+    faults = {}
+    for fault in RES_FAULTS:
+        faults[fault] = resnet_readings(resnet_train_run(conf, host, small, "cuda", fault),
+                                        runs["cpu"], host)
+        faults[fault]["caught"] = not within_limits(faults[fault], lim)
+    compared_s = time.perf_counter() - t0
+    small_expected = dict.fromkeys(small_launches, 0)
+    small_expected.update({"softmax_xent_fwd": RES_UPDATES, "softmax_xent_bwd": RES_UPDATES})
+    cpu_losses, card_losses = runs["cpu"]["losses"], runs["cuda"]["losses"]
+    acc = {dev: runs[dev]["net"].evaluate(small).accuracy() for dev in runs}
+    resume = resume_check(torch, runs["cuda"]["net"], small) if dtype == "float32" else None
+    del runs
+
+    # the conf itself at B=128
+    torch.cuda.empty_cache()
+    net = resnet_net(conf, host)
+    batch = alexnet_images(RES_B, SEED + 13)
+    torch.cuda.reset_peak_memory_stats()
+    times, timed_launches, losses = timed_fit(torch, net, batch, **ALEX_TIMED)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = ALEX_TIMED["timed"]
+    expected = dict.fromkeys(timed_launches, 0)
+    expected.update({"softmax_xent_fwd": timed, "softmax_xent_bwd": timed})
+    ms = statistics.median(times)
+    on_card = tuple(torch.as_tensor(a, device=DEVICE) for a in batch)
+    card_times, _, _ = timed_fit(torch, net, on_card, 0, timed)
+    prof = profile(torch, lambda: net.fit(on_card), top=14, groups=RES_PROFILE_GROUPS)
+    emit("profile", what=f"fit() one SGD update of ResNet-50, {dtype} B={RES_B}, batch on "
+         "the card", gpu=card, **prof)
+    ok = (within and all(f["caught"] for f in faults.values())
+          and cpu_losses[1] < cpu_losses[0] and card_losses[1] < card_losses[0]
+          and small_launches == small_expected and timed_launches == expected
+          and bool(np.isfinite(losses).all()) and acc["cuda"] == acc["cpu"]
+          and (resume is None or resume["ok"]))
+    emit("train_resnet50", dtype=dtype, compared_batch=RES_CPU_B, compared_updates=RES_UPDATES,
+         cpu_losses=cpu_losses.tolist(), card_losses=card_losses.tolist(),
+         readings_vs_cpu=readings, limits=lim, faults_vs_cpu=faults, compared_s=compared_s,
+         compared_launches=small_launches, compared_expected_launches=small_expected,
+         evaluate_accuracy=acc, checkpoint=resume, B=RES_B,
+         timed_losses=losses, kernel_launches=timed_launches, expected_launches=expected,
+         update_ms_runs=times, ms_per_update=ms, images_per_s=RES_B / (ms / 1e3),
+         batch_on_card_ms_runs=card_times,
+         batch_on_card_ms_per_update=statistics.median(card_times),
+         batch_on_card_images_per_s=RES_B / (statistics.median(card_times) / 1e3),
+         peak_allocated_gib=peak_gb, idle_share=prof["idle_share"], ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"ResNet-50 training {dtype} failed its checks")
+    del net, on_card
+    torch.cuda.empty_cache()
+    return {k: small_launches.get(k, 0) + timed_launches.get(k, 0)
+            for k in set(small_launches) | set(timed_launches)}, ms
+
+
+# ---- the MNIST slice: LeNet (lenet_mnist_conf(): 28x28x1, Adam at lr 1e-3;
+# 431,080 params in 8 leaves) at dl4j-examples' LenetMnistExample batch of
+# 64, and examples/mlp_mnist.py:26-34's MLP (Dense 256 relu, softmax head,
+# Adam 1e-3, seed 123; 203,530 params in 4 leaves) at bench_mlp_mnist's
+# B=512, both on MultiLayerNetwork over MnistDataSetIterator's synthetic
+# MNIST (MNIST itself needs a download). Each update runs rows 10-11 at
+# N=B, C=10 and one row-12 launch.
+MNIST_UPDATES, MNIST_TIMED = 4, {"warmup": 2, "timed": 5}
+# the card against the CPU, read as the char-RNN recipe's Adam
+# (recipe_readings, whose f32 limits these are): Adam's step is +-lr
+# wherever a gradient sits near 0, so params are held by their change and
+# by counts; a wrong Adam (RECIPE_FAULTS) must fail them
+MNIST_LIMITS = RECIPE_LIMITS["float32"]
+
+
+def mnist_models():
+    """name -> (batch, conf) of the two MNIST models."""
+    from deeplearning4j_tpu_torch import (DenseLayer, InputType, MultiLayerConfiguration,
+                                          OutputLayer, UpdaterConfig, lenet_mnist_conf)
+
+    mlp = MultiLayerConfiguration(
+        layers=[DenseLayer(n_out=256, activation="relu"),
+                OutputLayer(n_out=10, activation="softmax", loss="mcxent")],
+        input_type=InputType.feed_forward(784),
+        updater=UpdaterConfig(updater="adam", learning_rate=1e-3).to_dict(), seed=123)
+    return {"lenet": (64, lenet_mnist_conf()), "mlp": (512, mlp)}
+
+
+def mnist_host(conf):
+    """The port's own initial params of ``conf`` (drawn from conf.seed on the
+    CPU) as host arrays."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, params_to_numpy
+
+    return params_to_numpy(MultiLayerNetwork(conf, device="cpu").init())
+
+
+def mnist_leaf_shapes(conf):
+    return [p[k].shape for p in mnist_host(conf) for k in sorted(p)]
+
+
+def phase_train_mnist(torch, name, card):
+    """``name``'s Adam training from its seed params over MNIST_UPDATES
+    batches of MnistDataSetIterator (shuffled by its seed): the card
+    against the CPU by ``recipe_readings``, exactly one softmax-xent
+    forward and backward and one Adam launch per update, each of
+    RECIPE_FAULTS caught; then ms per update, median of 5 after 2
+    warm-ups, at the model's batch. Returns (launch counts, ms per
+    update)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (MnistDataSetIterator, MultiLayerNetwork,
+                                          load_jax_params, ops, params_to_numpy)
+    from deeplearning4j_tpu_torch.nn import updaters
+
+    B, conf = mnist_models()[name]
+    shape = (-1, 28, 28, 1) if name == "lenet" else (-1, 784)
+    batches = [(ds.features.reshape(shape), ds.labels)
+               for ds in MnistDataSetIterator(batch=B, num_examples=B * MNIST_UPDATES)]
+    host = mnist_host(conf)
+
+    def train(dev, fault=None):
+        net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        updater = net._updater_ready()
+        real_bc = updaters.bias_corrections
+        if fault == "adam_b1_b2_swapped":
+            b1, b2, eps = updater.adam
+            updater.adam = (b2, b1, eps)
+        elif fault == "no_bias_correction":
+            updaters.bias_corrections = lambda *a: (1.0, 1.0)
+        try:
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                ops.reset_counters()
+            for b in batches:
+                net.fit(b)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            launches = ops.counters() if dev == "cuda" else None
+        finally:
+            updaters.bias_corrections = real_bc
+        net.set_listeners()
+        return (net, np.array([float(l) for l in rec.losses]), params_to_numpy(net)), launches
+
+    card_run, launches = train("cuda")
+    cpu_run, _ = train("cpu")
+    readings = recipe_readings(card_run, cpu_run, host, lr=1e-3)
+    within = within_limits(readings, MNIST_LIMITS)
+    faults = {}
+    for fault in RECIPE_FAULTS:
+        faults[fault] = recipe_readings(train("cuda", fault)[0], cpu_run, host, lr=1e-3)
+        faults[fault]["caught"] = not within_limits(faults[fault], MNIST_LIMITS)
+    net = card_run[0]
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"softmax_xent_fwd": MNIST_UPDATES, "softmax_xent_bwd": MNIST_UPDATES,
+                     "adam_update": MNIST_UPDATES * adam_launches(net)})
+    times, timed_launches, losses = timed_fit(torch, net, batches[0], **MNIST_TIMED)
+    timed_expected = {k: v // MNIST_UPDATES * MNIST_TIMED["timed"] for k, v in expected.items()}
+    ms = statistics.median(times)
+    ok = (within and all(f["caught"] for f in faults.values()) and launches == expected
+          and timed_launches == timed_expected and bool(np.isfinite(losses).all())
+          and bool(cpu_run[1][-1] < cpu_run[1][0]))
+    emit(f"train_{'lenet' if name == 'lenet' else 'mlp_mnist'}", B=B, updates=MNIST_UPDATES,
+         card_losses=card_run[1].tolist(), cpu_losses=cpu_run[1].tolist(),
+         readings_vs_cpu=readings, limits=MNIST_LIMITS, faults_vs_cpu=faults,
+         kernel_launches=launches, expected_launches=expected,
+         timed_launches=timed_launches, update_ms_runs=times, ms_per_update=ms,
+         images_per_s=B / (ms / 1e3), ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"{name} training failed its checks")
+    return {k: launches.get(k, 0) + timed_launches.get(k, 0)
+            for k in set(launches) | set(timed_launches)}, ms
+
+
 def time_sxent_head(torch, sx, card):
     """ms of rows 10-11 at the image nets' loss head (N=128 rows, C=1000
-    classes), f32 and bf16, beside the plain versions, the bounds and
-    cross_entropy with probability targets (forward; forward+backward)."""
+    classes), f32 and bf16."""
+    return time_sxent(torch, sx, *ALEX_SXENT, ("float32", "bfloat16"), card,
+                      "image nets' loss head (AlexNet, GoogLeNet, ResNet-50)")
+
+
+def time_sxent(torch, sx, N, C, dtypes, card, layer):
+    """ms of rows 10-11 at [N, C] in each of ``dtypes``, beside the plain
+    versions, the bounds and cross_entropy with probability targets
+    (forward; forward+backward), by (kernel, dtype)."""
     import numpy as np
     import torch.nn.functional as F
 
     times = {}
-    N, C = ALEX_SXENT
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         x, lab = sxent_inputs(torch, N, dtype, "one_hot", SEED, C=C)
         g = torch.as_tensor(np.random.default_rng(SEED).normal(0.0, 1.0, N),
                             dtype=torch.float32, device=DEVICE)
@@ -2945,8 +3458,7 @@ def time_sxent_head(torch, sx, card):
                  lambda: sx.softmax_xent_backward_reference(x, lab, g), lib_fwd_bwd, True)):
             times[(name, dtype)] = time_pair(
                 torch, name, kern, plain, lib, *bound_sxent(N, C, dtype, backward), card,
-                dtype=dtype, N=N, C=C, layer="image nets' loss head (AlexNet, GoogLeNet)",
-                ms_in_a_row=in_a_row_ms(kern))
+                dtype=dtype, N=N, C=C, layer=layer, ms_in_a_row=in_a_row_ms(kern))
     return times
 
 
@@ -3293,7 +3805,8 @@ def main() -> int:
     import numpy as np
 
     from deeplearning4j_tpu_torch import (DecodeServer, MultiLayerNetwork, alexnet_conf,
-                                          char_rnn, googlenet_conf, load_jax_params, ops)
+                                          char_rnn, googlenet_conf, load_jax_params, ops,
+                                          resnet50_conf)
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import adam as ad
     from deeplearning4j_tpu_torch.ops import lstm_sequence as ls
@@ -3321,9 +3834,11 @@ def main() -> int:
     errs = phase_kernels(torch, ls)
     errs.update(phase_kernels_train(torch, ls, sx))
     drw_errs = phase_kernels_drw(torch, ls)
-    errs[("adam_update", "float32", "leaves")] = phase_adam(torch, ad)
+    adam_errs = phase_adam(torch, ad)
+    errs[("adam_update", "float32", "leaves")] = adam_errs["char_rnn"]
     errs.update(phase_kernels_attention(torch, fa))
     errs.update(phase_kernels_lrn(torch, lr, sx))
+    mnist_errs = phase_kernels_mnist(torch, sx)
     cell_errs = phase_kernels_cell(torch, lc)
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
@@ -3447,6 +3962,24 @@ def main() -> int:
             raise AssertionError(f"{name} did not launch on the GoogLeNet path")
         launches[name] += on_path
 
+    # ---- 4g. ResNet-50, a ComputationGraph with BatchNormalization: serving,
+    # then training (rows 10-11); each phase counts from 0
+    torch.cuda.empty_cache()
+    res_host = resnet_params(resnet50_conf(), SEED)
+    phase_serve_resnet50(torch, res_host, resnet_serving_state(res_host), card)
+    res_train = {dtype: phase_train_resnet50(torch, dtype, res_host, card)
+                 for dtype in ("float32", "bfloat16")}
+    # ---- 4h. LeNet and the MNIST MLP on MultiLayerNetwork (rows 10-12)
+    mnist_train = {name: phase_train_mnist(torch, name, card) for name in mnist_models()}
+    new_path_launches = {("resnet50", k): sum(run[0].get(k, 0) for run in res_train.values())
+                         for k in ("softmax_xent_fwd", "softmax_xent_bwd")}
+    for name, (counts, _) in mnist_train.items():
+        for k in ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"):
+            new_path_launches[(name, k)] = counts.get(k, 0)
+    missing = [key for key, n in new_path_launches.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels that did not launch on their path: {missing}")
+
     # ---- 5. times
     times = {}
     for dtype in ("float32", "bfloat16"):
@@ -3497,7 +4030,14 @@ def main() -> int:
     lrn_times = time_lrn(torch, lr, card, sass["lrn"])
     for name in LRN_KERNELS:  # the table's shape: LRN 1
         times[(name, "float32")] = lrn_times[(name, "float32", "lrn1")]
-    time_sxent_head(torch, sx, card)
+    head_times = time_sxent_head(torch, sx, card)
+    for name, (B, conf) in mnist_models().items():
+        for (k, _), t in time_sxent(torch, sx, B, 10, ("float32",), card,
+                                    f"{name}'s loss head").items():
+            times[(k, name)] = t
+        shapes = mnist_leaf_shapes(conf)
+        times[("adam_update", name)] = time_adam(torch, ad, card, shapes,
+                                                 f"{name}'s {len(shapes)} leaves")
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -3571,6 +4111,30 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "dtype": "float32", "kernel_device_ms": t.get("kernel_device_ms")})
+    # rows 10-12 at the shapes of slice 15's paths
+    for model, shape in (("resnet50", f"N={ALEX_SXENT[0]} C={ALEX_SXENT[1]}"),
+                         *((m, f"N={B} C=10") for m, (B, _) in mnist_models().items())):
+        for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
+            t = (head_times[(k, "float32")] if model == "resnet50" else times[(k, model)])
+            e = errs[("sxent_head", "float32")] if model == "resnet50" else mnist_errs[model]
+            lines.append({
+                "name": f"{k}@{model}", "route": "cuda", "source": KERNELS[k][0],
+                "replaces": KERNELS[k][1], "launches": new_path_launches[(model, k)],
+                "max_abs_err": e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"]),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"], "dtype": "float32",
+                "shape": shape, "kernel_device_ms": None})
+        if model != "resnet50":
+            t = times[("adam_update", model)]
+            lines.append({
+                "name": f"adam_update@{model}", "route": "cuda",
+                "source": KERNELS["adam_update"][0], "replaces": KERNELS["adam_update"][1],
+                "launches": new_path_launches[(model, "adam_update")],
+                "max_abs_err": adam_errs[model], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "dtype": "float32",
+                "shape": f"{len(mnist_leaf_shapes(mnist_models()[model][1]))} leaves",
+                "kernel_device_ms": t.get("kernel_device_ms")})
     print(json.dumps({"kernels": lines, "launches": launches,
                       "library_ms_note": "no single PyTorch call computes the "
                       "peephole LSTM (torch.nn.LSTM has no peepholes), masked or not; "

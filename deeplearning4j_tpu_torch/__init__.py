@@ -16,7 +16,16 @@ input preprocessors, which ``MultiLayerConfiguration`` takes too) and
 serves, trains, evaluates and checkpoints them as ``ComputationGraph``,
 GoogLeNet among them (``googlenet_conf``: ``MergeVertex``,
 ``GlobalPoolingLayer``, ``DropoutLayer``, multi-output training over
-``MultiDataSet``). The LSTM recurrence, masked or not, its backward, flash attention and its
+``MultiDataSet``). Layers keep state (``init_state``; the networks'
+``state``, threaded through every forward, saved in the zips and carried
+from the JAX package by ``load_jax_params``/``load_jax_state``): with
+``BatchNormalization``, ``ActivationLayer`` and ``ElementWiseVertex`` it
+serves and trains ResNet (``resnet_conf``, ``resnet50_conf`` and the rest
+of the family) as a ``ComputationGraph``. It trains LeNet
+(``lenet_mnist_conf``) and MLPs with Adam on ``MultiLayerNetwork`` over
+``NumpyDataSetIterator`` and ``MnistDataSetIterator`` (local IDX files or
+the JAX package's synthetic stand-in). ``LossLayer``, ``EmbeddingLayer``
+and the JAX package's whole activation catalog are there too. The LSTM recurrence, masked or not, its backward, flash attention and its
 backward, LRN and its backward, the softmax cross-entropy and the Adam update
 run in hand-written CUDA kernels (``ops/csrc/``); the LSTM layers run either
 the whole-sequence kernels (the default) or, with
@@ -25,13 +34,18 @@ kernel launch per step. Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
+from .datasets.fetchers import MnistDataSetIterator, load_mnist
 from .datasets.iterators import (BucketingSequenceIterator, DataSet, MultiDataSet,
-                                 pad_to_bucket)
+                                 NumpyDataSetIterator, pad_to_bucket)
 from .eval.evaluation import Evaluation
-from .interop.jax_params import load_jax_model_zip, load_jax_params, params_to_numpy
+from .interop.jax_params import (load_jax_model_zip, load_jax_params, load_jax_state,
+                                 params_to_numpy, state_to_numpy)
 from .models.alexnet import alexnet_conf
 from .models.char_rnn import char_rnn
 from .models.googlenet import googlenet_conf
+from .models.lenet import lenet_mnist_conf
+from .models.resnet import (resnet18_conf, resnet34_conf, resnet50_conf, resnet101_conf,
+                            resnet152_conf, resnet_conf)
 from .nn.conf.computation_graph import ComputationGraphConfiguration, GraphBuilder
 from .nn.conf.inputs import InputType
 from .nn.conf.multi_layer import MultiLayerConfiguration
@@ -63,8 +77,9 @@ from .nn.graph import (
 )
 from .nn.layers.attention import LayerNormLayer, SelfAttentionLayer
 from .nn.layers.convolution import ConvolutionLayer
-from .nn.layers.dense import DenseLayer, DropoutLayer, OutputLayer
-from .nn.layers.normalization import LocalResponseNormalization
+from .nn.layers.dense import (ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer,
+                              LossLayer, OutputLayer)
+from .nn.layers.normalization import BatchNormalization, LocalResponseNormalization
 from .nn.layers.pooling import GlobalPoolingLayer, SubsamplingLayer
 from .nn.layers.recurrent import GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer
 from .nn.multilayer import MultiLayerNetwork
@@ -73,6 +88,8 @@ from .serving.decode import DecodeServer
 from .utils.serialization import restore_model, write_model
 
 __all__ = [
+    "ActivationLayer",
+    "BatchNormalization",
     "BucketingSequenceIterator",
     "CnnToFeedForwardPreProcessor",
     "CnnToRnnPreProcessor",
@@ -86,6 +103,7 @@ __all__ = [
     "DropoutLayer",
     "DuplicateToTimeSeriesVertex",
     "ElementWiseVertex",
+    "EmbeddingLayer",
     "Evaluation",
     "FeedForwardToCnnPreProcessor",
     "FeedForwardToRnnPreProcessor",
@@ -100,10 +118,13 @@ __all__ = [
     "LayerNormLayer",
     "LayerVertex",
     "LocalResponseNormalization",
+    "LossLayer",
     "MergeVertex",
+    "MnistDataSetIterator",
     "MultiDataSet",
     "MultiLayerConfiguration",
     "MultiLayerNetwork",
+    "NumpyDataSetIterator",
     "OutputLayer",
     "PreprocessorVertex",
     "ReshapeVertex",
@@ -121,10 +142,20 @@ __all__ = [
     "alexnet_conf",
     "char_rnn",
     "googlenet_conf",
+    "lenet_mnist_conf",
     "load_jax_model_zip",
     "load_jax_params",
+    "load_jax_state",
+    "load_mnist",
     "pad_to_bucket",
     "params_to_numpy",
+    "resnet101_conf",
+    "resnet152_conf",
+    "resnet18_conf",
+    "resnet34_conf",
+    "resnet50_conf",
+    "resnet_conf",
     "restore_model",
+    "state_to_numpy",
     "write_model",
 ]

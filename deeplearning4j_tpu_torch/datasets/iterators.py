@@ -1,7 +1,7 @@
 """Minibatches for ``fit`` (counterpart of
 ``deeplearning4j_tpu/datasets/iterators.py``: its ``DataSet``,
-``MultiDataSet``, ``as_iterator``, ``pad_to_bucket`` and
-``BucketingSequenceIterator``).
+``MultiDataSet``, ``as_iterator``, ``NumpyDataSetIterator``,
+``pad_to_bucket`` and ``BucketingSequenceIterator``).
 """
 
 from __future__ import annotations
@@ -63,6 +63,43 @@ def as_iterator(data) -> Iterable[DataSet]:
     if isinstance(data, tuple) and len(data) == 2:
         return [DataSet(data[0], data[1])]
     return data
+
+
+class NumpyDataSetIterator:
+    """(features, labels) arrays in batches of ``batch`` rows (reference:
+    INDArrayDataSetIterator). With ``shuffle``, each pass over the data
+    (each ``iter``) permutes the rows with
+    ``np.random.default_rng(seed + epoch)``, as the JAX package does, so
+    both draw the same batches. ``drop_last`` leaves a trailing short
+    batch out."""
+
+    def __init__(self, features, labels, batch: int, drop_last: bool = True,
+                 shuffle: bool = False, seed: int = 0):
+        self.features = np.asarray(features)
+        self.labels = np.asarray(labels)
+        self.batch = int(batch)
+        self.drop_last = drop_last
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    def batch_size(self) -> int:
+        return self.batch
+
+    def __iter__(self):
+        n = self.features.shape[0]
+        idx = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        self._epoch += 1
+        stop = n - (n % self.batch) if self.drop_last else n
+        for s in range(0, stop, self.batch):
+            sl = idx[s:s + self.batch]
+            yield DataSet(self.features[sl], self.labels[sl])
+
+    def __len__(self) -> int:
+        n = self.features.shape[0]
+        return n // self.batch if self.drop_last else -(-n // self.batch)
 
 
 def pad_to_bucket(x, boundaries: Sequence[int]):

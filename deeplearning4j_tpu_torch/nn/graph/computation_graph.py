@@ -21,11 +21,16 @@ compute and param dtypes, the listeners, the updater and its state.
   regularization; one update per batch.
 - ``output`` and ``predict`` take one array per network input and return
   host arrays: one for a single-output graph, else a list.
+- ``state`` is the layer state, a dict of vertex name to dict ({} but for
+  BatchNormalization's running mean and variance), f32 on the device,
+  threaded through the topological loop: ``fit`` stores what the training
+  forward returns after each update, serving, ``evaluate`` and ``score``
+  read it. Its leaves (``state_leaves``) are in sorted vertex name, then
+  key order, "mean" before "var", as the JAX package saves them.
 
 Graph TBPTT and ``rnn_time_step``, the staged ``fit_on_device`` and
-``warmup``, telemetry, ``memory_report``, ``preflight``, ``analyze_ir`` and
-``clone`` are not ported yet (ROADMAP.md Queue 1) and raise
-``NotImplementedError``.
+``warmup``, telemetry, ``memory_report``, ``preflight`` and ``analyze_ir``
+are not ported yet (ROADMAP.md Queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 from ...datasets.iterators import MultiDataSet, as_iterator, as_multi
 from ...eval.evaluation import Evaluation
 from ..conf.computation_graph import ComputationGraphConfiguration
-from ..multilayer import BaseNetwork, to_host
+from ..multilayer import BaseNetwork, _summary_table, to_host
 from .vertices import LayerVertex
 
 # losses whose heads ``evaluate`` scores as classifiers
@@ -51,15 +56,6 @@ def _later(what: str):
             f"ComputationGraph.{what} is not ported yet (ROADMAP.md Queue 1)")
     method.__name__ = what
     return method
-
-
-def _summary_table(rows, total: int) -> str:
-    """Fixed-width table and a totals line, as the JAX package prints it."""
-    widths = [max(len(r[c]) for r in rows) for c in range(len(rows[0]))]
-    lines = ["  ".join(v.ljust(w) for v, w in zip(r, widths)).rstrip() for r in rows]
-    lines.insert(1, "-" * max(len(l) for l in lines))
-    lines.append(f"Total params: {total:,}")
-    return "\n".join(lines)
 
 
 class ComputationGraph(BaseNetwork):
@@ -78,11 +74,12 @@ class ComputationGraph(BaseNetwork):
         """Create the params: from ``params`` (vertex name -> dict of arrays;
         a vertex without params may be left out), else drawn vertex by
         vertex in topological order from ``generator`` (default: seeded by
-        ``conf.seed``). Resets the updater state and the iteration count."""
+        ``conf.seed``). Resets the layer state, the updater state and the
+        iteration count."""
         if self._initialized and not force and params is None:
             return self
+        vit = self.conf.vertex_input_types()
         if params is None:
-            vit = self.conf.vertex_input_types()
             gen = generator if generator is not None else torch.Generator().manual_seed(
                 self.conf.seed)
             params = {name: self.conf.vertices[name].init_params(gen, *vit[name])
@@ -93,12 +90,27 @@ class ComputationGraph(BaseNetwork):
         self.vertex_params = {name: self._param_dict(params.get(name, {}))
                               for name in self._topo}
         self._param_modules = torch.nn.ModuleList(self.vertex_params[n] for n in self._names)
+        self.state = {name: self._device_state(self.conf.vertices[name].init_state(*vit[name]))
+                      for name in self._topo}
         self._reset()
         return self
+
+    def _twin(self) -> "ComputationGraph":
+        return ComputationGraph(ComputationGraphConfiguration.from_dict(self.conf.to_dict()),
+                                device=self.device)
 
     def _leaves(self) -> List[dict]:
         """The trainable params, one dict per vertex by sorted vertex name."""
         return [dict(self.vertex_params[n].items()) for n in self._names]
+
+    def _params_from_leaves(self, dicts: List[dict]) -> Dict[str, dict]:
+        return dict(zip(self._names, dicts))
+
+    def _state_dicts(self) -> List[dict]:
+        return [self.state[n] for n in self._names]
+
+    def _set_state_dicts(self, dicts: List[dict]) -> None:
+        self.state = dict(zip(self._names, dicts))
 
     def _cast_params(self) -> Dict[str, dict]:
         """Params in the compute dtype, as casts of the leaves that autograd
@@ -134,12 +146,13 @@ class ComputationGraph(BaseNetwork):
 
     # ------------------------------------------------------- functional core
     def _activations(self, params, inputs, masks=None, *, train: bool = False,
-                     skip=()) -> Dict[str, torch.Tensor]:
+                     skip=()):
         """The topological forward (reference: ComputationGraph's
         feed-forward loop): every vertex's activation but those in
-        ``skip``. ``inputs`` align with ``conf.network_inputs``; ``masks``
-        maps network-input names to [b, t] masks. ``train`` turns dropout
-        on."""
+        ``skip``, and the new layer state, from ``self.state``. ``inputs``
+        align with ``conf.network_inputs``; ``masks`` maps network-input
+        names to [b, t] masks. ``train`` turns dropout on and has the layers
+        train (BatchNormalization on batch stats)."""
         conf = self.conf
         acts = dict(zip(conf.network_inputs, inputs))
         vmasks = dict(masks or {})
@@ -147,21 +160,23 @@ class ComputationGraph(BaseNetwork):
         non_null = [m for m in vmasks.values() if m is not None]
         vmasks["features"] = non_null[0] if len(non_null) == 1 else None
         gen = self._generator if train else None
+        new_state = dict(self.state)
         for name in self._topo:
             if name in skip:
                 continue
-            acts[name] = conf.vertices[name].apply(
+            acts[name], new_state[name] = conf.vertices[name].apply(
                 params[name], [acts[src] for src in conf.vertex_inputs[name]],
-                train=train, generator=gen, masks=vmasks)
-        return acts
+                self.state[name], train=train, generator=gen, masks=vmasks)
+        return acts, new_state
 
     def _loss(self, inputs, labels, labels_masks=None, masks=None,
               train: bool = True) -> torch.Tensor:
         """The sum of the output layers' losses plus regularization
-        (reference: ComputationGraph.computeGradientAndScore). The vertices
-        run in the compute dtype; each output layer takes f32 inputs and
-        f32 params, as the JAX package upcasts bf16 there. An output layer
-        that no vertex reads is not run forward: its loss takes its input."""
+        (reference: ComputationGraph.computeGradientAndScore), and the new
+        layer state. The vertices run in the compute dtype; each output
+        layer takes f32 inputs and f32 params, as the JAX package upcasts
+        bf16 there. An output layer that no vertex reads is not run
+        forward: its loss takes its input."""
         conf = self.conf
         outs = conf.network_outputs
         for name in outs:
@@ -169,8 +184,8 @@ class ComputationGraph(BaseNetwork):
             if not (isinstance(vertex, LayerVertex) and vertex.is_output_layer):
                 raise ValueError(f"Training output '{name}' is not an output layer vertex")
         read = {src for ins in conf.vertex_inputs.values() for src in ins}
-        acts = self._activations(self._cast_params(), inputs, masks, train=train,
-                                 skip=set(outs) - read)
+        acts, new_state = self._activations(self._cast_params(), inputs, masks, train=train,
+                                            skip=set(outs) - read)
         gen = self._generator if train else None
         total = 0.0
         for i, name in enumerate(outs):
@@ -184,7 +199,7 @@ class ComputationGraph(BaseNetwork):
                                                       generator=gen)
         reg = sum(conf.vertices[n].regularization_loss(dict(self.vertex_params[n].items()))
                   for n in self._topo)
-        return total + reg
+        return total + reg, new_state
 
     def loss_fn(self, inputs, labels, *, train: bool = False, labels_masks=None,
                 masks=None) -> torch.Tensor:
@@ -193,14 +208,14 @@ class ComputationGraph(BaseNetwork):
         self.init()
         lms = None if labels_masks is None else [self._labels_mask(m) for m in labels_masks]
         return self._loss([self._input(x) for x in inputs], [self._labels(y) for y in labels],
-                          lms, self._masks(masks), train=train)
+                          lms, self._masks(masks), train=train)[0]
 
     @torch.no_grad()
     def forward(self, *inputs, masks=None) -> List[torch.Tensor]:
         """Device-side inference: one tensor per network output."""
         self.init()
-        acts = self._activations(self._params(), [self._input(x) for x in inputs],
-                                 self._masks(masks))
+        acts, _ = self._activations(self._params(), [self._input(x) for x in inputs],
+                                    self._masks(masks))
         return [acts[o] for o in self.conf.network_outputs]
 
     # -------------------------------------------------------------- inference
@@ -236,7 +251,7 @@ class ComputationGraph(BaseNetwork):
             return float(self._loss([self._input(x) for x in mds.features],
                                     [self._labels(y) for y in mds.labels],
                                     self._labels_masks(mds), self._input_masks(mds),
-                                    train=False))
+                                    train=False)[0])
 
     def evaluate(self, data, top_n: int = 1):
         """Classification evaluation of ``output`` over ``data`` (reference:
@@ -307,9 +322,10 @@ class ComputationGraph(BaseNetwork):
                                                       for f in mds.features):
             raise NotImplementedError(
                 "TBPTT of a ComputationGraph is not ported yet (ROADMAP.md Queue 1)")
-        self._update(self._loss([self._input(x) for x in mds.features],
-                                [self._labels(y) for y in mds.labels],
-                                self._labels_masks(mds), self._input_masks(mds)))
+        loss, self.state = self._loss([self._input(x) for x in mds.features],
+                                      [self._labels(y) for y in mds.labels],
+                                      self._labels_masks(mds), self._input_masks(mds))
+        self._update(loss)
 
     # ------------------------------------------------- not ported yet (later)
     rnn_time_step = _later("rnn_time_step")
@@ -319,7 +335,6 @@ class ComputationGraph(BaseNetwork):
     memory_report = _later("memory_report")
     preflight = _later("preflight")
     analyze_ir = _later("analyze_ir")
-    clone = _later("clone")
 
 
 __all__ = ["ComputationGraph"]

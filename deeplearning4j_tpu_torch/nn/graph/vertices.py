@@ -7,10 +7,14 @@ tensors; autograd takes every backward. The SPI:
 - ``get_output_type(*input_types)``: static shape inference;
 - ``init_params(gen, *input_types)``: a dict of CPU tensors ({} but for
   layers);
-- ``apply(params, inputs, *, train, generator, masks)``: the output tensor.
-  ``inputs`` are the activations of the vertex's inputs in their declared
-  order; ``masks`` maps network-input names (and "features", the single
-  mask of the graph's one-mask convenience) to [batch, time] masks.
+- ``init_state(*input_types)``: the layer state ({} but for layers that
+  keep one, such as BatchNormalization);
+- ``apply(params, inputs, state, *, train, generator, masks)``: (the
+  output tensor, the new state), as the JAX package's. ``inputs`` are the
+  activations of the vertex's inputs in their declared order; ``state`` is
+  the vertex's layer state, passed through by vertices that keep none;
+  ``masks`` maps network-input names (and "features", the single mask of
+  the graph's one-mask convenience) to [batch, time] masks.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from ..conf.inputs import InputType
 from ..conf.preprocessors import preprocessor_from_dict
-from ..layers.base import BaseLayer, Params, layer_from_dict
+from ..layers.base import BaseLayer, Params, State, layer_from_dict
 
 VERTEX_REGISTRY: Dict[str, Type["BaseVertex"]] = {}
 
@@ -78,12 +82,15 @@ class BaseVertex:
     def init_params(self, gen: torch.Generator, *input_types: InputType) -> Params:
         return {}
 
+    def init_state(self, *input_types: InputType) -> State:
+        return {}
+
     def regularization_loss(self, params: Params) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32)
 
-    def apply(self, params: Params, inputs: Sequence[torch.Tensor], *, train: bool = False,
-              generator: Optional[torch.Generator] = None, masks: Masks = None
-              ) -> torch.Tensor:
+    def apply(self, params: Params, inputs: Sequence[torch.Tensor], state: State, *,
+              train: bool = False, generator: Optional[torch.Generator] = None,
+              masks: Masks = None) -> Tuple[torch.Tensor, State]:
         raise NotImplementedError
 
 
@@ -124,6 +131,9 @@ class LayerVertex(BaseVertex):
     def init_params(self, gen, *input_types) -> Params:
         return self.layer.init_params(gen, self._preprocessed_type(input_types[0]))
 
+    def init_state(self, *input_types) -> State:
+        return self.layer.init_state(self._preprocessed_type(input_types[0]))
+
     def regularization_loss(self, params: Params) -> torch.Tensor:
         return self.layer.regularization_loss(params)
 
@@ -132,11 +142,10 @@ class LayerVertex(BaseVertex):
         x = inputs[0]
         return self.preprocessor.apply(x) if self.preprocessor is not None else x
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         mask = None if masks is None else masks.get("features")
-        out, _ = self.layer.apply(params, self.layer_input(inputs), {}, mask=mask,
-                                  train=train, generator=generator)
-        return out
+        return self.layer.apply(params, self.layer_input(inputs), state, mask=mask,
+                                train=train, generator=generator)
 
 
 @register_vertex
@@ -156,27 +165,27 @@ class ElementWiseVertex(BaseVertex):
             raise ValueError("ElementWise subtract requires exactly 2 inputs")
         return first
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         op = self.op.lower()
         if op in ("add", "average"):
             out = inputs[0]
             for x in inputs[1:]:
                 out = out + x
-            return out / len(inputs) if op == "average" else out
+            return (out / len(inputs) if op == "average" else out), state
         if op == "subtract":
             if len(inputs) != 2:
                 raise ValueError("subtract requires exactly 2 inputs")
-            return inputs[0] - inputs[1]
+            return inputs[0] - inputs[1], state
         if op == "product":
             out = inputs[0]
             for x in inputs[1:]:
                 out = out * x
-            return out
+            return out, state
         if op == "max":
             out = inputs[0]
             for x in inputs[1:]:
                 out = torch.maximum(out, x)
-            return out
+            return out, state
         raise ValueError(f"Unknown ElementWise op '{self.op}'")
 
 
@@ -200,8 +209,8 @@ class MergeVertex(BaseVertex):
             return InputType.feed_forward(sum(t.flat_size() for t in input_types))
         raise ValueError(f"MergeVertex: unsupported input kind {first.kind}")
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
-        return torch.cat(list(inputs), dim=-1)
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
+        return torch.cat(list(inputs), dim=-1), state
 
 
 @register_vertex
@@ -224,8 +233,8 @@ class SubsetVertex(BaseVertex):
             return InputType.convolutional(t.height, t.width, n)
         raise ValueError(f"SubsetVertex: unsupported input kind {t.kind}")
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
-        return inputs[0][..., self.from_idx:self.to_idx + 1]
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
+        return inputs[0][..., self.from_idx:self.to_idx + 1], state
 
 
 @register_vertex
@@ -233,8 +242,8 @@ class SubsetVertex(BaseVertex):
 class StackVertex(BaseVertex):
     """Concatenation on the batch axis (reference: nn/conf/graph/StackVertex.java)."""
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
-        return torch.cat(list(inputs), dim=0)
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
+        return torch.cat(list(inputs), dim=0), state
 
 
 @register_vertex
@@ -246,10 +255,10 @@ class UnstackVertex(BaseVertex):
     from_idx: int = 0
     stack_size: int = 1
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         x = inputs[0]
         step = x.shape[0] // self.stack_size
-        return x[self.from_idx * step:(self.from_idx + 1) * step]
+        return x[self.from_idx * step:(self.from_idx + 1) * step], state
 
 
 @register_vertex
@@ -259,8 +268,8 @@ class ScaleVertex(BaseVertex):
 
     scale_factor: float = 1.0
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
-        return inputs[0] * self.scale_factor
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
+        return inputs[0] * self.scale_factor, state
 
 
 @register_vertex
@@ -270,8 +279,8 @@ class ShiftVertex(BaseVertex):
 
     shift: float = 0.0
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
-        return inputs[0] + self.shift
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
+        return inputs[0] + self.shift, state
 
 
 @register_vertex
@@ -286,10 +295,10 @@ class L2Vertex(BaseVertex):
     def get_output_type(self, *input_types: InputType) -> InputType:
         return InputType.feed_forward(1)
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         a, b = inputs
         d = (a - b).reshape(a.shape[0], -1)
-        return torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + self.eps)
+        return torch.sqrt(torch.sum(d * d, dim=1, keepdim=True) + self.eps), state
 
 
 @register_vertex
@@ -300,11 +309,11 @@ class L2NormalizeVertex(BaseVertex):
 
     eps: float = 1e-8
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         x = inputs[0]
         flat = x.reshape(x.shape[0], -1)
         norm = torch.sqrt(torch.sum(flat * flat, dim=1) + self.eps)
-        return x / norm.reshape((-1,) + (1,) * (x.dim() - 1))
+        return x / norm.reshape((-1,) + (1,) * (x.dim() - 1)), state
 
 
 @register_vertex
@@ -325,8 +334,8 @@ class PreprocessorVertex(BaseVertex):
     def get_output_type(self, *input_types: InputType) -> InputType:
         return self.preprocessor.get_output_type(input_types[0])
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
-        return self.preprocessor.apply(inputs[0])
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
+        return self.preprocessor.apply(inputs[0]), state
 
 
 @register_vertex
@@ -342,16 +351,16 @@ class LastTimeStepVertex(BaseVertex):
     def get_output_type(self, *input_types: InputType) -> InputType:
         return InputType.feed_forward(input_types[0].size)
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         x = inputs[0]
         mask = None
         if masks is not None and self.mask_input is not None:
             mask = masks.get(self.mask_input)
         if mask is None:
-            return x[:, -1, :]
+            return x[:, -1, :], state
         # the index of the last 1 of each row: argmax takes the first largest
         idx = x.shape[1] - 1 - torch.argmax(torch.flip(mask, dims=(1,)), dim=1)
-        return x[torch.arange(x.shape[0], device=x.device), idx]
+        return x[torch.arange(x.shape[0], device=x.device), idx], state
 
 
 @register_vertex
@@ -368,9 +377,9 @@ class DuplicateToTimeSeriesVertex(BaseVertex):
         t = input_types[1].timesteps if len(input_types) > 1 else None
         return InputType.recurrent(input_types[0].size, t)
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         x = inputs[0]
-        return x[:, None, :].expand(x.shape[0], inputs[1].shape[1], x.shape[1])
+        return x[:, None, :].expand(x.shape[0], inputs[1].shape[1], x.shape[1]), state
 
 
 @register_vertex
@@ -390,6 +399,6 @@ class ReshapeVertex(BaseVertex):
             return InputType.convolutional(s[0], s[1], s[2])
         raise ValueError(f"ReshapeVertex: unsupported target shape {s}")
 
-    def apply(self, params, inputs, *, train=False, generator=None, masks=None):
+    def apply(self, params, inputs, state, *, train=False, generator=None, masks=None):
         x = inputs[0]
-        return x.reshape((x.shape[0],) + tuple(self.shape))
+        return x.reshape((x.shape[0],) + tuple(self.shape)), state

@@ -69,6 +69,10 @@ def _from_distribution(gen, shape, dist: dict, dtype):
     if kind == "uniform":
         return _uniform(gen, shape, float(dist.get("lower", -1.0)),
                         float(dist.get("upper", 1.0)), dtype)
+    if kind == "binomial":  # successes of n trials at p, as floats
+        n, p = float(dist.get("n", 1)), float(dist.get("p", 0.5))
+        return torch.binomial(torch.full(shape, n), torch.full(shape, p),
+                              generator=gen).to(dtype)
     if kind == "constant":
         return torch.full(shape, float(dist.get("value", 0.0)), dtype=dtype)
     raise ValueError(f"Unknown distribution '{kind}'")

@@ -5,8 +5,11 @@ same JSON configures both packages. It carries plain tensor functions:
 
 - ``get_output_type(input_type)`` — static shape inference
 - ``init_params(gen, input_type)`` — dict of CPU tensors from a ``torch.Generator``
-- ``apply(params, x, state, mask, train, generator)`` — forward; ``train``
-  turns dropout on, drawn from ``generator``
+- ``init_state(input_type)`` — dict of CPU f32 tensors that are not trained
+  (BatchNormalization's running mean and variance), {} for most layers
+- ``apply(params, x, state, mask, train, generator)`` — forward, returning
+  (output, new state); ``train`` turns dropout on, drawn from
+  ``generator``, and has BatchNormalization use and update batch stats
 - ``regularization_loss(params)`` — the l1/l2 terms of the training loss
 
 Params for layer i are a dict keyed "W"/"b"/... as in the JAX package; the
@@ -79,6 +82,9 @@ class BaseLayer:
         return input_type
 
     def init_params(self, gen: torch.Generator, input_type: InputType) -> Params:
+        return {}
+
+    def init_state(self, input_type: InputType) -> State:
         return {}
 
     def apply(self, params: Params, x: torch.Tensor, state: State, *,

@@ -26,6 +26,16 @@ kernels); any other value raises ValueError. It is not part of the conf.
   JAX package's optax state (``utils/serialization.py`` saves them).
 - ``evaluate`` runs ``output`` over a dataset and returns an
   ``Evaluation``.
+- ``state`` holds the layers' state (BatchNormalization's running mean and
+  variance), one dict per layer, f32 on the net's device. Training
+  forwards read it, and ``fit`` stores what they return (no autograd
+  history) with each update, before the listeners run; ``output``,
+  ``predict``, ``evaluate``, ``score`` and ``feed_forward`` (unless asked
+  to train) read it as it is.
+  ``state_leaves`` and ``set_state_leaves`` read and set it as the leaves
+  of the JAX package's ``net.state`` (``utils/serialization.py`` saves
+  them).
+- ``summary``, ``feed_forward`` and ``clone`` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -62,12 +72,23 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _summary_table(rows, total: int) -> str:
+    """Fixed-width table and a totals line, as the JAX package prints it."""
+    widths = [max(len(r[c]) for r in rows) for c in range(len(rows[0]))]
+    lines = ["  ".join(v.ljust(w) for v, w in zip(r, widths)).rstrip() for r in rows]
+    lines.insert(1, "-" * max(len(l) for l in lines))
+    lines.append(f"Total params: {total:,}")
+    return "\n".join(lines)
+
+
 class BaseNetwork(torch.nn.Module):
     """What MultiLayerNetwork and ComputationGraph share: the device, the
     compute and param dtypes, inputs and labels on the device, the
-    listeners, the updater and its state, and the update itself.
-    ``_leaves()`` (the trainable params as a list of dicts in the order of
-    the JAX package's ``jax.tree_util.tree_leaves``) is each network's
+    listeners, the updater and its state, the layer state's leaves, the
+    update itself and ``clone``. ``_leaves()`` and ``_state_dicts()`` (the
+    trainable params and the layer state as lists of dicts in the order of
+    the JAX package's ``jax.tree_util.tree_leaves``), and their inverses
+    ``_params_from_leaves`` and ``_set_state_dicts``, are each network's
     own."""
 
     def __init__(self, conf, device="cuda"):
@@ -89,6 +110,7 @@ class BaseNetwork(torch.nn.Module):
         self._opt_state = None
         self._generator: Optional[torch.Generator] = None  # dropout draws
         self.listeners: List = []
+        self.state = None  # layer state; set by init
 
     @property
     def params_dtype(self) -> torch.dtype:
@@ -118,6 +140,72 @@ class BaseNetwork(torch.nn.Module):
         self._generator = torch.Generator(device=self.device).manual_seed(self.conf.seed)
 
     def _leaves(self) -> List[dict]:
+        raise NotImplementedError
+
+    def _params_from_leaves(self, dicts: List[dict]):
+        """``init``'s params from one dict per entry of ``_leaves()``."""
+        raise NotImplementedError
+
+    def _state_dicts(self) -> List[dict]:
+        raise NotImplementedError
+
+    def _set_state_dicts(self, dicts: List[dict]) -> None:
+        raise NotImplementedError
+
+    def _device_state(self, state: dict) -> dict:
+        """One layer's or vertex's state as f32 tensors on this network's
+        device (copies)."""
+        def f32(v):
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v, np.float32))
+            return t.to(self.device, torch.float32, copy=True)
+
+        return {k: f32(v) for k, v in state.items()}
+
+    def state_leaves(self) -> List[torch.Tensor]:
+        """The layer state as the leaves of the JAX package's ``net.state``
+        (``jax.tree_util.tree_leaves``): layer by layer, or vertex by
+        sorted vertex name, each in sorted key order ("mean" before
+        "var")."""
+        self.init()
+        return [d[k] for d in self._state_dicts() for k in sorted(d)]
+
+    def set_state_leaves(self, leaves) -> None:
+        """Set the layer state from leaves in that order (arrays or
+        tensors); counts and shapes are checked."""
+        self.init()
+        dicts = self._state_dicts()
+        want = sum(len(d) for d in dicts)
+        if len(leaves) != want:
+            raise ValueError(f"{len(leaves)} state leaves, the network expects {want}")
+        it = iter(leaves)
+        new = []
+        for d in dicts:
+            got = self._device_state({k: next(it) for k in sorted(d)})
+            for k, v in got.items():
+                if tuple(v.shape) != tuple(d[k].shape):
+                    raise ValueError(f"state {k}: shape {tuple(v.shape)}, expected "
+                                     f"{tuple(d[k].shape)}")
+            new.append({k: got[k] for k in d})
+        self._set_state_dicts(new)
+
+    def clone(self):
+        """A network of the same configuration, device and options holding
+        copies of the params, layer state, updater state, iteration and
+        epoch (reference: clone())."""
+        other = self._twin()
+        if self._initialized:
+            other.init(params=self._params_from_leaves(
+                [{k: v.detach().clone() for k, v in layer.items()} for layer in self._leaves()]))
+            other._set_state_dicts([{k: v.clone() for k, v in d.items()}
+                                    for d in self._state_dicts()])
+            if self._updater is not None:
+                other.set_updater_state_leaves(
+                    [t.clone() if isinstance(t, torch.Tensor) else t
+                     for t in self.updater_state_leaves()])
+            other.iteration, other.epoch = self.iteration, self.epoch
+        return other
+
+    def _twin(self):
         raise NotImplementedError
 
     def num_params(self) -> int:
@@ -217,7 +305,8 @@ class MultiLayerNetwork(BaseNetwork):
              generator: Optional[torch.Generator] = None) -> "MultiLayerNetwork":
         """Create the params: from ``params`` (one dict of arrays per layer),
         else drawn from ``generator`` (default: seeded by ``conf.seed``).
-        Resets the updater state and the iteration count."""
+        Resets the layer state, the updater state and the iteration
+        count."""
         if self._initialized and not force and params is None:
             return self
         input_types = self.conf.layer_input_types()
@@ -230,13 +319,28 @@ class MultiLayerNetwork(BaseNetwork):
             raise ValueError(f"{len(params)} param dicts for "
                              f"{len(self.conf.layers)} layers")
         self.layer_params = torch.nn.ModuleList(self._param_dict(p) for p in params)
+        self.state = tuple(self._device_state(layer.init_state(it))
+                           for layer, it in zip(self.conf.layers, input_types))
         self._rnn_state = None
         self._reset()
         return self
 
+    def _twin(self) -> "MultiLayerNetwork":
+        return MultiLayerNetwork(MultiLayerConfiguration.from_dict(self.conf.to_dict()),
+                                 device=self.device, lstm_variant=self.lstm_variant)
+
     def _leaves(self) -> List[dict]:
         """The trainable params, one dict per layer."""
         return [dict(p.items()) for p in self.layer_params]
+
+    def _params_from_leaves(self, dicts: List[dict]) -> List[dict]:
+        return list(dicts)
+
+    def _state_dicts(self) -> List[dict]:
+        return list(self.state)
+
+    def _set_state_dicts(self, dicts: List[dict]) -> None:
+        self.state = tuple(dicts)
 
     def _cast_params(self) -> List[dict]:
         """Params in the compute dtype, as casts of the leaves that autograd
@@ -254,16 +358,20 @@ class MultiLayerNetwork(BaseNetwork):
         return self._compute_params
 
     # ------------------------------------------------------- functional core
-    def _forward(self, params, x: torch.Tensor, features_mask=None, rnn_state=None,
-                 *, upto: Optional[int] = None, train: bool = False):
+    def _forward(self, params, x: torch.Tensor, state, features_mask=None,
+                 rnn_state=None, *, upto: Optional[int] = None, train: bool = False,
+                 generator: Optional[torch.Generator] = None, acts: Optional[list] = None):
         """Forward through layers [0, upto), each after its input
-        preprocessor, if it has one. Returns (out, new_rnn_state);
+        preprocessor, if it has one. Returns (out, new_state,
+        new_rnn_state); ``state`` is the layer state (one dict per layer),
         ``rnn_state`` (one dict per layer, {} for stateless layers) threads
-        LSTM h/c across streaming calls and TBPTT segments. ``train`` turns
-        dropout on. LSTM layers take the route ``self.lstm_variant``."""
+        LSTM h/c across streaming calls and TBPTT segments. ``train`` has
+        the layers train (BatchNormalization on batch stats); dropout acts
+        where ``generator`` is given, drawn from it. ``acts`` collects each
+        layer's output. LSTM layers take the route ``self.lstm_variant``."""
         layers = self.conf.layers
         n = len(layers) if upto is None else upto
-        gen = self._generator if train else None
+        new_state = list(state)
         new_rnn = list(rnn_state) if rnn_state is not None else None
         for i in range(n):
             pre = self.conf.preprocessors.get(i)
@@ -274,26 +382,31 @@ class MultiLayerNetwork(BaseNetwork):
             if new_rnn is not None and new_rnn[i]:
                 x, new_rnn[i] = layers[i].apply_seq(params[i], x, new_rnn[i],
                                                     mask=features_mask, train=train,
-                                                    generator=gen, **kw)
+                                                    generator=generator, **kw)
             else:
-                x, _ = layers[i].apply(params[i], x, {}, mask=features_mask,
-                                       train=train, generator=gen, **kw)
-        return x, (tuple(new_rnn) if new_rnn is not None else None)
+                x, new_state[i] = layers[i].apply(params[i], x, state[i], mask=features_mask,
+                                                  train=train, generator=generator, **kw)
+            if acts is not None:
+                acts.append(x)
+        return x, tuple(new_state), (tuple(new_rnn) if new_rnn is not None else None)
 
     def _loss(self, x, y, labels_mask=None, features_mask=None, rnn_state=None,
               train: bool = True):
         """Loss + regularization (reference: computeGradientAndScore +
-        calcL1/L2) and the new streaming state. The hidden layers run in the
-        compute dtype; the output layer takes f32 h and f32 params, as the
-        JAX package upcasts bf16 there."""
+        calcL1/L2), the new layer state and the new streaming state. The
+        hidden layers run in the compute dtype on ``self.state``; the output
+        layer takes f32 h and f32 params, as the JAX package upcasts bf16
+        there."""
         layers = self.conf.layers
         out_idx = len(layers) - 1
         out_layer = layers[out_idx]
         if not hasattr(out_layer, "compute_loss"):
             raise ValueError(
                 f"Last layer {type(out_layer).__name__} is not an output layer")
-        h, new_rnn = self._forward(self._cast_params(), x, features_mask, rnn_state,
-                                   upto=out_idx, train=train)
+        gen = self._generator if train else None
+        h, new_state, new_rnn = self._forward(self._cast_params(), x, self.state,
+                                              features_mask, rnn_state, upto=out_idx,
+                                              train=train, generator=gen)
         pre = self.conf.preprocessors.get(out_idx)
         if pre is not None:
             h = pre.apply(h)
@@ -301,25 +414,26 @@ class MultiLayerNetwork(BaseNetwork):
         out_p = {k: v.float() if v.dtype == torch.bfloat16 else v
                  for k, v in self.layer_params[out_idx].items()}
         loss = out_layer.compute_loss(out_p, h32, y, labels_mask, train=train,
-                                      generator=self._generator if train else None)
+                                      generator=gen)
         reg = sum(layer.regularization_loss(dict(p.items()))
                   for layer, p in zip(layers, self.layer_params))
-        return loss + reg, new_rnn
+        return loss + reg, new_state, new_rnn
 
     def loss_fn(self, x, y, *, train: bool = False, labels_mask=None,
                 features_mask=None) -> torch.Tensor:
         """Scalar loss of the current params on (x, y), differentiable."""
         self.init()
-        val, _ = self._loss(self._input(x), self._labels(y),
-                            self._labels_mask(labels_mask), self._mask(features_mask),
-                            train=train)
+        val, _, _ = self._loss(self._input(x), self._labels(y),
+                               self._labels_mask(labels_mask), self._mask(features_mask),
+                               train=train)
         return val
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, features_mask: Optional[torch.Tensor] = None):
         """Device-side inference: tensor in, tensor out."""
         self.init()
-        return self._forward(self._params(), self._input(x), self._mask(features_mask))[0]
+        return self._forward(self._params(), self._input(x), self.state,
+                             self._mask(features_mask))[0]
 
     # -------------------------------------------------------------- inference
     def output(self, x, features_mask=None) -> np.ndarray:
@@ -342,12 +456,35 @@ class MultiLayerNetwork(BaseNetwork):
         return ev
 
     def score(self, dataset=None) -> float:
-        """Loss on a dataset (inference mode: no dropout), or the last
-        training loss."""
+        """Loss on a dataset (inference mode: no dropout, the stored layer
+        state), or the last training loss."""
         if dataset is None:
             return float(self._last_loss) if self._last_loss is not None else float("nan")
         with torch.no_grad():
             return float(self.loss_fn(dataset.features, dataset.labels))
+
+    @torch.no_grad()
+    def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:
+        """Every layer's activation as a host array (reference:
+        feedForward). ``train`` has the layers train (BatchNormalization on
+        the batch's stats) without dropout and without storing any state."""
+        self.init()
+        acts: list = []
+        self._forward(self._params(), self._input(x), self.state, train=train, acts=acts)
+        return [to_host(a) for a in acts]
+
+    def summary(self) -> str:
+        """Layer table: index, type, input and output types, param count
+        (reference: MultiLayerNetwork.summary())."""
+        self.init()
+        rows = [("idx", "layer", "in", "out", "params")]
+        total = 0
+        for i, (layer, it) in enumerate(zip(self.conf.layers, self.conf.layer_input_types())):
+            n = sum(v.numel() for v in self.layer_params[i].values())
+            total += n
+            rows.append((str(i), type(layer).__name__, str(it),
+                         str(layer.get_output_type(it)), f"{n:,}"))
+        return _summary_table(rows, total)
 
     # --------------------------------------------------------------- training
     def fit(self, data, epochs: int = 1) -> "MultiLayerNetwork":
@@ -367,9 +504,10 @@ class MultiLayerNetwork(BaseNetwork):
         return self
 
     def _step(self, x, y, labels_mask, features_mask, rnn_state=None):
-        """One update from the loss on (x, y). Returns the new streaming
-        state, detached."""
-        loss, new_rnn = self._loss(x, y, labels_mask, features_mask, rnn_state)
+        """One update from the loss on (x, y); the layer state the forward
+        returned is stored. Returns the new streaming state, detached."""
+        loss, new_state, new_rnn = self._loss(x, y, labels_mask, features_mask, rnn_state)
+        self.state = new_state
         self._update(loss)
         if new_rnn is None:
             return None
@@ -405,10 +543,11 @@ class MultiLayerNetwork(BaseNetwork):
             if k < n:
                 split = n - k
                 with torch.no_grad():
-                    _, rnn = self._forward(
-                        self._cast_params(), xs[:, :split],
+                    _, self.state, rnn = self._forward(
+                        self._cast_params(), xs[:, :split], self.state,
                         None if fm is None else fm[:, :split], rnn,
-                        upto=len(self.conf.layers) - 1, train=True)
+                        upto=len(self.conf.layers) - 1, train=True,
+                        generator=self._generator)
                 xs, ys = xs[:, split:], ys[:, split:]
                 fm = None if fm is None else fm[:, split:]
                 lm = None if lm is None else lm[:, split:]
@@ -437,8 +576,8 @@ class MultiLayerNetwork(BaseNetwork):
         state = self._rnn_state
         if state is None or any(st and st["h"].shape[0] != x.shape[0] for st in state):
             state = self._init_rnn_states(x.shape[0])
-        out, self._rnn_state = self._forward(self._params(), x, self._mask(features_mask),
-                                             state)
+        out, _, self._rnn_state = self._forward(self._params(), x, self.state,
+                                                self._mask(features_mask), state)
         if single_step and out.dim() == 3:
             out = out[:, 0, :]
         return to_host(out)

@@ -107,11 +107,13 @@ def fused_adam_update_leaves(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tens
     """One Adam step for every leaf: ``(us, m2s, v2s)``, lists in the
     leaves' order. CUDA leaves take one kernel launch per ``MAX_LEAVES``
     leaves (none for empty leaves), their outputs views into one buffer per
-    kind at 16-byte-aligned offsets; CPU leaves the plain version. Raises
-    ``ValueError`` on lists of different lengths, mixed devices or a leaf
-    whose m or v is not g's shape, and for CUDA leaves ``TypeError`` on a
-    dtype other than float32 and ``ValueError`` on a non-contiguous tensor."""
-    gs, ms, vs = list(gs), list(ms), list(vs)
+    kind at 16-byte-aligned offsets; CPU leaves the plain version. The
+    kernel reads contiguous leaves, so a leaf in other strides (a
+    convolution's weight gradient comes back in its channels-last view's)
+    is copied first. Raises ``ValueError`` on lists of different lengths,
+    mixed devices or a leaf whose m or v is not g's shape, and for CUDA
+    leaves ``TypeError`` on a dtype other than float32."""
+    gs, ms, vs = ([t.contiguous() for t in ts] for ts in (gs, ms, vs))
     on_card = bool(gs) and gs[0].is_cuda
     _check_leaves(gs, ms, vs, kernel=on_card)
     if on_card:

@@ -3,14 +3,16 @@
 
 The zip holds ``configuration.json`` (the config's JSON), ``coefficients.npz``
 (the param leaves), ``updaterState.npz`` (the leaves of the optax updater
-state), ``state.npz`` (layer state; the port's layers have none) and
-``meta.json`` (model class, iteration, epoch). Leaves are stored as
-``leaf_i`` in ``jax.tree_util.tree_leaves`` order: layer by layer, each
-layer's dict in sorted key order; for a ``ComputationGraph``, vertex by
-vertex in sorted name order, each in sorted key order. bf16 leaves are widened to f32, which is
+state), ``state.npz`` (the layer state: BatchNormalization's running mean
+and variance) and ``meta.json`` (model class, iteration, epoch). Leaves are
+stored as ``leaf_i`` in ``jax.tree_util.tree_leaves`` order: layer by
+layer, each layer's dict in sorted key order; for a ``ComputationGraph``,
+vertex by vertex in sorted name order, each in sorted key order ("mean"
+before "var"). bf16 leaves are widened to f32, which is
 lossless, and cast back to the model's dtype on restore; the Adam and
 schedule counts are int32. A zip written by either package restores in the
-other, and training resumes from it with the updater state it had.
+other, and training resumes from it with the updater and layer state it
+had.
 """
 
 from __future__ import annotations
@@ -56,14 +58,14 @@ def _load_leaves(zf: zipfile.ZipFile, name: str) -> List[np.ndarray]:
 
 def write_model(net: BaseNetwork, path: str) -> None:
     """Save a MultiLayerNetwork or ComputationGraph with its updater state,
-    iteration and epoch (reference: ModelSerializer.writeModel)."""
+    layer state, iteration and epoch (reference: ModelSerializer.writeModel)."""
     net.init()
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("configuration.json", net.conf.to_json())
         _save_leaves(zf, "coefficients.npz",
                      [layer[k] for layer in net._leaves() for k in sorted(layer)])
         _save_leaves(zf, "updaterState.npz", net.updater_state_leaves())
-        _save_leaves(zf, "state.npz", [])
+        _save_leaves(zf, "state.npz", net.state_leaves())
         zf.writestr("meta.json", json.dumps({
             "model_class": type(net).__name__, "iteration": net.iteration,
             "epoch": net.epoch}))
@@ -73,7 +75,8 @@ def restore_model(path: str, device="cuda") -> BaseNetwork:
     """A MultiLayerNetwork or ComputationGraph from a zip of
     :func:`write_model` or of the JAX package's ``write_model`` (reference:
     ModelSerializer.restoreMultiLayerNetwork/restoreComputationGraph):
-    params, updater state, iteration and epoch, on ``device``."""
+    params, updater state, layer state, iteration and epoch, on
+    ``device``."""
     with zipfile.ZipFile(path, "r") as zf:
         meta = json.loads(zf.read("meta.json"))
         model_class = meta.get("model_class")
@@ -84,18 +87,16 @@ def restore_model(path: str, device="cuda") -> BaseNetwork:
         conf = conf_cls.from_json(zf.read("configuration.json").decode())
         leaves = _load_leaves(zf, "coefficients.npz")
         updater_leaves = _load_leaves(zf, "updaterState.npz")
-        if _load_leaves(zf, "state.npz"):
-            raise ValueError(f"{path}: holds layer state, which no ported layer has")
+        state_leaves = _load_leaves(zf, "state.npz")
     net = cls(conf, device=device).init()
     keys = [sorted(p) for p in net._leaves()]
     if len(leaves) != sum(len(k) for k in keys):
         raise ValueError(f"{path}: {len(leaves)} param leaves, the config expects "
                          f"{sum(len(k) for k in keys)}")
     it = iter(leaves)
-    params = [{k: next(it) for k in layer_keys} for layer_keys in keys]
-    if isinstance(net, ComputationGraph):
-        params = dict(zip(net._names, params))
-    load_jax_params(net, params)
+    load_jax_params(net, net._params_from_leaves(
+        [{k: next(it) for k in layer_keys} for layer_keys in keys]))
+    net.set_state_leaves(state_leaves)
     net.set_updater_state_leaves(updater_leaves)
     net.iteration = int(meta.get("iteration", 0))
     net.epoch = int(meta.get("epoch", 0))

@@ -237,9 +237,8 @@ def test_global_pooling_layer_matches_jax(kind, shape, masked):
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("jlayer", [
-    ZeroPaddingLayer(pad_top=1), Convolution1DLayer(n_out=2), dj.BatchNormalization()],
-    ids=lambda l: type(l).__name__)
+@pytest.mark.parametrize("jlayer", [ZeroPaddingLayer(pad_top=1), Convolution1DLayer(n_out=2)],
+                         ids=lambda l: type(l).__name__)
 def test_layers_of_a_later_slice_raise_naming_the_class(jlayer):
     conf = dj.MultiLayerConfiguration(layers=[jlayer],
                                       input_type=dj.InputType.convolutional(4, 4, 2))

@@ -302,7 +302,7 @@ def test_vertex_matches_jax_forward_and_gradient(name, jvertex, inputs, masks, t
         return jvertex.apply({}, list(xs), {}, masks=jm)[0]
 
     def pfn(*xs):
-        return pvertex.apply({}, list(xs), masks=pm)
+        return pvertex.apply({}, list(xs), {}, masks=pm)[0]
 
     want = np.asarray(jfn(*[jnp.asarray(x) for x in inputs]))
     cot = np.random.default_rng(7).normal(size=want.shape).astype(np.float32)
@@ -328,7 +328,7 @@ def test_layer_vertex_with_preprocessor_matches_jax():
     x = _arr(np.random.default_rng(1), 2, 3, 4, 2)
     pp = {k: torch.tensor(np.asarray(v)) for k, v in params.items()}
     want = np.asarray(jv.apply(params, [jnp.asarray(x)], {})[0])
-    got = pv.apply(pp, [torch.tensor(x)])
+    got, _ = pv.apply(pp, [torch.tensor(x)], {})
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
 
 
@@ -548,7 +548,7 @@ def test_later_entry_points_raise():
     net = pt.ComputationGraph(pt.ComputationGraphConfiguration.from_json(_dag().to_json()),
                               device="cpu")
     for name in ("rnn_time_step", "fit_on_device", "warmup", "memory_report", "preflight",
-                 "analyze_ir", "clone", "set_telemetry"):
+                 "analyze_ir", "set_telemetry"):
         with pytest.raises(NotImplementedError, match=name):
             getattr(net, name)()
     tbptt = _dag()
