@@ -57,6 +57,17 @@ the cell kernels against their plain versions (every activation pair, B
 1-67, H 129, 130 and 512) and four wrong ones, ``output``/``predict`` and decode
 against the CPU and the seqfused route, SGD (standard and TBPTT) and the
 recipe against the CPU's cell route and, in f32, the card's seqfused route.
+Then the JAX package's accuracy pins on real data (tests/test_accuracy_parity.py)
+through the datasets tier: LeNet on the bundled handwritten digits (18 epochs of
+DigitsDataSetIterator, held-out accuracy >= 0.95) and an MLP on Iris (200
+epochs, >= 0.95) from JAX's initial params (tests/data/jax_init_real_data.npz),
+their first updates against the CPU port's with two wrong Adams caught; the
+pangram char-RNN (H=96, TBPTT 32, 60 epochs, <= 1.8 bits/char) from the port's
+own init; and the char-RNN at full width fed from CSV sequence files through
+SequenceRecordReaderDataSetIterator (its masks reach rows 8-9), its first batch
+against the CPU, with evaluate() over Iris records naming each misclassified
+record's file and line. Rows 5-12 are held against their plain versions and
+timed at those shapes too.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -68,6 +79,7 @@ JAX package.
 from __future__ import annotations
 
 import importlib
+import itertools
 import json
 import os
 import statistics
@@ -984,7 +996,8 @@ def adam_cases(torch, ad):
     2^20 + 3 elements, and a leaf that starts one float into its storage,
     which takes the scalar route); and MAX_LEAVES + 5 leaves, two
     launches; LeNet's 8 leaves (its convolutions' gradients in the main
-    path's strides) and the MNIST MLP's 4."""
+    path's strides) and the MNIST MLP's 4; the leaves of slice 16's nets
+    (``real_data_adam_shapes``)."""
     import numpy as np
 
     leaves, sc = adam_inputs(torch, SEED)
@@ -998,8 +1011,10 @@ def adam_cases(torch, ad):
     mnist = [(name, conv_grad_layout(adam_inputs(torch, SEED + 5 + i,
                                                  mnist_leaf_shapes(conf))[0]), 1)
              for i, (name, (_, conf)) in enumerate(mnist_models().items())]
+    real = [(name, conv_grad_layout(adam_inputs(torch, SEED + 9 + i, shapes)[0]), 1)
+            for i, (name, shapes) in enumerate(real_data_adam_shapes().items())]
     return [("char_rnn", leaves, 1), ("attention", attn_leaves, 1), ("edge", edge, 1),
-            ("more_than_max_leaves", many, 2), *mnist], sc
+            ("more_than_max_leaves", many, 2), *mnist, *real], sc
 
 
 def phase_adam(torch, ad):
@@ -1243,7 +1258,6 @@ def phase_train_recipe(torch, dtype, host_params, card):
     from deeplearning4j_tpu_torch import (BucketingSequenceIterator, MultiLayerNetwork,
                                           char_rnn, load_jax_params, ops, params_to_numpy,
                                           restore_model, write_model)
-    from deeplearning4j_tpu_torch.nn import updaters
 
     conf = char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dtype)
     assert (conf.updater["updater"], conf.updater["learning_rate"], conf.backprop_type,
@@ -1262,13 +1276,7 @@ def phase_train_recipe(torch, dtype, host_params, card):
         net = load_jax_params(MultiLayerNetwork(conf, device=dev), host_params)
         rec = LossRecorder()
         net.set_listeners(rec)
-        updater = net._updater_ready()
-        real_bc = updaters.bias_corrections
-        if fault == "adam_b1_b2_swapped":
-            b1, b2, eps = updater.adam
-            updater.adam = (b2, b1, eps)
-        elif fault == "no_bias_correction":
-            updaters.bias_corrections = lambda *a: (1.0, 1.0)
+        undo = wrong_adam(net, fault)
         launches = None
         try:
             if dev == "cuda":
@@ -1281,7 +1289,7 @@ def phase_train_recipe(torch, dtype, host_params, card):
                 launches = ops.counters()
             seconds = time.perf_counter() - t0
         finally:
-            updaters.bias_corrections = real_bc
+            undo()
         net.set_listeners()
         losses = np.array([float(l) for l in rec.losses])
         return (net, losses, params_to_numpy(net)), launches, seconds
@@ -3349,6 +3357,25 @@ def mnist_leaf_shapes(conf):
     return [p[k].shape for p in mnist_host(conf) for k in sorted(p)]
 
 
+def wrong_adam(net, fault):
+    """Make ``net``'s Adam wrong by ``fault`` (one of RECIPE_FAULTS; None
+    leaves it right) and return what undoes the part shared by every net."""
+    from deeplearning4j_tpu_torch.nn import updaters
+
+    updater = net._updater_ready()
+    real_bc = updaters.bias_corrections
+    if fault == "adam_b1_b2_swapped":
+        b1, b2, eps = updater.adam
+        updater.adam = (b2, b1, eps)
+    elif fault == "no_bias_correction":
+        updaters.bias_corrections = lambda *a: (1.0, 1.0)
+
+    def undo():
+        updaters.bias_corrections = real_bc
+
+    return undo
+
+
 def phase_train_mnist(torch, name, card):
     """``name``'s Adam training from its seed params over MNIST_UPDATES
     batches of MnistDataSetIterator (shuffled by its seed): the card
@@ -3361,7 +3388,6 @@ def phase_train_mnist(torch, name, card):
 
     from deeplearning4j_tpu_torch import (MnistDataSetIterator, MultiLayerNetwork,
                                           load_jax_params, ops, params_to_numpy)
-    from deeplearning4j_tpu_torch.nn import updaters
 
     B, conf = mnist_models()[name]
     shape = (-1, 28, 28, 1) if name == "lenet" else (-1, 784)
@@ -3373,13 +3399,7 @@ def phase_train_mnist(torch, name, card):
         net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
         rec = LossRecorder()
         net.set_listeners(rec)
-        updater = net._updater_ready()
-        real_bc = updaters.bias_corrections
-        if fault == "adam_b1_b2_swapped":
-            b1, b2, eps = updater.adam
-            updater.adam = (b2, b1, eps)
-        elif fault == "no_bias_correction":
-            updaters.bias_corrections = lambda *a: (1.0, 1.0)
+        undo = wrong_adam(net, fault)
         try:
             if dev == "cuda":
                 torch.cuda.synchronize()
@@ -3390,7 +3410,7 @@ def phase_train_mnist(torch, name, card):
                 torch.cuda.synchronize()
             launches = ops.counters() if dev == "cuda" else None
         finally:
-            updaters.bias_corrections = real_bc
+            undo()
         net.set_listeners()
         return (net, np.array([float(l) for l in rec.losses]), params_to_numpy(net)), launches
 
@@ -3422,6 +3442,477 @@ def phase_train_mnist(torch, name, card):
         raise AssertionError(f"{name} training failed its checks")
     return {k: launches.get(k, 0) + timed_launches.get(k, 0)
             for k in set(launches) | set(timed_launches)}, ms
+
+
+# ---- slice 16: the JAX package's accuracy pins on real data
+# (tests/test_accuracy_parity.py) trained on the card through the datasets
+# tier: LeNet on the bundled handwritten digits and an MLP on Iris from
+# JAX's initial params (REAL_DATA_INIT, written by
+# scripts/make_real_data_init.py), the char-RNN on the pangram text from the
+# port's own init at the pin's seed; then the char-RNN at full width fed
+# from sequence record files (masks from SequenceRecordReaderDataSetIterator)
+REAL_DATA_INIT = os.path.join("tests", "data", "jax_init_real_data.npz")
+PIN_ACCURACY = 0.95  # digits held out (360), Iris the full set (150)
+REAL_DATA_EPOCHS = {"digits": 18, "iris": 200}
+REAL_DATA_COMPARED = 3  # updates of each pin held against the CPU port
+PANGRAM_TEXT = ("the quick brown fox jumps over the lazy dog. "
+                "pack my box with five dozen liquor jugs. "
+                "how vexingly quick daft zebras jump! ") * 8
+PANGRAM_BPC = 1.8  # bits per char of score() on the first batch
+PANGRAM_H, PANGRAM_TBPTT, PANGRAM_T, PANGRAM_B, PANGRAM_EPOCHS = 96, 32, 64, 8, 60
+# train_records: RECORDS_SEQS sequences of the pangram text, lengths drawn in
+# 64..256, one CSV file each, batches of RECORDS_B
+RECORDS_SEQS, RECORDS_B = 16, 8
+
+
+def real_data_models():
+    """name -> (batch, conf) of the two real-data pins, in the JAX package's
+    call form (an UpdaterConfig): tests/test_accuracy_parity.py's confs."""
+    from deeplearning4j_tpu_torch import (ConvolutionLayer, DenseLayer, InputType,
+                                          MultiLayerConfiguration, OutputLayer,
+                                          SubsamplingLayer, UpdaterConfig)
+
+    digits = MultiLayerConfiguration(
+        layers=[ConvolutionLayer(n_out=20, kernel=(3, 3), activation="identity"),
+                SubsamplingLayer(pooling_type="max", kernel=(2, 2), stride=(2, 2)),
+                ConvolutionLayer(n_out=50, kernel=(2, 2), activation="identity"),
+                SubsamplingLayer(pooling_type="max", kernel=(2, 2), stride=(2, 2)),
+                DenseLayer(n_out=128, activation="relu"),
+                OutputLayer(n_out=10, activation="softmax", loss="mcxent")],
+        input_type=InputType.convolutional(8, 8, 1),
+        updater=UpdaterConfig(updater="adam", learning_rate=2e-3), seed=5)
+    iris = MultiLayerConfiguration(
+        layers=[DenseLayer(n_out=16, activation="tanh"),
+                OutputLayer(n_out=3, activation="softmax", loss="mcxent")],
+        input_type=InputType.feed_forward(4),
+        updater=UpdaterConfig(updater="adam", learning_rate=5e-3), seed=6)
+    return {"digits": (128, digits), "iris": (50, iris)}
+
+
+def real_data_host(name):
+    """JAX's initial params of the pin ``name`` from REAL_DATA_INIT, one dict
+    of f32 arrays per layer (the layout load_jax_params takes)."""
+    import numpy as np
+
+    layers: dict = {}
+    with np.load(os.path.join(HERE, REAL_DATA_INIT)) as z:
+        for key in z.files:
+            model, i, k = key.split("/")
+            if model == name:
+                layers.setdefault(int(i), {})[k] = z[key]
+    return [layers.get(i, {}) for i in range(max(layers) + 1)]  # pooling layers: {}
+
+
+def real_data_iterators(name):
+    """(training iterator, evaluation iterator) of the pin, as JAX's test
+    makes them: digits shuffled by seed 123, the 360 held out in order;
+    Iris in batches of 50, evaluated at once."""
+    from deeplearning4j_tpu_torch import DigitsDataSetIterator, IrisDataSetIterator
+
+    if name == "digits":
+        return (DigitsDataSetIterator(batch=128, train=True),
+                DigitsDataSetIterator(batch=120, train=False, shuffle=False))
+    return IrisDataSetIterator(batch=50), IrisDataSetIterator(batch=150, shuffle=False)
+
+
+def phase_kernels_real_data(torch, sx):
+    """Rows 10-11 against their plain versions at slice 16's loss heads
+    (REAL_DATA_SXENT; f32). Returns the errors by phase."""
+    return {name: sxent_case(torch, sx, N, C, "float32", "one_hot", SEED + N)
+            for name, (N, C) in REAL_DATA_SXENT.items()}
+
+
+def phase_train_real(torch, name, card):
+    """The pin ``name`` on the card from JAX's initial params: its epochs of
+    ``fit`` over its iterator (reset each epoch), then ``evaluate``; exactly
+    one softmax-xent forward and backward and one Adam launch per update in
+    that run; its accuracy at PIN_ACCURACY. Its first REAL_DATA_COMPARED
+    updates (the first batches of epoch 0) are held against the CPU port's
+    from the same weights by ``recipe_readings`` at MNIST_LIMITS (rows
+    10-12's f32 limits), and each of RECIPE_FAULTS on the card must fail
+    them (Adam's first step is lr * g/|g| whatever b1 and b2 are, so a swap
+    of the two shows from the second update on). Returns (launch
+    counts, the card's net, the accuracy)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, ops, params_to_numpy
+
+    _, conf = real_data_models()[name]
+    host = real_data_host(name)
+    lr = conf.updater["learning_rate"]
+    first = list(itertools.islice(real_data_iterators(name)[0], REAL_DATA_COMPARED))
+
+    def first_updates(dev, fault=None):
+        net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        undo = wrong_adam(net, fault)
+        try:
+            for ds in first:
+                net.fit(ds)
+        finally:
+            undo()
+        return net, np.array([float(l) for l in rec.losses]), params_to_numpy(net)
+
+    cpu = first_updates("cpu")
+    readings = recipe_readings(first_updates("cuda"), cpu, host, lr=lr)
+    faults = {}
+    for fault in RECIPE_FAULTS:
+        faults[fault] = recipe_readings(first_updates("cuda", fault), cpu, host, lr=lr)
+        faults[fault]["caught"] = not within_limits(faults[fault], MNIST_LIMITS)
+
+    train_it, eval_it = real_data_iterators(name)
+    net = load_jax_params(MultiLayerNetwork(conf), host)
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    net.fit(train_it, epochs=REAL_DATA_EPOCHS[name])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ev = net.evaluate(eval_it)
+    launches = ops.counters()
+    net.set_listeners()
+    losses = np.array([float(l) for l in rec.losses])
+    updates = REAL_DATA_EPOCHS[name] * len(train_it)
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
+                     "adam_update": updates * adam_launches(net)})
+    acc = ev.accuracy()
+    ok = (acc >= PIN_ACCURACY and launches == expected and len(losses) == updates
+          and bool(np.isfinite(losses).all()) and within_limits(readings, MNIST_LIMITS)
+          and all(f["caught"] for f in faults.values()))
+    emit(f"train_{name}", epochs=REAL_DATA_EPOCHS[name], B=real_data_models()[name][0],
+         updates=updates, accuracy=acc, pin=PIN_ACCURACY, examples=ev.examples,
+         first_loss=float(losses[0]), last_loss=float(losses[-1]),
+         first_updates_vs_cpu=readings, compared_updates=REAL_DATA_COMPARED,
+         limits=MNIST_LIMITS, faults_vs_cpu=faults,
+         kernel_launches=launches, expected_launches=expected, fit_seconds=fit_s,
+         ms_per_update=fit_s * 1e3 / updates, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"train_{name} failed its checks")
+    return launches, net, acc
+
+
+def pangram_conf():
+    """The pangram pin's char-RNN (tests/test_accuracy_parity.py)."""
+    from deeplearning4j_tpu_torch import char_rnn
+
+    return char_rnn(vocab_size=len(set(PANGRAM_TEXT)), hidden_size=PANGRAM_H, num_layers=2,
+                    tbptt_length=PANGRAM_TBPTT, learning_rate=3e-3, seed=5)
+
+
+def pangram_batches():
+    """(xs, ys): the pangram text as next-char one-hot sequences of
+    PANGRAM_T steps [n, T, 29], cut as JAX's test cuts them."""
+    import numpy as np
+
+    vocab = sorted(set(PANGRAM_TEXT))
+    ids = np.array([vocab.index(c) for c in PANGRAM_TEXT])
+    n = (len(ids) - 1) // PANGRAM_T
+    eye = np.eye(len(vocab), dtype=np.float32)
+    t = PANGRAM_T
+    return (np.stack([eye[ids[i * t:(i + 1) * t]] for i in range(n)]),
+            np.stack([eye[ids[i * t + 1:(i + 1) * t + 1]] for i in range(n)]))
+
+
+def lstm_rows_at(torch, ls, T, B, H, card, where, mask=None):
+    """The training kernels of one LSTM layer at [T, B, H], f32: rows 6-7
+    (8-9 with ``mask``, [T, B, 1]) against their plain versions on the same
+    CUDA tensors (every output; dRW and the peephole grads over their
+    largest element) and the dRW product alone at R = T*B; then each timed
+    beside its plain version and its bound, dRW also beside
+    torch.matmul(hp.t(), dz). Returns {name: (max abs err, times)}."""
+    import numpy as np
+
+    dt, lim = torch.float32, KERNEL_ATOL["float32"]
+    fwd, bwd = (("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd") if mask is not None
+                else ("lstm_seq_train_fwd", "lstm_seq_bwd"))
+    args = seq_inputs(torch, T, B, H, "float32", False, SEED + T + H)
+    got = ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:])
+    want = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:])
+    names = ("ys", "a", "f", "o", "i", "c", "hT", "cT")
+    torch.cuda.synchronize()
+    e = {n: float((g.float() - w.float()).abs().max()) for n, g, w in zip(names, got, want)}
+    out = {fwd: [check(fwd, "float32", e, dict.fromkeys(e, lim), T=T, B=B, H=H, at=where)]}
+    rng = np.random.default_rng(SEED + T)
+    up = [torch.as_tensor(rng.normal(0.0, 0.1, shape), dtype=dt, device=DEVICE)
+          for shape in ((T, B, H), (B, H), (B, H))]
+    res = tuple(want[:6]) + tuple(args[1:])
+    got = ls.lstm_sequence_masked_backward(*up, mask, *res)
+    ref = ls.lstm_sequence_masked_backward_reference(*up, mask, *res)
+    torch.cuda.synchronize()
+    e = f32_bwd_readings(got, ref)
+    check(bwd, "float32", e, dict.fromkeys(e, lim), T=T, B=B, H=H, at=where,
+          summed_grads_relative_to_largest=list(SUMMED_GRADS))
+    out[bwd] = [max_abs(got, ref)]
+    h0, ys, dzx = args[1], want[0], torch.as_tensor(rng.normal(0.0, 1e-2, (T, B, 4 * H)),
+                                                    dtype=dt, device=DEVICE)
+    got, ref = ls.drw_product(h0, ys, dzx), ls.drw_product_reference(h0, ys, dzx)
+    torch.cuda.synchronize()
+    r = rel_readings([got], [ref], ["dRW"])["dRW"]
+    ok = tuple(got.shape) == (H, 4 * H) and drw_within(r, "float32")
+    emit("kernel_vs_plain", kernel="drw_product", dtype="float32", T=T, B=B, R=T * B, H=H,
+         at=where, readings=r, limit=KERNEL_ATOL["float32"], ok=ok)
+    if not ok:
+        raise AssertionError(f"drw_product at {where}: {r} outside the limit")
+    out["drw_product"] = [r["max_abs"]]
+    hp = torch.cat([h0[None], ys[:T - 1]]).reshape(-1, H).contiguous()
+    dz = dzx.reshape(-1, 4 * H).contiguous()
+    live = 1.0 if mask is None else float(mask.float().mean())
+    for name, kern, plain, lib, b in (
+            (fwd, lambda: ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:]),
+             lambda: ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:]), None,
+             bound_train_fwd(T, B, H, "float32", masked=mask is not None)),
+            (bwd, lambda: ls.lstm_sequence_masked_backward(*up, mask, *res),
+             lambda: ls.lstm_sequence_masked_backward_reference(*up, mask, *res), None,
+             bound_bwd(T, B, H, "float32", live=live, masked=mask is not None)),
+            ("drw_product", lambda: ls.drw_product(h0, ys, dzx),
+             lambda: ls.drw_product_reference(h0, ys, dzx), lambda: torch.matmul(hp.t(), dz),
+             bound_drw(T * B, H, "float32"))):
+        out[name].append(time_pair(torch, name, kern, plain, lib, *b, card, dtype="float32",
+                                   T=T, B=B, H=H, at=where, mask_live_share=live))
+    return out
+
+
+def phase_train_pangram(torch, ls, card):
+    """The pangram pin on the card from the port's own init at seed 5 (drawn
+    on the CPU): PANGRAM_EPOCHS epochs of TBPTT(32) Adam over the batches of
+    JAX's test, then ``score`` on the first batch in bits per char, held at
+    PANGRAM_BPC; the launches of that run exactly (rows 6-7 and dRW per
+    layer and update, 10-12 per update; ``score``'s forward: row 5 per
+    layer, row 10 once). Returns (launch counts, bits per char)."""
+    import math
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (DataSet, MultiLayerNetwork, load_jax_params, ops,
+                                          params_to_numpy)
+
+    conf = pangram_conf()
+    host = params_to_numpy(MultiLayerNetwork(conf, device="cpu").init())
+    xs, ys = pangram_batches()
+    b = PANGRAM_B
+    starts = range(0, len(xs) - b + 1, b)
+    net = load_jax_params(MultiLayerNetwork(conf), host)
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(PANGRAM_EPOCHS):
+        for s in starts:
+            net.fit(DataSet(xs[s:s + b], ys[s:s + b]))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    bpc = net.score(DataSet(xs[:b], ys[:b])) / math.log(2)
+    torch.cuda.synchronize()
+    launches = ops.counters()
+    net.set_listeners()
+    losses = np.array([float(l) for l in rec.losses])
+    updates = PANGRAM_EPOCHS * len(starts) * -(-PANGRAM_T // PANGRAM_TBPTT)
+    layers = len(conf.layers) - 1
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"lstm_seq_train_fwd": layers * updates, "lstm_seq_bwd": layers * updates,
+                     "drw_product": layers * updates, "softmax_xent_fwd": updates + 1,
+                     "softmax_xent_bwd": updates, "lstm_seq_lean": layers,
+                     "adam_update": updates * adam_launches(net)})
+    ok = (bpc <= PANGRAM_BPC and launches == expected and len(losses) == updates
+          and bool(np.isfinite(losses).all()))
+    emit("train_pangram", epochs=PANGRAM_EPOCHS, B=b, T=PANGRAM_T, H=PANGRAM_H,
+         tbptt=PANGRAM_TBPTT, updates=updates, bits_per_char=bpc, pin=PANGRAM_BPC,
+         first_loss=float(losses[0]), last_loss=float(losses[-1]), kernel_launches=launches,
+         expected_launches=expected, fit_seconds=fit_s, ms_per_update=fit_s * 1e3 / updates,
+         ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("train_pangram failed its checks")
+    return launches, bpc
+
+
+def records_text(tmp: str):
+    """RECORDS_SEQS next-char sequences of the pangram text, lengths drawn
+    from the seed in 64..256, each from a random place in it, written as one
+    CSV file each under ``tmp`` (a row: the 29 one-hot columns of a char and
+    the next char's index). Returns the lengths."""
+    import numpy as np
+
+    vocab = sorted(set(PANGRAM_TEXT))
+    ids = np.array([vocab.index(c) for c in PANGRAM_TEXT * 2])
+    rng = np.random.default_rng(SEED + 16)
+    lengths = rng.integers(64, 257, RECORDS_SEQS)
+    eye = np.eye(len(vocab), dtype=np.int64)
+    for k, n in enumerate(lengths):
+        s = int(rng.integers(0, len(PANGRAM_TEXT)))
+        rows = np.concatenate([eye[ids[s:s + n]], ids[s + 1:s + n + 1, None]], axis=1)
+        np.savetxt(os.path.join(tmp, f"seq_{k:03d}.csv"), rows, fmt="%d", delimiter=",")
+    return lengths.tolist()
+
+
+def iris_split(tmp: str) -> str:
+    """The bundled Iris rows in an order drawn from the seed, with the
+    header, as ``tmp``/iris_split.csv."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import fetchers
+
+    with open(os.path.join(fetchers.DATA_DIR, "iris.csv")) as f:
+        header, *rows = f.read().splitlines()
+    order = np.random.default_rng(SEED + 17).permutation(len(rows))
+    path = os.path.join(tmp, "iris_split.csv")
+    with open(path, "w") as f:
+        f.write("\n".join([header] + [rows[i] for i in order]) + "\n")
+    return path
+
+
+def phase_train_records(torch, iris_net, iris_acc, card):
+    """The char-RNN at the smoke's width (H=512, 2 layers, vocab 29) fed
+    from sequence record files (``records_text``) through
+    CSVSequenceRecordReader and SequenceRecordReaderDataSetIterator
+    (ALIGN_START, label column 29), padded batches with masks, so through
+    rows 8-9: one epoch of the recipe (Adam, TBPTT(50)) on the card from
+    numpy-drawn weights, its launches exactly; its first batch's updates
+    against the CPU port's from the same weights by ``recipe_readings`` at
+    RECIPE_LIMITS. Then ``evaluate`` of the Iris pin's net over a CSV split
+    of Iris through RecordReaderDataSetIterator with ``collect_metadata``:
+    each misclassified record named by its file and line, reloaded from it,
+    and the accuracy that of train_iris. Returns (launch counts, the first
+    batch's mask as [T, B, 1] of its first TBPTT segment)."""
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (MultiLayerNetwork, char_rnn, load_jax_params, ops,
+                                          params_to_numpy)
+    from deeplearning4j_tpu_torch.datasets import (ALIGN_START, CSVRecordReader,
+                                                   CSVSequenceRecordReader,
+                                                   RecordReaderDataSetIterator,
+                                                   SequenceRecordReaderDataSetIterator)
+
+    vocab = len(set(PANGRAM_TEXT))
+    conf = char_rnn(vocab, HIDDEN, LAYERS)
+    host = char_rnn_params(conf, SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        lengths = records_text(tmp)
+
+        def batches():
+            return SequenceRecordReaderDataSetIterator(
+                CSVSequenceRecordReader(tmp), RECORDS_B, label_index=vocab, num_classes=vocab,
+                alignment=ALIGN_START)
+
+        it = batches()
+        listed = list(batches())
+        masked = all(ds.features_mask is not None and ds.labels_mask is not None
+                     for ds in listed)
+        first = listed[0]
+
+        def run(dev, data):
+            net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+            rec = LossRecorder()
+            net.set_listeners(rec)
+            net.fit(data)
+            return net, np.array([float(l) for l in rec.losses]), params_to_numpy(net)
+
+        readings = recipe_readings(run("cuda", first), run("cpu", first), host)
+        net = load_jax_params(MultiLayerNetwork(conf), host)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        net.fit(it)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = ops.counters()
+        net.set_listeners()
+        losses = np.array([float(l) for l in rec.losses])
+        updates = sum(-(-ds.features.shape[1] // conf.tbptt_fwd_length) for ds in listed)
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"lstm_seq_masked_train_fwd": LAYERS * updates,
+                         "lstm_seq_masked_bwd": LAYERS * updates,
+                         "drw_product": LAYERS * updates, "softmax_xent_fwd": updates,
+                         "softmax_xent_bwd": updates,
+                         "adam_update": updates * adam_launches(net)})
+
+        path = iris_split(tmp)
+        ev = iris_net.evaluate(RecordReaderDataSetIterator(
+            CSVRecordReader(path, skip_lines=1), 50, label_index=4, num_classes=3,
+            collect_metadata=True))
+        with open(path) as f:
+            lines = f.read().splitlines()
+        named, reloaded = [], True
+        for p in ev.prediction_errors():
+            m = p.record_metadata
+            line = m.index + 2  # 1-based, after the header
+            named.append(f"{os.path.basename(m.source)}:{line} actual {p.actual_class} "
+                         f"predicted {p.predicted_class}")
+            want = [float(v) for v in lines[line - 1].split(",")]
+            reloaded &= (m.source == path and p.get_record() == want
+                         and int(want[-1]) == p.actual_class)
+    meta_ok = (len(ev.predictions) == 150 and reloaded and abs(ev.accuracy() - iris_acc) < 1e-12
+               and len(named) == round((1 - ev.accuracy()) * 150))
+    ok = (masked and launches == expected and len(losses) == updates
+          and bool(np.isfinite(losses).all())
+          and within_limits(readings, RECIPE_LIMITS["float32"]) and meta_ok)
+    emit("train_records", sequences=RECORDS_SEQS, lengths=lengths, B=RECORDS_B,
+         padded_T=[int(ds.features.shape[1]) for ds in listed], H=HIDDEN, layers=LAYERS,
+         masks_from_iterator=masked, updates=updates, first_loss=float(losses[0]),
+         last_loss=float(losses[-1]), first_batch_vs_cpu=readings,
+         limits=RECIPE_LIMITS["float32"], kernel_launches=launches,
+         expected_launches=expected, fit_seconds=fit_s, iris_records_accuracy=ev.accuracy(),
+         iris_array_accuracy=iris_acc, misclassified_records=named, metadata_ok=meta_ok,
+         ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("train_records failed its checks")
+    m, seg = first.features_mask, conf.tbptt_fwd_length
+    t0 = min(range(0, m.shape[1], seg), key=lambda t: float(m[:, t:t + seg].mean()))
+    mask = np.ascontiguousarray(m[:, t0:t0 + seg].T[..., None])
+    return launches, torch.as_tensor(mask, device=DEVICE)
+
+
+def lean_at(torch, ls, T, B, H, card, where):
+    """Row 5 (unmasked) at [T, B, H], f32, against its plain version, then
+    timed beside it and its bound. Returns (max abs err, times)."""
+    args = seq_inputs(torch, T, B, H, "float32", False, SEED + T)
+    got, want = ls.fused_lstm_sequence(*args), ls.lstm_sequence_reference(*args)
+    torch.cuda.synchronize()
+    e = {n: float((g - w).abs().max()) for n, g, w in zip(("ys", "hT", "cT"), got, want)}
+    err = check("lstm_seq_lean", "float32", e, dict.fromkeys(e, KERNEL_ATOL["float32"]),
+                T=T, B=B, H=H, at=where)
+    return err, time_pair(torch, "lstm_seq_lean", lambda: ls.fused_lstm_sequence(*args),
+                          lambda: ls.lstm_sequence_reference(*args), None,
+                          *bound(T, B, H, "float32", False), card, dtype="float32", T=T, B=B,
+                          H=H, at=where)
+
+
+def real_data_adam_shapes():
+    """Param leaf shapes of slice 16's nets, by phase."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, char_rnn, params_to_numpy
+
+    pangram = params_to_numpy(MultiLayerNetwork(pangram_conf(), device="cpu").init())
+    records = char_rnn_params(char_rnn(len(set(PANGRAM_TEXT)), HIDDEN, LAYERS), SEED)
+    hosts = {"digits": real_data_host("digits"), "iris": real_data_host("iris"),
+             "pangram": pangram, "records": records}
+    return {name: [np.shape(p[k]) for p in host for k in sorted(p)]
+            for name, host in hosts.items()}
+
+
+# the kernels each of slice 16's phases must launch, and the kernels line
+# reads at its shapes
+REAL_DATA_ROWS = {
+    "digits": ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"),
+    "iris": ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"),
+    "pangram": ("lstm_seq_lean", "lstm_seq_train_fwd", "lstm_seq_bwd", "drw_product",
+                "softmax_xent_fwd", "softmax_xent_bwd", "adam_update"),
+    "records": ("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd", "drw_product",
+                "softmax_xent_fwd", "softmax_xent_bwd", "adam_update"),
+}
+# slice 16's loss heads, by phase: [N, C] of rows 10-11 (pangram: B * TBPTT
+# rows; records: B * 50, a full TBPTT segment)
+REAL_DATA_SXENT = {"digits": (128, 10), "iris": (50, 3),
+                   "pangram": (PANGRAM_B * PANGRAM_TBPTT, 29), "records": (RECORDS_B * 50, 29)}
 
 
 def time_sxent_head(torch, sx, card):
@@ -3839,6 +4330,7 @@ def main() -> int:
     errs.update(phase_kernels_attention(torch, fa))
     errs.update(phase_kernels_lrn(torch, lr, sx))
     mnist_errs = phase_kernels_mnist(torch, sx)
+    real_errs = phase_kernels_real_data(torch, sx)
     cell_errs = phase_kernels_cell(torch, lc)
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
@@ -3976,6 +4468,16 @@ def main() -> int:
     for name, (counts, _) in mnist_train.items():
         for k in ("softmax_xent_fwd", "softmax_xent_bwd", "adam_update"):
             new_path_launches[(name, k)] = counts.get(k, 0)
+    # ---- 4i. slice 16: the accuracy pins on real data, then the char-RNN fed
+    # from record files (rows 5-12); each phase counts from 0
+    real_train = {name: phase_train_real(torch, name, card) for name in real_data_models()}
+    real_launches = {name: run[0] for name, run in real_train.items()}
+    real_launches["pangram"], _ = phase_train_pangram(torch, ls, card)
+    real_launches["records"], records_mask = phase_train_records(
+        torch, real_train["iris"][1], real_train["iris"][2], card)
+    for where, names in REAL_DATA_ROWS.items():
+        for k in names:
+            new_path_launches[(where, k)] = real_launches[where].get(k, 0)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -4038,6 +4540,21 @@ def main() -> int:
         shapes = mnist_leaf_shapes(conf)
         times[("adam_update", name)] = time_adam(torch, ad, card, shapes,
                                                  f"{name}'s {len(shapes)} leaves")
+    real_shapes = real_data_adam_shapes()
+    for where, (N, C) in REAL_DATA_SXENT.items():
+        for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card,
+                                    f"{where}'s loss head").items():
+            times[(k, where)] = t
+        times[("adam_update", where)] = time_adam(torch, ad, card, real_shapes[where],
+                                                  f"{where}'s {len(real_shapes[where])} leaves")
+    lstm_at = {"pangram": lstm_rows_at(torch, ls, PANGRAM_TBPTT, PANGRAM_B, PANGRAM_H, card,
+                                       "pangram"),
+               "records": lstm_rows_at(torch, ls, records_mask.shape[0], RECORDS_B, HIDDEN,
+                                       card, "records", mask=records_mask)}
+    lstm_at["pangram"]["lstm_seq_lean"] = list(lean_at(torch, ls, PANGRAM_T, PANGRAM_B,
+                                                       PANGRAM_H, card, "pangram"))
+    lstm_shapes = {"pangram": {"lstm_seq_lean": (PANGRAM_T, PANGRAM_B, PANGRAM_H)},
+                   "records": {}}
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -4134,6 +4651,33 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "dtype": "float32",
                 "shape": f"{len(mnist_leaf_shapes(mnist_models()[model][1]))} leaves",
+                "kernel_device_ms": t.get("kernel_device_ms")})
+    # rows 5-12 at the shapes of slice 16's paths
+    seg_T = {"pangram": PANGRAM_TBPTT, "records": int(records_mask.shape[0])}
+    seg_B = {"pangram": PANGRAM_B, "records": RECORDS_B}
+    seg_H = {"pangram": PANGRAM_H, "records": HIDDEN}
+    for where, names in REAL_DATA_ROWS.items():
+        for k in names:
+            if k.startswith("softmax_xent"):
+                e, t = real_errs[where], times[(k, where)]
+                err = e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"])
+                shape = "N={} C={}".format(*REAL_DATA_SXENT[where])
+            elif k == "adam_update":
+                err, t = adam_errs[where], times[(k, where)]
+                shape = f"{len(real_shapes[where])} leaves"
+            else:
+                err, t = lstm_at[where][k]
+                T, B, H = lstm_shapes[where].get(k, (seg_T[where], seg_B[where], seg_H[where]))
+                shape = f"T={T} B={B} H={H}" + (
+                    f" R={T * B}" if k == "drw_product" else "") + (
+                    ", the iterator's mask" if where == "records" and k != "drw_product" else "")
+            source, replaces = {**KERNELS, **DRW_KERNELS}[k]
+            lines.append({
+                "name": f"{k}@{where}", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": new_path_launches[(where, k)],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
                 "kernel_device_ms": t.get("kernel_device_ms")})
     print(json.dumps({"kernels": lines, "launches": launches,
                       "library_ms_note": "no single PyTorch call computes the "

@@ -24,7 +24,14 @@ serves and trains ResNet (``resnet_conf``, ``resnet50_conf`` and the rest
 of the family) as a ``ComputationGraph``. It trains LeNet
 (``lenet_mnist_conf``) and MLPs with Adam on ``MultiLayerNetwork`` over
 ``NumpyDataSetIterator`` and ``MnistDataSetIterator`` (local IDX files or
-the JAX package's synthetic stand-in). ``LossLayer``, ``EmbeddingLayer``
+the JAX package's synthetic stand-in), and trains and evaluates both
+networks over the whole ``datasets`` tier: the ``DataSetIterator`` family,
+record readers and their iterators (CSV, sequences with alignment masks,
+images; ``collect_metadata`` carries each record's provenance into
+``Evaluation``'s ``Prediction``s), normalizers, ``.npz`` export, and the
+fetchers, with the real handwritten digits and Iris bundled
+(``DigitsDataSetIterator``, ``IrisDataSetIterator``). ``RegressionEvaluation``
+and ``ROC`` are there too. ``LossLayer``, ``EmbeddingLayer``
 and the JAX package's whole activation catalog are there too. The LSTM recurrence, masked or not, its backward, flash attention and its
 backward, LRN and its backward, the softmax cross-entropy and the Adam update
 run in hand-written CUDA kernels (``ops/csrc/``); the LSTM layers run either
@@ -34,10 +41,14 @@ kernel launch per step. Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
-from .datasets.fetchers import MnistDataSetIterator, load_mnist
-from .datasets.iterators import (BucketingSequenceIterator, DataSet, MultiDataSet,
+from .datasets.fetchers import (DigitsDataSetIterator, IrisDataSetIterator,
+                                MnistDataSetIterator, load_mnist)
+from .datasets.iterators import (BucketingSequenceIterator, DataSet, DataSetIterator,
+                                 ListDataSetIterator, MultiDataSet, MultipleEpochsIterator,
                                  NumpyDataSetIterator, pad_to_bucket)
 from .eval.evaluation import Evaluation
+from .eval.regression import RegressionEvaluation
+from .eval.roc import ROC, ROCMultiClass
 from .interop.jax_params import (load_jax_model_zip, load_jax_params, load_jax_state,
                                  params_to_numpy, state_to_numpy)
 from .models.alexnet import alexnet_conf
@@ -98,8 +109,10 @@ __all__ = [
     "ComputationGraphConfiguration",
     "ConvolutionLayer",
     "DataSet",
+    "DataSetIterator",
     "DecodeServer",
     "DenseLayer",
+    "DigitsDataSetIterator",
     "DropoutLayer",
     "DuplicateToTimeSeriesVertex",
     "ElementWiseVertex",
@@ -112,11 +125,13 @@ __all__ = [
     "GravesBidirectionalLSTM",
     "GravesLSTM",
     "InputType",
+    "IrisDataSetIterator",
     "L2NormalizeVertex",
     "L2Vertex",
     "LastTimeStepVertex",
     "LayerNormLayer",
     "LayerVertex",
+    "ListDataSetIterator",
     "LocalResponseNormalization",
     "LossLayer",
     "MergeVertex",
@@ -124,9 +139,13 @@ __all__ = [
     "MultiDataSet",
     "MultiLayerConfiguration",
     "MultiLayerNetwork",
+    "MultipleEpochsIterator",
     "NumpyDataSetIterator",
     "OutputLayer",
     "PreprocessorVertex",
+    "ROC",
+    "ROCMultiClass",
+    "RegressionEvaluation",
     "ReshapeVertex",
     "RnnOutputLayer",
     "RnnToCnnPreProcessor",

@@ -1,40 +1,72 @@
 """Minibatches for ``fit`` (counterpart of
-``deeplearning4j_tpu/datasets/iterators.py``: its ``DataSet``,
-``MultiDataSet``, ``as_iterator``, ``NumpyDataSetIterator``,
-``pad_to_bucket`` and ``BucketingSequenceIterator``).
+``deeplearning4j_tpu/datasets/iterators.py``): ``DataSet``,
+``MultiDataSet``, the ``DataSetIterator`` family (``ListDataSetIterator``,
+``NumpyDataSetIterator``, ``ExistingDataSetIterator``,
+``MultipleEpochsIterator``, ``SamplingDataSetIterator``,
+``IteratorDataSetIterator``, ``ReconstructionDataSetIterator``,
+``IteratorMultiDataSetIterator``, ``BucketingSequenceIterator``),
+``as_iterator`` and ``pad_to_bucket``.
+
+Batches are numpy arrays on the host; the networks move each one to their
+device. A batch may carry ``example_metadata``, one record's provenance per
+example (``records.RecordMetaData``), which ``evaluate`` passes on to
+``Evaluation``. The JAX package's asynchronous and device-prefetching
+iterators are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, List, Optional, Sequence
+from typing import Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 
 @dataclass
 class DataSet:
-    """Features + labels (+ masks) minibatch (reference: ND4J DataSet)."""
+    """Features + labels (+ masks) minibatch (reference: ND4J DataSet), with
+    each example's provenance when the iterator collects it."""
 
     features: np.ndarray
     labels: np.ndarray
     features_mask: Optional[np.ndarray] = None
     labels_mask: Optional[np.ndarray] = None
+    example_metadata: Optional[List] = None
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
+
+    def _take(self, idx) -> "DataSet":
+        def opt(a):
+            return None if a is None else a[idx]
+
+        meta = self.example_metadata
+        if meta is not None:
+            meta = meta[idx] if isinstance(idx, slice) else [meta[i] for i in idx]
+        return DataSet(self.features[idx], self.labels[idx], opt(self.features_mask),
+                       opt(self.labels_mask), meta)
+
+    def split_test_and_train(self, n_train: int):
+        """(the first ``n_train`` examples, the rest)."""
+        return self._take(slice(None, n_train)), self._take(slice(n_train, None))
+
+    def shuffle(self, seed: int = 0) -> "DataSet":
+        """The examples in the order of ``default_rng(seed).permutation``."""
+        return self._take(np.random.default_rng(seed).permutation(self.num_examples()))
 
 
 @dataclass
 class MultiDataSet:
     """Multi-input, multi-output minibatch (reference: ND4J MultiDataSet),
     for ``ComputationGraph``: one array per network input and output, in
-    their declared order, and optional masks aligned with them."""
+    their declared order, optional masks aligned with them, and each
+    example's provenance, shared by the outputs."""
 
     features: List[np.ndarray]
     labels: List[np.ndarray]
     features_masks: Optional[List[Optional[np.ndarray]]] = None
     labels_masks: Optional[List[Optional[np.ndarray]]] = None
+    example_metadata: Optional[List] = None
 
     def num_examples(self) -> int:
         return int(self.features[0].shape[0])
@@ -42,7 +74,7 @@ class MultiDataSet:
 
 def as_multi(ds) -> MultiDataSet:
     """A batch as a MultiDataSet: a DataSet or an (x, y) pair becomes one
-    of one input and one output, its masks carried."""
+    of one input and one output, its masks and metadata carried."""
     if isinstance(ds, MultiDataSet):
         return ds
     if isinstance(ds, (tuple, list)) and len(ds) == 2:
@@ -50,22 +82,55 @@ def as_multi(ds) -> MultiDataSet:
     if isinstance(ds, DataSet):
         return MultiDataSet(features=[ds.features], labels=[ds.labels],
                             features_masks=[ds.features_mask],
-                            labels_masks=[ds.labels_mask])
+                            labels_masks=[ds.labels_mask],
+                            example_metadata=ds.example_metadata)
     raise TypeError(f"Cannot convert {type(ds).__name__} to MultiDataSet")
+
+
+class DataSetIterator:
+    """Base iterator (reference: DataSetIterator): iterable, with ``reset``
+    and ``batch_size``. ``prefetch_supported`` is the JAX package's flag."""
+
+    prefetch_supported = True
+
+    def reset(self) -> None:
+        pass
+
+    def __iter__(self) -> Iterator[DataSet]:
+        raise NotImplementedError
+
+    def batch_size(self) -> int:
+        raise NotImplementedError
+
+
+class ListDataSetIterator(DataSetIterator):
+    """Iterate a list of pre-built batches (reference: ListDataSetIterator)."""
+
+    def __init__(self, datasets: Sequence[DataSet]):
+        self._data = list(datasets)
+
+    def __iter__(self):
+        return iter(self._data)
+
+    def batch_size(self) -> int:
+        return self._data[0].num_examples() if self._data else 0
+
+    def __len__(self) -> int:
+        return len(self._data)
 
 
 def as_iterator(data) -> Iterable[DataSet]:
     """Normalize fit() input: an (x, y) tuple, a DataSet or a MultiDataSet
-    becomes a one-batch list; anything else is taken as an iterable of
-    those."""
+    becomes a one-batch ``ListDataSetIterator``; anything else is taken as
+    an iterable of those. A pair's arrays (or tensors) are kept as given."""
     if isinstance(data, (DataSet, MultiDataSet)):
-        return [data]
+        return ListDataSetIterator([data])
     if isinstance(data, tuple) and len(data) == 2:
-        return [DataSet(data[0], data[1])]
+        return ListDataSetIterator([DataSet(data[0], data[1])])
     return data
 
 
-class NumpyDataSetIterator:
+class NumpyDataSetIterator(DataSetIterator):
     """(features, labels) arrays in batches of ``batch`` rows (reference:
     INDArrayDataSetIterator). With ``shuffle``, each pass over the data
     (each ``iter``) permutes the rows with
@@ -102,6 +167,181 @@ class NumpyDataSetIterator:
         return n // self.batch if self.drop_last else -(-n // self.batch)
 
 
+class ExistingDataSetIterator(DataSetIterator):
+    """Wrap any iterable of batches (reference: ExistingDataSetIterator)."""
+
+    def __init__(self, iterable: Iterable[DataSet]):
+        self._iterable = iterable
+
+    def __iter__(self):
+        return iter(self._iterable)
+
+    def batch_size(self) -> int:
+        return 0
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replay an iterator ``epochs`` times, reset before each (reference:
+    MultipleEpochsIterator)."""
+
+    def __init__(self, epochs: int, base: DataSetIterator):
+        self.epochs = epochs
+        self.base = base
+
+    def __iter__(self):
+        for _ in range(self.epochs):
+            self.base.reset()
+            yield from self.base
+
+    def batch_size(self) -> int:
+        return self.base.batch_size()
+
+
+class SamplingDataSetIterator(DataSetIterator):
+    """``total_batches`` batches of ``batch`` rows drawn with replacement,
+    the same draws on every pass (reference: SamplingDataSetIterator)."""
+
+    def __init__(self, dataset: DataSet, batch: int, total_batches: int, seed: int = 0):
+        self.dataset = dataset
+        self.batch = batch
+        self.total = total_batches
+        self.seed = seed
+
+    def batch_size(self) -> int:
+        return self.batch
+
+    def __iter__(self):
+        rng = np.random.default_rng(self.seed)
+        n = self.dataset.num_examples()
+        for _ in range(self.total):
+            idx = rng.integers(0, n, size=self.batch)
+            yield DataSet(self.dataset.features[idx], self.dataset.labels[idx])
+
+
+class IteratorDataSetIterator(DataSetIterator):
+    """Re-batch a stream of single examples into batches of ``batch``; a
+    trailing short batch is left out (reference: IteratorDataSetIterator).
+    Metadata is carried when every example of a batch has it."""
+
+    def __init__(self, examples: Iterable[DataSet], batch: int):
+        self.examples = examples
+        self.batch = batch
+
+    def batch_size(self) -> int:
+        return self.batch
+
+    def __iter__(self):
+        feats, labs, metas = [], [], []
+        for ex in self.examples:
+            feats.append(ex.features)
+            labs.append(ex.labels)
+            if ex.example_metadata:
+                metas.extend(ex.example_metadata)
+            if len(feats) == self.batch:
+                yield DataSet(np.stack(feats), np.stack(labs),
+                              example_metadata=metas if len(metas) == len(feats) else None)
+                feats, labs, metas = [], [], []
+
+
+class ReconstructionDataSetIterator(DataSetIterator):
+    """Labels = features, the features mask as the labels mask, for
+    autoencoder targets (reference: ReconstructionDataSetIterator)."""
+
+    def __init__(self, base: DataSetIterator):
+        self.base = base
+
+    def batch_size(self) -> int:
+        return self.base.batch_size()
+
+    def reset(self) -> None:
+        self.base.reset()
+
+    def __iter__(self):
+        for ds in self.base:
+            yield DataSet(ds.features, ds.features, features_mask=ds.features_mask,
+                          labels_mask=ds.features_mask, example_metadata=ds.example_metadata)
+
+
+def _take_multi(mds: MultiDataSet, sl) -> MultiDataSet:
+    """Row-slice every array (and the metadata) of a MultiDataSet."""
+    def opt(masks):
+        return None if masks is None else [None if m is None else m[sl] for m in masks]
+
+    return MultiDataSet(
+        features=[f[sl] for f in mds.features], labels=[lab[sl] for lab in mds.labels],
+        features_masks=opt(mds.features_masks), labels_masks=opt(mds.labels_masks),
+        example_metadata=None if mds.example_metadata is None else mds.example_metadata[sl])
+
+
+def _cat_masks(buf: List[MultiDataSet], kind: str, n: int):
+    """Concatenate the masks of each position across ``buf``; a member
+    without a mask there contributes ones of the masked members' shape."""
+    mask_lists = [getattr(m, kind) for m in buf]
+    if all(ml is None for ml in mask_lists):
+        return None
+    out = []
+    for i in range(n):
+        col = [None if ml is None else ml[i] for ml in mask_lists]
+        if all(m is None for m in col):
+            out.append(None)
+            continue
+        trailing = next(np.asarray(m).shape[1:] for m in col if m is not None)
+        out.append(np.concatenate([
+            np.ones((mds.num_examples(),) + trailing, np.float32) if m is None
+            else np.asarray(m) for m, mds in zip(col, buf)]))
+    return out
+
+
+def _concat_multi(buf: List[MultiDataSet]) -> MultiDataSet:
+    n_in, n_out = len(buf[0].features), len(buf[0].labels)
+    metas = None
+    if any(m.example_metadata for m in buf):
+        metas = []
+        for m in buf:
+            metas.extend(m.example_metadata or [None] * m.num_examples())
+    return MultiDataSet(
+        features=[np.concatenate([np.asarray(m.features[i]) for m in buf])
+                  for i in range(n_in)],
+        labels=[np.concatenate([np.asarray(m.labels[i]) for m in buf]) for i in range(n_out)],
+        features_masks=_cat_masks(buf, "features_masks", n_in),
+        labels_masks=_cat_masks(buf, "labels_masks", n_out),
+        example_metadata=metas)
+
+
+class IteratorMultiDataSetIterator(DataSetIterator):
+    """Re-batch a stream of MultiDataSets into batches of exactly ``batch``
+    rows; only the trailing batch may be short (reference:
+    IteratorMultiDataSetIterator). A source batch that overflows is split
+    and its rest carried into the next; members without a mask merge as
+    all-ones masks."""
+
+    def __init__(self, examples: Iterable[MultiDataSet], batch: int):
+        if int(batch) < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        self.examples = examples
+        self.batch = int(batch)
+
+    def batch_size(self) -> int:
+        return self.batch
+
+    def __iter__(self):
+        buf: List[MultiDataSet] = []
+        count = 0
+        for mds in self.examples:
+            buf.append(mds)
+            count += mds.num_examples()
+            if count >= self.batch:
+                merged = _concat_multi(buf)  # once per fill; the batches are views of it
+                k = 0
+                while count - k >= self.batch:
+                    yield _take_multi(merged, slice(k, k + self.batch))
+                    k += self.batch
+                buf = [_take_multi(merged, slice(k, None))] if count - k else []
+                count -= k
+        if buf:
+            yield _concat_multi(buf)
+
+
 def pad_to_bucket(x, boundaries: Sequence[int]):
     """Pad a [B, T, F] (or [T, F]) sequence batch to the smallest bucket
     boundary >= T. Returns ``(padded, mask, t)``: ``mask`` is the [B, bound]
@@ -122,7 +362,7 @@ def pad_to_bucket(x, boundaries: Sequence[int]):
     return np.pad(x, pad), mask, t
 
 
-class BucketingSequenceIterator:
+class BucketingSequenceIterator(DataSetIterator):
     """Variable-length sequences in batches padded to a fixed set of lengths.
 
     Each sequence goes to the smallest bucket boundary >= its length and is
@@ -140,6 +380,9 @@ class BucketingSequenceIterator:
         if not self.boundaries:
             raise ValueError("need at least one bucket boundary")
         self.drop_remainder = drop_remainder
+
+    def batch_size(self) -> int:
+        return self.batch
 
     def _bucket_of(self, length: int) -> int:
         return next((b for b in self.boundaries if length <= b), self.boundaries[-1])

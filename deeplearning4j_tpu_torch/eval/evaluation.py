@@ -1,9 +1,10 @@
 """Classification evaluation: accuracy, precision, recall, F1 and the
 confusion matrix (counterpart of ``deeplearning4j_tpu/eval/evaluation.py``).
 
-A numpy copy of the JAX package's classes without its record-metadata
-attribution (the port's ``DataSet`` carries no example metadata). Counts
-accumulate on the host over batches.
+A numpy copy of the JAX package's classes, its record-metadata attribution
+included: ``eval`` given one ``RecordMetaData`` per example keeps a
+``meta.Prediction`` for each, which ``prediction_errors`` and the
+by-class queries return. Counts accumulate on the host over batches.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+
+from .meta import Prediction
 
 
 class ConfusionMatrix:
@@ -37,16 +40,19 @@ class Evaluation:
         self.examples = 0
         self.top_n = max(1, top_n)
         self.top_n_correct = 0
+        self.predictions: List[Prediction] = []  # only where eval() had metadata
 
     def _ensure(self, n: int):
         if self.confusion is None:
             self.n_classes = self.n_classes or n
             self.confusion = ConfusionMatrix(self.n_classes)
 
-    def eval(self, labels, predictions) -> None:
+    def eval(self, labels, predictions, record_metadata=None) -> None:
         """labels: one-hot [B, C] (or int [B]); predictions: probabilities or
         scores [B, C]. Row-argmax both into the confusion matrix; time-series
-        [B, T, C] inputs are flattened over time."""
+        [B, T, C] inputs are flattened over time. ``record_metadata``, one
+        entry per example row, also records a ``Prediction`` each; a count
+        that does not match raises before anything is counted."""
         labels = np.asarray(labels)
         predictions = np.asarray(predictions)
         if predictions.ndim == 3:
@@ -55,12 +61,29 @@ class Evaluation:
         self._ensure(predictions.shape[-1])
         pred_idx = predictions.argmax(-1)
         act_idx = labels.argmax(-1) if labels.ndim == 2 else labels.astype(np.int64)
+        if record_metadata is not None and len(record_metadata) != len(pred_idx):
+            raise ValueError(f"record_metadata has {len(record_metadata)} entries for "
+                             f"{len(pred_idx)} examples")
         self.confusion.add(act_idx, pred_idx)
         self.examples += len(pred_idx)
+        if record_metadata is not None:
+            self.predictions.extend(Prediction(a, p, m) for a, p, m in
+                                    zip(act_idx, pred_idx, record_metadata))
         if self.top_n > 1:
             k = min(self.top_n, predictions.shape[-1])
             topk = np.argpartition(predictions, -k, axis=-1)[:, -k:]
             self.top_n_correct += int((topk == act_idx[:, None]).any(-1).sum())
+
+    def prediction_errors(self) -> List[Prediction]:
+        """The misclassified examples with their provenance (reference:
+        Evaluation.getPredictionErrors)."""
+        return [p for p in self.predictions if not p.is_correct()]
+
+    def predictions_by_actual_class(self, cls: int) -> List[Prediction]:
+        return [p for p in self.predictions if p.actual_class == cls]
+
+    def predictions_by_predicted_class(self, cls: int) -> List[Prediction]:
+        return [p for p in self.predictions if p.predicted_class == cls]
 
     def _tp(self) -> np.ndarray:
         return np.diag(self.confusion.matrix)

@@ -3,8 +3,9 @@
 configures both packages.
 
 ``updater``, ``backprop_type``, ``tbptt_*`` and ``loss_scale`` are the
-training settings ``MultiLayerNetwork.fit`` acts on; ``updater`` stays the
-plain dict of the JSON. ``preprocessors`` maps a layer's index to the input
+training settings ``MultiLayerNetwork.fit`` acts on; ``updater`` is kept
+as the plain dict of the JSON, and an ``UpdaterConfig`` given in its place
+(the JAX package's field) becomes its full dict. ``preprocessors`` maps a layer's index to the input
 preprocessor that reshapes its input (``conf/preprocessors.py``). ``remat``
 is kept as it is, not acted on.
 """
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from ..layers.base import BaseLayer, layer_from_dict
+from ..updaters import UpdaterConfig
 from .inputs import InputType
 from .preprocessors import InputPreProcessor, preprocessor_from_dict
 
@@ -38,6 +40,10 @@ class MultiLayerConfiguration:
     # per-layer-index input preprocessors (reference: nn/conf/preprocessor/*);
     # stored as {"idx": {"@type": ...}} in JSON
     preprocessors: Dict[int, InputPreProcessor] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if isinstance(self.updater, UpdaterConfig):
+            self.updater = self.updater.to_dict()
 
     def layer_input_types(self) -> List[InputType]:
         """InputType seen by each layer (preprocessors applied)."""

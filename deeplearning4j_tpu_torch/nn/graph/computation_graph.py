@@ -259,7 +259,9 @@ class ComputationGraph(BaseNetwork):
         :class:`Evaluation`; otherwise ``{output name: Evaluation}`` over
         the classification heads (mcxent, negativeloglikelihood, xent,
         binary_xent losses). As in the JAX package, labels masks are not
-        applied."""
+        applied, and a batch's ``example_metadata`` goes to each head's
+        ``Evaluation`` (its ``predictions``) unless that output is a time
+        series."""
         outs = self.conf.network_outputs
         single = len(outs) == 1
         names = [n for n in outs
@@ -280,7 +282,11 @@ class ComputationGraph(BaseNetwork):
             if len(got) != len(mds.labels):
                 raise ValueError(f"{len(got)} outputs but {len(mds.labels)} label arrays")
             for n, ev in evs.items():
-                ev.eval(mds.labels[idx[n]], got[idx[n]])
+                # each example's provenance, where the batch carries it; a
+                # time-series output flattens to B*T rows, which it no
+                # longer matches
+                meta = mds.example_metadata if got[idx[n]].ndim != 3 else None
+                ev.eval(mds.labels[idx[n]], got[idx[n]], record_metadata=meta)
         return evs[names[0]] if single else evs
 
     def summary(self) -> str:

@@ -25,7 +25,8 @@ kernels); any other value raises ValueError. It is not part of the conf.
   ``set_updater_state_leaves`` read and set its state as the leaves of the
   JAX package's optax state (``utils/serialization.py`` saves them).
 - ``evaluate`` runs ``output`` over a dataset and returns an
-  ``Evaluation``.
+  ``Evaluation``, with a ``Prediction`` per example where the batches carry
+  record metadata.
 - ``state`` holds the layers' state (BatchNormalization's running mean and
   variance), one dict per layer, f32 on the net's device. Training
   forwards read it, and ``fit`` stores what they return (no autograd
@@ -448,11 +449,15 @@ class MultiLayerNetwork(BaseNetwork):
         """Classification evaluation of ``output`` over ``data`` (as ``fit``
         takes it). As in the JAX package, the features mask goes to
         ``output`` and the labels mask is not applied: time-series outputs
-        count every step of every row."""
+        count every step of every row. A batch's ``example_metadata`` goes
+        to ``Evaluation.eval`` (its ``predictions``) unless the output is a
+        time series, whose B*T rows it no longer matches."""
         ev = Evaluation(top_n=top_n)
         for ds in as_iterator(data):
             ds = ds if isinstance(ds, DataSet) else DataSet(*ds)
-            ev.eval(ds.labels, self.output(ds.features, features_mask=ds.features_mask))
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            meta = ds.example_metadata if out.ndim != 3 else None
+            ev.eval(ds.labels, out, record_metadata=meta)
         return ev
 
     def score(self, dataset=None) -> float:
