@@ -187,6 +187,9 @@ KERNELS = {
     "lstm_seq_masked_train_fwd": (CSRC + "lstm_seq.cu", PALLAS + "772"),
     "lstm_seq_masked_bwd": (CSRC + "lstm_seq_bwd.cu", PALLAS + "828"),
     "adam_update": (CSRC + "adam.cu", PALLAS + "1044"),
+    # row 12's device-scalar entry (dl4j_adam_update_multi_dev), the update
+    # of a captured training step
+    "adam_update_dev": (CSRC + "adam.cu", PALLAS + "1044"),
 }
 # the backward's dRW product (rows 2, 7 and 9 launch it inside their C
 # entries; ops.lstm_sequence.drw_product alone): the sum of h_prev^T dzx of
@@ -798,13 +801,15 @@ def time_pair(torch, name, kern, plain, lib, b_ms, b_by, card, **fields):
                 bound_by=b_by, library_ms=min(lib_runs) if lib_runs else None)
 
 
-def time_adam(torch, ad, card, shapes=None, what="the char-RNN's 14 leaves"):
+def time_adam(torch, ad, card, shapes=None, what="the char-RNN's 14 leaves", dev=False):
     """Row 12 over ``shapes``' leaves (default: the char-RNN's 14; one
     update: one grouped call, one launch) beside its plain version leaf by
     leaf, its bound and torch.optim.Adam(fused=True).step() on the same
     leaves as the library yardstick (it also adds u to the params). The
     gradients of convolution weights come in the strides of the main path
-    (``conv_grad_layout``), so the wrapper's copy of them is in the time."""
+    (``conv_grad_layout``), so the wrapper's copy of them is in the time.
+    With ``dev``, the device-scalar entry, lr, bc1 and bc2 in a tensor on
+    the card (its plain version takes them as 0-d tensors there)."""
     leaves, sc = adam_inputs(torch, SEED + 1, shapes)
     leaves = conv_grad_layout(leaves)
     gs, ms, vs = (list(x) for x in zip(*leaves))
@@ -814,17 +819,25 @@ def time_adam(torch, ad, card, shapes=None, what="the char-RNN's 14 leaves"):
     opt = torch.optim.Adam(params, lr=sc[0], betas=(sc[3], sc[4]), eps=sc[5], fused=True)
     n = sum(g.numel() for g in gs)
 
+    row = torch.tensor(sc[:3], dtype=torch.float32, device=DEVICE)
+
     def call():
+        if dev:
+            return ad.fused_adam_update_leaves_dev(gs, ms, vs, row, *sc[3:])
         return ad.fused_adam_update_leaves(gs, ms, vs, *sc)
+
+    def plain():
+        scalars = (row[0], row[1], row[2]) if dev else sc[:3]
+        return [ad.adam_update_reference(g, m, v, *scalars, *sc[3:]) for g, m, v in leaves]
 
     # the kernel's own time on the card, apart from the host's part of a call
     prof = profile(torch, lambda: [call() for _ in range(10)])
     device_ms = sum(r[1] for r in prof["top_kernels"] if "adam_multi" in r[0]) / 10
-    emit("profile", what=f"10 grouped Adam calls over {what}", gpu=card,
+    emit("profile", what=f"10 grouped Adam calls over {what}" + (
+        ", device-scalar entry" if dev else ""), gpu=card,
          adam_multi_device_ms_per_call=device_ms, **prof)
     t = time_pair(
-        torch, "adam_update", call,
-        lambda: [ad.adam_update_reference(g, m, v, *sc) for g, m, v in leaves],
+        torch, "adam_update_dev" if dev else "adam_update", call, plain,
         opt.step, *bound_adam(n), card, dtype="float32", over=what, leaves=len(leaves),
         elements=n,
         launches_per_call=-(-len(leaves) // ad.MAX_LEAVES), kernel_device_ms=device_ms)
@@ -3522,6 +3535,21 @@ def phase_kernels_real_data(torch, sx):
             for name, (N, C) in REAL_DATA_SXENT.items()}
 
 
+class AsItComes:
+    """An iterator read as it comes: its batches and resets without
+    ``prefetch_supported``, so ``fit`` copies each batch to the card as its
+    update takes it (the path before ``fit`` prefetched)."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def reset(self):
+        self.base.reset()
+
+    def __iter__(self):
+        return iter(self.base)
+
+
 def phase_train_real(torch, name, card):
     """The pin ``name`` on the card from JAX's initial params: its epochs of
     ``fit`` over its iterator (reset each epoch), then ``evaluate``; exactly
@@ -3531,8 +3559,12 @@ def phase_train_real(torch, name, card):
     from the same weights by ``recipe_readings`` at MNIST_LIMITS (rows
     10-12's f32 limits), and each of RECIPE_FAULTS on the card must fail
     them (Adam's first step is lr * g/|g| whatever b1 and b2 are, so a swap
-    of the two shows from the second update on). Returns (launch
-    counts, the card's net, the accuracy)."""
+    of the two shows from the second update on). Then the same epochs from
+    the same weights, timed in turns through ``fit``'s reader (one
+    DevicePrefetchIterator a call, which hands batches under
+    PREFETCH_MIN_BYTES out as they come) and as they come; and staged
+    (``stage_on_device`` STAGED_K, after one epoch that captures the step),
+    twice. Returns (launch counts, the card's net, the accuracy)."""
     import numpy as np
 
     from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, ops, params_to_numpy
@@ -3580,16 +3612,46 @@ def phase_train_real(torch, name, card):
     expected.update({"softmax_xent_fwd": updates, "softmax_xent_bwd": updates,
                      "adam_update": updates * adam_launches(net)})
     acc = ev.accuracy()
+
+    def epochs_ms(how):
+        run = load_jax_params(MultiLayerNetwork(conf), host)
+        it = real_data_iterators(name)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.fit(it if how == "read_ahead" else AsItComes(it), epochs=REAL_DATA_EPOCHS[name])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / updates
+
+    fit_ms = {"read_ahead": [], "as_it_comes": []}
+    for how in ("as_it_comes", "read_ahead", "read_ahead", "as_it_comes"):
+        fit_ms[how].append(epochs_ms(how))
+    staged = load_jax_params(MultiLayerNetwork(conf), host)
+    staged.fit(real_data_iterators(name)[0], stage_on_device=STAGED_K)  # the capture
+    staged_ms = []
+    for _ in range(2):
+        it = real_data_iterators(name)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged.fit(it, epochs=REAL_DATA_EPOCHS[name], stage_on_device=STAGED_K)
+        torch.cuda.synchronize()
+        staged_ms.append((time.perf_counter() - t0) * 1e3 / updates)
+    staged_replays = staged._step_graphs.replays
+    del staged
     ok = (acc >= PIN_ACCURACY and launches == expected and len(losses) == updates
           and bool(np.isfinite(losses).all()) and within_limits(readings, MNIST_LIMITS)
-          and all(f["caught"] for f in faults.values()))
+          and all(f["caught"] for f in faults.values())
+          and staged_replays == updates * 2 + len(train_it))
     emit(f"train_{name}", epochs=REAL_DATA_EPOCHS[name], B=real_data_models()[name][0],
          updates=updates, accuracy=acc, pin=PIN_ACCURACY, examples=ev.examples,
          first_loss=float(losses[0]), last_loss=float(losses[-1]),
          first_updates_vs_cpu=readings, compared_updates=REAL_DATA_COMPARED,
          limits=MNIST_LIMITS, faults_vs_cpu=faults,
          kernel_launches=launches, expected_launches=expected, fit_seconds=fit_s,
-         ms_per_update=fit_s * 1e3 / updates, ok=ok, gpu=card)
+         ms_per_update=fit_s * 1e3 / updates, ms_per_update_runs=fit_ms,
+         read_ahead_ms_per_update=min(fit_ms["read_ahead"]),
+         as_it_comes_ms_per_update=min(fit_ms["as_it_comes"]),
+         staged_ms_per_update_runs=staged_ms, staged_replays=staged_replays,
+         staged_ms_per_update=min(staged_ms), ok=ok, gpu=card)
     if not ok:
         raise AssertionError(f"train_{name} failed its checks")
     return launches, net, acc
@@ -4188,8 +4250,9 @@ def phase_sass(build_s: dict) -> dict:
 def profile(torch, fn, top: int = 6, groups=None):
     """Run ``fn`` under torch.profiler: wall ms, the card's busy ms (sum of
     kernel intervals on the one stream), the ``top`` kernels by time, the
-    copies and layout changes (memcpys, copy and transpose kernels), and
-    the ms and launches of each of ``groups`` ((label, regex of the kernel
+    copies and layout changes (memcpys, copy and transpose kernels), the
+    host's CUDA API calls of API_CALLS, and the ms and launches of each of
+    ``groups`` ((label, regex of the kernel
     name) pairs; a kernel counts in the first that matches, else "other")."""
     import re
     from collections import defaultdict
@@ -4214,7 +4277,8 @@ def profile(torch, fn, top: int = 6, groups=None):
     copying = re.compile(r"(?i)memcpy|copy|transpose|nchwtonhwc|nhwctonchw")
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / wall_ms if wall_ms else None, top_kernels=rows[:top],
-               copies=[r for r in rows if copying.search(r[0])])
+               copies=[r for r in rows if copying.search(r[0])],
+               api_calls=api_calls(prof.events()))
     if groups:
         sums = defaultdict(lambda: [0.0, 0])
         for n, (ms, c) in by_name.items():
@@ -4282,6 +4346,893 @@ def decode_vs_alone(net, trajectories):
     return alone_err, same_tokens
 
 
+# ---- slice 17: the staged training loop (fit_on_device, warmup,
+# fit(stage_on_device=K) over the bucketed stager), one training step
+# captured in a CUDA graph and replayed once per update, and the prefetch of
+# fit (on the card DevicePrefetchIterator: a worker thread fills pinned
+# buffers, copied one batch ahead on a side stream)
+STAGED_K, STAGED_STEPS = 4, 8  # bench_resnet50's path: 8 updates over 4 staged slots
+STAGED_FIT_BATCHES = 9  # fit(stage_on_device=4): windows of 4, 4 and 1 real batch
+STAGED_TIMED_WINDOWS = 2  # timed windows of STAGED_K replays (and as many eager updates)
+# the staged trajectory against eager fit over the same slots, both with
+# cuDNN deterministic: each reading's limit is what two eager runs of the
+# same code read against each other in the same phase (the noise), times
+# STAGED_NOISE_FACTOR
+STAGED_NOISE_FACTOR = 2.0
+STAGED_TRAJECTORY_READINGS = ("loss_rel", "change_rel", "state_rel", "updater_rel")
+# the first replayed update against eager fit's first update on the same
+# batch, at the first-update limits of train_resnet50 (card against CPU)
+STAGED_FIRST_KEYS = ("first_loss_rel", "first_change_rel", "first_state_rel")
+# the char-RNN recipe on the staged path: char_rnn()'s Adam (lr 1e-3) and
+# H=512, standard backprop (the staged loop takes no TBPTT), 8 batches of 64
+# of the recipe's ragged sequences (lengths 96..256 from the seed, each
+# batch padded to its own longest with its masks), which the stager pads to
+# the power-of-two time buckets 128 and 256: windows of 1, 4 and 3 real
+# batches, two captured steps a route
+STAGED_RECIPE_BATCHES = 8
+# LeNet (B=64) and the MNIST MLP with dropout 0.5 (B=512) on fit_on_device
+STAGED_MLP_DROPOUT = 0.5
+# AlexNet's fit over an iterator of host batches, prefetched: one epoch of
+# PREFETCH_BATCHES distinct batches at B=128
+PREFETCH_BATCHES = 6
+# the wrong prefetch: the side stream held busy for this many cycles before
+# each copy (about 0.1 s on the H100's 1.98 GHz), so a buffer refilled
+# without waiting for its copy's event holds the next batch when the copy
+# runs
+PREFETCH_SLEEP_CYCLES = 200_000_000
+# host API calls the profiler's CPU side counts per update
+API_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+             "cudaGraphLaunch", "cudaMemcpyAsync")
+
+
+class StagedLossRecorder(LossRecorder):
+    """LossRecorder that opts in to the staged loop (its losses arrive after
+    each window)."""
+
+    supports_staged = True
+
+
+def replayed_launches(net) -> dict:
+    """The kernel launches that the replays of ``net``'s captured steps
+    made: each graph's launches a replay (what its capture counted) times
+    its replays."""
+    out = {}
+    for entry in net._step_graphs._entries.values():
+        for k, n in entry.launches.items():
+            out[k] = out.get(k, 0) + n * entry.replays
+    return out
+
+
+def api_calls(prof_events) -> dict:
+    """Counts of the host's CUDA API calls of API_CALLS among a profile's
+    CPU events."""
+    from torch.autograd import DeviceType
+
+    counts = dict.fromkeys(API_CALLS, 0)
+    for e in prof_events:
+        if e.device_type == DeviceType.CPU and e.name in counts:
+            counts[e.name] += 1
+    return counts
+
+
+def phase_adam_dev(torch, ad):
+    """Row 12's device-scalar entry (``dl4j_adam_update_multi_dev``: lr, bc1
+    and bc2 read from a row of the scalar table on the card) at the
+    char-RNN's 14 leaves and LeNet's 8 (its convolutions' gradients in the
+    main path's strides): against its plain version (``adam_update_reference``
+    with 0-d tensors on the card) at ADAM_REL; bit for bit against the
+    by-value entry given the same three floats; and a wrong version, the
+    previous row's scalars, which the bit-for-bit check must catch. At
+    LeNet's leaves, the by-value entry as per-batch ``fit`` calls it is
+    timed against what that path would pay for the device-scalar entry: the
+    step's three floats copied to the card, then the entry. Returns the max
+    abs error against the plain version by case."""
+    from deeplearning4j_tpu_torch.nn.updaters import UpdaterConfig, step_scalars
+
+    tx = UpdaterConfig(updater="adam", learning_rate=RECIPE_LR).build()
+    table = torch.from_numpy(step_scalars(tx, {"count": 0, "adam": {"count": 0}}, 3)).to(DEVICE)
+    row = 2  # the third update's: adam_inputs' scalars
+    errs = {}
+    for name, shapes in (("char_rnn", None),
+                         ("lenet", mnist_leaf_shapes(mnist_models()["lenet"][1]))):
+        leaves, sc = adam_inputs(torch, SEED + 20, shapes)
+        leaves = conv_grad_layout(leaves)
+        gs, ms, vs = (list(x) for x in zip(*leaves))
+        b1, b2, eps = sc[3:]
+        before = ad.launches["adam_update_dev"]
+        got = ad.fused_adam_update_leaves_dev(gs, ms, vs, table[row], b1, b2, eps)
+        launched = ad.launches["adam_update_dev"] - before
+        lr, bc1, bc2 = table[row].tolist()
+        by_value = ad.fused_adam_update_leaves(gs, ms, vs, lr, bc1, bc2, b1, b2, eps)
+        wrong = ad.fused_adam_update_leaves_dev(gs, ms, vs, table[row - 1], b1, b2, eps)
+        rel, abs_err = dict.fromkeys(("u", "m", "v"), 0.0), 0.0
+        bits, wrong_bits = 0.0, 0.0
+        for i, (g, m, v) in enumerate(leaves):
+            want = ad.adam_update_reference(g, m, v, table[row][0], table[row][1],
+                                            table[row][2], b1, b2, eps)
+            for n, a, b, c, w in zip(rel, (got[0][i], got[1][i], got[2][i]), want,
+                                     (by_value[0][i], by_value[1][i], by_value[2][i]),
+                                     (wrong[0][i], wrong[1][i], wrong[2][i])):
+                err = float((a - b).abs().max())
+                abs_err = max(abs_err, err)
+                rel[n] = max(rel[n], err / float(b.abs().max()))
+                bits = max(bits, float((a - c).abs().max()))
+                wrong_bits = max(wrong_bits, float((w - c).abs().max()))
+        torch.cuda.synchronize()
+        entry_ms = {"by_value": [], "row_copy_then_dev": []}
+        if name == "lenet":
+            calls = {"by_value": lambda: ad.fused_adam_update_leaves(
+                         gs, ms, vs, lr, bc1, bc2, b1, b2, eps),
+                     "row_copy_then_dev": lambda: ad.fused_adam_update_leaves_dev(
+                         gs, ms, vs, torch.tensor([lr, bc1, bc2], dtype=torch.float32).to(
+                             DEVICE, non_blocking=True), b1, b2, eps)}
+            for how in ("by_value", "row_copy_then_dev", "row_copy_then_dev", "by_value"):
+                entry_ms[how].append(median_ms(calls[how]))
+        check("adam_update_dev", "float32", rel, dict.fromkeys(rel, ADAM_REL), case=name,
+              leaves=len(leaves), max_abs_err=abs_err, launches=launched,
+              per_batch_entry_ms_runs=entry_ms,
+              max_abs_diff_vs_by_value_entry=bits,
+              wrong_previous_row_max_abs_diff_vs_by_value=wrong_bits,
+              wrong_previous_row_caught=wrong_bits > 0.0, relative_to_largest=True)
+        if bits != 0.0 or wrong_bits == 0.0 or launched != 1:
+            raise AssertionError(f"adam_update_dev {name}: {bits} from the by-value entry, "
+                                 f"wrong row {wrong_bits}, {launched} launches")
+        errs[name] = abs_err
+    return errs
+
+
+def staged_slots(torch, seed, k=STAGED_K, b=RES_B):
+    """``k`` batches of ResNet's images and labels stacked [k, b, ...] on the
+    card (f32, as the host gives them)."""
+    import numpy as np
+
+    pairs = [alexnet_images(b, seed + i) for i in range(k)]
+    return tuple(torch.as_tensor(np.stack(a), device=DEVICE) for a in zip(*pairs))
+
+
+def updater_rel(leaves, ref) -> float:
+    """The largest relative difference over the updater state's float
+    leaves, 0 when they are counts only (plain SGD keeps no trace); counts
+    must be equal."""
+    import numpy as np
+
+    out = 0.0
+    for a, b in zip(leaves, ref):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.ndim == 0:
+            if a != b:
+                return float("inf")
+            continue
+        out = max(out, float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)))
+    return out
+
+
+def host_leaves(net):
+    return [t.detach().float().cpu().numpy() for t in net.updater_state_leaves()]
+
+
+def staged_resnet_readings(run, ref, host) -> dict:
+    """The staged (or second eager) run against an eager run: the first
+    update's loss, change and running stats, and the trajectory's losses,
+    each tensor's change, running stats and updater state after the last
+    step."""
+    out = train_readings((run["losses"], run["first"], run["params"]),
+                         (ref["losses"], ref["first"], ref["params"]), host)
+    out["first_loss_rel"] = float(abs(run["losses"][0] - ref["losses"][0])
+                                  / abs(ref["losses"][0]))
+    out["first_state_rel"] = state_rel(run["first_state"], ref["first_state"])
+    out["state_rel"] = state_rel(run["state"], ref["state"])
+    out["updater_rel"] = updater_rel(run["updater"], ref["updater"])
+    return out
+
+
+def eager_resnet_run(torch, conf, host, slots, steps=STAGED_STEPS):
+    """``steps`` eager updates (fit, batch on the card) over ``slots`` in
+    turn: losses, params and state after the first, params, state and
+    updater after the last, and the state after each step."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import params_to_numpy, state_to_numpy
+
+    xs, ys = slots
+    net = resnet_net(conf, host)
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    states = []
+    for i in range(steps):
+        net.fit((xs[i % len(xs)], ys[i % len(xs)]))
+        states.append(state_to_numpy(net))
+        if i == 0:
+            first = params_to_numpy(net)
+    torch.cuda.synchronize()
+    out = dict(losses=np.array([float(l) for l in rec.losses]), first=first,
+               first_state=states[0], params=params_to_numpy(net), state=states[-1],
+               states=states, updater=host_leaves(net))
+    del net
+    return out
+
+
+def staged_resnet_run(torch, conf, host, slots, warm=False, fault=None):
+    """ResNet's staged run over ``slots``: one replayed update, then 7 over
+    the slots rolled by one (so steps 2-8 take slots 1, 2, 3, 0, ...), or
+    with ``warm`` ``warmup`` and then one window of 8. Returns the
+    readings' inputs and the replay and launch counts of the whole run
+    (captures included); ``fault`` "bn_state_not_in_place" rebinds the
+    layer state to the step's outputs instead of writing it in place, and
+    runs 4 steps only."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import ops, params_to_numpy, state_to_numpy
+
+    xs, ys = slots
+    net = resnet_net(conf, host)
+    if fault == "bn_state_not_in_place":
+        net._write_state = lambda new: net._set_state_dicts(new)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    if fault is not None:
+        losses = net.fit_on_device(xs, ys, steps=STAGED_K)
+        first = first_state = None
+    elif warm:
+        net.warmup(xs, ys)
+        losses = net.fit_on_device(xs, ys, steps=STAGED_STEPS)
+        first = first_state = None
+    else:
+        losses = [net.fit_on_device(xs[:1], ys[:1], steps=1)]
+        first, first_state = params_to_numpy(net), state_to_numpy(net)
+        rolled = [torch.cat([t[1:], t[:1]]) for t in (xs, ys)]
+        losses.append(net.fit_on_device(*rolled, steps=STAGED_STEPS - 1))
+        losses = np.concatenate(losses)
+        del rolled
+    torch.cuda.synchronize()
+    out = dict(losses=np.asarray(losses, np.float64), first=first, first_state=first_state,
+               params=params_to_numpy(net), state=state_to_numpy(net), updater=host_leaves(net),
+               launches={k: v for k, v in ops.counters().items() if v},
+               replays=net._step_graphs.replays, graphs=len(net._step_graphs),
+               captured_per_replay=[e.launches for e in net._step_graphs._entries.values()],
+               replayed_launches=replayed_launches(net))
+    del net
+    gc_collect(torch)  # the fault's closure holds the net in a cycle, and its graph's pool
+    return out
+
+
+def phase_staged_resnet50(torch, dtype, host, card):
+    """ResNet-50 (the conf as it is, B=128, SGD lr 0.1) on the staged loop,
+    ``bench_resnet50``'s path: 8 updates over 4 staged slots. With cuDNN
+    deterministic: the first replayed update against eager ``fit``'s first
+    update on the same batch at train_resnet50's first-update limits; the
+    8-step trajectory (losses, each tensor's change, BN's running stats,
+    the updater state) against eager ``fit`` over the same slots, within
+    STAGED_NOISE_FACTOR times what a second eager run reads against the
+    first; ``warmup`` then one window of 8 bit for bit as ``fit_on_device``
+    alone; in f32, the wrong version that does not write BN's running stats
+    in place must fail the state limit. Then, cuDNN as it is:
+    ``fit(stage_on_device=4)`` on a fresh net over a ListDataSetIterator of
+    9 host batches (windows of 4, 4 and 1 real; the capture inside it, with
+    the prefetch worker running), timed against ``fit`` per batch over the
+    same iterator; the captured step's pool; ms per update replayed against
+    eager with the batch on the card, a profile of each (the idle share,
+    the host's API calls per update). Returns (the launch counts of
+    the staged run, its replays, the launches its replays made)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import DataSet, ListDataSetIterator, resnet50_conf
+
+    conf = resnet50_conf(dtype=dtype)
+    slots = staged_slots(torch, SEED + 40)
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = [eager_resnet_run(torch, conf, host, slots) for _ in range(2)]
+        staged = staged_resnet_run(torch, conf, host, slots)
+        warm = staged_resnet_run(torch, conf, host, slots, warm=True)
+        fault = (staged_resnet_run(torch, conf, host, slots, fault="bn_state_not_in_place")
+                 if dtype == "float32" else None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    compared_s = time.perf_counter() - t0
+    noise = staged_resnet_readings(eager[1], eager[0], host)
+    readings = staged_resnet_readings(staged, eager[0], host)
+    limits = {k: STAGED_NOISE_FACTOR * noise[k] for k in STAGED_TRAJECTORY_READINGS}
+    limits.update({k: RES_TRAIN_LIMITS[dtype][k] for k in STAGED_FIRST_KEYS})
+    within = within_limits(readings, limits)
+    warm_diff = max(float(np.abs(staged["losses"] - warm["losses"]).max()),
+                    max(float(np.abs(a - b).max()) for a, b in
+                        zip(named_tensors(staged["params"]).values(),
+                            named_tensors(warm["params"]).values())),
+                    state_rel(warm["state"], staged["state"]))
+    fault_reading = None
+    if fault is not None:
+        fault_reading = state_rel(fault["state"], eager[0]["states"][STAGED_K - 1])
+        fault_noise = state_rel(eager[1]["states"][STAGED_K - 1], eager[0]["states"][STAGED_K - 1])
+        fault_caught = fault_reading > STAGED_NOISE_FACTOR * fault_noise
+    del slots
+    torch.cuda.empty_cache()
+
+    # cuDNN as it is. fit(stage_on_device=4) over 9 host batches on a fresh
+    # net: its step is captured inside the fit while the prefetch worker
+    # stacks, pins and copies the next windows; then per batch and staged
+    # again over the same iterator, in turns
+    host_batches = [alexnet_images(RES_B, SEED + 60 + i) for i in range(3)]
+    data = ListDataSetIterator([DataSet(*host_batches[i % 3])
+                                for i in range(STAGED_FIT_BATCHES)])
+    net = resnet_net(conf, host)
+    rec = StagedLossRecorder()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    net.fit(data, stage_on_device=STAGED_K)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    net.set_listeners()
+    fit_losses = [float(l) for l in rec.losses]
+    fit_replays, fit_graphs = net._step_graphs.replays, len(net._step_graphs)
+    fit_ms = {"staged": [], "per_batch": []}
+    for how in ("per_batch", "staged", "staged", "per_batch"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.fit(data, stage_on_device=STAGED_K if how == "staged" else 0)
+        torch.cuda.synchronize()
+        fit_ms[how].append((time.perf_counter() - t1) * 1e3 / STAGED_FIT_BATCHES)
+    del net, data, host_batches
+    gc_collect(torch)
+
+    # the capture and its pool from a fresh net's warmup, then the times
+    slots = staged_slots(torch, SEED + 50)
+    net = resnet_net(conf, host)
+    gc_collect(torch)
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    net.warmup(*slots)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t1
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc_collect(torch)
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+    replay_ms = []
+    for _ in range(STAGED_TIMED_WINDOWS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.fit_on_device(*slots)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t1) * 1e3 / STAGED_K)
+    # profiled after a window, so no eager update has replaced the layer
+    # state's tensors (the next window would copy them back in)
+    prof_staged = profile_api(torch, lambda: net.fit_on_device(*slots), STAGED_K,
+                              groups=RES_PROFILE_GROUPS)
+    on_card = (slots[0][0], slots[1][0])
+    eager_ms, _, _ = timed_fit(torch, net, on_card, 1, STAGED_TIMED_WINDOWS * STAGED_K)
+    prof_eager = profile_api(torch, lambda: net.fit(on_card), 1, groups=RES_PROFILE_GROUPS)
+    graphs = len(net._step_graphs)
+    del net, slots, on_card
+    gc_collect(torch)
+    ok = (within and warm_diff == 0.0 and (fault is None or fault_caught)
+          and staged["replays"] == STAGED_STEPS and staged["graphs"] == 1
+          and warm["replays"] == STAGED_STEPS and fit_replays == STAGED_FIT_BATCHES
+          and fit_graphs == 1
+          and len(fit_losses) == STAGED_FIT_BATCHES and bool(np.isfinite(fit_losses).all())
+          and graphs == 1 and staged["launches"].get("softmax_xent_fwd", 0) > 0
+          and staged["launches"].get("softmax_xent_bwd", 0) > 0)
+    emit("staged_resnet50", dtype=dtype, B=RES_B, slots=STAGED_K, steps=STAGED_STEPS,
+         cudnn_deterministic_in_comparison=True,
+         eager_losses=eager[0]["losses"].tolist(), staged_losses=staged["losses"].tolist(),
+         readings_vs_eager=readings, second_eager_vs_eager=noise, limits=limits,
+         warmup_then_window_vs_alone_max_abs=warm_diff,
+         fault_bn_state_not_in_place_state_rel=fault_reading,
+         fault_bn_state_not_in_place_caught=None if fault is None else fault_caught,
+         staged_launches_with_capture=staged["launches"], replays=staged["replays"],
+         replayed_launches=staged["replayed_launches"],
+         captured_launches_per_replay=staged["captured_per_replay"], compared_s=compared_s,
+         capture_s=capture_s, peak_allocated_gib_warmup_and_capture=peak_gib,
+         graph_pool_gib=pool_gib, fit_stage_on_device=STAGED_K,
+         fit_batches=STAGED_FIT_BATCHES, fit_replays=fit_replays, fit_losses=fit_losses,
+         fit_with_capture_ms_per_update=fit_s * 1e3 / STAGED_FIT_BATCHES,
+         fit_ms_per_update_runs=fit_ms, fit_ms_per_update=min(fit_ms["staged"]),
+         per_batch_fit_ms_per_update=min(fit_ms["per_batch"]),
+         replayed_ms_per_update_runs=replay_ms,
+         replayed_ms_per_update=statistics.median(replay_ms),
+         eager_batch_on_card_ms_runs=eager_ms,
+         eager_batch_on_card_ms_per_update=statistics.median(eager_ms),
+         replayed_idle_share=prof_staged["idle_share"],
+         eager_idle_share=prof_eager["idle_share"],
+         replayed_api_calls_per_update=prof_staged["api_per_update"],
+         eager_api_calls_per_update=prof_eager["api_per_update"],
+         replayed_profile=prof_staged, eager_profile=prof_eager, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"staged ResNet-50 {dtype} failed its checks")
+    return staged["launches"], staged["replays"], staged["replayed_launches"]
+
+
+def gc_collect(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def profile_api(torch, fn, updates: int, **kw):
+    """``profile`` of ``fn`` (``updates`` updates), with its host API calls
+    of API_CALLS per update."""
+    out = profile(torch, fn, **kw)
+    out["api_per_update"] = {k: v / updates for k, v in out["api_calls"].items()}
+    return out
+
+
+def staged_recipe_batches():
+    """STAGED_RECIPE_BATCHES batches of BATCH next-char sequences of the
+    seeded sentence (lengths 96..256 from the seed, sorted, so each batch
+    is ragged against the next), each padded to its own longest sequence
+    with features and labels masks."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import DataSet
+
+    rng = np.random.default_rng(SEED + 70)
+    sentence = rng.integers(0, VOCAB, SENTENCE)
+    lengths = np.sort(rng.integers(96, 257, STAGED_RECIPE_BATCHES * BATCH))
+    out = []
+    for b in range(STAGED_RECIPE_BATCHES):
+        lens = lengths[b * BATCH:(b + 1) * BATCH]
+        T = int(lens.max())
+        x = np.zeros((BATCH, T, VOCAB), np.float32)
+        y = np.zeros((BATCH, T, VOCAB), np.float32)
+        m = np.zeros((BATCH, T), np.float32)
+        for r, n in enumerate(lens):
+            seq = sentence[(rng.integers(0, SENTENCE) + np.arange(n + 1)) % SENTENCE]
+            x[r, :n] = one_hot(seq[:-1], VOCAB)
+            y[r, :n] = one_hot(seq[1:], VOCAB)
+            m[r, :n] = 1.0
+        out.append(DataSet(x, y, m, m.copy()))
+    return out
+
+
+def staged_recipe_plan(batches):
+    """The port's BucketedStager on the host: each window's (real batches,
+    slots, time bucket), the windows, and the padded batches their real
+    slots hold, in order."""
+    from deeplearning4j_tpu_torch import DataSet
+    from deeplearning4j_tpu_torch.datasets import BucketedStager
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    plan, windows, padded = [], [], []
+    for kind, win in BucketedStager(STAGED_K).plan(batches, MultiLayerNetwork._normalize):
+        if kind != "window":
+            raise AssertionError("a recipe batch did not stage")
+        plan.append((win.n_real, int(win.features[0].shape[0]), int(win.features[0].shape[2])))
+        windows.append(win)
+        fm, lm = win.features_masks[0], win.labels_masks[0]
+        padded += [DataSet(win.features[0][j], win.labels[0][j], fm[j], lm[j])
+                   for j in range(win.n_real)]
+    return plan, windows, padded
+
+
+def phase_staged_recipe(torch, host_params, card):
+    """The char-RNN recipe on the staged path, f32, on both LSTM routes:
+    ``fit(stage_on_device=4)`` over ``staged_recipe_batches``. The windows
+    it dispatched (real batches, slots, time bucket) must be the host
+    stager's plan; its losses and each param's change are held against
+    eager ``fit`` (stage_on_device 0) over the plan's padded batches at the
+    recipe's f32 limits; one captured step per time bucket, one replay per
+    update. Then staged and eager epochs from the host's batches in turns
+    (staged, eager, eager, staged), and the windows replayed and the padded
+    batches eagerly from the card, timed. Returns, by
+    route, (the launch counts of the first staged epoch, captures
+    included; its replays; the launches they made; ms per update replayed;
+    ms eager)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (DataSet, ListDataSetIterator, MultiLayerNetwork,
+                                          char_rnn, load_jax_params, ops, params_to_numpy)
+
+    conf = char_rnn(VOCAB, HIDDEN, LAYERS)
+    assert (conf.updater["updater"], conf.updater["learning_rate"]) == ("adam", RECIPE_LR)
+    conf.backprop_type = "standard"  # the staged loop takes no TBPTT
+    batches = staged_recipe_batches()
+    plan, windows, padded = staged_recipe_plan(batches)
+    updates = len(padded)
+
+    def on_card(a):
+        return torch.as_tensor(a, device=DEVICE)
+
+    card_windows = [(on_card(w.features[0]), on_card(w.labels[0]),
+                     on_card(w.features_masks[0]), on_card(w.labels_masks[0]), w.n_real)
+                    for w in windows]
+    card_padded = [DataSet(on_card(d.features), on_card(d.labels), on_card(d.features_mask),
+                           on_card(d.labels_mask)) for d in padded]
+    out = {}
+    for route in ("seqfused", "fusedcell"):
+        def new_net():
+            return load_jax_params(MultiLayerNetwork(conf, lstm_variant=route), host_params)
+
+        net = new_net()
+        dispatched = []
+        real_dispatch = net._dispatch
+
+        def spy(win):
+            xs = win.features[0]
+            dispatched.append((int(win.n_real), int(xs.shape[0]), int(xs.shape[2])))
+            return real_dispatch(win)
+
+        net._dispatch = spy
+        rec = StagedLossRecorder()
+        net.set_listeners(rec)
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        net.fit(ListDataSetIterator(batches), stage_on_device=STAGED_K)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.counters().items() if v}
+        staged_run = (net, np.array([float(l) for l in rec.losses]), params_to_numpy(net))
+        replays = net._step_graphs.replays
+        on_card = replayed_launches(net)
+        first_windows = list(dispatched)  # the first epoch's
+        eager = new_net()
+        erec = LossRecorder()
+        eager.set_listeners(erec)
+        eager.fit(ListDataSetIterator(padded))
+        eager_run = (eager, np.array([float(l) for l in erec.losses]), params_to_numpy(eager))
+        readings = recipe_readings(staged_run, eager_run, host_params)
+        # timed: one more epoch each way from the host's batches, then the
+        # windows replayed against eager updates with the batches on the card
+        net.set_listeners()
+        eager.set_listeners()
+        runs = {"staged": lambda: net.fit(ListDataSetIterator(batches),
+                                          stage_on_device=STAGED_K),
+                "eager": lambda: eager.fit(ListDataSetIterator(padded)),
+                "replayed_on_card": lambda: [
+                    net.fit_on_device(x, y, steps=n, features_masks=fm, labels_masks=lm,
+                                      real_batches=n) for x, y, fm, lm, n in card_windows],
+                "eager_on_card": lambda: eager.fit(ListDataSetIterator(card_padded))}
+        fit_ms = {how: [] for how in runs}
+        for how in ("staged", "eager", "eager", "staged", "replayed_on_card",
+                    "eager_on_card"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[how]()
+            torch.cuda.synchronize()
+            fit_ms[how].append((time.perf_counter() - t0) * 1e3 / updates)
+        staged_ms, eager_ms = fit_ms["replayed_on_card"][0], fit_ms["eager_on_card"][0]
+        kernels = (("lstm_cell_fwd", "lstm_cell_bwd") if route == "fusedcell" else
+                   ("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd"))
+        ok = (first_windows == plan and within_limits(readings, RECIPE_LIMITS["float32"])
+              and net.staged_steps_total == 4 * updates and replays == updates
+              and len(net._step_graphs) == len({t for _, _, t in plan})
+              and all(launches.get(k, 0) > 0 for k in
+                      (*kernels, "drw_product", "softmax_xent_fwd", "softmax_xent_bwd",
+                       "adam_update_dev")) and not launches.get("adam_update"))
+        emit("staged_recipe", route=route, B=BATCH, batches=len(batches),
+             batch_lengths=[int(b.features.shape[1]) for b in batches], plan=plan,
+             dispatched=first_windows, updates=updates, staged_losses=staged_run[1].tolist(),
+             eager_losses=eager_run[1].tolist(), readings_vs_eager=readings,
+             limits=RECIPE_LIMITS["float32"], launches_with_captures=launches,
+             replays=replays, replayed_launches=on_card, graphs=len(net._step_graphs),
+             replayed_ms_per_update=staged_ms, eager_ms_per_update=eager_ms,
+             fit_from_host_ms_per_update={"staged": min(fit_ms["staged"]),
+                                          "eager": min(fit_ms["eager"])},
+             fit_from_host_ms_per_update_runs={"staged": fit_ms["staged"],
+                                               "eager": fit_ms["eager"]},
+             ok=ok, gpu=card)
+        if not ok:
+            raise AssertionError(f"the staged recipe on {route} failed its checks")
+        out[route] = (launches, replays, on_card, staged_ms, eager_ms)
+        del net, eager, staged_run, eager_run
+        gc_collect(torch)
+    return out
+
+
+def staged_mnist_slots(torch, name, k=STAGED_K):
+    """``k`` batches of the synthetic MNIST for ``name`` stacked on the
+    card, and the model's batch and conf."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MnistDataSetIterator
+
+    B, conf = mnist_models()[name]
+    shape = (-1, 28, 28, 1) if name == "lenet" else (-1, 784)
+    pairs = [(ds.features.reshape(shape), ds.labels)
+             for ds in MnistDataSetIterator(batch=B, num_examples=B * k)]
+    return tuple(torch.as_tensor(np.stack(a), device=DEVICE) for a in zip(*pairs)), B, conf
+
+
+def staged_pair(torch, conf, host, slots, steps=STAGED_STEPS, fault=None):
+    """``steps`` eager updates over ``slots`` in turn and one staged window
+    of as many, from the same params and generator state (``fault``, one of
+    "lr_bc_baked", "dropout_frozen", applies to the staged run). Returns
+    (eager, staged) as (net, losses, params), the staged run's launches,
+    (replays, the launches they made), and the ms per update of a further
+    window of each."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, ops
+    from deeplearning4j_tpu_torch import params_to_numpy
+    from deeplearning4j_tpu_torch.nn import updaters
+    from deeplearning4j_tpu_torch.nn.layers import dense
+
+    xs, ys = slots
+    eager = load_jax_params(MultiLayerNetwork(conf), host)
+    rec = LossRecorder()
+    eager.set_listeners(rec)
+    for i in range(steps):
+        eager.fit((xs[i % len(xs)], ys[i % len(xs)]))
+    eager.set_listeners()
+    eager_run = (eager, np.array([float(l) for l in rec.losses]), params_to_numpy(eager))
+    staged = load_jax_params(MultiLayerNetwork(conf), host)
+    real_update, real_dropout = updaters.Updater.update, dense.maybe_dropout
+    if fault == "lr_bc_baked":  # the capture reads the count's host floats once
+        updaters.Updater.update = lambda self, grads, state, scalars=None: real_update(
+            self, grads, state)
+    elif fault == "dropout_frozen":  # each mask drawn once, outside the graph
+        frozen = {}
+
+        def maybe_dropout(x, rate, train=False, generator=None):
+            if not train or rate <= 0.0 or generator is None:
+                return x
+            if x.shape not in frozen:
+                frozen[x.shape] = torch.rand(x.shape, generator=generator,
+                                             device=x.device) < 1.0 - rate
+            return torch.where(frozen[x.shape], x / (1.0 - rate), torch.zeros_like(x))
+
+        dense.maybe_dropout = maybe_dropout
+    try:
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        losses = staged.fit_on_device(xs, ys, steps=steps)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.counters().items() if v}
+    finally:
+        updaters.Updater.update, dense.maybe_dropout = real_update, real_dropout
+    staged_run = (staged, np.asarray(losses, np.float64), params_to_numpy(staged))
+    replays = staged._step_graphs.replays, replayed_launches(staged)
+    times = {}
+    if fault is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged.fit_on_device(xs, ys, steps=steps)
+        torch.cuda.synchronize()
+        times["replayed"] = (time.perf_counter() - t0) * 1e3 / steps
+        t0 = time.perf_counter()
+        for i in range(steps):
+            eager.fit((xs[i % len(xs)], ys[i % len(xs)]))
+        torch.cuda.synchronize()
+        times["eager"] = (time.perf_counter() - t0) * 1e3 / steps
+    return eager_run, staged_run, launches, replays, times
+
+
+def bitwise_equal(run, ref) -> bool:
+    """The same losses and params, bit for bit."""
+    import numpy as np
+
+    return np.array_equal(run[1], ref[1]) and all(
+        np.array_equal(a, b) for a, b in zip(named_tensors(run[2]).values(),
+                                             named_tensors(ref[2]).values()))
+
+
+def phase_staged_lenet(torch, card):
+    """LeNet (``lenet_mnist_conf()``, Adam, B=64) on ``fit_on_device``: 8
+    replays over 4 staged slots against 8 eager updates over the same slots,
+    held by ``recipe_readings`` at MNIST_LIMITS (and read bit for bit); the
+    wrong capture that bakes lr and the bias corrections at the capture
+    must fail them. ms per update, replayed against eager. Then the MNIST
+    MLP (examples/mlp_mnist.py:26-34, B=512) with dropout 0.5: 8 replays
+    against eager fit from the same generator state, bit for bit, and the
+    losses of a step with the same batch differing from step to step; a
+    capture whose generator is not registered must raise, and one whose
+    masks are drawn once must fail the bit-for-bit check. Returns
+    (launches, replays, the launches they made, ms replayed, ms eager) by
+    model."""
+    from deeplearning4j_tpu_torch import MultiLayerConfiguration
+
+    out = {}
+    slots, B, conf = staged_mnist_slots(torch, "lenet")
+    host = mnist_host(conf)
+    eager_run, staged_run, launches, (replays, on_card), times = staged_pair(
+        torch, conf, host, slots)
+    readings = recipe_readings(staged_run, eager_run, host, lr=1e-3)
+    bitwise = bitwise_equal(staged_run, eager_run)
+    baked = recipe_readings(staged_pair(torch, conf, host, slots, fault="lr_bc_baked")[1],
+                            eager_run, host, lr=1e-3)
+    baked["caught"] = not within_limits(baked, MNIST_LIMITS)
+    ok = (within_limits(readings, MNIST_LIMITS) and baked["caught"]
+          and replays == STAGED_STEPS
+          and all(launches.get(k, 0) > 0 for k in ("softmax_xent_fwd", "softmax_xent_bwd",
+                                                     "adam_update_dev"))
+          and not launches.get("adam_update"))
+    emit("staged_lenet", B=B, slots=STAGED_K, steps=STAGED_STEPS,
+         staged_losses=staged_run[1].tolist(), eager_losses=eager_run[1].tolist(),
+         readings_vs_eager=readings, limits=MNIST_LIMITS, bit_for_bit=bitwise,
+         fault_lr_bc_baked_at_capture=baked, launches_with_capture=launches, replays=replays,
+         replayed_launches=on_card,
+         replayed_ms_per_update=times["replayed"], eager_ms_per_update=times["eager"],
+         ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("staged LeNet failed its checks")
+    out["lenet"] = (launches, replays, on_card, times["replayed"], times["eager"])
+
+    # the MNIST MLP with dropout: the generator registered with the graph
+    slots, B, mlp = staged_mnist_slots(torch, "mlp")
+    d = mlp.to_dict()
+    d["layers"][0]["dropout"] = STAGED_MLP_DROPOUT
+    conf = MultiLayerConfiguration.from_dict(d)
+    host = mnist_host(conf)
+    same = tuple(t[:1].expand(STAGED_K, *t.shape[1:]).contiguous() for t in slots)
+    eager_run, staged_run, launches, (replays, on_card), times = staged_pair(
+        torch, conf, host, same)
+    bitwise = bitwise_equal(staged_run, eager_run)
+    distinct = len(set(staged_run[1].tolist()))  # one batch, lr moving: masks differ
+    frozen = staged_pair(torch, conf, host, same, fault="dropout_frozen")[1]
+    frozen_caught = not bitwise_equal(frozen, eager_run)
+    real_register = torch.cuda.CUDAGraph.register_generator_state
+    torch.cuda.CUDAGraph.register_generator_state = lambda self, gen: None
+    try:
+        staged_pair(torch, conf, host, same, steps=2)
+        unregistered = "no error"
+    except RuntimeError as e:
+        unregistered = str(e)[:200]
+    finally:
+        torch.cuda.CUDAGraph.register_generator_state = real_register
+        torch.cuda.synchronize()
+    ok = (bitwise and frozen_caught
+          and unregistered != "no error" and replays == STAGED_STEPS)
+    emit("staged_mlp_dropout", B=B, dropout=STAGED_MLP_DROPOUT, steps=STAGED_STEPS,
+         one_batch_every_step=True, staged_losses=staged_run[1].tolist(),
+         eager_losses=eager_run[1].tolist(), bit_for_bit=bitwise,
+         distinct_step_losses=distinct, fault_masks_drawn_once_caught=frozen_caught,
+         fault_masks_drawn_once_losses=frozen[1].tolist(),
+         fault_generator_not_registered=unregistered, launches_with_capture=launches,
+         replays=replays, replayed_launches=on_card, replayed_ms_per_update=times["replayed"],
+         eager_ms_per_update=times["eager"], ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("the staged MLP with dropout failed its checks")
+    out["mlp"] = (launches, replays, on_card, times["replayed"], times["eager"])
+    gc_collect(torch)
+    return out
+
+
+def prefetch_variant(torch, wait: bool):
+    """DevicePrefetchIterator with its side stream held busy before each
+    copy; with ``wait`` false, the wrong version: a pinned buffer is refilled
+    without waiting for the event of its last copy."""
+    from deeplearning4j_tpu_torch.datasets import DevicePrefetchIterator
+
+    class Delayed(DevicePrefetchIterator):
+        def _to_device(self, host, dev, side):
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(PREFETCH_SLEEP_CYCLES)
+            return super()._to_device(host, dev, side)
+
+        def _wait_copied(self, copied):
+            if wait:
+                super()._wait_copied(copied)
+
+    return Delayed
+
+
+def phase_prefetch_alexnet(torch, dtype, host, card):
+    """AlexNet (the conf as it is, dropout 0.5, B=128) trained on an epoch of
+    PREFETCH_BATCHES distinct host batches. With cuDNN deterministic,
+    ``fit`` over a ListDataSetIterator (DevicePrefetchIterator: a worker
+    thread fills a ring of pinned buffers, each batch copied one batch ahead
+    on a side stream) against the synchronous path (each batch copied from
+    pageable memory as the update takes it): losses and params bit for bit;
+    again with the side stream held busy before each copy, right, and the
+    wrong version that refills a buffer before its copy has finished, which
+    must differ. Then, cuDNN as it is, ms per update of an epoch: the
+    synchronous copy, the prefetching fit, and the batches already on the
+    card, in turns. Returns (the prefetching epoch's launch counts, ms)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (DataSet, ListDataSetIterator, MultiLayerNetwork,
+                                          alexnet_conf, load_jax_params, ops, params_to_numpy)
+    from deeplearning4j_tpu_torch.nn import multilayer
+
+    conf = alexnet_conf(dtype=dtype)
+    batches = [alexnet_images(ALEX_B, SEED + 80 + i) for i in range(PREFETCH_BATCHES)]
+    on_card = [tuple(torch.as_tensor(a, device=DEVICE) for a in b) for b in batches]
+
+    def sync_epoch(net, data):
+        for x, y in data:
+            net._fit_batch(DataSet(x, y))
+
+    def run(how, variant=None):
+        net = load_jax_params(MultiLayerNetwork(conf), host)
+        net._updater_ready()
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        real = multilayer.DevicePrefetchIterator
+        if variant is not None:
+            multilayer.DevicePrefetchIterator = variant
+        try:
+            torch.cuda.synchronize()
+            ops.reset_counters()
+            if how == "sync":
+                sync_epoch(net, batches)
+            else:
+                net.fit(ListDataSetIterator([DataSet(x, y) for x, y in batches]))
+            torch.cuda.synchronize()
+        finally:
+            multilayer.DevicePrefetchIterator = real
+        net.set_listeners()
+        return (net, np.array([float(l) for l in rec.losses]), params_to_numpy(net),
+                {k: v for k, v in ops.counters().items() if v})
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        sync = run("sync")
+        pre = run("prefetch")
+        delayed = run("prefetch", prefetch_variant(torch, wait=True))
+        wrong = run("prefetch", prefetch_variant(torch, wait=False))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = bitwise_equal(pre[:3], sync[:3])
+    delayed_same = bitwise_equal(delayed[:3], sync[:3])
+    wrong_caught = not bitwise_equal(wrong[:3], sync[:3])
+    launches = pre[3]
+    net = pre[0]
+    del sync, delayed, wrong
+
+    def timed(how):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "sync":
+            sync_epoch(net, batches)
+        elif how == "prefetch":
+            net.fit(ListDataSetIterator([DataSet(x, y) for x, y in batches]))
+        else:
+            net.fit(ListDataSetIterator([DataSet(x, y) for x, y in on_card]))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / PREFETCH_BATCHES
+
+    order = ("sync", "prefetch", "on_card", "on_card", "prefetch", "sync")
+    times = {how: [] for how in order}
+    for how in order:
+        times[how].append(timed(how))
+    ok = (same and delayed_same and wrong_caught
+          and all(launches.get(k, 0) > 0 for k in ("lrn_fwd", "lrn_bwd", "softmax_xent_fwd",
+                                                     "softmax_xent_bwd")))
+    emit("prefetch_alexnet", dtype=dtype, B=ALEX_B, batches=PREFETCH_BATCHES, dropout=0.5,
+         cudnn_deterministic_in_comparison=True, prefetch_vs_sync_bit_for_bit=same,
+         delayed_copy_vs_sync_bit_for_bit=delayed_same,
+         fault_buffer_refilled_before_its_copy_caught=wrong_caught,
+         prefetch_losses=pre[1].tolist(), kernel_launches=launches,
+         ms_per_update_runs=times,
+         sync_host_copy_ms_per_update=min(times["sync"]),
+         prefetch_host_copy_ms_per_update=min(times["prefetch"]),
+         batch_on_card_ms_per_update=min(times["on_card"]), ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"AlexNet's prefetch {dtype} failed its checks")
+    del net, pre, on_card
+    gc_collect(torch)
+    return launches, min(times["prefetch"])
+
+
+def phases_slice17(torch, card, res_host, alex_host, host_params):
+    """The slice's phases, each counting from 0: ResNet-50 staged (f32,
+    bf16), the recipe staged on both routes, LeNet and the MLP staged,
+    AlexNet's prefetch (f32, bf16). Returns, by path, the launch counts of
+    its runs (captures included), its replays, the launches its replays
+    made (``replayed_launches``) and its ms per update (replayed and eager,
+    or the prefetching fit's)."""
+    launches, replays, replayed, times = {}, {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        path = f"resnet50_{dtype}"
+        launches[path], replays[path], replayed[path] = phase_staged_resnet50(
+            torch, dtype, res_host, card)
+    recipe = phase_staged_recipe(torch, host_params, card)
+    lenet = phase_staged_lenet(torch, card)
+    for path, (counts, n, on_card, staged_ms, eager_ms) in [
+            *((f"recipe_{route}", r) for route, r in recipe.items()), *lenet.items()]:
+        launches[path], replays[path], replayed[path] = counts, n, on_card
+        times[path] = (staged_ms, eager_ms)
+    for dtype in ("float32", "bfloat16"):
+        path = f"prefetch_alexnet_{dtype}"
+        launches[path], times[path] = phase_prefetch_alexnet(torch, dtype, alex_host, card)
+    if not all(launches[p].get("adam_update_dev") for p in
+               ("recipe_seqfused", "recipe_fusedcell", "lenet", "mlp")):
+        raise AssertionError("adam_update_dev did not launch on a staged Adam path")
+    return launches, replays, replayed, times
+
+
 def main() -> int:
     import torch
 
@@ -4327,6 +5278,8 @@ def main() -> int:
     drw_errs = phase_kernels_drw(torch, ls)
     adam_errs = phase_adam(torch, ad)
     errs[("adam_update", "float32", "leaves")] = adam_errs["char_rnn"]
+    adam_dev_errs = phase_adam_dev(torch, ad)
+    errs[("adam_update_dev", "float32", "leaves")] = adam_dev_errs["char_rnn"]
     errs.update(phase_kernels_attention(torch, fa))
     errs.update(phase_kernels_lrn(torch, lr, sx))
     mnist_errs = phase_kernels_mnist(torch, sx)
@@ -4478,6 +5431,19 @@ def main() -> int:
     for where, names in REAL_DATA_ROWS.items():
         for k in names:
             new_path_launches[(where, k)] = real_launches[where].get(k, 0)
+    # ---- 4j. slice 17: the staged loop, its step captured and replayed
+    # (ResNet-50, the recipe on both routes, LeNet and the MLP), and the
+    # prefetch of fit (AlexNet); each phase counts from 0
+    staged_launches, staged_replays, staged_replayed, staged_times = phases_slice17(
+        torch, card, res_host, alex_host, host_params)
+    for counts in staged_launches.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    replayed = {}  # what the replays launched (the counts above hold the recordings)
+    for counts in staged_replayed.values():
+        for k, v in counts.items():
+            replayed[k] = replayed.get(k, 0) + v
+    new_path_launches[("lenet", "adam_update_dev")] = staged_launches["lenet"]["adam_update_dev"]
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -4528,6 +5494,7 @@ def main() -> int:
                 "seqfused_ms_per_update_train_recipe": recipe[dtype][1]}
         for dtype in cell_train})
     times[("adam_update", "float32")] = time_adam(torch, ad, card)
+    times[("adam_update_dev", "float32")] = time_adam(torch, ad, card, dev=True)
     times.update(time_attention(torch, fa, card))
     lrn_times = time_lrn(torch, lr, card, sass["lrn"])
     for name in LRN_KERNELS:  # the table's shape: LRN 1
@@ -4540,6 +5507,9 @@ def main() -> int:
         shapes = mnist_leaf_shapes(conf)
         times[("adam_update", name)] = time_adam(torch, ad, card, shapes,
                                                  f"{name}'s {len(shapes)} leaves")
+        if name == "lenet":
+            times[("adam_update_dev", name)] = time_adam(
+                torch, ad, card, shapes, f"{name}'s {len(shapes)} leaves", dev=True)
     real_shapes = real_data_adam_shapes()
     for where, (N, C) in REAL_DATA_SXENT.items():
         for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card,
@@ -4608,7 +5578,8 @@ def main() -> int:
               "softmax_xent_bwd": ("softmax_xent_bwd", "float32", SXENT_ROWS[0]),
               "lstm_seq_masked_train_fwd": ("lstm_seq_masked_train_fwd", "float32", STEPS),
               "lstm_seq_masked_bwd": ("lstm_seq_masked_bwd", "float32", STEPS),
-              "adam_update": ("adam_update", "float32", "leaves")}
+              "adam_update": ("adam_update", "float32", "leaves"),
+              "adam_update_dev": ("adam_update_dev", "float32", "leaves")}
     for name in ATTN_KERNELS:  # the main shape, with and without the key mask
         shapes[name] = (name, "float32")
         errs[shapes[name]] = max(errs[(name, "float32", m)] for m in (False, True))
@@ -4652,6 +5623,16 @@ def main() -> int:
                 "library_ms": t["library_ms"], "dtype": "float32",
                 "shape": f"{len(mnist_leaf_shapes(mnist_models()[model][1]))} leaves",
                 "kernel_device_ms": t.get("kernel_device_ms")})
+    # row 12's device-scalar entry at LeNet's leaves (slice 17's staged LeNet)
+    t = times[("adam_update_dev", "lenet")]
+    lines.append({
+        "name": "adam_update_dev@lenet", "route": "cuda", "source": KERNELS["adam_update_dev"][0],
+        "replaces": KERNELS["adam_update_dev"][1],
+        "launches": new_path_launches[("lenet", "adam_update_dev")],
+        "max_abs_err": adam_dev_errs["lenet"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "dtype": "float32", "shape": f"{len(mnist_leaf_shapes(mnist_models()['lenet'][1]))} leaves",
+        "kernel_device_ms": t.get("kernel_device_ms")})
     # rows 5-12 at the shapes of slice 16's paths
     seg_T = {"pangram": PANGRAM_TBPTT, "records": int(records_mask.shape[0])}
     seg_B = {"pangram": PANGRAM_B, "records": RECORDS_B}
@@ -4679,7 +5660,22 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
                 "kernel_device_ms": t.get("kernel_device_ms")})
+    # beside each row's launches (which count a captured step's warm-up
+    # steps and capture), the launches that the replays of slice 17's
+    # captured steps made (LeNet's alone for its own row)
+    for line in lines:
+        name = line["name"]
+        line["replayed_launches"] = (
+            staged_replayed["lenet"].get("adam_update_dev", 0) if name == "adam_update_dev@lenet"
+            else 0 if "@" in name else replayed.get(name, 0))
     print(json.dumps({"kernels": lines, "launches": launches,
+                      "staged_replays": staged_replays, "staged_ms_per_update": staged_times,
+                      "staged_replayed_launches": staged_replayed,
+                      "launches_note": "the staged paths' launches count the warm-up steps "
+                      "and the capture of each captured step, where the kernel's wrapper "
+                      "runs; a replay launches the recorded kernels without it, so "
+                      "replayed_launches counts each graph's launches a replay times its "
+                      "replays (staged_replays: the replays by path)",
                       "library_ms_note": "no single PyTorch call computes the "
                       "peephole LSTM (torch.nn.LSTM has no peepholes), masked or not; "
                       "rows 10-11: cross_entropy with probability targets, forward and "

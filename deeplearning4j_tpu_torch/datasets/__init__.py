@@ -1,11 +1,20 @@
 """Datasets of the port (counterpart of ``deeplearning4j_tpu/datasets``):
-``DataSet`` and the iterators, record readers and their iterators, fetchers
-with the bundled digits and Iris, normalizers, and ``.npz`` export. The JAX
-package's asynchronous and device-prefetching iterators and its
-``bucketing`` helpers are not ported."""
+``DataSet`` and the iterators (the prefetching ones among them), the
+bucketed stager of ``fit(stage_on_device=K)``, record readers and their
+iterators, fetchers with the bundled digits and Iris, normalizers, and
+``.npz`` export."""
 
+from .bucketing import (
+    BucketedStager,
+    PaddedWindow,
+    bucket_length,
+    pad_batch_arrays,
+)
 from .iterators import (
+    AsyncDataSetIterator,
+    AsyncMultiDataSetIterator,
     BucketingSequenceIterator,
+    DevicePrefetchIterator,
     DataSet,
     DataSetIterator,
     ExistingDataSetIterator,
@@ -58,6 +67,8 @@ from .normalizers import (
 )
 
 __all__ = [
+    "AsyncDataSetIterator", "AsyncMultiDataSetIterator", "DevicePrefetchIterator",
+    "BucketedStager", "PaddedWindow", "bucket_length", "pad_batch_arrays",
     "BucketingSequenceIterator", "CombinedPreProcessor", "DataSet", "pad_to_bucket",
     "DataSetIterator", "ExistingDataSetIterator", "IteratorDataSetIterator",
     "IteratorMultiDataSetIterator",

@@ -5,21 +5,28 @@
 ``MultipleEpochsIterator``, ``SamplingDataSetIterator``,
 ``IteratorDataSetIterator``, ``ReconstructionDataSetIterator``,
 ``IteratorMultiDataSetIterator``, ``BucketingSequenceIterator``),
-``as_iterator`` and ``pad_to_bucket``.
+``as_iterator`` and ``pad_to_bucket``; the prefetching wrappers
+``AsyncDataSetIterator`` and ``AsyncMultiDataSetIterator`` (a host thread
+one queue ahead) and ``DevicePrefetchIterator`` (pinned host buffers and a
+copy to the card one batch ahead, on a side stream).
 
 Batches are numpy arrays on the host; the networks move each one to their
-device. A batch may carry ``example_metadata``, one record's provenance per
-example (``records.RecordMetaData``), which ``evaluate`` passes on to
-``Evaluation``. The JAX package's asynchronous and device-prefetching
-iterators are not ported.
+device (``fit`` on the card through ``DevicePrefetchIterator``). A batch may
+carry ``example_metadata``, one record's provenance per example
+(``records.RecordMetaData``), which ``evaluate`` passes on to
+``Evaluation``.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from ..utils.collections import AsyncIterator
+from .bucketing import PaddedWindow
 
 
 @dataclass
@@ -419,3 +426,218 @@ class BucketingSequenceIterator(DataSetIterator):
                 fs, fm, ls, lm = (np.stack([p[j] for p in padded]) if padded[0][j] is not None
                                   else None for j in range(4))
                 yield DataSet(fs, ls, fm, lm)
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch with a bounded queue (reference:
+    AsyncDataSetIterator.java; queue capacity 8 by default): the host's
+    batch preparation overlaps the card's work. ``fit`` wraps every
+    iterator whose ``prefetch_supported`` is true in one. The thread and its
+    queue are ``utils.collections.AsyncIterator``'s."""
+
+    prefetch_supported = False  # already asynchronous: never wrapped twice
+
+    def __init__(self, base, queue_size: int = 8):
+        self.base = base
+        self.queue_size = queue_size
+
+    def batch_size(self) -> int:
+        return self.base.batch_size()
+
+    def reset(self) -> None:
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def __iter__(self):
+        yield from AsyncIterator(self.base, queue_size=self.queue_size)
+
+
+class AsyncMultiDataSetIterator(AsyncDataSetIterator):
+    """The MultiDataSet form (reference: AsyncMultiDataSetIterator.java): the
+    queue does not look at what it carries, so this is the same class under
+    the reference's name."""
+
+
+# pinned host buffers a DevicePrefetchIterator fills in turn: one whose copy
+# to the card may still run, one being filled, one filled and waiting
+PREFETCH_RING = 3
+# on the card, a pass whose first batch holds fewer bytes is read as it
+# comes: the batch's pageable copy (about 7 GB/s on the H100's host) takes
+# less time than the worker's handoff costs the host a batch (about 1.2 ms
+# for LeNet-digits' 32 KB batches); PERF.md, PR 17
+PREFETCH_MIN_BYTES = 8 << 20
+
+
+def _copy_ahead(host: list, dev, side):
+    """Copies of ``host``'s tensors (pinned; None passes) to ``dev``, started
+    ``non_blocking`` on stream ``side``, and the event recorded after them;
+    on the CPU (``side`` None) clones and no event."""
+    import torch  # noqa: PLC0415
+
+    if side is None:
+        return [None if a is None else a.clone() for a in host], None
+    with torch.cuda.stream(side):
+        out = [None if a is None else a.to(dev, non_blocking=True) for a in host]
+        done = torch.cuda.Event()
+        done.record(side)
+    return out, done
+
+
+def _use_on_current(tensors: list, done, dev) -> list:
+    """``tensors`` (from :func:`_copy_ahead`) made safe to use on ``dev``'s
+    current stream: it waits on ``done``, and each tensor is marked with
+    ``record_stream`` so that the allocator keeps its memory while that
+    stream uses it."""
+    import torch  # noqa: PLC0415
+
+    if done is not None:
+        current = torch.cuda.current_stream(dev)
+        current.wait_event(done)
+        for t in tensors:
+            if t is not None:
+                t.record_stream(current)
+    return tensors
+
+
+def _flatten(ds):
+    """A batch's (or a staged window's) arrays as one list, and the function
+    that builds the same kind of item from such a list (masks, metadata and
+    a window's real batch count kept in place)."""
+    if isinstance(ds, (tuple, list)) and len(ds) == 2:
+        ds = DataSet(ds[0], ds[1])
+    if isinstance(ds, (MultiDataSet, PaddedWindow)):
+        multi = isinstance(ds, MultiDataSet)
+        n_in, n_out = len(ds.features), len(ds.labels)
+        fms, lms = ds.features_masks, ds.labels_masks
+        arrays = [*ds.features, *ds.labels, *(fms or [None] * n_in), *(lms or [None] * n_out)]
+
+        def rebuild(a):
+            at = n_in + n_out
+            parts = (a[:n_in], a[n_in:at], None if fms is None else a[at:at + n_in],
+                     None if lms is None else a[at + n_in:])
+            if multi:
+                return MultiDataSet(*parts, ds.example_metadata)
+            return PaddedWindow(*parts, n_real=ds.n_real)
+        return arrays, rebuild
+    if isinstance(ds, DataSet):
+        return ([ds.features, ds.labels, ds.features_mask, ds.labels_mask],
+                lambda a: DataSet(*a, example_metadata=ds.example_metadata))
+    raise TypeError(f"Cannot prefetch a {type(ds).__name__}")
+
+
+def _nbytes(item) -> int:
+    return sum(getattr(a, "nbytes", 0) for a in _flatten(item)[0] if a is not None)
+
+
+class DevicePrefetchIterator(DataSetIterator):
+    """Each batch on ``device`` one batch ahead of its use (the torch form of
+    the JAX package's ``jax.device_put`` staging; reference: the
+    AsyncDataSetIterator and GridExecutioner pipeline).
+
+    A worker thread passes each host batch to :meth:`start_copy`: into the
+    next of PREFETCH_RING pinned host buffers (a buffer is refilled only
+    after the event of its last copy to the card shows that copy finished),
+    and from there to the card (``non_blocking``, on a side stream), so the
+    copy of batch i+1 overlaps the work on batch i; it runs at most
+    PREFETCH_RING batches ahead of the consumer. :meth:`finish_copy` hands
+    a batch out: the consumer's current stream waits on its copy's event,
+    and each of its tensors is marked with ``record_stream``, so the
+    allocator does not reuse its memory while that stream works on it.
+    ``fit``'s staged loop calls the two itself, on its own thread.
+
+    The side stream and the pinned buffers are made at the first use and
+    kept for every later one (``fit`` uses one instance for all its epochs,
+    pointing ``base`` at each epoch's iterator); each pass starts its own
+    worker. Items come out of the same kind as they went in (a DataSet, a
+    MultiDataSet, an (x, y) pair as a DataSet, or the stager's
+    ``PaddedWindow``), holding device tensors in the host arrays' dtypes
+    (the network casts them); tensors already on the device pass as they
+    are. On the card a pass whose first batch holds fewer than
+    PREFETCH_MIN_BYTES is handed out as it comes, unread ahead (the network
+    copies each batch as it takes it): for such batches a handoff costs the
+    host more than the copy it would hide. On the CPU the copy is a clone
+    and no stream is involved."""
+
+    prefetch_supported = False  # the device staging includes the host prefetch
+
+    def __init__(self, base, device="cuda"):
+        self.base = base
+        self.device = device
+        self._side = None  # the copies' stream, made at the first pass on the card
+        self._pinned = [{} for _ in range(PREFETCH_RING)]  # each buffer's tensors by position
+        self._copied = [None] * PREFETCH_RING  # each buffer's last copy's event
+        self._next = 0  # the buffer start_copy fills next
+
+    def batch_size(self) -> int:
+        return self.base.batch_size()
+
+    def reset(self) -> None:
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    # -- the worker's side
+    def _wait_copied(self, copied) -> None:
+        """Block until the last copy out of a buffer has finished."""
+        if copied is not None:
+            copied.synchronize()
+
+    @staticmethod
+    def _pin(bufs: dict, key: int, a, pin: bool):
+        """``a`` in the slot's host buffer ``key`` (reallocated when its
+        shape or dtype changes); device tensors and None as they are."""
+        import torch  # noqa: PLC0415
+
+        if a is None or (isinstance(a, torch.Tensor) and a.device.type != "cpu"):
+            return a
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        buf = bufs.get(key)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+            bufs[key] = buf
+        buf.copy_(t)
+        return buf
+
+    def _to_device(self, host: list, dev, side):
+        return _copy_ahead(host, dev, side)
+
+    def start_copy(self, item):
+        """Start ``item``'s copy to the card through the next pinned buffer
+        (after that buffer's last copy has finished); returns the handle
+        :meth:`finish_copy` takes."""
+        import torch  # noqa: PLC0415
+
+        dev = torch.device(self.device)
+        on_card = dev.type == "cuda"
+        if on_card and self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        j, self._next = self._next, (self._next + 1) % PREFETCH_RING
+        self._wait_copied(self._copied[j])
+        arrays, rebuild = _flatten(item)
+        host = [self._pin(self._pinned[j], k, a, on_card) for k, a in enumerate(arrays)]
+        tensors, self._copied[j] = self._to_device(host, dev, self._side)
+        return tensors, rebuild, self._copied[j], dev
+
+    @staticmethod
+    def finish_copy(handle):
+        """The item of a :meth:`start_copy` handle, safe to use on the
+        current stream."""
+        tensors, rebuild, done, dev = handle
+        return rebuild(_use_on_current(tensors, done, dev))
+
+    def __iter__(self):
+        import torch  # noqa: PLC0415
+
+        items = iter(self.base)
+        first = next(items, None)
+        if first is None:
+            return
+        items = itertools.chain([first], items)
+        if torch.device(self.device).type == "cuda" and _nbytes(first) < PREFETCH_MIN_BYTES:
+            yield from items
+            return
+        source = iter(AsyncIterator(map(self.start_copy, items), queue_size=PREFETCH_RING))
+        try:
+            for handle in source:
+                yield self.finish_copy(handle)
+        finally:
+            source.close()

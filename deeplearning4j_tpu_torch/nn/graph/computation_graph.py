@@ -28,9 +28,14 @@ compute and param dtypes, the listeners, the updater and its state.
   read it. Its leaves (``state_leaves``) are in sorted vertex name, then
   key order, "mean" before "var", as the JAX package saves them.
 
-Graph TBPTT and ``rnn_time_step``, the staged ``fit_on_device`` and
-``warmup``, telemetry, ``memory_report``, ``preflight`` and ``analyze_ir``
-are not ported yet (ROADMAP.md Queue 1) and raise ``NotImplementedError``.
+- ``fit`` prefetches as ``MultiLayerNetwork.fit`` does, and
+  ``fit(stage_on_device=K)``, ``fit_on_device`` and ``warmup`` are its
+  staged loop (one captured step replayed per update on the card), with one
+  array per network input and output, and masks per input and output.
+
+Graph TBPTT and ``rnn_time_step``, telemetry, ``memory_report``,
+``preflight`` and ``analyze_ir`` are not ported yet (ROADMAP.md Queue 1)
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ import torch
 from ...datasets.iterators import MultiDataSet, as_iterator, as_multi
 from ...eval.evaluation import Evaluation
 from ..conf.computation_graph import ComputationGraphConfiguration
-from ..multilayer import BaseNetwork, _summary_table, to_host
+from ..layers.normalization import BatchNormalization
+from ..multilayer import (BaseNetwork, _materialize, _real_batches, _staged_dim0,
+                          _summary_table, to_host)
 from .vertices import LayerVertex
 
 # losses whose heads ``evaluate`` scores as classifiers
@@ -307,23 +314,131 @@ class ComputationGraph(BaseNetwork):
         return _summary_table(rows, total)
 
     # --------------------------------------------------------------- training
-    def fit(self, data, epochs: int = 1) -> "ComputationGraph":
+    def fit(self, data, epochs: int = 1, stage_on_device: Optional[int] = None,
+            bucketing: bool = True) -> "ComputationGraph":
         """Train (reference: ComputationGraph.fit(MultiDataSet)).
 
         ``data``: a MultiDataSet, a DataSet, an (x, y) tuple, or an iterable
         of any of them (an iterator with ``reset()`` is reset before each
-        epoch). One update per batch."""
+        epoch; one whose ``prefetch_supported`` is true is read ahead as
+        ``MultiLayerNetwork.fit`` reads it). One update per batch.
+        ``stage_on_device`` and ``bucketing`` as in
+        ``MultiLayerNetwork.fit``."""
         self._updater_ready()
-        for _ in range(epochs):
-            it = as_iterator(data)
-            if hasattr(it, "reset"):
-                it.reset()
-            for ds in it:
-                self._fit_batch(as_multi(ds))
-            self.epoch += 1
+        stage = self._fit_stage(stage_on_device)
+        for it, reader in self._epochs(data, epochs, stage > 1):
+            if stage > 1:
+                self._fit_staged_epoch(it, reader, stage, bucketing, self._normalize,
+                                       lambda ds: self._fit_batch(as_multi(ds)),
+                                       self._dispatch)
+            else:
+                for ds in it:
+                    self._fit_batch(as_multi(ds))
         return self
 
+    @staticmethod
+    def _normalize(ds):
+        """A batch as the stager's per-position lists."""
+        mds = as_multi(ds)
+        n_in, n_out = len(mds.features), len(mds.labels)
+        return ([np.asarray(f) for f in mds.features], [np.asarray(y) for y in mds.labels],
+                list(mds.features_masks or [None] * n_in),
+                list(mds.labels_masks or [None] * n_out))
+
+    def _dispatch(self, win):
+        """Queue a staged window's updates (``_start_window``)."""
+        stacked = self._staged_args(win.features, win.labels, win.features_masks,
+                                    win.labels_masks)
+        return self._start_window(stacked, win.n_real, win.n_real)
+
+    def _pad_examples_ok(self) -> bool:
+        return not any(isinstance(getattr(v, "layer", None), BatchNormalization)
+                       for v in self.conf.vertices.values())
+
+    @staticmethod
+    def _as_stage_list(value, n: int, kind: str):
+        """A masks argument as a list of ``n`` (None entries allowed); a bare
+        array stands for the one input or output."""
+        if value is None:
+            return None
+        if not isinstance(value, (list, tuple)):
+            value = [value]
+        if len(value) != n:
+            raise ValueError(f"{kind} has {len(value)} entries, expected {n}")
+        return list(value)
+
+    def _staged_args(self, features, labels, features_masks, labels_masks) -> list:
+        """Checked staged arrays as device tensors: the inputs, the labels,
+        then a features mask per input and a labels mask per output (None
+        where absent), each [K, ...]."""
+        if self.conf.backprop_type == "tbptt":
+            raise ValueError("fit_on_device does not support TBPTT; use fit()")
+        xs = list(features) if isinstance(features, (list, tuple)) else [features]
+        ys = list(labels) if isinstance(labels, (list, tuple)) else [labels]
+        n_in, n_out = len(self.conf.network_inputs), len(self.conf.network_outputs)
+        fms = self._as_stage_list(features_masks, n_in, "features_masks") or [None] * n_in
+        lms = self._as_stage_list(labels_masks, n_out, "labels_masks") or [None] * n_out
+        num_slots = _staged_dim0(xs[0])
+        for i, arr in enumerate(xs + ys):
+            if _staged_dim0(arr) != num_slots:
+                kind, idx = ("input", i) if i < len(xs) else ("label", i - len(xs))
+                raise ValueError(f"{kind} array {idx} stages {_staged_dim0(arr)} batches, "
+                                 f"expected {num_slots}")
+        for masks, kind in ((fms, "features mask"), (lms, "labels mask")):
+            for i, m in enumerate(masks):
+                if m is not None and _staged_dim0(m) != num_slots:
+                    raise ValueError(f"{kind} {i} stages {_staged_dim0(m)} batches, "
+                                     f"expected {num_slots}")
+        return ([self._input(x) for x in xs] + [self._labels(y) for y in ys]
+                + [self._mask(m) for m in fms] + [self._labels_mask(m) for m in lms])
+
+    def _staged_loss(self, batch: list):
+        n_in, n_out = len(self.conf.network_inputs), len(self.conf.network_outputs)
+        xs, ys = batch[:n_in], batch[n_in:n_in + n_out]
+        fms, lms = batch[n_in + n_out:n_in + n_out + n_in], batch[n_in + n_out + n_in:]
+        masks = (None if all(m is None for m in fms)
+                 else dict(zip(self.conf.network_inputs, fms)))
+        loss, new_state = self._loss(xs, ys, None if all(m is None for m in lms) else lms,
+                                     masks)
+        return loss, [new_state[n] for n in self._names]
+
+    def warmup(self, features, labels, steps: Optional[int] = None, features_masks=None,
+               labels_masks=None, real_batches: Optional[int] = None) -> "ComputationGraph":
+        """Capture ahead (see ``MultiLayerNetwork.warmup``): one array (or
+        meta tensor) per network input and output, masks per input and
+        output."""
+        self.init()
+        self._updater_ready()
+
+        def mat(v):
+            if isinstance(v, (list, tuple)):
+                return [None if a is None else _materialize(a) for a in v]
+            return None if v is None else _materialize(v)
+
+        stacked = self._staged_args(mat(features), mat(labels), mat(features_masks),
+                                    mat(labels_masks))
+        _real_batches(_staged_dim0(stacked[0]), steps, real_batches)
+        self._step_entry(stacked)
+        return self
+
+    def fit_on_device(self, features, labels, steps: Optional[int] = None,
+                      features_masks=None, labels_masks=None,
+                      real_batches: Optional[int] = None) -> np.ndarray:
+        """Train on batches staged on the device (see
+        ``MultiLayerNetwork.fit_on_device``). ``features``/``labels``: one
+        stacked array ``[K, B, ...]`` per network input and output (a bare
+        array for a single input or output); ``features_masks`` and
+        ``labels_masks``: one stacked mask (or None) per input and output.
+        Returns the per-step losses as a host array. TBPTT raises
+        ``ValueError``, and so does a staged count that differs from the
+        first input's, naming the array."""
+        self.init()
+        self._updater_ready()
+        stacked = self._staged_args(features, labels, features_masks, labels_masks)
+        return self._staged_window(stacked, steps, real_batches)
+
     def _fit_batch(self, mds: MultiDataSet) -> None:
+        self.last_batch_size = int(mds.features[0].shape[0])
         if self.conf.backprop_type == "tbptt" and any(len(f.shape) == 3
                                                       for f in mds.features):
             raise NotImplementedError(
@@ -335,8 +450,6 @@ class ComputationGraph(BaseNetwork):
 
     # ------------------------------------------------- not ported yet (later)
     rnn_time_step = _later("rnn_time_step")
-    fit_on_device = _later("fit_on_device")
-    warmup = _later("warmup")
     set_telemetry = _later("set_telemetry")
     memory_report = _later("memory_report")
     preflight = _later("preflight")

@@ -16,14 +16,36 @@ kernels); any other value raises ValueError. It is not part of the conf.
 - ``fit`` trains on an (x, y) pair, a ``DataSet`` or an iterable of either
   (e.g. a ``BucketingSequenceIterator`` of padded, masked batches), one
   update per batch (``backprop_type="standard"``) or one per time segment
-  (``"tbptt"``). The params are trainable leaves in ``params_dtype``; each
-  step casts them to the compute dtype under autograd, and the loss head
-  runs in f32 on f32 params as in the JAX package. The updater
+  (``"tbptt"``). An iterator whose ``prefetch_supported`` is true is read
+  by a host thread one queue ahead (``AsyncDataSetIterator``); on the card
+  ``DevicePrefetchIterator`` does that and copies each batch through pinned
+  buffers on a side stream one batch ahead of its update (batches under
+  8 MiB as they come). ``fit(stage_on_device=K)`` groups the batches into
+  windows of K (``datasets.bucketing.BucketedStager``: ragged batches padded
+  with masks, sequences to power-of-two lengths) and trains each window as
+  ``fit_on_device`` does, window i+1 read, stacked, pinned and its copy
+  started while window i's updates run. The params are trainable leaves in
+  ``params_dtype``; each step casts them to the compute dtype under
+  autograd, and the loss head runs in f32 on f32 params as in the JAX
+  package. The updater
   (``conf.updater``, the JAX JSON dict) is built when first needed; updates
   run in an f32 island (``updaters.optimizer_update``) and are written into
   the leaves in place. ``updater_state_leaves`` and
   ``set_updater_state_leaves`` read and set its state as the leaves of the
   JAX package's optax state (``utils/serialization.py`` saves them).
+- ``fit_on_device`` trains on K batches staged on the device ([K, B, ...]),
+  step i on batch ``i % real_batches``: on the card one training step
+  (forward, gradients, update, the layer state's writes) is captured once
+  in a CUDA graph (``runtime.step_graphs``) and replayed once per update;
+  before each replay the host enqueues the copies of the step's batch and
+  of its row of the updater's scalar table (``updaters.step_scalars``)
+  into the graph's static buffers, and the losses are read once, after the
+  window. ``warmup`` captures the step without training (the graph's
+  warm-up steps run on a copy of the state, which is put back exactly). On
+  the CPU the same step runs in a Python loop, through the same buffers,
+  table and in-place update: the plain version of the capture, bit for bit
+  the per-batch ``fit``'s. A capture or replay that fails raises; nothing
+  falls back to an eager loop on the card.
 - ``evaluate`` runs ``output`` over a dataset and returns an
   ``Evaluation``, with a ``Prediction`` per example where the batches carry
   record metadata.
@@ -41,18 +63,30 @@ kernels); any other value raises ValueError. It is not part of the conf.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import ops
-from ..datasets.iterators import DataSet, as_iterator
+from ..datasets.bucketing import BucketedStager
+from ..datasets.iterators import (AsyncDataSetIterator, DataSet, DevicePrefetchIterator,
+                                  MultiDataSet, as_iterator)
 from ..eval.evaluation import Evaluation
+from ..runtime.step_graphs import StepGraph, StepGraphs, signature
 from .conf.multi_layer import MultiLayerConfiguration
+from .layers.normalization import BatchNormalization
 from .layers.recurrent import GravesLSTM
-from .updaters import (UpdaterConfig, opt_state_from_leaves, opt_state_leaves,
-                       optimizer_update, scaled_loss, unscale_grads)
+from .updaters import (UpdaterConfig, _leaves, _map, advance_counts, opt_state_from_leaves,
+                       opt_state_leaves, optimizer_update, optimizer_update_in_place,
+                       scaled_loss, step_scalars, unscale_grads)
+
+# eager steps on a side stream before a capture: they build the kernels,
+# load their modules, create the library handles and pick cuDNN's algorithms
+# (none of which may happen while a stream is captured); their changes to the
+# state are put back
+WARMUP_STEPS = 2
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,6 +107,43 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _staged_dim0(arr) -> int:
+    """Leading (staged-batch) dim of an array or tensor."""
+    shape = getattr(arr, "shape", None)
+    if shape is None:
+        shape = np.shape(arr)
+    return int(shape[0])
+
+
+def _check_staged_counts(num_batches: int, named_arrays) -> None:
+    """``fit_on_device``'s guard: every staged array holds as many batches
+    as the features, or step i would pair features i with other labels."""
+    for name, arr in named_arrays:
+        if arr is not None and _staged_dim0(arr) != num_batches:
+            raise ValueError(f"{name} stages {_staged_dim0(arr)} batches, "
+                             f"expected {num_batches}")
+
+
+def _real_batches(num_slots: int, steps, real_batches):
+    """(steps, real batch count) of a window of ``num_slots`` staged batches,
+    checked: ``real_batches`` defaults to every slot, ``steps`` to one pass
+    over the real batches."""
+    if num_slots == 0:
+        raise ValueError("fit_on_device needs at least one staged batch")
+    n_real = num_slots if real_batches is None else int(real_batches)
+    if not 1 <= n_real <= num_slots:
+        raise ValueError(f"real_batches={n_real} outside [1, {num_slots}]")
+    return (int(steps) if steps is not None else n_real), n_real
+
+
+def _materialize(a):
+    """A staged array for ``warmup``: a meta tensor (shape and dtype only)
+    becomes zeros of its shape on the CPU."""
+    if isinstance(a, torch.Tensor) and a.is_meta:
+        return torch.zeros(a.shape, dtype=a.dtype)
+    return a
+
+
 def _summary_table(rows, total: int) -> str:
     """Fixed-width table and a totals line, as the JAX package prints it."""
     widths = [max(len(r[c]) for r in rows) for c in range(len(rows[0]))]
@@ -86,7 +157,8 @@ class BaseNetwork(torch.nn.Module):
     """What MultiLayerNetwork and ComputationGraph share: the device, the
     compute and param dtypes, inputs and labels on the device, the
     listeners, the updater and its state, the layer state's leaves, the
-    update itself and ``clone``. ``_leaves()`` and ``_state_dicts()`` (the
+    update itself, ``clone``, and the staged loop's captured steps.
+    ``_leaves()`` and ``_state_dicts()`` (the
     trainable params and the layer state as lists of dicts in the order of
     the JAX package's ``jax.tree_util.tree_leaves``), and their inverses
     ``_params_from_leaves`` and ``_set_state_dicts``, are each network's
@@ -112,6 +184,11 @@ class BaseNetwork(torch.nn.Module):
         self._generator: Optional[torch.Generator] = None  # dropout draws
         self.listeners: List = []
         self.state = None  # layer state; set by init
+        self._step_graphs = StepGraphs()  # the staged loop's captured steps
+        self._statics = None  # (updater state, layer state) tensors they hold
+        self.last_batch_size: Optional[int] = None
+        self.staged_steps_total = 0  # updates taken by fit_on_device
+        self.staged_step_time: Optional[float] = None  # set while its listeners run
 
     @property
     def params_dtype(self) -> torch.dtype:
@@ -139,6 +216,8 @@ class BaseNetwork(torch.nn.Module):
         self._opt_state = None
         self.iteration = 0
         self._generator = torch.Generator(device=self.device).manual_seed(self.conf.seed)
+        self._step_graphs.clear()  # they hold the old params
+        self._statics = None
 
     def _leaves(self) -> List[dict]:
         raise NotImplementedError
@@ -268,16 +347,20 @@ class BaseNetwork(torch.nn.Module):
         self._opt_state = opt_state_from_leaves(self._updater_ready(), self._leaves(),
                                                 leaves)
 
-    def _update(self, loss: torch.Tensor) -> None:
-        """One update from ``loss``: backward, unscale, update the leaves in
-        place; then the listeners."""
+    def _grads(self, loss: torch.Tensor, leaves: List[dict]) -> List[dict]:
+        """The gradients of ``loss`` for ``leaves`` (zeros for a leaf it does
+        not reach), through the loss scale and back."""
         ls = self.conf.loss_scale
-        leaves = self._leaves()
         flat = [v for layer in leaves for v in layer.values()]
         flat_grads = iter(torch.autograd.grad(scaled_loss(loss, ls), flat,
                                               allow_unused=True, materialize_grads=True))
-        grads = unscale_grads([{k: next(flat_grads) for k in layer} for layer in leaves],
-                              ls)
+        return unscale_grads([{k: next(flat_grads) for k in layer} for layer in leaves], ls)
+
+    def _update(self, loss: torch.Tensor) -> None:
+        """One update from ``loss``: backward, unscale, update the leaves in
+        place; then the listeners."""
+        leaves = self._leaves()
+        grads = self._grads(loss, leaves)
         _, self._opt_state, new_params = optimizer_update(
             self._updater, grads, self._opt_state, leaves)
         with torch.no_grad():
@@ -289,6 +372,251 @@ class BaseNetwork(torch.nn.Module):
         self.iteration += 1
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self._last_loss)
+
+    # ------------------------------------------------- the staged loop
+    # each network's ``_staged_args`` checks a window's stacked arrays and
+    # turns them into device tensors, one per static buffer of a step (None
+    # for an absent mask); ``_staged_loss`` runs a step's forward on them
+    def _staged_loss(self, batch: list):
+        """(loss, the new layer state as ``_state_dicts()`` lists it) of one
+        training forward on ``batch`` (the step's static buffers)."""
+        raise NotImplementedError
+
+    def _pad_examples_ok(self) -> bool:
+        """Row padding is exact only for per-example models: batch statistics
+        (BatchNormalization) couple the rows, so such models keep their exact
+        batch sizes (window padding with dummy slots stays on: those slots
+        never run)."""
+        raise NotImplementedError
+
+    def _write_state(self, new_state: List[dict]) -> None:
+        """Write a step's new layer state into the current state tensors, in
+        place (a captured step's graph holds their addresses)."""
+        with torch.no_grad():
+            for cur, new in zip(self._state_dicts(), new_state):
+                for k, t in cur.items():
+                    if new[k] is not t:
+                        t.copy_(new[k])
+
+    def _graph_step(self, entry: StepGraph) -> torch.Tensor:
+        """One training step on ``entry``'s static buffers: the loss, the
+        gradients, the update with the step's scalars, and the new layer
+        state, all written in place. What a capture records; on the CPU the
+        staged loop runs it as it is. Returns the loss."""
+        loss, new_state = self._staged_loss(entry.batch)
+        leaves = self._leaves()
+        optimizer_update_in_place(self._updater, self._grads(loss, leaves), self._opt_state,
+                                  leaves, entry.scalars)
+        self._write_state(new_state)
+        return loss.detach().float()
+
+    def _bind_statics(self) -> None:
+        """Point the updater state and the layer state at the staged loop's
+        own tensors, which every captured step of this network holds: made
+        once per ``init`` as copies of the current ones; later, wherever the
+        per-batch path or a setter has replaced a tensor, its value is
+        copied in."""
+        cur_opt = _leaves(self._opt_state)
+        cur_state = [t for d in self._state_dicts() for t in d.values()]
+        if self._statics is None:
+            self._statics = ([t.clone() for t in cur_opt], [t.clone() for t in cur_state])
+        opt_s, state_s = self._statics
+        with torch.no_grad():
+            for mine, cur in zip(opt_s + state_s, cur_opt + cur_state):
+                if mine is not cur:
+                    mine.copy_(cur)
+        it = iter(opt_s)
+        self._opt_state = _map(lambda t: next(it), self._opt_state)
+        it = iter(state_s)
+        self._set_state_dicts([{k: next(it) for k in d} for d in self._state_dicts()])
+
+    def _snapshot(self):
+        """Copies of everything a training step changes: params, updater and
+        layer state, the dropout generator's state."""
+        params = [v for layer in self._leaves() for v in layer.values()]
+        tensors = params + _leaves(self._opt_state) + [
+            t for d in self._state_dicts() for t in d.values()]
+        return tensors, [t.detach().clone() for t in tensors], self._generator.get_state()
+
+    def _restore(self, snap) -> None:
+        tensors, saved, gen_state = snap
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+        self._generator.set_state(gen_state)
+
+    @staticmethod
+    def _load_slot(entry: StepGraph, stacked: list, slot: int) -> None:
+        for dst, src in zip(entry.batch, stacked):
+            if dst is not None:
+                dst.copy_(src[slot])
+
+    def _capture(self, entry: StepGraph, stacked: list) -> None:
+        """Capture ``entry``'s step in a CUDA graph: warm-up steps on a side
+        stream from a snapshot that is put back, then the capture, with the
+        dropout generator registered so that each replay draws anew and
+        moves it on as an eager step does. Raises if the capture fails."""
+        self._load_slot(entry, stacked, 0)
+        entry.scalars.copy_(torch.from_numpy(
+            step_scalars(self._updater, self._opt_state, 1)[0]))
+        snap = self._snapshot()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._graph_step(entry)
+        current.wait_stream(side)
+        self._restore(snap)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._generator)
+        before = ops.counters()
+        with torch.cuda.graph(graph, pool=self._step_graphs.pool):
+            entry.loss = self._graph_step(entry)
+        entry.launches = {k: n - before[k] for k, n in ops.counters().items()
+                          if n != before[k]}
+        entry.graph = graph
+        if self._step_graphs.pool is None:
+            self._step_graphs.pool = graph.pool()
+
+    def _step_entry(self, stacked: list) -> StepGraph:
+        """The captured step (on the CPU: the static buffers) for windows
+        shaped as ``stacked``: from the cache, or made now."""
+        self._updater_ready()
+        self._bind_statics()
+        key = signature([None if t is None else t[0] for t in stacked], self.conf.updater,
+                        self.conf.loss_scale, str(self.compute_dtype),
+                        str(self.params_dtype))
+        entry = self._step_graphs.get(key)
+        if entry is None:
+            entry = StepGraph(batch=[None if t is None else torch.empty_like(t[0])
+                                     for t in stacked],
+                              scalars=torch.ones(3, dtype=torch.float32, device=self.device))
+            if self.device.type == "cuda":
+                self._capture(entry, stacked)
+            self._step_graphs.put(key, entry)
+        return entry
+
+    def _start_window(self, stacked: list, steps, real_batches):
+        """Queue ``steps`` updates on ``stacked`` (see ``fit_on_device``):
+        replay the captured step (on the CPU, run it) once per update after
+        the copies of its batch and scalars, each loss into a device buffer;
+        then the counts and the caches. Returns what ``_finish_window``
+        reads."""
+        n_steps, n_real = _real_batches(_staged_dim0(stacked[0]), steps, real_batches)
+        entry = self._step_entry(stacked)
+        table = torch.from_numpy(step_scalars(self._updater, self._opt_state, n_steps)
+                                 ).to(self.device)
+        losses = torch.empty(n_steps, dtype=torch.float32, device=self.device)
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            self._load_slot(entry, stacked, i % n_real)
+            entry.scalars.copy_(table[i])
+            if entry.graph is not None:
+                entry.graph.replay()
+                entry.replays += 1
+                self._step_graphs.replays += 1
+                loss = entry.loss
+            else:
+                loss = self._graph_step(entry)
+            losses[i].copy_(loss)
+        self._opt_state = advance_counts(self._opt_state, n_steps)
+        self._compute_params = None
+        self.last_batch_size = int(stacked[0].shape[1])
+        self.staged_steps_total += n_steps
+        return losses, t0
+
+    def _finish_window(self, queued) -> np.ndarray:
+        """Read a queued window's losses (the window's one wait for the
+        device), then run the listeners once per step."""
+        losses, t0 = queued
+        host = losses.cpu()
+        elapsed = time.perf_counter() - t0
+        # the listeners run in a tight loop after the window: publish each
+        # step's even share of the window's time for throughput listeners
+        self.staged_step_time = elapsed / max(len(host), 1)
+        try:
+            for loss in host:
+                self.iteration += 1
+                self._last_loss = loss
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration, loss)
+        finally:
+            self.staged_step_time = None
+        return host.numpy()
+
+    def _staged_window(self, stacked: list, steps, real_batches) -> np.ndarray:
+        return self._finish_window(self._start_window(stacked, steps, real_batches))
+
+    def _fit_staged_epoch(self, it, reader, stage: int, bucketing: bool, normalize,
+                          fit_batch, dispatch) -> None:
+        """One epoch in windows of ``stage`` batches (``BucketedStager``),
+        pipelined on this thread: window i+1 is read, stacked, pinned into
+        ``reader``'s ring and its copy started while window i's replays run
+        on the card, and only then are window i's losses read. ``dispatch``
+        queues a window. Batches that cannot stage train per batch, in
+        stream order."""
+        stager = BucketedStager(stage, bucketing=bucketing,
+                                pad_examples=self._pad_examples_ok())
+        queued = None
+        for kind, payload in stager.plan(it, normalize):
+            if kind == "window":
+                copy = reader.start_copy(payload)
+                if queued is not None:
+                    self._finish_window(queued)
+                queued = dispatch(reader.finish_copy(copy))
+                continue
+            if queued is not None:
+                self._finish_window(queued)
+                queued = None
+            fit_batch(payload)
+        if queued is not None:
+            self._finish_window(queued)
+
+    def _fit_stage(self, stage_on_device) -> int:
+        """The window size ``fit`` stages with: 0 for None (the port has no
+        tuning store), and 0 under TBPTT or when a listener lacks
+        ``supports_staged`` (its ``iteration_done`` runs after the window,
+        where the per-step model state it might read is gone)."""
+        stage = int(stage_on_device or 0)
+        if stage > 1 and (self.conf.backprop_type == "tbptt" or any(
+                not getattr(lst, "supports_staged", False) for lst in self.listeners)):
+            return 0
+        return stage
+
+    def _epochs(self, data, epochs: int, staged: bool):
+        """Each epoch's iterator, reset, between the listeners' epoch hooks,
+        and the call's ``DevicePrefetchIterator`` (its side stream and ring
+        of pinned buffers made once for all epochs). An iterator whose
+        ``prefetch_supported`` is true is read ahead: on the CPU by an
+        ``AsyncDataSetIterator``; on the card per batch by that
+        ``DevicePrefetchIterator`` (its worker thread is the host's prefetch
+        too, as in the JAX package). On the card the staged loop reads the
+        iterator itself and copies its windows through the same ring
+        (``_fit_staged_epoch``). A single batch (an (x, y) pair, a DataSet,
+        a MultiDataSet) has no next batch to read ahead and is not wrapped
+        (the JAX package wraps it too; here a thread a call would cost more
+        than the copy it could hide)."""
+        ahead = not isinstance(data, (DataSet, MultiDataSet, tuple))
+        reader = DevicePrefetchIterator(None, self.device)
+        for _ in range(epochs):
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_start"):
+                    lst.on_epoch_start(self, self.epoch)
+            it = as_iterator(data)
+            if hasattr(it, "reset"):
+                it.reset()
+            if ahead and getattr(it, "prefetch_supported", False):
+                if self.device.type != "cuda":
+                    it = AsyncDataSetIterator(it)
+                elif not staged:
+                    reader.base = it
+                    it = reader
+            yield it, reader
+            self.epoch += 1
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_end"):
+                    lst.on_epoch_end(self, self.epoch)
 
 
 class MultiLayerNetwork(BaseNetwork):
@@ -492,21 +820,111 @@ class MultiLayerNetwork(BaseNetwork):
         return _summary_table(rows, total)
 
     # --------------------------------------------------------------- training
-    def fit(self, data, epochs: int = 1) -> "MultiLayerNetwork":
+    def fit(self, data, epochs: int = 1, stage_on_device: Optional[int] = None,
+            bucketing: bool = True) -> "MultiLayerNetwork":
         """Train (reference: MultiLayerNetwork.fit(DataSetIterator)).
 
         ``data``: an (x, y) tuple, a DataSet, or an iterable of either (an
-        iterator with ``reset()`` is reset before each epoch). One update per
-        batch, or per time segment under TBPTT."""
+        iterator with ``reset()`` is reset before each epoch; one whose
+        ``prefetch_supported`` is true is read ahead by a host thread:
+        ``AsyncDataSetIterator``, or on the card ``DevicePrefetchIterator``,
+        which also copies each batch of 8 MiB or more to the card one batch
+        ahead). One
+        update per batch, or per time segment under TBPTT. Listeners'
+        ``on_epoch_start`` and ``on_epoch_end`` run around each epoch.
+
+        ``stage_on_device=K`` (None and 0: per batch) trains windows of K
+        batches as :meth:`fit_on_device` does, pipelined: window i+1 is read,
+        stacked, pinned and its copy started (non-blocking, on a side stream)
+        while window i's updates run, before window i's losses are read. With
+        ``bucketing`` (the default) ragged batches stay staged: a short batch
+        pads with masked zero rows (not for models with BatchNormalization),
+        sequences pad to power-of-two lengths, a trailing partial window runs
+        its real batches only; ``bucketing=False`` stages only full uniform
+        groups and trains the rest per batch. TBPTT, and a listener without
+        ``supports_staged``, turn staging off."""
         self._updater_ready()
-        for _ in range(epochs):
-            it = as_iterator(data)
-            if hasattr(it, "reset"):
-                it.reset()
-            for ds in it:
-                self._fit_batch(ds if isinstance(ds, DataSet) else DataSet(*ds))
-            self.epoch += 1
+        stage = self._fit_stage(stage_on_device)
+        for it, reader in self._epochs(data, epochs, stage > 1):
+            if stage > 1:
+                self._fit_staged_epoch(
+                    it, reader, stage, bucketing, self._normalize,
+                    lambda ds: self._fit_batch(ds if isinstance(ds, DataSet) else DataSet(*ds)),
+                    self._dispatch)
+            else:
+                for ds in it:
+                    self._fit_batch(ds if isinstance(ds, DataSet) else DataSet(*ds))
         return self
+
+    @staticmethod
+    def _normalize(ds):
+        """A batch as the stager's per-position lists."""
+        ds = ds if isinstance(ds, DataSet) else DataSet(*ds)
+        return ([np.asarray(ds.features)], [np.asarray(ds.labels)],
+                [ds.features_mask], [ds.labels_mask])
+
+    def _dispatch(self, win):
+        """Queue a staged window's updates (``_start_window``)."""
+        stacked = self._staged_args(
+            win.features[0], win.labels[0],
+            None if win.features_masks is None else win.features_masks[0],
+            None if win.labels_masks is None else win.labels_masks[0])
+        return self._start_window(stacked, win.n_real, win.n_real)
+
+    def _pad_examples_ok(self) -> bool:
+        return not any(isinstance(layer, BatchNormalization) for layer in self.conf.layers)
+
+    def _staged_args(self, xs, ys, features_masks, labels_masks) -> list:
+        """Checked staged arrays as device tensors: [x, y, features mask,
+        labels mask], each [K, ...] (a mask may be None)."""
+        if self.conf.backprop_type == "tbptt":
+            raise ValueError("fit_on_device does not support TBPTT; use fit()")
+        num_slots = _staged_dim0(xs)
+        _check_staged_counts(num_slots, (("ys", ys), ("features_masks", features_masks),
+                                         ("labels_masks", labels_masks)))
+        return [self._input(xs), self._labels(ys), self._mask(features_masks),
+                self._labels_mask(labels_masks)]
+
+    def _staged_loss(self, batch: list):
+        x, y, fm, lm = batch
+        loss, new_state, _ = self._loss(x, y, lm, fm)
+        return loss, list(new_state)
+
+    def warmup(self, xs, ys, steps: Optional[int] = None, features_masks=None,
+               labels_masks=None, real_batches: Optional[int] = None) -> "MultiLayerNetwork":
+        """Capture ahead: on the card, the training step of windows shaped as
+        ``xs``/``ys`` (and masks) is captured without training a step, so
+        the first ``fit_on_device`` on such windows replays at once. The
+        arrays may be real data or meta tensors (shape and dtype only). The
+        capture's warm-up steps run from a snapshot of the params, updater
+        and layer state, the dropout generator's state and ``iteration``,
+        which is put back exactly. TBPTT raises ``ValueError``."""
+        self.init()
+        self._updater_ready()
+        xs, ys, fm, lm = (None if a is None else _materialize(a)
+                          for a in (xs, ys, features_masks, labels_masks))
+        stacked = self._staged_args(xs, ys, fm, lm)
+        _real_batches(_staged_dim0(xs), steps, real_batches)
+        self._step_entry(stacked)
+        return self
+
+    def fit_on_device(self, xs, ys, steps: Optional[int] = None, features_masks=None,
+                      labels_masks=None, real_batches: Optional[int] = None) -> np.ndarray:
+        """Train on batches staged on the device: ``xs``/``ys`` (and masks)
+        stack K batches ``[K, B, ...]`` (host arrays or tensors); step i
+        trains on batch ``i % real_batches``. ``real_batches`` (default K)
+        counts the leading slots that hold real data (the stager's trailing
+        slots are dummies, never used); ``steps`` defaults to one pass over
+        them. On the card one captured step is replayed per update; on the
+        CPU the same step runs in a loop. Returns the per-step losses as a
+        host array; afterwards ``iteration_done`` runs once per step with
+        its loss (a 0-d host tensor). TBPTT raises ``ValueError``; a count
+        of staged batches that differs from the features' raises
+        ``ValueError`` naming the array."""
+        self.init()
+        self._updater_ready()
+        stacked = self._staged_args(xs, ys, features_masks, labels_masks)
+        return self._staged_window(stacked, steps, real_batches)
 
     def _step(self, x, y, labels_mask, features_mask, rnn_state=None):
         """One update from the loss on (x, y); the layer state the forward
@@ -519,6 +937,7 @@ class MultiLayerNetwork(BaseNetwork):
         return tuple({k: t.detach() for k, t in st.items()} for st in new_rnn)
 
     def _fit_batch(self, ds: DataSet) -> None:
+        self.last_batch_size = int(ds.features.shape[0])
         x = self._input(ds.features)
         if self.conf.backprop_type == "tbptt" and x.dim() == 3:
             self._fit_tbptt(x, ds)

@@ -22,6 +22,15 @@ same steps:
 - :func:`optimizer_update` is the f32 update island of the JAX package:
   with any bf16 leaf, grads, state and params are upcast, updated in f32 and
   cast back per leaf; with f32 only it is ``update`` plus ``p + u``.
+- The staged loop (``fit_on_device``) runs one training step captured in a
+  CUDA graph, replayed once per update. A by-value scalar would be frozen
+  at the capture, so there the step's learning rate and Adam's bias
+  corrections come from :func:`step_scalars`, a table the host computes per
+  window with the same ``schedule`` and :func:`bias_corrections` as the
+  per-batch path (so the same floats), one row a step, which the step reads
+  through device memory (``scalars``); :func:`optimizer_update_in_place`
+  writes the new params and state into the tensors the capture holds, and
+  :func:`advance_counts` moves the counts on by the window's steps.
 
 Params, grads and updates are lists of per-layer dicts of tensors, as the
 JAX package's are tuples of dicts. The other optax updaters come in later
@@ -207,6 +216,36 @@ def bias_corrections(count: int, b1: float, b2: float,
     return tuple(float(1.0 - torch.tensor(b, dtype=sdt) ** t) for b in (b1, b2))
 
 
+def step_scalars(tx: "Updater", state: dict, n: int) -> np.ndarray:
+    """The scalars of the next ``n`` updates from ``state``, one f32 row
+    each: (the learning rate ``schedule(count + i)``, Adam's ``bc1`` and
+    ``bc2`` for its count ``+ i + 1``; 1 and 1 for the other updaters), the
+    values the per-batch path hands the update for the same counts. A
+    captured step reads its row through device memory."""
+    rows = np.ones((int(n), 3), np.float32)
+    if tx.zero:
+        return rows
+    c = state["count"]
+    rows[:, 0] = [tx.schedule(c + i) for i in range(int(n))]
+    if tx.adam is not None:
+        b1, b2, _ = tx.adam
+        ac = state["adam"]["count"]
+        rows[:, 1:] = [bias_corrections(ac + i + 1, b1, b2, torch.float32)
+                       for i in range(int(n))]
+    return rows
+
+
+def advance_counts(state: dict, n: int) -> dict:
+    """``state`` after ``n`` updates whose tensors were written in place: the
+    schedule's count (and Adam's) moved on by ``n``."""
+    if "count" not in state:
+        return state
+    new = {**state, "count": state["count"] + int(n)}
+    if "adam" in state:
+        new["adam"] = {**state["adam"], "count": state["adam"]["count"] + int(n)}
+    return new
+
+
 @dataclass
 class Updater:
     """optax's ``chain(normalization, core)`` with the core's state as a
@@ -236,15 +275,18 @@ class Updater:
             state["trace"] = _zeros_like(params)
         return state
 
-    def update(self, grads: Tree, state: dict):
-        """(updates, new_state): updates are to be added to the params."""
+    def update(self, grads: Tree, state: dict, scalars: Optional[torch.Tensor] = None):
+        """(updates, new_state): updates are to be added to the params.
+        ``scalars`` (a row of :func:`step_scalars` on the grads' device) takes
+        the place of the schedule's value and Adam's bias corrections for the
+        count in ``state``: the form of a captured step."""
         grads = self.normalize(grads)
         if self.zero:
             return [{k: torch.zeros_like(g) for k, g in layer.items()}
                     for layer in grads], state
         new = {**state, "count": state["count"] + 1}
         if self.adam is not None:
-            updates, new["adam"] = self._adam(grads, state)
+            updates, new["adam"] = self._adam(grads, state, scalars)
             return updates, new
         if self.momentum is not None:
             mu = self.momentum
@@ -256,10 +298,10 @@ class Updater:
                          for layer, t in zip(grads, new["trace"])]
             else:
                 grads = new["trace"]
-        step = -self.schedule(state["count"])
+        step = -self.schedule(state["count"]) if scalars is None else -scalars[0]
         return [{k: step * g for k, g in layer.items()} for layer in grads], new
 
-    def _adam(self, grads: Tree, state: dict):
+    def _adam(self, grads: Tree, state: dict, scalars: Optional[torch.Tensor] = None):
         """optax's scale_by_adam, then the schedule: one grouped Adam call
         over every leaf (one kernel launch per ``MAX_LEAVES`` leaves on the
         card), with the JAX package's fused path's arithmetic. Returns
@@ -267,13 +309,16 @@ class Updater:
         b1, b2, eps = self.adam
         adam = state["adam"]
         count = adam["count"] + 1  # optax.safe_int32_increment
-        lr = self.schedule(state["count"])
         leaves = _tree_leaves(grads)
-        dtype = leaves[0].dtype if leaves else torch.float32
-        bc1, bc2 = bias_corrections(count, b1, b2, dtype)
         ms = _tree_leaves(adam["mu"])
         vs = _tree_leaves(adam["nu"])
-        outs = _adam.fused_adam_update_leaves(leaves, ms, vs, lr, bc1, bc2, b1, b2, eps)
+        if scalars is None:
+            lr = self.schedule(state["count"])
+            dtype = leaves[0].dtype if leaves else torch.float32
+            bc1, bc2 = bias_corrections(count, b1, b2, dtype)
+            outs = _adam.fused_adam_update_leaves(leaves, ms, vs, lr, bc1, bc2, b1, b2, eps)
+        else:
+            outs = _adam.fused_adam_update_leaves_dev(leaves, ms, vs, scalars, b1, b2, eps)
         updates, mu, nu = (_unflatten(grads, o) for o in outs)
         return updates, {"count": count, "mu": mu, "nu": nu}
 
@@ -397,19 +442,37 @@ def _apply_updates(params: Tree, updates: Tree) -> Tree:
     return _map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def optimizer_update(tx: Updater, grads: Tree, opt_state: dict, params: Tree):
+def optimizer_update(tx: Updater, grads: Tree, opt_state: dict, params: Tree,
+                     scalars: Optional[torch.Tensor] = None):
     """``tx.update`` plus ``p + u`` under the precision contract: with any
     sub-f32 leaf in grads, state or params, the update runs in an f32 island
     and the new state and params are cast back per leaf; with f32 only it is
-    the plain update. Returns (updates, new_opt_state, new_params)."""
+    the plain update. ``scalars`` as in ``Updater.update``. Returns
+    (updates, new_opt_state, new_params)."""
     if not any(_is_low_float(t) for t in
                _leaves(grads) + _leaves(opt_state) + _leaves(params)):
-        updates, new_opt = tx.update(grads, opt_state)
+        updates, new_opt = tx.update(grads, opt_state, scalars)
         return updates, new_opt, _apply_updates(params, updates)
     p32 = _to_f32(params)
-    updates, new_opt32 = tx.update(_to_f32(grads), _to_f32(opt_state))
+    updates, new_opt32 = tx.update(_to_f32(grads), _to_f32(opt_state), scalars)
     new_p32 = _apply_updates(p32, updates)
     return updates, _like(new_opt32, opt_state), _like(new_p32, params)
+
+
+@torch.no_grad()
+def optimizer_update_in_place(tx: Updater, grads: Tree, opt_state: dict, params: Tree,
+                              scalars: torch.Tensor) -> None:
+    """:func:`optimizer_update` with the step's ``scalars``, its new params
+    and state tensors written into ``params`` and ``opt_state``'s tensors in
+    place (the counts are left: :func:`advance_counts`). The update of a
+    captured step, whose graph holds those tensors' addresses; the same
+    arithmetic as the per-batch path's, so the same bits."""
+    _, new_opt, new_params = optimizer_update(tx, grads, opt_state, params, scalars)
+    for layer, new in zip(params, new_params):
+        for k, v in layer.items():
+            v.copy_(new[k])
+    for old, new in zip(_leaves(opt_state), _leaves(new_opt)):
+        old.copy_(new)
 
 
 def scaled_loss(loss: torch.Tensor, loss_scale: Optional[float]) -> torch.Tensor:

@@ -18,6 +18,14 @@ does not take. For CPU tensors it runs the plain version,
 :func:`adam_update_reference`, leaf by leaf, which takes any float dtype.
 :func:`fused_adam_update` is the JAX package's one-leaf op, the same call
 over a list of one.
+
+:func:`fused_adam_update_leaves_dev` is the same update with ``lr``,
+``bc1`` and ``bc2`` in a tensor of three f32 on the leaves' device, which
+the kernel reads when it runs (the C entry ``dl4j_adam_update_multi_dev``):
+the form a training step captured in a CUDA graph takes, since a by-value
+scalar is frozen at the capture. Its plain version is
+:func:`adam_update_reference` with those three as 0-d tensors. Its launches
+count as ``adam_update_dev``.
 """
 
 from __future__ import annotations
@@ -29,8 +37,8 @@ import torch
 
 from . import _build
 
-# count of kernel launches (one per MAX_LEAVES leaves of an update)
-launches = {"adam_update": 0}
+# count of kernel launches (one per MAX_LEAVES leaves of an update), by entry
+launches = {"adam_update": 0, "adam_update_dev": 0}
 
 MAX_LEAVES = 48  # leaves one launch takes: kMaxLeaves of csrc/adam.cu
 _ALIGN = 4  # floats: each leaf's outputs start 16 bytes apart at least
@@ -39,10 +47,12 @@ Update = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Updates = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
 
 
-def adam_update_reference(g, m, v, lr: float, bc1: float, bc2: float,
+def adam_update_reference(g, m, v, lr, bc1, bc2,
                           b1: float, b2: float, eps: float) -> Update:
     """Plain version (``_adam_kernel``), in the leaf's dtype, rounding where
-    the kernel rounds: (u, m', v')."""
+    the kernel rounds: (u, m', v'). ``lr``, ``bc1`` and ``bc2`` are floats
+    or 0-d tensors (the device-scalar entry's plain version): on the CPU a
+    0-d f32 tensor rounds as its float does."""
     m2 = b1 * m + (1.0 - b1) * g
     v2 = b2 * v + (1.0 - b2) * g * g
     u = -lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
@@ -74,7 +84,10 @@ def _check_leaves(gs, ms, vs, kernel: bool) -> None:
                              "Adam kernel")
 
 
-def _launch(gs, ms, vs, lr, bc1, bc2, b1, b2, eps) -> Updates:
+def _launch(gs, ms, vs, lr, bc1, bc2, b1, b2, eps, scalars=None) -> Updates:
+    """One launch per MAX_LEAVES leaves of the by-value entry, or of the
+    device-scalar entry where ``scalars`` (lr, bc1, bc2 on the card) is
+    given."""
     sizes = [g.numel() for g in gs]
     offsets, total = [], 0
     for n in sizes:
@@ -86,7 +99,10 @@ def _launch(gs, ms, vs, lr, bc1, bc2, b1, b2, eps) -> Updates:
                  for buf in bufs)
     bases = [buf.data_ptr() for buf in bufs]
     live = [i for i, n in enumerate(sizes) if n]
-    fn = _build.bind("adam", "dl4j_adam_update_multi", 7, 1, 8)
+    if scalars is None:
+        fn = _build.bind("adam", "dl4j_adam_update_multi", 7, 1, 8)
+    else:
+        fn = _build.bind("adam", "dl4j_adam_update_multi_dev", 8, 1, 5)
     for s in range(0, len(live), MAX_LEAVES):
         group = live[s:s + MAX_LEAVES]
         k = len(group)
@@ -96,8 +112,13 @@ def _launch(gs, ms, vs, lr, bc1, bc2, b1, b2, eps) -> Updates:
             *[base + 4 * offsets[i] for base in bases for i in group],
             *[sizes[i] for i in group])
         at = ctypes.addressof(table)
-        _build.launch(launches, "adam_update", fn, dev, *[at + 8 * k * j for j in range(7)],
-                      k, lr, bc1, bc2, b1, 1.0 - b1, b2, 1.0 - b2, eps)
+        ptrs = [at + 8 * k * j for j in range(7)]
+        if scalars is None:
+            _build.launch(launches, "adam_update", fn, dev, *ptrs,
+                          k, lr, bc1, bc2, b1, 1.0 - b1, b2, 1.0 - b2, eps)
+        else:
+            _build.launch(launches, "adam_update_dev", fn, dev, *ptrs, scalars,
+                          k, b1, 1.0 - b1, b2, 1.0 - b2, eps)
     return outs
 
 
@@ -129,3 +150,35 @@ def fused_adam_update(g, m, v, lr: float, bc1: float, bc2: float,
     CPU tensors the plain version."""
     us, m2s, v2s = fused_adam_update_leaves([g], [m], [v], lr, bc1, bc2, b1, b2, eps)
     return us[0], m2s[0], v2s[0]
+
+
+def _check_scalars(scalars, dev) -> None:
+    if not isinstance(scalars, torch.Tensor):
+        raise TypeError("scalars must be a tensor of (lr, bc1, bc2)")
+    if scalars.dtype != torch.float32 or scalars.numel() != 3 or not scalars.is_contiguous():
+        raise ValueError(f"scalars must be 3 contiguous float32 (lr, bc1, bc2), got "
+                         f"{tuple(scalars.shape)} {scalars.dtype}")
+    if dev is not None and scalars.device != dev:
+        raise ValueError(f"scalars are on {scalars.device}, the leaves on {dev}")
+
+
+def fused_adam_update_leaves_dev(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+                                 vs: Sequence[torch.Tensor], scalars: torch.Tensor,
+                                 b1: float, b2: float, eps: float) -> Updates:
+    """:func:`fused_adam_update_leaves` with ``lr``, ``bc1`` and ``bc2`` read
+    from ``scalars`` (three contiguous f32 on the leaves' device) when the
+    kernel runs: the update of a captured training step. CUDA leaves launch
+    ``dl4j_adam_update_multi_dev`` (counted as ``adam_update_dev``); CPU
+    leaves run :func:`adam_update_reference` with the three as 0-d tensors.
+    Raises as :func:`fused_adam_update_leaves` does, and ``ValueError`` on
+    scalars of another shape, dtype or device."""
+    gs, ms, vs = ([t.contiguous() for t in ts] for ts in (gs, ms, vs))
+    on_card = bool(gs) and gs[0].is_cuda
+    _check_leaves(gs, ms, vs, kernel=on_card)
+    _check_scalars(scalars, gs[0].device if gs else None)
+    if on_card:
+        return _launch(gs, ms, vs, None, None, None, b1, b2, eps, scalars=scalars)
+    lr, bc1, bc2 = scalars[0], scalars[1], scalars[2]
+    outs = [adam_update_reference(g, m, v, lr, bc1, bc2, b1, b2, eps)
+            for g, m, v in zip(gs, ms, vs)]
+    return [o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs]

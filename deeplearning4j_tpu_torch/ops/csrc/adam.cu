@@ -1,5 +1,10 @@
 // Multi-tensor Adam update for Hopper (sm_90a): every leaf of one update in
-// one launch.
+// one launch. Two C entries: dl4j_adam_update_multi takes the step's scalars
+// by value; dl4j_adam_update_multi_dev reads lr, bc1 and bc2 from device
+// memory when the kernel runs, for a training step captured once in a CUDA
+// graph and replayed once per update (a by-value argument is frozen at the
+// capture, so every replay would take the first step's learning rate and
+// bias corrections).
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_kernels.py:fused_adam_update (the
 // pallas_call of _adam_kernel), which the JAX package calls once per
@@ -67,7 +72,8 @@ struct Leaves {
   int first[kMaxLeaves + 1];  // first chunk of each leaf, then the chunks from n_leaves on
   unsigned long long vec;     // bit l: leaf l's six pointers are 16-byte aligned
 };
-static_assert(sizeof(Leaves) + sizeof(Scalars) <= 4096, "a kernel's arguments take 4 KB");
+static_assert(sizeof(Leaves) + sizeof(Scalars) + sizeof(const float*) <= 4096,
+              "a kernel's arguments take 4 KB");
 
 __device__ __forceinline__ void adam_elem(float g, float m, float v, const Scalars& s,
                                           float& u, float& m2, float& v2) {
@@ -77,7 +83,16 @@ __device__ __forceinline__ void adam_elem(float g, float m, float v, const Scala
                 __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, s.bc2)), s.eps));
 }
 
-__global__ void __launch_bounds__(kThreads) adam_multi(const Leaves L, const Scalars s) {
+// `dev`, where it is not null, holds lr, bc1 and bc2 (f32, on the card) in
+// place of s.neg_lr, s.bc1 and s.bc2: read once per block, negated exactly,
+// so the arithmetic and its bits are the by-value entry's.
+__global__ void __launch_bounds__(kThreads) adam_multi(const Leaves L, Scalars s,
+                                                       const float* __restrict__ dev) {
+  if (dev != nullptr) {
+    s.neg_lr = -dev[0];
+    s.bc1 = dev[1];
+    s.bc2 = dev[2];
+  }
   const int c = blockIdx.x;
   int l = 0;
   while (L.first[l + 1] <= c) ++l;  // a leaf with no chunk has first[l + 1] = first[l]
@@ -113,22 +128,9 @@ __global__ void __launch_bounds__(kThreads) adam_multi(const Leaves L, const Sca
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-}  // namespace
-
-// One Adam step for `n_leaves` (1 to kMaxLeaves) f32 leaves, in one
-// launch: leaf l reads g[l], m[l], v[l] and writes u[l], m_out[l],
-// v_out[l], n[l] elements each (host arrays of pointers on the card and of
-// counts; no two buffers may alias). `omb1` and `omb2` are 1 - b1 and 1 - b2
-// computed in double and rounded, as the Pallas kernel's Python constants
-// are. Returns the CUDA error code of the launch, 0 when it launched;
-// cudaErrorInvalidValue, and no launch, for a count out of range or leaves
-// with no element.
-extern "C" int dl4j_adam_update_multi(const void* const* g, const void* const* m,
-                                      const void* const* v, void* const* u,
-                                      void* const* m_out, void* const* v_out,
-                                      const long long* n, int n_leaves, float lr, float bc1,
-                                      float bc2, float b1, float omb1, float b2, float omb2,
-                                      float eps, void* stream) {
+int launch(const void* const* g, const void* const* m, const void* const* v, void* const* u,
+           void* const* m_out, void* const* v_out, const long long* n, int n_leaves,
+           const Scalars& s, const float* dev, void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves) return cudaErrorInvalidValue;
   Leaves L{};
   long long chunks = 0;
@@ -148,8 +150,44 @@ extern "C" int dl4j_adam_update_multi(const void* const* g, const void* const* m
   }
   if (chunks < 1 || chunks > 0x7fffffffll) return cudaErrorInvalidValue;
   for (int l = n_leaves; l <= kMaxLeaves; ++l) L.first[l] = static_cast<int>(chunks);
-  const Scalars s{-lr, bc1, bc2, b1, omb1, b2, omb2, eps};
   adam_multi<<<static_cast<unsigned>(chunks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      L, s);
+      L, s, dev);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// One Adam step for `n_leaves` (1 to kMaxLeaves) f32 leaves, in one
+// launch: leaf l reads g[l], m[l], v[l] and writes u[l], m_out[l],
+// v_out[l], n[l] elements each (host arrays of pointers on the card and of
+// counts; no two buffers may alias). `omb1` and `omb2` are 1 - b1 and 1 - b2
+// computed in double and rounded, as the Pallas kernel's Python constants
+// are. Returns the CUDA error code of the launch, 0 when it launched;
+// cudaErrorInvalidValue, and no launch, for a count out of range or leaves
+// with no element.
+extern "C" int dl4j_adam_update_multi(const void* const* g, const void* const* m,
+                                      const void* const* v, void* const* u,
+                                      void* const* m_out, void* const* v_out,
+                                      const long long* n, int n_leaves, float lr, float bc1,
+                                      float bc2, float b1, float omb1, float b2, float omb2,
+                                      float eps, void* stream) {
+  return launch(g, m, v, u, m_out, v_out, n, n_leaves,
+                Scalars{-lr, bc1, bc2, b1, omb1, b2, omb2, eps}, nullptr, stream);
+}
+
+// The same step with lr, bc1 and bc2 read from `scalars` (three f32 on the
+// card, in that order) when the kernel runs, not when it is launched: the
+// entry of a captured training step, whose host enqueues a copy of the
+// step's row of the scalar table into `scalars` before each replay. Given
+// the same three values, its outputs are the by-value entry's, bit for
+// bit. Returns as dl4j_adam_update_multi does.
+extern "C" int dl4j_adam_update_multi_dev(const void* const* g, const void* const* m,
+                                          const void* const* v, void* const* u,
+                                          void* const* m_out, void* const* v_out,
+                                          const long long* n, const float* scalars,
+                                          int n_leaves, float b1, float omb1, float b2,
+                                          float omb2, float eps, void* stream) {
+  if (scalars == nullptr) return cudaErrorInvalidValue;
+  return launch(g, m, v, u, m_out, v_out, n, n_leaves,
+                Scalars{0.0f, 1.0f, 1.0f, b1, omb1, b2, omb2, eps}, scalars, stream);
 }

@@ -547,8 +547,8 @@ def test_bf16_output_is_close_to_jax():
 def test_later_entry_points_raise():
     net = pt.ComputationGraph(pt.ComputationGraphConfiguration.from_json(_dag().to_json()),
                               device="cpu")
-    for name in ("rnn_time_step", "fit_on_device", "warmup", "memory_report", "preflight",
-                 "analyze_ir", "set_telemetry"):
+    for name in ("rnn_time_step", "memory_report", "preflight", "analyze_ir",
+                 "set_telemetry"):
         with pytest.raises(NotImplementedError, match=name):
             getattr(net, name)()
     tbptt = _dag()
