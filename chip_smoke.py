@@ -67,7 +67,20 @@ own init; and the char-RNN at full width fed from CSV sequence files through
 SequenceRecordReaderDataSetIterator (its masks reach rows 8-9), its first batch
 against the CPU, with evaluate() over Iris records naming each misclassified
 record's file and line. Rows 5-12 are held against their plain versions and
-timed at those shapes too.
+timed at those shapes too. Then slice 18: the char-RNN as a
+ComputationGraph (in -> lstm0 -> lstm1 -> out) trained with TBPTT(50) and
+char_rnn()'s Adam against the MultiLayerNetwork from the same weights, f32
+and bf16 (each segment's loss, every param; a graph whose segments restart
+from zero h/c caught), its ``output``, ``rnn_time_step`` one step at a time
+and DecodeServer over the graph against the MLN server and each session
+alone (a slot reset that skips the graph's state caught); a sequence
+classifier (ids, RnnEmbeddingLayer, GravesLSTM, Convolution1DLayer,
+LastTimeStepVertex, softmax) over the recipe's bucketed text against the
+CPU (a LastTimeStep that ignores the mask caught); and the attention net
+with examples/long_context.py's MixtureOfExpertsLayer after each
+LayerNorm (n_out 512, 4 experts of 1024) against the CPU at T <= 512 (pad
+tokens claiming capacity caught), timed at T 2048 and 4096 with the peak
+memory.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -305,7 +318,7 @@ def adam_launches(net) -> int:
     param leaves (ceil(leaves / MAX_LEAVES))."""
     from deeplearning4j_tpu_torch.ops.adam import MAX_LEAVES
 
-    return -(-sum(len(p) for p in net.layer_params) // MAX_LEAVES)
+    return -(-sum(len(p) for p in net._leaves()) // MAX_LEAVES)
 
 
 def bound_sxent(N: int, C: int, dtype: str, backward: bool):
@@ -832,7 +845,10 @@ def time_adam(torch, ad, card, shapes=None, what="the char-RNN's 14 leaves", dev
 
     # the kernel's own time on the card, apart from the host's part of a call
     prof = profile(torch, lambda: [call() for _ in range(10)])
-    device_ms = sum(r[1] for r in prof["top_kernels"] if "adam_multi" in r[0]) / 10
+    adam_rows = [r[1] for r in prof["top_kernels"] if "adam_multi" in r[0]]
+    # None where the profiler caught no adam kernel in the window (it
+    # sometimes records no device event for so short a window)
+    device_ms = sum(adam_rows) / 10 if adam_rows else None
     emit("profile", what=f"10 grouped Adam calls over {what}" + (
         ", device-scalar entry" if dev else ""), gpu=card,
          adam_multi_device_ms_per_call=device_ms, **prof)
@@ -1035,29 +1051,8 @@ def phase_adam(torch, ad):
     each output's max |err| over its max |ref| (ADAM_REL), and each grouped
     call's launches. Returns the max abs error of each case by name."""
     cases, sc = adam_cases(torch, ad)
-    errs = {}
-    for name, leaves, want_launches in cases:
-        gs, ms, vs = (list(x) for x in zip(*leaves))
-        before = ad.launches["adam_update"]
-        got = ad.fused_adam_update_leaves(gs, ms, vs, *sc)
-        launched = ad.launches["adam_update"] - before
-        rel, abs_err = dict.fromkeys(("u", "m", "v"), 0.0), 0.0
-        for i, (g, m, v) in enumerate(leaves):
-            want = ad.adam_update_reference(g, m, v, *sc)
-            for n, a, b in zip(rel, (got[0][i], got[1][i], got[2][i]), want):
-                if a.shape != b.shape:
-                    raise AssertionError(f"adam_update {name} leaf {i}: {a.shape}, {b.shape}")
-                err = float((a - b).abs().max())
-                abs_err = max(abs_err, err)
-                rel[n] = max(rel[n], err / float(b.abs().max()))
-        torch.cuda.synchronize()
-        check("adam_update", "float32", rel, dict.fromkeys(rel, ADAM_REL), case=name,
-              leaves=len(leaves), elements=sum(g.numel() for g in gs), max_abs_err=abs_err,
-              launches=launched, relative_to_largest=True)
-        if launched != want_launches:
-            raise AssertionError(f"adam_update {name}: {launched} launches, not {want_launches}")
-        errs[name] = abs_err
-    return errs
+    return {name: adam_check(torch, ad, name, leaves, sc, want_launches)
+            for name, leaves, want_launches in cases}
 
 
 def phase_kernels_mnist(torch, sx):
@@ -5233,6 +5228,674 @@ def phases_slice17(torch, card, res_host, alex_host, host_params):
     return launches, replays, replayed, times
 
 
+# ---- slice 18: the recurrent ComputationGraph (TBPTT, rnn_time_step,
+# DecodeServer over a graph) and the sequence layers. The char-RNN above as
+# a graph (in -> lstm0 -> lstm1 -> out), trained with TBPTT(50) and Adam at
+# char_rnn()'s lr 1e-3, served, streamed and decoded against the
+# MultiLayerNetwork from the same weights; a sequence classifier over the
+# recipe's bucketed text; the transformer block of examples/long_context.py
+# whole, its MixtureOfExpertsLayer at twice the example's width.
+GRAPH_STREAM_STEPS = 32  # rnn_time_step one step at a time against output()
+GRAPH_TIMED_BATCHES = 3  # timed TBPTT batches of the graph and of the MLN each
+GRAPH_TICKS = 20  # timed decode ticks (a masked [SLOTS, 1, V] step) of each
+# the sequence classifier: next char after each sequence of the recipe's
+# text, trained at the recipe's buckets on the card (two epochs, 4 updates)
+# and held against the same training on the CPU at shorter ones
+SEQ_CPU_BUCKETS = (32, 64)
+SEQ_EPOCHS = 2
+# the MoE block: examples/long_context.py's MixtureOfExpertsLayer at twice
+# its width (n_out 512 = the attention net's, 4 experts, hidden 1024,
+# capacity factor 2, residual) after each LayerNorm of the attention net
+MOE_EXPERTS, MOE_HIDDEN, MOE_CAPACITY = 4, 1024, 2.0
+MOE_TIMED_EPOCHS = 2  # timed epochs of 2 updates at T 2048 and 4096
+# a profiled T=4096 update of the MoE block, by kernel family
+MOE_PROFILE_GROUPS = [("flash attention (rows 13-15)", r"flash_"),
+                      ("products (einsums, projections)", r"(?i)gemm|matmul|cutlass|sm90"),
+                      ("one-hot, cumsum, compare", r"(?i)compare|cumsum|scan|eq_|one_hot"),
+                      ("reductions", r"(?i)reduce"),
+                      ("copies", r"(?i)memcpy|copy|transpose")]
+# the MoE block's training on the card against the CPU at T <= 512, by the
+# recipe's readings. At lr 3e-3 through 1024-wide experts its first
+# updates raise the loss, and a start moved by one f32 rounding (each
+# weight times 1 + 2^-23 n) moves the 4 updates as far as the card reads
+# (scripts/moe_train_sensitivity.py, 6 draws, CPU): f32 loss 7e-6 to
+# 4.5e-5, change 0.003-0.029, max 0.004-0.011, 792-11,384 elements over
+# lr/10; bf16 loss 0.003-0.072, change 0.16-0.32, max 0.020, 1.0M-2.8M
+# elements. Pad tokens claiming capacity read f32 0.022, 0.97, 0.023 and
+# 4.93M; bf16 0.022, 0.95, 0.023 and 4.99M. So the attention net's limits
+# (ATTN_TRAIN_LIMITS) would fail a right run; these sit between. In bf16
+# only the change and the element count tell the fault from rounding, and
+# the largest difference is bounded by Adam (2 lr for each of 4 updates,
+# 0.024) in both dtypes.
+MOE_TRAIN_LIMITS = {
+    "float32": {"loss_rel": 5e-4, "change_rel": 0.2, "max_param_abs": 0.02,
+                "elements_over_lr_tenth": 200000},
+    "bfloat16": {"loss_rel": 0.2, "change_rel": 0.6, "max_param_abs": 0.024,
+                 "elements_over_lr_tenth": 4000000},
+}
+# the kernels each of slice 18's paths launches; for each, the main path's
+# row whose shape it has (its error and times, of this run, go in the
+# path's row), or None: held and timed at the path's own shape
+# (kernels_slice18)
+SLICE18_ROWS = {
+    "graph_char_rnn": {"lstm_seq_lean": "lstm_seq_lean",
+                       "lstm_seq_lean_masked": "lstm_seq_lean_masked",
+                       "lstm_seq_train_fwd": None, "lstm_seq_bwd": None, "drw_product": None,
+                       "softmax_xent_fwd": None, "softmax_xent_bwd": None,
+                       "adam_update": "adam_update"},
+    "seq_classifier": {"lstm_seq_masked_train_fwd": None, "lstm_seq_masked_bwd": None,
+                       "drw_product": None, "softmax_xent_fwd": None, "softmax_xent_bwd": None,
+                       "adam_update": None},
+    "moe_attention": {**{k: k for k in ATTN_KERNELS}, "softmax_xent_fwd": "softmax_xent_fwd",
+                      "softmax_xent_bwd": "softmax_xent_bwd", "adam_update": None},
+}
+
+
+def graph_char_rnn_conf(dtype):
+    """The char-RNN as a ComputationGraph: in -> lstm0 -> ... -> out, with
+    char_rnn()'s Adam and TBPTT(50)."""
+    from deeplearning4j_tpu_torch import (ComputationGraphConfiguration, GravesLSTM, InputType,
+                                          RnnOutputLayer)
+
+    b = (ComputationGraphConfiguration.builder().add_inputs("in")
+         .set_input_types(InputType.recurrent(VOCAB)))
+    prev = "in"
+    for i in range(LAYERS):
+        b = b.add_layer(f"lstm{i}", GravesLSTM(n_out=HIDDEN, activation="tanh"), prev)
+        prev = f"lstm{i}"
+    return (b.add_layer("out", RnnOutputLayer(n_out=VOCAB, activation="softmax",
+                                              loss="mcxent"), prev)
+            .set_outputs("out").updater({"updater": "adam", "learning_rate": RECIPE_LR})
+            .tbptt(TBPTT, TBPTT).dtype(dtype).seed(SEED).build())
+
+
+def graph_host(host_params) -> dict:
+    """The char-RNN's per-layer weights by the graph's vertex names."""
+    return {**{f"lstm{i}": host_params[i] for i in range(LAYERS)}, "out": host_params[LAYERS]}
+
+
+def as_layer_list(params) -> list:
+    """A graph's params_to_numpy in the MultiLayerNetwork's layer order."""
+    return [params[f"lstm{i}"] for i in range(LAYERS)] + [params["out"]]
+
+
+def segment_reset(net):
+    """A wrong graph TBPTT: every segment starts from zero h/c instead of the
+    previous segment's. Returns what undoes it."""
+    real = net._loss
+
+    def wrong(*args, rnn_state=None, **kw):
+        if rnn_state is not None:
+            rnn_state = net._init_rnn_states(args[0][0].shape[0])
+        return real(*args, rnn_state=rnn_state, **kw)
+
+    net._loss = wrong
+    return lambda: delattr(net, "_loss")
+
+
+def tbptt_readings(run, ref) -> dict:
+    """Graph TBPTT against the MLN's: each segment's loss relative to the
+    MLN's, the largest param difference, and whether all are bit for bit."""
+    import numpy as np
+
+    losses, params = run
+    ref_losses, ref_params = ref
+    same = (losses.shape == ref_losses.shape and bool((losses == ref_losses).all())
+            and all(np.array_equal(p[k], q[k]) for p, q in zip(params, ref_params) for k in p))
+    return {"loss_rel": float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses)))
+            if losses.shape == ref_losses.shape else float("inf"),
+            "param_abs": max(float(np.abs(p[k] - q[k]).max())
+                             for p, q in zip(params, ref_params) for k in p),
+            "bit_for_bit": same}
+
+
+def phase_train_graph_char_rnn(torch, dtype, host_params, card):
+    """One full-width batch (B=64, T=256) through graph TBPTT on the card,
+    against the MultiLayerNetwork char-RNN (char_rnn(): the same layers, Adam
+    and TBPTT) from the same weights on the card: each segment's loss and
+    every param after the batch at TRAIN_LOSS_RTOL / TRAIN_PARAM_ATOL; the
+    launches exactly; a graph whose segments restart from zero h/c must
+    read above the limits. Then the update timed against the MLN's, and
+    one update of each profiled (the card's idle share: the host's part).
+    Returns (the graph's launches, the timings)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (ComputationGraph, MultiLayerNetwork, char_rnn,
+                                          load_jax_params, ops, params_to_numpy)
+
+    batch = char_batches(1 + GRAPH_TIMED_BATCHES, SEED + 20)
+    updates = -(-STEPS // TBPTT)
+
+    def net_of(kind):
+        if kind == "graph":
+            return load_jax_params(ComputationGraph(graph_char_rnn_conf(dtype)),
+                                   graph_host(host_params))
+        return load_jax_params(MultiLayerNetwork(char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dtype)),
+                               host_params)
+
+    def run(kind, fault=False):
+        net = net_of(kind)
+        undo = segment_reset(net) if fault else (lambda: None)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        try:
+            net.fit(batch[0])
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        launches = {k: v for k, v in ops.counters().items() if v}
+        net.set_listeners()
+        params = params_to_numpy(net)
+        return net, launches, (np.array([float(l) for l in rec.losses]),
+                               as_layer_list(params) if kind == "graph" else params)
+
+    gnet, g_launches, g_run = run("graph")
+    iterations, streamed = gnet.iteration, gnet.rnn_get_previous_state("lstm0")
+    mnet, m_launches, m_run = run("mln")
+    readings = tbptt_readings(g_run, m_run)
+    within = (readings["loss_rel"] <= TRAIN_LOSS_RTOL[dtype]
+              and readings["param_abs"] <= TRAIN_PARAM_ATOL[dtype])
+    fault = tbptt_readings(run("graph", fault=True)[2], m_run)
+    fault["caught"] = not (fault["loss_rel"] <= TRAIN_LOSS_RTOL[dtype]
+                           and fault["param_abs"] <= TRAIN_PARAM_ATOL[dtype])
+    expected = {"lstm_seq_train_fwd": LAYERS * updates, "lstm_seq_bwd": LAYERS * updates,
+                "drw_product": LAYERS * updates, "softmax_xent_fwd": updates,
+                "softmax_xent_bwd": updates, "adam_update": updates * adam_launches(mnet)}
+
+    times = {"graph": [], "mln": []}
+    for x, y in batch[1:]:
+        for kind, net in (("graph", gnet), ("mln", mnet), ("mln", mnet), ("graph", gnet)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit((x, y))
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3 / updates)
+    profiles = {kind: profile(torch, lambda n=net: n.fit(batch[1]), groups=LSTM_PROFILE_GROUPS)
+                for kind, net in (("graph", gnet), ("mln", mnet))}
+    ms = {kind: statistics.median(t) for kind, t in times.items()}
+    ok = (g_run[0].shape == (updates,) and bool(np.isfinite(g_run[0]).all()) and within
+          and fault["caught"] and g_launches == m_launches == expected
+          and iterations == updates and streamed is None)
+    emit("train_graph_char_rnn", dtype=dtype, B=BATCH, T=STEPS, tbptt=TBPTT, updates=updates,
+         losses=g_run[0].tolist(), mln_losses=m_run[0].tolist(), readings_vs_mln=readings,
+         loss_rtol=TRAIN_LOSS_RTOL[dtype], param_atol=TRAIN_PARAM_ATOL[dtype],
+         fault_segment_reset_vs_mln=fault, kernel_launches=g_launches,
+         mln_kernel_launches=m_launches, expected_launches=expected,
+         ms_per_update=ms, ms_per_update_runs=times,
+         update_profile={kind: {k: p[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                  "groups", "api_calls")}
+                         for kind, p in profiles.items()},
+         profile_note="one fit() of a 256-step batch (6 TBPTT updates) under the profiler; "
+                      "idle_share: the card's share of the wall time without a kernel, the "
+                      "host's part", ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"graph char-RNN training {dtype} failed its checks")
+    return g_launches, {"ms_per_update": ms, "idle_share": {
+        kind: p["idle_share"] for kind, p in profiles.items()}}
+
+
+def phase_serve_graph_char_rnn(torch, host_params, x, mln, mln_trajectories, card):
+    """The graph char-RNN (f32) served: ``output`` at T=256 against the
+    MultiLayerNetwork's from the same weights; ``rnn_time_step`` one step at
+    a time over GRAPH_STREAM_STEPS steps against ``output``; DecodeServer
+    over the graph, SLOTS sessions of DECODE_CHARS chars, against the MLN
+    server's sessions of the main path, then a second wave in the reused
+    slots against each session alone; a server whose slot reset skips the
+    graph's state must read above DECODE_ATOL in that second wave. Then a
+    decode tick (a masked [SLOTS, 1, V] step) timed on both nets. Returns
+    (the graph's launches, the timings)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import ComputationGraph, DecodeServer, load_jax_params, ops
+
+    gnet = load_jax_params(ComputationGraph(graph_char_rnn_conf("float32")),
+                           graph_host(host_params))
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    probs = gnet.output(x)
+    gnet.rnn_clear_previous_state()
+    steps = np.stack([gnet.rnn_time_step(x[:, t]) for t in range(GRAPH_STREAM_STEPS)], 1)
+    server = DecodeServer(gnet, capacity=SLOTS, max_delay_ms=2.0)
+    try:
+        wave1, wave1_s = decode_sessions(server)
+        wave2, _ = decode_sessions(server)
+        ticks = server.ticks
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.counters().items() if v}
+    out_err = float(np.abs(probs - mln.output(x)).max())
+    step_err = float(np.abs(steps - probs[:, :GRAPH_STREAM_STEPS]).max())
+    mln_err = max(float(np.abs(wave1[s] - mln_trajectories[s]).max()) for s in wave1)
+    alone_err, same_tokens = decode_vs_alone(gnet, wave2)
+
+    bad = DecodeServer(gnet, capacity=SLOTS, max_delay_ms=2.0)
+    bad._reset_slot = lambda slot: None  # the slot's rows keep the last session's h/c
+    try:
+        decode_sessions(bad)
+        stale, _ = decode_sessions(bad)
+    finally:
+        bad.stop()
+    stale_err = decode_vs_alone(gnet, stale)[0]
+
+    tick_x = one_hot(np.arange(SLOTS) % VOCAB, VOCAB)[:, None]
+    tick_mask = (np.arange(SLOTS) % 2 == 0).astype(np.float32)[:, None]
+    tick_ms = {"graph": [], "mln": []}
+    for net in (gnet, mln):
+        net.rnn_clear_previous_state()
+    for _ in range(GRAPH_TICKS):
+        for kind, call in (("graph", lambda: gnet.rnn_time_step(tick_x, features_masks=tick_mask)),
+                           ("mln", lambda: mln.rnn_time_step(tick_x, features_mask=tick_mask))):
+            t0 = time.perf_counter()
+            call()  # returns a host array: the step has finished
+            tick_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    ms = {kind: statistics.median(t) for kind, t in tick_ms.items()}
+    ok = (probs.shape == (BATCH, STEPS, VOCAB) and bool(np.isfinite(probs).all())
+          and out_err <= SERVE_ATOL["float32"] and step_err <= DECODE_ATOL
+          and mln_err <= DECODE_ATOL and alone_err <= DECODE_ATOL and same_tokens
+          and stale_err > DECODE_ATOL and launches.get("lstm_seq_lean", 0) > 0
+          and launches.get("lstm_seq_lean_masked", 0) > 0)
+    emit("serve_graph_char_rnn", B=BATCH, T=STEPS, output_max_abs_err_vs_mln=out_err,
+         output_atol=SERVE_ATOL["float32"], stream_steps=GRAPH_STREAM_STEPS,
+         stream_max_abs_err_vs_output=step_err, sessions=SLOTS, chars_each=DECODE_CHARS,
+         ticks=ticks, wave1_s=wave1_s, wave1_max_abs_err_vs_mln_server=mln_err,
+         wave2_max_abs_err_vs_alone=alone_err, wave2_same_tokens_as_alone=same_tokens,
+         fault_reset_skips_graph_state_max_abs_err_vs_alone=stale_err,
+         atol=DECODE_ATOL, kernel_launches=launches, decode_tick_ms=ms,
+         decode_tick_ms_runs=tick_ms, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("graph char-RNN serving failed its checks")
+    return launches, {"decode_tick_ms": ms}
+
+
+def seq_classifier_conf():
+    """ids -> RnnEmbedding(96 -> 512) -> GravesLSTM(512) -> Convolution1D
+    (512, kernel 3, same) -> LastTimeStepVertex (the ids' mask) -> softmax
+    over the next char. The convolution sits after the LSTM: a masked LSTM
+    holds h over the pad steps, so right after it the last step and the
+    last live step are equal, and a wrong LastTimeStep would read the same;
+    the convolution's window makes them differ."""
+    from deeplearning4j_tpu_torch import (ComputationGraphConfiguration, Convolution1DLayer,
+                                          GravesLSTM, InputType, LastTimeStepVertex,
+                                          OutputLayer, RnnEmbeddingLayer)
+
+    return (ComputationGraphConfiguration.builder().add_inputs("ids")
+            .set_input_types(InputType.recurrent(1))
+            .add_layer("emb", RnnEmbeddingLayer(n_in=VOCAB, n_out=HIDDEN), "ids")
+            .add_layer("lstm", GravesLSTM(n_out=HIDDEN, activation="tanh"), "emb")
+            .add_layer("conv", Convolution1DLayer(n_out=HIDDEN, kernel=3), "lstm")
+            .add_vertex("last", LastTimeStepVertex(mask_input="ids"), "conv")
+            .add_layer("out", OutputLayer(n_out=VOCAB, activation="softmax", loss="mcxent"),
+                       "last")
+            .set_outputs("out").updater({"updater": "adam", "learning_rate": RECIPE_LR})
+            .seed(SEED).build())
+
+
+def seq_classifier_params(seed) -> dict:
+    """Random weights from a numpy seed by vertex name (xavier-normal
+    matrices, zero biases; the LSTM as char_rnn_params draws it)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def w(shape, fan_in, fan_out):
+        return rng.normal(0.0, (2.0 / (fan_in + fan_out)) ** 0.5, shape)
+
+    H = HIDDEN
+    b = np.zeros(4 * H)
+    b[H:2 * H] = 1.0
+    return {"emb": {"W": w((VOCAB, H), VOCAB, H)},
+            "lstm": {"W": w((H, 4 * H), H, H), "RW": rng.normal(0.0, (1.0 / H) ** 0.5, (H, 4 * H)),
+                     "b": b, "pF": rng.normal(0.0, 0.1, H), "pI": rng.normal(0.0, 0.1, H),
+                     "pO": rng.normal(0.0, 0.1, H)},
+            "conv": {"W": w((3, H, H), 3 * H, 3 * H), "b": np.zeros(H)},
+            "out": {"W": w((H, VOCAB), H, VOCAB), "b": np.zeros(VOCAB)}}
+
+
+def seq_sequences(lo, mid, hi, seed):
+    """(ids [L, 1] as floats, the next char's one-hot [V]) of the seeded
+    sentence: RECIPE_SHORT lengths in lo..mid and RECIPE_LONG in mid+1..hi,
+    shuffled."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sentence = rng.integers(0, VOCAB, SENTENCE)
+    lengths = np.concatenate([rng.integers(lo, mid + 1, RECIPE_SHORT),
+                              rng.integers(mid + 1, hi + 1, RECIPE_LONG)])
+    rng.shuffle(lengths)
+    out = []
+    for n in lengths:
+        seq = sentence[(rng.integers(0, SENTENCE) + np.arange(n + 1)) % SENTENCE]
+        out.append((seq[:-1, None].astype(np.float32), one_hot(seq[-1], VOCAB)))
+    return out
+
+
+def wrong_last_step():
+    """A wrong LastTimeStepVertex: x[:, -1] under a mask too. Returns what
+    undoes it."""
+    from deeplearning4j_tpu_torch.nn.graph import vertices
+
+    real = vertices.LastTimeStepVertex.apply
+    vertices.LastTimeStepVertex.apply = (
+        lambda self, params, inputs, state, **kw: (inputs[0][:, -1, :], state))
+    return lambda: setattr(vertices.LastTimeStepVertex, "apply", real)
+
+
+def phase_train_seq_classifier(torch, card):
+    """The sequence classifier at the char-RNN's widths (f32): Adam over the
+    recipe's bucketed text (B=64 padded to 128 and 256; rows 8-9 masked,
+    10-12, the plain embedding and Conv1D) on the card with exact launch
+    counts; the same training at SEQ_CPU_BUCKETS on the card and on the CPU,
+    held by ``recipe_readings`` at RECIPE_LIMITS; the same training on the
+    card with a LastTimeStep that takes x[:, -1] under the mask, which must
+    fail them; then one timed epoch. Returns (launches, the timing, the
+    long batch's mask [T, B, 1], the param leaf shapes)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (BucketingSequenceIterator, ComputationGraph,
+                                          load_jax_params, ops, params_to_numpy)
+
+    host = seq_classifier_params(SEED + 30)
+    conf = seq_classifier_conf()
+    it = BucketingSequenceIterator(seq_sequences(96, 128, 256, SEED + 31), batch=BATCH,
+                                   boundaries=RECIPE_BUCKETS)
+    shapes = [ds.features.shape[:2] for ds in it]
+    if sorted(shapes) != [(BATCH, 128), (BATCH, 256)]:
+        raise AssertionError(f"classifier batches {shapes}")
+    updates = SEQ_EPOCHS * len(shapes)
+    net = load_jax_params(ComputationGraph(conf), host)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    net.fit(it, epochs=SEQ_EPOCHS)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.counters().items() if v}
+    leaves = sum(len(p) for p in net._leaves())
+    expected = {"lstm_seq_masked_train_fwd": updates, "lstm_seq_masked_bwd": updates,
+                "drw_product": updates, "softmax_xent_fwd": updates,
+                "softmax_xent_bwd": updates, "adam_update": updates * adam_launches(net)}
+
+    small = BucketingSequenceIterator(
+        seq_sequences(SEQ_CPU_BUCKETS[0] - 8, SEQ_CPU_BUCKETS[0], SEQ_CPU_BUCKETS[1],
+                      SEED + 32), batch=BATCH, boundaries=SEQ_CPU_BUCKETS)
+
+    def train_small(dev, fault=False):
+        n = load_jax_params(ComputationGraph(conf, device=dev), host)
+        rec = LossRecorder()
+        n.set_listeners(rec)
+        undo = wrong_last_step() if fault else (lambda: None)
+        try:
+            n.fit(small, epochs=SEQ_EPOCHS)
+        finally:
+            undo()
+        n.set_listeners()
+        return n, np.array([float(l) for l in rec.losses]), list(params_to_numpy(n).values())
+
+    runs = {dev: train_small(dev) for dev in ("cuda", "cpu")}
+    seed_list = [host.get(name, {}) for name in net._topo]  # params_to_numpy's order
+    readings = recipe_readings(runs["cuda"], runs["cpu"], seed_list)
+    lim = RECIPE_LIMITS["float32"]
+    within = within_limits(readings, lim)
+    fault = recipe_readings(train_small("cuda", fault=True), runs["cpu"], seed_list)
+    fault["caught"] = not within_limits(fault, lim)
+    cpu_losses = runs["cpu"][1]
+    loss_fall = float(cpu_losses[:2].mean() - cpu_losses[-2:].mean())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(it)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(shapes)
+    long_batch = next(ds for ds in it if ds.features.shape[1] == STEPS)
+    mask = np.ascontiguousarray(np.asarray(long_batch.features_mask, np.float32).T[..., None])
+    ok = (launches == expected and within and fault["caught"] and loss_fall > 0.0
+          and net.iteration == updates + len(shapes))
+    emit("train_seq_classifier", B=BATCH, batches=[list(s) for s in shapes], updates=updates,
+         param_leaves=leaves, kernel_launches=launches, expected_launches=expected,
+         compared_at=list(SEQ_CPU_BUCKETS), cpu_losses=cpu_losses.tolist(),
+         card_losses=runs["cuda"][1].tolist(), cpu_loss_fall=loss_fall,
+         readings_vs_cpu=readings, limits=lim, fault_last_step_unmasked_vs_cpu=fault,
+         ms_per_update=ms, real_chars_per_s=sum(len(x) for x, _ in it.sequences) / (
+             ms * len(shapes) / 1e3), ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("sequence classifier training failed its checks")
+    leaf_shapes = [np.shape(p[k]) for p in params_to_numpy(net).values() for k in p]
+    return launches, {"ms_per_update": ms}, mask, leaf_shapes
+
+
+def moe_attention_conf(dtype):
+    """The attention net with examples/long_context.py's MoE after each
+    LayerNorm: [SelfAttention(flash), LayerNorm, MoE] x 2, then the head."""
+    from deeplearning4j_tpu_torch import MixtureOfExpertsLayer
+
+    conf = attention_conf(dtype)
+    for i in (4, 2):
+        conf.layers.insert(i, MixtureOfExpertsLayer(
+            n_out=ATTN_N, n_experts=MOE_EXPERTS, hidden=MOE_HIDDEN,
+            capacity_factor=MOE_CAPACITY, residual=True))
+    return conf
+
+
+def moe_attention_params(seed):
+    """attention_params with each MoE's weights after its LayerNorm:
+    xavier-normal gate and expert matrices, zero biases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+
+    def w(shape, fan_in, fan_out):
+        return rng.normal(0.0, (2.0 / (fan_in + fan_out)) ** 0.5, shape)
+
+    def moe():
+        E, N, Hd = MOE_EXPERTS, ATTN_N, MOE_HIDDEN
+        return {"Wg": w((N, E), N, E), "W1": w((E, N, Hd), N, Hd), "b1": np.zeros((E, Hd)),
+                "W2": w((E, Hd, N), Hd, N), "b2": np.zeros((E, N))}
+
+    params = attention_params(seed)
+    for i in (4, 2):
+        params.insert(i, moe())
+    return params
+
+
+def pads_claim_capacity():
+    """A wrong MoE: pad tokens of the [B, T] mask claim expert capacity (the
+    mask is not passed to the routing). Returns what undoes it."""
+    from deeplearning4j_tpu_torch.nn.layers import moe
+
+    real = moe.MixtureOfExpertsLayer.apply
+    moe.MixtureOfExpertsLayer.apply = (
+        lambda self, params, x, state, mask=None, **kw: real(self, params, x, state, **kw))
+    return lambda: setattr(moe.MixtureOfExpertsLayer, "apply", real)
+
+
+def moe_small_iterator():
+    """The MoE block's text at ATTN_CPU_BUCKETS (4 sequences in each
+    half), as the card-against-CPU comparison trains on it."""
+    from deeplearning4j_tpu_torch import BucketingSequenceIterator
+
+    lo, hi = ATTN_CPU_BUCKETS
+    return BucketingSequenceIterator(attention_text(4, 4, lo // 2, lo, hi, SEED + 5),
+                                     batch=ATTN_B, boundaries=ATTN_CPU_BUCKETS)
+
+
+def moe_small_run(conf, host, dev, fault=False):
+    """Two epochs of the MoE block over ``moe_small_iterator`` on ``dev``
+    from ``host`` (with ``fault``, pad tokens claim capacity): (net,
+    losses, params) as ``recipe_readings`` takes them."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, params_to_numpy
+
+    n = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+    rec = LossRecorder()
+    n.set_listeners(rec)
+    undo = pads_claim_capacity() if fault else (lambda: None)
+    try:
+        n.fit(moe_small_iterator(), epochs=2)
+    finally:
+        undo()
+    n.set_listeners()
+    return n, np.array([float(l) for l in rec.losses]), params_to_numpy(n)
+
+
+def phase_train_moe_attention(torch, dtype, card):
+    """The long-context block whole (the attention net with the MoE): Adam
+    at T <= 512 on the card and on the CPU, held by ``recipe_readings`` at
+    MOE_TRAIN_LIMITS, and the same on the card with pad tokens claiming
+    capacity, which must fail them; then at full width over
+    BucketingSequenceIterator(4, (2048, 4096)) with exact launch counts,
+    MOE_TIMED_EPOCHS timed epochs and the peak memory. Returns (launches,
+    the timings, the param leaf shapes)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (BucketingSequenceIterator, MultiLayerNetwork,
+                                          load_jax_params, ops, params_to_numpy)
+
+    conf = moe_attention_conf(dtype)
+    host = moe_attention_params(SEED)
+    runs = {dev: moe_small_run(conf, host, dev) for dev in ("cuda", "cpu")}
+    readings = recipe_readings(runs["cuda"], runs["cpu"], host, lr=ATTN_LR)
+    lim = MOE_TRAIN_LIMITS[dtype]
+    within = within_limits(readings, lim)
+    fault = recipe_readings(moe_small_run(conf, host, "cuda", fault=True), runs["cpu"], host,
+                            lr=ATTN_LR)
+    fault["caught"] = not within_limits(fault, lim)
+    cpu_losses = runs["cpu"][1]
+    loss_fall = float(cpu_losses[:2].mean() - cpu_losses[-2:].mean())
+    del runs
+
+    lo, hi = ATTN_BUCKETS
+    it = BucketingSequenceIterator(attention_text(4, 4, lo // 2, lo, hi, SEED + 4),
+                                   batch=ATTN_B, boundaries=ATTN_BUCKETS)
+    shapes = [ds.features.shape[:2] for ds in it]
+    if sorted(shapes) != [(ATTN_B, b) for b in ATTN_BUCKETS]:
+        raise AssertionError(f"attention batches {shapes}")
+    net = load_jax_params(MultiLayerNetwork(conf), host)
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    net.fit(it)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.counters().items() if v}
+    net.set_listeners()
+    losses = np.array([float(l) for l in rec.losses])
+    updates = len(shapes)
+    expected = {"flash_attn_fwd": 2 * updates, "flash_attn_bwd_dq": 2 * updates,
+                "flash_attn_bwd_dkv": 2 * updates, "softmax_xent_fwd": updates,
+                "softmax_xent_bwd": updates, "adam_update": adam_launches(net) * updates}
+    torch.cuda.reset_peak_memory_stats()
+    epochs_s = []
+    for _ in range(MOE_TIMED_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it)
+        torch.cuda.synchronize()
+        epochs_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(epochs_s) * 1e3 / updates
+    longest = next(ds for ds in it if ds.features.shape[1] == ATTN_BUCKETS[-1])
+    prof = profile(torch, lambda: net.fit(longest), top=8, groups=MOE_PROFILE_GROUPS)
+    # not gated on cpu_loss_fall: Adam's first steps move every element by
+    # about lr, which at lr 3e-3 through the MoE's 1024-wide experts raises
+    # the loss of the first updates (read on the CPU rehearsal); the card is
+    # held to the CPU instead
+    ok = (losses.shape == (updates,) and bool(np.isfinite(losses).all())
+          and launches == expected and within and fault["caught"])
+    emit("train_moe_attention", dtype=dtype, B=ATTN_B, n_out=ATTN_N, heads=ATTN_HEADS,
+         experts=MOE_EXPERTS, hidden=MOE_HIDDEN, capacity_factor=MOE_CAPACITY,
+         batches=[list(s) for s in shapes], losses=losses.tolist(),
+         kernel_launches=launches, expected_launches=expected,
+         compared_at=list(ATTN_CPU_BUCKETS), cpu_losses=cpu_losses.tolist(),
+         cpu_loss_fall=loss_fall, readings_vs_cpu=readings, limits=lim,
+         fault_pads_claim_capacity_vs_cpu=fault, timed_epoch_s_runs=epochs_s,
+         ms_per_update=ms, peak_gib=peak_gib,
+         profile_T4096_update={k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                    "top_kernels", "groups")},
+         real_tokens_per_s=sum(len(x) for x, _ in it.sequences) / (ms * updates / 1e3),
+         ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError(f"MoE attention training {dtype} failed its checks")
+    leaf_shapes = [np.shape(p[k]) for p in params_to_numpy(net) for k in p]
+    del net
+    torch.cuda.empty_cache()
+    return launches, {"ms_per_update": ms, "peak_gib": peak_gib}, leaf_shapes
+
+
+def adam_check(torch, ad, name, leaves, sc, want_launches=1):
+    """Row 12 on ``leaves`` (one grouped call) against its plain version leaf
+    by leaf: each output's max |err| over its max |ref| at ADAM_REL, and the
+    call's launches. Returns the max abs error."""
+    gs, ms, vs = (list(x) for x in zip(*leaves))
+    before = ad.launches["adam_update"]
+    got = ad.fused_adam_update_leaves(gs, ms, vs, *sc)
+    launched = ad.launches["adam_update"] - before
+    rel, abs_err = dict.fromkeys(("u", "m", "v"), 0.0), 0.0
+    for i, (g, m, v) in enumerate(leaves):
+        want = ad.adam_update_reference(g, m, v, *sc)
+        for n, a, b in zip(rel, (got[0][i], got[1][i], got[2][i]), want):
+            if a.shape != b.shape:
+                raise AssertionError(f"adam_update {name} leaf {i}: {a.shape}, {b.shape}")
+            err = float((a - b).abs().max())
+            abs_err = max(abs_err, err)
+            rel[n] = max(rel[n], err / float(b.abs().max()))
+    torch.cuda.synchronize()
+    check("adam_update", "float32", rel, dict.fromkeys(rel, ADAM_REL), case=name,
+          leaves=len(leaves), elements=sum(g.numel() for g in gs), max_abs_err=abs_err,
+          launches=launched, relative_to_largest=True)
+    if launched != want_launches:
+        raise AssertionError(f"adam_update {name}: {launched} launches, not {want_launches}")
+    return abs_err
+
+
+def kernels_slice18(torch, ls, sx, ad, card, seq_mask, leaf_shapes):
+    """The kernels of slice 18's paths at the shapes those paths give them
+    that no earlier phase holds, against their plain versions, then timed
+    beside them, their bounds and the library call: rows 6-7 and dRW at a
+    TBPTT segment (T=50, B=64, H=512), rows 10-11 at its N = B*50 rows; rows
+    8-9 and dRW at the classifier's long batch with its mask; rows 10-11 at
+    the classifier's head (N=64, C=96); row 12 at the classifier's and the
+    MoE net's leaves. Returns {(path, kernel): (max abs err, times)}."""
+    import numpy as np
+
+    out = {}
+    seg = f"T={TBPTT} B={BATCH} H={HIDDEN} (a TBPTT segment)"
+    for k, (err, t) in lstm_rows_at(torch, ls, TBPTT, BATCH, HIDDEN, card,
+                                    "graph_char_rnn").items():
+        out[("graph_char_rnn", k)] = (err, t, seg + (f" R={TBPTT * BATCH}"
+                                                     if k == "drw_product" else ""))
+    mask = torch.as_tensor(seq_mask, device=DEVICE).contiguous()
+    seq = f"T={STEPS} B={BATCH} H={HIDDEN}, the long batch's mask"
+    for k, (err, t) in lstm_rows_at(torch, ls, STEPS, BATCH, HIDDEN, card, "seq_classifier",
+                                    mask=mask).items():
+        out[("seq_classifier", k)] = (err, t, seq + (f" R={STEPS * BATCH}"
+                                                     if k == "drw_product" else ""))
+    for path, (N, C) in (("graph_char_rnn", (BATCH * TBPTT, VOCAB)),
+                         ("seq_classifier", (BATCH, VOCAB))):
+        e = sxent_case(torch, sx, N, C, "float32", "one_hot", SEED + N)
+        for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card,
+                                    f"{path}'s loss head").items():
+            err = e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"])
+            out[(path, k)] = (err, t, f"N={N} C={C}")
+    _, sc = adam_inputs(torch, SEED)
+    for i, (path, shapes) in enumerate(leaf_shapes.items()):
+        leaves, _ = adam_inputs(torch, SEED + 40 + i, shapes)
+        err = adam_check(torch, ad, path, leaves, sc)
+        out[(path, "adam_update")] = (err, time_adam(
+            torch, ad, card, shapes, f"{path}'s {len(shapes)} leaves"), f"{len(shapes)} leaves")
+    return out
+
+
+def sum_counts(counts) -> dict:
+    """Launch counts added kernel by kernel."""
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5444,6 +6107,30 @@ def main() -> int:
         for k, v in counts.items():
             replayed[k] = replayed.get(k, 0) + v
     new_path_launches[("lenet", "adam_update_dev")] = staged_launches["lenet"]["adam_update_dev"]
+    # ---- 4k. slice 18: the char-RNN as a ComputationGraph (TBPTT, stream,
+    # decode), the sequence classifier, the MoE block; each phase counts from 0
+    s18_launches, s18_times = {}, {}
+    graph_runs = {dtype: phase_train_graph_char_rnn(torch, dtype, host_params, card)
+                  for dtype in ("float32", "bfloat16")}
+    graph_serve = phase_serve_graph_char_rnn(torch, host_params, x, nets["float32"],
+                                             trajectories, card)
+    s18_launches["graph_char_rnn"] = sum_counts(
+        [run[0] for run in graph_runs.values()] + [graph_serve[0]])
+    s18_times["graph_char_rnn"] = {**{dt: run[1] for dt, run in graph_runs.items()},
+                                   "serve": graph_serve[1]}
+    seq_counts, s18_times["seq_classifier"], seq_mask, seq_shapes = phase_train_seq_classifier(
+        torch, card)
+    s18_launches["seq_classifier"] = seq_counts
+    moe_runs = {dtype: phase_train_moe_attention(torch, dtype, card)
+                for dtype in ("float32", "bfloat16")}
+    s18_launches["moe_attention"] = sum_counts([run[0] for run in moe_runs.values()])
+    s18_times["moe_attention"] = {dt: run[1] for dt, run in moe_runs.items()}
+    for counts in s18_launches.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for path, rows in SLICE18_ROWS.items():
+        for k in rows:
+            new_path_launches[(path, k)] = s18_launches[path].get(k, 0)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -5525,6 +6212,9 @@ def main() -> int:
                                                        PANGRAM_H, card, "pangram"))
     lstm_shapes = {"pangram": {"lstm_seq_lean": (PANGRAM_T, PANGRAM_B, PANGRAM_H)},
                    "records": {}}
+    s18_rows = kernels_slice18(torch, ls, sx, ad, card, seq_mask,
+                               {"seq_classifier": seq_shapes,
+                                "moe_attention": moe_runs["float32"][2]})
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -5660,6 +6350,22 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
                 "kernel_device_ms": t.get("kernel_device_ms")})
+    # rows 5-15 at the shapes of slice 18's paths
+    main_lines = {line["name"]: line for line in lines}
+    for path, rows in SLICE18_ROWS.items():
+        for k, main in rows.items():
+            if main is not None:
+                line = dict(main_lines[main], shape=f"the main path's ({main})")
+            else:
+                err, t, shape = s18_rows[(path, k)]
+                source, replaces = {**KERNELS, **DRW_KERNELS}[k]
+                line = {"route": "cuda", "source": source, "replaces": replaces,
+                        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
+                        "kernel_device_ms": t.get("kernel_device_ms")}
+            line.update(name=f"{k}@{path}", launches=new_path_launches[(path, k)])
+            lines.append(line)
     # beside each row's launches (which count a captured step's warm-up
     # steps and capture), the launches that the replays of slice 17's
     # captured steps made (LeNet's alone for its own row)
@@ -5692,6 +6398,7 @@ def main() -> int:
                       "adam_update_ms_covers": "the 14 leaves of one update",
                       "kernel_device_ms_note": "rows 10-12 and drw_product: the kernel's own "
                       "time on the card a call, from the profiler (null where not measured)",
+                      "slice18_ms": s18_times,
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

@@ -32,7 +32,12 @@ images; ``collect_metadata`` carries each record's provenance into
 fetchers, with the real handwritten digits and Iris bundled
 (``DigitsDataSetIterator``, ``IrisDataSetIterator``). ``RegressionEvaluation``
 and ``ROC`` are there too. ``LossLayer``, ``EmbeddingLayer``
-and the JAX package's whole activation catalog are there too. The LSTM recurrence, masked or not, its backward, flash attention and its
+and the JAX package's whole activation catalog are there too. The
+``ComputationGraph`` trains with TBPTT and streams (``rnn_time_step``,
+behind ``DecodeServer`` too), and the sequence layers
+``RnnEmbeddingLayer``, ``LastTimeStepLayer``, ``Convolution1DLayer``,
+``ZeroPaddingLayer`` and ``MixtureOfExpertsLayer`` run in both networks.
+The LSTM recurrence, masked or not, its backward, flash attention and its
 backward, LRN and its backward, the softmax cross-entropy and the Adam update
 run in hand-written CUDA kernels (``ops/csrc/``); the LSTM layers run either
 the whole-sequence kernels (the default) or, with
@@ -87,12 +92,14 @@ from .nn.graph import (
     UnstackVertex,
 )
 from .nn.layers.attention import LayerNormLayer, SelfAttentionLayer
-from .nn.layers.convolution import ConvolutionLayer
+from .nn.layers.convolution import Convolution1DLayer, ConvolutionLayer, ZeroPaddingLayer
 from .nn.layers.dense import (ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer,
                               LossLayer, OutputLayer)
 from .nn.layers.normalization import BatchNormalization, LocalResponseNormalization
 from .nn.layers.pooling import GlobalPoolingLayer, SubsamplingLayer
-from .nn.layers.recurrent import GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer
+from .nn.layers.moe import MixtureOfExpertsLayer
+from .nn.layers.recurrent import (GravesBidirectionalLSTM, GravesLSTM, LastTimeStepLayer,
+                                  RnnEmbeddingLayer, RnnOutputLayer)
 from .nn.multilayer import MultiLayerNetwork
 from .nn.updaters import UpdaterConfig
 from .serving.decode import DecodeServer
@@ -107,6 +114,7 @@ __all__ = [
     "ComposableInputPreProcessor",
     "ComputationGraph",
     "ComputationGraphConfiguration",
+    "Convolution1DLayer",
     "ConvolutionLayer",
     "DataSet",
     "DataSetIterator",
@@ -128,6 +136,7 @@ __all__ = [
     "IrisDataSetIterator",
     "L2NormalizeVertex",
     "L2Vertex",
+    "LastTimeStepLayer",
     "LastTimeStepVertex",
     "LayerNormLayer",
     "LayerVertex",
@@ -135,6 +144,7 @@ __all__ = [
     "LocalResponseNormalization",
     "LossLayer",
     "MergeVertex",
+    "MixtureOfExpertsLayer",
     "MnistDataSetIterator",
     "MultiDataSet",
     "MultiLayerConfiguration",
@@ -147,6 +157,7 @@ __all__ = [
     "ROCMultiClass",
     "RegressionEvaluation",
     "ReshapeVertex",
+    "RnnEmbeddingLayer",
     "RnnOutputLayer",
     "RnnToCnnPreProcessor",
     "RnnToFeedForwardPreProcessor",
@@ -158,6 +169,7 @@ __all__ = [
     "SubsetVertex",
     "UnstackVertex",
     "UpdaterConfig",
+    "ZeroPaddingLayer",
     "alexnet_conf",
     "char_rnn",
     "googlenet_conf",

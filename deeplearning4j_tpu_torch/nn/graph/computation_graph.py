@@ -33,9 +33,14 @@ compute and param dtypes, the listeners, the updater and its state.
   staged loop (one captured step replayed per update on the card), with one
   array per network input and output, and masks per input and output.
 
-Graph TBPTT and ``rnn_time_step``, telemetry, ``memory_report``,
-``preflight`` and ``analyze_ir`` are not ported yet (ROADMAP.md Queue 1)
-and raise ``NotImplementedError``.
+- Recurrent use: ``fit`` under ``backprop_type="tbptt"`` (one update per
+  time segment, h/c carried across segments with their gradient cut) and
+  the streaming ``rnn_time_step``, ``rnn_clear_previous_state`` and
+  ``rnn_get_previous_state``; h/c live in a dict by vertex name ({} for a
+  vertex without them). ``fit`` leaves the streaming state as it was.
+
+Telemetry, ``memory_report``, ``preflight`` and ``analyze_ir`` are not
+ported yet (ROADMAP.md Queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ class ComputationGraph(BaseNetwork):
         self._names = sorted(conf.vertices)  # the leaf order
         self.vertex_params: Dict[str, torch.nn.ParameterDict] = {}
         self._param_modules = torch.nn.ModuleList()  # the same, registered
+        self._rnn_state = None  # streaming state: vertex name -> h/c ({} if none)
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, dict]] = None, force: bool = False,
@@ -99,6 +105,7 @@ class ComputationGraph(BaseNetwork):
         self._param_modules = torch.nn.ModuleList(self.vertex_params[n] for n in self._names)
         self.state = {name: self._device_state(self.conf.vertices[name].init_state(*vit[name]))
                       for name in self._topo}
+        self._rnn_state = None
         self._reset()
         return self
 
@@ -153,13 +160,18 @@ class ComputationGraph(BaseNetwork):
 
     # ------------------------------------------------------- functional core
     def _activations(self, params, inputs, masks=None, *, train: bool = False,
-                     skip=()):
+                     skip=(), rnn_state=None):
         """The topological forward (reference: ComputationGraph's
         feed-forward loop): every vertex's activation but those in
-        ``skip``, and the new layer state, from ``self.state``. ``inputs``
-        align with ``conf.network_inputs``; ``masks`` maps network-input
-        names to [b, t] masks. ``train`` turns dropout on and has the layers
-        train (BatchNormalization on batch stats)."""
+        ``skip``, the new layer state, from ``self.state``, and the new
+        recurrent state. ``inputs`` align with ``conf.network_inputs``;
+        ``masks`` maps network-input names to [b, t] masks. ``train`` turns
+        dropout on and has the layers train (BatchNormalization on batch
+        stats). ``rnn_state`` (vertex name -> h/c dict, {} for a stateless
+        vertex; reference: rnnActivateUsingStoredState) threads LSTM h/c
+        across TBPTT segments and streaming calls: a vertex with h/c runs
+        ``apply_seq`` from it. Returns (acts, new layer state, new recurrent
+        state or None)."""
         conf = self.conf
         acts = dict(zip(conf.network_inputs, inputs))
         vmasks = dict(masks or {})
@@ -168,31 +180,38 @@ class ComputationGraph(BaseNetwork):
         vmasks["features"] = non_null[0] if len(non_null) == 1 else None
         gen = self._generator if train else None
         new_state = dict(self.state)
+        new_rnn = dict(rnn_state) if rnn_state is not None else None
         for name in self._topo:
             if name in skip:
                 continue
-            acts[name], new_state[name] = conf.vertices[name].apply(
-                params[name], [acts[src] for src in conf.vertex_inputs[name]],
-                self.state[name], train=train, generator=gen, masks=vmasks)
-        return acts, new_state
+            vertex, ins = conf.vertices[name], [acts[src] for src in conf.vertex_inputs[name]]
+            if new_rnn is not None and new_rnn.get(name):
+                acts[name], new_rnn[name] = vertex.apply_seq(
+                    params[name], ins, new_rnn[name], train=train, generator=gen, masks=vmasks)
+            else:
+                acts[name], new_state[name] = vertex.apply(
+                    params[name], ins, self.state[name], train=train, generator=gen,
+                    masks=vmasks)
+        return acts, new_state, new_rnn
 
-    def _loss(self, inputs, labels, labels_masks=None, masks=None,
-              train: bool = True) -> torch.Tensor:
+    def _loss(self, inputs, labels, labels_masks=None, masks=None, train: bool = True,
+              rnn_state=None):
         """The sum of the output layers' losses plus regularization
-        (reference: ComputationGraph.computeGradientAndScore), and the new
-        layer state. The vertices run in the compute dtype; each output
-        layer takes f32 inputs and f32 params, as the JAX package upcasts
-        bf16 there. An output layer that no vertex reads is not run
-        forward: its loss takes its input."""
+        (reference: ComputationGraph.computeGradientAndScore), the new
+        layer state and the new recurrent state (see ``_activations``). The
+        vertices run in the compute dtype; each output layer takes f32
+        inputs and f32 params, as the JAX package upcasts bf16 there. An
+        output layer that no vertex reads is not run forward: its loss
+        takes its input."""
         conf = self.conf
         outs = conf.network_outputs
         for name in outs:
             vertex = conf.vertices[name]
             if not (isinstance(vertex, LayerVertex) and vertex.is_output_layer):
                 raise ValueError(f"Training output '{name}' is not an output layer vertex")
-        read = {src for ins in conf.vertex_inputs.values() for src in ins}
-        acts, new_state = self._activations(self._cast_params(), inputs, masks, train=train,
-                                            skip=set(outs) - read)
+        acts, new_state, new_rnn = self._activations(
+            self._cast_params(), inputs, masks, train=train, skip=self._unread_outputs(),
+            rnn_state=rnn_state)
         gen = self._generator if train else None
         total = 0.0
         for i, name in enumerate(outs):
@@ -206,7 +225,13 @@ class ComputationGraph(BaseNetwork):
                                                       generator=gen)
         reg = sum(conf.vertices[n].regularization_loss(dict(self.vertex_params[n].items()))
                   for n in self._topo)
-        return total + reg, new_state
+        return total + reg, new_state, new_rnn
+
+    def _unread_outputs(self) -> set:
+        """The output layers that no vertex reads (their loss takes their
+        input; a forward for the loss skips them)."""
+        read = {src for ins in self.conf.vertex_inputs.values() for src in ins}
+        return set(self.conf.network_outputs) - read
 
     def loss_fn(self, inputs, labels, *, train: bool = False, labels_masks=None,
                 masks=None) -> torch.Tensor:
@@ -221,8 +246,8 @@ class ComputationGraph(BaseNetwork):
     def forward(self, *inputs, masks=None) -> List[torch.Tensor]:
         """Device-side inference: one tensor per network output."""
         self.init()
-        acts, _ = self._activations(self._params(), [self._input(x) for x in inputs],
-                                    self._masks(masks))
+        acts, _, _ = self._activations(self._params(), [self._input(x) for x in inputs],
+                                       self._masks(masks))
         return [acts[o] for o in self.conf.network_outputs]
 
     # -------------------------------------------------------------- inference
@@ -396,10 +421,8 @@ class ComputationGraph(BaseNetwork):
         n_in, n_out = len(self.conf.network_inputs), len(self.conf.network_outputs)
         xs, ys = batch[:n_in], batch[n_in:n_in + n_out]
         fms, lms = batch[n_in + n_out:n_in + n_out + n_in], batch[n_in + n_out + n_in:]
-        masks = (None if all(m is None for m in fms)
-                 else dict(zip(self.conf.network_inputs, fms)))
-        loss, new_state = self._loss(xs, ys, None if all(m is None for m in lms) else lms,
-                                     masks)
+        loss, new_state, _ = self._loss(xs, ys, None if all(m is None for m in lms) else lms,
+                                        self._masks_of(fms))
         return loss, [new_state[n] for n in self._names]
 
     def warmup(self, features, labels, steps: Optional[int] = None, features_masks=None,
@@ -441,15 +464,132 @@ class ComputationGraph(BaseNetwork):
         self.last_batch_size = int(mds.features[0].shape[0])
         if self.conf.backprop_type == "tbptt" and any(len(f.shape) == 3
                                                       for f in mds.features):
-            raise NotImplementedError(
-                "TBPTT of a ComputationGraph is not ported yet (ROADMAP.md Queue 1)")
-        loss, self.state = self._loss([self._input(x) for x in mds.features],
-                                      [self._labels(y) for y in mds.labels],
-                                      self._labels_masks(mds), self._input_masks(mds))
+            self._fit_tbptt(mds)
+            return
+        loss, self.state, _ = self._loss([self._input(x) for x in mds.features],
+                                         [self._labels(y) for y in mds.labels],
+                                         self._labels_masks(mds), self._input_masks(mds))
         self._update(loss)
 
+    # ------------------------------------------------------- TBPTT (graphs)
+    def _init_rnn_states(self, batch: int) -> Dict[str, dict]:
+        """Vertex name -> zero h/c in the compute dtype ({} for a vertex
+        without streaming state)."""
+        return {name: (self.conf.vertices[name].init_recurrent_state(
+                    batch, self.compute_dtype, self.device)
+                       if getattr(self.conf.vertices[name], "is_recurrent", False) else {})
+                for name in self._topo}
+
+    def _fit_tbptt(self, mds: MultiDataSet) -> None:
+        """Truncated BPTT over the DAG (reference: doTruncatedBPTT from
+        ComputationGraph.fit): every 3-D input and label is cut into
+        ``tbptt_fwd_length`` segments, one update each, a shorter trailing
+        segment included; 2-D ones go whole into every segment. Each
+        recurrent vertex's h/c carry from one segment to the next with their
+        gradient cut, and the layer state is threaded. With
+        ``tbptt_back_length`` below a segment's length, its first steps only
+        advance h/c and the layer state, without gradient, and the loss
+        covers the last ``tbptt_back_length`` steps. Features masks (per
+        input) and labels masks (per output) are cut alongside."""
+        feats = [self._input(f) for f in mds.features]
+        labs = [self._labels(y) for y in mds.labels]
+        n_in, n_out = len(feats), len(labs)
+        fmasks = [self._mask(m) for m in (mds.features_masks or [None] * n_in)]
+        lmasks = [self._labels_mask(m) for m in (mds.labels_masks or [None] * n_out)]
+        seq_lens = {a.shape[1] for a in feats + labs if a.dim() == 3}
+        if len(seq_lens) != 1:
+            raise ValueError(
+                f"TBPTT requires one shared sequence length; got {sorted(seq_lens)}")
+        T, L = seq_lens.pop(), self.conf.tbptt_fwd_length
+        back = int(self.conf.tbptt_back_length or 0)
+
+        def cut(arrs, sl):
+            return [a[:, sl] if a.dim() == 3 else a for a in arrs]
+
+        def cut_masks(ms, sl):
+            return [None if m is None else m[:, sl] for m in ms]
+
+        rnn = self._init_rnn_states(feats[0].shape[0])
+        for t0 in range(0, T, L):
+            seg = slice(t0, t0 + min(L, T - t0))
+            xs, ys = cut(feats, seg), cut(labs, seg)
+            fms, lms = cut_masks(fmasks, seg), cut_masks(lmasks, seg)
+            n = next(a.shape[1] for a in xs if a.dim() == 3)
+            k = n if back <= 0 else min(back, n)
+            if k < n:
+                split = slice(None, n - k)
+                with torch.no_grad():
+                    _, self.state, rnn = self._activations(
+                        self._cast_params(), cut(xs, split),
+                        self._masks_of(cut_masks(fms, split)), train=True,
+                        skip=self._unread_outputs(), rnn_state=rnn)
+                rest = slice(n - k, None)
+                xs, ys = cut(xs, rest), cut(ys, rest)
+                fms, lms = cut_masks(fms, rest), cut_masks(lms, rest)
+            loss, self.state, new_rnn = self._loss(
+                xs, ys, None if all(m is None for m in lms) else lms, self._masks_of(fms),
+                rnn_state=rnn)
+            self._update(loss)
+            rnn = {name: {key: t.detach() for key, t in st.items()}
+                   for name, st in new_rnn.items()}
+
+    def _masks_of(self, fms) -> Optional[Dict[str, Optional[torch.Tensor]]]:
+        """Device features masks, one per network input, as ``_activations``
+        takes them (None where every one is None)."""
+        if all(m is None for m in fms):
+            return None
+        return dict(zip(self.conf.network_inputs, fms))
+
+    # ------------------------------------------------------------- streaming
+    @torch.no_grad()
+    def rnn_time_step(self, *inputs, features_masks=None):
+        """Stateful streaming inference (reference:
+        ComputationGraph.rnnTimeStep): one array per network input (or one
+        list of them), each [batch, features] (one step) or [batch, time,
+        features]. The recurrent vertices' h/c persist across calls until
+        :meth:`rnn_clear_previous_state`; a new batch size starts them from
+        zeros. ``features_masks``: one [batch, time] mask, a list aligned
+        with ``conf.network_inputs``, or a dict by input name; masked steps
+        hold h/c. Returns host arrays, one for a single-output graph, else
+        a list."""
+        self.init()
+        xs = [self._input(x) for x in self._as_inputs(inputs)]
+        single_step = all(x.dim() == 2 for x in xs)
+        if single_step:
+            xs = [x[:, None, :] for x in xs]
+        if features_masks is not None and not isinstance(features_masks, (list, tuple, dict)):
+            features_masks = [features_masks]
+        if isinstance(features_masks, (list, tuple)):
+            if len(features_masks) != len(self.conf.network_inputs):
+                raise ValueError(
+                    f"features_masks has {len(features_masks)} entries but the graph has "
+                    f"{len(self.conf.network_inputs)} inputs ({self.conf.network_inputs})")
+            features_masks = dict(zip(self.conf.network_inputs, features_masks))
+        batch = xs[0].shape[0]
+        leaves = [t for st in (self._rnn_state or {}).values() for t in st.values()]
+        if self._rnn_state is None or (leaves and leaves[0].shape[0] != batch):
+            self._rnn_state = self._init_rnn_states(batch)
+        acts, _, self._rnn_state = self._activations(
+            self._params(), xs, self._masks(features_masks), rnn_state=self._rnn_state)
+        outs = [acts[o] for o in self.conf.network_outputs]
+        if single_step:
+            outs = [o[:, 0, :] if o.dim() == 3 else o for o in outs]
+        outs = [to_host(o) for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self) -> None:
+        """Reference: ComputationGraph.rnnClearPreviousState."""
+        self._rnn_state = None
+
+    def rnn_get_previous_state(self, vertex_name: str) -> Optional[dict]:
+        """A vertex's streaming h/c as a dict of device tensors (reference:
+        ComputationGraph.rnnGetPreviousState); None for a stateless vertex
+        or a cleared state."""
+        if self._rnn_state is None:
+            return None
+        return self._rnn_state.get(vertex_name) or None
+
     # ------------------------------------------------- not ported yet (later)
-    rnn_time_step = _later("rnn_time_step")
     set_telemetry = _later("set_telemetry")
     memory_report = _later("memory_report")
     preflight = _later("preflight")

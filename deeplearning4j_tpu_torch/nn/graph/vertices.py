@@ -15,6 +15,10 @@ tensors; autograd takes every backward. The SPI:
   the vertex's layer state, passed through by vertices that keep none;
   ``masks`` maps network-input names (and "features", the single mask of
   the graph's one-mask convenience) to [batch, time] masks.
+
+A ``LayerVertex`` over a recurrent layer with streaming state (GravesLSTM)
+also has ``is_recurrent``, ``init_recurrent_state`` and ``apply_seq``, which
+TBPTT and ``rnn_time_step`` thread h/c through.
 """
 
 from __future__ import annotations
@@ -146,6 +150,22 @@ class LayerVertex(BaseVertex):
         mask = None if masks is None else masks.get("features")
         return self.layer.apply(params, self.layer_input(inputs), state, mask=mask,
                                 train=train, generator=generator)
+
+    # the recurrent face (reference: ComputationGraph.rnnTimeStep routes
+    # through each vertex's rnnTimeStep): only layer vertices carry h/c
+    @property
+    def is_recurrent(self) -> bool:
+        return self.layer.is_recurrent and hasattr(self.layer, "init_recurrent_state")
+
+    def init_recurrent_state(self, batch: int, dtype: torch.dtype, device: torch.device):
+        return self.layer.init_recurrent_state(batch, dtype, device)
+
+    def apply_seq(self, params, inputs, rstate, *, train=False, generator=None, masks=None):
+        """``apply`` from the recurrent state ``rstate``: (the output, the
+        new recurrent state). A bidirectional LSTM raises."""
+        mask = None if masks is None else masks.get("features")
+        return self.layer.apply_seq(params, self.layer_input(inputs), rstate, mask=mask,
+                                    train=train, generator=generator)
 
 
 @register_vertex

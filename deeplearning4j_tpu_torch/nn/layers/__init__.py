@@ -1,2 +1,2 @@
 """Layer implementations; importing this registers every ported layer."""
-from . import attention, convolution, dense, normalization, pooling, recurrent  # noqa: F401
+from . import attention, convolution, dense, moe, normalization, pooling, recurrent  # noqa: F401

@@ -29,9 +29,6 @@ from ..conf.inputs import InputType
 from ..initializers import init_weights
 
 LAYER_REGISTRY: Dict[str, Type["BaseLayer"]] = {}
-# layers of a ported module of the JAX package that wait for a later slice,
-# by class name: what the error names
-LATER: Dict[str, str] = {}
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, Any]
@@ -46,8 +43,6 @@ def register_layer(cls):
 def layer_from_dict(d: dict) -> "BaseLayer":
     d = dict(d)
     type_name = d.pop("@type")
-    if type_name in LATER:
-        raise NotImplementedError(f"{type_name} is not ported yet: {LATER[type_name]}")
     cls = LAYER_REGISTRY.get(type_name)
     if cls is None:
         raise ValueError(

@@ -1,5 +1,6 @@
-"""Convolution layer (counterpart of
-``deeplearning4j_tpu/nn/layers/convolution.py``).
+"""Convolution and padding layers (counterpart of
+``deeplearning4j_tpu/nn/layers/convolution.py``): ``ConvolutionLayer``,
+``Convolution1DLayer`` over [B, T, F] sequences and ``ZeroPaddingLayer``.
 
 Activations are NHWC at the API boundary and between layers, as in the JAX
 package; params keep its layout, ``W`` [kh, kw, in, out] (HWIO) and ``b``
@@ -23,11 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..conf.inputs import InputType
-from .base import LATER, BaseLayer, Params, maybe_dropout, register_layer
-
-LATER.update(
-    Convolution1DLayer="it waits for a later slice of the port (ROADMAP.md Queue 1)",
-    ZeroPaddingLayer="it waits for a later slice of the port (ROADMAP.md Queue 1)")
+from .base import BaseLayer, Params, maybe_dropout, register_layer
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]  # ((top, bottom), (left, right))
 
@@ -155,3 +152,68 @@ class ConvolutionLayer(BaseLayer):
                      padding=padding, dilation=self.dilation)
         return self._activate(nhwc(z)), state
 
+
+
+@register_layer
+@dataclass
+class Convolution1DLayer(BaseLayer):
+    """1D convolution over [B, T, F] sequences (reference:
+    Convolution1DLayer). Params: W [kernel, in, out] (WIO), b [out]; modes
+    as ``ConvolutionLayer``'s, "same" by default (asymmetric pads, low side
+    total//2). The features mask is not applied, as in the JAX package."""
+
+    n_in: int = 0
+    n_out: int = 0
+    kernel: int = 3
+    stride: int = 1
+    padding: int = 0
+    convolution_mode: str = "same"
+    has_bias: bool = True
+
+    def get_output_type(self, it: InputType) -> InputType:
+        t = it.timesteps
+        if t is not None:
+            t = conv_output_size(t, self.kernel, self.stride, self.padding, self.convolution_mode)
+        return InputType.recurrent(self.n_out, t)
+
+    def init_params(self, gen, it: InputType) -> Params:
+        n_in = self.n_in or it.size
+        fan_in = n_in * self.kernel
+        fan_out = self.n_out * self.kernel / self.stride
+        p = {"W": self._init_weight(gen, (self.kernel, n_in, self.n_out), fan_in, fan_out)}
+        if self.has_bias:
+            p["b"] = self._init_bias((self.n_out,))
+        return p
+
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        x = maybe_dropout(x, self.dropout, train, generator)
+        if self.convolution_mode == "same":
+            lo, hi = _same_pads(x.shape[1], self.kernel, self.stride)
+        else:
+            lo = hi = self.padding
+        xc = x.transpose(1, 2)  # [B, F, T]
+        if lo != hi:
+            xc, lo = F.pad(xc, (lo, hi)), 0
+        z = F.conv1d(xc, params["W"].permute(2, 1, 0), params["b"] if self.has_bias else None,
+                     stride=self.stride, padding=lo)
+        return self._activate(z.transpose(1, 2)), state
+
+
+@register_layer
+@dataclass
+class ZeroPaddingLayer(BaseLayer):
+    """Zero padding of NHWC images, top, bottom, left and right (reference:
+    nn/conf/layers/ZeroPaddingLayer); no params."""
+
+    pad_top: int = 0
+    pad_bottom: int = 0
+    pad_left: int = 0
+    pad_right: int = 0
+
+    def get_output_type(self, it: InputType) -> InputType:
+        return InputType.convolutional(it.height + self.pad_top + self.pad_bottom,
+                                       it.width + self.pad_left + self.pad_right, it.channels)
+
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        return F.pad(x, (0, 0, self.pad_left, self.pad_right, self.pad_top,
+                         self.pad_bottom)), state

@@ -1,5 +1,6 @@
-"""Recurrent layers: GravesLSTM with peepholes, bidirectional, RNN output head
-(counterpart of ``deeplearning4j_tpu/nn/layers/recurrent.py``).
+"""Recurrent layers: GravesLSTM with peepholes, bidirectional, RNN output head,
+the sequence embedding and the last-step layer (counterpart of
+``deeplearning4j_tpu/nn/layers/recurrent.py``).
 
 Gate semantics as in the JAX package: columns [a, f, o, i]; f and i see
 c_{t-1} through peepholes pF/pI, o sees c_t through pO; c_t = f*c_{t-1} + i*a;
@@ -230,3 +231,52 @@ class RnnOutputLayer(DenseLayer):
         mask1d = None if mask is None else mask.reshape(-1)
         return get_loss(self.loss)(labels.reshape(-1, C), preout.reshape(-1, C),
                                    self.activation, mask1d)
+
+
+@register_layer
+@dataclass
+class RnnEmbeddingLayer(BaseLayer):
+    """Sequence token embedding: ids [B, T] (or [B, T, 1]), integer or
+    floating (truncated), to rows [B, T, n_out] of W [n_in, n_out], through
+    the activation; dropout acts on the looked-up rows. No bias, as in the
+    JAX package."""
+
+    n_in: int = 0  # vocab
+    n_out: int = 0
+
+    @property
+    def is_recurrent(self) -> bool:
+        return True
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timesteps)
+
+    def init_params(self, gen, input_type: InputType) -> Params:
+        n_in = self.n_in or input_type.size
+        return {"W": self._init_weight(gen, (n_in, self.n_out), n_in, self.n_out)}
+
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        idx = x.to(torch.int64)
+        if idx.dim() == 3 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        z = maybe_dropout(params["W"][idx], self.dropout, train, generator)
+        return self._activate(z), state
+
+
+@register_layer
+@dataclass
+class LastTimeStepLayer(BaseLayer):
+    """[B, T, F] -> [B, F] at each row's last unmasked step (the layer form
+    of ``LastTimeStepVertex``): without a mask the last step; with a [B, T]
+    mask the last nonzero index of each row, so a mask with gaps counts
+    its last live step, and a row with none takes step 0."""
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.feed_forward(input_type.size)
+
+    def apply(self, params, x, state, *, mask=None, train=False, generator=None):
+        if mask is None:
+            return x[:, -1, :], state
+        steps = torch.arange(x.shape[1], device=x.device)
+        last = torch.where(mask > 0, steps, -1).amax(dim=1).clamp(min=0)
+        return x[torch.arange(x.shape[0], device=x.device), last], state

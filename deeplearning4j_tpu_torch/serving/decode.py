@@ -11,6 +11,11 @@ Exactness rides on the ``rnn_time_step`` mask contract: a slot whose mask is
 0 this tick holds its LSTM h/c exactly, so a session's output trajectory is
 the one it would have alone.
 
+It serves a ``MultiLayerNetwork`` (streaming state: a tuple of per-layer
+dicts) or a ``ComputationGraph`` of one network input (a dict of
+per-vertex dicts); the slot reset and the capacity check walk the state's
+tensors whatever its nesting, as the JAX package's ``tree_map`` does.
+
 Slot lifecycle: ``open()`` claims a free slot and zeroes its state rows in
 place on the device, ``step()`` submits one frame, ``close()`` frees the
 slot, ``stop()`` ends the ticker.
@@ -26,6 +31,9 @@ from concurrent.futures import Future
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+from ..nn.graph.computation_graph import ComputationGraph
 
 __all__ = ["DecodeServer", "DECODE_SLOTS_ENV", "MAX_DELAY_ENV"]
 
@@ -42,6 +50,15 @@ def _env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, default))
     except ValueError:
         return default
+
+
+def _state_tensors(state) -> list:
+    """The tensors of a streaming state, whatever its nesting (dicts, lists,
+    tuples), in order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    parts = state.values() if isinstance(state, dict) else state
+    return [t for part in parts for t in _state_tensors(part)]
 
 
 def _next_pow2(n: int) -> int:
@@ -111,17 +128,16 @@ class DecodeServer:
         """Zero one slot's rows of the streaming state, in place on the
         device (a fresh session)."""
         with self._net_lock:
-            state = self.net._rnn_state
-            if state is None:
+            if self.net._rnn_state is None:
                 return  # the first tick starts from a zero state anyway
-            if any(st and st["h"].shape[0] != self.capacity for st in state):
+            tensors = _state_tensors(self.net._rnn_state)
+            if any(t.shape[0] != self.capacity for t in tensors):
                 # another batch's state (the net streamed elsewhere): the
                 # first tick restarts every slot from zeros
                 self.net._rnn_state = None
                 return
-            for layer_state in state:
-                for t in layer_state.values():
-                    t[slot].zero_()
+            for t in tensors:
+                t[slot].zero_()
 
     # ---------------------------------------------------------------- step
     def step(self, session_id: str, features, timeout_s: float = 30.0):
@@ -175,7 +191,7 @@ class DecodeServer:
                     x[slot, 0] = pend.features
                     mask[slot, 0] = 1.0
                 with self._net_lock:
-                    out = self.net.rnn_time_step(x, features_mask=mask)
+                    out = self._tick(x, mask)
                     self.ticks += 1
                 if out.ndim == 3:  # [slots, 1, C] -> [slots, C]
                     out = out[:, 0]
@@ -185,6 +201,13 @@ class DecodeServer:
                 continue
             for slot, pend in batch.items():
                 pend.future.set_result(out[slot])
+
+    def _tick(self, x: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """One masked step of every slot: a graph takes its masks per
+        network input."""
+        if isinstance(self.net, ComputationGraph):
+            return self.net.rnn_time_step(x, features_masks=mask)
+        return self.net.rnn_time_step(x, features_mask=mask)
 
     def stop(self) -> None:
         with self._cv:

@@ -81,7 +81,7 @@ def pooled_features(dtype: str, x, host) -> np.ndarray:
     with widened(dtype):
         net = chip_smoke.resnet_net(conf_of(dtype, 0.1), host, device="cpu")
         with torch.no_grad():
-            acts, _ = net._activations(net._cast_params(), [net._input(x)], train=True)
+            acts = net._activations(net._cast_params(), [net._input(x)], train=True)[0]
     return acts["avgpool"].double().numpy()
 
 

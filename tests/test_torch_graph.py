@@ -547,16 +547,17 @@ def test_bf16_output_is_close_to_jax():
 def test_later_entry_points_raise():
     net = pt.ComputationGraph(pt.ComputationGraphConfiguration.from_json(_dag().to_json()),
                               device="cpu")
-    for name in ("rnn_time_step", "memory_report", "preflight", "analyze_ir",
-                 "set_telemetry"):
+    for name in ("memory_report", "preflight", "analyze_ir", "set_telemetry"):
         with pytest.raises(NotImplementedError, match=name):
             getattr(net, name)()
+    # TBPTT and rnn_time_step are ported (tests/test_torch_graph_recurrent.py):
+    # one update per time segment of the 3-D input
     tbptt = _dag()
     tbptt.backprop_type = "tbptt"
     net = pt.ComputationGraph(pt.ComputationGraphConfiguration.from_json(tbptt.to_json()),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="TBPTT"):
-        net.fit(_mds(pt, 1))
+    net.fit(_mds(pt, 1))
+    assert net.iteration == -(-T // tbptt.tbptt_fwd_length)
 
 
 def test_default_device_needs_cuda():
