@@ -3353,7 +3353,7 @@ def mnist_models():
     return {"lenet": (64, lenet_mnist_conf()), "mlp": (512, mlp)}
 
 
-def mnist_host(conf):
+def conf_host(conf):
     """The port's own initial params of ``conf`` (drawn from conf.seed on the
     CPU) as host arrays."""
     from deeplearning4j_tpu_torch import MultiLayerNetwork, params_to_numpy
@@ -3362,7 +3362,7 @@ def mnist_host(conf):
 
 
 def mnist_leaf_shapes(conf):
-    return [p[k].shape for p in mnist_host(conf) for k in sorted(p)]
+    return [p[k].shape for p in conf_host(conf) for k in sorted(p)]
 
 
 def wrong_adam(net, fault):
@@ -3401,7 +3401,7 @@ def phase_train_mnist(torch, name, card):
     shape = (-1, 28, 28, 1) if name == "lenet" else (-1, 784)
     batches = [(ds.features.reshape(shape), ds.labels)
                for ds in MnistDataSetIterator(batch=B, num_examples=B * MNIST_UPDATES)]
-    host = mnist_host(conf)
+    host = conf_host(conf)
 
     def train(dev, fault=None):
         net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
@@ -5020,7 +5020,7 @@ def phase_staged_lenet(torch, card):
 
     out = {}
     slots, B, conf = staged_mnist_slots(torch, "lenet")
-    host = mnist_host(conf)
+    host = conf_host(conf)
     eager_run, staged_run, launches, (replays, on_card), times = staged_pair(
         torch, conf, host, slots)
     readings = recipe_readings(staged_run, eager_run, host, lr=1e-3)
@@ -5049,7 +5049,7 @@ def phase_staged_lenet(torch, card):
     d = mlp.to_dict()
     d["layers"][0]["dropout"] = STAGED_MLP_DROPOUT
     conf = MultiLayerConfiguration.from_dict(d)
-    host = mnist_host(conf)
+    host = conf_host(conf)
     same = tuple(t[:1].expand(STAGED_K, *t.shape[1:]).contiguous() for t in slots)
     eager_run, staged_run, launches, (replays, on_card), times = staged_pair(
         torch, conf, host, same)
@@ -5887,6 +5887,794 @@ def kernels_slice18(torch, ls, sx, ad, card, seq_mask, leaf_shapes):
     return out
 
 
+# ---- slice 19: pretraining and transfer learning. The DBN at dbn_conf()'s
+# defaults (784-500-250-100-10, binary units, CD-1) with Adam at its lr
+# 1e-2, B=128, on synthetic binary 784-wide images (MNIST needs a download):
+# DBN_CLASSES prototypes from the seed, each image one of them with
+# DBN_FLIP of its pixels flipped. Each RBM pretrains on DBN_PRETRAIN_BATCHES
+# batches (one epoch), then DBN_FINETUNE_UPDATES fine-tune updates. The
+# Bernoulli draws come through pretrain's noise seam, drawn on the host
+# from the seed, so the card and the CPU sample alike.
+DBN_B, DBN_CLASSES, DBN_FLIP = 128, 10, 0.1
+DBN_PRETRAIN_BATCHES, DBN_FINETUNE_UPDATES = 4, 4
+DBN_TIMED = {"warmup": 1, "timed": 5}
+# examples/dbn_pretrain.py's DBN on the bundled digits: its conf, its
+# quick run's epochs (2 pretrain, 12 fine-tune) and tests/test_examples.py's
+# pin. The JAX package's own run of the example (main(quick=True), on the
+# CPU, x64 off) scores 0.8222 (PERF.md, section 6); the port's on the CPU
+# 0.8361; the card draws its own noise.
+DBN_DIGITS = dict(n_in=64, layer_sizes=(96, 48), n_classes=10, visible_unit="gaussian",
+                  updater="adam", learning_rate=2e-3, seed=5)
+DBN_DIGITS_EPOCHS = (2, 12)
+DBN_DIGITS_PIN = 0.7
+# the VAE at dl4j-examples' VariationalAutoEncoderExample widths (MNIST:
+# encoder 256-256, decoder 256-256, latent 2, leaky relu, Bernoulli
+# reconstruction) under a 10-way center-loss softmax head, Adam at 1e-3,
+# B=128 on the DBN's images; eps through the seam, drawn on the host
+VAE_LR, VAE_PRETRAIN_BATCHES, VAE_FIT_UPDATES = 1e-3, 4, 4
+# the ResNet-50 transfer: the conf at B=128, f32, its feature extractor
+# frozen through "avgpool" (with a BN state that is not the initial one),
+# "out" replaced by a 10-way softmax head, Adam at 1e-3; TRANSFER_UPDATES
+# per-batch updates over as many batches, then the same batches staged in
+# windows of TRANSFER_STAGE
+TRANSFER_CLASSES, TRANSFER_LR, TRANSFER_UPDATES, TRANSFER_STAGE = 10, 1e-3, 4, 2
+TRANSFER_FAULTS = ("frozen_params_move", "frozen_bn_in_train_mode")
+# examples/early_stopping.py's MLP and data (8 train batches of 32, 4 score
+# batches), its full run's conditions, on the card and the CPU from the
+# same weights with LocalFileModelSaver
+ES_MAX_EPOCHS, ES_PATIENCE, ES_SCORE_REL = 30, 5, 1e-5
+# the card against the CPU from the same weights and noise. The pretrain
+# losses (free-energy differences, CD's surrogate; the negative ELBO) are
+# held relative to their mean size; params by each tensor's change against
+# the CPU's (relative to its norm), the largest difference and the count of
+# elements more than lr/10 apart (Adam's step is about lr wherever a
+# gradient sits near 0). Set from scripts/dbn_vae_sensitivity.py (CPU, 6
+# starts each moved by one rounding): the DBN reads at most loss 5.1e-7,
+# change 1.5e-5, max 1.2e-4 (lr 1e-2), 0 elements; the VAE 1.2e-7, 7.5e-5,
+# 6.0e-5 (lr 1e-3), 0. Wrong: the RBM's negative phase with the wrong sign
+# reads 284, 3.26, 0.080, 544,044 elements in pretrain (0.12, 1.16, 0.14,
+# 543,694 after the fit); the VAE without its KL term 3.0e-3, 2.98,
+# 7.9e-3, 449,361 (0.46, 14.6, 0.014, 457,347). An RBM unit the card
+# samples otherwise (u within a rounding of p) can move an element by
+# about lr an update, so the largest difference is held at 4 lr only.
+DBN_LIMITS = dict.fromkeys(("pretrain", "finetune"), {
+    "loss_rel": 1e-4, "change_rel": 1e-2, "max_param_abs": 4e-2,
+    "elements_over_lr_tenth": 1000})
+VAE_LIMITS = dict.fromkeys(("pretrain", "finetune"), {
+    "loss_rel": 1e-4, "change_rel": 1e-2, "max_param_abs": 4e-3,
+    "elements_over_lr_tenth": 1000})
+# rows 10-12 of slice 19's paths: the main path's row whose shape a path's
+# row has (rows 10-11 at N=128, C=10: slice 16's digits head), or None:
+# held and timed at the path's own shape (kernels_slice19)
+SXENT_AT_DIGITS = {"softmax_xent_fwd": "softmax_xent_fwd@digits",
+                   "softmax_xent_bwd": "softmax_xent_bwd@digits"}
+SLICE19_ROWS = {
+    "dbn_pretrain": {"adam_update": None},
+    "dbn": {**SXENT_AT_DIGITS, "adam_update": None},
+    "dbn_digits": {**SXENT_AT_DIGITS, "adam_update": None},
+    "vae": {**SXENT_AT_DIGITS, "adam_update": None},
+    "resnet50_transfer": {**SXENT_AT_DIGITS, "adam_update": None},
+    "early_stopping": {"softmax_xent_fwd": None, "softmax_xent_bwd": None, "adam_update": None},
+}
+
+
+def dbn_batches(n, seed):
+    """``n`` (x, y) batches of DBN_B binary 784-wide images and one-hot
+    labels of DBN_CLASSES prototypes, from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    protos = np.random.default_rng(SEED + 49).integers(0, 2, (DBN_CLASSES, 784))
+    out = []
+    for _ in range(n):
+        idx = rng.integers(0, DBN_CLASSES, DBN_B)
+        flip = rng.uniform(size=(DBN_B, 784)) < DBN_FLIP
+        out.append((np.abs(protos[idx] - flip).astype(np.float32), one_hot(idx, DBN_CLASSES)))
+    return out
+
+
+def rbm_draws(conf, batches: int, seed):
+    """The uniforms of pretrain's Bernoulli draws, one entry per pretrain
+    batch in pretrain's order (layer by layer, batch by batch): the keyword
+    arguments of ``RBM.pretrain_loss``, host f32 arrays ([(u_h, u_v)] for
+    CD-1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    widths = [conf.input_type.flat_size()] + [l.n_out for l in conf.layers]
+    out = []
+    for i, layer in enumerate(conf.layers):
+        if layer.is_pretrain_layer:
+            for _ in range(batches):
+                out.append({"uniforms": [
+                    (rng.uniform(size=(DBN_B, widths[i + 1])).astype(np.float32),
+                     rng.uniform(size=(DBN_B, widths[i])).astype(np.float32))
+                    for _ in range(layer.k)]})
+    return out
+
+
+def vae_draws(layer, batches: int, seed):
+    """eps of each VAE pretrain batch, [num_samples, B, n_out] host f32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"eps": rng.normal(size=(layer.num_samples, DBN_B, layer.n_out)).astype(np.float32)}
+            for _ in range(batches)]
+
+
+class SeamNoise:
+    """``pretrain``'s noise seam fed with host draws (one entry a batch, in
+    order), moved to the net's device. pretrain keeps only its last loss
+    (``_last_loss``), so each call also keeps the loss of the batch before
+    it; ``losses()`` adds the last."""
+
+    def __init__(self, net, draws):
+        self.net, self.draws, self.kept = net, iter(draws), []
+
+    def _to(self, a):
+        import torch
+
+        if isinstance(a, (list, tuple)):
+            return [self._to(v) for v in a]
+        return torch.as_tensor(a, device=self.net.device)
+
+    def __call__(self, idx, layer, h):
+        if self.net._last_loss is not None:
+            self.kept.append(float(self.net._last_loss))
+        return {k: self._to(v) for k, v in next(self.draws).items()}
+
+    def losses(self):
+        import numpy as np
+
+        return np.array(self.kept + [float(self.net._last_loss)])
+
+
+def pretrain_faults(fault):
+    """Install a wrong pretrain loss (None: none): the RBM's negative phase
+    with the wrong sign (mean FE(v_data) + mean FE(v_model)), or the VAE's
+    ELBO without its KL term. Returns the undo."""
+    import torch
+
+    from deeplearning4j_tpu_torch import RBM, VariationalAutoencoder
+
+    real_rbm, real_vae = RBM.pretrain_loss, VariationalAutoencoder.pretrain_loss
+
+    def rbm_sign(self, params, x, **kw):  # A - B -> A + B = 2A - (A - B)
+        return 2 * torch.mean(self.free_energy(params, x)) - real_rbm(self, params, x, **kw)
+
+    def vae_no_kl(self, params, x, **kw):
+        mean, log_var = self.encode(params, x)
+        kl = -0.5 * torch.sum(1 + log_var - mean ** 2 - torch.exp(log_var), dim=-1)
+        return real_vae(self, params, x, **kw) - torch.mean(kl)
+
+    if fault == "rbm_negative_phase_sign":
+        RBM.pretrain_loss = rbm_sign
+    elif fault == "vae_kl_dropped":
+        VariationalAutoencoder.pretrain_loss = vae_no_kl
+
+    def undo():
+        RBM.pretrain_loss, VariationalAutoencoder.pretrain_loss = real_rbm, real_vae
+    return undo
+
+
+def pretrain_run(conf, host, pre, fine, draws, dev, fault=None):
+    """From ``host``'s params on ``dev`` under ``fault``: ``pretrain`` over
+    the ``pre`` batches (one epoch, noise from ``draws``), then one ``fit``
+    of each ``fine`` batch. Returns (the net, the pretrain losses, the
+    params after pretrain, the fit losses, the params after, launches of
+    pretrain, launches of the fits; launches on the card only)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch import (DataSet, MultiLayerNetwork, load_jax_params, ops,
+                                          params_to_numpy)
+
+    net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+    noise = SeamNoise(net, draws)
+    card = dev == "cuda"
+    undo = pretrain_faults(fault)
+    try:
+        if card:
+            torch.cuda.synchronize()
+        ops.reset_counters()
+        net.pretrain([DataSet(x, y) for x, y in pre], noise=noise)
+        if card:
+            torch.cuda.synchronize()
+        pre_launches = {k: v for k, v in ops.counters().items() if v} if card else None
+        pre_losses, pretrained = noise.losses(), params_to_numpy(net)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        ops.reset_counters()
+        for b in fine:
+            net.fit(b)
+        if card:
+            torch.cuda.synchronize()
+        fit_launches = {k: v for k, v in ops.counters().items() if v} if card else None
+        net.set_listeners()
+    finally:
+        undo()
+    return dict(net=net, start=host, pre_losses=pre_losses, pretrained=pretrained,
+                fit_losses=np.array([float(l) for l in rec.losses]),
+                params=params_to_numpy(net), pre_launches=pre_launches,
+                fit_launches=fit_launches)
+
+
+def change_readings(losses, params, start, ref_losses, ref_params, ref_start, lr) -> dict:
+    """Card against CPU: the largest |loss - ref| over the mean |ref loss|
+    (a CD surrogate can cross zero); each tensor's change from its run's
+    ``start`` against the ref's change from ``ref_start``, the norm of the
+    difference over the norm of the ref's change (a tensor that the ref
+    left as it was must stay too, else it reads inf); the largest param
+    difference; the elements more than lr/10 apart."""
+    import numpy as np
+
+    diffs, rel = [], []
+    for p, s, q, s_ref in zip(params, start, ref_params, ref_start):
+        for k in q:
+            diffs.append(np.abs(p[k] - q[k]))
+            mine = p[k] - np.asarray(s[k], np.float32)
+            theirs = q[k] - np.asarray(s_ref[k], np.float32)
+            gap, ref_change = float(np.linalg.norm(mine - theirs)), float(np.linalg.norm(theirs))
+            rel.append(gap / ref_change if ref_change else (0.0 if gap == 0.0 else np.inf))
+    return {"loss_rel": float(np.max(np.abs(losses - ref_losses)) / np.mean(np.abs(ref_losses))),
+            "change_rel": max(rel), "max_param_abs": max(float(d.max()) for d in diffs),
+            "elements_over_lr_tenth": int(sum(int((d > lr / 10).sum()) for d in diffs))}
+
+
+def pretrain_readings(run, ref, lr) -> dict:
+    """``change_readings`` of pretrain (each run from its seed params) and
+    of the fits (each from its own pretrained params)."""
+    return {"pretrain": change_readings(run["pre_losses"], run["pretrained"], run["start"],
+                                        ref["pre_losses"], ref["pretrained"], ref["start"], lr),
+            "finetune": change_readings(run["fit_losses"], run["params"], run["pretrained"],
+                                        ref["fit_losses"], ref["params"], ref["pretrained"], lr)}
+
+
+def within_both(readings, limits) -> bool:
+    return all(within_limits(readings[part], limits[part]) for part in limits)
+
+
+def pretrain_ms(torch, net, idx, batches, reps=2) -> float:
+    """ms per update of ``pretrain_layer(idx)`` over ``batches`` (the
+    network's generator draws the noise), the lesser of ``reps`` runs."""
+    from deeplearning4j_tpu_torch import DataSet
+
+    data = [DataSet(x, y) for x, y in batches]
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.pretrain_layer(idx, data)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3 / len(batches))
+    return min(runs)
+
+
+def phase_train_dbn(torch, card):
+    """The DBN at full width: pretrain (each RBM DBN_PRETRAIN_BATCHES
+    updates, the uniforms through the seam), then DBN_FINETUNE_UPDATES
+    fine-tune updates, on the card and on the CPU from the same weights and
+    draws, held by ``pretrain_readings`` at DBN_LIMITS; the CPU's fine-tune
+    loss must fall; exact launches (pretrain: one Adam launch an update and
+    nothing else; fine-tune: one softmax-xent forward and backward and the
+    Adam launches an update); the RBM with its negative phase's sign wrong
+    must fail the limits. Then ms per pretrain update of each RBM and per
+    fine-tune update. Returns (launches by path, times, leaf shapes by
+    path)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import dbn_conf
+
+    conf = dbn_conf(updater="adam")
+    lr = conf.updater["learning_rate"]
+    host = conf_host(conf)
+    pre = dbn_batches(DBN_PRETRAIN_BATCHES, SEED + 50)
+    fine = dbn_batches(DBN_FINETUNE_UPDATES, SEED + 51)
+    draws = rbm_draws(conf, DBN_PRETRAIN_BATCHES, SEED + 52)
+    t0 = time.perf_counter()
+    card_run = pretrain_run(conf, host, pre, fine, draws, "cuda")
+    cpu_run = pretrain_run(conf, host, pre, fine, draws, "cpu")
+    readings = pretrain_readings(card_run, cpu_run, lr)
+    fault = pretrain_readings(pretrain_run(conf, host, pre, fine, draws, "cuda",
+                                           "rbm_negative_phase_sign"), cpu_run, lr)
+    fault["caught"] = not within_both(fault, DBN_LIMITS)
+    compared_s = time.perf_counter() - t0
+    net = card_run["net"]
+    n_rbm = len(conf.layers) - 1
+    pre_expected = {"adam_update": n_rbm * DBN_PRETRAIN_BATCHES}
+    fit_expected = {"softmax_xent_fwd": DBN_FINETUNE_UPDATES,
+                    "softmax_xent_bwd": DBN_FINETUNE_UPDATES,
+                    "adam_update": DBN_FINETUNE_UPDATES * adam_launches(net)}
+    rbm_ms = [pretrain_ms(torch, net, i, pre) for i in range(n_rbm)]
+    times, timed_launches, losses = timed_fit(torch, net, fine[0], **DBN_TIMED)
+    ms = statistics.median(times)
+    cpu_fit = cpu_run["fit_losses"]
+    ok = (within_both(readings, DBN_LIMITS) and fault["caught"]
+          and card_run["pre_launches"] == pre_expected
+          and card_run["fit_launches"] == fit_expected and cpu_fit[-1] < cpu_fit[0]
+          and bool(np.isfinite(losses).all()))
+    emit("train_dbn", B=DBN_B, widths=[784, *(l.n_out for l in conf.layers)],
+         params=sum(v.size for p in host for v in p.values()),
+         pretrain_batches_per_rbm=DBN_PRETRAIN_BATCHES, finetune_updates=DBN_FINETUNE_UPDATES,
+         card_pretrain_losses=card_run["pre_losses"].tolist(),
+         cpu_pretrain_losses=cpu_run["pre_losses"].tolist(),
+         card_finetune_losses=card_run["fit_losses"].tolist(), cpu_finetune_losses=cpu_fit.tolist(),
+         readings_vs_cpu=readings, limits=DBN_LIMITS, fault_rbm_negative_phase_sign=fault,
+         compared_s=compared_s, pretrain_launches=card_run["pre_launches"],
+         pretrain_expected=pre_expected, finetune_launches=card_run["fit_launches"],
+         finetune_expected=fit_expected, pretrain_ms_per_update_by_rbm=rbm_ms,
+         finetune_update_ms_runs=times, finetune_ms_per_update=ms, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("DBN training failed its checks")
+    shapes = {"dbn_pretrain": [np.shape(host[0][k]) for k in sorted(host[0])],
+              "dbn": [np.shape(p[k]) for p in host for k in sorted(p)]}
+    launches = {"dbn_pretrain": card_run["pre_launches"],
+                "dbn": sum_counts([card_run["fit_launches"], timed_launches])}
+    return launches, {"pretrain_ms_per_update_by_rbm": rbm_ms,
+                      "finetune_ms_per_update": ms}, shapes
+
+
+def phase_train_dbn_digits(torch, card):
+    """examples/dbn_pretrain.py on the card: its DBN (64-96-48-10, Gaussian
+    visible units, Adam 2e-3, seed 5) pretrained 2 epochs and fine-tuned
+    12 over DigitsDataSetIterator (batches of 128, flat), then evaluated on
+    the 360 held out: above DBN_DIGITS_PIN (tests/test_examples.py's pin),
+    with exact launches. Returns (launches, accuracy, ms, leaf shapes)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (DigitsDataSetIterator, MultiLayerNetwork, dbn_conf,
+                                          load_jax_params, ops)
+
+    conf = dbn_conf(**DBN_DIGITS)
+    host = conf_host(conf)
+    net = load_jax_params(MultiLayerNetwork(conf), host)
+    it = DigitsDataSetIterator(batch=128, train=True, flat=True)
+    pre_epochs, fit_epochs = DBN_DIGITS_EPOCHS
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    net.pretrain(it, epochs=pre_epochs)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    t0 = time.perf_counter()
+    net.fit(it, epochs=fit_epochs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ev = net.evaluate(DigitsDataSetIterator(batch=120, train=False, shuffle=False, flat=True))
+    launches = {k: v for k, v in ops.counters().items() if v}
+    net.set_listeners()
+    n_rbm, batches = len(conf.layers) - 1, len(it)
+    updates = fit_epochs * batches
+    expected = {"adam_update": n_rbm * pre_epochs * batches + updates * adam_launches(net),
+                "softmax_xent_fwd": updates, "softmax_xent_bwd": updates}
+    losses = np.array([float(l) for l in rec.losses])
+    acc = ev.accuracy()
+    ok = (acc > DBN_DIGITS_PIN and launches == expected and len(losses) == updates
+          and bool(np.isfinite(losses).all()))
+    emit("train_dbn_digits", conf=DBN_DIGITS, epochs=list(DBN_DIGITS_EPOCHS), batches=batches,
+         accuracy=acc, pin=DBN_DIGITS_PIN, examples=ev.examples, first_loss=float(losses[0]),
+         last_loss=float(losses[-1]), kernel_launches=launches, expected_launches=expected,
+         pretrain_ms_per_update=pre_s * 1e3 / (n_rbm * pre_epochs * batches),
+         finetune_ms_per_update=fit_s * 1e3 / updates, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("the digits DBN failed its checks")
+    return launches, acc, fit_s * 1e3 / updates, [np.shape(p[k]) for p in host for k in sorted(p)]
+
+
+def vae_conf():
+    """The VAE (VariationalAutoEncoderExample's widths) under a 10-way
+    center-loss softmax head."""
+    from deeplearning4j_tpu_torch import (BernoulliReconstruction, CenterLossOutputLayer,
+                                          InputType, MultiLayerConfiguration, UpdaterConfig,
+                                          VariationalAutoencoder)
+
+    return MultiLayerConfiguration(
+        layers=[VariationalAutoencoder(n_out=2, encoder_layer_sizes=(256, 256),
+                                       decoder_layer_sizes=(256, 256), activation="leakyrelu",
+                                       reconstruction=BernoulliReconstruction()),
+                CenterLossOutputLayer(n_out=DBN_CLASSES, activation="softmax", loss="mcxent",
+                                      lambda_=1e-2)],
+        input_type=InputType.feed_forward(784),
+        updater=UpdaterConfig(updater="adam", learning_rate=VAE_LR), seed=SEED + 55)
+
+
+def phase_pretrain_vae(torch, card):
+    """The VAE pretrained alone (VAE_PRETRAIN_BATCHES updates, eps through
+    the seam), then VAE_FIT_UPDATES ``fit`` updates of the whole net under
+    its center-loss head, on the card and the CPU from the same weights and
+    eps, held at VAE_LIMITS; the ELBO without its KL term must fail them;
+    exact launches (pretrain: Adam alone; fit: softmax-xent forward and
+    backward through CenterLossOutputLayer's primary loss, and Adam). Then
+    ms per pretrain and per fit update. Returns (launches, times, leaf
+    shapes)."""
+    import numpy as np
+
+    conf = vae_conf()
+    host = conf_host(conf)
+    pre = dbn_batches(VAE_PRETRAIN_BATCHES, SEED + 56)
+    fine = dbn_batches(VAE_FIT_UPDATES, SEED + 57)
+    draws = vae_draws(conf.layers[0], VAE_PRETRAIN_BATCHES, SEED + 58)
+    card_run = pretrain_run(conf, host, pre, fine, draws, "cuda")
+    cpu_run = pretrain_run(conf, host, pre, fine, draws, "cpu")
+    readings = pretrain_readings(card_run, cpu_run, VAE_LR)
+    fault = pretrain_readings(pretrain_run(conf, host, pre, fine, draws, "cuda",
+                                           "vae_kl_dropped"), cpu_run, VAE_LR)
+    fault["caught"] = not within_both(fault, VAE_LIMITS)
+    net = card_run["net"]
+    pre_expected = {"adam_update": VAE_PRETRAIN_BATCHES}
+    fit_expected = {"softmax_xent_fwd": VAE_FIT_UPDATES, "softmax_xent_bwd": VAE_FIT_UPDATES,
+                    "adam_update": VAE_FIT_UPDATES * adam_launches(net)}
+    pre_ms = pretrain_ms(torch, net, 0, pre)
+    times, timed_launches, losses = timed_fit(torch, net, fine[0], **DBN_TIMED)
+    ms = statistics.median(times)
+    cpu_pre = cpu_run["pre_losses"]
+    ok = (within_both(readings, VAE_LIMITS) and fault["caught"]
+          and card_run["pre_launches"] == pre_expected
+          and card_run["fit_launches"] == fit_expected and cpu_pre[-1] < cpu_pre[0]
+          and bool(np.isfinite(losses).all()))
+    emit("pretrain_vae", B=DBN_B, params=sum(v.size for p in host for v in p.values()),
+         card_pretrain_losses=card_run["pre_losses"].tolist(), cpu_pretrain_losses=cpu_pre.tolist(),
+         card_fit_losses=card_run["fit_losses"].tolist(),
+         cpu_fit_losses=cpu_run["fit_losses"].tolist(), readings_vs_cpu=readings,
+         limits=VAE_LIMITS, fault_vae_kl_dropped=fault, pretrain_launches=card_run["pre_launches"],
+         pretrain_expected=pre_expected, fit_launches=card_run["fit_launches"],
+         fit_expected=fit_expected, pretrain_ms_per_update=pre_ms, fit_update_ms_runs=times,
+         fit_ms_per_update=ms, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("VAE pretraining failed its checks")
+    launches = sum_counts([card_run["pre_launches"], card_run["fit_launches"], timed_launches])
+    return launches, {"pretrain_ms_per_update": pre_ms, "fit_ms_per_update": ms}, [
+        np.shape(p[k]) for p in host for k in sorted(p)]
+
+
+def transfer_faults(fault):
+    """Install a wrong FrozenLayer (None: none): its params not detached,
+    so they move, or its layer run in training mode, so BatchNormalization
+    normalizes by the batch and updates its statistics. Returns the undo."""
+    from deeplearning4j_tpu_torch import FrozenLayer
+
+    real = FrozenLayer.apply
+
+    def moves(self, params, x, state, *, mask=None, train=False, generator=None, **kw):
+        return self.layer.apply(params, x, state, mask=mask, train=False, generator=generator,
+                                **kw)
+
+    def bn_train(self, params, x, state, *, mask=None, train=False, generator=None, **kw):
+        return self.layer.apply({k: v.detach() for k, v in params.items()}, x, state, mask=mask,
+                                train=train, generator=generator, **kw)
+
+    if fault == "frozen_params_move":
+        FrozenLayer.apply = moves
+    elif fault == "frozen_bn_in_train_mode":
+        FrozenLayer.apply = bn_train
+
+    def undo():
+        FrozenLayer.apply = real
+    return undo
+
+
+def transferred(base):
+    """ResNet-50 transferred: frozen through "avgpool", "out" replaced by a
+    TRANSFER_CLASSES-way softmax head on "avgpool", Adam at TRANSFER_LR."""
+    from deeplearning4j_tpu_torch import (FineTuneConfiguration, OutputLayer, TransferLearning,
+                                          UpdaterConfig)
+
+    return (TransferLearning.GraphBuilder(base)
+            .fine_tune_configuration(FineTuneConfiguration(
+                updater=UpdaterConfig(updater="adam", learning_rate=TRANSFER_LR)))
+            .set_feature_extractor("avgpool")
+            .remove_vertex_and_connections("out")
+            .add_layer("head", OutputLayer(n_out=TRANSFER_CLASSES, activation="softmax",
+                                           loss="mcxent"), "avgpool")
+            .set_outputs("head").build())
+
+
+def frozen_moved(net, before, state_before) -> dict:
+    """The largest change of any frozen param and of any BN statistic from
+    ``before`` (0.0: bit for bit unchanged)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import params_to_numpy, state_to_numpy
+
+    params, state = params_to_numpy(net), state_to_numpy(net)
+    return {"frozen_param_max_abs": max(float(np.abs(params[n][k] - v).max())
+                                        for n, p in before.items() if n != "head"
+                                        for k, v in p.items()),
+            "bn_state_max_abs": max(float(np.abs(state[n][k] - v).max())
+                                    for n, s in state_before.items() for k, v in s.items())}
+
+
+def phase_transfer_resnet50(torch, host, state, full_ms, card):
+    """ResNet-50 transferred at full width (f32, B=128): TRANSFER_UPDATES
+    per-batch updates, then the same batches through ``fit(stage_on_device
+    =TRANSFER_STAGE)`` on a fresh transfer: every frozen param and BN
+    statistic bit for bit unchanged in both; the head held against a CPU
+    Adam update of a lone head on the pooled features the card computed,
+    copied to the host (MNIST_LIMITS); the staged head against the
+    per-batch one; exact launches per update; each of TRANSFER_FAULTS
+    caught in one update. Then ms per update (per batch, staged), beside
+    the full ResNet-50 f32 update of this run (``full_ms``) and one
+    ``output()``; the peak memory; one profiled update. Returns (launches,
+    times, leaf shapes)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (InputType, MultiLayerConfiguration, MultiLayerNetwork,
+                                          OutputLayer, UpdaterConfig, load_jax_params, ops,
+                                          params_to_numpy, resnet50_conf, state_to_numpy)
+
+    torch.cuda.empty_cache()
+    base = resnet_net(resnet50_conf(), host, state)
+    rng = np.random.default_rng(SEED + 60)
+    batches = [(alexnet_images(RES_B, SEED + 61 + i)[0],
+                one_hot(rng.integers(0, TRANSFER_CLASSES, RES_B), TRANSFER_CLASSES))
+               for i in range(TRANSFER_UPDATES)]
+    net = transferred(base)
+    before, state_before = params_to_numpy(net), state_to_numpy(net)
+    head0 = before["head"]
+    with torch.no_grad():  # the pooled features the frozen backbone gives each batch
+        feats = [net._activations(net._params(), [net._input(x)])[0]["avgpool"].cpu().numpy()
+                 for x, _ in batches]
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counters()
+    for b in batches:
+        net.fit(b)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.counters().items() if v}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    net.set_listeners()
+    per_batch = frozen_moved(net, before, state_before)
+    card_losses = np.array([float(l) for l in rec.losses])
+    card_head = params_to_numpy(net)["head"]
+
+    head_conf = MultiLayerConfiguration(
+        layers=[OutputLayer(n_out=TRANSFER_CLASSES, activation="softmax", loss="mcxent")],
+        input_type=InputType.feed_forward(feats[0].shape[1]),
+        updater=UpdaterConfig(updater="adam", learning_rate=TRANSFER_LR))
+    cpu = load_jax_params(MultiLayerNetwork(head_conf, device="cpu"), [head0])
+    cpu_rec = LossRecorder()
+    cpu.set_listeners(cpu_rec)
+    for f, (_, y) in zip(feats, batches):
+        cpu.fit((f, y))
+    cpu_run = (cpu, np.array([float(l) for l in cpu_rec.losses]), params_to_numpy(cpu))
+    readings = recipe_readings((net, card_losses, [card_head]), cpu_run, [head0],
+                               lr=TRANSFER_LR)
+
+    staged = transferred(base)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    staged.fit(batches, stage_on_device=TRANSFER_STAGE)
+    torch.cuda.synchronize()
+    staged_launches = {k: v for k, v in ops.counters().items() if v}
+    staged_moved = frozen_moved(staged, before, state_before)
+    staged_head = params_to_numpy(staged)["head"]
+    staged_vs_eager = max(float(np.abs(staged_head[k] - card_head[k]).max()) for k in card_head)
+    staged_replays, staged_steps = staged._step_graphs.replays, staged.staged_steps_total
+
+    faults = {}
+    for fault in TRANSFER_FAULTS:
+        wrong = transferred(base)
+        undo = transfer_faults(fault)
+        try:
+            wrong.fit(batches[0])
+        finally:
+            undo()
+        faults[fault] = frozen_moved(wrong, before, state_before)
+        faults[fault]["caught"] = any(v > 0.0 for v in faults[fault].values())
+        del wrong
+        torch.cuda.empty_cache()
+
+    times, timed_launches, losses = timed_fit(torch, net, batches[0], warmup=1, timed=5)
+    ms = statistics.median(times)
+    x0 = batches[0][0]
+    out_runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        net.output(x0)
+        out_runs.append((time.perf_counter() - t0) * 1e3)
+    staged_runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged.fit(batches, stage_on_device=TRANSFER_STAGE)
+        torch.cuda.synchronize()
+        staged_runs.append((time.perf_counter() - t0) * 1e3 / len(batches))
+    on_card = tuple(torch.as_tensor(a, device=DEVICE) for a in batches[0])
+    prof = profile(torch, lambda: net.fit(on_card), top=10, groups=RES_PROFILE_GROUPS)
+    emit("profile", what=f"fit() one Adam update of the transferred ResNet-50 (frozen through "
+         f"avgpool), f32 B={RES_B}, batch on the card", gpu=card, **prof)
+    per_update = {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                  "adam_update": adam_launches(net)}
+    expected = {k: v * TRANSFER_UPDATES for k, v in per_update.items()}
+    unchanged = all(v == 0.0 for v in (*per_batch.values(), *staged_moved.values()))
+    ok = (unchanged and within_limits(readings, MNIST_LIMITS)
+          and all(f["caught"] for f in faults.values()) and launches == expected
+          and staged_launches.get("softmax_xent_fwd", 0) > 0
+          and staged_steps == len(batches)
+          and staged_replays == len(batches)
+          and within_limits({"staged_head_vs_per_batch": staged_vs_eager},
+                            {"staged_head_vs_per_batch": MNIST_LIMITS["max_param_abs"]})
+          and bool(np.isfinite(losses).all()))
+    emit("transfer_resnet50", B=RES_B, classes=TRANSFER_CLASSES, lr=TRANSFER_LR,
+         updates=TRANSFER_UPDATES, frozen_vertices=sum(
+             1 for v in net.conf.vertices.values()
+             if type(getattr(v, "layer", None)).__name__ == "FrozenLayer"),
+         param_leaves=sum(len(p) for p in net._leaves()),
+         per_batch_moved=per_batch, staged_moved=staged_moved, card_losses=card_losses.tolist(),
+         cpu_head_losses=cpu_run[1].tolist(), head_readings_vs_cpu=readings,
+         limits=MNIST_LIMITS, staged_head_vs_per_batch_max_abs=staged_vs_eager,
+         staged_steps=staged_steps, staged_replays=staged_replays,
+         faults=faults, kernel_launches=launches, expected_launches=expected,
+         staged_launches=staged_launches, update_ms_runs=times, ms_per_update=ms,
+         staged_ms_per_update_runs=staged_runs, staged_ms_per_update=min(staged_runs),
+         output_ms_runs=out_runs, output_ms_median=statistics.median(out_runs),
+         full_resnet50_f32_ms_per_update=full_ms, peak_allocated_gib=peak_gib,
+         idle_share=prof["idle_share"], ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("the ResNet-50 transfer failed its checks")
+    shapes = [np.shape(p[k]) for _, p in sorted(before.items()) for k in sorted(p)]
+    del net, staged, base
+    torch.cuda.empty_cache()
+    return (sum_counts([launches, staged_launches, timed_launches]),
+            {"ms_per_update": ms, "staged_ms_per_update": min(staged_runs),
+             "output_ms": statistics.median(out_runs), "full_update_ms": full_ms}, shapes)
+
+
+def es_conf():
+    """examples/early_stopping.py's MLP."""
+    from deeplearning4j_tpu_torch import (DenseLayer, InputType, MultiLayerConfiguration,
+                                          OutputLayer, UpdaterConfig)
+
+    return MultiLayerConfiguration(
+        layers=[DenseLayer(n_out=24, activation="tanh"),
+                OutputLayer(n_out=3, activation="softmax", loss="mcxent")],
+        input_type=InputType.feed_forward(6),
+        updater=UpdaterConfig(updater="adam", learning_rate=5e-3))
+
+
+def es_batches(n, seed):
+    """examples/early_stopping.py's batches: 32 rows of 6 features, the
+    class the argmax of a fixed projection."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import DataSet
+
+    w = np.random.default_rng(3).normal(size=(6, 3))
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = r.normal(size=(32, 6)).astype(np.float32)
+        out.append(DataSet(x, np.eye(3, dtype=np.float32)[(x @ w).argmax(-1)]))
+    return out
+
+
+def early_stopping_run(torch, host, directory, dev):
+    """The example's early stopping from ``host``'s weights on ``dev``,
+    with a LocalFileModelSaver that also keeps a clone of each net it
+    saves. Returns (result, saver, launches, seconds)."""
+    from deeplearning4j_tpu_torch import (ListDataSetIterator, MultiLayerNetwork,
+                                          load_jax_params, ops)
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
+        LocalFileModelSaver, MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+
+    class Keeping(LocalFileModelSaver):
+        def save_best_model(self, net, score):
+            super().save_best_model(net, score)
+            self.kept = net.clone()
+
+    net = load_jax_params(MultiLayerNetwork(es_conf(), device=dev), host)
+    saver = Keeping(directory, device=dev)
+    cfg = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                                      ScoreImprovementEpochTerminationCondition(ES_PATIENCE)],
+        score_calculator=DataSetLossCalculator(ListDataSetIterator(es_batches(4, 99))),
+        model_saver=saver)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    result = EarlyStoppingTrainer(cfg, net, ListDataSetIterator(es_batches(8, 0))).fit()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.counters().items() if v} if dev == "cuda" else None
+    return result, saver, launches, seconds
+
+
+def phase_early_stopping(torch, card):
+    """EarlyStoppingTrainer over examples/early_stopping.py's MLP on the
+    card with LocalFileModelSaver, against the same run on the CPU from the
+    same weights: the termination reason and details, the best epoch and
+    the epoch count equal, each epoch's score within ES_SCORE_REL; the best
+    model restored from its zip serves bit for bit what the saved net did;
+    exact launches (each update: one softmax-xent forward and backward and
+    one Adam launch; each score: one forward a score batch). Returns
+    (launches, times, leaf shapes)."""
+    import tempfile
+
+    import numpy as np
+
+    host = conf_host(es_conf())
+    with tempfile.TemporaryDirectory() as tmp:
+        card_res, saver, launches, card_s = early_stopping_run(
+            torch, host, os.path.join(tmp, "card"), "cuda")
+        cpu_res, _, _, _ = early_stopping_run(torch, host, os.path.join(tmp, "cpu"), "cpu")
+        x = np.concatenate([ds.features for ds in es_batches(4, 99)])
+        restored = card_res.best_model
+        same_output = bool(np.array_equal(restored.output(x), saver.kept.output(x)))
+    scores_rel = max(abs(card_res.score_vs_epoch[e] - s) / abs(s)
+                     for e, s in cpu_res.score_vs_epoch.items())
+    epochs, updates = card_res.total_epochs, card_res.total_epochs * 8
+    expected = {"softmax_xent_fwd": updates + 4 * len(card_res.score_vs_epoch),
+                "softmax_xent_bwd": updates, "adam_update": updates}
+    same = (card_res.termination_reason == cpu_res.termination_reason
+            and card_res.termination_details == cpu_res.termination_details
+            and card_res.best_model_epoch == cpu_res.best_model_epoch
+            and epochs == cpu_res.total_epochs
+            and sorted(card_res.score_vs_epoch) == sorted(cpu_res.score_vs_epoch))
+    ok = same and scores_rel <= ES_SCORE_REL and same_output and launches == expected
+    emit("early_stopping", termination_reason=card_res.termination_reason.value,
+         details=card_res.termination_details, best_epoch=card_res.best_model_epoch,
+         total_epochs=epochs, cpu_termination_reason=cpu_res.termination_reason.value,
+         cpu_best_epoch=cpu_res.best_model_epoch, cpu_total_epochs=cpu_res.total_epochs,
+         card_scores=[card_res.score_vs_epoch[e] for e in sorted(card_res.score_vs_epoch)],
+         cpu_scores=[cpu_res.score_vs_epoch[e] for e in sorted(cpu_res.score_vs_epoch)],
+         scores_max_rel=scores_rel, limit=ES_SCORE_REL, restored_output_bitwise=same_output,
+         kernel_launches=launches, expected_launches=expected, seconds=card_s,
+         ms_per_epoch=card_s * 1e3 / epochs, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("early stopping on the card differs from the CPU")
+    return launches, {"ms_per_epoch": card_s * 1e3 / epochs}, [
+        np.shape(p[k]) for p in host for k in sorted(p)]
+
+
+def phases_slice19(torch, card, res_host, res_state, full_ms):
+    """Slice 19's phases, each counting from 0. Returns (launches by path,
+    times by path, leaf shapes by path)."""
+    launches, times, shapes = {}, {}, {}
+    dbn_launches, times["dbn"], dbn_shapes = phase_train_dbn(torch, card)
+    launches.update(dbn_launches)
+    shapes.update(dbn_shapes)
+    launches["dbn_digits"], acc, ms, shapes["dbn_digits"] = phase_train_dbn_digits(torch, card)
+    times["dbn_digits"] = {"accuracy": acc, "finetune_ms_per_update": ms}
+    launches["vae"], times["vae"], shapes["vae"] = phase_pretrain_vae(torch, card)
+    (launches["resnet50_transfer"], times["resnet50_transfer"],
+     shapes["resnet50_transfer"]) = phase_transfer_resnet50(torch, res_host, res_state,
+                                                            full_ms, card)
+    (launches["early_stopping"], times["early_stopping"],
+     shapes["early_stopping"]) = phase_early_stopping(torch, card)
+    return launches, times, shapes
+
+
+def kernels_slice19(torch, sx, ad, card, leaf_shapes):
+    """Rows 10-12 at the shapes of slice 19's paths that no earlier phase
+    holds, against their plain versions, then timed beside them, their
+    bounds and the library call: rows 10-11 at early stopping's head (N=32,
+    C=3); row 12 at each path's leaves (one grouped call). Returns
+    {(path, kernel): (max abs err, times, shape)}."""
+    out = {}
+    N, C = 32, 3
+    e = sxent_case(torch, sx, N, C, "float32", "one_hot", SEED + 70)
+    for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card,
+                                "early stopping's loss head").items():
+        out[("early_stopping", k)] = (e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"]),
+                                      t, f"N={N} C={C}")
+    _, sc = adam_inputs(torch, SEED)
+    for i, (path, shapes) in enumerate(sorted(leaf_shapes.items())):
+        leaves, _ = adam_inputs(torch, SEED + 71 + i, shapes)
+        want = -(-len(shapes) // ad.MAX_LEAVES)
+        err = adam_check(torch, ad, path, leaves, sc, want_launches=want)
+        out[(path, "adam_update")] = (err, time_adam(
+            torch, ad, card, shapes, f"{path}'s {len(shapes)} leaves"), f"{len(shapes)} leaves")
+    return out
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -6074,7 +6862,8 @@ def main() -> int:
     # then training (rows 10-11); each phase counts from 0
     torch.cuda.empty_cache()
     res_host = resnet_params(resnet50_conf(), SEED)
-    phase_serve_resnet50(torch, res_host, resnet_serving_state(res_host), card)
+    res_state = resnet_serving_state(res_host)
+    phase_serve_resnet50(torch, res_host, res_state, card)
     res_train = {dtype: phase_train_resnet50(torch, dtype, res_host, card)
                  for dtype in ("float32", "bfloat16")}
     # ---- 4h. LeNet and the MNIST MLP on MultiLayerNetwork (rows 10-12)
@@ -6131,6 +6920,17 @@ def main() -> int:
     for path, rows in SLICE18_ROWS.items():
         for k in rows:
             new_path_launches[(path, k)] = s18_launches[path].get(k, 0)
+    # ---- 4l. slice 19: pretraining and transfer learning (the DBN, the
+    # digits DBN, the VAE, ResNet-50 transferred, early stopping; rows
+    # 10-12); each phase counts from 0
+    s19_launches, s19_times, s19_shapes = phases_slice19(torch, card, res_host, res_state,
+                                                         res_train["float32"][1])
+    for counts in s19_launches.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for path, rows in SLICE19_ROWS.items():
+        for k in rows:
+            new_path_launches[(path, k)] = s19_launches[path].get(k, 0)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -6215,6 +7015,7 @@ def main() -> int:
     s18_rows = kernels_slice18(torch, ls, sx, ad, card, seq_mask,
                                {"seq_classifier": seq_shapes,
                                 "moe_attention": moe_runs["float32"][2]})
+    s19_rows = kernels_slice19(torch, sx, ad, card, s19_shapes)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -6366,6 +7167,22 @@ def main() -> int:
                         "kernel_device_ms": t.get("kernel_device_ms")}
             line.update(name=f"{k}@{path}", launches=new_path_launches[(path, k)])
             lines.append(line)
+    # rows 10-12 at the shapes of slice 19's paths
+    main_lines = {line["name"]: line for line in lines}
+    for path, rows in SLICE19_ROWS.items():
+        for k, main in rows.items():
+            if main is not None:
+                line = dict(main_lines[main], shape=f"{main}'s (N=128 C=10)")
+            else:
+                err, t, shape = s19_rows[(path, k)]
+                source, replaces = KERNELS[k]
+                line = {"route": "cuda", "source": source, "replaces": replaces,
+                        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
+                        "kernel_device_ms": t.get("kernel_device_ms")}
+            line.update(name=f"{k}@{path}", launches=new_path_launches[(path, k)])
+            lines.append(line)
     # beside each row's launches (which count a captured step's warm-up
     # steps and capture), the launches that the replays of slice 17's
     # captured steps made (LeNet's alone for its own row)
@@ -6399,6 +7216,7 @@ def main() -> int:
                       "kernel_device_ms_note": "rows 10-12 and drw_product: the kernel's own "
                       "time on the card a call, from the profiler (null where not measured)",
                       "slice18_ms": s18_times,
+                      "slice19_ms": s19_times,
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

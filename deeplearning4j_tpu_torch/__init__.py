@@ -37,6 +37,13 @@ and the JAX package's whole activation catalog are there too. The
 behind ``DecodeServer`` too), and the sequence layers
 ``RnnEmbeddingLayer``, ``LastTimeStepLayer``, ``Convolution1DLayer``,
 ``ZeroPaddingLayer`` and ``MixtureOfExpertsLayer`` run in both networks.
+It pretrains layer by layer (``MultiLayerNetwork.pretrain`` over
+``AutoEncoder``, ``RBM`` and ``VariationalAutoencoder`` with its five
+reconstruction distributions; ``dbn_conf``, the stacked-RBM DBN), transfers
+trained networks of both kinds (``TransferLearning.Builder`` and
+``GraphBuilder``, ``FineTuneConfiguration``, ``FrozenLayer``), trains
+``CenterLossOutputLayer`` heads, stops early (``earlystopping``) and checks
+gradients against finite differences (``utils.gradcheck``).
 The LSTM recurrence, masked or not, its backward, flash attention and its
 backward, LRN and its backward, the softmax cross-entropy and the Adam update
 run in hand-written CUDA kernels (``ops/csrc/``); the LSTM layers run either
@@ -58,6 +65,7 @@ from .interop.jax_params import (load_jax_model_zip, load_jax_params, load_jax_s
                                  params_to_numpy, state_to_numpy)
 from .models.alexnet import alexnet_conf
 from .models.char_rnn import char_rnn
+from .models.dbn import dbn_conf
 from .models.googlenet import googlenet_conf
 from .models.lenet import lenet_mnist_conf
 from .models.resnet import (resnet18_conf, resnet34_conf, resnet50_conf, resnet101_conf,
@@ -92,26 +100,38 @@ from .nn.graph import (
     UnstackVertex,
 )
 from .nn.layers.attention import LayerNormLayer, SelfAttentionLayer
+from .nn.layers.center_loss import CenterLossOutputLayer
 from .nn.layers.convolution import Convolution1DLayer, ConvolutionLayer, ZeroPaddingLayer
 from .nn.layers.dense import (ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer,
                               LossLayer, OutputLayer)
+from .nn.layers.frozen import FrozenLayer
 from .nn.layers.normalization import BatchNormalization, LocalResponseNormalization
 from .nn.layers.pooling import GlobalPoolingLayer, SubsamplingLayer
+from .nn.layers.pretrain import RBM, AutoEncoder
 from .nn.layers.moe import MixtureOfExpertsLayer
 from .nn.layers.recurrent import (GravesBidirectionalLSTM, GravesLSTM, LastTimeStepLayer,
                                   RnnEmbeddingLayer, RnnOutputLayer)
+from .nn.layers.variational import (BernoulliReconstruction, CompositeReconstruction,
+                                    ExponentialReconstruction, GaussianReconstruction,
+                                    LossFunctionWrapper, VariationalAutoencoder)
 from .nn.multilayer import MultiLayerNetwork
+from .nn.transferlearning import (FineTuneConfiguration, TransferLearning,
+                                  TransferLearningBuilder, TransferLearningGraphBuilder)
 from .nn.updaters import UpdaterConfig
 from .serving.decode import DecodeServer
 from .utils.serialization import restore_model, write_model
 
 __all__ = [
     "ActivationLayer",
+    "AutoEncoder",
     "BatchNormalization",
+    "BernoulliReconstruction",
     "BucketingSequenceIterator",
+    "CenterLossOutputLayer",
     "CnnToFeedForwardPreProcessor",
     "CnnToRnnPreProcessor",
     "ComposableInputPreProcessor",
+    "CompositeReconstruction",
     "ComputationGraph",
     "ComputationGraphConfiguration",
     "Convolution1DLayer",
@@ -126,8 +146,12 @@ __all__ = [
     "ElementWiseVertex",
     "EmbeddingLayer",
     "Evaluation",
+    "ExponentialReconstruction",
     "FeedForwardToCnnPreProcessor",
     "FeedForwardToRnnPreProcessor",
+    "FineTuneConfiguration",
+    "FrozenLayer",
+    "GaussianReconstruction",
     "GlobalPoolingLayer",
     "GraphBuilder",
     "GravesBidirectionalLSTM",
@@ -142,6 +166,7 @@ __all__ = [
     "LayerVertex",
     "ListDataSetIterator",
     "LocalResponseNormalization",
+    "LossFunctionWrapper",
     "LossLayer",
     "MergeVertex",
     "MixtureOfExpertsLayer",
@@ -153,6 +178,7 @@ __all__ = [
     "NumpyDataSetIterator",
     "OutputLayer",
     "PreprocessorVertex",
+    "RBM",
     "ROC",
     "ROCMultiClass",
     "RegressionEvaluation",
@@ -167,11 +193,16 @@ __all__ = [
     "StackVertex",
     "SubsamplingLayer",
     "SubsetVertex",
+    "TransferLearning",
+    "TransferLearningBuilder",
+    "TransferLearningGraphBuilder",
     "UnstackVertex",
     "UpdaterConfig",
+    "VariationalAutoencoder",
     "ZeroPaddingLayer",
     "alexnet_conf",
     "char_rnn",
+    "dbn_conf",
     "googlenet_conf",
     "lenet_mnist_conf",
     "load_jax_model_zip",

@@ -120,7 +120,7 @@ class LayerVertex(BaseVertex):
 
     @property
     def is_output_layer(self) -> bool:
-        return hasattr(self.layer, "compute_loss")
+        return self.layer.is_output_layer
 
     def _preprocessed_type(self, input_type: InputType) -> InputType:
         if self.preprocessor is not None:

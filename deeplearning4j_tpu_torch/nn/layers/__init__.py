@@ -1,2 +1,3 @@
 """Layer implementations; importing this registers every ported layer."""
-from . import attention, convolution, dense, moe, normalization, pooling, recurrent  # noqa: F401
+from . import (attention, center_loss, convolution, dense, frozen, moe, normalization,  # noqa: F401
+               pooling, pretrain, recurrent, variational)

@@ -11,6 +11,9 @@ same JSON configures both packages. It carries plain tensor functions:
   (output, new state); ``train`` turns dropout on, drawn from
   ``generator``, and has BatchNormalization use and update batch stats
 - ``regularization_loss(params)`` — the l1/l2 terms of the training loss
+- ``is_output_layer`` / ``is_pretrain_layer`` — a loss head (it has
+  ``compute_loss``), and a layer ``MultiLayerNetwork.pretrain`` trains
+  alone (it has ``pretrain_loss``)
 
 Params for layer i are a dict keyed "W"/"b"/... as in the JAX package; the
 network (``nn/multilayer.py``) holds them as an ``nn.ParameterDict`` per layer.
@@ -110,6 +113,18 @@ class BaseLayer:
 
     @property
     def is_recurrent(self) -> bool:
+        return False
+
+    @property
+    def is_output_layer(self) -> bool:
+        """A loss head: the layer computes the training loss."""
+        return hasattr(self, "compute_loss")
+
+    @property
+    def is_pretrain_layer(self) -> bool:
+        """Layerwise-pretrainable (reference: Layer.isPretrainLayer): the
+        layer has a ``pretrain_loss`` that ``MultiLayerNetwork.pretrain``
+        trains."""
         return False
 
     def _init_weight(self, gen, shape, fan_in, fan_out) -> torch.Tensor:

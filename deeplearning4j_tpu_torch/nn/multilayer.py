@@ -59,6 +59,10 @@ kernels); any other value raises ValueError. It is not part of the conf.
   of the JAX package's ``net.state`` (``utils/serialization.py`` saves
   them).
 - ``summary``, ``feed_forward`` and ``clone`` are the JAX package's.
+- ``pretrain`` and ``pretrain_layer`` train the AutoEncoder, RBM and
+  VariationalAutoencoder layers alone, bottom up, each on its
+  ``pretrain_loss`` (the JAX package's layerwise pretraining), with their
+  noise from the network's generator or from a caller's ``noise``.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ from ..datasets.iterators import (AsyncDataSetIterator, DataSet, DevicePrefetchI
 from ..eval.evaluation import Evaluation
 from ..runtime.step_graphs import StepGraph, StepGraphs, signature
 from .conf.multi_layer import MultiLayerConfiguration
+from .layers.frozen import FrozenLayer
 from .layers.normalization import BatchNormalization
 from .layers.recurrent import GravesLSTM
 from .updaters import (UpdaterConfig, _leaves, _map, advance_counts, opt_state_from_leaves,
@@ -706,8 +711,8 @@ class MultiLayerNetwork(BaseNetwork):
             pre = self.conf.preprocessors.get(i)
             if pre is not None:
                 x = pre.apply(x)
-            kw = ({"lstm_variant": self.lstm_variant}
-                  if isinstance(layers[i], GravesLSTM) else {})
+            inner = layers[i].layer if isinstance(layers[i], FrozenLayer) else layers[i]
+            kw = {"lstm_variant": self.lstm_variant} if isinstance(inner, GravesLSTM) else {}
             if new_rnn is not None and new_rnn[i]:
                 x, new_rnn[i] = layers[i].apply_seq(params[i], x, new_rnn[i],
                                                     mask=features_mask, train=train,
@@ -729,7 +734,7 @@ class MultiLayerNetwork(BaseNetwork):
         layers = self.conf.layers
         out_idx = len(layers) - 1
         out_layer = layers[out_idx]
-        if not hasattr(out_layer, "compute_loss"):
+        if not out_layer.is_output_layer:
             raise ValueError(
                 f"Last layer {type(out_layer).__name__} is not an output layer")
         gen = self._generator if train else None
@@ -976,6 +981,62 @@ class MultiLayerNetwork(BaseNetwork):
                 fm = None if fm is None else fm[:, split:]
                 lm = None if lm is None else lm[:, split:]
             rnn = self._step(xs, ys, lm, fm, rnn)
+
+    # --------------------------------------------------------------- pretrain
+    def pretrain(self, data, epochs: int = 1, noise=None) -> "MultiLayerNetwork":
+        """Layerwise unsupervised pretraining of the AutoEncoder, RBM and
+        VariationalAutoencoder layers, bottom up (reference:
+        MultiLayerNetwork.pretrain): each trains on the activations of the
+        stack below it. ``noise`` as in :meth:`pretrain_layer`."""
+        self.init()
+        for i, layer in enumerate(self.conf.layers):
+            if layer.is_pretrain_layer:
+                self.pretrain_layer(i, data, epochs, noise)
+        return self
+
+    def pretrain_layer(self, layer_idx: int, data, epochs: int = 1, noise=None) -> None:
+        """Train layer ``layer_idx`` alone on its ``pretrain_loss`` over the
+        features of ``data`` (labels unused; reference: pretrainLayer): per
+        batch, the inference forward of the layers below it (no gradient),
+        then one update of the layer's params with a fresh updater built
+        from ``conf.updater`` (Adam through the fused kernel), written in
+        place. The noise of each batch comes from ``noise(layer_idx, layer,
+        h)`` if given (the keyword arguments of ``pretrain_loss``: the seam
+        through which a caller passes uniforms or eps), else from the
+        network's generator. The captured step graphs are dropped
+        afterwards, as the JAX package retires its compiled steps."""
+        self.init()
+        layer = self.conf.layers[layer_idx]
+        if not layer.is_pretrain_layer:
+            raise ValueError(f"layer {layer_idx} ({type(layer).__name__}) is not pretrainable")
+        tx = UpdaterConfig.from_dict(self.conf.updater).build()
+        leaves = [dict(self.layer_params[layer_idx].items())]
+        opt_state = tx.init(leaves)
+        flat = list(leaves[0].values())
+        for _ in range(epochs):
+            it = as_iterator(data)
+            if hasattr(it, "reset"):
+                it.reset()
+            for ds in it:
+                ds = ds if isinstance(ds, DataSet) else DataSet(*ds)
+                with torch.no_grad():
+                    h = self._forward(self._params(), self._input(ds.features), self.state,
+                                      upto=layer_idx)[0]
+                h = h.reshape(h.shape[0], -1) if h.dim() > 2 else h
+                kwargs = (noise(layer_idx, layer, h) if noise is not None
+                          else {"generator": self._generator})
+                cast = {k: v.to(self.compute_dtype) for k, v in leaves[0].items()}
+                loss = layer.pretrain_loss(cast, h, **kwargs)
+                grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                            materialize_grads=True)
+                _, opt_state, new = optimizer_update(tx, [dict(zip(leaves[0], grads))],
+                                                     opt_state, leaves)
+                with torch.no_grad():
+                    for k, v in leaves[0].items():
+                        v.copy_(new[0][k])
+                self._compute_params = None
+                self._last_loss = loss.detach()
+        self._step_graphs.clear()
 
     # ------------------------------------------------------------- streaming
     def _init_rnn_states(self, batch: int):
