@@ -81,6 +81,21 @@ with examples/long_context.py's MixtureOfExpertsLayer after each
 LayerNorm (n_out 512, 4 experts of 1024) against the CPU at T <= 512 (pad
 tokens claiming capacity caught), timed at T 2048 and 4096 with the peak
 memory.
+Then slice 20: ResNet-50 (B=128, f32) trained with LAMB under a Telemetry
+session (fetch_every 4) and the Score, Performance and CollectScores
+listeners, per batch and through fit(stage_on_device=4) (each fetched row's
+loss the loss fit reported, bit for bit; one host read per 4 per-batch
+updates and per staged window; the grad norm against a float64 recompute
+from the gradients a listener sees, with and without loss_scale 1024; the
+norm of the scaled gradients and LAMB without its trust ratio caught;
+memory_report's totals against the live tensors, nothing allocated; ms per
+update with telemetry off and on, eager and replayed, beside SGD's); the
+seven optax updaters (adamw, adamax, adadelta, adagrad, rmsprop, lamb, lion)
+on the full-width char-RNN against the CPU (adadelta at the conf's rate
+caught) and staged against per-batch fit, bit for bit; LBFGS, conjugate
+gradient and line gradient descent on the Iris MLP against the CPU; and the
+watchdog and flight recorder on the MNIST MLP with a NaN batch, per batch
+and staged.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -4955,8 +4970,8 @@ def staged_pair(torch, conf, host, slots, steps=STAGED_STEPS, fault=None):
     staged = load_jax_params(MultiLayerNetwork(conf), host)
     real_update, real_dropout = updaters.Updater.update, dense.maybe_dropout
     if fault == "lr_bc_baked":  # the capture reads the count's host floats once
-        updaters.Updater.update = lambda self, grads, state, scalars=None: real_update(
-            self, grads, state)
+        updaters.Updater.update = lambda self, grads, state, scalars=None, params=None: (
+            real_update(self, grads, state, None, params))
     elif fault == "dropout_frozen":  # each mask drawn once, outside the graph
         frozen = {}
 
@@ -6675,6 +6690,653 @@ def kernels_slice19(torch, sx, ad, card, leaf_shapes):
     return out
 
 
+# ---- slice 20: training observability (the Telemetry session, the listener
+# catalog, memory reports, the watchdog and the flight recorder) and the
+# rest of the optimizers (the seven optax updaters, the batch solvers).
+# ResNet-50 at bench.py:180's B=128 trains with LAMB (lr TEL_LR) under
+# Telemetry(fetch_every=TEL_FETCH) and the Score, Performance and
+# CollectScores listeners: TEL_UPDATES per-batch updates, then
+# fit(stage_on_device=STAGED_K) over TEL_STAGED_BATCHES host batches
+TEL_LR, TEL_FETCH, TEL_UPDATES, TEL_STAGED_BATCHES = 1e-2, 4, 4, 8
+TEL_TIMED = 2  # timed updates (eager) or windows (replayed) a turn, 4 turns
+TEL_LOSS_SCALE = 1024.0
+# the telemetry row's grad norm against a float64 recompute from the
+# _last_grads a needs_gradients listener sees (both sum f32 values; the
+# norm of 25.6M squares in another order reads ~1e-7)
+TEL_NORM_REL = 1e-5
+# LAMB's first update at B=RES_CPU_B, card against CPU (lamb_readings: the
+# first loss; the norm of each tensor's change; the whole change's
+# direction). LAMB's first step is lr * ||p|| * u/||u|| per tensor, u =
+# g/(|g| + eps) elementwise, so the norm of each tensor's change is set by
+# the params and holds tight; its direction is sign-like, and a gradient
+# element within the f32 gradients' 2-3% of 0 can flip (each flip moves
+# 2 lr ||p||/sqrt(n)). Read on the H100: loss 1.4e-7, the worst
+# tensor's norm 1.8e-3, the whole change's direction 0.129 (one tensor's
+# alone up to 0.35: a BN beta, whose zero params take u itself, 64
+# elements, a few flipped). LAMB without its trust ratio moves each tensor
+# by lr * u instead: a convolution's change by sqrt(fan_in/2) (17 at
+# fan_in 576), the output layer's by 100 (read: norm 98.9, direction 14.8).
+LAMB_LIMITS = {"first_loss_rel": 1e-5, "first_norm_rel": 2e-2, "first_change_rel": 0.5}
+# the seven updaters on the char-RNN at bench.py:288-301's widths: one
+# batch of TBPTT(50) segments (UPD_T steps: 3 updates), card against CPU by
+# recipe_readings; a staged window of STAGED_K standard-backprop updates
+# (T=STEPS) against per-batch fit on the card, bit for bit
+UPDATERS_SEVEN = ("adamw", "adamax", "adadelta", "adagrad", "rmsprop", "lamb", "lion")
+UPD_T, UPD_LR = 3 * TBPTT, 1e-3
+# each updater's change against the CPU's. The plain-op updaters round as
+# the CPU's do but for the order of the products' sums (and CUDA's rsqrt,
+# 2 ulp): read on the H100, loss 0-2.2e-7, change 1.7e-6 to 2.1e-5
+# (adagrad). lion takes the sign of each element, so a gradient element
+# that rounds to the other side of 0 moves 2 lr: its change read 9.9e-3
+# (261 of 3.4M elements more than lr/10 apart). adadelta at the conf's lr
+# (1e-3 against optax's 1.0) reads a change of 0.9997.
+UPD_LIMITS = {"loss_rel": 1e-4, "change_rel": 1e-3}
+UPD_LIMITS_BY = {"lion": {"loss_rel": 1e-4, "change_rel": 5e-2}}
+# the Iris pin's MLP (train_iris) from JAX's weights, on the full set of
+# 150: each solver's score and score history after SOLVER_ITERATIONS, card
+# against CPU. Both run f32 forwards and backwards and float64 host logic;
+# LBFGS's curvature pairs amplify a rounding apart (JAX and the port on the
+# CPU: 2e-6 at 10 iterations, 4% at 25; tests/test_torch_solvers.py). Read
+# on the H100: LBFGS's final score 3.7e-5, its history 2.0e-4; the
+# others 0 and 6.2e-7.
+SOLVERS = ("lbfgs", "conjugate_gradient", "line_gradient_descent")
+SOLVER_ITERATIONS, SOLVER_SCORE_REL = 10, 1e-3
+# the MNIST MLP (B=512) with one batch's features NaN: per batch (6
+# batches, the 3rd poisoned) and staged (8 batches in windows of 4, the
+# 6th poisoned); every finite step's grad norm is above WATCH_NORM_LIMIT
+WATCH_BATCHES, WATCH_STAGED_BATCHES, WATCH_NORM_LIMIT = (6, 2), (8, 5), 1e-6
+# rows 10-12 and 6-7 of slice 20's paths: the row of an earlier path whose
+# shape each has (its error and times, of this run, go in the path's row),
+# or None: held and timed at the path's own shape (kernels_slice20)
+SLICE20_ROWS = {
+    "telemetry_resnet50": {"softmax_xent_fwd": "softmax_xent_fwd@resnet50",
+                           "softmax_xent_bwd": "softmax_xent_bwd@resnet50"},
+    "updaters_char_rnn": {k: f"{k}@graph_char_rnn" for k in (
+        "lstm_seq_train_fwd", "lstm_seq_bwd", "drw_product", "softmax_xent_fwd",
+        "softmax_xent_bwd")},
+    "solver_iris": {"softmax_xent_fwd": None, "softmax_xent_bwd": None},
+    "watchdog_flight": {"softmax_xent_fwd": "softmax_xent_fwd@mlp",
+                        "softmax_xent_bwd": "softmax_xent_bwd@mlp",
+                        "adam_update": "adam_update@mlp"},
+}
+
+
+class FetchCounter:
+    """Counts ``Telemetry._fetch`` (the session's host reads) while
+    installed, and keeps the rows each read brought back."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.telemetry import Telemetry
+
+        self.cls, self.real = Telemetry, Telemetry.__dict__["_fetch"]
+        self.calls, self.rows = 0, []
+
+    def __enter__(self):
+        real = self.real.__func__
+
+        def fetch(t):
+            self.calls += 1
+            out = real(t)
+            self.rows.extend(out.tolist())
+            return out
+
+        self.cls._fetch = staticmethod(fetch)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._fetch = self.real
+
+
+def tel_session(registry=None, **kw):
+    from deeplearning4j_tpu_torch.telemetry import FlightRecorder, MetricsRegistry, Telemetry
+
+    reg = registry if registry is not None else MetricsRegistry()
+    return Telemetry(registry=reg, flight_recorder=FlightRecorder(registry=reg), **kw)
+
+
+def tel_listeners(registry):
+    """The Score, Performance and CollectScores listeners on ``registry``;
+    CollectScores last (its scores are the losses fit reported)."""
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener, PerformanceListener, ScoreIterationListener)
+
+    return [ScoreIterationListener(print_every=1, registry=registry),
+            PerformanceListener(frequency=1, registry=registry),
+            CollectScoresIterationListener()]
+
+
+class NormRecompute:
+    """A needs_gradients listener: the float64 norm of the ``_last_grads``
+    it sees, recomputed on the host."""
+
+    needs_gradients = True
+    frequency = 1
+
+    def __init__(self):
+        self.norms = []
+
+    def iteration_done(self, net, iteration, score):
+        import numpy as np
+
+        self.norms.append(float(np.sqrt(sum(
+            np.sum(g.detach().double().cpu().numpy() ** 2)
+            for layer in net._last_grads for g in layer.values()))))
+
+
+def scaled_norm_fault():
+    """The wrong telemetry: the grad norm of the scaled gradients (times
+    the conf's loss scale, TEL_LOSS_SCALE). Returns the undo."""
+    from deeplearning4j_tpu_torch.telemetry import device
+
+    real = device.step_stats
+
+    def wrong(loss, grads=None):
+        if grads is not None:
+            grads = [{k: g * TEL_LOSS_SCALE for k, g in layer.items()} for layer in grads]
+        return real(loss, grads)
+
+    device.step_stats = wrong
+
+    def undo():
+        device.step_stats = real
+    return undo
+
+
+def lamb_fault():
+    """LAMB without its trust ratio. Returns the undo."""
+    from deeplearning4j_tpu_torch.nn import updaters
+
+    real = updaters._trust_ratio
+    updaters._trust_ratio = lambda u, p: u
+
+    def undo():
+        updaters._trust_ratio = real
+    return undo
+
+
+def lamb_conf(loss_scale=None):
+    from deeplearning4j_tpu_torch import UpdaterConfig, resnet50_conf
+
+    conf = resnet50_conf(updater=UpdaterConfig(updater="lamb", learning_rate=TEL_LR))
+    conf.loss_scale = loss_scale
+    return conf
+
+
+def lamb_first_update(torch, host, batch, device, fault=False):
+    """One LAMB update of ResNet-50 from the seed params on ``device``:
+    (loss, params after)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import params_to_numpy
+
+    undo = lamb_fault() if fault else (lambda: None)
+    try:
+        net = resnet_net(lamb_conf(), host, device=device)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        net.fit(batch)
+        out = float(rec.losses[0]), params_to_numpy(net)
+    finally:
+        undo()
+    del net
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def lamb_readings(run, ref, host) -> dict:
+    """LAMB's first update on the card against the CPU's: the loss relative
+    to the CPU's; the relative difference of each tensor's change's norm
+    from the CPU's (the largest, and its tensor); the whole model's change
+    against the CPU's relative to the norm of the CPU's (direction), and
+    the largest such reading of one tensor (reported)."""
+    import numpy as np
+
+    seed = named_tensors(host)
+    mine, theirs = named_tensors(run[1]), named_tensors(ref[1])
+    change, norm, diff2, ref2 = {}, {}, 0.0, 0.0
+    for k, q in theirs.items():
+        d_ref = q - seed[k].astype(np.float32)
+        d = mine[k] - seed[k].astype(np.float32)
+        n_ref = float(np.linalg.norm(d_ref))
+        n_diff = float(np.linalg.norm(d - d_ref))
+        diff2, ref2 = diff2 + n_diff ** 2, ref2 + n_ref ** 2
+        change[k] = n_diff / n_ref if n_ref else 0.0
+        norm[k] = abs(float(np.linalg.norm(d)) / n_ref - 1.0) if n_ref else 0.0
+    return {"first_loss_rel": abs(run[0] - ref[0]) / abs(ref[0]),
+            "first_norm_rel": max(norm.values()),
+            "first_change_rel": float(np.sqrt(diff2 / ref2)),
+            "first_norm_worst_tensor": max(norm, key=norm.get),
+            "worst_tensor_change_rel": max(change.values()),
+            "worst_tensor": max(change, key=change.get)}
+
+
+def phase_telemetry_resnet50(torch, host, card):
+    """ResNet-50 (B=128, f32) on LAMB under telemetry. LAMB's first update at
+    B=RES_CPU_B against the CPU (LAMB_LIMITS), LAMB without its trust ratio
+    caught. Then from the same weights: TEL_UPDATES per-batch updates and
+    fit(stage_on_device=4) over TEL_STAGED_BATCHES host batches under
+    Telemetry(fetch_every=TEL_FETCH) with the Score, Performance and
+    CollectScores listeners: every fetched row's loss equals the loss fit
+    reported, bit for bit; no row non-finite; one host read per TEL_FETCH
+    per-batch updates and one per staged window (counted through
+    ``_fetch``); dl4jtpu_train_steps_total the updates taken. The grad norm
+    of a row against a float64 recompute from ``_last_grads`` (a
+    ParamAndGradientIterationListener and a needs_gradients listener
+    attached), with loss_scale None and TEL_LOSS_SCALE; the norm of the
+    scaled gradients caught. memory_report's param, grad and optimizer
+    totals equal the live tensors' bytes, and the call allocates nothing on
+    the card; its projected peak beside the peak allocated. Then ms per
+    update with telemetry off and on, eager (batch on the card) and
+    replayed, in turns (off, on, on, off). Returns (launch counts,
+    times)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import DataSet, ListDataSetIterator, ops
+    from deeplearning4j_tpu_torch.optimize.listeners import ParamAndGradientIterationListener
+    from deeplearning4j_tpu_torch.telemetry import MetricsRegistry
+
+    t0 = time.perf_counter()
+    small = alexnet_images(RES_CPU_B, SEED + 12)
+    card_run = lamb_first_update(torch, host, small, "cuda")
+    cpu_run = lamb_first_update(torch, host, small, "cpu")
+    readings = lamb_readings(card_run, cpu_run, host)
+    fault = lamb_readings(lamb_first_update(torch, host, small, "cuda", fault=True),
+                          cpu_run, host)
+    fault["caught"] = not within_limits(fault, LAMB_LIMITS)
+    compared_s = time.perf_counter() - t0
+
+    batches = [DataSet(*alexnet_images(RES_B, SEED + 80 + i)) for i in range(3)]
+    reg = MetricsRegistry()
+    tel = tel_session(reg, fetch_every=TEL_FETCH)
+    listeners = tel_listeners(reg)
+    net = resnet_net(lamb_conf(), host)
+    net.set_telemetry(tel)
+    net.set_listeners(*listeners)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with FetchCounter() as per_batch:
+        net.fit(ListDataSetIterator([batches[i % 3] for i in range(TEL_UPDATES)]))
+    with FetchCounter() as staged:
+        net.fit(ListDataSetIterator([batches[i % 3] for i in range(TEL_STAGED_BATCHES)]),
+                stage_on_device=STAGED_K)
+    torch.cuda.synchronize()
+    launches = ops.counters()
+    peak = torch.cuda.max_memory_allocated()
+    scores = [s for _, s in listeners[2].scores]
+    rows = per_batch.rows + staged.rows
+    row_losses_equal = [np.float32(r[0]) for r in rows] == [np.float32(s) for s in scores]
+    steps_total = reg.get("dl4jtpu_train_steps_total").value
+    staged_windows = -(-TEL_STAGED_BATCHES // STAGED_K)
+    reads_ok = (per_batch.calls == -(-TEL_UPDATES // TEL_FETCH)
+                and staged.calls == staged_windows)
+
+    import gc
+
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    report = net.memory_report(RES_B)
+    allocated_by_report = torch.cuda.memory_allocated() - before
+    param_bytes = sum(p.numel() * p.element_size() for p in net.parameters())
+    opt_bytes = sum(t.numel() * t.element_size() for t in net.updater_state_leaves())
+    totals = report["totals"]
+    report_ok = (allocated_by_report == 0 and totals["param_bytes"] == param_bytes
+                 and totals["grad_bytes"] == param_bytes
+                 and totals["opt_state_bytes"] == opt_bytes)
+    net.set_listeners()
+    net.set_telemetry(None)
+    perf = listeners[1].history
+
+    # the grad norm against a recompute, loss scale off and on, and wrong
+    norm_runs = {}
+    for how in ("plain", "loss_scale", "scaled_norm_fault"):
+        undo = scaled_norm_fault() if how == "scaled_norm_fault" else (lambda: None)
+        try:
+            n = resnet_net(lamb_conf(None if how == "plain" else TEL_LOSS_SCALE), host)
+            grads = NormRecompute()
+            n.set_listeners(*([ParamAndGradientIterationListener(iterations=1)]
+                              if how == "plain" else []), grads)
+            n.set_telemetry(tel_session(fetch_every=1, sample_memory=False))
+            with FetchCounter() as reads:
+                n.fit(batches[0])
+        finally:
+            undo()
+        row = reads.rows[0]
+        norm_runs[how] = {"row_grad_norm": row[1], "recomputed": grads.norms[0],
+                          "rel": abs(row[1] - grads.norms[0]) / grads.norms[0],
+                          "nonfinite": row[2], "param_and_gradient_fields": (
+                              len(n.listeners[0].lines[-1].split("\t"))
+                              if how == "plain" else None)}
+        del n
+        torch.cuda.empty_cache()
+    norm_ok = (norm_runs["plain"]["rel"] <= TEL_NORM_REL
+               and norm_runs["loss_scale"]["rel"] <= TEL_NORM_REL
+               and norm_runs["scaled_norm_fault"]["rel"] > TEL_NORM_REL)
+
+    # ms per update, telemetry off and on, eager then replayed, in turns
+    on_card = tuple(torch.as_tensor(a, device=DEVICE) for a in (batches[0].features,
+                                                                 batches[0].labels))
+    slots = staged_slots(torch, SEED + 90)
+    timed = {"eager": {"off": [], "on": []}, "replayed": {"off": [], "on": []}}
+    for how in ("off", "on"):  # capture both steps first
+        net.set_telemetry(tel_session(fetch_every=TEL_FETCH) if how == "on" else None)
+        net.fit_on_device(*slots)
+    for how in ("off", "on", "on", "off"):
+        net.set_telemetry(tel_session(fetch_every=TEL_FETCH) if how == "on" else None)
+        times, _, _ = timed_fit(torch, net, on_card, 1, TEL_TIMED)
+        timed["eager"][how].extend(times)
+        for _ in range(TEL_TIMED):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            net.fit_on_device(*slots)
+            torch.cuda.synchronize()
+            timed["replayed"][how].append((time.perf_counter() - t1) * 1e3 / STAGED_K)
+    net.set_telemetry(None)
+    ms = {path: {how: statistics.median(v) for how, v in d.items()}
+          for path, d in timed.items()}
+    del net
+    gc_collect(torch)
+    # SGD (the conf's own updater, lr 0.1) replayed on the same slots, for
+    # LAMB's cost against it
+    sgd_conf = lamb_conf()
+    sgd_conf.updater = {**sgd_conf.updater, "updater": "sgd", "learning_rate": 0.1}
+    sgd = resnet_net(sgd_conf, host)
+    sgd.fit_on_device(*slots)
+    sgd_ms = []
+    for _ in range(2 * TEL_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sgd.fit_on_device(*slots)
+        torch.cuda.synchronize()
+        sgd_ms.append((time.perf_counter() - t1) * 1e3 / STAGED_K)
+    del sgd, on_card, slots
+    gc_collect(torch)
+    ok = (within_limits(readings, LAMB_LIMITS) and fault["caught"] and row_losses_equal
+          and len(rows) == TEL_UPDATES + TEL_STAGED_BATCHES
+          and all(r[2] == 0.0 for r in rows) and reads_ok
+          and steps_total == TEL_UPDATES + TEL_STAGED_BATCHES and report_ok and norm_ok
+          and launches.get("softmax_xent_fwd", 0) > 0 and launches.get("softmax_xent_bwd", 0) > 0)
+    emit("telemetry_resnet50", B=RES_B, updater="lamb", lr=TEL_LR,
+         first_update_batch=RES_CPU_B, first_update_vs_cpu=readings, limits=LAMB_LIMITS,
+         fault_lamb_without_trust_ratio=fault, compared_s=compared_s,
+         fetch_every=TEL_FETCH, per_batch_updates=TEL_UPDATES, per_batch_reads=per_batch.calls,
+         staged_batches=TEL_STAGED_BATCHES, staged_windows=staged_windows,
+         staged_reads=staged.calls, row_losses_equal_fit_losses=row_losses_equal,
+         rows=rows, train_steps_total=steps_total,
+         performance_listener=perf[-2:], grad_norm=norm_runs, norm_limit=TEL_NORM_REL,
+         memory_report_totals=totals, memory_report_top=report["top_consumers"],
+         memory_report_allocated_bytes=allocated_by_report,
+         live_param_bytes=param_bytes, live_opt_state_bytes=opt_bytes,
+         projected_peak_gib=totals["projected_peak_bytes"] / 2 ** 30,
+         max_memory_allocated_gib=peak / 2 ** 30, ms_per_update_runs=timed,
+         ms_per_update=ms, telemetry_share={
+             path: d["on"] / d["off"] - 1.0 for path, d in ms.items()},
+         sgd_replayed_ms_runs=sgd_ms, sgd_replayed_ms_per_update=statistics.median(sgd_ms),
+         lamb_minus_sgd_replayed_ms=ms["replayed"]["off"] - statistics.median(sgd_ms),
+         kernel_launches=launches, phase_seconds=time.perf_counter() - t0, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("telemetry on ResNet-50 failed its checks")
+    return launches, {"lamb_ms_per_update": ms,
+                      "sgd_replayed_ms_per_update": statistics.median(sgd_ms),
+                      "memory_report_projected_gib":
+                      totals["projected_peak_bytes"] / 2 ** 30,
+                      "max_memory_allocated_gib": peak / 2 ** 30}
+
+
+def updater_char_rnn_conf(name, backprop="tbptt"):
+    from deeplearning4j_tpu_torch import UpdaterConfig, char_rnn
+
+    conf = char_rnn(VOCAB, HIDDEN, LAYERS, tbptt_length=TBPTT)
+    conf.updater = UpdaterConfig(updater=name, learning_rate=UPD_LR).to_dict()
+    conf.backprop_type = backprop
+    return conf
+
+
+def phase_updaters_char_rnn(torch, host_params, card):
+    """The seven optax updaters on the char-RNN at full width (vocab 96,
+    H=512, 2 layers, B=64), from the same weights: each trains one batch
+    of UPD_T steps under TBPTT(50) (3 updates) on the card and the CPU, held
+    by recipe_readings at UPD_LIMITS; adadelta at the conf's learning rate
+    caught. Then each trains a staged window of STAGED_K standard-backprop
+    updates (T=256) on the card against per-batch fit over the same batches
+    from the same weights: the losses and params bit for bit. Returns
+    (launch counts, ms per staged update by updater)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, ops, params_to_numpy
+    from deeplearning4j_tpu_torch.nn.updaters import build_schedule
+
+    batches = char_batches(STAGED_K, SEED + 95)
+    x, y = (a[:, :UPD_T] for a in batches[0])
+    xs = torch.as_tensor(np.stack([b[0] for b in batches]), device=DEVICE)
+    ys = torch.as_tensor(np.stack([b[1] for b in batches]), device=DEVICE)
+
+    def train(name, dev, fault=False):
+        net = load_jax_params(MultiLayerNetwork(updater_char_rnn_conf(name), device=dev),
+                              host_params)
+        if fault:
+            net._updater_ready().schedule = build_schedule(UPD_LR)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        net.fit((x, y))
+        return net, np.array([float(l) for l in rec.losses]), params_to_numpy(net)
+
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    results, staged_ms = {}, {}
+    for name in UPDATERS_SEVEN:
+        card_run, cpu_run = train(name, "cuda"), train(name, "cpu")
+        r = recipe_readings(card_run, cpu_run, host_params, lr=UPD_LR)
+        r["within"] = within_limits(r, UPD_LIMITS_BY.get(name, UPD_LIMITS))
+        r["updates"] = len(card_run[1])
+        if name == "adadelta":
+            f = recipe_readings(train(name, "cuda", fault=True), cpu_run, host_params,
+                                lr=UPD_LR)
+            f["caught"] = not within_limits(f, UPD_LIMITS)
+            r["fault_adadelta_at_conf_lr"] = f
+        del card_run
+        # the staged window against per-batch fit, on the card
+        staged = load_jax_params(MultiLayerNetwork(updater_char_rnn_conf(name, "standard")),
+                                 host_params)
+        plain = load_jax_params(MultiLayerNetwork(updater_char_rnn_conf(name, "standard")),
+                                host_params)
+        staged.warmup(xs, ys)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = staged.fit_on_device(xs, ys)
+        torch.cuda.synchronize()
+        staged_ms[name] = (time.perf_counter() - t1) * 1e3 / STAGED_K
+        want = []
+        for i in range(STAGED_K):
+            plain.fit((xs[i], ys[i]))
+            want.append(plain.score())
+        r["staged_bit_for_bit"] = (np.array_equal(losses, np.float32(want)) and all(
+            torch.equal(p, q) for p, q in zip(staged.parameters(), plain.parameters())) and all(
+            torch.equal(a, b) for a, b in zip(staged.updater_state_leaves(),
+                                              plain.updater_state_leaves())))
+        r["staged_replays"] = staged._step_graphs.replays
+        r["replays_expected"] = STAGED_K if staged.device.type == "cuda" else 0
+        results[name] = r
+        del staged, plain
+        gc_collect(torch)
+    torch.cuda.synchronize()
+    launches = ops.counters()
+    ok = (all(r["within"] and r["staged_bit_for_bit"] and r["updates"] == UPD_T // TBPTT
+              and r["staged_replays"] == r["replays_expected"] for r in results.values())
+          and results["adadelta"]["fault_adadelta_at_conf_lr"]["caught"]
+          and all(launches.get(k, 0) > 0 for k in SLICE20_ROWS["updaters_char_rnn"]))
+    emit("updaters_char_rnn", B=BATCH, H=HIDDEN, layers=LAYERS, vocab=VOCAB,
+         compared_steps=UPD_T, tbptt=TBPTT, staged_T=STEPS, staged_window=STAGED_K,
+         lr=UPD_LR, readings_vs_cpu=results, limits=UPD_LIMITS, limits_by_updater=UPD_LIMITS_BY,
+         staged_ms_per_update=staged_ms, kernel_launches=launches, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("the seven updaters on the char-RNN failed their checks")
+    return launches, staged_ms
+
+
+def phase_solver_iris(torch, card):
+    """Solver("lbfgs"), "conjugate_gradient" and "line_gradient_descent" on
+    the Iris pin's MLP from JAX's weights (REAL_DATA_INIT), full set of 150
+    (the bundled iris.csv), SOLVER_ITERATIONS each from the same weights on
+    the card and the CPU: the score after each at SOLVER_SCORE_REL of the
+    CPU's, its score history too; the full-set accuracy of each. Returns
+    (launch counts, the card's seconds by solver)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import DataSet, MultiLayerNetwork, load_jax_params, ops
+    from deeplearning4j_tpu_torch.datasets.fetchers import load_iris
+    from deeplearning4j_tpu_torch.optimize.solvers import Solver
+
+    xf, yi = load_iris()
+    data = DataSet(xf, one_hot(yi, 3))
+    conf, host = real_data_models()["iris"][1], real_data_host("iris")
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    out, seconds = {}, {}
+    for algorithm in SOLVERS:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+            solver = Solver(algorithm, max_iterations=SOLVER_ITERATIONS)
+            t1 = time.perf_counter()
+            score = solver.optimize(net, data)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                seconds[algorithm] = time.perf_counter() - t1
+            runs[dev] = (score, solver.score_history, net.evaluate(data).accuracy())
+        (cs, ch, ca), (ps, ph, pa) = runs["cuda"], runs["cpu"]
+        hist_rel = (max(abs(a - b) / abs(b) for a, b in zip(ch, ph))
+                    if len(ch) == len(ph) else float("inf"))
+        out[algorithm] = {"score": cs, "cpu_score": ps, "score_rel": abs(cs - ps) / abs(ps),
+                          "history_rel": hist_rel, "iterations": len(ch),
+                          "start_score": ch[0], "accuracy": ca, "cpu_accuracy": pa}
+    torch.cuda.synchronize()
+    launches = ops.counters()
+    ok = (all(r["score_rel"] <= SOLVER_SCORE_REL and r["history_rel"] <= SOLVER_SCORE_REL
+              and r["score"] < r["start_score"] for r in out.values())
+          and launches.get("softmax_xent_fwd", 0) > 0
+          and launches.get("softmax_xent_bwd", 0) > 0)
+    emit("solver_iris", examples=len(xf), iterations=SOLVER_ITERATIONS, solvers=out,
+         limit=SOLVER_SCORE_REL, card_seconds=seconds, kernel_launches=launches, ok=ok,
+         gpu=card)
+    if not ok:
+        raise AssertionError("the solvers on Iris failed their checks")
+    return launches, seconds
+
+
+def phase_watchdog_flight(torch, card):
+    """The MNIST MLP (B=512, Adam) with one batch's features NaN, per batch
+    (WATCH_BATCHES: 6 batches, the 3rd poisoned; fetch_every 2) and staged
+    (8 batches in windows of 4, the 6th poisoned), each under a Watchdog
+    (grad_norm_limit WATCH_NORM_LIMIT, below every finite step's norm) and
+    a FlightRecorder: the first nan-loss anomaly at the poisoned iteration,
+    read from the fetched row; exploding-grad-norm at the first iteration;
+    a dump bundle for each kind, whose events hold the step rows (the
+    poisoned one non-finite) and, staged, the windows. Returns (launch
+    counts, the bundles' sizes)."""
+    import math
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch import (DataSet, ListDataSetIterator, MnistDataSetIterator,
+                                          MultiLayerNetwork, load_jax_params, ops)
+    from deeplearning4j_tpu_torch.telemetry import (FlightRecorder, MetricsRegistry,
+                                                    Telemetry, Watchdog)
+
+    B, conf = mnist_models()["mlp"]
+    host = conf_host(conf)
+    base = [DataSet(ds.features.reshape(-1, 784), ds.labels)
+            for ds in MnistDataSetIterator(batch=B, num_examples=B * 8)]
+    tmp = tempfile.mkdtemp(prefix="dl4j_flight_")
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    out = {}
+    try:
+        for mode, (n, poisoned) in (("per_batch", WATCH_BATCHES),
+                                    ("staged", WATCH_STAGED_BATCHES)):
+            data = [DataSet(base[i].features.copy(), base[i].labels) for i in range(n)]
+            data[poisoned].features[:] = float("nan")
+            reg = MetricsRegistry()
+            fr = FlightRecorder(registry=reg, dump_dir=os.path.join(tmp, mode))
+            wd = Watchdog(sinks=[], registry=reg, grad_norm_limit=WATCH_NORM_LIMIT)
+            net = load_jax_params(MultiLayerNetwork(conf), host)
+            net.set_telemetry(Telemetry(registry=reg, fetch_every=2, watchdog=wd,
+                                        flight_recorder=fr))
+            net.fit(ListDataSetIterator(data), stage_on_device=STAGED_K if mode == "staged"
+                    else None)
+            torch.cuda.synchronize()
+            first = {}
+            for e in wd.events:
+                first.setdefault(e.kind, e.iteration)
+            bundles = {}
+            for path in fr.dumps:
+                with open(path) as fh:
+                    b = json.load(fh)
+                bundles[b["reason"]] = b
+            nan_bundle = bundles.get("nan-loss", {"events": []})
+            steps = [e for e in nan_bundle["events"] if e["kind"] == "step"]
+            poisoned_row = next((e for e in steps if e["iteration"] == poisoned + 1), None)
+            out[mode] = {
+                "batches": n, "poisoned_iteration": poisoned + 1,
+                "first_nan_loss": first.get("nan-loss"),
+                "first_exploding_grad_norm": first.get("exploding-grad-norm"),
+                "dump_reasons": sorted(bundles), "bundle_step_rows": len(steps),
+                "poisoned_row": poisoned_row,
+                "staged_windows_in_bundle": sum(e["kind"] == "staged_dispatch"
+                                                for e in nan_bundle["events"]),
+                "bundle_bytes": sum(os.path.getsize(p) for p in fr.dumps),
+                "anomalies_total": reg.snapshot()["dl4jtpu_anomalies_total"]["values"]}
+            del net
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = ops.counters()
+    ok = all(
+        r["first_nan_loss"] == r["poisoned_iteration"] and r["first_exploding_grad_norm"] == 1
+        and r["dump_reasons"] == ["exploding-grad-norm", "nan-loss"]
+        and r["poisoned_row"] is not None and r["poisoned_row"]["nonfinite"] == 1.0
+        and r["bundle_step_rows"] >= r["poisoned_iteration"]
+        and (mode == "per_batch" or r["staged_windows_in_bundle"] >= 2)
+        for mode, r in out.items())
+    ok = ok and all(launches.get(k, 0) > 0 for k in SLICE20_ROWS["watchdog_flight"])
+    emit("watchdog_flight", B=B, grad_norm_limit=WATCH_NORM_LIMIT, runs=out,
+         kernel_launches=launches, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("the watchdog and flight recorder failed their checks")
+    return launches, {m: r["bundle_bytes"] for m, r in out.items()}
+
+
+def phases_slice20(torch, card, res_host, host_params):
+    """Slice 20's phases, each counting from 0. Returns (launches by path,
+    times by path)."""
+    launches, times = {}, {}
+    t0 = time.perf_counter()
+    launches["telemetry_resnet50"], times["telemetry_resnet50"] = phase_telemetry_resnet50(
+        torch, res_host, card)
+    launches["updaters_char_rnn"], times["updaters_char_rnn"] = phase_updaters_char_rnn(
+        torch, host_params, card)
+    launches["solver_iris"], times["solver_iris"] = phase_solver_iris(torch, card)
+    launches["watchdog_flight"], times["watchdog_flight"] = phase_watchdog_flight(torch, card)
+    times["seconds"] = time.perf_counter() - t0
+    return launches, times
+
+
+def kernels_slice20(torch, sx, card):
+    """Rows 10-11 at the solvers' head (N=150, C=3), the one shape of slice
+    20's paths that no earlier phase holds, against their plain versions,
+    then timed beside them, their bounds and the library call. Returns
+    {(path, kernel): (max abs err, times, shape)}."""
+    out = {}
+    N, C = 150, 3
+    e = sxent_case(torch, sx, N, C, "float32", "one_hot", SEED + 150)
+    for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card,
+                                "the solvers' Iris head").items():
+        out[("solver_iris", k)] = (e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"]),
+                                   t, f"N={N} C={C}")
+    return out
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -6931,6 +7593,17 @@ def main() -> int:
     for path, rows in SLICE19_ROWS.items():
         for k in rows:
             new_path_launches[(path, k)] = s19_launches[path].get(k, 0)
+    # ---- 4m. slice 20: training observability and the rest of the
+    # optimizers (ResNet-50 on LAMB under telemetry, the seven updaters on
+    # the char-RNN, the solvers on Iris, the watchdog and flight recorder on
+    # the MNIST MLP; rows 6-7, 10-12); each phase counts from 0
+    s20_launches, s20_times = phases_slice20(torch, card, res_host, host_params)
+    for counts in s20_launches.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for path, rows in SLICE20_ROWS.items():
+        for k in rows:
+            new_path_launches[(path, k)] = s20_launches[path].get(k, 0)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -7016,6 +7689,7 @@ def main() -> int:
                                {"seq_classifier": seq_shapes,
                                 "moe_attention": moe_runs["float32"][2]})
     s19_rows = kernels_slice19(torch, sx, ad, card, s19_shapes)
+    s20_rows = kernels_slice20(torch, sx, card)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -7183,6 +7857,22 @@ def main() -> int:
                         "kernel_device_ms": t.get("kernel_device_ms")}
             line.update(name=f"{k}@{path}", launches=new_path_launches[(path, k)])
             lines.append(line)
+    # rows 6-7, 10-12 at the shapes of slice 20's paths
+    main_lines = {line["name"]: line for line in lines}
+    for path, rows in SLICE20_ROWS.items():
+        for k, main in rows.items():
+            if main is not None:
+                line = dict(main_lines[main], shape=f"{main}'s ({main_lines[main]['shape']})")
+            else:
+                err, t, shape = s20_rows[(path, k)]
+                source, replaces = KERNELS[k]
+                line = {"route": "cuda", "source": source, "replaces": replaces,
+                        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
+                        "kernel_device_ms": t.get("kernel_device_ms")}
+            line.update(name=f"{k}@{path}", launches=new_path_launches[(path, k)])
+            lines.append(line)
     # beside each row's launches (which count a captured step's warm-up
     # steps and capture), the launches that the replays of slice 17's
     # captured steps made (LeNet's alone for its own row)
@@ -7217,6 +7907,7 @@ def main() -> int:
                       "time on the card a call, from the profiler (null where not measured)",
                       "slice18_ms": s18_times,
                       "slice19_ms": s19_times,
+                      "slice20": s20_times,
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

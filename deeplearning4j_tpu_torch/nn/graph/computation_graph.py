@@ -39,8 +39,10 @@ compute and param dtypes, the listeners, the updater and its state.
   ``rnn_get_previous_state``; h/c live in a dict by vertex name ({} for a
   vertex without them). ``fit`` leaves the streaming state as it was.
 
-Telemetry, ``memory_report``, ``preflight`` and ``analyze_ir`` are not
-ported yet (ROADMAP.md Queue 1) and raise ``NotImplementedError``.
+- Telemetry (``set_telemetry``), the listeners' gradient view
+  (``needs_gradients``), ``memory_report`` and ``preflight`` are
+  ``MultiLayerNetwork``'s (``BaseNetwork``). ``analyze_ir`` is not ported
+  yet (ROADMAP.md Queue 1) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ def _later(what: str):
 
 class ComputationGraph(BaseNetwork):
     """DAG network over a :class:`ComputationGraphConfiguration`."""
+
+    _flight_name = "graph"  # the staged window's flight-recorder event names it
 
     def __init__(self, conf: ComputationGraphConfiguration, device="cuda"):
         super().__init__(conf, device)
@@ -160,7 +164,7 @@ class ComputationGraph(BaseNetwork):
 
     # ------------------------------------------------------- functional core
     def _activations(self, params, inputs, masks=None, *, train: bool = False,
-                     skip=(), rnn_state=None):
+                     skip=(), rnn_state=None, state=None):
         """The topological forward (reference: ComputationGraph's
         feed-forward loop): every vertex's activation but those in
         ``skip``, the new layer state, from ``self.state``, and the new
@@ -171,15 +175,17 @@ class ComputationGraph(BaseNetwork):
         vertex; reference: rnnActivateUsingStoredState) threads LSTM h/c
         across TBPTT segments and streaming calls: a vertex with h/c runs
         ``apply_seq`` from it. Returns (acts, new layer state, new recurrent
-        state or None)."""
+        state or None). ``state`` stands in for ``self.state`` (the memory
+        report's meta tensors)."""
         conf = self.conf
+        state = self.state if state is None else state
         acts = dict(zip(conf.network_inputs, inputs))
         vmasks = dict(masks or {})
         # the one-mask convenience: a single mask reaches every layer
         non_null = [m for m in vmasks.values() if m is not None]
         vmasks["features"] = non_null[0] if len(non_null) == 1 else None
         gen = self._generator if train else None
-        new_state = dict(self.state)
+        new_state = dict(state)
         new_rnn = dict(rnn_state) if rnn_state is not None else None
         for name in self._topo:
             if name in skip:
@@ -190,7 +196,7 @@ class ComputationGraph(BaseNetwork):
                     params[name], ins, new_rnn[name], train=train, generator=gen, masks=vmasks)
             else:
                 acts[name], new_state[name] = vertex.apply(
-                    params[name], ins, self.state[name], train=train, generator=gen,
+                    params[name], ins, state[name], train=train, generator=gen,
                     masks=vmasks)
         return acts, new_state, new_rnn
 
@@ -359,6 +365,8 @@ class ComputationGraph(BaseNetwork):
             else:
                 for ds in it:
                     self._fit_batch(as_multi(ds))
+        if self.telemetry is not None:
+            self.telemetry.flush()  # a partial K-window at the end of fit
         return self
 
     @staticmethod
@@ -529,7 +537,7 @@ class ComputationGraph(BaseNetwork):
             loss, self.state, new_rnn = self._loss(
                 xs, ys, None if all(m is None for m in lms) else lms, self._masks_of(fms),
                 rnn_state=rnn)
-            self._update(loss)
+            self._update(loss, tbptt=True)
             rnn = {name: {key: t.detach() for key, t in st.items()}
                    for name, st in new_rnn.items()}
 
@@ -590,9 +598,6 @@ class ComputationGraph(BaseNetwork):
         return self._rnn_state.get(vertex_name) or None
 
     # ------------------------------------------------- not ported yet (later)
-    set_telemetry = _later("set_telemetry")
-    memory_report = _later("memory_report")
-    preflight = _later("preflight")
     analyze_ir = _later("analyze_ir")
 
 

@@ -79,6 +79,7 @@ from ..datasets.iterators import (AsyncDataSetIterator, DataSet, DevicePrefetchI
                                   MultiDataSet, as_iterator)
 from ..eval.evaluation import Evaluation
 from ..runtime.step_graphs import StepGraph, StepGraphs, signature
+from ..telemetry import device as _tdev
 from .conf.multi_layer import MultiLayerConfiguration
 from .layers.frozen import FrozenLayer
 from .layers.normalization import BatchNormalization
@@ -194,6 +195,13 @@ class BaseNetwork(torch.nn.Module):
         self.last_batch_size: Optional[int] = None
         self.staged_steps_total = 0  # updates taken by fit_on_device
         self.staged_step_time: Optional[float] = None  # set while its listeners run
+        self.telemetry = None  # telemetry.Telemetry session (set_telemetry)
+        # what a listener's flags ask for, kept only while it runs:
+        # needs_input (the batch's features), needs_gradients (the update's
+        # gradients and updates, on its frequency's iterations)
+        self._last_input = None
+        self._last_grads = None
+        self._last_updates = None
 
     @property
     def params_dtype(self) -> torch.dtype:
@@ -330,6 +338,45 @@ class BaseNetwork(torch.nn.Module):
     def add_listener(self, listener) -> None:
         self.listeners.append(listener)
 
+    def set_telemetry(self, telemetry):
+        """Attach a :class:`telemetry.Telemetry` session to the fit paths
+        (None detaches). With a session attached each update also computes
+        the device-side metrics vector (loss, grad norm of the unscaled
+        gradients, non-finite flag: ``telemetry.device.step_stats``) and
+        hands it to ``telemetry.on_step``, which reads the device once per
+        ``fetch_every`` steps; a staged window's captured step writes its
+        vector into a window buffer that the window's one read brings back
+        with the losses (``on_staged``)."""
+        self.telemetry = telemetry
+        return self
+
+    def _wants_grad_stats(self) -> bool:
+        """True when some listener will read the gradients and updates on
+        the iteration about to run: a ``needs_gradients`` listener whose
+        ``frequency`` divides it."""
+        nxt = self.iteration + 1
+        return any(getattr(lst, "needs_gradients", False)
+                   and nxt % max(1, getattr(lst, "frequency", 1)) == 0
+                   for lst in self.listeners)
+
+    def memory_report(self, batch_or_struct=None) -> dict:
+        """Per-layer device-memory attribution (param, gradient, optimizer
+        and activation bytes) at a batch size or example arrays, from a
+        forward on meta tensors: nothing allocates. See
+        :func:`deeplearning4j_tpu_torch.telemetry.memory_report`."""
+        from ..telemetry.memory import memory_report
+
+        return memory_report(self, batch_or_struct)
+
+    def preflight(self, batch_or_struct=None, **kw) -> dict:
+        """Will this net and batch fit in device memory? Raises
+        :class:`~deeplearning4j_tpu_torch.telemetry.MemoryPreflightError`
+        naming the biggest consumers; returns the annotated memory report
+        when it fits. See :func:`deeplearning4j_tpu_torch.telemetry.preflight`."""
+        from ..telemetry.memory import preflight
+
+        return preflight(self, batch_or_struct, **kw)
+
     def _updater_ready(self):
         """The updater of ``conf.updater``, built with a fresh state the
         first time it is needed after ``init``."""
@@ -361,12 +408,21 @@ class BaseNetwork(torch.nn.Module):
                                               allow_unused=True, materialize_grads=True))
         return unscale_grads([{k: next(flat_grads) for k in layer} for layer in leaves], ls)
 
-    def _update(self, loss: torch.Tensor) -> None:
+    def _update(self, loss: torch.Tensor, tbptt: bool = False) -> None:
         """One update from ``loss``: backward, unscale, update the leaves in
-        place; then the listeners."""
+        place; then the telemetry session's ``on_step`` (the metrics vector
+        of the unscaled gradients; of the loss alone for a TBPTT segment, as
+        in the JAX package) and the listeners, which see ``_last_grads`` and
+        ``_last_updates`` on a ``needs_gradients`` listener's iterations
+        (dropped once they have run)."""
         leaves = self._leaves()
         grads = self._grads(loss, leaves)
-        _, self._opt_state, new_params = optimizer_update(
+        tel = self.telemetry
+        mvec = None
+        if tel is not None:
+            mvec = _tdev.step_stats(loss, None if tbptt else grads)
+        keep = not tbptt and self._wants_grad_stats()
+        updates, self._opt_state, new_params = optimizer_update(
             self._updater, grads, self._opt_state, leaves)
         with torch.no_grad():
             for layer, new in zip(leaves, new_params):
@@ -375,8 +431,15 @@ class BaseNetwork(torch.nn.Module):
         self._compute_params = None
         self._last_loss = loss.detach()
         self.iteration += 1
+        if keep:
+            self._last_grads, self._last_updates = grads, updates
+        if tel is not None:
+            tel.on_step(self.iteration, mvec)
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration, self._last_loss)
+        # the listeners have read what they need: hold no gradients
+        self._last_grads = None
+        self._last_updates = None
 
     # ------------------------------------------------- the staged loop
     # each network's ``_staged_args`` checks a window's stacked arrays and
@@ -403,17 +466,19 @@ class BaseNetwork(torch.nn.Module):
                     if new[k] is not t:
                         t.copy_(new[k])
 
-    def _graph_step(self, entry: StepGraph) -> torch.Tensor:
+    def _graph_step(self, entry: StepGraph):
         """One training step on ``entry``'s static buffers: the loss, the
         gradients, the update with the step's scalars, and the new layer
         state, all written in place. What a capture records; on the CPU the
-        staged loop runs it as it is. Returns the loss."""
+        staged loop runs it as it is. Returns the loss and, when telemetry
+        rides the run, the step's metrics vector (else None)."""
         loss, new_state = self._staged_loss(entry.batch)
         leaves = self._leaves()
-        optimizer_update_in_place(self._updater, self._grads(loss, leaves), self._opt_state,
-                                  leaves, entry.scalars)
+        grads = self._grads(loss, leaves)
+        mvec = _tdev.step_stats(loss, grads) if self.telemetry is not None else None
+        optimizer_update_in_place(self._updater, grads, self._opt_state, leaves, entry.scalars)
         self._write_state(new_state)
-        return loss.detach().float()
+        return loss.detach().float(), mvec
 
     def _bind_statics(self) -> None:
         """Point the updater state and the layer state at the staged loop's
@@ -477,7 +542,7 @@ class BaseNetwork(torch.nn.Module):
         graph.register_generator_state(self._generator)
         before = ops.counters()
         with torch.cuda.graph(graph, pool=self._step_graphs.pool):
-            entry.loss = self._graph_step(entry)
+            entry.loss, entry.mvec = self._graph_step(entry)
         entry.launches = {k: n - before[k] for k, n in ops.counters().items()
                           if n != before[k]}
         entry.graph = graph
@@ -491,7 +556,7 @@ class BaseNetwork(torch.nn.Module):
         self._bind_statics()
         key = signature([None if t is None else t[0] for t in stacked], self.conf.updater,
                         self.conf.loss_scale, str(self.compute_dtype),
-                        str(self.params_dtype))
+                        str(self.params_dtype), self.telemetry is not None)
         entry = self._step_graphs.get(key)
         if entry is None:
             entry = StepGraph(batch=[None if t is None else torch.empty_like(t[0])
@@ -502,17 +567,27 @@ class BaseNetwork(torch.nn.Module):
             self._step_graphs.put(key, entry)
         return entry
 
+    @staticmethod
+    def _stats_rows(rows: torch.Tensor) -> list:
+        """Where each step of a window writes its metrics vector: row i of
+        the window buffer."""
+        return list(rows)
+
     def _start_window(self, stacked: list, steps, real_batches):
         """Queue ``steps`` updates on ``stacked`` (see ``fit_on_device``):
         replay the captured step (on the CPU, run it) once per update after
-        the copies of its batch and scalars, each loss into a device buffer;
-        then the counts and the caches. Returns what ``_finish_window``
-        reads."""
+        the copies of its batch and scalars, each loss (and with telemetry
+        on, each metrics vector beside it) into a device buffer; then the
+        counts and the caches. Returns what ``_finish_window`` reads."""
         n_steps, n_real = _real_batches(_staged_dim0(stacked[0]), steps, real_batches)
         entry = self._step_entry(stacked)
         table = torch.from_numpy(step_scalars(self._updater, self._opt_state, n_steps)
                                  ).to(self.device)
-        losses = torch.empty(n_steps, dtype=torch.float32, device=self.device)
+        tel = self.telemetry is not None
+        # one buffer, one read: column 0 the losses, then the metrics vectors
+        buf = torch.empty(n_steps, 1 + (_tdev.NUM_SLOTS if tel else 0), dtype=torch.float32,
+                          device=self.device)
+        rows = self._stats_rows(buf[:, 1:]) if tel else None
         t0 = time.perf_counter()
         for i in range(n_steps):
             self._load_slot(entry, stacked, i % n_real)
@@ -521,34 +596,48 @@ class BaseNetwork(torch.nn.Module):
                 entry.graph.replay()
                 entry.replays += 1
                 self._step_graphs.replays += 1
-                loss = entry.loss
+                loss, mvec = entry.loss, entry.mvec
             else:
-                loss = self._graph_step(entry)
-            losses[i].copy_(loss)
+                loss, mvec = self._graph_step(entry)
+            buf[i, 0].copy_(loss)
+            if tel:
+                rows[i].copy_(mvec)
         self._opt_state = advance_counts(self._opt_state, n_steps)
         self._compute_params = None
         self.last_batch_size = int(stacked[0].shape[1])
         self.staged_steps_total += n_steps
-        return losses, t0
+        return buf, t0, int(stacked[0].shape[0]), int(stacked[0].shape[1])
 
     def _finish_window(self, queued) -> np.ndarray:
-        """Read a queued window's losses (the window's one wait for the
-        device), then run the listeners once per step."""
-        losses, t0 = queued
-        host = losses.cpu()
+        """Read a queued window's losses, and with telemetry on its metrics
+        rows, in the window's one wait for the device; hand the rows to the
+        telemetry session (``on_staged``), then run the listeners once per
+        step."""
+        buf, t0, slots, batch = queued
+        host = buf.cpu()
         elapsed = time.perf_counter() - t0
+        n = len(host)
+        tel = self.telemetry if host.shape[1] > 1 else None  # rows written at the start
+        if tel is not None:
+            if tel.flight is not None:
+                tel.flight.record("staged_dispatch", net=self._flight_name, steps=n,
+                                  slots=slots, batch=batch,
+                                  seconds=round(elapsed, 6))
+            tel.on_staged(self.iteration + 1, host[:, 1:],
+                          per_step_time_s=elapsed / max(n, 1))
+        losses = host[:, 0].contiguous()
         # the listeners run in a tight loop after the window: publish each
         # step's even share of the window's time for throughput listeners
-        self.staged_step_time = elapsed / max(len(host), 1)
+        self.staged_step_time = elapsed / max(n, 1)
         try:
-            for loss in host:
+            for loss in losses:
                 self.iteration += 1
                 self._last_loss = loss
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration, loss)
         finally:
             self.staged_step_time = None
-        return host.numpy()
+        return losses.numpy()
 
     def _staged_window(self, stacked: list, steps, real_batches) -> np.ndarray:
         return self._finish_window(self._start_window(stacked, steps, real_batches))
@@ -626,6 +715,8 @@ class BaseNetwork(torch.nn.Module):
 
 class MultiLayerNetwork(BaseNetwork):
     """Sequential network over a :class:`MultiLayerConfiguration`."""
+
+    _flight_name = "mln"  # the staged window's flight-recorder event names it
 
     def __init__(self, conf: MultiLayerConfiguration, device="cuda",
                  lstm_variant: str = "seqfused"):
@@ -859,6 +950,8 @@ class MultiLayerNetwork(BaseNetwork):
             else:
                 for ds in it:
                     self._fit_batch(ds if isinstance(ds, DataSet) else DataSet(*ds))
+        if self.telemetry is not None:
+            self.telemetry.flush()  # a partial K-window at the end of fit
         return self
 
     @staticmethod
@@ -936,13 +1029,17 @@ class MultiLayerNetwork(BaseNetwork):
         returned is stored. Returns the new streaming state, detached."""
         loss, new_state, new_rnn = self._loss(x, y, labels_mask, features_mask, rnn_state)
         self.state = new_state
-        self._update(loss)
+        self._update(loss, tbptt=rnn_state is not None)
         if new_rnn is None:
             return None
         return tuple({k: t.detach() for k, t in st.items()} for st in new_rnn)
 
     def _fit_batch(self, ds: DataSet) -> None:
         self.last_batch_size = int(ds.features.shape[0])
+        # the batch's features, kept only while a listener needs them (a
+        # reference, no copy)
+        self._last_input = (ds.features if any(getattr(lst, "needs_input", False)
+                                               for lst in self.listeners) else None)
         x = self._input(ds.features)
         if self.conf.backprop_type == "tbptt" and x.dim() == 3:
             self._fit_tbptt(x, ds)

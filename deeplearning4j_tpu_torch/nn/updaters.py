@@ -9,11 +9,17 @@ same steps:
   every policy of the JAX package;
 - :func:`gradient_normalization` by every mode;
 - :class:`UpdaterConfig` is the same JSON dict; ``build()`` gives an
-  :class:`Updater` for ``sgd``, ``momentum`` and ``nesterovs`` (optax's
-  ``sgd`` with and without ``trace``), ``adam`` (optax's ``adam``, with
-  the arithmetic of the JAX package's fused path, every leaf of an update
-  in one grouped call, ``ops.adam.fused_adam_update_leaves``) and
-  ``none``/``noop`` (optax's
+  :class:`Updater` for every updater of the JAX package: ``sgd``,
+  ``momentum`` and ``nesterovs`` (optax's ``sgd`` with and without
+  ``trace``), ``adam`` (optax's ``adam``, with the arithmetic of the JAX
+  package's fused path, every leaf of an update in one grouped call,
+  ``ops.adam.fused_adam_update_leaves``), ``adamw``, ``adamax``,
+  ``adadelta``, ``adagrad``, ``rmsprop``, ``lamb`` and ``lion`` (optax's
+  transforms as plain tensor ops, in optax's order of operations, with the
+  JAX package's arguments: adamw's default weight decay 1e-4; adadelta at
+  learning rate 1.0 whatever the conf says, with no schedule count;
+  adagrad's initial accumulator 0.1; rmsprop with eps inside the square
+  root; lamb and lion at optax's defaults) and ``none``/``noop`` (optax's
   ``set_to_zero``). The optax chain is ``(normalization, core)``, and the
   learning rate of update k is ``schedule(k)``.
 - :func:`opt_state_leaves` and :func:`opt_state_from_leaves` read and build
@@ -33,8 +39,7 @@ same steps:
   :func:`advance_counts` moves the counts on by the window's steps.
 
 Params, grads and updates are lists of per-layer dicts of tensors, as the
-JAX package's are tuples of dicts. The other optax updaters come in later
-slices of the port and raise ``NotImplementedError`` here.
+JAX package's are tuples of dicts.
 """
 
 from __future__ import annotations
@@ -50,10 +55,18 @@ from ..ops import adam as _adam
 
 Tree = List[Dict[str, torch.Tensor]]
 
-# updaters of the JAX package that the port does not run yet (ROADMAP.md
-# Queue 1)
-_LATER = ("adamw", "adamax", "adadelta", "adagrad", "rmsprop", "lamb", "lion")
-_PORTED = ("sgd", "momentum", "nesterovs", "adam", "none", "noop")
+_PORTED = ("sgd", "momentum", "nesterovs", "adam", "adamw", "adamax", "adadelta", "adagrad",
+           "rmsprop", "lamb", "lion", "none", "noop")
+# the cores that run as plain tensor ops (no Pallas kernel in the JAX
+# package either), with the state key each keeps its moments under
+_PLAIN_CORES = {"adamw": "adam", "adamax": "adam", "lamb": "adam", "lion": "lion",
+                "adagrad": "rss", "rmsprop": "rms", "adadelta": "adadelta"}
+# the cores whose scalar row carries Adam's bias corrections (bc1, bc2), or
+# bc1 alone
+_BIAS_CORRECTED = {"adam": 2, "adamw": 2, "lamb": 2, "adamax": 1}
+# the order of the core's state in the optax chain, before the schedule's
+# count
+_STATE_KEYS = ("adam", "lion", "rss", "rms", "adadelta", "trace")
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +196,6 @@ class UpdaterConfig:
 
     def build(self) -> "Updater":
         name = self.updater.lower()
-        if name in _LATER:
-            raise NotImplementedError(
-                f"updater '{self.updater}' is not ported yet (ROADMAP.md Queue 1); "
-                f"the port trains with {', '.join(_PORTED)}")
         if name not in _PORTED:
             raise ValueError(f"Unknown updater '{self.updater}'")
         sched = build_schedule(
@@ -194,12 +203,26 @@ class UpdaterConfig:
             self.lr_policy_power, self.lr_policy_steps, self.lr_policy_gamma,
             self.max_iterations, self.learning_rate_schedule)
         momentum = self.momentum if name in ("momentum", "nesterovs") else None
+        # the JAX package's arguments to each optax alias (nn/updaters.py
+        # UpdaterConfig.build): what it leaves out takes optax's default
+        hyper = {
+            "adamw": dict(b1=self.beta1, b2=self.beta2, eps=self.epsilon, weight_decay=1e-4),
+            "adamax": dict(b1=self.beta1, b2=self.beta2, eps=self.epsilon),
+            "adadelta": dict(rho=self.rho, eps=self.epsilon),
+            "adagrad": dict(eps=self.epsilon, initial=0.1),
+            "rmsprop": dict(decay=self.rms_decay, eps=self.epsilon, initial=0.0),
+            "lamb": dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.0),
+            "lion": dict(b1=0.9, b2=0.99, weight_decay=1e-3),
+        }.get(name)
+        if name == "adadelta":
+            sched = lambda it: 1.0  # noqa: E731 - optax.adadelta(learning_rate=1.0)
         return Updater(
             schedule=sched, momentum=momentum, nesterov=name == "nesterovs",
             zero=name in ("none", "noop"),
             normalize=gradient_normalization(
                 self.gradient_normalization, self.gradient_normalization_threshold),
-            adam=(self.beta1, self.beta2, self.epsilon) if name == "adam" else None)
+            adam=(self.beta1, self.beta2, self.epsilon) if name == "adam" else None,
+            core=name if name in _PLAIN_CORES else None, hyper=hyper)
 
 
 def _zeros_like(tree: Tree) -> Tree:
@@ -218,32 +241,52 @@ def bias_corrections(count: int, b1: float, b2: float,
 
 def step_scalars(tx: "Updater", state: dict, n: int) -> np.ndarray:
     """The scalars of the next ``n`` updates from ``state``, one f32 row
-    each: (the learning rate ``schedule(count + i)``, Adam's ``bc1`` and
-    ``bc2`` for its count ``+ i + 1``; 1 and 1 for the other updaters), the
-    values the per-batch path hands the update for the same counts. A
-    captured step reads its row through device memory."""
+    each: (the learning rate ``schedule(count + i)``, the bias corrections
+    ``bc1`` and ``bc2`` for the count of Adam's state ``+ i + 1``: both for
+    adam, adamw and lamb, bc1 alone for adamax, else 1), the values the
+    per-batch path hands the update for the same counts. adadelta keeps no
+    count: its rate is ``schedule(0)``, 1.0. A captured step reads its row
+    through device memory."""
     rows = np.ones((int(n), 3), np.float32)
     if tx.zero:
         return rows
-    c = state["count"]
+    c = state.get("count", 0)
     rows[:, 0] = [tx.schedule(c + i) for i in range(int(n))]
-    if tx.adam is not None:
-        b1, b2, _ = tx.adam
+    kind = tx.core or ("adam" if tx.adam is not None else None)
+    if kind in _BIAS_CORRECTED:
+        b1, b2, _ = tx.adam if tx.adam is not None else (tx.hyper["b1"], tx.hyper["b2"], None)
         ac = state["adam"]["count"]
-        rows[:, 1:] = [bias_corrections(ac + i + 1, b1, b2, torch.float32)
-                       for i in range(int(n))]
+        cols = _BIAS_CORRECTED[kind]
+        rows[:, 1:1 + cols] = [bias_corrections(ac + i + 1, b1, b2, torch.float32)[:cols]
+                               for i in range(int(n))]
     return rows
 
 
 def advance_counts(state: dict, n: int) -> dict:
     """``state`` after ``n`` updates whose tensors were written in place: the
-    schedule's count (and Adam's) moved on by ``n``."""
-    if "count" not in state:
-        return state
-    new = {**state, "count": state["count"] + int(n)}
-    if "adam" in state:
-        new["adam"] = {**state["adam"], "count": state["adam"]["count"] + int(n)}
+    schedule's count and the core's (Adam's, Lion's) moved on by ``n``;
+    adadelta's state has no count."""
+    new = dict(state)
+    if "count" in new:
+        new["count"] = state["count"] + int(n)
+    for key in ("adam", "lion"):
+        if key in state:
+            new[key] = {**state[key], "count": state[key]["count"] + int(n)}
     return new
+
+
+def _full_like(tree: Tree, value: float) -> Tree:
+    return [{k: torch.full_like(v, value) for k, v in layer.items()} for layer in tree]
+
+
+def _trust_ratio(u: List[torch.Tensor], p: List[torch.Tensor]) -> List[torch.Tensor]:
+    """optax's ``scale_by_trust_ratio`` (min_norm 0, coefficient 1, eps 0),
+    leaf by leaf: each ``u`` times ||p|| / ||u||, or times 1 where either
+    norm is 0 (the norms of all leaves in two grouped calls)."""
+    pn = torch.stack(torch._foreach_norm(p))
+    un = torch.stack(torch._foreach_norm(u))
+    ratio = torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(pn), pn / (un + 0.0))
+    return torch._foreach_mul(u, list(ratio.unbind()))
 
 
 @dataclass
@@ -251,11 +294,16 @@ class Updater:
     """optax's ``chain(normalization, core)`` with the core's state as a
     plain dict that holds what the optax state holds: {} for ``set_to_zero``
     (``zero``); else ``count`` (the schedule's step,
-    ``ScaleByScheduleState.count``), with ``trace`` (momentum and nesterovs:
-    ``TraceState``, a gradient-shaped list) or ``adam`` (``ScaleByAdamState``
-    as {"count", "mu", "nu"}). The core is ``sgd(schedule, momentum,
-    nesterov)``, ``adam(schedule, b1, b2, eps)`` (``adam`` = (b1, b2, eps))
-    or ``set_to_zero``."""
+    ``ScaleByScheduleState.count``; adadelta has none), with ``trace``
+    (momentum and nesterovs: ``TraceState``, a gradient-shaped list),
+    ``adam`` (``ScaleByAdamState`` as {"count", "mu", "nu"}: adam, adamw,
+    adamax, lamb), ``lion`` (``ScaleByLionState`` as {"count", "mu"}),
+    ``rss`` (adagrad's ``ScaleByRssState.sum_of_squares``), ``rms``
+    (rmsprop's ``ScaleByRmsState.nu``) or ``adadelta``
+    (``ScaleByAdaDeltaState`` as {"e_g", "e_x"}). The core is ``sgd(schedule,
+    momentum, nesterov)``, ``adam(schedule, b1, b2, eps)`` (``adam`` = (b1,
+    b2, eps)), one of the plain-op cores (``core``, with its arguments in
+    ``hyper``) or ``set_to_zero``."""
 
     schedule: Callable[[int], float]
     momentum: Optional[float]
@@ -263,27 +311,43 @@ class Updater:
     zero: bool
     normalize: Callable[[Tree], Tree]
     adam: Optional[Tuple[float, float, float]] = None
+    core: Optional[str] = None
+    hyper: Optional[dict] = None
 
     def init(self, params: Tree) -> dict:
         if self.zero:
             return {}
-        state: dict = {"count": 0}
-        if self.adam is not None:
-            state["adam"] = {"count": 0, "mu": _zeros_like(params),
-                             "nu": _zeros_like(params)}
+        core = self.core
+        if core == "adadelta":
+            return {"adadelta": {"e_g": _zeros_like(params), "e_x": _zeros_like(params)}}
+        state: dict = {}
+        if self.adam is not None or _PLAIN_CORES.get(core) == "adam":
+            state["adam"] = {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params)}
+        elif core == "lion":
+            state["lion"] = {"count": 0, "mu": _zeros_like(params)}
+        elif core == "adagrad":
+            state["rss"] = _full_like(params, self.hyper["initial"])
+        elif core == "rmsprop":
+            state["rms"] = _full_like(params, self.hyper["initial"])
         elif self.momentum is not None:
             state["trace"] = _zeros_like(params)
+        state["count"] = 0
         return state
 
-    def update(self, grads: Tree, state: dict, scalars: Optional[torch.Tensor] = None):
+    def update(self, grads: Tree, state: dict, scalars: Optional[torch.Tensor] = None,
+               params: Optional[Tree] = None):
         """(updates, new_state): updates are to be added to the params.
         ``scalars`` (a row of :func:`step_scalars` on the grads' device) takes
-        the place of the schedule's value and Adam's bias corrections for the
-        count in ``state``: the form of a captured step."""
+        the place of the schedule's value and the bias corrections for the
+        count in ``state``: the form of a captured step. ``params`` (the
+        params before the update) feed the weight decay of adamw and lion
+        and lamb's trust ratio."""
         grads = self.normalize(grads)
         if self.zero:
             return [{k: torch.zeros_like(g) for k, g in layer.items()}
                     for layer in grads], state
+        if self.core is not None:
+            return self._plain(grads, state, scalars, params)
         new = {**state, "count": state["count"] + 1}
         if self.adam is not None:
             updates, new["adam"] = self._adam(grads, state, scalars)
@@ -300,6 +364,88 @@ class Updater:
                 grads = new["trace"]
         step = -self.schedule(state["count"]) if scalars is None else -scalars[0]
         return [{k: step * g for k, g in layer.items()} for layer in grads], new
+
+    def _plain(self, grads: Tree, state: dict, scalars: Optional[torch.Tensor],
+               params: Optional[Tree]):
+        """The plain-op cores, every leaf at once through ``torch._foreach_*``
+        ops (grouped launches) in optax's order of operations, then
+        ``scale_by_learning_rate``. The learning rate and the bias
+        corrections are 0-d tensors on the grads' device in both forms (the
+        per-batch one fills them from :func:`step_scalars`' floats), so both
+        divide by a tensor and give the same bits."""
+        core, h = self.core, self.hyper
+        if params is None and (h.get("weight_decay") or core == "lamb"):
+            raise ValueError(f"the {core} updater needs the params")
+        g0 = next((g for layer in grads for g in layer.values()), None)
+        if g0 is None:
+            return grads, advance_counts(state, 1)
+        if scalars is None:
+            bcs = (1.0, 1.0)
+            if core in _BIAS_CORRECTED:  # in the leaves' precision, as Adam's
+                bcs = bias_corrections(state["adam"]["count"] + 1, h["b1"], h["b2"], g0.dtype)
+                bcs = bcs if _BIAS_CORRECTED[core] == 2 else (bcs[0], 1.0)
+            lr, bc1, bc2 = (torch.full((), v, dtype=g0.dtype, device=g0.device)
+                            for v in (self.schedule(state.get("count", 0)), *bcs))
+        else:
+            lr, bc1, bc2 = scalars[0], scalars[1], scalars[2]
+        key = _PLAIN_CORES[core]
+        new = dict(state)
+        G = _tree_leaves(grads)
+        mul, add, div = torch._foreach_mul, torch._foreach_add, torch._foreach_div
+        sqrt, rsqrt = torch._foreach_sqrt, torch._foreach_rsqrt
+
+        def ema(x, t, decay):  # optax's update_moment: (1 - decay) * x + decay * t
+            return add(mul(x, 1 - decay), mul(t, decay))
+
+        if key == "adam":
+            a = state["adam"]
+            M, V = _tree_leaves(a["mu"]), _tree_leaves(a["nu"])
+            mu = ema(G, M, h["b1"])
+            if core == "adamax":
+                nu = torch._foreach_maximum(add(torch._foreach_abs(G), h["eps"]),
+                                            mul(V, h["b2"]))
+                u = div(div(mu, bc1), nu)
+            else:
+                nu = ema(mul(G, G), V, h["b2"])
+                u = div(div(mu, bc1), add(sqrt(div(nu, bc2)), h["eps"]))
+            u = self._decayed(u, params)
+            if core == "lamb":
+                u = _trust_ratio(u, _tree_leaves(params))
+            new["adam"] = {"count": a["count"] + 1, "mu": _unflatten(a["mu"], mu),
+                           "nu": _unflatten(a["nu"], nu)}
+        elif key == "lion":
+            M = _tree_leaves(state["lion"]["mu"])
+            u = self._decayed(torch._foreach_sign(ema(G, M, h["b1"])), params)
+            new["lion"] = {"count": state["lion"]["count"] + 1,
+                           "mu": _unflatten(state["lion"]["mu"], ema(G, M, h["b2"]))}
+        elif key == "rss":
+            # the sum of squares starts at initial > 0 and only grows, so
+            # optax's where(t > 0, rsqrt(t + eps), 0) is the rsqrt alone
+            sos = add(mul(G, G), _tree_leaves(state["rss"]))
+            u = mul(rsqrt(add(sos, h["eps"])), G)
+            new["rss"] = _unflatten(state["rss"], sos)
+        elif key == "rms":
+            nu = ema(mul(G, G), _tree_leaves(state["rms"]), h["decay"])
+            u = mul(rsqrt(add(nu, h["eps"])), G)
+            new["rms"] = _unflatten(state["rms"], nu)
+        else:  # adadelta
+            st, rho, eps = state["adadelta"], h["rho"], h["eps"]
+            EG, EX = _tree_leaves(st["e_g"]), _tree_leaves(st["e_x"])
+            e_g = ema(mul(G, G), EG, rho)
+            u = mul(div(sqrt(add(EX, eps)), sqrt(add(e_g, eps))), G)
+            new["adadelta"] = {"e_g": _unflatten(st["e_g"], e_g),
+                               "e_x": _unflatten(st["e_x"], ema(mul(u, u), EX, rho))}
+        if "count" in new:
+            new["count"] = state["count"] + 1
+        return _unflatten(grads, mul(u, -lr)), new
+
+    def _decayed(self, u: List[torch.Tensor], params: Tree) -> List[torch.Tensor]:
+        """optax's ``add_decayed_weights``: u + weight_decay * p (none at
+        weight decay 0)."""
+        wd = self.hyper.get("weight_decay")
+        if not wd:
+            return u
+        return torch._foreach_add(u, torch._foreach_mul(_tree_leaves(params), wd))
 
     def _adam(self, grads: Tree, state: dict, scalars: Optional[torch.Tensor] = None):
         """optax's scale_by_adam, then the schedule: one grouped Adam call
@@ -352,15 +498,23 @@ def opt_state_leaves(state: dict) -> List[torch.Tensor]:
     0.2.6 the chain's state is ``(EmptyState(), core)``, core
     ``EmptyState()`` for none, ``(EmptyState(), ScaleByScheduleState(count))``
     for sgd, ``(TraceState(trace), ScaleByScheduleState(count))`` for
-    momentum and nesterovs, and ``(ScaleByAdamState(count, mu, nu),
-    ScaleByScheduleState(count))`` for adam."""
+    momentum and nesterovs, ``(ScaleByAdamState(count, mu, nu), [EmptyState
+    ...,] ScaleByScheduleState(count))`` for adam, adamw, adamax and lamb,
+    ``(ScaleByLionState(count, mu), EmptyState(), ScaleByScheduleState(count))``
+    for lion, ``(ScaleByRssState(sum_of_squares), ScaleByScheduleState(count))``
+    for adagrad, ``(ScaleByRmsState(nu), ScaleByScheduleState(count),
+    EmptyState())`` for rmsprop and ``(EmptyState(), ScaleByAdaDeltaState(e_g,
+    e_x), EmptyState())`` for adadelta: the core's leaves, then the
+    schedule's count."""
     out: List[torch.Tensor] = []
-    if "adam" in state:
-        adam = state["adam"]
-        out += ([torch.tensor(adam["count"], dtype=torch.int32)]
-                + _tree_leaves(adam["mu"]) + _tree_leaves(adam["nu"]))
-    if "trace" in state:
-        out += _tree_leaves(state["trace"])
+    for key in _STATE_KEYS:
+        sub = state.get(key)
+        if isinstance(sub, list):
+            out += _tree_leaves(sub)
+        elif sub is not None:  # a NamedTuple's fields in order: count, then trees
+            for name, v in sub.items():
+                out += ([torch.tensor(v, dtype=torch.int32)] if name == "count"
+                        else _tree_leaves(v))
     if "count" in state:
         out.append(torch.tensor(state["count"], dtype=torch.int32))
     return out
@@ -391,10 +545,12 @@ def opt_state_from_leaves(updater: Updater, params: Tree, leaves: Sequence) -> d
             out.append({k: got[k] for k in layer})
         return out
 
-    if "adam" in state:
-        state["adam"] = {"count": int(next(it)), "mu": tree(), "nu": tree()}
-    if "trace" in state:
-        state["trace"] = tree()
+    for key in _STATE_KEYS:
+        sub = state.get(key)
+        if isinstance(sub, list):
+            state[key] = tree()
+        elif sub is not None:
+            state[key] = {name: int(next(it)) if name == "count" else tree() for name in sub}
     if "count" in state:
         state["count"] = int(next(it))
     return state
@@ -451,10 +607,10 @@ def optimizer_update(tx: Updater, grads: Tree, opt_state: dict, params: Tree,
     (updates, new_opt_state, new_params)."""
     if not any(_is_low_float(t) for t in
                _leaves(grads) + _leaves(opt_state) + _leaves(params)):
-        updates, new_opt = tx.update(grads, opt_state, scalars)
+        updates, new_opt = tx.update(grads, opt_state, scalars, params)
         return updates, new_opt, _apply_updates(params, updates)
     p32 = _to_f32(params)
-    updates, new_opt32 = tx.update(_to_f32(grads), _to_f32(opt_state), scalars)
+    updates, new_opt32 = tx.update(_to_f32(grads), _to_f32(opt_state), scalars, p32)
     new_p32 = _apply_updates(p32, updates)
     return updates, _like(new_opt32, opt_state), _like(new_p32, params)
 

@@ -389,8 +389,10 @@ def test_inference_keeps_the_lean_primal():
 
 
 def test_adam_fits_and_later_updaters_raise():
-    """The char-RNN's own updater, Adam, trains; the optax updaters of later
-    slices still raise."""
+    """The char-RNN's own updater, Adam, trains; the optax updaters that
+    came later (adamw, rmsprop, adagrad among them) build and follow JAX's
+    ``build()`` over two updates (f32, x64 off, 1e-6 relative); an unknown
+    name still raises."""
     x, y, _, _ = _batches(1)[0]
     net = pt.MultiLayerNetwork(pt.char_rnn(V, H), device="cpu").init()  # the adam default
     before = pt.params_to_numpy(net)
@@ -401,9 +403,25 @@ def test_adam_fits_and_later_updaters_raise():
     # rounding of the param itself
     step = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(after, before) for k in a)
     assert 5e-4 < step <= 1.001e-3
+    rng = np.random.default_rng(3)
+    params = [{"W": rng.normal(size=(5, 4)).astype(np.float32)}]
+    grads = [[{"W": rng.normal(size=(5, 4)).astype(np.float32)}] for _ in range(2)]
     for name in ("adamw", "rmsprop", "adagrad"):
-        with pytest.raises(NotImplementedError, match=name):
-            pt.UpdaterConfig(updater=name).build()
+        cfg = {"updater": name, "learning_rate": 0.01}
+        jtx = jax_updaters.UpdaterConfig.from_dict(cfg).build()
+        ptx = pt.UpdaterConfig.from_dict(cfg).build()
+        with jax.enable_x64(False):
+            jp = [{"W": jnp.asarray(params[0]["W"])}]
+            jopt = jtx.init(jp)
+            for g in grads:
+                _, jopt, jp = jax_updaters.optimizer_update(
+                    jtx, [{"W": jnp.asarray(g[0]["W"])}], jopt, jp)
+        pp = [{"W": torch.tensor(params[0]["W"])}]
+        popt = ptx.init(pp)
+        for g in grads:
+            _, popt, pp = updaters.optimizer_update(ptx, [{"W": torch.tensor(g[0]["W"])}],
+                                                    popt, pp)
+        np.testing.assert_allclose(pp[0]["W"].numpy(), np.asarray(jp[0]["W"]), rtol=1e-6)
     with pytest.raises(ValueError, match="Unknown updater"):
         pt.UpdaterConfig(updater="bogus").build()
 

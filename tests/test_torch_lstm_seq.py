@@ -8,6 +8,8 @@ is no card.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -170,6 +172,29 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_no_jax_package(path):
     roots = {name.split(".")[0] for name in _imports(path)}
     assert not roots & {"jax", "jaxlib", "deeplearning4j_tpu"}, path
+
+
+# the training-observability and optimizer modules of slice 20, which the
+# scan above must cover like every other module of the port
+OBSERVABILITY_MODULES = [f"telemetry/{m}.py" for m in (
+    "__init__", "registry", "spans", "watchdog", "flight_recorder", "device", "memory",
+    "session")] + [f"optimize/{m}.py" for m in ("__init__", "listeners", "solvers")]
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
+def test_observability_modules_are_scanned_and_load_without_jax(module):
+    """Each of the port's telemetry/ and optimize/ modules is in the
+    no-JAX scan's list, and importing it in a fresh interpreter loads
+    neither ``jax`` nor the JAX package."""
+    path = PORT / module
+    assert path in sorted(PORT.rglob("*.py"))
+    name = "deeplearning4j_tpu_torch." + module[:-3].replace("/", ".").replace(".__init__", "")
+    code = (f"import sys, importlib; importlib.import_module({name!r}); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deeplearning4j_tpu')); print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 @pytest.mark.cuda
