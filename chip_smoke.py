@@ -96,6 +96,23 @@ caught) and staged against per-batch fit, bit for bit; LBFGS, conjugate
 gradient and line gradient descent on the Iris MLP against the CPU; and the
 watchdog and flight recorder on the MNIST MLP with a NaN batch, per batch
 and staged.
+Those phases run under DL4JTPU_INFER=legacy (output(), predict() and
+rnn_time_step() eager at the request's shape, as before slice 21). Then
+slice 21 on the default path, each bucket a CUDA graph replayed: GoogLeNet
+(B=128 and requests of 1-100 rows), ResNet-50 (B=128, no row padding) and
+the full-width char-RNN (T=256 and 200, single steps at B=8), f32 and bf16,
+against the eager path (bit for bit at exact bucket shapes, within limits
+when padded, the streaming state after a bucketed T=200, no capture after
+warm-up; a hot swap that rebinds the params, bf16 casts rebound by an
+update, padding without the mask and replays without the network's lock
+caught); then every other model the phases above serve (the attention net,
+the MoE block, AlexNet, the fusedcell and graph char-RNNs with a decode
+through each, the sequence classifier) the same way, f32; then GoogLeNet
+and the char-RNN on one InferenceService under client threads for timed
+windows, each result against its eager output alone, and decode rounds
+through the service in turn with an eager DecodeServer (a slot reset that
+rebinds the state caught). Slice 21's launch counts are those of the
+served calls alone, the eager yardstick's apart.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -7337,6 +7354,855 @@ def kernels_slice20(torch, sx, card):
     return out
 
 
+# ---- slice 21: the serving front. output(), predict() and rnn_time_step()
+# go through runtime.inference by default: rows and time in power-of-two
+# buckets, each bucket a CUDA graph captured once into the process-wide
+# compile manager and replayed. The phases above hold the eager path (main
+# runs them under DL4JTPU_INFER=legacy, the knob that keeps it); slice 21's
+# three phases hold the replayed path against that eager path, at full
+# width: serve_graphs (GoogLeNet, ResNet-50, the char-RNN), serve_models
+# (every other model the phases above serve) and serve_service.
+SERVE_ROWS = (1, 3, 17, 64, 100, 128)  # GoogLeNet's request rows: buckets 1, 4, 32, 64, 128
+SERVE_CALLS = 5  # timed calls of each, eager and replayed (the median)
+CHAR_T_PADDED = 200  # a char-RNN request bucketed to STEPS=256, the mask extended
+STREAM_STEPS = 32  # single-step rnn_time_step calls at B=SLOTS
+# a padded request against the eager path at the same real rows or steps:
+# the serving limits against the CPU (cuDNN and cuBLAS may take other
+# algorithms at another row count)
+PADDED_REL = {"float32": 1e-5, "bfloat16": 3e-2}
+SERVICE_THREADS, SERVICE_MAX_BATCH = 8, 32
+SERVICE_WINDOWS, SERVICE_WINDOW_S = 3, 3.0  # timed traffic windows, seconds each
+SERVICE_T = 64  # the char-RNN's requests to the service: [rows, 64, 96]
+SERVICE_ROWS = (1, 2, 3, 5, 8)
+SERVICE_STARTS = (0, 8, 16)  # a request: SERVICE_ROWS rows from one of these offsets
+DECODE_ROUNDS = 5  # decode rounds of each server, replayed and eager in turn
+# slice 21's kernel rows: (path, kernel, shape name) -> the main line that
+# holds the same shape (None: held and timed in kernels_slice21)
+SLICE21_ROWS = {
+    ("serve_graphs", "lrn_fwd", "googlenet_lrn1"): None,
+    ("serve_graphs", "lrn_fwd", "googlenet_lrn2"): None,
+    ("serve_graphs", "lstm_seq_lean", "T=256 B=64"): "lstm_seq_lean",
+    ("serve_graphs", "lstm_seq_lean_masked", "T=256 B=64"): None,
+    ("serve_graphs", "lstm_seq_lean", "T=1 B=8"): None,
+    ("serve_models", "flash_attn_fwd", "B=4 T=4096"): "flash_attn_fwd",
+    ("serve_models", "lrn_fwd", "lrn1"): None,
+    ("serve_models", "lstm_cell_fwd", "B=64"): "lstm_cell_fwd",
+    ("serve_models", "lstm_seq_lean", "T=256 B=64"): "lstm_seq_lean",
+    ("serve_models", "lstm_seq_lean_masked", "T=1 B=8"): "lstm_seq_lean_masked",
+    ("serve_service", "lstm_seq_lean_masked", "T=1 B=8"): "lstm_seq_lean_masked",
+}
+
+
+def legacy(fn):
+    """``fn()`` on the eager, shape-exact path (``DL4JTPU_INFER=legacy``):
+    the yardstick the replayed path is held against."""
+    old = os.environ.get("DL4JTPU_INFER")
+    os.environ["DL4JTPU_INFER"] = "legacy"
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("DL4JTPU_INFER", None)
+        else:
+            os.environ["DL4JTPU_INFER"] = old
+
+
+def call_ms(torch, fn, n: int = SERVE_CALLS) -> list:
+    """Host-clock ms of ``n`` calls of ``fn`` (each returns host arrays, so
+    each ends with the copy to the host)."""
+    runs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def add_counts(into: dict, counts: dict) -> dict:
+    """Add ``counts`` to ``into`` kernel by kernel (zeros left out)."""
+    for k, v in counts.items():
+        if v:
+            into[k] = into.get(k, 0) + v
+    return into
+
+
+def replay_marks() -> dict:
+    """Every live served graph and its replays so far, by id."""
+    from deeplearning4j_tpu_torch.runtime import inference as inf
+    from deeplearning4j_tpu_torch.runtime.compile_manager import get_compile_manager
+
+    return {id(g): (g, g.replays) for _, g in get_compile_manager().owned()
+            if isinstance(g, inf.ServedGraph)}
+
+
+def replayed_since(marks: dict) -> dict:
+    """What the served graphs launched by replay since ``marks``: each
+    graph's captured launches (one replay's) times its replays since then
+    (a graph captured since counts from 0)."""
+    graphs = {k: g for k, (g, _) in marks.items()}
+    graphs.update({k: g for k, (g, _) in replay_marks().items()})
+    out: dict = {}
+    for k, g in graphs.items():
+        seen = marks.get(k)
+        n = g.replays - (seen[1] if seen is not None and seen[0] is g else 0)
+        add_counts(out, {name: v * n for name, v in g.launches.items()})
+    return out
+
+
+class Windows:
+    """A phase's launch counts: its main path's own runs apart from its
+    yardstick's. ``main(fn)`` runs ``fn`` with every count set to 0 just
+    before and read just after, and adds what the wrappers counted in it
+    (eager launches, a bucket's warm-up run and its capture) to
+    ``launches`` and what the served graphs launched by replay in it (each
+    graph's captured launches times its replays in the run) to
+    ``replayed``; ``yard(fn)`` runs ``fn`` on the eager path (``legacy``),
+    its counts into ``yardstick``. What a phase runs outside both (timing,
+    wrong versions) is not counted."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.launches, self.replayed, self.yardstick = {}, {}, {}
+
+    def _run(self, fn, counted: dict, replayed):
+        from deeplearning4j_tpu_torch import ops
+
+        marks = replay_marks()
+        self.torch.cuda.synchronize()
+        ops.reset_counters()
+        out = fn()
+        self.torch.cuda.synchronize()
+        add_counts(counted, ops.counters())
+        if replayed is not None:
+            add_counts(replayed, replayed_since(marks))
+        return out
+
+    def main(self, fn):
+        return self._run(fn, self.launches, self.replayed)
+
+    def yard(self, fn):
+        return self._run(lambda: legacy(fn), self.yardstick, None)
+
+
+def pool_reading(net) -> dict:
+    """``executable_memory`` of ``net``'s served graphs' pool (one pool a
+    network)."""
+    from deeplearning4j_tpu_torch.runtime import inference as inf
+    from deeplearning4j_tpu_torch.telemetry.memory import executable_memory
+
+    graphs = inf.served_graphs(net)
+    return executable_memory(graphs[0]) if graphs else {"available": False, "reason": "none"}
+
+
+def rel_err(got, want) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def retire(torch, net) -> None:
+    """Drop a network's served graphs and their pool."""
+    from deeplearning4j_tpu_torch.runtime.compile_manager import get_compile_manager
+
+    get_compile_manager().drop_token(net._cm_token)
+    gc_collect(torch)
+
+
+def replayed_vs_eager(torch, net, x, rows, limit, win, **kw) -> dict:
+    """One network's served forward, replayed against eager: the full batch
+    bit for bit (two replays, and predict against the eager argmax), each
+    request of ``rows`` (padded to its bucket where the network pads rows)
+    against eager at the same rows within ``limit`` (relative to the largest
+    output), no capture on a second pass over every shape, the eager and
+    replayed ms of the full batch (median of SERVE_CALLS; beside them the
+    full batch's replay alone, its inputs already on the card, CUDA-event
+    timed: what is left of a call for the card), the captures, their
+    seconds and the graphs' pool. ``kw`` (a mask) goes with the full batch.
+    The served calls are ``win``'s main path, the eager ones its
+    yardstick; the timed calls are neither."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.runtime import inference as inf
+    from deeplearning4j_tpu_torch.runtime.compile_manager import get_compile_manager
+
+    cm = get_compile_manager()
+    c0, s0 = cm.compiles.value, cm.compile_time.summary()["sum"]
+    B = x.shape[0]
+    eager = win.yard(lambda: net.output(x, **kw))
+    wants = {r: win.yard(lambda r=r: net.output(x[:r])) for r in rows if r != B}
+
+    def served():
+        got = [net.output(x, **kw), net.output(x, **kw), net.predict(x, **kw)]
+        return got, {r: net.output(x[:r]) for r in wants}
+
+    (first, second, pred), gots = win.main(served)
+    exact = bool(np.array_equal(first, eager) and np.array_equal(second, eager))
+    argmax_exact = bool(np.array_equal(pred, eager.argmax(-1)))
+    padded = {r: {"rel_err": rel_err(gots[r], want),
+                  "bit_exact": bool(np.array_equal(gots[r], want))}
+              for r, want in wants.items()}
+    warm = cm.compiles.value
+
+    def again():
+        for r in wants:
+            net.output(x[:r])
+        net.output(x, **kw)
+        net.predict(x, **kw)
+
+    win.main(again)
+    new_captures = cm.compiles.value - warm
+    eager_runs = legacy(lambda: call_ms(torch, lambda: net.output(x, **kw)))
+    replay_runs = call_ms(torch, lambda: net.output(x, **kw))
+    full = next(g for g in inf.served_graphs(net)
+                if tuple(g.inputs[0].shape) == tuple(x.shape) and g.outputs[0].dtype != torch.int32
+                and all(m is None for m in g.inputs[1:]) == (not kw))
+    return dict(
+        replay_alone_ms=median_ms(full.execute),
+        bit_exact=exact, predict_exact=argmax_exact, padded=padded, limit=limit,
+        padded_ok=all(p["rel_err"] <= limit for p in padded.values()),
+        captures=cm.compiles.value - c0,
+        capture_seconds=cm.compile_time.summary()["sum"] - s0,
+        new_captures_after_warmup=new_captures,
+        eager_ms_runs=eager_runs, replayed_ms_runs=replay_runs,
+        eager_ms=statistics.median(eager_runs), replayed_ms=statistics.median(replay_runs),
+        pool=pool_reading(net))
+
+
+def unlocked_replays(torch, net, x) -> dict:
+    """What the network's lock prevents, replayed by hand. Two requests
+    through one graph: the second written into its static input before the
+    first replays, so the first reads the second's answer. Two graphs of
+    one network: one replayed and its output left on the card while another
+    graph of the same pool replays; the pairs are tried in capture order
+    until one overwrites the first's output (the graphs share their pool, so
+    a later capture's output may sit where an earlier one's intermediates
+    run). Returns the readings; ``caught`` is both."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.runtime import inference as inf
+
+    graphs = [g for g in inf.served_graphs(net)
+              if g.outputs is not None and g.outputs[0].dtype != torch.int32]
+    full = next(g for g in graphs if g.inputs[0].shape[0] == x.shape[0])
+    a, b = x, x[::-1].copy()
+    full.load([a, None])
+    full.load([b, None])
+    full.execute()
+    got_a = full.outputs[0].float().cpu().numpy()
+    want_a, want_b = legacy(lambda: net.output(a)), legacy(lambda: net.output(b))
+    reads_b = bool(np.array_equal(got_a, want_b) and not np.array_equal(got_a, want_a))
+    overwritten = None
+    for first, then in itertools.permutations(graphs, 2):
+        rows_f, rows_t = first.inputs[0].shape[0], then.inputs[0].shape[0]
+        first.load([x[:rows_f], None])
+        first.execute()
+        kept = first.outputs[0].clone()
+        then.load([x[::-1][:rows_t].copy(), None])
+        then.execute()
+        if not torch.equal(first.outputs[0], kept):
+            overwritten = {"kept_rows": int(rows_f), "replayed_rows": int(rows_t),
+                           "max_abs_change": float((first.outputs[0].float()
+                                                    - kept.float()).abs().max())}
+            break
+    return {"same_graph_reads_the_other_request": reads_b, "two_graphs_overwrite": overwritten,
+            "caught": bool(reads_b and overwritten is not None)}
+
+
+def char_rnn_graphs(torch, host_params, dtype, win):
+    """The full-width char-RNN served: output at T=256 replayed against eager
+    bit for bit, T=200 (bucket 256, the mask extended) against eager at
+    T=200, the streaming state after a T=200 rnn_time_step against the eager
+    stream's, STREAM_STEPS single steps at B=SLOTS bit for bit, no capture
+    on a second pass, eager and replayed ms. The served calls are ``win``'s
+    main path, the eager ones its yardstick. Returns (the net, readings)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, char_rnn, load_jax_params
+    from deeplearning4j_tpu_torch.runtime.compile_manager import get_compile_manager
+
+    cm = get_compile_manager()
+    conf = char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dtype)
+    net = load_jax_params(MultiLayerNetwork(conf), host_params)
+    rng = np.random.default_rng(SEED + 21)
+    x = one_hot(rng.integers(0, VOCAB, (BATCH, STEPS)), VOCAB)
+    r = replayed_vs_eager(torch, net, x, (BATCH,), PADDED_REL[dtype], win)
+    c0 = cm.compiles.value
+    x200 = x[:, :CHAR_T_PADDED]
+    got200, want200 = win.main(lambda: net.output(x200)), win.yard(lambda: net.output(x200))
+    r["t200"] = {"rel_err": rel_err(got200, want200),
+                 "bit_exact": bool(np.array_equal(got200, want200))}
+    r["padded_ok"] = r["padded_ok"] and r["t200"]["rel_err"] <= PADDED_REL[dtype]
+
+    def state_after(fn):
+        net.rnn_clear_previous_state()
+        fn()
+        return [net.rnn_get_previous_state(i)[k].float().cpu().numpy()
+                for i in range(LAYERS) for k in ("h", "c")]
+
+    got_state = win.main(lambda: state_after(lambda: net.rnn_time_step(x200)))
+    want_state = win.yard(lambda: state_after(lambda: net.rnn_time_step(x200)))
+    r["state_t200"] = max(float(np.abs(g - w).max()) for g, w in zip(got_state, want_state))
+    r["state_limit"] = SERVE_ATOL[dtype]
+    toks = rng.integers(0, VOCAB, (STREAM_STEPS, SLOTS))
+
+    def stream():
+        net.rnn_clear_previous_state()
+        return np.stack([net.rnn_time_step(one_hot(t, VOCAB)) for t in toks])
+
+    got_stream, want_stream = win.main(stream), win.yard(stream)
+    r["stream_bit_exact"] = bool(np.array_equal(got_stream, want_stream))
+    warm = cm.compiles.value
+
+    def again():
+        net.output(x200)
+        stream()
+        net.rnn_clear_previous_state()
+        net.rnn_time_step(x200)
+
+    win.main(again)
+    r["new_captures_after_warmup"] += cm.compiles.value - warm
+    r["captures"] += warm - c0
+    step = one_hot(toks[0], VOCAB)
+    r["step_eager_ms"] = statistics.median(legacy(lambda: call_ms(
+        torch, lambda: net.rnn_time_step(step), 20)))
+    r["step_replayed_ms"] = statistics.median(call_ms(torch, lambda: net.rnn_time_step(step), 20))
+    r["ok"] = bool(r["bit_exact"] and r["predict_exact"] and r["padded_ok"]
+                   and r["state_t200"] <= r["state_limit"] and r["stream_bit_exact"]
+                   and r["new_captures_after_warmup"] == 0)
+    return net, r
+
+
+def wrong_versions_graphs(torch, host_params, goog, x_goog) -> dict:
+    """The wrong versions of serve_graphs, each against the right one:
+    a hot swap that rebinds the params (the graphs read the old ones), an
+    update whose bf16 casts are rebound (the graphs read the old casts),
+    time padding without the extended mask (the padded steps move h/c), and
+    replays without the lock (``unlocked_replays``)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, char_rnn, load_jax_params
+    from deeplearning4j_tpu_torch.nn import multilayer as ml
+    from deeplearning4j_tpu_torch.runtime import inference as inf
+
+    out = {}
+    rng = np.random.default_rng(SEED + 22)
+    x = one_hot(rng.integers(0, VOCAB, (BATCH, STEPS)), VOCAB)
+    other = char_rnn_params(char_rnn(VOCAB, HIDDEN, LAYERS), SEED + 1)
+
+    def swap_reading(rebind: bool) -> float:
+        net = load_jax_params(MultiLayerNetwork(char_rnn(VOCAB, HIDDEN, LAYERS)), host_params)
+        net.output(x)
+        if rebind:  # the params replaced, not written into
+            net.layer_params = torch.nn.ModuleList(net._param_dict(p) for p in other)
+            net._compute_params = net._param_buffers = None
+        else:
+            net.swap_params(other)
+        err = rel_err(net.output(x), legacy(lambda: net.output(x)))
+        retire(torch, net)
+        return err
+
+    out["params_rebound_by_swap"] = {"right": swap_reading(False), "wrong": swap_reading(True)}
+
+    y = np.roll(x, -1, axis=1)
+
+    def update_reading(rebind: bool) -> float:
+        # lr 0.1: the update moves the params well past bf16's rounding
+        net = load_jax_params(MultiLayerNetwork(char_rnn(
+            VOCAB, HIDDEN, LAYERS, learning_rate=0.1, dtype="bfloat16")), host_params)
+        net.output(x)
+        saved = ml.BaseNetwork._fill_param_buffers
+        if rebind:
+            def rebinding(self, casts):
+                self._param_buffers = casts
+                return casts
+            ml.BaseNetwork._fill_param_buffers = rebinding
+        try:
+            net.fit((x[:8], y[:8]))
+            err = rel_err(net.output(x), legacy(lambda: net.output(x)))
+        finally:
+            ml.BaseNetwork._fill_param_buffers = saved
+        retire(torch, net)
+        return err
+
+    out["casts_rebound_by_update"] = {"right": update_reading(False),
+                                      "wrong": update_reading(True)}
+
+    def mask_reading(wrong: bool) -> float:
+        net = load_jax_params(MultiLayerNetwork(char_rnn(VOCAB, HIDDEN, LAYERS)), host_params)
+        x200 = x[:, :CHAR_T_PADDED]
+        saved = inf._mask_for
+        if wrong:
+            inf._mask_for = lambda mask, *a: None if mask is None else saved(mask, *a)
+        try:
+            net.rnn_time_step(x200)
+        finally:
+            inf._mask_for = saved
+        got = net.rnn_get_previous_state(LAYERS - 1)["h"].float().cpu().numpy()
+        net.rnn_clear_previous_state()
+        legacy(lambda: net.rnn_time_step(x200))
+        want = net.rnn_get_previous_state(LAYERS - 1)["h"].float().cpu().numpy()
+        retire(torch, net)
+        return float(np.abs(got - want).max())
+
+    out["padding_without_mask"] = {"right": mask_reading(False), "wrong": mask_reading(True)}
+    lock = unlocked_replays(torch, goog, x_goog)
+    limits = {"params_rebound_by_swap": PADDED_REL["float32"],
+              "casts_rebound_by_update": 0.0, "padding_without_mask": SERVE_ATOL["float32"]}
+    for k, lim in limits.items():
+        out[k]["limit"] = lim
+        out[k]["caught"] = bool(out[k]["right"] <= lim < out[k]["wrong"])
+    # the right version is the locked path: each request alone, bit for bit
+    right = bool(np.array_equal(goog.output(x_goog), legacy(lambda: goog.output(x_goog))))
+    out["replay_without_lock"] = dict(lock, right_bit_exact=right,
+                                      caught=bool(right and lock["caught"]))
+    return out
+
+
+def phase_serve_graphs(torch, goog_host, res_host, res_state, host_params, card):
+    """GoogLeNet (B=128 and requests of SERVE_ROWS rows, f32 and bf16),
+    ResNet-50 (B=128, no row padding, f32 and bf16) and the full-width
+    char-RNN (B=64 at T=256 and 200, single steps at B=8; f32, and bf16
+    at T=256) served through output(), predict() and rnn_time_step() on
+    their default, replayed path, against the eager path: bit for bit at
+    exact bucket shapes, within PADDED_REL when padded, the streaming state
+    after a bucketed T=200 equal to eager's, no capture after warm-up;
+    eager against replayed ms, captures and their seconds, the pools. Then
+    the four wrong versions of ``wrong_versions_graphs``. Returns the
+    launches of the served calls (wrapper counts, replayed), the readings
+    and the eager yardstick's launches (``Windows``)."""
+    from deeplearning4j_tpu_torch import googlenet_conf, resnet50_conf
+
+    t0 = time.perf_counter()
+    win = Windows(torch)
+    readings = {}
+    x_goog, _ = alexnet_images(GOOG_B, SEED + 8)
+    keep = None
+    for dtype in ("float32", "bfloat16"):
+        net = googlenet_net(googlenet_conf(dtype=dtype), goog_host)
+        r = replayed_vs_eager(torch, net, x_goog, SERVE_ROWS, PADDED_REL[dtype], win)
+        r["ok"] = bool(r["bit_exact"] and r["predict_exact"] and r["padded_ok"]
+                       and r["new_captures_after_warmup"] == 0)
+        readings[f"googlenet_{dtype}"] = r
+        if dtype == "float32":
+            keep = net
+        else:
+            retire(torch, net)
+    for dtype in ("float32", "bfloat16"):
+        net = resnet_net(resnet50_conf(dtype=dtype), res_host, res_state)
+        r = replayed_vs_eager(torch, net, x_goog, (RES_B,), PADDED_REL[dtype], win)
+        r["ok"] = bool(r["bit_exact"] and r["predict_exact"]
+                       and r["new_captures_after_warmup"] == 0 and not net._pad_examples_ok())
+        readings[f"resnet50_{dtype}"] = r
+        retire(torch, net)
+    for dtype in ("float32", "bfloat16"):
+        net, r = char_rnn_graphs(torch, host_params, dtype, win)
+        readings[f"char_rnn_{dtype}"] = r
+        retire(torch, net)
+    faults = wrong_versions_graphs(torch, host_params, keep, x_goog)
+    retire(torch, keep)
+    replayed = win.replayed
+    ok = (all(r["ok"] for r in readings.values()) and all(f["caught"] for f in faults.values())
+          and replayed.get("lrn_fwd", 0) > 0 and replayed.get("lstm_seq_lean", 0) > 0
+          and replayed.get("lstm_seq_lean_masked", 0) > 0)
+    emit("serve_graphs", runs=readings, wrong_versions=faults, kernel_launches=win.launches,
+         replayed_launches=replayed, yardstick_launches=win.yardstick,
+         seconds=time.perf_counter() - t0, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("the replayed serving path failed its checks")
+    return win.launches, replayed, readings, win.yardstick
+
+
+def decode_replayed_vs_eager(torch, net, eager_net, win) -> dict:
+    """SLOTS sessions of DECODE_CHARS chars through a DecodeServer over
+    ``net`` on the default path (every tick a replay: ``win``'s main path)
+    against the same sessions through one over ``eager_net`` (the same
+    weights) on the eager path (the yardstick): the same tokens, the rows
+    within DECODE_ATOL, tokens/s of each from a second round (the first
+    captures the tick's graph)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import DecodeServer
+    from deeplearning4j_tpu_torch.runtime import inference as inf
+
+    server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
+    eager = DecodeServer(eager_net, capacity=SLOTS, max_delay_ms=2.0)
+    try:
+        got, _ = win.main(lambda: decode_sessions(server))
+        want, _ = win.yard(lambda: decode_sessions(eager))
+        again, got_s = win.main(lambda: decode_sessions(server))
+        want_again, want_s = win.yard(lambda: decode_sessions(eager))
+    finally:
+        server.stop()
+        eager.stop()
+    pairs = ((got, want), (again, want_again))
+    same = all(np.array_equal(decode_tokens(a)[s], decode_tokens(b)[s])
+               for a, b in pairs for s in a)
+    err = max(float(np.abs(a[s] - b[s]).max()) for a, b in pairs for s in a)
+    ticks = sum(g.replays for g in inf.served_graphs(net) if g.kind.endswith("rnn_step"))
+    return {"same_tokens_as_eager": same, "max_abs_err_vs_eager": err, "atol": DECODE_ATOL,
+            "ticks_replayed": ticks, "tokens_per_s": SLOTS * DECODE_CHARS / got_s,
+            "eager_tokens_per_s": SLOTS * DECODE_CHARS / want_s,
+            "ok": bool(same and err <= DECODE_ATOL and ticks > 0)}
+
+
+def phase_serve_models(torch, host_params, alex_host, card):
+    """The models the phases above serve eagerly, each through its default,
+    replayed output() and predict() against the eager path (``replayed_vs_
+    eager``, f32): the attention net and the MoE block (B=4, T=4096, and
+    3 rows padded to 4), AlexNet (B=128, and 100 rows padded to 128), the
+    fusedcell char-RNN and the graph char-RNN (B=64, T=256) with a decode
+    through each against an eager server, and the sequence classifier
+    (B=64, T=256, the ids' mask). Returns the launches of the served calls
+    (wrapper counts, replayed), the readings and the yardstick's launches
+    (``Windows``)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (BucketingSequenceIterator, ComputationGraph,
+                                          MultiLayerNetwork, alexnet_conf, char_rnn,
+                                          load_jax_params)
+
+    t0 = time.perf_counter()
+    win = Windows(torch)
+    readings = {}
+    rng = np.random.default_rng(SEED + 25)
+    x_attn = one_hot(rng.integers(0, VOCAB, (ATTN_B, ATTN_T)), VOCAB)
+    x_char = one_hot(rng.integers(0, VOCAB, (BATCH, STEPS)), VOCAB)
+
+    def check(name, net, x, rows, **kw):
+        r = replayed_vs_eager(torch, net, x, rows, PADDED_REL["float32"], win, **kw)
+        r["ok"] = bool(r["bit_exact"] and r["predict_exact"] and r["padded_ok"]
+                       and r["new_captures_after_warmup"] == 0)
+        readings[name] = r
+        return r
+
+    for name, conf, host in (("attention", attention_conf("float32"), attention_params(SEED)),
+                             ("moe_attention", moe_attention_conf("float32"),
+                              moe_attention_params(SEED))):
+        net = load_jax_params(MultiLayerNetwork(conf), host)
+        check(name, net, x_attn, (ATTN_B, ATTN_B - 1))
+        retire(torch, net)
+    net = load_jax_params(MultiLayerNetwork(alexnet_conf(dtype="float32")), alex_host)
+    check("alexnet", net, alexnet_images(ALEX_B, SEED + 5)[0], (ALEX_B, 100))
+    retire(torch, net)
+    for name, make in (
+            ("char_rnn_fusedcell", lambda: load_jax_params(MultiLayerNetwork(
+                char_rnn(VOCAB, HIDDEN, LAYERS), lstm_variant="fusedcell"), host_params)),
+            ("graph_char_rnn", lambda: load_jax_params(ComputationGraph(
+                graph_char_rnn_conf("float32")), graph_host(host_params)))):
+        net, eager_net = make(), make()
+        r = check(name, net, x_char, (BATCH,))
+        r["decode"] = decode_replayed_vs_eager(torch, net, eager_net, win)
+        r["ok"] = r["ok"] and r["decode"]["ok"]
+        retire(torch, net)
+        retire(torch, eager_net)
+    it = BucketingSequenceIterator(seq_sequences(96, 128, 256, SEED + 31), batch=BATCH,
+                                   boundaries=RECIPE_BUCKETS)
+    long_batch = next(ds for ds in it if ds.features.shape[1] == STEPS)
+    net = load_jax_params(ComputationGraph(seq_classifier_conf()),
+                          seq_classifier_params(SEED + 30))
+    check("seq_classifier", net, np.asarray(long_batch.features), (BATCH,),
+          masks=np.asarray(long_batch.features_mask, np.float32))
+    retire(torch, net)
+    replayed = win.replayed
+    ok = (all(r["ok"] for r in readings.values())
+          and all(replayed.get(k, 0) > 0 for (path, k, _) in SLICE21_ROWS
+                  if path == "serve_models"))
+    emit("serve_models", runs=readings, kernel_launches=win.launches,
+         replayed_launches=replayed, yardstick_launches=win.yardstick,
+         seconds=time.perf_counter() - t0, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("a model served on the replayed path failed its checks")
+    return win.launches, replayed, readings, win.yardstick
+
+
+def service_requests(seed):
+    """The distinct requests of the service phase: (model, offset, rows,
+    argmax), GoogLeNet and the char-RNN, every SERVICE_ROWS row count from
+    every SERVICE_STARTS offset, plain and argmax, in a seeded order."""
+    import numpy as np
+
+    plan = [(m, start, rows, argmax) for m in ("googlenet", "char_rnn")
+            for start in SERVICE_STARTS for rows in SERVICE_ROWS for argmax in (False, True)]
+    order = np.random.default_rng(seed).permutation(len(plan))
+    return [plan[i] for i in order]
+
+
+def decode_tokens(trajectories) -> dict:
+    return {s: rows.argmax(-1) for s, rows in trajectories.items()}
+
+
+def phase_serve_service(torch, goog_host, host_params, card):
+    """GoogLeNet (f32) and the full-width char-RNN registered on one
+    InferenceService (max_batch SERVICE_MAX_BATCH, 2 ms), both warmed up;
+    SERVICE_THREADS clients send requests of mixed row counts (and argmax
+    ones) drawn from ``service_requests`` for SERVICE_WINDOWS windows of
+    SERVICE_WINDOW_S seconds each. Every result against its request's eager
+    output() alone, stats() and the dl4jtpu_serve_* counters against the
+    requests sent, no capture after warm-up; requests/s, p50 and p99 of
+    each window and their spread, batch fill. Then decode: DECODE_ROUNDS
+    rounds of SLOTS sessions x DECODE_CHARS chars through service.decoder
+    (every tick a replay), each followed by the same round through an eager
+    DecodeServer over the same weights: the tokens equal, tokens/s of each
+    round of each; a slot reset that rebinds the state caught. Returns the
+    launches of the served calls (wrapper counts, replayed), the readings
+    and the eager yardstick's launches (``Windows``)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (DecodeServer, InferenceService, MultiLayerNetwork,
+                                          char_rnn, googlenet_conf, load_jax_params)
+    from deeplearning4j_tpu_torch.runtime import inference as inf
+    from deeplearning4j_tpu_torch.runtime.compile_manager import get_compile_manager
+    from deeplearning4j_tpu_torch.serving import decode as sdecode
+    from deeplearning4j_tpu_torch.telemetry import MetricsRegistry
+
+    t0 = time.perf_counter()
+    win = Windows(torch)
+    cm = get_compile_manager()
+    goog = googlenet_net(googlenet_conf(), goog_host)
+    chars = load_jax_params(MultiLayerNetwork(char_rnn(VOCAB, HIDDEN, LAYERS)), host_params)
+    nets = {"googlenet": goog, "char_rnn": chars}
+    reg = MetricsRegistry()
+    svc = InferenceService(registry=reg, max_delay_ms=2.0, max_batch=SERVICE_MAX_BATCH)
+    pool = max(SERVICE_STARTS) + max(SERVICE_ROWS)
+    x_goog, _ = alexnet_images(pool, SEED + 9)
+    rng = np.random.default_rng(SEED + 23)
+    x_char = one_hot(rng.integers(0, VOCAB, (pool, SERVICE_T)), VOCAB)
+    inputs = {"googlenet": x_goog, "char_rnn": x_char}
+    plan = service_requests(SEED + 24)
+    wants = {(m, start, rows): win.yard(lambda m=m, start=start, rows=rows: nets[m].output(
+        inputs[m][start:start + rows])) for m, start, rows, _ in plan}
+    try:
+        def warm():
+            svc.register("googlenet", goog)
+            svc.register("char_rnn", chars)
+            svc.warmup("googlenet", x_goog[:1], argmax=True)
+            svc.warmup("char_rnn", x_char[:1], argmax=True)
+
+        warm_s = time.perf_counter()
+        win.main(warm)
+        warm_s = time.perf_counter() - warm_s
+        c0 = cm.compiles.value
+        errs, gaps = [], []
+        sent = {"googlenet": [0, 0], "char_rnn": [0, 0]}
+        windows = []
+
+        def traffic():
+            lats = [[] for _ in range(SERVICE_THREADS)]
+            got = [[] for _ in range(SERVICE_THREADS)]
+            deadline = time.perf_counter() + SERVICE_WINDOW_S
+
+            def client(t):
+                i = t * 7
+                while time.perf_counter() < deadline:
+                    model, start, rows, argmax = plan[i % len(plan)]
+                    i += 1
+                    s = time.perf_counter()
+                    out = svc.predict(model, inputs[model][start:start + rows], argmax=argmax)
+                    lats[t].append(time.perf_counter() - s)
+                    got[t].append(((model, start, rows), argmax, out))
+
+            wall = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(SERVICE_THREADS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            return time.perf_counter() - wall, [x for l in lats for x in l], \
+                [x for g in got for x in g]
+
+        for _ in range(SERVICE_WINDOWS):
+            wall, lat, got = win.main(traffic)
+            for key, argmax, out in got:
+                want = wants[key]
+                sent[key[0]][0] += 1
+                sent[key[0]][1] += key[2]
+                if argmax:
+                    top = np.take_along_axis(want, out[..., None].astype(np.int64), -1)[..., 0]
+                    gaps.append(float((want.max(-1) - top).max() / want.max()))
+                else:
+                    errs.append(rel_err(out, want))
+            windows.append({"requests": len(got), "seconds": wall,
+                            "requests_per_s": len(got) / wall,
+                            "client_p50_ms": float(np.percentile(lat, 50) * 1e3),
+                            "client_p99_ms": float(np.percentile(lat, 99) * 1e3)})
+        new_captures = cm.compiles.value - c0
+        stats = svc.stats()
+        counters_ok = all(
+            stats["models"][m]["requests_total"] == n
+            and stats["models"][m]["rows_total"] == rows
+            and reg.get("dl4jtpu_serve_requests_total").labels(model=m).value == n
+            and reg.get("dl4jtpu_serve_rows_total").labels(model=m).value == rows
+            and reg.get("dl4jtpu_serve_latency_seconds").labels(model=m).count == n
+            and stats["models"][m]["batches_total"] <= n
+            for m, (n, rows) in sent.items())
+
+        def spread(key):
+            vals = [w[key] for w in windows]
+            return {"median": statistics.median(vals), "min": min(vals), "max": max(vals)}
+
+        traffic_readings = {
+            "windows": windows, "window_seconds": SERVICE_WINDOW_S,
+            "requests": sum(w["requests"] for w in windows),
+            "requests_per_s": spread("requests_per_s"),
+            "client_p50_ms": spread("client_p50_ms"), "client_p99_ms": spread("client_p99_ms"),
+            "models": {m: {"requests": sent[m][0],
+                           "p50_ms": stats["models"][m]["latency_seconds"]["p50"] * 1e3,
+                           "p99_ms": stats["models"][m]["latency_seconds"]["p99"] * 1e3,
+                           "batches": stats["models"][m]["batches_total"],
+                           "mean_batch_fill_ratio": stats["models"][m]["mean_batch_fill_ratio"]}
+                       for m in sent},
+            "warmup_s": warm_s, "new_captures_after_warmup": new_captures,
+            "max_rel_err": max(errs), "limit": PADDED_REL["float32"],
+            "argmax_worst_gap": max(gaps), "counters_ok": counters_ok}
+        traffic_ok = (new_captures == 0 and counters_ok and max(errs) <= PADDED_REL["float32"]
+                      and max(gaps) <= PADDED_REL["float32"])
+
+        # decode: the service's decoder (replayed ticks) and an eager server
+        # over the same weights, round by round in turn
+        dec = svc.decoder("char_rnn")
+        eager_net = load_jax_params(MultiLayerNetwork(char_rnn(VOCAB, HIDDEN, LAYERS)),
+                                    host_params)
+        eager = DecodeServer(eager_net, capacity=SLOTS, max_delay_ms=2.0)
+        rounds, eager_rounds = [], []
+        try:
+            for _ in range(DECODE_ROUNDS):
+                rounds.append(win.main(lambda: decode_sessions(dec)))
+                eager_rounds.append(win.yard(lambda: decode_sessions(eager)))
+        finally:
+            eager.stop()
+        tick_graphs = [g for g in inf.served_graphs(chars) if g.kind == "mln_rnn_step"]
+        ticks_replayed = sum(g.replays for g in tick_graphs)
+        tick_replay_ms = median_ms(tick_graphs[0].execute, reps=20)  # the sessions are closed
+        same = all(np.array_equal(decode_tokens(r[0])[s], decode_tokens(e[0])[s])
+                   for r, e in zip(rounds, eager_rounds) for s in r[0])
+        dec_err = max(float(np.abs(r[0][s] - e[0][s]).max())
+                      for r, e in zip(rounds, eager_rounds) for s in r[0])
+        tok = SLOTS * DECODE_CHARS
+        rates = [tok / r[1] for r in rounds]
+        eager_rates = [tok / e[1] for e in eager_rounds]
+        decode = {"sessions": SLOTS, "chars_each": DECODE_CHARS, "rounds": DECODE_ROUNDS,
+                  "ticks_replayed": ticks_replayed,
+                  "tokens_per_s": statistics.median(rates),
+                  "eager_tokens_per_s": statistics.median(eager_rates),
+                  "tokens_per_s_runs": rates, "eager_tokens_per_s_runs": eager_rates,
+                  "replayed_over_eager_by_round": [a / b for a, b in zip(rates, eager_rates)],
+                  "ticks": dec.ticks, "eager_ticks": eager.ticks,
+                  "tick_ms": sum(r[1] for r in rounds) / dec.ticks * 1e3,
+                  "eager_tick_ms": sum(e[1] for e in eager_rounds) / eager.ticks * 1e3,
+                  "tick_replay_alone_ms": tick_replay_ms,
+                  "same_tokens_as_eager": same, "max_abs_err_vs_eager": dec_err,
+                  "atol": DECODE_ATOL}
+
+        # the wrong version: a slot reset that zeroes a copy and rebinds it
+        saved = DecodeServer._reset_slot
+
+        def rebinding_reset(self, slot):
+            with self._net_lock:
+                if self.net._rnn_state is None:
+                    return
+                fresh = tuple({k: v.clone() for k, v in d.items()} for d in self.net._rnn_state)
+                for t in sdecode._state_tensors(fresh):
+                    t[slot].zero_()
+                self.net._rnn_state = fresh
+
+        wrong_net = load_jax_params(MultiLayerNetwork(char_rnn(VOCAB, HIDDEN, LAYERS)),
+                                    host_params)
+        DecodeServer._reset_slot = rebinding_reset
+        wrong = DecodeServer(wrong_net, capacity=SLOTS, max_delay_ms=2.0)
+        try:
+            wrong_rounds = [decode_sessions(wrong) for _ in range(2)]
+        finally:
+            wrong.stop()
+            DecodeServer._reset_slot = saved
+        wrong_same = all(np.array_equal(decode_tokens(r[0])[s], decode_tokens(e[0])[s])
+                         for r, e in zip(wrong_rounds, eager_rounds) for s in r[0])
+        decode["slot_reset_rebinds_state"] = {"same_tokens_as_eager": wrong_same,
+                                              "caught": not wrong_same}
+        decode_ok = (same and dec_err <= DECODE_ATOL and ticks_replayed > 0
+                     and not wrong_same)
+        retire(torch, wrong_net)
+        retire(torch, eager_net)
+    finally:
+        svc.stop()
+    replayed = win.replayed
+    ok = traffic_ok and decode_ok and replayed.get("lstm_seq_lean_masked", 0) > 0 \
+        and replayed.get("lrn_fwd", 0) > 0
+    emit("serve_service", traffic=traffic_readings, decode=decode, kernel_launches=win.launches,
+         replayed_launches=replayed, yardstick_launches=win.yardstick,
+         compile_cache=cm.stats(), seconds=time.perf_counter() - t0, ok=ok, gpu=card)
+    retire(torch, goog)
+    retire(torch, chars)
+    if not ok:
+        raise AssertionError("the serving front failed its checks")
+    return win.launches, replayed, {"traffic": traffic_readings, "decode": decode}, \
+        win.yardstick
+
+
+def phases_slice21(torch, card, goog_host, res_host, res_state, host_params, alex_host):
+    """Slice 21's phases on the default (replayed) serving path. Returns,
+    by path, the launches of the main path's own calls (wrapper counts,
+    replayed), the readings and the eager yardstick's launches."""
+    launches, replayed, readings, yardstick = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for path, run in (
+            ("serve_graphs", lambda: phase_serve_graphs(torch, goog_host, res_host, res_state,
+                                                        host_params, card)),
+            ("serve_models", lambda: phase_serve_models(torch, host_params, alex_host, card)),
+            ("serve_service", lambda: phase_serve_service(torch, goog_host, host_params, card))):
+        launches[path], replayed[path], readings[path], yardstick[path] = run()
+    readings["seconds"] = time.perf_counter() - t0
+    return launches, replayed, readings, yardstick
+
+
+def kernels_slice21(torch, ls, lr, card) -> dict:
+    """Rows 3 and 5 at the shapes slice 21's graphs launch them that no
+    earlier row holds: GoogLeNet's two LRN serving forwards and AlexNet's
+    first (y alone), the lean sequence masked at T=256 B=64 (a T=200
+    request bucketed) and unmasked at T=1 B=8 (single steps), each against
+    its plain version on
+    the same tensors, then timed beside it, its bound and (LRN)
+    F.local_response_norm's forward. Returns {(path, kernel, shape name):
+    (max abs err, times, shape)}."""
+    import torch.nn.functional as F
+
+    out = {}
+    args = (LRN_K, LRN_N, LRN_ALPHA, LRN_BETA)
+    lrn_rows = [("serve_graphs", where, shape) for where, shape in GOOG_LRN_SHAPES.items()]
+    lrn_rows.append(("serve_models", "lrn1", LRN_SHAPES["lrn1"]))  # AlexNet's first LRN
+    for path, where, shape in lrn_rows:
+        x, _ = lrn_inputs(torch, shape, "float32", SEED + 21)
+        y, _ = lr.lrn_forward(x, *args, with_d=False)
+        ry, _ = lr.lrn_reference(x, *args)
+        b_ms, b_by = bound_lrn(shape, "float32", False, with_d=False)
+        times = time_pair(
+            torch, "lrn_fwd", lambda: lr.lrn_forward(x, *args, with_d=False),
+            lambda: lr.lrn_reference(x, *args),
+            lambda: F.local_response_norm(x.permute(0, 3, 1, 2), LRN_N, alpha=LRN_ALPHA * LRN_N,
+                                          beta=LRN_BETA, k=LRN_K),
+            b_ms, b_by, card, dtype="float32", layer=where, shape=list(shape),
+            where="slice 21's graphs, y alone")
+        out[(path, "lrn_fwd", where)] = (
+            float((y - ry).abs().max()), times, f"{list(shape)}, y alone")
+    for name, T, B, masked in (("lstm_seq_lean_masked", STEPS, BATCH, True),
+                               ("lstm_seq_lean", 1, SLOTS, False)):
+        a = seq_inputs(torch, T, B, HIDDEN, "float32", masked, SEED + 21)
+        kern = (lambda: ls.fused_lstm_sequence_masked(*a)) if masked else \
+            (lambda: ls.fused_lstm_sequence(*a))
+        plain = (lambda: ls.lstm_sequence_masked_reference(*a)) if masked else \
+            (lambda: ls.lstm_sequence_reference(*a))
+        got, want = kern(), plain()
+        got = got if isinstance(got, (list, tuple)) else (got,)
+        want = want if isinstance(want, (list, tuple)) else (want,)
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        b_ms, b_by = bound(T, B, HIDDEN, "float32", masked)
+        times = time_pair(torch, name, kern, plain, None, b_ms, b_by, card, dtype="float32",
+                          T=T, B=B, H=HIDDEN, where="slice 21's graphs")
+        out[("serve_graphs", name, f"T={T} B={B}")] = (err, times, f"T={T} B={B} H={HIDDEN}")
+    return out
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -7357,6 +8223,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    # the phases of slices 1-20 hold the eager path, which this knob keeps;
+    # slice 21's phases (4n) hold the default, replayed serving path against it
+    os.environ["DL4JTPU_INFER"] = "legacy"
     import numpy as np
 
     from deeplearning4j_tpu_torch import (DecodeServer, MultiLayerNetwork, alexnet_conf,
@@ -7604,6 +8473,19 @@ def main() -> int:
     for path, rows in SLICE20_ROWS.items():
         for k in rows:
             new_path_launches[(path, k)] = s20_launches[path].get(k, 0)
+    # ---- 4n. slice 21: the serving front on the default path, each bucket
+    # a replayed CUDA graph (GoogLeNet, ResNet-50, the char-RNN; the
+    # service and its decode); each phase counts from 0
+    os.environ.pop("DL4JTPU_INFER")
+    s21_launches, s21_replayed, s21_readings, s21_yardstick = phases_slice21(
+        torch, card, goog_host, res_host, res_state, host_params, alex_host)
+    os.environ["DL4JTPU_INFER"] = "legacy"
+    for counts in s21_launches.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for path, k, _ in SLICE21_ROWS:
+        new_path_launches[(path, k)] = min(s21_launches[path].get(k, 0),
+                                           s21_replayed[path].get(k, 0))
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -7690,6 +8572,7 @@ def main() -> int:
                                 "moe_attention": moe_runs["float32"][2]})
     s19_rows = kernels_slice19(torch, sx, ad, card, s19_shapes)
     s20_rows = kernels_slice20(torch, sx, card)
+    s21_rows = kernels_slice21(torch, ls, lr, card)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -7881,6 +8764,27 @@ def main() -> int:
         line["replayed_launches"] = (
             staged_replayed["lenet"].get("adam_update_dev", 0) if name == "adam_update_dev@lenet"
             else 0 if "@" in name else replayed.get(name, 0))
+    # rows 1, 3, 5 and 13 at slice 21's shapes, counted in the served calls
+    # of the path's phase alone (Windows): launches by their wrappers
+    # (warm-up runs and captures of the buckets), beside them what the
+    # graphs launched by replay (captured launches x replays, the kernel's
+    # over all of the path's shapes), and apart the eager yardstick's
+    main_lines = {line["name"]: line for line in lines}
+    for (path, k, shape_name), main in SLICE21_ROWS.items():
+        if main is not None:
+            line = dict(main_lines[main], shape=f"{main}'s ({shape_name})")
+        else:
+            err, t, shape = s21_rows[(path, k, shape_name)]
+            source, replaces = {**KERNELS, **LRN_KERNELS}[k]
+            line = {"route": "cuda", "source": source, "replaces": replaces,
+                    "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
+                    "kernel_device_ms": t.get("kernel_device_ms")}
+        line.update(name=f"{k}@{path}[{shape_name}]", launches=s21_launches[path].get(k, 0),
+                    replayed_launches=s21_replayed[path].get(k, 0),
+                    yardstick_launches=s21_yardstick[path].get(k, 0))
+        lines.append(line)
     print(json.dumps({"kernels": lines, "launches": launches,
                       "staged_replays": staged_replays, "staged_ms_per_update": staged_times,
                       "staged_replayed_launches": staged_replayed,
@@ -7888,7 +8792,10 @@ def main() -> int:
                       "and the capture of each captured step, where the kernel's wrapper "
                       "runs; a replay launches the recorded kernels without it, so "
                       "replayed_launches counts each graph's launches a replay times its "
-                      "replays (staged_replays: the replays by path)",
+                      "replays (staged_replays: the replays by path); the rows of slice 21's "
+                      "paths (name@path[shape]) count the served calls of the path alone, "
+                      "with every count set to 0 before each and read after it, and give "
+                      "the eager yardstick's launches apart (yardstick_launches)",
                       "library_ms_note": "no single PyTorch call computes the "
                       "peephole LSTM (torch.nn.LSTM has no peepholes), masked or not; "
                       "rows 10-11: cross_entropy with probability targets, forward and "
@@ -7908,6 +8815,16 @@ def main() -> int:
                       "slice18_ms": s18_times,
                       "slice19_ms": s19_times,
                       "slice20": s20_times,
+                      "slice21": {
+                          "seconds": s21_readings["seconds"],
+                          **{f"{path}_ms": {
+                              w: {"eager": r["eager_ms"], "replayed": r["replayed_ms"],
+                                  "replay_alone": r["replay_alone_ms"],
+                                  "captures": r["captures"],
+                                  "capture_seconds": r["capture_seconds"]}
+                              for w, r in s21_readings[path].items()}
+                             for path in ("serve_graphs", "serve_models")},
+                          "serve_service": s21_readings["serve_service"]},
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

@@ -118,6 +118,7 @@ from .nn.multilayer import MultiLayerNetwork
 from .nn.transferlearning import (FineTuneConfiguration, TransferLearning,
                                   TransferLearningBuilder, TransferLearningGraphBuilder)
 from .nn.updaters import UpdaterConfig
+from .serving import InferenceService, get_service
 from .serving.decode import DecodeServer
 from .utils.serialization import restore_model, write_model
 
@@ -156,6 +157,7 @@ __all__ = [
     "GraphBuilder",
     "GravesBidirectionalLSTM",
     "GravesLSTM",
+    "InferenceService",
     "InputType",
     "IrisDataSetIterator",
     "L2NormalizeVertex",
@@ -203,6 +205,7 @@ __all__ = [
     "alexnet_conf",
     "char_rnn",
     "dbn_conf",
+    "get_service",
     "googlenet_conf",
     "lenet_mnist_conf",
     "load_jax_model_zip",

@@ -34,7 +34,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from ..runtime.step_graphs import next_pow2
+from ..runtime.compile_manager import next_pow2
 
 __all__ = [
     "PaddedWindow",

@@ -394,6 +394,21 @@ class BucketingSequenceIterator(DataSetIterator):
     def _bucket_of(self, length: int) -> int:
         return next((b for b in self.boundaries if length <= b), self.boundaries[-1])
 
+    def num_programs(self) -> int:
+        """Upper bound on the batch shapes this iterator yields: one per
+        bucket its sequences reach, and one more per such bucket whose
+        trailing batch is partial (unless dropped). It bounds the step
+        shapes the staged loop captures and the time buckets that serving
+        captures for these lengths."""
+        counts: dict = {}
+        for f, _ in self.sequences:
+            b = self._bucket_of(np.asarray(f).shape[0])
+            counts[b] = counts.get(b, 0) + 1
+        full = len(counts)
+        if not self.drop_remainder:
+            full += sum(1 for n in counts.values() if n % self.batch)
+        return full
+
     @staticmethod
     def _pad(feats, labels, bound: int):
         f = np.asarray(feats, dtype=np.float32)[:bound]

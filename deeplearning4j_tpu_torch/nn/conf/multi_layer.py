@@ -59,6 +59,11 @@ class MultiLayerConfiguration:
             cur = layer.get_output_type(cur)
         return its
 
+    def output_type(self) -> InputType:
+        """InputType the last layer produces."""
+        its = self.layer_input_types()
+        return self.layers[-1].get_output_type(its[-1])
+
     def to_dict(self) -> dict:
         return {
             "layers": [l.to_dict() for l in self.layers],

@@ -54,6 +54,7 @@ import torch
 
 from ...datasets.iterators import MultiDataSet, as_iterator, as_multi
 from ...eval.evaluation import Evaluation
+from ...runtime import inference as _inf
 from ..conf.computation_graph import ComputationGraphConfiguration
 from ..layers.normalization import BatchNormalization
 from ..multilayer import (BaseNetwork, _materialize, _real_batches, _staged_dim0,
@@ -139,12 +140,21 @@ class ComputationGraph(BaseNetwork):
 
     def _params(self) -> Dict[str, dict]:
         """Params in the compute dtype for inference: cast once, and again
-        after every update."""
+        after every update, into the same buffers (``_fill_param_buffers``)."""
         if self._compute_params is None:
             with torch.no_grad():
-                self._compute_params = {name: {k: v.detach() for k, v in p.items()}
-                                        for name, p in self._cast_params().items()}
+                self._compute_params = self._fill_param_buffers(
+                    {name: {k: v.detach() for k, v in p.items()}
+                     for name, p in self._cast_params().items()})
         return self._compute_params
+
+    def _state_layout(self, dicts: List[dict]):
+        return dict(zip(self._names, dicts))
+
+    def _swap_leaves(self, tree) -> List[dict]:
+        if isinstance(tree, dict):
+            return [tree.get(n, {}) for n in self._names]
+        return list(tree)
 
     def _masks(self, masks) -> Optional[Dict[str, Optional[torch.Tensor]]]:
         """Network-input name -> features mask on the device."""
@@ -267,16 +277,36 @@ class ComputationGraph(BaseNetwork):
         """Output activations as host arrays (reference:
         ComputationGraph.output): one array for a single-output graph, else
         a list. ``inputs``: one array per network input (or one list of
-        them); ``masks``: network-input name -> features mask."""
-        outs = [to_host(o) for o in self.forward(*self._as_inputs(inputs), masks=masks)]
+        them); ``masks``: network-input name -> features mask (or a list
+        aligned with the inputs). Through the bucketed path of
+        ``runtime.inference`` (each bucket a CUDA graph replayed on the
+        card); ``DL4JTPU_INFER=legacy`` runs the vertices eagerly at the
+        request's exact shape."""
+        if _inf.fast_path_enabled():
+            outs = _inf.graph_output(self, self._as_inputs(inputs), masks)
+        else:
+            outs = [to_host(o) for o in self.forward(*self._as_inputs(inputs),
+                                                     masks=self._mask_dict(masks))]
         return outs[0] if len(outs) == 1 else outs
 
     def predict(self, *inputs, masks=None):
         """Class indices (argmax over the last axis) per output as int32:
-        one array for a single-output graph, else a list."""
-        outs = [to_host(torch.argmax(o, dim=-1).to(torch.int32))
-                for o in self.forward(*self._as_inputs(inputs), masks=masks)]
+        one array for a single-output graph, else a list. On the bucketed
+        path the argmax runs inside the graph."""
+        if _inf.fast_path_enabled():
+            outs = _inf.graph_output(self, self._as_inputs(inputs), masks, argmax=True)
+        else:
+            outs = [to_host(torch.argmax(o, dim=-1).to(torch.int32))
+                    for o in self.forward(*self._as_inputs(inputs),
+                                          masks=self._mask_dict(masks))]
         return outs[0] if len(outs) == 1 else outs
+
+    def _mask_dict(self, masks):
+        """A masks argument (dict, list aligned with the inputs, one bare
+        mask) as the dict by input name ``forward`` takes."""
+        if masks is None or isinstance(masks, dict):
+            return masks
+        return dict(zip(self.conf.network_inputs, _inf._graph_masks_list(self, masks)))
 
     def score(self, dataset=None) -> float:
         """Loss on a dataset (inference mode: no dropout), or the last
@@ -559,7 +589,13 @@ class ComputationGraph(BaseNetwork):
         zeros. ``features_masks``: one [batch, time] mask, a list aligned
         with ``conf.network_inputs``, or a dict by input name; masked steps
         hold h/c. Returns host arrays, one for a single-output graph, else
-        a list."""
+        a list. On the bucketed path the time axes pad to powers of two with
+        the masks extended, and h/c live in the network's streaming buffers
+        for the batch size, updated in place by the replayed graph;
+        ``DL4JTPU_INFER=legacy`` steps eagerly at the exact shape."""
+        if _inf.fast_path_enabled():
+            outs = _inf.graph_rnn_step(self, self._as_inputs(inputs), features_masks)
+            return outs[0] if len(outs) == 1 else outs
         self.init()
         xs = [self._input(x) for x in self._as_inputs(inputs)]
         single_step = all(x.dim() == 2 for x in xs)
@@ -590,12 +626,13 @@ class ComputationGraph(BaseNetwork):
         self._rnn_state = None
 
     def rnn_get_previous_state(self, vertex_name: str) -> Optional[dict]:
-        """A vertex's streaming h/c as a dict of device tensors (reference:
-        ComputationGraph.rnnGetPreviousState); None for a stateless vertex
-        or a cleared state."""
+        """A copy of a vertex's streaming h/c as a dict of device tensors
+        (reference: ComputationGraph.rnnGetPreviousState); None for a
+        stateless vertex or a cleared state."""
         if self._rnn_state is None:
             return None
-        return self._rnn_state.get(vertex_name) or None
+        st = self._rnn_state.get(vertex_name)
+        return {k: v.clone() for k, v in st.items()} if st else None
 
     # ------------------------------------------------- not ported yet (later)
     analyze_ir = _later("analyze_ir")

@@ -12,7 +12,12 @@ kernels); any other value raises ValueError. It is not part of the conf.
   tensors) and return host numpy arrays, as the JAX package's inference fast
   path does; bfloat16 results come back as float32, which holds them
   exactly. They run under ``torch.no_grad()``, so the LSTM layers launch the
-  lean sequence kernel.
+  lean sequence kernel, and go through ``runtime.inference``: power-of-two
+  buckets, each a CUDA graph replayed on the card, reading the network's
+  fixed buffers (``_params``, ``_served_state``, the streaming buffers),
+  under the network's lock; ``DL4JTPU_INFER=legacy`` runs the layers
+  eagerly at the request's shape. ``swap_params`` writes new params into
+  the network in place (what ``InferenceService.hot_swap`` calls).
 - ``fit`` trains on an (x, y) pair, a ``DataSet`` or an iterable of either
   (e.g. a ``BucketingSequenceIterator`` of padded, masked batches), one
   update per batch (``backprop_type="standard"``) or one per time segment
@@ -67,7 +72,9 @@ kernels); any other value raises ValueError. It is not part of the conf.
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -78,7 +85,9 @@ from ..datasets.bucketing import BucketedStager
 from ..datasets.iterators import (AsyncDataSetIterator, DataSet, DevicePrefetchIterator,
                                   MultiDataSet, as_iterator)
 from ..eval.evaluation import Evaluation
-from ..runtime.step_graphs import StepGraph, StepGraphs, signature
+from ..runtime import inference as _inf
+from ..runtime.compile_manager import get_compile_manager, signature
+from ..runtime.step_graphs import StepGraph, StepGraphs
 from ..telemetry import device as _tdev
 from .conf.multi_layer import MultiLayerConfiguration
 from .layers.frozen import FrozenLayer
@@ -111,6 +120,11 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.detach().cpu().numpy()
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A tensor as it is; anything else (numpy, JAX arrays) through numpy."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
 
 
 def _staged_dim0(arr) -> int:
@@ -192,6 +206,19 @@ class BaseNetwork(torch.nn.Module):
         self.state = None  # layer state; set by init
         self._step_graphs = StepGraphs()  # the staged loop's captured steps
         self._statics = None  # (updater state, layer state) tensors they hold
+        # the served forward (runtime.inference): the compile manager's owner
+        # token (one per init), the lock held from a graph's inputs to its
+        # output's host copy, the graphs' pool, the params' fixed buffers,
+        # the served copy of the layer state and the streaming-state buffers
+        # by batch size
+        self._cm_token = None
+        self._cm_finalizer = None
+        self._infer_lock = threading.RLock()
+        self._infer_pool = None
+        self._param_buffers = None
+        self._served = None
+        self._served_pads = None  # runtime.inference._pads
+        self._infer_rnn: dict = {}
         self.last_batch_size: Optional[int] = None
         self.staged_steps_total = 0  # updates taken by fit_on_device
         self.staged_step_time: Optional[float] = None  # set while its listeners run
@@ -231,6 +258,94 @@ class BaseNetwork(torch.nn.Module):
         self._generator = torch.Generator(device=self.device).manual_seed(self.conf.seed)
         self._step_graphs.clear()  # they hold the old params
         self._statics = None
+        self._new_token()
+
+    def _new_token(self) -> None:
+        """Retire the previous generation's captured programs (they read the
+        old params) and take a fresh compile-manager token; the token is
+        also dropped when the network is collected."""
+        cm = get_compile_manager()
+        if self._cm_finalizer is not None:
+            self._cm_finalizer.detach()
+            cm.drop_token(self._cm_token)
+        self._cm_token = cm.new_token()
+        self._cm_finalizer = weakref.finalize(self, cm.retire, self._cm_token)
+        self._step_graphs.token = self._cm_token
+        self._infer_pool = None
+        self._param_buffers = None
+        self._served = None
+        self._served_pads = None  # runtime.inference._pads
+        self._infer_rnn = {}
+
+    def _fill_param_buffers(self, casts):
+        """The served params: the first casts of a generation become its
+        fixed buffers (on the f32 path they alias the leaves); later casts
+        are copied into them in place, so a captured graph reads the
+        current params at its next replay."""
+        if self._param_buffers is None:
+            self._param_buffers = casts
+            return casts
+        for buf, new in zip(_inf._leaf_tensors(self._param_buffers), _inf._leaf_tensors(casts)):
+            if buf.data_ptr() != new.data_ptr():
+                buf.copy_(new)
+        return self._param_buffers
+
+    def _served_state(self):
+        """The layer state the served forward reads: fixed copies of
+        ``state`` (a captured graph holds their addresses), refreshed from
+        ``state`` on every call with one multi-tensor copy, since ``fit``
+        rebinds the state tensors or writes them in place. In the layout of
+        ``state``."""
+        src = [t for d in self._state_dicts() for t in d.values()]
+        if self._served is None:
+            bufs = [{k: v.detach().clone() for k, v in d.items()} for d in self._state_dicts()]
+            self._served = (self._state_layout(bufs), [t for d in bufs for t in d.values()])
+        layout, flat = self._served
+        if flat:
+            with torch.no_grad():
+                torch._foreach_copy_(flat, src)
+        return layout
+
+    def _state_layout(self, dicts: List[dict]):
+        """``dicts`` (one per entry of ``_state_dicts()``) in the layout of
+        ``state``."""
+        raise NotImplementedError
+
+    def swap_params(self, params, state=None) -> None:
+        """Write new params (in ``init``'s layout: one dict per layer, or
+        vertex name to dict; arrays or tensors) and optionally a new layer
+        state (in ``state``'s layout) into this network's tensors in place,
+        under the serving lock: the served graphs read them at their next
+        replay, with no new capture. Keys and shapes are checked. The
+        updater state and the iteration count stay as they are."""
+        self.init()
+        new = self._swap_leaves(params)
+        cur = self._leaves()
+        if len(new) != len(cur):
+            raise ValueError(f"{len(new)} param dicts, the network has {len(cur)}")
+        with self._infer_lock, torch.no_grad():
+            staged = []
+            for i, (mine, theirs) in enumerate(zip(cur, new)):
+                if set(mine) != set(theirs):
+                    raise ValueError(f"params {i}: keys {sorted(theirs)}, expected {sorted(mine)}")
+                for k, v in mine.items():
+                    t = _as_tensor(theirs[k])
+                    if tuple(t.shape) != tuple(v.shape):
+                        raise ValueError(f"params {i} {k}: shape {tuple(t.shape)}, expected "
+                                         f"{tuple(v.shape)}")
+                    staged.append((v, t))
+            for v, t in staged:
+                v.copy_(t)
+            self._compute_params = None
+            if state is not None:
+                for cur_d, new_d in zip(self._state_dicts(), self._swap_leaves(state)):
+                    for k, t in cur_d.items():
+                        t.copy_(_as_tensor(new_d[k]))
+
+    def _swap_leaves(self, tree) -> List[dict]:
+        """A params or state tree in ``init``'s layout as one dict per entry
+        of ``_leaves()``."""
+        raise NotImplementedError
 
     def _leaves(self) -> List[dict]:
         raise NotImplementedError
@@ -548,6 +663,7 @@ class BaseNetwork(torch.nn.Module):
         entry.graph = graph
         if self._step_graphs.pool is None:
             self._step_graphs.pool = graph.pool()
+        entry.pool = self._step_graphs.pool
 
     def _step_entry(self, stacked: list) -> StepGraph:
         """The captured step (on the CPU: the static buffers) for windows
@@ -557,15 +673,15 @@ class BaseNetwork(torch.nn.Module):
         key = signature([None if t is None else t[0] for t in stacked], self.conf.updater,
                         self.conf.loss_scale, str(self.compute_dtype),
                         str(self.params_dtype), self.telemetry is not None)
-        entry = self._step_graphs.get(key)
-        if entry is None:
+        def build() -> StepGraph:
             entry = StepGraph(batch=[None if t is None else torch.empty_like(t[0])
                                      for t in stacked],
                               scalars=torch.ones(3, dtype=torch.float32, device=self.device))
             if self.device.type == "cuda":
                 self._capture(entry, stacked)
-            self._step_graphs.put(key, entry)
-        return entry
+            return entry
+
+        return self._step_graphs.admit(key, build)
 
     @staticmethod
     def _stats_rows(rows: torch.Tensor) -> list:
@@ -775,12 +891,18 @@ class MultiLayerNetwork(BaseNetwork):
 
     def _params(self) -> List[dict]:
         """Params in the compute dtype for inference: cast once, and again
-        after every update."""
+        after every update, into the same buffers (``_fill_param_buffers``)."""
         if self._compute_params is None:
             with torch.no_grad():
-                self._compute_params = [{k: v.detach() for k, v in p.items()}
-                                        for p in self._cast_params()]
+                self._compute_params = self._fill_param_buffers(
+                    [{k: v.detach() for k, v in p.items()} for p in self._cast_params()])
         return self._compute_params
+
+    def _state_layout(self, dicts: List[dict]):
+        return tuple(dicts)
+
+    def _swap_leaves(self, tree) -> List[dict]:
+        return list(tree)
 
     # ------------------------------------------------------- functional core
     def _forward(self, params, x: torch.Tensor, state, features_mask=None,
@@ -862,11 +984,20 @@ class MultiLayerNetwork(BaseNetwork):
 
     # -------------------------------------------------------------- inference
     def output(self, x, features_mask=None) -> np.ndarray:
-        """Inference output as a host array."""
+        """Inference output as a host array, through the bucketed path of
+        ``runtime.inference`` (rows and time in power-of-two buckets, each
+        bucket a CUDA graph replayed on the card); ``DL4JTPU_INFER=legacy``
+        runs the layers eagerly at the request's exact shape."""
+        if _inf.fast_path_enabled():
+            return _inf.mln_output(self, x, features_mask=features_mask)
         return to_host(self.forward(x, features_mask))
 
     def predict(self, x) -> np.ndarray:
-        """Class indices (argmax over the last axis) as int32."""
+        """Class indices (argmax over the last axis) as int32; on the
+        bucketed path the argmax runs inside the graph and only the indices
+        come to the host."""
+        if _inf.fast_path_enabled():
+            return _inf.mln_output(self, x, argmax=True)
         return to_host(torch.argmax(self.forward(x), dim=-1).to(torch.int32))
 
     def evaluate(self, data, top_n: int = 1) -> Evaluation:
@@ -899,7 +1030,8 @@ class MultiLayerNetwork(BaseNetwork):
         the batch's stats) without dropout and without storing any state."""
         self.init()
         acts: list = []
-        self._forward(self._params(), self._input(x), self.state, train=train, acts=acts)
+        x = self._input(_inf.canonicalize_input(x, self.compute_dtype))
+        self._forward(self._params(), x, self.state, train=train, acts=acts)
         return [to_host(a) for a in acts]
 
     def summary(self) -> str:
@@ -1149,7 +1281,13 @@ class MultiLayerNetwork(BaseNetwork):
         """Stateful streaming inference. ``x`` is [batch, features] (one
         step) or [batch, time, features]; LSTM h/c persist across calls
         until :meth:`rnn_clear_previous_state`. With ``features_mask``
-        [batch, time], masked steps hold h/c."""
+        [batch, time], masked steps hold h/c. On the bucketed path the time
+        axis pads to a power of two with the mask extended, and h/c live in
+        the network's streaming buffers for the batch size, which the
+        replayed graph updates in place; ``DL4JTPU_INFER=legacy`` steps
+        eagerly at the exact shape."""
+        if _inf.fast_path_enabled():
+            return _inf.mln_rnn_step(self, x, features_mask=features_mask)
         self.init()
         x = self._input(x)
         single_step = x.dim() == 2
@@ -1168,18 +1306,29 @@ class MultiLayerNetwork(BaseNetwork):
         self._rnn_state = None
 
     def rnn_get_previous_state(self, layer_idx: int) -> Optional[dict]:
-        """The layer's streaming state as a dict of device tensors."""
+        """A copy of the layer's streaming state as a dict of device
+        tensors (later steps do not change it)."""
         if self._rnn_state is None:
             return None
         st = self._rnn_state[layer_idx]
-        return st if st else None
+        return {k: v.clone() for k, v in st.items()} if st else None
 
     def rnn_set_previous_state(self, layer_idx: int, state_dict: dict) -> None:
+        """Set the layer's streaming state; where it lives in the served
+        graphs' buffers it is written into them in place."""
         if self._rnn_state is None:
             raise ValueError("No streaming state; call rnn_time_step first")
+        new = {k: self._input(v).to(self.compute_dtype).contiguous()
+               for k, v in state_dict.items()}
+        cur = self._rnn_state[layer_idx]
+        if any(self._rnn_state is bufs for bufs in self._infer_rnn.values()) and all(
+                k in cur and cur[k].shape == v.shape for k, v in new.items()):
+            with self._infer_lock, torch.no_grad():
+                for k, v in new.items():
+                    cur[k].copy_(v)
+            return
         st = list(self._rnn_state)
-        st[layer_idx] = {k: self._input(v).to(self.compute_dtype).contiguous()
-                         for k, v in state_dict.items()}
+        st[layer_idx] = new
         self._rnn_state = tuple(st)
 
 

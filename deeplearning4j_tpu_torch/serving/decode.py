@@ -16,14 +16,23 @@ dicts) or a ``ComputationGraph`` of one network input (a dict of
 per-vertex dicts); the slot reset and the capacity check walk the state's
 tensors whatever its nesting, as the JAX package's ``tree_map`` does.
 
+On the bucketed path (``runtime.inference``, the default) a tick is one
+replay of the net's captured single-step graph, and the streaming state
+lives in that graph's buffers: the slot reset writes zeros into them in
+place, and a tick does not take over a state that other code bound to the
+net in their stead (the net's own ``rnn_time_step`` does).
+
 Slot lifecycle: ``open()`` claims a free slot and zeroes its state rows in
 place on the device, ``step()`` submits one frame, ``close()`` frees the
-slot, ``stop()`` ends the ticker.
+slot, ``stop()`` ends the ticker. As in the JAX package, ``on_batch`` is
+called after each tick (rows, requests, seconds, queue depth, bucket rows)
+and ``on_request`` after each step with its latency and trace context; a
+session opened under a sampled trace records ``decode.open`` and a
+``decode.tick`` span per step under one lineage.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 import uuid
@@ -34,22 +43,18 @@ import numpy as np
 import torch
 
 from ..nn.graph.computation_graph import ComputationGraph
+from ..runtime import inference as _inf
+from ..runtime.compile_manager import next_pow2
+from ..telemetry.tracing import current_trace, record_trace_event
+from .batcher import MAX_DELAY_ENV, _env_float
 
 __all__ = ["DecodeServer", "DECODE_SLOTS_ENV", "MAX_DELAY_ENV"]
 
-# env knobs shared with the JAX package: the slot count (the decode batch)
-# and how long a step may wait for company
+# env knob shared with the JAX package: the slot count (the decode batch;
+# the step's latency budget is the batcher's MAX_DELAY_ENV)
 DECODE_SLOTS_ENV = "DL4JTPU_SERVE_DECODE_SLOTS"
-MAX_DELAY_ENV = "DL4JTPU_SERVE_MAX_DELAY_MS"
 _DEFAULT_SLOTS = 8
 _DEFAULT_DELAY_MS = 2.0
-
-
-def _env_float(name: str, default: float) -> float:
-    try:
-        return float(os.environ.get(name, default))
-    except ValueError:
-        return default
 
 
 def _state_tensors(state) -> list:
@@ -61,32 +66,32 @@ def _state_tensors(state) -> list:
     return [t for part in parts for t in _state_tensors(part)]
 
 
-def _next_pow2(n: int) -> int:
-    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
-
-
 class _Pending:
-    __slots__ = ("features", "future", "enqueued")
+    __slots__ = ("features", "future", "enqueued", "trace")
 
-    def __init__(self, features: np.ndarray):
+    def __init__(self, features: np.ndarray, trace=None):
         self.features = features
         self.future: "Future[np.ndarray]" = Future()
         self.enqueued = time.perf_counter()
+        self.trace = trace  # the session's lineage (TraceContext) for this tick
 
 
 class DecodeServer:
     """Slot-batched streaming decode over one recurrent net."""
 
     def __init__(self, net, *, capacity: Optional[int] = None,
-                 max_delay_ms: Optional[float] = None):
+                 max_delay_ms: Optional[float] = None,
+                 on_batch=None, on_request=None):
         self.net = net
         cap = (int(_env_float(DECODE_SLOTS_ENV, _DEFAULT_SLOTS))
                if capacity is None else int(capacity))
-        self.capacity = max(1, _next_pow2(cap))
+        self.capacity = max(1, next_pow2(cap))
         self.max_delay_s = (
             _env_float(MAX_DELAY_ENV, _DEFAULT_DELAY_MS)
             if max_delay_ms is None else float(max_delay_ms)) / 1000.0
         self.ticks = 0  # coalesced steps run
+        self._on_batch = on_batch
+        self._on_request = on_request
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         # serializes the net's streaming state: the ticker's step vs open()'s
@@ -94,13 +99,19 @@ class DecodeServer:
         self._net_lock = threading.Lock()
         self._sessions: Dict[str, int] = {}      # session id -> slot
         self._pending: Dict[int, _Pending] = {}  # slot -> request
+        # session id -> sampled TraceContext: every tick of a session
+        # parents under the same context (one lineage across ticks)
+        self._traces: Dict[str, object] = {}
         self._closed = False
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
     # ------------------------------------------------------------ sessions
-    def open(self) -> str:
-        """Claim a free slot; returns the session id."""
+    def open(self, trace=None) -> str:
+        """Claim a free slot; returns the session id. A sampled ``trace``
+        (or the thread's current context) becomes the session's lineage:
+        each later tick's span parents under it."""
+        ctx = trace if trace is not None else current_trace()
         with self._lock:
             used = set(self._sessions.values())
             free = next((i for i in range(self.capacity) if i not in used), None)
@@ -110,12 +121,17 @@ class DecodeServer:
                     f"(raise {DECODE_SLOTS_ENV})")
             sid = uuid.uuid4().hex[:12]
             self._sessions[sid] = free
+            if ctx is not None and ctx.sampled:
+                session_ctx = ctx.child()
+                self._traces[sid] = session_ctx
+                record_trace_event(session_ctx, "decode.open", session=sid, slot=free)
             self._reset_slot(free)
             return sid
 
     def close(self, session_id: str) -> None:
         with self._cv:
             slot = self._sessions.pop(session_id, None)
+            self._traces.pop(session_id, None)
             pend = self._pending.pop(slot, None) if slot is not None else None
         if pend is not None:
             pend.future.set_exception(RuntimeError("session closed"))
@@ -126,8 +142,9 @@ class DecodeServer:
 
     def _reset_slot(self, slot: int) -> None:
         """Zero one slot's rows of the streaming state, in place on the
-        device (a fresh session)."""
-        with self._net_lock:
+        device (a fresh session): on the bucketed path these are the rows of
+        the buffers the tick's graph reads."""
+        with self._net_lock, self.net._infer_lock:
             if self.net._rnn_state is None:
                 return  # the first tick starts from a zero state anyway
             tensors = _state_tensors(self.net._rnn_state)
@@ -151,7 +168,7 @@ class DecodeServer:
             if slot in self._pending:
                 raise RuntimeError(
                     f"session {session_id!r} already has a step in flight")
-            pend = _Pending(features)
+            pend = _Pending(features, trace=self._traces.get(session_id))
             self._pending[slot] = pend
             self._cv.notify()
         return pend.future.result(timeout=timeout_s)
@@ -183,6 +200,7 @@ class DecodeServer:
                 if self._closed:
                     return
                 continue
+            t0 = time.perf_counter()
             try:
                 feat_shape = next(iter(batch.values())).features.shape
                 x = np.zeros((self.capacity, 1) + tuple(feat_shape), np.float32)
@@ -199,13 +217,29 @@ class DecodeServer:
                 for pend in batch.values():
                     pend.future.set_exception(e)
                 continue
+            done = time.perf_counter()
             for slot, pend in batch.items():
                 pend.future.set_result(out[slot])
+                if pend.trace is not None and pend.trace.sampled:
+                    record_trace_event(pend.trace.child(), "decode.tick", slot=slot,
+                                       duration_s=done - pend.enqueued, tick_rows=len(batch))
+                if self._on_request is not None:
+                    self._on_request(done - pend.enqueued, pend.trace)
+            if self._on_batch is not None:
+                self._on_batch(rows=len(batch), requests=len(batch), seconds=done - t0,
+                               queue_depth=0, bucket_rows=self.capacity)
 
     def _tick(self, x: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """One masked step of every slot: a graph takes its masks per
-        network input."""
-        if isinstance(self.net, ComputationGraph):
+        """One masked step of every slot (a graph takes its masks per
+        network input): on the bucketed path straight through the inference
+        step, which goes on from the state buffers as the slot resets left
+        them."""
+        graph = isinstance(self.net, ComputationGraph)
+        if _inf.fast_path_enabled():
+            if graph:
+                return _inf.graph_rnn_step(self.net, [x], [mask], adopt=False)[0]
+            return _inf.mln_rnn_step(self.net, x, mask, adopt=False)
+        if graph:
             return self.net.rnn_time_step(x, features_masks=mask)
         return self.net.rnn_time_step(x, features_mask=mask)
 

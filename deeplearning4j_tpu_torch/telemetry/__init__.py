@@ -19,8 +19,11 @@ side).
 - :mod:`flight_recorder` — bounded event ring + post-mortem JSON dump
   bundles, auto-triggered by watchdog anomalies.
 
-The JAX package's serving and fleet side (``tracing``, ``slo``,
-``history``) and ``executable_memory`` come in later slices.
+- :mod:`tracing` — distributed request tracing: the trace context and its
+  header, head sampling, the trace ring, spans.
+- :mod:`slo` — declared serving objectives and multi-window burn rates.
+
+The JAX package's metric history (``history``) comes in a later slice.
 """
 
 from .device import GRAD_NORM, LOSS, NONFINITE, NUM_SLOTS, step_stats
@@ -34,6 +37,7 @@ from .flight_recorder import (
 from .memory import (
     MemoryPreflightError,
     device_memory_stats,
+    executable_memory,
     memory_report,
     preflight,
     sample_device_memory,
@@ -45,6 +49,18 @@ from .registry import (
     get_registry,
 )
 from .session import Telemetry
+from .slo import SLOMonitor, get_slo_monitor, set_slo_monitor
+from .tracing import (
+    TRACE_HEADER,
+    TraceContext,
+    TraceRing,
+    TraceSpan,
+    current_trace,
+    get_trace_ring,
+    record_trace_event,
+    trace_span,
+    use_trace,
+)
 from .spans import Span, SpanRecorder, get_recorder, span
 from .watchdog import (
     EXPLODING_GRAD_NORM,
@@ -84,6 +100,7 @@ __all__ = [
     "set_flight_recorder",
     "MemoryPreflightError",
     "device_memory_stats",
+    "executable_memory",
     "memory_report",
     "preflight",
     "sample_device_memory",
@@ -92,4 +109,16 @@ __all__ = [
     "NONFINITE",
     "NUM_SLOTS",
     "step_stats",
+    "SLOMonitor",
+    "get_slo_monitor",
+    "set_slo_monitor",
+    "TRACE_HEADER",
+    "TraceContext",
+    "TraceRing",
+    "TraceSpan",
+    "current_trace",
+    "get_trace_ring",
+    "record_trace_event",
+    "trace_span",
+    "use_trace",
 ]

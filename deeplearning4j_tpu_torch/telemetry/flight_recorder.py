@@ -11,9 +11,9 @@ nan-loss / exploding-grad-norm / stalled-step anomaly — or an explicit
 :meth:`FlightRecorder.dump`, or the crash hook — it writes a self-contained
 JSON dump bundle: the last-K events, the most recent memory report, a full
 registry snapshot, recent spans, and device/env info. The bundle keeps the
-JAX package's schema; its ``compile_cache`` section says that the port has
-no compile cache (its captured steps live in each network's
-``runtime.step_graphs``).
+JAX package's schema; its ``compile_cache`` section is the process-wide
+compile manager's ``stats()`` (the captured training steps and served
+graphs, ``runtime.compile_manager``).
 
 Dump location: ``DL4JTPU_FLIGHT_DIR`` (env) > the recorder's ``dump_dir`` >
 the system temp dir. Schema: ``dl4jtpu-flight-v1``.
@@ -227,9 +227,9 @@ class FlightRecorder:
                 return {"error": f"{type(e).__name__}: {e}"[:300]}
 
         def compile_cache():
-            return {"available": False,
-                    "reason": "the port has no compile cache; captured steps "
-                              "live in each network's step graphs"}
+            from ..runtime.compile_manager import get_compile_manager  # noqa: PLC0415
+
+            return get_compile_manager().stats()
 
         def device_env():
             info: dict = {"python": sys.version.split()[0]}

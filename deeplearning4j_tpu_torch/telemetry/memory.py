@@ -19,8 +19,14 @@ Two sources feed one registry:
   — live memory rides the same K-step cadence as the training metrics,
   never a per-step sync. On a machine without CUDA the list is empty.
 
-The JAX package's ``executable_memory`` (XLA's ``memory_analysis`` of a
-compiled program) has no counterpart yet.
+- **Captured, from the graphs' pool.** :func:`executable_memory` is the
+  counterpart of the JAX package's (XLA's ``memory_analysis`` of a compiled
+  program): it reads the memory pool a captured CUDA graph allocates from
+  (the bytes the caching allocator has reserved for that pool and those
+  allocated in it, from ``torch.cuda.memory_snapshot``'s segments), and
+  keeps the JAX ``{"available": False, "reason": ...}`` shape where it
+  cannot read them (an eager entry on the CPU). Every graph of one network
+  shares its pool, so the compile manager's summary counts a pool once.
 """
 
 from __future__ import annotations
@@ -46,6 +52,51 @@ def _fmt_bytes(n: float) -> str:
             return f"{n:.1f} {unit}"
         n /= 1024.0
     return f"{n:.1f} TiB"
+
+
+# ------------------------------------------------------------- captured
+def pool_segments() -> Optional[list]:
+    """The caching allocator's segments (``torch.cuda.memory_snapshot``),
+    or None where there is no CUDA device."""
+    try:
+        import torch  # noqa: PLC0415
+
+        if not torch.cuda.is_available():
+            return None
+        return torch.cuda.memory_snapshot()
+    except Exception:  # pragma: no cover - a CUDA runtime error reads as none
+        return None
+
+
+def executable_memory(entry, segments: Optional[list] = None) -> dict:
+    """Byte accounting of one captured program: the memory pool of its CUDA
+    graph (``entry.pool``, the handle ``CUDAGraph.pool()`` gave), summed
+    over the allocator's segments of that pool: ``reserved_bytes`` (the
+    segments' size), ``allocated_bytes`` (the blocks in use in them) and
+    ``total_bytes`` (= reserved, what the pool holds on the card). Always
+    returns a record: where the pool cannot be read, ``available: False``
+    and a reason. ``segments`` is a snapshot to read (one for many
+    entries); else one is taken."""
+    pool = getattr(entry, "pool", None)
+    if getattr(entry, "graph", None) is None or pool is None:
+        return {"available": False,
+                "reason": "no captured graph: an eager entry (the CPU)"}
+    if segments is None:
+        segments = pool_segments()
+    if segments is None:
+        return {"available": False, "reason": "no CUDA device"}
+    if segments and "segment_pool_id" not in segments[0]:
+        return {"available": False,
+                "reason": "this torch's memory snapshot names no segment pools"}
+    want = tuple(int(v) for v in pool)
+    reserved = allocated = 0
+    for seg in segments:
+        pid = seg.get("segment_pool_id")
+        if pid is not None and tuple(int(v) for v in pid) == want:
+            reserved += int(seg.get("total_size", 0))
+            allocated += int(seg.get("allocated_size", 0))
+    return {"available": True, "pool": list(want), "reserved_bytes": reserved,
+            "allocated_bytes": allocated, "total_bytes": reserved}
 
 
 # ------------------------------------------------------------------ live

@@ -48,6 +48,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.datasets import fetchers as jfetch  # noqa: E402
 from deeplearning4j_tpu.models import googlenet as jgoog  # noqa: E402
 from deeplearning4j_tpu.models.char_rnn import char_rnn as jax_char_rnn  # noqa: E402
@@ -75,7 +76,7 @@ BF16_LOSS_REL = 2.0 ** -8  # a logit's one bf16 rounding, relative
 
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     monkeypatch.setenv("DL4J_TPU_PALLAS", "0")
     monkeypatch.setenv("DL4JTPU_KERNELS", "reference")

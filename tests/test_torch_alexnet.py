@@ -28,6 +28,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu import ops as jops  # noqa: E402
 from deeplearning4j_tpu.models import alexnet_conf as jax_alexnet  # noqa: E402
 from deeplearning4j_tpu.ops import kernel_select  # noqa: E402
@@ -48,7 +49,7 @@ LAYERS = ["ConvolutionLayer", "LocalResponseNormalization", "SubsamplingLayer"] 
 def jax_env(monkeypatch, tmp_path):
     """The JAX package's unbucketed inference and its own kernel choice,
     cleared around each test; a count of its fused LRN calls."""
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     kernel_select.reset()
     calls = []

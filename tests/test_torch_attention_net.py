@@ -22,6 +22,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.datasets.iterators import (  # noqa: E402
     BucketingSequenceIterator as JaxBucketingIterator,
     DataSet as JaxDataSet,
@@ -44,7 +45,7 @@ TBPTT = 7
 def jax_env(monkeypatch, tmp_path):
     """The JAX package's unbucketed inference and its own kernel choice,
     cleared around each test."""
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     kernel_select.reset()
     yield

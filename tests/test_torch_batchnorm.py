@@ -34,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.nn.layers import normalization as jnorm  # noqa: E402
 from deeplearning4j_tpu.ops import kernel_select  # noqa: E402
 
@@ -46,7 +47,7 @@ BN_FAULTS = ("bn_running_var_unbiased", "bn_decay_swapped", "bn_eval_on_batch_st
 
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     kernel_select.reset()
     yield

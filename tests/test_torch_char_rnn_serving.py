@@ -20,6 +20,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.models.char_rnn import CharIterator as jax_char_iterator  # noqa: E402
 from deeplearning4j_tpu.models.char_rnn import char_rnn as jax_char_rnn  # noqa: E402
 from deeplearning4j_tpu.utils.serialization import write_model  # noqa: E402
@@ -52,7 +53,7 @@ CONFS = {
 
 def _pair(conf_name, monkeypatch, pallas="seq"):
     """(JAX net, port net on the CPU) with the same config and weights."""
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4J_TPU_PALLAS", pallas)
     jconf = CONFS[conf_name]()
     jnet = dj.MultiLayerNetwork(jconf).init()
@@ -319,7 +320,7 @@ def test_unsupported_activation_runs_plain_on_cpu(monkeypatch):
     jconf.layers[0].activation = "softmax"
     jnet = dj.MultiLayerNetwork(jconf).init()
     jnet.init(params=_f32(jnet.params), force=True)
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4J_TPU_PALLAS", "0")
     pnet = pt.load_jax_params(
         pt.MultiLayerNetwork(pt.MultiLayerConfiguration.from_json(jconf.to_json()),

@@ -23,6 +23,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.datasets import normalizers as jnorm  # noqa: E402
 from deeplearning4j_tpu.datasets import record_iterators as jri  # noqa: E402
 from deeplearning4j_tpu.datasets import records as jrec  # noqa: E402
@@ -47,7 +48,7 @@ RTOL = ATOL = 1e-5
 
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     kernel_select.reset()
     yield

@@ -34,6 +34,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu import ops as jops  # noqa: E402
 from deeplearning4j_tpu.models import googlenet_conf as jax_googlenet  # noqa: E402
 from deeplearning4j_tpu.ops import kernel_select  # noqa: E402
@@ -53,7 +54,7 @@ INCEPTIONS = ["i3a", "i3b", "i4a", "i4b", "i4c", "i4d", "i4e", "i5a", "i5b"]
 def jax_env(monkeypatch, tmp_path):
     """The JAX package's unbucketed inference and its own kernel choice,
     cleared around each test; a count of its fused LRN calls."""
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     kernel_select.reset()
     calls = []
@@ -164,7 +165,8 @@ def test_output_and_predict_match_jax(leg, jax_env, monkeypatch):
 
     monkeypatch.setattr(ops, "lrn", spy)
     got = pnet.output(x)
-    assert seen == [((3, 16, 16, 64), True), ((3, 16, 16, 192), True)]
+    # the 3 rows are served in the 4-row bucket
+    assert seen == [((4, 16, 16, 64), True), ((4, 16, 16, 192), True)]
     assert got.shape == want.shape == (3, 10) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)

@@ -22,6 +22,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.nn import activations as jact  # noqa: E402
 from deeplearning4j_tpu.ops import kernel_select  # noqa: E402
 
@@ -34,7 +35,7 @@ ATOL = RTOL = 1e-5
 
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     kernel_select.reset()
     yield

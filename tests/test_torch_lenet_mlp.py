@@ -33,6 +33,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.datasets import fetchers as jfetch  # noqa: E402
 from deeplearning4j_tpu.datasets import iterators as jit_  # noqa: E402
 from deeplearning4j_tpu.models.lenet import lenet_mnist_conf as jax_lenet  # noqa: E402
@@ -49,7 +50,7 @@ ADAM_OUTLIERS = 1e-4  # share of param elements past ATOL, each within LR / 10
 
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     monkeypatch.delenv("MNIST_DIR", raising=False)
     kernel_select.reset()

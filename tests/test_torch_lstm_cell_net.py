@@ -30,6 +30,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import deeplearning4j_tpu as dj  # noqa: E402
+from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.datasets.iterators import (  # noqa: E402
     BucketingSequenceIterator as JaxBucketingIterator,
     DataSet as JaxDataSet,
@@ -37,6 +38,7 @@ from deeplearning4j_tpu.datasets.iterators import (  # noqa: E402
 from deeplearning4j_tpu.ops import kernel_select, pallas_kernels  # noqa: E402
 
 import deeplearning4j_tpu_torch as pt  # noqa: E402
+from deeplearning4j_tpu_torch.runtime.compile_manager import next_pow2  # noqa: E402
 from deeplearning4j_tpu_torch import ops  # noqa: E402
 
 V, H, B, T, TBPTT = 11, 12, 3, 7, 3
@@ -52,7 +54,7 @@ def jax_cell(monkeypatch, tmp_path):
     Yields a check that the route ran: the selection log resolved every
     LSTM direction to "fusedcell" and the spy saw calls."""
     monkeypatch.setenv("DL4J_TPU_PALLAS", "1")
-    monkeypatch.setenv("DL4JTPU_INFER", "legacy")
+    monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)
     monkeypatch.setenv("DL4JTPU_KERNEL_CALIBRATION", str(tmp_path / "calibration.json"))
     kernel_select.reset()
     calls = []
@@ -287,7 +289,9 @@ def test_fusedcell_route_matches_seqfused_route(mode):
 
 def test_route_runs_the_cell_and_no_sequence_op(monkeypatch):
     """Under "fusedcell" each layer calls the cell once a step (forward and,
-    under grad, its Function) and never the sequence op."""
+    under grad, its Function) and never the sequence op. ``output`` serves
+    the power-of-two time bucket (T=7 runs 8 masked steps); ``fit`` runs
+    the batch's own T."""
     calls = {"cell": 0, "seq": 0}
     real_cell, real_seq = ops.lstm_cell_forward, ops.lstm_sequence_apply
     cell_mod = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
@@ -304,10 +308,11 @@ def test_route_runs_the_cell_and_no_sequence_op(monkeypatch):
     monkeypatch.setattr(ops, "lstm_sequence_apply", seq_spy)
     _, pnet = _pair(_char_conf("standard"))
     x, y, _, _ = _batches(1, seed=9)[0]
+    served = next_pow2(T)
     pnet.output(x)
-    assert calls == {"cell": 2 * T, "seq": 0}
+    assert calls == {"cell": 2 * served, "seq": 0}
     pnet.fit((x, y))
-    assert calls == {"cell": 4 * T, "seq": 0}
+    assert calls == {"cell": 2 * served + 2 * T, "seq": 0}
 
 
 def test_unknown_variant_raises():

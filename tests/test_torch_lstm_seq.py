@@ -174,11 +174,15 @@ def test_port_imports_no_jax_and_no_jax_package(path):
     assert not roots & {"jax", "jaxlib", "deeplearning4j_tpu"}, path
 
 
-# the training-observability and optimizer modules of slice 20, which the
-# scan above must cover like every other module of the port
+# the training-observability and optimizer modules of slice 20, and the
+# serving front of slice 21 (runtime/, serving/, tracing, slo, the utils),
+# which the scan above must cover like every other module of the port
 OBSERVABILITY_MODULES = [f"telemetry/{m}.py" for m in (
     "__init__", "registry", "spans", "watchdog", "flight_recorder", "device", "memory",
-    "session")] + [f"optimize/{m}.py" for m in ("__init__", "listeners", "solvers")]
+    "session")] + [f"optimize/{m}.py" for m in ("__init__", "listeners", "solvers")] + [
+    f"runtime/{m}.py" for m in ("__init__", "compile_manager", "step_graphs", "inference")] + [
+    f"serving/{m}.py" for m in ("__init__", "batcher", "decode", "service")] + [
+    "telemetry/tracing.py", "telemetry/slo.py", "utils/mathutil.py", "utils/collections.py"]
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
