@@ -8203,6 +8203,392 @@ def kernels_slice21(torch, ls, lr, card) -> dict:
     return out
 
 
+# ---- slice 22: runtime durability and online learning. The char-RNN at
+# full width trained online by OnlineTrainer from a record stream
+# (QueueSource fed by a producer thread, through ReplayBufferSource(
+# ChaosSource(...)) under a seeded FaultPlan: two source outages, one NaN
+# burst), a CheckpointStore version every 8 updates, each hot-swapped into
+# an InferenceService that four clients use the whole time; a rollback on
+# the NaN burst with its poisoned-span replay. Everything it launches but
+# the replay's no-update loss runs inside replayed CUDA graphs.
+ONLINE_BATCH, ONLINE_STAGE = 64, 4
+ONLINE_BLOCK = ONLINE_BATCH * ONLINE_STAGE  # records of one time bucket in a row: a full window
+ONLINE_LENGTHS = ((64, 128), (129, 256))  # ragged record lengths: time buckets 128 and 256
+ONLINE_BLOCKS = 14  # blocks of the traffic after the warm blocks (one of each bucket)
+ONLINE_CKPT_EVERY, ONLINE_RETAIN = 8, 3
+ONLINE_CLIENTS, ONLINE_CLIENT_ROWS, ONLINE_CLIENT_T = 4, (1, 8), 128
+ONLINE_SERVE_MAX_BATCH = 32  # the clients' coalesced rows stay within the warmed buckets
+ONLINE_WINDOW_S = 4.0  # the clients' idle window, and the training window of the same length
+ONLINE_DEADLINE_S = 60.0  # the phase's traffic stops here whatever the record count
+ONLINE_BARE_WINDOWS = 6  # windows of the path kept for the bare fit_on_device yardstick
+# the seeded fault plan: outages at these source polls (4 polls down each),
+# a NaN burst of ONLINE_NAN_RECORDS records from this record on
+ONLINE_OUTAGE_POLLS = (3 * ONLINE_BLOCK, 9 * ONLINE_BLOCK)
+ONLINE_NAN_AT, ONLINE_NAN_RECORDS = 6 * ONLINE_BLOCK + 10, 8
+# rows of the path: (kernel, shape name) -> the main row whose shape it
+# is, or None where kernels_slice22 holds and times it at this shape
+SLICE22_ROWS = {
+    ("lstm_seq_lean", "T=128 B=8"): None,
+    ("lstm_seq_masked_train_fwd", "T=256 B=64"): "lstm_seq_masked_train_fwd",
+    ("lstm_seq_masked_train_fwd", "T=128 B=64"): None,
+    ("lstm_seq_masked_bwd", "T=256 B=64"): "lstm_seq_masked_bwd",
+    ("lstm_seq_masked_bwd", "T=128 B=64"): None,
+    ("drw_product", "T=256 B=64"): "drw_product",
+    ("drw_product", "T=128 B=64"): None,
+    ("softmax_xent_fwd", "T=256 B=64"): "softmax_xent_fwd",
+    ("softmax_xent_fwd", "T=128 B=64"): None,
+    ("softmax_xent_bwd", "T=256 B=64"): "softmax_xent_bwd",
+    ("softmax_xent_bwd", "T=128 B=64"): None,
+    ("adam_update_dev", "14 leaves"): "adam_update_dev",
+}
+
+
+def online_plan():
+    from deeplearning4j_tpu_torch.testing import FaultPlan
+
+    return FaultPlan(SEED, [
+        {"site": "source.poll", "fault": "source-error", "at": list(ONLINE_OUTAGE_POLLS),
+         "params": {"polls": 4}},
+        {"site": "source.record", "fault": "nan-burst", "at": [ONLINE_NAN_AT],
+         "params": {"records": ONLINE_NAN_RECORDS}}])
+
+
+def online_block(rng, long: bool):
+    """ONLINE_BLOCK next-char records ([T, VOCAB] one-hot features and
+    labels) of ragged lengths in one of ONLINE_LENGTHS."""
+    import numpy as np
+
+    lo, hi = ONLINE_LENGTHS[int(long)]
+    eye = np.eye(VOCAB, dtype=np.float32)
+    out = []
+    for t in rng.integers(lo, hi + 1, ONLINE_BLOCK):
+        ids = rng.integers(0, VOCAB, int(t) + 1)
+        out.append((eye[ids[:-1]], eye[ids[1:]]))
+    return out
+
+
+def step_marks() -> dict:
+    """Every live captured training step and its replays so far, by id."""
+    from deeplearning4j_tpu_torch.runtime.compile_manager import get_compile_manager
+    from deeplearning4j_tpu_torch.runtime.step_graphs import StepGraph
+
+    return {id(g): (g, g.replays) for _, g in get_compile_manager().owned()
+            if isinstance(g, StepGraph)}
+
+
+def step_replayed_since(marks: dict, by_t: dict) -> dict:
+    """What the captured steps launched by replay since ``marks`` (one
+    replay's launches times the replays since), also into ``by_t`` by the
+    step's time bucket."""
+    graphs = {k: g for k, (g, _) in marks.items()}
+    graphs.update({k: g for k, (g, _) in step_marks().items()})
+    out: dict = {}
+    for k, g in graphs.items():
+        seen = marks.get(k)
+        n = g.replays - (seen[1] if seen is not None and seen[0] is g else 0)
+        counts = {name: v * n for name, v in g.launches.items()}
+        add_counts(out, counts)
+        t = int(g.batch[0].shape[1]) if g.batch[0].dim() == 3 else None
+        add_counts(by_t.setdefault(t, {}), counts)
+    return out
+
+
+def pct(values, q):
+    import numpy as np
+
+    return float(np.percentile(values, q)) if values else None
+
+
+def phase_online_char_rnn(torch, host_params, card):
+    """The char-RNN (char_rnn(96, 512, 2), Adam, standard backprop, as the
+    staged recipe sets it) trained online on the default, replayed path:
+    micro-batches of ONLINE_BATCH records, windows of ONLINE_STAGE, ragged
+    records of 64-256 steps in blocks of one time bucket (128 or 256), a
+    version every ONLINE_CKPT_EVERY updates into a CheckpointStore of
+    ONLINE_RETAIN, each hot-swapped into an InferenceService that
+    ONLINE_CLIENTS clients use the whole time with requests of 1-8 rows of
+    T=128. The FaultPlan injects two outages and one NaN burst. Holds: the
+    trainer alive and reconnected after each outage, a rollback with its
+    replay and a flight bundle, no capture after the warm-up (the first
+    window of each family and the service's buckets) through the swaps and
+    the rollback, no failed request, the served output after the last swap
+    equal bit for bit to a restore of the newest version, the first
+    window's losses equal to a clone's fit_on_device over the same window,
+    a corrupted version quarantined with load_into falling back, and rows
+    5 and 8-12 launching. Returns (launches, launches by time bucket,
+    readings, the masks of a 128 window's batch)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (InferenceService, MultiLayerNetwork, char_rnn,
+                                          load_jax_params, ops)
+    from deeplearning4j_tpu_torch.runtime import CheckpointStore, OnlineTrainer
+    from deeplearning4j_tpu_torch.runtime.compile_manager import get_compile_manager
+    from deeplearning4j_tpu_torch.streaming import QueueSource, ReplayBufferSource
+    from deeplearning4j_tpu_torch.telemetry import MetricsRegistry
+    from deeplearning4j_tpu_torch.telemetry.flight_recorder import (FlightRecorder,
+                                                                    set_flight_recorder)
+    from deeplearning4j_tpu_torch.testing import ChaosSource, corrupt_file
+
+    t_phase = time.perf_counter()
+    conf = char_rnn(VOCAB, HIDDEN, LAYERS)
+    assert (conf.updater["updater"], conf.updater["learning_rate"]) == ("adam", RECIPE_LR)
+    conf.backprop_type = "standard"
+    net = load_jax_params(MultiLayerNetwork(conf), host_params)
+    ref = net.clone()  # the same weights: the first window's and the bare yardstick's
+    tmp = tempfile.mkdtemp(prefix="dl4jtpu_online_")
+    recorder = FlightRecorder(dump_dir=os.path.join(tmp, "flight"), registry=MetricsRegistry())
+    set_flight_recorder(recorder)
+    reg = MetricsRegistry()
+    store = CheckpointStore(os.path.join(tmp, "ckpt"), retain=ONLINE_RETAIN, registry=reg)
+    svc = InferenceService(registry=reg, max_delay_ms=2.0, max_batch=ONLINE_SERVE_MAX_BATCH)
+    queue = QueueSource(maxsize=2 * ONLINE_BLOCK)
+    plan = online_plan()
+    chaos = ChaosSource(queue, plan)
+    trainer = OnlineTrainer(net, ReplayBufferSource(chaos), batch=ONLINE_BATCH,
+                            stage=ONLINE_STAGE, linger=0.05, name="online_char_rnn",
+                            checkpoint_store=store, checkpoint_every_steps=ONLINE_CKPT_EVERY,
+                            service=svc, serve_as="char_rnn_live", registry=reg,
+                            source_retry_s=0.02)
+    cm = get_compile_manager()
+    # ---- instruments: per-window ms, the first windows' tensors, the
+    # snapshot, the writer, swaps and rollbacks
+    readings = {"window_ms": [], "snapshot_ms": [], "write_s": [], "swap_ms": [],
+                "rollback_ms": [], "load_into_ms": []}
+    kept, first_losses, mask128 = [], [], []
+    real_fit = net.fit_on_device
+
+    def fit_spy(xs, ys, steps=None, features_masks=None, labels_masks=None, real_batches=None):
+        t0 = time.perf_counter()
+        losses = real_fit(xs, ys, steps=steps, features_masks=features_masks,
+                          labels_masks=labels_masks, real_batches=real_batches)
+        readings["window_ms"].append((time.perf_counter() - t0) * 1e3)
+        if len(kept) < ONLINE_BARE_WINDOWS:
+            kept.append((xs, ys, features_masks, labels_masks, real_batches))
+            if not first_losses:
+                first_losses.append(np.array(losses))
+        if not mask128 and xs.shape[2] == 128:
+            mask128.append(features_masks[0].t().contiguous()[:, :, None])
+        return losses
+
+    net.fit_on_device = fit_spy
+
+    def timed(key, fn, scale=1e3):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                readings[key].append((time.perf_counter() - t0) * scale)
+        return run
+
+    real_snapshot = CheckpointStore.snapshot
+    CheckpointStore.snapshot = staticmethod(timed("snapshot_ms", real_snapshot))
+    store._write = timed("write_s", store._write, scale=1.0)
+    svc.hot_swap = timed("swap_ms", svc.hot_swap)
+    trainer._rollback = timed("rollback_ms", trainer._rollback)
+    store.load_into = timed("load_into_ms", store.load_into)
+
+    rng = np.random.default_rng(SEED)
+    x_req = one_hot(rng.integers(0, VOCAB, (ONLINE_SERVE_MAX_BATCH, ONLINE_CLIENT_T)), VOCAB)
+    lats, errors, stop_clients = [], [], threading.Event()
+
+    def client(c):
+        r = np.random.default_rng(SEED + 100 + c)
+        while not stop_clients.is_set():
+            rows = int(r.integers(ONLINE_CLIENT_ROWS[0], ONLINE_CLIENT_ROWS[1] + 1))
+            start = int(r.integers(0, ONLINE_SERVE_MAX_BATCH - rows + 1))
+            t0 = time.perf_counter()
+            try:
+                out = svc.predict("char_rnn_live", x_req[start:start + rows], timeout_s=60)
+                if out.shape != (rows, ONLINE_CLIENT_T, VOCAB) or not np.isfinite(out).all():
+                    errors.append(f"bad result {out.shape}")
+            except Exception as e:  # noqa: BLE001 - every failure is reported
+                errors.append(f"{type(e).__name__}: {e}"[:200])
+            lats.append((time.perf_counter(), (time.perf_counter() - t0) * 1e3))
+
+    def wait_for(pred, seconds):
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            if pred():
+                return True
+            time.sleep(0.01)
+        return False
+
+    clients = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(ONLINE_CLIENTS)]
+    produced = [0]
+
+    def produce(blocks, start_long):
+        for b in range(blocks):
+            for rec in online_block(rng_prod, (b + start_long) % 2 == 1):
+                queue.put(*rec, timeout=120)
+                produced[0] += 1
+
+    rng_prod = np.random.default_rng(SEED + 7)
+    ops.reset_counters()
+    marks, smarks = replay_marks(), step_marks()
+    try:
+        # ---- start: the service serves the trainer's clone; its buckets warm
+        trainer.start()
+        svc.warmup("char_rnn_live", x_req[:1], max_rows=ONLINE_SERVE_MAX_BATCH)
+        # ---- the idle window: clients, no training
+        for th in clients:
+            th.start()
+        t_idle = time.perf_counter()
+        time.sleep(ONLINE_WINDOW_S)
+        idle = [ms for t, ms in lats if t > t_idle]
+        # ---- warm: one window of each family (128, then 256)
+        produce(2, 0)
+        assert wait_for(lambda: trainer.stats()["windows_total"] >= 2, 120), trainer.stats()
+        warm_kinds = sorted(cm.kinds(net._cm_token))
+        c0 = cm.compiles.value
+        # ---- the traffic, while the clients run
+        t_train = time.perf_counter()
+        steps0, records0 = trainer.stats()["steps_total"], trainer.stats()["records_total"]
+        producer = threading.Thread(target=produce, args=(ONLINE_BLOCKS, 0), daemon=True)
+        producer.start()
+        end = t_train + ONLINE_DEADLINE_S
+        while producer.is_alive() and time.perf_counter() < end:
+            time.sleep(0.05)
+        drained = wait_for(lambda: trainer.stats()["records_total"] >= produced[0],
+                           max(5.0, end - time.perf_counter()))
+        # the last partial group flushes once the stream goes idle
+        windows = trainer.stats()["windows_total"]
+        wait_for(lambda: trainer.stats()["windows_total"] > windows, 2.0)
+        train_s = time.perf_counter() - t_train
+        stats = trainer.stats()
+        alive = trainer.alive
+        final_version = trainer.checkpoint_now(swap=True)
+        store.join()
+        stop_clients.set()
+        for th in clients:
+            th.join(60)
+        producer.join(10)
+        captures_after_warm = cm.compiles.value - c0
+        busy = [ms for t, ms in lats if t_train < t <= t_train + ONLINE_WINDOW_S]
+        training = [ms for t, ms in lats if t_train < t <= t_train + train_s]
+        # ---- the served output after the last swap against a restore of it
+        probe = x_req[:8]
+        served = svc.predict("char_rnn_live", probe, timeout_s=60)
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        by_t: dict = {}
+        replayed = add_counts(replayed_since(marks), step_replayed_since(smarks, by_t))
+        served_replays = replayed_since(marks)
+        restored = store.restore(final_version)
+        served_vs_restored = float(np.abs(served - restored.output(probe)).max())
+        trainer.stop(checkpoint=False)
+        svc.stop()
+    finally:
+        stop_clients.set()
+        CheckpointStore.snapshot = real_snapshot
+        set_flight_recorder(None)
+    # ---- the first window against a clone's fit_on_device, then the bare yardstick
+    torch.cuda.synchronize()
+    first = ref.fit_on_device(*kept[0][:2], steps=kept[0][4], features_masks=kept[0][2],
+                              labels_masks=kept[0][3], real_batches=kept[0][4])
+    first_equal = bool(np.array_equal(first, first_losses[0]))
+    for w in kept[1:]:  # captures ref's other family
+        ref.fit_on_device(*w[:2], steps=w[4], features_masks=w[2], labels_masks=w[3],
+                          real_batches=w[4])
+    bare_ms = []
+    for w in kept:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref.fit_on_device(*w[:2], steps=w[4], features_masks=w[2], labels_masks=w[3],
+                          real_batches=w[4])
+        bare_ms.append((time.perf_counter() - t0) * 1e3)
+    rollback_load_ms = list(readings["load_into_ms"])
+    # ---- a corrupted version is quarantined and load_into falls back
+    versions = [v.version for v in store.versions()]
+    corrupt_file(store.path(versions[-1]), seed=SEED)
+    fell_back_to = store.load_into(restored)
+    quarantined = os.path.exists(store.path(versions[-1]) + ".quarantine")
+    bundles = list(recorder.dumps)
+    version_bytes = os.path.getsize(store.path(fell_back_to))
+    on_path = {k: counts.get(k, 0) + replayed.get(k, 0) for k in
+               ("lstm_seq_lean", "lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd",
+                "drw_product", "softmax_xent_fwd", "softmax_xent_bwd", "adam_update_dev")}
+    last = stats["last_replay"] or {}
+    records = stats["records_total"] - records0
+    readings.update(
+        records_total=stats["records_total"], steps_total=stats["steps_total"],
+        windows_total=stats["windows_total"], train_s=train_s, drained=drained,
+        records_per_s=records / train_s, window_ms_median=statistics.median(
+            readings["window_ms"][2:] or readings["window_ms"]),
+        bare_window_ms=bare_ms, bare_window_ms_median=statistics.median(bare_ms),
+        snapshot_ms_median=statistics.median(readings["snapshot_ms"]),
+        write_s_median=statistics.median(readings["write_s"]), version_bytes=version_bytes,
+        swap_ms_median=statistics.median(readings["swap_ms"]),
+        rollback_load_into_ms=rollback_load_ms,
+        client_ms={"idle": {"n": len(idle), "p50": pct(idle, 50), "p99": pct(idle, 99)},
+                   "training_window": {"n": len(busy), "p50": pct(busy, 50),
+                                       "p99": pct(busy, 99)},
+                   "training_all": {"n": len(training), "p50": pct(training, 50),
+                                    "p99": pct(training, 99)},
+                   "window_s": ONLINE_WINDOW_S},
+        client_errors=errors[:5], rollbacks=stats["rollbacks_total"],
+        replays=stats["replays_total"], last_replay_outcome=last.get("outcome"),
+        last_replay_records=last.get("records"), outages=chaos.outages,
+        reconnects=stats["reconnects_total"], source_errors=stats["source_errors_total"],
+        nan_records=chaos.nan_records, swaps=stats["swaps_total"],
+        final_version=final_version, versions_after=versions, fell_back_to=fell_back_to,
+        quarantined=quarantined, flight_bundles=len(bundles), alive=alive,
+        captures_after_warm=captures_after_warm, warm_kinds=warm_kinds,
+        served_vs_restored_max_abs=served_vs_restored, first_window_equal=first_equal,
+        first_window_losses=first_losses[0].tolist(), on_path=on_path,
+        served_replayed=served_replays, wrapper_counts={k: v for k, v in counts.items() if v},
+        seconds=time.perf_counter() - t_phase, faults=plan.summary()["fired"])
+    checks = {
+        "alive": bool(alive), "outages": chaos.outages == len(ONLINE_OUTAGE_POLLS),
+        "reconnected": stats["reconnects_total"] >= chaos.outages,
+        "rolled_back": stats["rollbacks_total"] >= 1, "replayed": stats["replays_total"] >= 1,
+        "bundle": bool(bundles), "no_capture_after_warm": captures_after_warm == 0,
+        "no_failed_request": not errors, "served_equals_restore": served_vs_restored == 0.0,
+        "first_window_equal": first_equal, "quarantined": quarantined,
+        "fell_back": fell_back_to == versions[-2],
+        "rows_launched": all(on_path.values())}
+    ok = all(checks.values())
+    readings["checks"] = checks
+    emit("online_char_rnn", gpu=card, ok=bool(ok), **{
+        k: v for k, v in readings.items() if k not in ("window_ms", "snapshot_ms", "write_s",
+                                                        "swap_ms")},
+         window_ms_runs=readings["window_ms"], snapshot_ms_runs=readings["snapshot_ms"],
+         write_s_runs=readings["write_s"], swap_ms_runs=readings["swap_ms"])
+    if not ok:
+        raise AssertionError("online_char_rnn failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return on_path, by_t, readings, mask128[0]
+
+
+def kernels_slice22(torch, ls, sx, card, mask128) -> dict:
+    """Rows 5 and 8-11 at the shapes the online path gives them that no
+    earlier row holds: the lean sequence at T=128 B=8 (a served bucket of
+    the clients' requests), the masked training forward, backward and dRW
+    at T=128 B=64 with the mask of a batch of the path's 128 windows, and
+    softmax-xent at N=8192 C=96, each against its plain version on the same
+    tensors, then timed beside it, its bound and the library call. Returns
+    {(kernel, shape name): (max abs err, times, shape)}."""
+    out = {}
+    err, t = lean_at(torch, ls, ONLINE_CLIENT_T, 8, HIDDEN, card, "online_char_rnn")
+    out[("lstm_seq_lean", "T=128 B=8")] = (err, t, f"T=128 B=8 H={HIDDEN}")
+    rows = lstm_rows_at(torch, ls, 128, ONLINE_BATCH, HIDDEN, card, "online_char_rnn",
+                        mask=mask128.to(DEVICE, torch.float32))
+    for name, (e, t) in rows.items():
+        out[(name, "T=128 B=64")] = (e, t, f"T=128 B=64 H={HIDDEN}, the path's mask"
+                                     + (" R=8192" if name == "drw_product" else ""))
+    N = 128 * ONLINE_BATCH
+    e = sxent_case(torch, sx, N, VOCAB, "float32", "one_hot", SEED + 22)
+    for (k, _), t in time_sxent(torch, sx, N, VOCAB, ("float32",), card,
+                                "the online path's T=128 windows").items():
+        out[(k, "T=128 B=64")] = (e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"]),
+                                  t, f"N={N} C={VOCAB}")
+    return out
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -8486,6 +8872,15 @@ def main() -> int:
     for path, k, _ in SLICE21_ROWS:
         new_path_launches[(path, k)] = min(s21_launches[path].get(k, 0),
                                            s21_replayed[path].get(k, 0))
+    # ---- 4o. slice 22: the char-RNN trained online (OnlineTrainer, the
+    # CheckpointStore, hot swaps into an InferenceService under client
+    # traffic, a rollback) on the default, replayed path; counts from 0
+    os.environ.pop("DL4JTPU_INFER")
+    s22_launches, s22_by_t, s22_readings, s22_mask = phase_online_char_rnn(
+        torch, host_params, card)
+    os.environ["DL4JTPU_INFER"] = "legacy"
+    for k, v in s22_launches.items():
+        launches[k] = launches.get(k, 0) + v
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -8573,6 +8968,7 @@ def main() -> int:
     s19_rows = kernels_slice19(torch, sx, ad, card, s19_shapes)
     s20_rows = kernels_slice20(torch, sx, card)
     s21_rows = kernels_slice21(torch, ls, lr, card)
+    s22_rows = kernels_slice22(torch, ls, sx, card, s22_mask)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -8785,6 +9181,31 @@ def main() -> int:
                     replayed_launches=s21_replayed[path].get(k, 0),
                     yardstick_launches=s21_yardstick[path].get(k, 0))
         lines.append(line)
+    # rows 5 and 8-12 at the online path's shapes: launches by the path's
+    # replays in that time bucket (the lean row: every served replay and the
+    # eager launches of the replay's no-update loss; row 12: both buckets),
+    # beside what the wrappers counted (captures and eager runs)
+    main_lines = {line["name"]: line for line in lines}
+    for (k, shape_name), main in SLICE22_ROWS.items():
+        if main is not None:
+            line = dict(main_lines[main], shape=f"{main}'s ({shape_name})")
+        else:
+            err, t, shape = s22_rows[(k, shape_name)]
+            source, replaces = {**KERNELS, **DRW_KERNELS}[k]
+            line = {"route": "cuda", "source": source, "replaces": replaces,
+                    "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
+                    "kernel_device_ms": t.get("kernel_device_ms")}
+        bucket = 128 if "T=128" in shape_name else 256 if "T=256" in shape_name else None
+        n = (s22_launches[k] if k in ("lstm_seq_lean", "adam_update_dev")
+             else s22_by_t.get(bucket, {}).get(k, 0))
+        line.update(name=f"{k}@online_char_rnn[{shape_name}]", launches=n,
+                    replayed_launches=n,
+                    wrapper_launches=s22_readings["wrapper_counts"].get(k, 0))
+        if not n:
+            raise AssertionError(f"{k} did not launch on the online path at {shape_name}")
+        lines.append(line)
     print(json.dumps({"kernels": lines, "launches": launches,
                       "staged_replays": staged_replays, "staged_ms_per_update": staged_times,
                       "staged_replayed_launches": staged_replayed,
@@ -8825,6 +9246,9 @@ def main() -> int:
                               for w, r in s21_readings[path].items()}
                              for path in ("serve_graphs", "serve_models")},
                           "serve_service": s21_readings["serve_service"]},
+                      "slice22": {k: v for k, v in s22_readings.items()
+                                  if k not in ("window_ms", "snapshot_ms", "write_s",
+                                               "swap_ms")},
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

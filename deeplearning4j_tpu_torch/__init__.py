@@ -49,8 +49,12 @@ backward, LRN and its backward, the softmax cross-entropy and the Adam update
 run in hand-written CUDA kernels (``ops/csrc/``); the LSTM layers run either
 the whole-sequence kernels (the default) or, with
 ``MultiLayerNetwork(..., lstm_variant="fusedcell")``, one per-step cell
-kernel launch per step. Entry points run on the card unless the caller
-passes ``device="cpu"``.
+kernel launch per step. It trains online from record streams
+(``runtime.OnlineTrainer`` over the ``streaming`` sources, with the
+versioned ``runtime.CheckpointStore``, in-place rollback and a live hot
+swap into an ``InferenceService``; ``runtime.resilience`` policies,
+``testing.chaos`` fault plans, ``telemetry.history``). Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from .datasets.fetchers import (DigitsDataSetIterator, IrisDataSetIterator,
@@ -118,6 +122,8 @@ from .nn.multilayer import MultiLayerNetwork
 from .nn.transferlearning import (FineTuneConfiguration, TransferLearning,
                                   TransferLearningBuilder, TransferLearningGraphBuilder)
 from .nn.updaters import UpdaterConfig
+from .runtime.checkpoint import CheckpointStore
+from .runtime.online import OnlineTrainer
 from .serving import InferenceService, get_service
 from .serving.decode import DecodeServer
 from .utils.serialization import restore_model, write_model
@@ -129,6 +135,7 @@ __all__ = [
     "BernoulliReconstruction",
     "BucketingSequenceIterator",
     "CenterLossOutputLayer",
+    "CheckpointStore",
     "CnnToFeedForwardPreProcessor",
     "CnnToRnnPreProcessor",
     "ComposableInputPreProcessor",
@@ -178,6 +185,7 @@ __all__ = [
     "MultiLayerNetwork",
     "MultipleEpochsIterator",
     "NumpyDataSetIterator",
+    "OnlineTrainer",
     "OutputLayer",
     "PreprocessorVertex",
     "RBM",

@@ -618,7 +618,14 @@ class DevicePrefetchIterator(DataSetIterator):
     def start_copy(self, item):
         """Start ``item``'s copy to the card through the next pinned buffer
         (after that buffer's last copy has finished); returns the handle
-        :meth:`finish_copy` takes."""
+        :meth:`finish_copy` takes. Holds the capture lock shared
+        (``runtime.compile_manager``)."""
+        from ..runtime.compile_manager import capture_lock  # noqa: PLC0415
+
+        with capture_lock().shared():
+            return self._start_copy(item)
+
+    def _start_copy(self, item):
         import torch  # noqa: PLC0415
 
         dev = torch.device(self.device)
@@ -635,9 +642,12 @@ class DevicePrefetchIterator(DataSetIterator):
     @staticmethod
     def finish_copy(handle):
         """The item of a :meth:`start_copy` handle, safe to use on the
-        current stream."""
+        current stream (under the capture lock, shared)."""
+        from ..runtime.compile_manager import capture_lock  # noqa: PLC0415
+
         tensors, rebuild, done, dev = handle
-        return rebuild(_use_on_current(tensors, done, dev))
+        with capture_lock().shared():
+            return rebuild(_use_on_current(tensors, done, dev))
 
     def __iter__(self):
         import torch  # noqa: PLC0415

@@ -86,7 +86,7 @@ from ..datasets.iterators import (AsyncDataSetIterator, DataSet, DevicePrefetchI
                                   MultiDataSet, as_iterator)
 from ..eval.evaluation import Evaluation
 from ..runtime import inference as _inf
-from ..runtime.compile_manager import get_compile_manager, signature
+from ..runtime.compile_manager import capture_lock, get_compile_manager, signature
 from ..runtime.step_graphs import StepGraph, StepGraphs
 from ..telemetry import device as _tdev
 from .conf.multi_layer import MultiLayerConfiguration
@@ -219,6 +219,7 @@ class BaseNetwork(torch.nn.Module):
         self._served = None
         self._served_pads = None  # runtime.inference._pads
         self._infer_rnn: dict = {}
+        self._written = None  # _mark_written's event
         self.last_batch_size: Optional[int] = None
         self.staged_steps_total = 0  # updates taken by fit_on_device
         self.staged_step_time: Optional[float] = None  # set while its listeners run
@@ -323,7 +324,7 @@ class BaseNetwork(torch.nn.Module):
         cur = self._leaves()
         if len(new) != len(cur):
             raise ValueError(f"{len(new)} param dicts, the network has {len(cur)}")
-        with self._infer_lock, torch.no_grad():
+        with self._infer_lock, capture_lock().shared(), torch.no_grad():
             staged = []
             for i, (mine, theirs) in enumerate(zip(cur, new)):
                 if set(mine) != set(theirs):
@@ -341,6 +342,18 @@ class BaseNetwork(torch.nn.Module):
                 for cur_d, new_d in zip(self._state_dicts(), self._swap_leaves(state)):
                     for k, t in cur_d.items():
                         t.copy_(_as_tensor(new_d[k]))
+            self._mark_written()
+
+    def _mark_written(self) -> None:
+        """After an in-place write of the params or state from this thread's
+        stream (a swap, a rollback): on the card, an event that the next
+        served dispatch makes its own stream wait on, so a replay on
+        another thread's stream reads the new values (``runtime.inference.
+        _dispatch``). Called under ``_infer_lock``."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._written = ev
 
     def _swap_leaves(self, tree) -> List[dict]:
         """A params or state tree in ``init``'s layout as one dict per entry
@@ -640,7 +653,12 @@ class BaseNetwork(torch.nn.Module):
         """Capture ``entry``'s step in a CUDA graph: warm-up steps on a side
         stream from a snapshot that is put back, then the capture, with the
         dropout generator registered so that each replay draws anew and
-        moves it on as an eager step does. Raises if the capture fails."""
+        moves it on as an eager step does. Raises if the capture fails. Holds
+        the capture lock exclusively (``runtime.compile_manager``)."""
+        with capture_lock().exclusive():
+            self._capture_locked(entry, stacked)
+
+    def _capture_locked(self, entry: StepGraph, stacked: list) -> None:
         self._load_slot(entry, stacked, 0)
         entry.scalars.copy_(torch.from_numpy(
             step_scalars(self._updater, self._opt_state, 1)[0]))
@@ -694,7 +712,12 @@ class BaseNetwork(torch.nn.Module):
         replay the captured step (on the CPU, run it) once per update after
         the copies of its batch and scalars, each loss (and with telemetry
         on, each metrics vector beside it) into a device buffer; then the
-        counts and the caches. Returns what ``_finish_window`` reads."""
+        counts and the caches. Returns what ``_finish_window`` reads. Holds
+        the capture lock shared (``runtime.compile_manager``)."""
+        with capture_lock().shared():
+            return self._start_window_locked(stacked, steps, real_batches)
+
+    def _start_window_locked(self, stacked: list, steps, real_batches):
         n_steps, n_real = _real_batches(_staged_dim0(stacked[0]), steps, real_batches)
         entry = self._step_entry(stacked)
         table = torch.from_numpy(step_scalars(self._updater, self._opt_state, n_steps)
@@ -730,7 +753,8 @@ class BaseNetwork(torch.nn.Module):
         telemetry session (``on_staged``), then run the listeners once per
         step."""
         buf, t0, slots, batch = queued
-        host = buf.cpu()
+        with capture_lock().shared():
+            host = buf.cpu()
         elapsed = time.perf_counter() - t0
         n = len(host)
         tel = self.telemetry if host.shape[1] > 1 else None  # rows written at the start

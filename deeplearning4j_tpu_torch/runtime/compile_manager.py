@@ -30,6 +30,26 @@ counting holds there too.
   ``allocated``), summed once per pool, since every graph of one network
   draws on one pool.
 
+- **One capture at a time, and nothing else on the card meanwhile.** A
+  capture runs under ``torch.cuda.graph``'s default
+  ``capture_error_mode="global"``, where a synchronizing or allocating
+  CUDA call from any other thread fails that call or invalidates the
+  capture. The rule: every capture (a training step's, ``nn.multilayer``
+  ``_capture``; a served bucket's, ``runtime.inference.ServedGraph.
+  capture``) holds :func:`capture_lock` exclusively, and every other piece
+  of the runtime that issues CUDA work from a thread of its own holds it
+  shared for that work: a served dispatch (request copy, replay, host
+  copy of the result: ``runtime.inference._dispatch``), a staged window's
+  replays and its losses' read (``_start_window``, ``_finish_window``),
+  the prefetch ring's copies (``DevicePrefetchIterator.start_copy``), a
+  hot swap's copies (``swap_params``), a checkpoint's snapshot, its
+  writer's host copy and a rollback's load (``runtime.checkpoint``). A
+  thread that holds it shared and must capture gives up its shared hold
+  for the capture and takes it back after, so two such threads never
+  wait on each other. The lock is taken after a network's
+  ``_infer_lock``, never before it. Work that another library's thread
+  sends to the card is outside the rule.
+
 What has no counterpart here: XLA's persistent disk cache (a CUDA graph
 cannot be saved; every process captures anew), the IR findings family and
 the static cost records of the JAX package's admission scan, and
@@ -42,9 +62,11 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict, deque
+from contextlib import contextmanager
 from typing import Any, Callable, Optional, Tuple
 
-__all__ = ["CompileManager", "get_compile_manager", "next_pow2", "signature"]
+__all__ = ["CaptureLock", "CompileManager", "capture_lock", "get_compile_manager",
+           "next_pow2", "signature"]
 
 # capture times span well under a second (a small net on the CPU) to
 # seconds (ResNet-50's warm-up run, cuDNN's first choices, the capture)
@@ -78,6 +100,78 @@ def signature(*parts) -> Tuple:
     """Canonical cache key from hashables and nested tensors or arrays
     (``None`` stands for an absent mask)."""
     return tuple(_part(p) for p in parts)
+
+
+class CaptureLock:
+    """A shared/exclusive lock for the capture rule (see the module doc):
+    :meth:`exclusive` for a capture, :meth:`shared` for other CUDA work.
+    Both nest on one thread. A thread that holds it shared and asks for it
+    exclusively gives up its shared holds while it waits and captures, and
+    has them back when the capture is done. Waiting captures go before new
+    shared holders, so a stream of dispatches cannot starve a capture."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers: dict = {}  # thread id -> shared holds
+        self._writer = None
+        self._depth = 0
+        self._waiting = 0
+        self.exclusive_total = 0  # captures that took it
+
+    @contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer != me and not self._readers.get(me):
+                while self._writer is not None or self._waiting:
+                    self._cond.wait()
+            self._readers[me] = self._readers.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                n = self._readers[me] - 1
+                if n:
+                    self._readers[me] = n
+                else:
+                    del self._readers[me]
+                    self._cond.notify_all()
+
+    @contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer == me:
+                self._depth += 1
+                held = None
+            else:
+                held = self._readers.pop(me, 0)
+                if held:
+                    self._cond.notify_all()
+                self._waiting += 1
+                while self._writer is not None or self._readers:
+                    self._cond.wait()
+                self._waiting -= 1
+                self._writer, self._depth = me, 1
+                self.exclusive_total += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._writer = None
+                    if held:
+                        self._readers[me] = held
+                    self._cond.notify_all()
+
+
+_CAPTURE_LOCK = CaptureLock()
+
+
+def capture_lock() -> CaptureLock:
+    """The process-wide lock of the capture rule (module doc)."""
+    return _CAPTURE_LOCK
 
 
 class _Slot:

@@ -42,7 +42,9 @@ an executable:
 - **One lock a network.** ``net._infer_lock`` is held from the copy into a
   graph's static inputs to the host copy of its output: the graphs of one
   network share their pool and their inputs, and a service replays them
-  from several threads.
+  from several threads. Inside it the process-wide capture lock is held
+  shared (exclusively for a capture): ``runtime.compile_manager`` states
+  the rule.
 - **Fused argmax.** ``predict()`` computes the argmax inside the graph;
   only int32 indices come to the host.
 - **The padding cut off.** The real rows (and steps) are cut from the
@@ -65,7 +67,7 @@ import torch
 from .. import ops
 from ..datasets.bucketing import _padded_mask
 from ..telemetry.tracing import current_trace, record_trace_event
-from .compile_manager import get_compile_manager, next_pow2, signature
+from .compile_manager import capture_lock, get_compile_manager, next_pow2, signature
 
 __all__ = [
     "INFER_ENV",
@@ -290,7 +292,12 @@ class ServedGraph:
         """Capture the forward in a CUDA graph: one eager warm-up run on a
         side stream (the streaming state it advances is put back), then the
         capture into ``pool`` (None: a new pool). Raises if the capture
-        fails."""
+        fails. Holds the capture lock exclusively (``runtime.
+        compile_manager``)."""
+        with capture_lock().exclusive():
+            self._capture_locked(device, pool)
+
+    def _capture_locked(self, device, pool) -> None:
         saved = [t.clone() for t in self.writes]
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -331,8 +338,13 @@ def _dispatch(net, key, specs: list, arrays: list, forward, fetch, stream_batch=
     pool. ``forward(net, inputs, params, state, stream)`` is the bucket's
     forward, returning (outputs, new streaming state or None); with
     ``stream_batch`` it runs on the streaming buffers of that many rows
-    (``stream_buffers``), which it updates in place."""
-    with torch.no_grad(), net._infer_lock:
+    (``stream_buffers``), which it updates in place. Holds the capture lock
+    shared (``runtime.compile_manager``); the stream waits for the last
+    in-place write of a swap or a rollback (``_mark_written``)."""
+    with torch.no_grad(), net._infer_lock, capture_lock().shared():
+        if net._written is not None:
+            torch.cuda.current_stream(net.device).wait_event(net._written)
+            net._written = None
         params, state = net._params(), net._served_state()
         bufs = None if stream_batch is None else stream_buffers(net, stream_batch, adopt)
         writes = _leaf_tensors(bufs)

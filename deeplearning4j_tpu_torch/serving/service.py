@@ -30,10 +30,12 @@ budget; a request that would breach either is shed with
 What waits (ROADMAP.md): the JAX ``register`` applies a TUNED.json entry
 of ``tune/`` to the batcher and admission knobs; the port reads the
 argument, then the service's constructor argument, then the environment,
-then the default. The metric-history sampler (``telemetry/history.py``)
-and the HTTP endpoints (``ui/``) come with their own items, and
-``register(layout=...)`` raises ``NotImplementedError`` until the
-parallelism item (ROADMAP Queue 1 item 8).
+then the default. The HTTP endpoints (``ui/``) come with their own item,
+and ``register(layout=...)`` raises ``NotImplementedError`` until the
+parallelism item (ROADMAP Queue 1 item 8). As in the JAX package, the
+constructor starts the process-wide metric-history sampler
+(``telemetry/history.py``; ``DL4JTPU_HISTORY=0`` turns it off): its
+thread reads only the host registry, never the card.
 """
 
 from __future__ import annotations
@@ -217,6 +219,15 @@ class InferenceService:
             "dl4jtpu_serve_shed_total",
             "requests shed by admission control, by model and reason",
             labelnames=("model", "reason"))
+        # every serving process grows metric history: the Deadline-paced
+        # sampler ticks the default registry into the process HistoryStore
+        # (no-op when DL4JTPU_HISTORY=0; idempotent across services)
+        try:
+            from ..telemetry.history import ensure_default_sampler  # noqa: PLC0415
+
+            ensure_default_sampler()
+        except Exception:  # noqa: BLE001 - observability never blocks ctor
+            pass
 
     # ------------------------------------------------------------ registry
     @staticmethod

@@ -22,8 +22,10 @@ side).
 - :mod:`tracing` — distributed request tracing: the trace context and its
   header, head sampling, the trace ring, spans.
 - :mod:`slo` — declared serving objectives and multi-window burn rates.
-
-The JAX package's metric history (``history``) comes in a later slice.
+- :mod:`history` — the metric time-series store and its Deadline-paced
+  sampler, which the ``InferenceService`` starts (``DL4JTPU_HISTORY=0``
+  turns it off); the JAX package's ``FleetRecordingRules`` waits for
+  ``fleet/``.
 """
 
 from .device import GRAD_NORM, LOSS, NONFINITE, NUM_SLOTS, step_stats
@@ -41,6 +43,18 @@ from .memory import (
     memory_report,
     preflight,
     sample_device_memory,
+)
+from .history import (
+    Forecast,
+    HistorySampler,
+    HistoryStore,
+    ensure_default_sampler,
+    get_default_sampler,
+    get_history_store,
+    history_enabled,
+    parse_prometheus_text,
+    set_default_sampler,
+    set_history_store,
 )
 from .registry import (
     DEFAULT_BUCKETS,
@@ -121,4 +135,14 @@ __all__ = [
     "record_trace_event",
     "trace_span",
     "use_trace",
+    "Forecast",
+    "HistorySampler",
+    "HistoryStore",
+    "ensure_default_sampler",
+    "get_default_sampler",
+    "get_history_store",
+    "history_enabled",
+    "parse_prometheus_text",
+    "set_default_sampler",
+    "set_history_store",
 ]

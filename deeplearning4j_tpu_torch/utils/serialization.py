@@ -58,7 +58,11 @@ def _load_leaves(zf: zipfile.ZipFile, name: str) -> List[np.ndarray]:
 
 def write_model(net: BaseNetwork, path: str) -> None:
     """Save a MultiLayerNetwork or ComputationGraph with its updater state,
-    layer state, iteration and epoch (reference: ModelSerializer.writeModel)."""
+    layer state, iteration and epoch (reference: ModelSerializer.writeModel).
+    ``net`` may also be a snapshot proxy (``runtime.checkpoint``'s): anything
+    with ``init``, ``conf``, ``_leaves``, ``updater_state_leaves``,
+    ``state_leaves``, ``iteration``, ``epoch`` and a ``model_class`` naming
+    the real class."""
     net.init()
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("configuration.json", net.conf.to_json())
@@ -67,7 +71,8 @@ def write_model(net: BaseNetwork, path: str) -> None:
         _save_leaves(zf, "updaterState.npz", net.updater_state_leaves())
         _save_leaves(zf, "state.npz", net.state_leaves())
         zf.writestr("meta.json", json.dumps({
-            "model_class": type(net).__name__, "iteration": net.iteration,
+            "model_class": getattr(net, "model_class", type(net).__name__),
+            "iteration": net.iteration,
             "epoch": net.epoch}))
 
 

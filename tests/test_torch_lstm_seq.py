@@ -167,22 +167,29 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    PORT.parent / "chip_smoke.py", PORT.parent / "scripts" / "torch_chaos_soak.py"],
                          ids=lambda p: str(p.relative_to(PORT.parent)))
 def test_port_imports_no_jax_and_no_jax_package(path):
     roots = {name.split(".")[0] for name in _imports(path)}
     assert not roots & {"jax", "jaxlib", "deeplearning4j_tpu"}, path
 
 
-# the training-observability and optimizer modules of slice 20, and the
+# the training-observability and optimizer modules of slice 20, the
 # serving front of slice 21 (runtime/, serving/, tracing, slo, the utils),
-# which the scan above must cover like every other module of the port
+# and runtime durability and online learning of slice 22 (runtime/,
+# streaming/, testing/, telemetry/history.py, utils/netio.py), which the
+# scan above must cover like every other module of the port
 OBSERVABILITY_MODULES = [f"telemetry/{m}.py" for m in (
     "__init__", "registry", "spans", "watchdog", "flight_recorder", "device", "memory",
     "session")] + [f"optimize/{m}.py" for m in ("__init__", "listeners", "solvers")] + [
     f"runtime/{m}.py" for m in ("__init__", "compile_manager", "step_graphs", "inference")] + [
     f"serving/{m}.py" for m in ("__init__", "batcher", "decode", "service")] + [
-    "telemetry/tracing.py", "telemetry/slo.py", "utils/mathutil.py", "utils/collections.py"]
+    "telemetry/tracing.py", "telemetry/slo.py", "utils/mathutil.py", "utils/collections.py"] + [
+    f"runtime/{m}.py" for m in ("resilience", "checkpoint", "online")] + [
+    f"streaming/{m}.py" for m in ("__init__", "pipeline", "embedded_kafka",
+                                  "socket_transport")] + [
+    "testing/__init__.py", "testing/chaos.py", "telemetry/history.py", "utils/netio.py"]
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
