@@ -113,6 +113,17 @@ windows, each result against its eager output alone, and decode rounds
 through the service in turn with an eager DecodeServer (a slot reset that
 rebinds the state caught). Slice 21's launch counts are those of the
 served calls alone, the eager yardstick's apart.
+Then slice 23 (``ui_lenet``), on the default path: MNIST-sized IDX files
+written from the seed and read by the C++ loader's reader and in Python
+(bit for bit), LeNet trained at B=64 through ``NativeDataSetIterator``
+under ``StatsListener`` (SQLite), ``ConvolutionalIterationListener`` and
+``ProfilingListener`` (rows 10-12 once an update in the traced window, by
+``scripts/torch_analyze_trace.py``), its first losses against the CPU's;
+the dashboard's pages and endpoints over the listener's file; the net
+served over ``POST /serving/predict``; t-SNE and k-means of its
+penultimate features on the card against the CPU; a loader that repeats a
+batch or does not reshuffle, mean magnitudes without the abs, a flipped
+t-SNE gains rule and an answer from another model caught.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -8589,6 +8600,603 @@ def kernels_slice22(torch, ls, sx, card, mask128) -> dict:
     return out
 
 
+# ---- slice 23: the training UI and its host tier. LeNet (lenet_mnist_conf()
+# at its own widths, B=64) trained from MNIST-sized IDX files (written here
+# from the seed: class patterns with noise) through the C++ loader, under
+# StatsListener (into SQLite), ConvolutionalIterationListener and
+# ProfilingListener; watched through UIServer; served over POST
+# /serving/predict by the InferenceService on its default, replayed path;
+# its 500-wide penultimate features embedded by exact t-SNE and clustered by
+# k-means on the card. Rows 10-12.
+UI_B = 64
+UI_SPLITS = {"train": 60000, "t10k": 10000}  # MNIST's IDX files, 28x28 uint8
+UI_UPDATES = 40  # one epoch of the loader over the first UI_B * UI_UPDATES training images
+UI_COMPARED = 4  # updates held against the port on the CPU over the same batches
+UI_PROFILE = {"start": 10, "duration": 5}  # the ProfilingListener's window of updates
+UI_CONV_EVERY = 10
+UI_TIMED = 20  # timed updates a listener setting, in turns: none, every 1, every 10, and back
+UI_HTTP = {"clients": 4, "requests": 16, "rows": 8}  # requests/s over HTTP
+UI_TSNE_N = 2500  # held-out images whose penultimate features t-SNE embeds
+UI_TSNE_COMPARED = 3  # t-SNE iterations held against the CPU's
+UI_KMEANS_K = 10
+UI_KNN = 10
+# Limits. Losses: the MNIST rows' (RECIPE_LIMITS f32). Served rows against
+# the net's own output(): PADDED_REL. t-SNE's first iterations against the
+# CPU's: the largest coordinate difference over the embedding's largest
+# coordinate (the step is chaotic: float32 against float64 part by the
+# embedding's size within 20 iterations, so only the first few are held);
+# a flipped gains rule moves the first step by 1.2/0.8. k-means: the same
+# assignment but at ties (the two centers' squared distances within
+# KMEANS_TIE of |x|^2 + max |c|^2, f32's rounding of them), the
+# inertia within its limit. The final embedding: the share of
+# each point's UI_KNN nearest neighbours with its label.
+UI_LIMITS = {"loss_rel": MNIST_LIMITS["loss_rel"], "served_rel": PADDED_REL["float32"],
+             "tsne_rel": 1e-3, "kmeans_inertia_rel": 1e-4, "tsne_knn_agreement": 0.8}
+KMEANS_TIE = 1e-5
+UI_FAULTS = ("loader_repeats_a_batch", "epoch_not_reshuffled", "mean_magnitude_without_abs",
+             "tsne_gains_sign_flipped", "served_by_another_model")
+# JAX's top-level keys of the endpoints the dashboard and the service answer
+UI_ENDPOINT_KEYS = {
+    "/api/serving": {"compile_cache", "draining", "models"},
+    "/api/slo": {"breaches_total", "burn", "objectives", "recent_breaches", "samples",
+                 "thresholds", "windows"},
+    "/api/history?range_s=60": {"agg", "annotations", "end", "now", "series", "source",
+                                "start", "step"},
+    "/api/resilience": {"sites"},
+    "/api/online": {"trainers"},
+    "/api/memory": {"compile_cache", "devices", "executables", "report"},
+    "/api/telemetry": {"metrics", "system"},
+    "/api/flightrecorder": {"capacity", "dropped", "dumps", "events", "recorded"},
+}
+# rows 10-12 at this path's shapes: (shape name, the main row of that shape)
+SLICE23_ROWS = {"softmax_xent_fwd": ("N=64 C=10", "softmax_xent_fwd@lenet"),
+                "softmax_xent_bwd": ("N=64 C=10", "softmax_xent_bwd@lenet"),
+                "adam_update": ("8 leaves", "adam_update@lenet")}
+# the analyzer's row labels of rows 10-12 (scripts/torch_analyze_trace.py)
+UI_TRACE_ROWS = {"softmax_xent_fwd": "softmax_xent fwd, row 10",
+                 "softmax_xent_bwd": "softmax_xent bwd, row 11",
+                 "adam_update": "adam, row 12"}
+
+
+def ui_write_idx(path: str, arr) -> None:
+    """``arr`` (uint8) as an IDX file."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack(">HBB", 0, 0x08, arr.ndim))
+        f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+        f.write(arr.tobytes())
+
+
+def ui_mnist_files(root: str, seed: int) -> None:
+    """The four MNIST IDX files of UI_SPLITS' sizes under ``root``: each
+    image one of 10 class patterns (a quarter of the pixels at 160) plus
+    uniform noise 0-95, labels uniform."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    protos = np.where(rng.random((10, 28, 28)) < 0.25, 160, 0).astype(np.uint8)
+    for split, n in UI_SPLITS.items():
+        labels = rng.integers(0, 10, n).astype(np.uint8)
+        images = protos[labels] + rng.integers(0, 96, (n, 28, 28), dtype=np.uint8)
+        ui_write_idx(os.path.join(root, f"{split}-images-idx3-ubyte"), images)
+        ui_write_idx(os.path.join(root, f"{split}-labels-idx1-ubyte"), labels)
+
+
+def loader_readings(epochs, n: int) -> dict:
+    """The row ids of a loader's epochs (a list of epochs, each a list of
+    batches of ids): every epoch's rows distinct and in [0, n), every epoch
+    full (drop_last: n // B batches), and each epoch in another order than
+    the one before."""
+    import numpy as np
+
+    ids = [np.concatenate(e).astype(np.int64) for e in epochs]
+    return {
+        "rows_distinct": all(len(np.unique(e)) == len(e) for e in ids),
+        "rows_in_range": all(int(e.min()) >= 0 and int(e.max()) < n for e in ids),
+        "epochs_full": all(len(e) == len(ids[0]) for e in ids),
+        "reshuffled": all(not np.array_equal(a, b) for a, b in zip(ids, ids[1:])),
+    }
+
+
+def loader_ok(r: dict) -> bool:
+    return all(r.values())
+
+
+def loader_fault(epochs, fault: str):
+    """A wrong loader's epochs: batch 0 served again in place of batch 1,
+    or the second epoch in the first one's order."""
+    if fault == "loader_repeats_a_batch":
+        return [[e[0], e[0], *e[2:]] for e in epochs]
+    return [epochs[0], list(epochs[0])]
+
+
+def meanmag_readings(record: dict, host_params) -> dict:
+    """A StatsListener record's param mean magnitudes against mean |w| of
+    the net's params recomputed here: the largest relative difference, and
+    the names on each side."""
+    import numpy as np
+
+    want = {f"{i}_{k}": float(np.mean(np.abs(v)))
+            for i, layer in enumerate(host_params) for k, v in layer.items()}
+    got = record["param_mean_magnitudes"]
+    return {"names_equal": sorted(got) == sorted(want),
+            "max_rel": max(abs(got[k] - w) / w for k, w in want.items()) if
+            sorted(got) == sorted(want) else float("inf")}
+
+
+class FlippedGainsTsne:
+    """A wrong exact t-SNE: its gains grow where the gradient's sign agrees
+    with the velocity's (the rule's comparison flipped)."""
+
+    @staticmethod
+    def make(**kw):
+        import torch
+
+        from deeplearning4j_tpu_torch.plot import Tsne
+
+        class Flipped(Tsne):
+            def _step(self, y, vel, gains, p, momentum):
+                d2 = ((y[:, None, :] - y[None]) ** 2).sum(-1)
+                num = 1.0 / (1.0 + d2)
+                num.fill_diagonal_(0.0)
+                q = (num / num.sum()).clamp_min(1e-12)
+                pq = (p - q) * num
+                grad = 4.0 * (torch.diag(pq.sum(1)) - pq) @ y
+                gains = torch.where(torch.sign(grad) == torch.sign(vel), gains + 0.2,
+                                    gains * 0.8).clamp_min(0.01)
+                vel = momentum * vel - self.learning_rate * gains * grad
+                y = y + vel
+                return y - y.mean(0), vel, gains
+
+        return Flipped(**kw)
+
+
+def knn_agreement(points, labels, k: int = UI_KNN) -> float:
+    """The share of each point's k nearest neighbours (Euclidean, itself
+    left out) that carry its label."""
+    import numpy as np
+
+    p = np.asarray(points, np.float64)
+    sq = (p * p).sum(1)
+    d = sq[:, None] + sq[None] - 2.0 * p @ p.T
+    np.fill_diagonal(d, np.inf)
+    nn = np.argpartition(d, k, axis=1)[:, :k]
+    return float((labels[nn] == labels[:, None]).mean())
+
+
+def http_json(base: str, path: str, payload=None):
+    """(status, JSON body) of a GET, or of a POST of ``payload``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = r.read()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        body, status = e.read(), e.code
+    try:
+        return status, json.loads(body or b"null")
+    except json.JSONDecodeError:
+        return status, body.decode()
+
+
+def median_host_ms(fn, reps: int = 11) -> float:
+    """Median host ms of ``reps`` calls of ``fn``."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def ui_update_ms(torch, net, batches, listeners) -> float:
+    """ms per update over ``batches`` (one fit each, host clock, synchronized
+    at the end) with ``listeners`` attached, after 2 warm-up updates."""
+    net.set_listeners(*listeners)
+    for b in batches[:2]:
+        net.fit(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        net.fit(b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    net.set_listeners()
+    return ms
+
+
+def phase_ui_lenet(torch, card):
+    """Slice 23's path (see UI_*). Returns (launch counts of the training
+    run, readings)."""
+    import importlib.util
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (MultiLayerNetwork, NumpyDataSetIterator,
+                                          lenet_mnist_conf, load_jax_params, ops,
+                                          params_to_numpy)
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.datasets.fetchers import load_mnist, read_idx
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.profiler import ProfilingListener
+    from deeplearning4j_tpu_torch.runtime import native_loader
+    from deeplearning4j_tpu_torch.serving import InferenceService, set_service
+    from deeplearning4j_tpu_torch.ui import (ConvolutionalIterationListener, InMemoryStatsStorage,
+                                             SqliteStatsStorage, StatsListener, UIServer,
+                                             post_tsne)
+    from deeplearning4j_tpu_torch.ui import stats_listener as stats_mod
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_analyze_trace", os.path.join(HERE, "scripts", "torch_analyze_trace.py"))
+    analyzer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(analyzer)
+
+    t_phase = time.perf_counter()
+    readings, times, faults = {}, {}, {}
+    tmp = tempfile.TemporaryDirectory(prefix="ui_lenet_")
+    root = tmp.name
+    try:
+        # ---- 1. data: the IDX files, read natively and in Python
+        t0 = time.perf_counter()
+        available = native_loader.native_available()  # builds the library
+        times["native_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ui_mnist_files(root, SEED + 23)
+        times["idx_write_s"] = time.perf_counter() - t0
+        img_path = os.path.join(root, "train-images-idx3-ubyte")
+        t0 = time.perf_counter()
+        native = native_loader.native_idx_read(img_path)
+        times["native_idx_read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = read_idx(img_path)
+        times["python_idx_read_s"] = time.perf_counter() - t0
+        readings["idx_bit_for_bit"] = bool(
+            available and native.dtype == np.float32 and native.shape == (60000, 28, 28)
+            and np.array_equal(native, python.astype(np.float32))
+            and np.array_equal(native_loader.native_idx_read(
+                os.path.join(root, "train-labels-idx1-ubyte")),
+                read_idx(os.path.join(root, "train-labels-idx1-ubyte")).astype(np.float32)))
+        readings["idx_bytes"] = os.path.getsize(img_path)
+        del native, python
+        x, y = load_mnist(train=True, root=root)  # through native_idx_read
+        tx, ty = load_mnist(train=False, root=root)
+        x, tx = x.reshape(-1, 28, 28, 1), tx.reshape(-1, 28, 28, 1)
+        yh = np.eye(10, dtype=np.float32)[y]
+
+        # ---- 2. the loader: ids over two epochs (and its wrong versions),
+        # a full epoch of images against NumpyDataSetIterator
+        ids = np.arange(len(x), dtype=np.float32)[:, None]
+        id_it = native_loader.NativeDataSetIterator(ids, ids, UI_B, shuffle=True, seed=SEED,
+                                                   queue_size=4, workers=2)
+        epochs = [[ds.features[:, 0].copy() for ds in id_it] for _ in range(2)]
+        id_it.close()
+        readings["loader"] = loader_readings(epochs, len(x))
+        for fault in UI_FAULTS[:2]:
+            r = loader_readings(loader_fault(epochs, fault), len(x))
+            faults[fault] = dict(r, caught=not loader_ok(r))
+        img_it = native_loader.NativeDataSetIterator(x, yh, UI_B, shuffle=True, seed=SEED,
+                                                    queue_size=4, workers=2)
+        order = native_loader.native_shuffled_indices(len(x), SEED)
+        first = next(iter(img_it))
+        readings["loader_gathers_rows"] = bool(
+            np.array_equal(first.features, x[order[:UI_B]])
+            and np.array_equal(first.labels, yh[order[:UI_B]]))
+        img_it.reset()
+        for name, it in (("native", img_it),
+                         ("numpy", NumpyDataSetIterator(x, yh, UI_B, shuffle=True, seed=SEED))):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in it)
+            times[f"{name}_batches_per_s"] = n / (time.perf_counter() - t0)
+        img_it.close()
+
+        # ---- 3. training under the listeners, counts from 0; the CPU
+        # port over the same batches
+        conf = lenet_mnist_conf()
+        host = conf_host(conf)
+        rows = UI_B * UI_UPDATES
+        net = load_jax_params(MultiLayerNetwork(conf), host)
+        db = os.path.join(root, "stats.db")
+        storage = SqliteStatsStorage(db)
+        rec = LossRecorder()
+        prof = ProfilingListener(os.path.join(root, "trace"), **UI_PROFILE)
+        net.set_listeners(StatsListener(storage, session_id="ui_lenet"),
+                          ConvolutionalIterationListener(storage, frequency=UI_CONV_EVERY,
+                                                         session_id="ui_lenet"),
+                          prof, rec)
+        train_it = native_loader.NativeDataSetIterator(x[:rows], yh[:rows], UI_B, shuffle=True,
+                                                      seed=SEED, queue_size=4, workers=2)
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        net.fit(train_it)
+        torch.cuda.synchronize()
+        times["train_epoch_s"] = time.perf_counter() - t0
+        launches = ops.counters()
+        net.set_listeners()
+        train_it.close()
+        card_losses = np.array([float(v) for v in rec.losses])
+        cpu = load_jax_params(MultiLayerNetwork(conf, device="cpu"), host)
+        cpu_rec = LossRecorder()
+        cpu.set_listeners(cpu_rec)
+        cpu_it = native_loader.NativeDataSetIterator(x[:rows], yh[:rows], UI_B, shuffle=True,
+                                                    seed=SEED, queue_size=4, workers=2)
+        cpu_it.reset()  # fit's epoch: the loader's first reset
+        for ds, _ in zip(cpu_it, range(UI_COMPARED)):
+            cpu.fit(ds)
+        cpu_it.close()
+        cpu_losses = np.array([float(v) for v in cpu_rec.losses])
+        readings["loss_rel"] = float(np.max(np.abs(card_losses[:UI_COMPARED] - cpu_losses)
+                                            / np.abs(cpu_losses)))
+        readings["losses"] = {"card": card_losses.tolist(), "cpu": cpu_losses.tolist()}
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"softmax_xent_fwd": UI_UPDATES, "softmax_xent_bwd": UI_UPDATES,
+                         "adam_update": UI_UPDATES * adam_launches(net)})
+        readings["launches_as_expected"] = launches == expected
+
+        # ---- 4. the trace of the listener's window
+        report = analyzer.analyze(prof.trace_path)
+        traced = {k: report["kernel_launches"][label] for k, label in UI_TRACE_ROWS.items()}
+        readings["trace"] = {"source": report["source"], "launches": traced,
+                             "total_device_ms": report["total_device_ns"] / 1e6,
+                             "buckets_pct": report["buckets_pct"],
+                             "top_ops": [dict(o, name=o["name"][:80])
+                                         for o in report["top_ops"][:8]]}
+        readings["trace_once_per_update"] = (report["source"] == "device" and all(
+            n == UI_PROFILE["duration"] for n in traced.values()))
+
+        # ---- 5. the dashboard over the SQLite file the listener wrote
+        server = UIServer(port=0)
+        served_storage = SqliteStatsStorage(db)
+        server.attach(served_storage)
+        base = f"http://127.0.0.1:{server.port}"
+        svc = None
+        try:
+            pages = {p: http_json(base, p)[0] for p in (
+                "/train", "/train/model", "/train/system", "/train/flow",
+                "/train/activations", "/train/tsne", "/train/history")}
+            _, overview = http_json(base, "/train")
+            _, sessions = http_json(base, "/api/sessions")
+            _, ups = http_json(base, "/api/updates?session=ui_lenet")
+            _, mm = http_json(base, "/api/meanmag?session=ui_lenet")
+            _, hist = http_json(base, f"/api/histograms?session=ui_lenet&iteration={UI_UPDATES}")
+            _, static = http_json(base, "/api/static?session=ui_lenet")
+            _, acts = http_json(base, "/api/activations?session=ui_lenet")
+            _, system = http_json(base, "/api/system?session=ui_lenet")
+            host_now = params_to_numpy(net)
+            stats_ups = [u for u in storage.get_all_updates("ui_lenet") if "score" in u
+                         and "param_mean_magnitudes" in u]
+            numel = {f"{i}_{k}": v.size for i, layer in enumerate(host_now)
+                     for k, v in layer.items()}
+            dash = meanmag_readings(stats_ups[-1], host_now)
+            dash.update(
+                pages_ok=all(s == 200 for s in pages.values()) and "Training overview" in overview,
+                sessions=sessions, updates=len(ups),
+                iterations_ok=[u["iteration"] for u in stats_ups] == list(range(1, UI_UPDATES + 1)),
+                meanmag_series_ok=[v for v in mm["param"]["0_W"] if v is not None] == [
+                    u["param_mean_magnitudes"]["0_W"] for u in stats_ups],
+                histogram_counts_ok=hist["iteration"] == UI_UPDATES
+                and sorted(hist["param_histograms"]) == sorted(numel) and all(
+                    sum(h["counts"]) == numel[k] and len(h["bins"]) == 21
+                    for kind in ("param", "gradient", "update")
+                    for k, h in hist[f"{kind}_histograms"].items()),
+                histogram_names=sorted(hist["param_histograms"]),
+                scores_ok=[u["score"] for u in stats_ups] == card_losses.tolist(),
+                static_ok=static[0]["num_params"] == 431080
+                and static[0]["model_class"] == "MultiLayerNetwork",
+                activations_ok=acts.get("conv_activations", {}).get("layer") == 0
+                and len(acts["conv_activations"]["maps"]) == 16
+                and acts["iteration"] == UI_UPDATES - UI_UPDATES % UI_CONV_EVERY,
+                system_names_card=any(
+                    r.get("device_memory") and r["device_memory"][0].get("device_kind")
+                    == torch.cuda.get_device_name(0) for r in system),
+                system_rows=len(system))
+            readings["dashboard"] = dash
+            # the wrong listener: mean magnitudes without the abs
+            real = stats_mod._mean_magnitude
+            stats_mod._mean_magnitude = lambda a: float(np.mean(np.asarray(a)))
+            try:
+                wrong_store = InMemoryStatsStorage()
+                StatsListener(wrong_store, session_id="wrong").iteration_done(
+                    net, net.iteration, net._last_loss)
+            finally:
+                stats_mod._mean_magnitude = real
+            r = meanmag_readings(wrong_store.get_latest_update("wrong"), host_now)
+            faults["mean_magnitude_without_abs"] = dict(r, caught=r["max_rel"] > 0)
+
+            # ---- 6. what the listener costs an update
+            batches = [(x[i:i + UI_B], yh[i:i + UI_B])
+                       for i in range(rows, rows + UI_B * UI_TIMED, UI_B)]
+            ms = {}
+            for turn, (name, freq) in enumerate((("none", None), ("every_1", 1),
+                                                 ("every_10", 10), ("every_10", 10),
+                                                 ("every_1", 1), ("none", None))):
+                lst = [] if freq is None else [StatsListener(storage, frequency=freq,
+                                                             session_id=f"timed_{turn}")]
+                ms.setdefault(name, []).append(ui_update_ms(torch, net, batches, lst))
+            times["ms_per_update"] = ms
+
+            # ---- 7. serving over HTTP on the default, replayed path
+            svc = InferenceService()
+            set_service(svc)
+            svc.register("lenet", net)
+            svc.register("lenet_at_init", load_jax_params(MultiLayerNetwork(conf), host))
+            t0 = time.perf_counter()
+            buckets = svc.warmup("lenet", tx[:1])  # every row bucket captured ahead
+            times["service_warmup"] = {"buckets": buckets, "seconds": time.perf_counter() - t0}
+            held = tx[:UI_B]
+            want = net.output(held)
+            _, got = http_json(base, "/serving/predict",
+                               {"model": "lenet", "features": held.tolist()})
+            _, other = http_json(base, "/serving/predict",
+                                 {"model": "lenet_at_init", "features": held.tolist()})
+            _, cls = http_json(base, "/serving/predict",
+                               {"model": "lenet", "features": held.tolist(), "argmax": True})
+            served = {"rel": rel_err(got["output"], want),
+                      "argmax_equal": cls["classes"] == want.argmax(-1).tolist(),
+                      "accuracy": float((want.argmax(-1) == ty[:UI_B]).mean())}
+            r = {"rel": rel_err(other["output"], want)}
+            faults["served_by_another_model"] = dict(r, caught=r["rel"] > UI_LIMITS["served_rel"])
+            codes = {}
+            for path, keys in UI_ENDPOINT_KEYS.items():
+                code, body = http_json(base, path)
+                codes[path] = {"status": code, "keys_ok": isinstance(body, dict)
+                               and keys <= set(body)}
+            code, metrics = http_json(base, "/metrics")
+            codes["/metrics"] = {"status": code, "keys_ok": "dl4jtpu_serve_requests_total"
+                                 in str(metrics)}
+            for path in ("/api/fleet", "/api/ircost"):
+                code, body = http_json(base, path)
+                codes[path] = {"status": code, "keys_ok": "error" in body}
+            served["endpoints"] = codes
+            served["endpoints_ok"] = all(
+                c["keys_ok"] and c["status"] == (501 if p in ("/api/fleet", "/api/ircost")
+                                                 else 200) for p, c in codes.items())
+            errors = []
+
+            def client(i):
+                rng = np.random.default_rng(SEED + 230 + i)
+                for _ in range(UI_HTTP["requests"]):
+                    start = int(rng.integers(0, len(tx) - UI_HTTP["rows"]))
+                    code, _ = http_json(base, "/serving/predict", {
+                        "model": "lenet",
+                        "features": tx[start:start + UI_HTTP["rows"]].tolist()})
+                    if code != 200:
+                        errors.append(code)
+
+            alone = []
+            for i in range(UI_HTTP["requests"]):  # one client: each request's ms
+                t0 = time.perf_counter()
+                http_json(base, "/serving/predict", {
+                    "model": "lenet", "features": tx[8 * i:8 * i + UI_HTTP["rows"]].tolist()})
+                alone.append((time.perf_counter() - t0) * 1e3)
+            body = {"model": "lenet", "features": tx[:UI_HTTP["rows"]].tolist()}
+            text = json.dumps(body)
+            times["http_request_ms_one_client"] = {
+                "median": statistics.median(alone), "max": max(alone),
+                # a request's JSON on the host: the client's encode (with
+                # tolist), the server's parse
+                "json_encode_ms": median_host_ms(
+                    lambda: json.dumps({"model": "lenet",
+                                        "features": tx[:UI_HTTP["rows"]].tolist()})),
+                "json_parse_ms": median_host_ms(
+                    lambda: np.asarray(json.loads(text)["features"]))}
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(UI_HTTP["clients"])]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            wall = time.perf_counter() - t0
+            n_req = UI_HTTP["clients"] * UI_HTTP["requests"]
+            times["http_requests_per_s"] = n_req / wall
+            served["http_errors"] = errors
+            served["threads_done"] = not any(t.is_alive() for t in threads)
+            readings["served"] = served
+
+            # ---- 8. t-SNE and k-means of the penultimate features
+            feats = np.concatenate([net.feed_forward(tx[i:i + 500])[4]
+                                    for i in range(0, UI_TSNE_N, 500)])
+            labels = ty[:UI_TSNE_N]
+            kw = dict(max_iter=UI_TSNE_COMPARED, seed=SEED)
+            first_card = Tsne(**kw).fit_transform(feats)
+            first_cpu = Tsne(device="cpu", **kw).fit_transform(feats)
+            scale = float(np.abs(first_cpu).max())
+            tsne = {"first_rel": float(np.abs(first_card - first_cpu).max()) / scale}
+            wrong = FlippedGainsTsne.make(**kw).fit_transform(feats)
+            r = {"first_rel": float(np.abs(wrong - first_cpu).max()) / scale}
+            faults["tsne_gains_sign_flipped"] = dict(r, caught=r["first_rel"] > UI_LIMITS["tsne_rel"])
+            full = Tsne(seed=SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full._joint_p(torch.as_tensor(feats, dtype=torch.float64, device=DEVICE))
+            torch.cuda.synchronize()
+            joint_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            emb = full.fit_transform(feats)
+            tsne_s = time.perf_counter() - t0
+            times["tsne"] = {"n": UI_TSNE_N, "iterations": full.max_iter, "seconds": tsne_s,
+                             "affinities_s": joint_s,
+                             "ms_per_iteration": (tsne_s - joint_s) * 1e3 / full.max_iter}
+            tsne.update(finite=bool(np.isfinite(emb).all()), shape=list(emb.shape),
+                        knn_agreement=knn_agreement(emb, labels),
+                        feature_knn_agreement=knn_agreement(feats, labels))
+            post_tsne(storage, "ui_lenet", emb, labels)
+            _, back = http_json(base, "/api/tsne?session=ui_lenet")
+            tsne["dashboard_round_trip"] = (
+                back["coords"] == np.round(emb[:, :2].astype(np.float64), 4).tolist()
+                                            and back["labels"] == [str(v) for v in labels])
+            readings["tsne"] = tsne
+            km_card = KMeansClustering(k=UI_KMEANS_K, seed=SEED)
+            t0 = time.perf_counter()
+            km_card._init_centers(feats)  # kmeans++ on the host, timed apart
+            init_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            km_card.fit(feats)
+            km_s = time.perf_counter() - t0
+            km_cpu = KMeansClustering(k=UI_KMEANS_K, seed=SEED, device="cpu").fit(feats)
+            diff = np.nonzero(km_card.labels_ != km_cpu.labels_)[0]
+            f64 = feats.astype(np.float64)
+            c = km_cpu.cluster_centers_.astype(np.float64)
+            d = ((f64[diff, None, :] - c[None]) ** 2).sum(-1)
+            gap = np.abs(d[np.arange(len(diff)), km_card.labels_[diff]]
+                         - d[np.arange(len(diff)), km_cpu.labels_[diff]])
+            # a tie: within f32's rounding of the expanded distance
+            scale = (f64[diff] ** 2).sum(1) + (c ** 2).sum(1).max()
+            readings["kmeans"] = {
+                "iterations": [km_card.n_iter_, km_cpu.n_iter_],
+                "assignments_differ": int(len(diff)),
+                "differ_not_at_ties": int((gap > KMEANS_TIE * scale).sum()),
+                "inertia_rel": abs(km_card.inertia_ - km_cpu.inertia_) / km_cpu.inertia_,
+                "cluster_label_purity": float(sum(
+                    np.bincount(labels[km_card.labels_ == j], minlength=10).max()
+                    for j in range(UI_KMEANS_K) if (km_card.labels_ == j).any()) / len(labels))}
+            times["kmeans"] = {"n": UI_TSNE_N, "k": UI_KMEANS_K, "iterations": km_card.n_iter_,
+                               "seconds": km_s, "kmeans_pp_s": init_s,
+                               "ms_per_iteration": (km_s - init_s) * 1e3 / km_card.n_iter_}
+        finally:
+            server.stop()
+            served_storage.close()
+            if svc is not None:
+                svc.stop()
+                set_service(None)
+    finally:
+        tmp.cleanup()
+    times["phase_s"] = time.perf_counter() - t_phase
+    km, ts, sv = readings["kmeans"], readings["tsne"], readings["served"]
+    ok = (readings["idx_bit_for_bit"] and loader_ok(readings["loader"])
+          and readings["loader_gathers_rows"]
+          and readings["loss_rel"] <= UI_LIMITS["loss_rel"]
+          and bool(card_losses[-1] < card_losses[0]) and len(card_losses) == UI_UPDATES
+          and readings["launches_as_expected"] and readings["trace_once_per_update"]
+          and readings["dashboard"]["names_equal"] and readings["dashboard"]["max_rel"] == 0.0
+          and all(readings["dashboard"][k] for k in (
+              "pages_ok", "iterations_ok", "meanmag_series_ok", "histogram_counts_ok",
+              "scores_ok", "static_ok", "activations_ok", "system_names_card"))
+          and sv["rel"] <= UI_LIMITS["served_rel"] and sv["argmax_equal"]
+          and sv["endpoints_ok"] and not sv["http_errors"] and sv["threads_done"]
+          and ts["first_rel"] <= UI_LIMITS["tsne_rel"] and ts["finite"]
+          and ts["knn_agreement"] >= UI_LIMITS["tsne_knn_agreement"]
+          and ts["dashboard_round_trip"]
+          and km["differ_not_at_ties"] == 0
+          and km["inertia_rel"] <= UI_LIMITS["kmeans_inertia_rel"]
+          and all(f["caught"] for f in faults.values()) and set(faults) == set(UI_FAULTS))
+    emit("ui_lenet", B=UI_B, updates=UI_UPDATES, limits=UI_LIMITS, readings=readings,
+         faults=faults, kernel_launches=launches, times=times, ok=ok, gpu=card)
+    if not ok:
+        raise AssertionError("the training UI path failed its checks")
+    return launches, {"times": times, "readings": {k: readings[k] for k in (
+        "loss_rel", "tsne", "kmeans")}, "served_rel": sv["rel"], "trace": readings["trace"]}
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -8881,6 +9489,17 @@ def main() -> int:
     os.environ["DL4JTPU_INFER"] = "legacy"
     for k, v in s22_launches.items():
         launches[k] = launches.get(k, 0) + v
+    # ---- 4p. slice 23: the training UI and its host tier (LeNet trained from
+    # IDX files through the C++ loader under the dashboard's listeners,
+    # served over HTTP, its features embedded by t-SNE and clustered by
+    # k-means on the card) on the default, replayed path; counts from 0
+    os.environ.pop("DL4JTPU_INFER")
+    s23_launches, s23_readings = phase_ui_lenet(torch, card)
+    os.environ["DL4JTPU_INFER"] = "legacy"
+    for k, v in s23_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    for k in SLICE23_ROWS:
+        new_path_launches[("ui_lenet", k)] = s23_launches.get(k, 0)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -9206,6 +9825,15 @@ def main() -> int:
         if not n:
             raise AssertionError(f"{k} did not launch on the online path at {shape_name}")
         lines.append(line)
+    # rows 10-12 at the UI path's shapes (LeNet's, so the lenet rows' times of
+    # this run): launches of its training run, and of the traced window
+    main_lines = {line["name"]: line for line in lines}
+    for k, (shape_name, main) in SLICE23_ROWS.items():
+        line = dict(main_lines[main], shape=f"{main}'s ({shape_name})")
+        line.update(name=f"{k}@ui_lenet[{shape_name}]",
+                    launches=new_path_launches[("ui_lenet", k)],
+                    traced_launches=s23_readings["trace"]["launches"][k])
+        lines.append(line)
     print(json.dumps({"kernels": lines, "launches": launches,
                       "staged_replays": staged_replays, "staged_ms_per_update": staged_times,
                       "staged_replayed_launches": staged_replayed,
@@ -9249,6 +9877,7 @@ def main() -> int:
                       "slice22": {k: v for k, v in s22_readings.items()
                                   if k not in ("window_ms", "snapshot_ms", "write_s",
                                                "swap_ms")},
+                      "slice23": s23_readings,
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

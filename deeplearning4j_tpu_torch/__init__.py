@@ -53,8 +53,14 @@ kernel launch per step. It trains online from record streams
 (``runtime.OnlineTrainer`` over the ``streaming`` sources, with the
 versioned ``runtime.CheckpointStore``, in-place rollback and a live hot
 swap into an ``InferenceService``; ``runtime.resilience`` policies,
-``testing.chaos`` fault plans, ``telemetry.history``). Entry points run on
-the card unless the caller passes ``device="cpu"``.
+``testing.chaos`` fault plans, ``telemetry.history``). It feeds ``fit``
+from the C++ batch loader (``runtime.NativeDataSetIterator``, built with
+g++ at first use), profiles (``profiler``: traces, step timers, FLOP
+counts), serves the training dashboard and the HTTP service
+(``ui.UIServer`` over ``ui.StatsListener``'s storage, ``POST
+/serving/predict``), and embeds and clusters features on the card
+(``plot.Tsne``, ``clustering.KMeansClustering``). Entry points run on the
+card unless the caller passes ``device="cpu"``.
 """
 
 from .datasets.fetchers import (DigitsDataSetIterator, IrisDataSetIterator,
@@ -127,10 +133,15 @@ from .runtime.online import OnlineTrainer
 from .serving import InferenceService, get_service
 from .serving.decode import DecodeServer
 from .utils.serialization import restore_model, write_model
+from .clustering import KMeansClustering
+from .plot import BarnesHutTsne, Tsne
+from .runtime.native_loader import NativeDataSetIterator
+from .ui import StatsListener, UIServer
 
 __all__ = [
     "ActivationLayer",
     "AutoEncoder",
+    "BarnesHutTsne",
     "BatchNormalization",
     "BernoulliReconstruction",
     "BucketingSequenceIterator",
@@ -167,6 +178,7 @@ __all__ = [
     "InferenceService",
     "InputType",
     "IrisDataSetIterator",
+    "KMeansClustering",
     "L2NormalizeVertex",
     "L2Vertex",
     "LastTimeStepLayer",
@@ -184,6 +196,7 @@ __all__ = [
     "MultiLayerConfiguration",
     "MultiLayerNetwork",
     "MultipleEpochsIterator",
+    "NativeDataSetIterator",
     "NumpyDataSetIterator",
     "OnlineTrainer",
     "OutputLayer",
@@ -201,11 +214,14 @@ __all__ = [
     "SelfAttentionLayer",
     "ShiftVertex",
     "StackVertex",
+    "StatsListener",
     "SubsamplingLayer",
     "SubsetVertex",
     "TransferLearning",
     "TransferLearningBuilder",
     "TransferLearningGraphBuilder",
+    "Tsne",
+    "UIServer",
     "UnstackVertex",
     "UpdaterConfig",
     "VariationalAutoencoder",

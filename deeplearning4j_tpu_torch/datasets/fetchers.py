@@ -7,8 +7,11 @@ digits, Iris, CIFAR-10, LFW and Curves.
   package's deterministic stand-in of the same shape (seed 0 for the
   training split, 1 for the test split). ``fetch_mnist`` downloads and
   checks the four archives into such a directory (any URL ``urllib``
-  opens, ``file://`` mirrors included). The JAX package's native C++ IDX
-  reader is not ported.
+  opens, ``file://`` mirrors included). Uncompressed IDX files are read
+  by the native C++ reader (``runtime.native_idx_read``) where it builds,
+  as the JAX package reads them; a native read that fails raises (there is
+  no quiet fallback to the Python reader), and ``.gz`` files and machines
+  without a C++ compiler use the Python ``read_idx``.
 - ``load_digits_dataset`` and ``load_iris`` read the corpora bundled in
   ``data/``: ``digits.csv.gz`` (the UCI Optical Recognition of Handwritten
   Digits set, 1,797 8x8 scans) and ``iris.csv`` (Fisher's Iris), both
@@ -139,6 +142,13 @@ def load_mnist(train: bool = True, root: Optional[str] = None):
     if root and os.path.isdir(root):
         ip, lp = _find_idx(root, img_names), _find_idx(root, lab_names)
         if ip and lp:
+            if not ip.endswith(".gz") and not lp.endswith(".gz"):
+                from ..runtime.native_loader import (native_available,  # noqa: PLC0415
+                                                     native_idx_read)
+
+                if native_available():
+                    images = native_idx_read(ip, scale=255.0).reshape(-1, 784)
+                    return images, native_idx_read(lp).astype(np.int64).reshape(-1)
             images = read_idx(ip).reshape(-1, 784).astype(np.float32) / 255.0
             return images, read_idx(lp).astype(np.int64)
     n = 4096 if train else 1024

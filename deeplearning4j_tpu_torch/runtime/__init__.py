@@ -3,9 +3,10 @@ process-wide cache of captured programs and the capture rule
 (``compile_manager``), the captured training steps of the staged loop
 (``step_graphs``), the bucketed inference path replayed as CUDA graphs
 (``inference``), the typed failure policies (``resilience``), the versioned
-checkpoint store (``checkpoint``) and the online trainer (``online``). The
-JAX package's C++ batch loader (``native_loader``) comes with ROADMAP Queue
-1 item 6."""
+checkpoint store (``checkpoint``), the online trainer (``online``) and the
+C++ batch loader (``native_loader``: ``NativeDataSetIterator`` and the
+native CSV and IDX readers, built with g++ at first use into
+``build/torch_native/``)."""
 
 import importlib
 
@@ -19,6 +20,9 @@ _EXPORTS = {
     "canonicalize_input": "inference", "fast_path_enabled": "inference",
     "OnlineTrainer": "online", "clear_online_trainers": "online",
     "get_online_trainers": "online",
+    "NativeCompileError": "native_loader", "NativeDataSetIterator": "native_loader",
+    "native_available": "native_loader", "native_csv_read": "native_loader",
+    "native_idx_read": "native_loader",
     "CircuitBreaker": "resilience", "Deadline": "resilience",
     "DeadlinePolicy": "resilience", "RetryError": "resilience",
     "RetryPolicy": "resilience", "clear_sites": "resilience",
@@ -47,6 +51,8 @@ __all__ = [
     "CompileManager",
     "Deadline",
     "DeadlinePolicy",
+    "NativeCompileError",
+    "NativeDataSetIterator",
     "OnlineTrainer",
     "RetryError",
     "RetryPolicy",
@@ -58,6 +64,9 @@ __all__ = [
     "get_compile_manager",
     "get_online_trainers",
     "get_site",
+    "native_available",
+    "native_csv_read",
+    "native_idx_read",
     "register_site",
     "resilience_stats",
 ]

@@ -397,6 +397,16 @@ class CompileManager:
         return [(self._key_kind(k), slot.value) for k, slot in items
                 if token is None or (isinstance(k, tuple) and k and k[0] == token)]
 
+    def memory_records(self) -> dict:
+        """{"<kind>#<i>": the entry's ``telemetry.memory.executable_memory``
+        record} for every live entry (the JAX package's labels, what
+        ``GET /api/memory`` serves as ``executables``)."""
+        from ..telemetry.memory import executable_memory, pool_segments  # noqa: PLC0415
+
+        segments = pool_segments()
+        return {f"{kind}#{i}": executable_memory(value, segments)
+                for i, (kind, value) in enumerate(self.owned())}
+
     def kinds(self, token=None) -> list:
         """The kinds of the live entries (of ``token``'s only, if given)."""
         return [kind for kind, _ in self.owned(token)]

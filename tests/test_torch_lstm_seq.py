@@ -168,7 +168,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    PORT.parent / "chip_smoke.py", PORT.parent / "scripts" / "torch_chaos_soak.py"],
+    PORT.parent / "chip_smoke.py", PORT.parent / "scripts" / "torch_chaos_soak.py",
+    PORT.parent / "scripts" / "torch_analyze_trace.py"],
                          ids=lambda p: str(p.relative_to(PORT.parent)))
 def test_port_imports_no_jax_and_no_jax_package(path):
     roots = {name.split(".")[0] for name in _imports(path)}
@@ -177,9 +178,11 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 
 # the training-observability and optimizer modules of slice 20, the
 # serving front of slice 21 (runtime/, serving/, tracing, slo, the utils),
-# and runtime durability and online learning of slice 22 (runtime/,
-# streaming/, testing/, telemetry/history.py, utils/netio.py), which the
-# scan above must cover like every other module of the port
+# runtime durability and online learning of slice 22 (runtime/,
+# streaming/, testing/, telemetry/history.py, utils/netio.py), and the
+# training UI and its host tier of slice 23 (runtime/native_loader.py,
+# profiler.py, ui/, clustering/, plot/), which the scan above must cover
+# like every other module of the port
 OBSERVABILITY_MODULES = [f"telemetry/{m}.py" for m in (
     "__init__", "registry", "spans", "watchdog", "flight_recorder", "device", "memory",
     "session")] + [f"optimize/{m}.py" for m in ("__init__", "listeners", "solvers")] + [
@@ -189,7 +192,12 @@ OBSERVABILITY_MODULES = [f"telemetry/{m}.py" for m in (
     f"runtime/{m}.py" for m in ("resilience", "checkpoint", "online")] + [
     f"streaming/{m}.py" for m in ("__init__", "pipeline", "embedded_kafka",
                                   "socket_transport")] + [
-    "testing/__init__.py", "testing/chaos.py", "telemetry/history.py", "utils/netio.py"]
+    "testing/__init__.py", "testing/chaos.py", "telemetry/history.py", "utils/netio.py"] + [
+    "runtime/native_loader.py", "profiler.py"] + [
+    f"ui/{m}.py" for m in ("__init__", "i18n", "storage", "stats_listener", "conv_listener",
+                           "server")] + [
+    f"clustering/{m}.py" for m in ("__init__", "trees", "kmeans")] + [
+    f"plot/{m}.py" for m in ("__init__", "tsne")]
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
