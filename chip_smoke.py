@@ -8625,8 +8625,9 @@ UI_KNN = 10
 # CPU's: the largest coordinate difference over the embedding's largest
 # coordinate (the step is chaotic: float32 against float64 part by the
 # embedding's size within 20 iterations, so only the first few are held);
-# a flipped gains rule moves the first step by 1.2/0.8. k-means: the same
-# assignment but at ties (the two centers' squared distances within
+# a flipped gains rule moves the first step by 1.2/0.8. k-means, against
+# the CPU's run of as many iterations as the card's: the same assignment but
+# at ties (the two centers' squared distances within
 # KMEANS_TIE of |x|^2 + max |c|^2, f32's rounding of them), the
 # inertia within its limit. The final embedding: the share of
 # each point's UI_KNN nearest neighbours with its label.
@@ -8840,6 +8841,10 @@ def phase_ui_lenet(torch, card):
 
     t_phase = time.perf_counter()
     readings, times, faults = {}, {}, {}
+    # threads that earlier phases left running (any of them that launches a
+    # kernel would show in this phase's launch counts and trace)
+    readings["threads_at_start"] = sorted(t.name for t in threading.enumerate()
+                                          if t is not threading.main_thread())
     tmp = tempfile.TemporaryDirectory(prefix="ui_lenet_")
     root = tmp.name
     try:
@@ -8939,6 +8944,8 @@ def phase_ui_lenet(torch, card):
         expected.update({"softmax_xent_fwd": UI_UPDATES, "softmax_xent_bwd": UI_UPDATES,
                          "adam_update": UI_UPDATES * adam_launches(net)})
         readings["launches_as_expected"] = launches == expected
+        readings["launches_unexpected"] = {k: [launches.get(k, 0), n] for k, n in expected.items()
+                                           if launches.get(k, 0) != n}
 
         # ---- 4. the trace of the listener's window
         report = analyzer.analyze(prof.trace_path)
@@ -9142,17 +9149,30 @@ def phase_ui_lenet(torch, card):
             t0 = time.perf_counter()
             km_card.fit(feats)
             km_s = time.perf_counter() - t0
-            km_cpu = KMeansClustering(k=UI_KMEANS_K, seed=SEED, device="cpu").fit(feats)
+            # the CPU's own run stops where its f32 inertia stops moving by
+            # tol, which the two devices' sums of 2,500 distances in
+            # different orders can cross an iteration apart; so the card is
+            # held against the CPU's run of the same number of iterations,
+            # and a tie is read with the centers that made that iteration's
+            # assignment (the CPU's after one iteration fewer)
+            n_card = km_card.n_iter_
+            km_own = KMeansClustering(k=UI_KMEANS_K, seed=SEED, device="cpu").fit(feats)
+            km_cpu = KMeansClustering(k=UI_KMEANS_K, seed=SEED, device="cpu", tol=0.0,
+                                      max_iterations=n_card).fit(feats)
+            assigning = (KMeansClustering(k=UI_KMEANS_K, seed=SEED, device="cpu", tol=0.0,
+                                          max_iterations=n_card - 1).fit(feats).cluster_centers_
+                         if n_card > 1 else km_cpu._init_centers(feats.astype(np.float32)))
             diff = np.nonzero(km_card.labels_ != km_cpu.labels_)[0]
             f64 = feats.astype(np.float64)
-            c = km_cpu.cluster_centers_.astype(np.float64)
+            c = assigning.astype(np.float64)
             d = ((f64[diff, None, :] - c[None]) ** 2).sum(-1)
             gap = np.abs(d[np.arange(len(diff)), km_card.labels_[diff]]
                          - d[np.arange(len(diff)), km_cpu.labels_[diff]])
             # a tie: within f32's rounding of the expanded distance
             scale = (f64[diff] ** 2).sum(1) + (c ** 2).sum(1).max()
             readings["kmeans"] = {
-                "iterations": [km_card.n_iter_, km_cpu.n_iter_],
+                "iterations": [n_card, km_own.n_iter_],
+                "cpu_iterations_compared": km_cpu.n_iter_,
                 "assignments_differ": int(len(diff)),
                 "differ_not_at_ties": int((gap > KMEANS_TIE * scale).sum()),
                 "inertia_rel": abs(km_card.inertia_ - km_cpu.inertia_) / km_cpu.inertia_,
@@ -9171,28 +9191,36 @@ def phase_ui_lenet(torch, card):
     finally:
         tmp.cleanup()
     times["phase_s"] = time.perf_counter() - t_phase
-    km, ts, sv = readings["kmeans"], readings["tsne"], readings["served"]
-    ok = (readings["idx_bit_for_bit"] and loader_ok(readings["loader"])
-          and readings["loader_gathers_rows"]
-          and readings["loss_rel"] <= UI_LIMITS["loss_rel"]
-          and bool(card_losses[-1] < card_losses[0]) and len(card_losses) == UI_UPDATES
-          and readings["launches_as_expected"] and readings["trace_once_per_update"]
-          and readings["dashboard"]["names_equal"] and readings["dashboard"]["max_rel"] == 0.0
-          and all(readings["dashboard"][k] for k in (
-              "pages_ok", "iterations_ok", "meanmag_series_ok", "histogram_counts_ok",
-              "scores_ok", "static_ok", "activations_ok", "system_names_card"))
-          and sv["rel"] <= UI_LIMITS["served_rel"] and sv["argmax_equal"]
-          and sv["endpoints_ok"] and not sv["http_errors"] and sv["threads_done"]
-          and ts["first_rel"] <= UI_LIMITS["tsne_rel"] and ts["finite"]
-          and ts["knn_agreement"] >= UI_LIMITS["tsne_knn_agreement"]
-          and ts["dashboard_round_trip"]
-          and km["differ_not_at_ties"] == 0
-          and km["inertia_rel"] <= UI_LIMITS["kmeans_inertia_rel"]
-          and all(f["caught"] for f in faults.values()) and set(faults) == set(UI_FAULTS))
+    km, ts, sv, dash = (readings["kmeans"], readings["tsne"], readings["served"],
+                        readings["dashboard"])
+    checks = {
+        "idx_bit_for_bit": readings["idx_bit_for_bit"], "loader": loader_ok(readings["loader"]),
+        "loader_gathers_rows": readings["loader_gathers_rows"],
+        "loss_rel": readings["loss_rel"] <= UI_LIMITS["loss_rel"],
+        "loss_falls": bool(card_losses[-1] < card_losses[0]),
+        "updates": len(card_losses) == UI_UPDATES,
+        "launches_as_expected": readings["launches_as_expected"],
+        "trace_once_per_update": readings["trace_once_per_update"],
+        "meanmag_names_equal": dash["names_equal"], "meanmag_equal": dash["max_rel"] == 0.0,
+        **{f"dashboard_{k}": dash[k] for k in (
+            "pages_ok", "iterations_ok", "meanmag_series_ok", "histogram_counts_ok",
+            "scores_ok", "static_ok", "activations_ok", "system_names_card")},
+        "served_rel": sv["rel"] <= UI_LIMITS["served_rel"],
+        "served_argmax_equal": sv["argmax_equal"], "endpoints_ok": sv["endpoints_ok"],
+        "no_http_error": not sv["http_errors"], "threads_done": sv["threads_done"],
+        "tsne_first_rel": ts["first_rel"] <= UI_LIMITS["tsne_rel"], "tsne_finite": ts["finite"],
+        "tsne_knn_agreement": ts["knn_agreement"] >= UI_LIMITS["tsne_knn_agreement"],
+        "tsne_dashboard_round_trip": ts["dashboard_round_trip"],
+        "kmeans_differ_only_at_ties": km["differ_not_at_ties"] == 0,
+        "kmeans_inertia_rel": km["inertia_rel"] <= UI_LIMITS["kmeans_inertia_rel"],
+        "faults_caught": all(f["caught"] for f in faults.values())
+        and set(faults) == set(UI_FAULTS)}
+    ok = all(checks.values())
     emit("ui_lenet", B=UI_B, updates=UI_UPDATES, limits=UI_LIMITS, readings=readings,
-         faults=faults, kernel_launches=launches, times=times, ok=ok, gpu=card)
+         faults=faults, kernel_launches=launches, times=times, checks=checks, ok=ok, gpu=card)
     if not ok:
-        raise AssertionError("the training UI path failed its checks")
+        raise AssertionError("the training UI path failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
     return launches, {"times": times, "readings": {k: readings[k] for k in (
         "loss_rel", "tsne", "kmeans")}, "served_rel": sv["rel"], "trace": readings["trace"]}
 
