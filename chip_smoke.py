@@ -113,7 +113,9 @@ windows, each result against its eager output alone, and decode rounds
 through the service in turn with an eager DecodeServer (a slot reset that
 rebinds the state caught). Slice 21's launch counts are those of the
 served calls alone, the eager yardstick's apart.
-Then slice 23 (``ui_lenet``), on the default path: MNIST-sized IDX files
+Slice 23's phase (``ui_lenet``) runs first, right after the build, on
+the default path (the profiler's trace of a window drops kernels in a
+process that has run for minutes): MNIST-sized IDX files
 written from the seed and read by the C++ loader's reader and in Python
 (bit for bit), LeNet trained at B=64 through ``NativeDataSetIterator``
 under ``StatsListener`` (SQLite), ``ConvolutionalIterationListener`` and
@@ -124,6 +126,22 @@ served over ``POST /serving/predict``; t-SNE and k-means of its
 penultimate features on the card against the CPU; a loader that repeats a
 batch or does not reshuffle, mean magnitudes without the abs, a flipped
 t-SNE gains rule and an answer from another model caught.
+Then slice 24, the NLP stack and graph embeddings on the default path, every
+corpus and graph drawn from the seed: Word2Vec at 300 dimensions (skip-gram,
+HS and 5 negatives, window 5, min count 5) on 500,000 tokens of Zipf words
+with planted topics and polarities (a head fit on the card against the CPU
+and against itself; a syn1 update from the updated syn0, a NEG step without
+its target skip and a flipped HS code sign caught; planted-topic recall; the
+C text, C binary and zip formats read back; the HS and NEG steps timed; a
+profiled fit's idle share), ParagraphVectors (DBOW, DM) with infer_vector
+on the card against the CPU and held-out predict, GloVe at the JAX defaults,
+DistributedWord2Vec with 4 workers, DeepWalk at BlogCatalog's size (a
+stochastic block model of 10,312 vertices, 39 groups and 334,000 edges read
+through the edge-list loader), and DL4J's Word2VecSentimentRNN: the 300-d
+vectors through Word2VecDataSetIterator into a GravesLSTM(256) classifier
+trained with Adam (rows 8-12, exact launches; its first 2 updates against
+the CPU; an iterator with the labels at the padded last step caught;
+held-out accuracy), with rows 8-12 held and timed at its shapes.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -9225,6 +9243,814 @@ def phase_ui_lenet(torch, card):
         "loss_rel", "tsne", "kmeans")}, "served_rel": sv["rel"], "trace": readings["trace"]}
 
 
+# ---- slice 24: the NLP stack and graph embeddings. Every corpus and graph
+# is drawn from the seed. Word2Vec at GoogleNews' width (300, DL4J's
+# sentiment example's vectorSize) on 25,000 sentences of 20 tokens: 14 words
+# drawn Zipf(1.0) over text8's 71,290 types at min count 5, three words of
+# one of 40 planted topics (10 words each) and three of one of two planted
+# polarities (10 words each), in a shuffled order. Skip-gram with HS and 5
+# negatives, window 5, min count 5, batch 512 (the JAX defaults).
+NLP_SENTENCES, NLP_LEN, NLP_TYPES = 25000, 20, 71290
+NLP_TOPICS, NLP_POLARITIES, NLP_GROUP_WORDS, NLP_PLANTED = 40, 2, 10, 3
+W2V = dict(layer_size=300, window=5, min_word_frequency=5, use_hs=True, negative=5,
+           batch_size=512)
+W2V_CPU_SENTENCES = 1000  # the head fit on the card and on the CPU
+# the tables after the head fit, card against CPU: max |err| over the
+# table's largest element. The CPU sums a row's contributions in their
+# order, the card after a sort of the row ids (index_put_ with accumulate);
+# the phase also reads two card runs against each other. The CPU's sums in
+# the reverse order part from its usual ones by up to 2.5e-5 (syn1; SGD
+# carries an ulp's change on through the fit; scripts/nlp_cpu_pins.py); the
+# wrong versions read 0.024 and more on the CPU
+W2V_TABLE_REL = 5e-4
+W2V_FAULTS = ("syn1_from_updated_syn0", "neg_without_target_skip", "hs_code_sign_flipped")
+W2V_RECALL_PIN = 0.2  # the CPU run reads 0.264 (scripts/nlp_cpu_pins.py)
+W2V_NEAREST = 10
+W2V_TEXT_ATOL = 5e-7  # the C text format's 6 decimals (and half an f32 step of the parse)
+W2V_PROFILED_SENTENCES = 500
+# ParagraphVectors: 2,000 labelled documents of 50 tokens over 20 labels
+# (label l: 10 of topic l's words among 40 Zipf words), 200 held out
+PV_DOCS, PV_HELD, PV_LEN, PV_LABELS, PV_PLANTED = 2000, 200, 50, 20, 10
+PV = dict(layer_size=300, window=5)
+# infer_vector, card against CPU on the same tables: the card read 3.8e-7
+# (DBOW) and 1.9e-5 (DM); the CPU's f32 against the same 30 steps in
+# float64 reads 2.6e-7 and 3.7e-6 (the phase reads it too)
+PV_INFER_REL = 1e-4
+PV_INFER_COMPARED = 8
+# held-out predict accuracy; the CPU run reads 0.995 and 0.110 (chance 0.05):
+# infer_vector fits a doc vector alone against the words (DBOW's way) for
+# both, so DM's labels, trained beside their context, are predicted worse
+PV_PIN = {"dbow": 0.9, "dm": 0.07}
+# GloVe at the JAX defaults on the corpus's first 100,000 tokens; card
+# against CPU over 2 epochs on its first 20,000
+GLOVE = dict(layer_size=100, window=15, x_max=100.0, alpha=0.75, batch_size=4096, epochs=25)
+GLOVE_SENTENCES, GLOVE_CPU_SENTENCES, GLOVE_CPU_EPOCHS = 5000, 1000, 2
+GLOVE_REL = 1e-5  # the CPU's reversed sums read 2.2e-7 (scripts/nlp_cpu_pins.py)
+GLOVE_RECALL_PIN = 0.12  # the CPU run reads 0.165
+DIST_WORKERS, DIST_SENTENCES = 4, 4000
+# DeepWalk at BlogCatalog's size (Perozzi et al. 2014: 10,312 vertices, 39
+# groups, 333,983 edges) as a stochastic block model, 80% of the edges
+# inside a group; Perozzi's d=128, w=10, t=40, and 1 walk a vertex (not 80:
+# 2 took 45-54 s of the phase on the card, host-bound)
+DW_VERTICES, DW_GROUPS, DW_EDGES, DW_INSIDE = 10312, 39, 334000, 0.8
+DW = dict(vector_size=128, window=10, walk_length=40, walks_per_vertex=1)
+DW_CPU_WALKS = 200
+DW_REL = 2e-5  # the CPU's reversed sums read 6.8e-7 (scripts/nlp_cpu_pins.py)
+DW_RECALL_SAMPLE = 1000
+DW_RECALL_PIN = 0.7  # the CPU run reads 0.793 (1.0 at 2 walks a vertex)
+# DL4J's Word2VecSentimentRNN: the 300-d vectors through
+# Word2VecDataSetIterator (max_length 256, B=64) into GravesLSTM(300 -> 256,
+# tanh) and RnnOutputLayer(softmax, MCXENT, 2 classes); Adam at 2e-2, l2
+# 1e-5, Xavier, ClipElementWiseAbsoluteValue at 1.0. Reviews of 64-256
+# tokens (Zipf words, one in SENT_DENSITY a word of the review's polarity)
+SENT_TRAIN, SENT_HELD, SENT_LENGTHS, SENT_DENSITY = 1024, 256, (64, 256), 10
+SENT_B, SENT_T, SENT_H, SENT_LR, SENT_L2 = 64, 256, 256, 2e-2, 1e-5
+SENT_EPOCHS = 3
+SENT_CPU = dict(reviews=128, lengths=(16, 48), max_length=48)  # 2 updates, card against CPU
+SENT_PIN = 0.9  # held-out accuracy; the CPU run reads 0.992
+# the card against the CPU over the first 2 updates: RECIPE_LIMITS, but the
+# largest param difference at the same share of Adam's lr as the recipe's
+# (2e-4 at 1e-3): an element whose gradient's sign is uncertain steps about
+# lr either way. The card read 2.9e-4 (lr/69) and no element over lr/10
+SENT_LIMITS = dict(RECIPE_LIMITS["float32"],
+                   max_param_abs=RECIPE_LIMITS["float32"]["max_param_abs"] * SENT_LR / RECIPE_LR)
+SLICE24_ROWS = ("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd", "drw_product",
+                "softmax_xent_fwd", "softmax_xent_bwd", "adam_update")
+
+
+def nlp_zipf(rng, shape):
+    """Word ids drawn Zipf(1.0) over NLP_TYPES types."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, NLP_TYPES + 1)
+    return rng.choice(NLP_TYPES, size=shape, p=p / p.sum())
+
+
+def nlp_corpus(seed):
+    """{"sentences": token lists, "topic": [n], "polarity": [n]}: NLP_SENTENCES
+    sentences of NLP_LEN tokens, each 3 words of its topic ("t{k}_{j}"), 3 of
+    its polarity ("p{k}_{j}") and Zipf words ("w{k}"), shuffled."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, zipf = NLP_SENTENCES, NLP_LEN - 2 * NLP_PLANTED
+    z = nlp_zipf(rng, (n, zipf))
+    topic = rng.integers(0, NLP_TOPICS, n)
+    polarity = rng.integers(0, NLP_POLARITIES, n)
+    tw = rng.integers(0, NLP_GROUP_WORDS, (n, NLP_PLANTED))
+    pw = rng.integers(0, NLP_GROUP_WORDS, (n, NLP_PLANTED))
+    order = np.argsort(rng.random((n, NLP_LEN)), axis=1)
+    sentences = []
+    for i in range(n):
+        toks = ([f"w{k}" for k in z[i]] + [f"t{topic[i]}_{j}" for j in tw[i]]
+                + [f"p{polarity[i]}_{j}" for j in pw[i]])
+        sentences.append([toks[k] for k in order[i]])
+    return {"sentences": sentences, "topic": topic, "polarity": polarity}
+
+
+def topic_words(k: int):
+    return [f"t{k}_{j}" for j in range(NLP_GROUP_WORDS)]
+
+
+def topic_recall(lookup, topics: int = NLP_TOPICS, top_n: int = W2V_NEAREST) -> float:
+    """The mean share of a planted topic word's ``top_n`` nearest words
+    (cosine over syn0) that are words of its topic, over every topic word in
+    the vocabulary (at most 9 of 10 can be)."""
+    shares = []
+    for k in range(topics):
+        group = set(topic_words(k))
+        for w in group:
+            if lookup.vocab.contains_word(w):
+                near = lookup.words_nearest(w, top_n)
+                shares.append(sum(x in group for x in near) / len(near))
+    return sum(shares) / len(shares)
+
+
+def table_rel(got, want) -> dict:
+    """max |got - want| over want's largest element, each table."""
+    import numpy as np
+
+    out = {}
+    for name in ("syn0", "syn1", "syn1neg"):
+        a, b = getattr(got.lookup, name, None), getattr(want.lookup, name, None)
+        if b is not None:
+            out[name] = float(np.abs(a - b).max() / np.abs(b).max())
+    return out
+
+
+def w2v_fault(sv, fault):
+    """Install one of W2V_FAULTS in the port's SequenceVectors steps;
+    returns what undoes it."""
+    import torch
+
+    real = {"hs_step": sv.hs_step, "neg_step": sv.neg_step}
+
+    def hs_wrong(syn0, syn1, bufs, src, src_mask, points, codes, code_mask, lr):
+        h, denom = sv._source_mean(syn0, src, src_mask)
+        node = sv.rows_of(syn1, points)
+        u = torch.bmm(node, h[:, :, None])[..., 0]
+        sign = (2.0 * codes - 1.0) if fault == "hs_code_sign_flipped" else 1.0 - 2.0 * codes
+        g = -sign * torch.sigmoid(-sign * u) * code_mask
+        grad_h = torch.bmm(g[:, None, :], node)[:, 0]
+        i0, d0 = sv._syn0_rows(grad_h, denom, src, src_mask)
+        if fault == "syn1_from_updated_syn0":
+            sv.apply_rows(syn0, bufs[0], i0, d0, lr)
+            h, _ = sv._source_mean(syn0, src, src_mask)
+        d1 = (g[..., None] * h[:, None, :]).reshape(-1, h.shape[-1])
+        sv.apply_rows(syn1, bufs[1], points.reshape(-1), d1, lr)
+        if fault != "syn1_from_updated_syn0":
+            sv.apply_rows(syn0, bufs[0], i0, d0, lr)
+
+    def neg_unskipped(syn0, syn1neg, bufs, src, src_mask, tgt, negs, lr):
+        h, denom = sv._source_mean(syn0, src, src_mask)
+        pos_vec, neg_vec = sv.rows_of(syn1neg, tgt), sv.rows_of(syn1neg, negs)
+        g_pos = -torch.sigmoid(-(h * pos_vec).sum(-1))
+        g_neg = torch.sigmoid(torch.bmm(neg_vec, h[:, :, None])[..., 0])  # no skip
+        grad_h = g_pos[:, None] * pos_vec + torch.bmm(g_neg[:, None, :], neg_vec)[:, 0]
+        D = h.shape[-1]
+        d1 = torch.cat([g_pos[:, None] * h, (g_neg[..., None] * h[:, None, :]).reshape(-1, D)])
+        i0, d0 = sv._syn0_rows(grad_h, denom, src, src_mask)
+        sv.apply_rows(syn1neg, bufs[1], torch.cat([tgt, negs.reshape(-1)]), d1, lr)
+        sv.apply_rows(syn0, bufs[0], i0, d0, lr)
+
+    if fault == "neg_without_target_skip":
+        sv.neg_step = neg_unskipped
+    elif fault is not None:
+        sv.hs_step = hs_wrong
+    return lambda: [setattr(sv, k, v) for k, v in real.items()]
+
+
+def step_batch(torch, model, seed):
+    """A batch of the model's HS and NEG steps at its shapes (B=batch_size,
+    S=1, L its longest code, K its negatives) on the card: source and target
+    ids drawn from the vocab, negatives from its table."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B, V = model.batch_size, model.vocab.num_words()
+    src = rng.integers(0, V, (B, 1))
+    tgt = rng.integers(0, V, B)
+    negs = model.lookup.sample_negatives(rng, (B, model.negative))
+
+    def put(a, dt=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=DEVICE)
+
+    return dict(src=put(src), src_mask=put(np.ones((B, 1)), torch.float32), tgt=put(tgt),
+                negs=put(negs), points=put(model._points_arr[tgt]),
+                codes=put(model._codes_arr[tgt], torch.float32),
+                code_mask=put(model._code_mask[tgt], torch.float32))
+
+
+def time_w2v_steps(torch, sv, model) -> dict:
+    """ms of one HS step and one NEG step (CUDA events, median) at the
+    model's batch, on copies of its tables."""
+    b = step_batch(torch, model, SEED + 61)
+    lk = model.lookup
+    t = {k: torch.tensor(getattr(lk, k), device=DEVICE) for k in ("syn0", "syn1", "syn1neg")}
+    bufs = {k: torch.zeros_like(v) for k, v in t.items()}
+    lr = 1e-3
+    hs = median_ms(lambda: sv.hs_step(t["syn0"], t["syn1"], (bufs["syn0"], bufs["syn1"]),
+                                      b["src"], b["src_mask"], b["points"], b["codes"],
+                                      b["code_mask"], lr), reps=21, warmup=3)
+    neg = median_ms(lambda: sv.neg_step(t["syn0"], t["syn1neg"], (bufs["syn0"], bufs["syn1neg"]),
+                                        b["src"], b["src_mask"], b["tgt"], b["negs"], lr),
+                    reps=21, warmup=3)
+    return {"hs_step_ms": hs, "neg_step_ms": neg, "B": model.batch_size,
+            "L": model._max_code, "K": model.negative, "D": model.layer_size}
+
+
+def formats_roundtrip(model, tmp: str) -> dict:
+    """The C text, C binary and zip formats written and read back: the zip's
+    tables and codes and the binary's vectors equal, the text's within its
+    6 decimals; the zip restored on the card and fit on."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import (load_txt_vectors, read_binary_model,
+                                              read_sequence_vectors, write_binary_model,
+                                              write_sequence_vectors, write_word_vectors)
+
+    lk, words = model.lookup, model.vocab.words()
+    paths = {k: os.path.join(tmp, f"w2v.{k}") for k in ("txt", "bin", "zip")}
+    write_word_vectors(lk, paths["txt"])
+    write_binary_model(lk, paths["bin"])
+    write_sequence_vectors(model, paths["zip"])
+    txt, binary = load_txt_vectors(paths["txt"]), read_binary_model(paths["bin"])
+    z = read_sequence_vectors(paths["zip"], device=DEVICE)
+    out = {"bytes": {k: os.path.getsize(p) for k, p in paths.items()},
+           "text_max_abs": float(np.abs(txt.syn0 - lk.syn0).max()),
+           "text_words": txt.vocab.words() == words,
+           "binary_equal": bool(np.array_equal(binary.syn0, lk.syn0))
+           and binary.vocab.words() == words,
+           "zip_equal": all(np.array_equal(getattr(z.lookup, k), getattr(lk, k))
+                            for k in ("syn0", "syn1", "syn1neg"))
+           and [(w.codes, w.points) for w in z.vocab.vocab_words()]
+           == [(w.codes, w.points) for w in model.vocab.vocab_words()]}
+    z.fit([model.vocab.words()[:NLP_LEN]] * 8)  # restored, then trained on
+    out["zip_fit_on_finite"] = bool(np.isfinite(z.lookup.syn0).all())
+    text_limit = W2V_TEXT_ATOL + float(np.spacing(np.abs(lk.syn0).max())) / 2
+    out["text_limit"] = text_limit
+    out["ok"] = (out["text_max_abs"] <= text_limit and out["text_words"]
+                 and out["binary_equal"] and out["zip_equal"] and out["zip_fit_on_finite"])
+    return out
+
+
+def failed(checks: dict) -> list:
+    return [k for k, v in checks.items() if not v]
+
+
+def phase_nlp_word2vec(torch, card):
+    """Word2Vec at 300 dimensions (W2V) on the seeded corpus: the head fit
+    on the card against the CPU, twice on the card, and with each of
+    W2V_FAULTS (each must fall outside W2V_TABLE_REL); the whole corpus on
+    the card (words/s, peak MiB, planted-topic recall); the three formats;
+    the HS and NEG steps timed; a profiled fit's idle share. Returns
+    (the fitted model, the corpus, readings)."""
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp import sequence_vectors as sv
+
+    t_phase = time.perf_counter()
+    corpus = nlp_corpus(SEED + 60)
+    sents = corpus["sentences"]
+    head = sents[:W2V_CPU_SENTENCES]
+
+    def fit_head(dev, fault=None):
+        undo = w2v_fault(sv, fault)
+        try:
+            return Word2Vec(device=dev, **W2V).fit(head)
+        finally:
+            undo()
+
+    t0 = time.perf_counter()
+    cpu = fit_head("cpu")
+    cpu_s = time.perf_counter() - t0
+    runs = [fit_head(DEVICE) for _ in range(2)]
+    heads_s = time.perf_counter() - t0 - cpu_s
+    rel = table_rel(runs[0], cpu)
+    card_vs_card = table_rel(runs[1], runs[0])
+    faults = {}
+    for f in W2V_FAULTS:
+        r = table_rel(fit_head(DEVICE, f), cpu)
+        faults[f] = {"readings": r, "caught": max(r.values()) > W2V_TABLE_REL}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = Word2Vec(device=DEVICE, **W2V)
+    t0 = time.perf_counter()
+    model.fit(sents)
+    fit_s = time.perf_counter() - t0
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    t0 = time.perf_counter()
+    recall = topic_recall(model.lookup)
+    recall_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        formats = formats_roundtrip(model, tmp)
+    formats_s = time.perf_counter() - t0 - recall_s
+    steps = time_w2v_steps(torch, sv, model)
+    prof = profile(torch, lambda: Word2Vec(device=DEVICE, **W2V).fit(
+        sents[:W2V_PROFILED_SENTENCES]), top=8)
+    checks = {"card_vs_cpu": max(rel.values()) <= W2V_TABLE_REL,
+              **{f"fault_{f}_caught": v["caught"] for f, v in faults.items()},
+              "topic_recall": recall >= W2V_RECALL_PIN, "formats": formats["ok"],
+              "finite": bool(all(np.isfinite(getattr(model.lookup, k)).all()
+                                 for k in ("syn0", "syn1", "syn1neg")))}
+    readings = dict(
+        vocab=model.vocab.num_words(), huffman_depth=model._max_code,
+        tokens=sum(len(s) for s in sents), head_sentences=W2V_CPU_SENTENCES,
+        readings_vs_cpu=rel, card_vs_card=card_vs_card, limit=W2V_TABLE_REL, faults=faults,
+        cpu_head_fit_s=cpu_s, card_head_fits_s=heads_s, fit_s=fit_s,
+        words_per_s=model.last_words_per_sec,
+        peak_allocated_mib=peak_mib, topic_recall=recall, recall_pin=W2V_RECALL_PIN,
+        recall_s=recall_s, formats=formats, formats_s=formats_s, steps=steps,
+        profiled={"sentences": W2V_PROFILED_SENTENCES, "wall_ms": prof["wall_ms"],
+                  "device_busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+                  "top_kernels": prof["top_kernels"]},
+        phase_s=time.perf_counter() - t_phase)
+    emit("nlp_word2vec", **readings, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"nlp_word2vec failed its checks: {failed(checks)}")
+    return model, corpus, readings
+
+
+def pv_documents(seed):
+    """(training, held out): PV_DOCS and PV_HELD LabelledDocuments of PV_LEN
+    tokens, label l's document PV_PLANTED words of topic l among Zipf
+    words, shuffled."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import LabelledDocument
+
+    rng = np.random.default_rng(seed)
+    n = PV_DOCS + PV_HELD
+    labels = rng.integers(0, PV_LABELS, n)
+    z = nlp_zipf(rng, (n, PV_LEN - PV_PLANTED))
+    planted = rng.integers(0, NLP_GROUP_WORDS, (n, PV_PLANTED))
+    order = np.argsort(rng.random((n, PV_LEN)), axis=1)
+    docs = []
+    for i in range(n):
+        toks = [f"w{k}" for k in z[i]] + [f"t{labels[i]}_{j}" for j in planted[i]]
+        docs.append(LabelledDocument(" ".join(toks[k] for k in order[i]),
+                                     [f"label_{labels[i]}"]))
+    return docs[:PV_DOCS], docs[PV_DOCS:]
+
+
+def infer_vector_float64(pv, text, steps: int = 30, learning_rate: float = 0.05):
+    """ParagraphVectors.infer_vector's HS steps in float64 numpy, from the
+    same start: the scale of f32's rounding in the 30 steps."""
+    import numpy as np
+
+    toks = [pv.vocab.word_for(t).index for t in pv.tokenizer_factory.create(text).get_tokens()
+            if pv.vocab.contains_word(t)]
+    rng = np.random.default_rng(pv.seed)
+    v = ((rng.random(pv.layer_size) - 0.5) / pv.layer_size).astype(np.float32).astype(np.float64)
+    tgt = np.asarray(toks)
+    node = pv.lookup.syn1[pv._points_arr[tgt]].astype(np.float64)
+    sign = 1.0 - 2.0 * pv._codes_arr[tgt].astype(np.float64)
+    cmask = pv._code_mask[tgt].astype(np.float64)
+    for _ in range(steps):
+        g = -sign / (1.0 + np.exp(sign * (node @ v))) * cmask
+        v = v - learning_rate * (g.reshape(-1) @ node.reshape(-1, pv.layer_size))
+    return v
+
+
+def pv_run(torch, algo, docs, held) -> dict:
+    """ParagraphVectors (``algo``) fit on the card: infer_vector on the card
+    against the CPU on the same tables, and held-out predict accuracy."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors
+
+    t0 = time.perf_counter()
+    pv = ParagraphVectors(sequence_algo=algo, device=DEVICE, **PV).fit_documents(docs)
+    fit_s = time.perf_counter() - t0
+    card_dev = pv.device
+    got = [pv.infer_vector(d.content) for d in held[:PV_INFER_COMPARED]]
+    pv.device = torch.device("cpu")
+    want = [pv.infer_vector(d.content) for d in held[:PV_INFER_COMPARED]]
+    pv.device = card_dev
+    infer_rel = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+    f64 = [infer_vector_float64(pv, d.content) for d in held[:PV_INFER_COMPARED]]
+    cpu_vs_f64 = max(float(np.abs(w - r).max() / np.abs(r).max()) for w, r in zip(want, f64))
+    t0 = time.perf_counter()
+    right = sum(pv.predict(d.content) == d.labels[0] for d in held)
+    predict_s = time.perf_counter() - t0
+    return {"fit_s": fit_s, "words_per_s": pv.last_words_per_sec,
+            "vocab": pv.vocab.num_words(), "infer_rel_vs_cpu": infer_rel,
+            "infer_rel_cpu_vs_float64": cpu_vs_f64,
+            "accuracy": right / len(held), "pin": PV_PIN[algo],
+            "predict_ms_per_doc": predict_s * 1e3 / len(held)}
+
+
+def distributed_run(torch, sents) -> dict:
+    """DistributedWord2Vec with DIST_WORKERS workers on the card: the
+    master's tables against the mean of the workers' (bit for bit, the same
+    numpy sum), and each worker against a Word2Vec fit alone on its shard
+    from the same tables (W2V_TABLE_REL: the card's atomics)."""
+    import copy
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import DistributedWord2Vec, Word2Vec
+
+    spawned = []  # (worker, the tables it starts from)
+
+    class Recording(DistributedWord2Vec):
+        def _spawn_worker(self):
+            w = super()._spawn_worker()
+            spawned.append((w, {k: getattr(w.lookup, k).copy()
+                                for k in ("syn0", "syn1", "syn1neg")}))
+            return w
+
+    t0 = time.perf_counter()
+    dist = Recording(workers=DIST_WORKERS, device=DEVICE, **W2V)
+    dist.fit(sents)
+    fit_s = time.perf_counter() - t0
+    mean_equal = True
+    for k in ("syn0", "syn1", "syn1neg"):
+        acc = np.zeros_like(getattr(dist.lookup, k))
+        for w, _ in spawned:
+            acc += getattr(w.lookup, k)
+        mean_equal &= bool(np.array_equal(acc / len(spawned), getattr(dist.lookup, k)))
+    alone_rel = []
+    for i, (w, start) in enumerate(spawned):
+        solo = Word2Vec(device=DEVICE, **{**W2V, "seed": dist.seed})
+        solo.vocab, solo._max_code = dist.vocab, dist._max_code
+        solo._codes_arr, solo._points_arr, solo._code_mask = (
+            dist._codes_arr, dist._points_arr, dist._code_mask)
+        solo.lookup = copy.copy(dist.lookup)
+        for k, v in start.items():
+            setattr(solo.lookup, k, v.copy())
+        solo.fit(sents[i::DIST_WORKERS])
+        alone_rel.append(max(table_rel(w, solo).values()))
+    return {"workers": len(spawned), "sentences": len(sents), "fit_s": fit_s,
+            "mean_of_workers_equal": mean_equal, "worker_vs_alone_rel": alone_rel}
+
+
+def phase_nlp_paragraph_vectors_glove(torch, corpus, card):
+    """ParagraphVectors (DBOW; DM at window 5) at 300 dimensions on the
+    seeded labelled documents, GloVe at the JAX defaults on the corpus's
+    first GLOVE_SENTENCES sentences (card against CPU over GLOVE_CPU_EPOCHS
+    epochs on the first GLOVE_CPU_SENTENCES; planted-topic recall), and
+    DistributedWord2Vec. Returns readings."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp import Glove
+
+    t_phase = time.perf_counter()
+    docs, held = pv_documents(SEED + 62)
+    pv = {algo: pv_run(torch, algo, docs, held) for algo in ("dbow", "dm")}
+    sents = corpus["sentences"]
+    small = dict(GLOVE, epochs=GLOVE_CPU_EPOCHS)
+    head = sents[:GLOVE_CPU_SENTENCES]
+    g_card = Glove(device=DEVICE, **small).fit(head)
+    g_cpu = Glove(device="cpu", **small).fit(head)
+    glove_rel = float(np.abs(g_card.lookup.syn0 - g_cpu.lookup.syn0).max()
+                      / np.abs(g_cpu.lookup.syn0).max())
+    t0 = time.perf_counter()
+    glove = Glove(device=DEVICE, **GLOVE).fit(sents[:GLOVE_SENTENCES])
+    glove_s = time.perf_counter() - t0
+    glove_recall = topic_recall(glove.lookup)
+    dist = distributed_run(torch, sents[:DIST_SENTENCES])
+    checks = {**{f"pv_{a}_infer_vs_cpu": r["infer_rel_vs_cpu"] <= PV_INFER_REL
+                 for a, r in pv.items()},
+              **{f"pv_{a}_accuracy": r["accuracy"] >= r["pin"] for a, r in pv.items()},
+              "glove_vs_cpu": glove_rel <= GLOVE_REL,
+              "glove_recall": glove_recall >= GLOVE_RECALL_PIN,
+              "glove_finite": bool(np.isfinite(glove.lookup.syn0).all()),
+              "distributed_mean": dist["mean_of_workers_equal"],
+              "distributed_workers_alone": max(dist["worker_vs_alone_rel"]) <= W2V_TABLE_REL}
+    readings = dict(
+        paragraph_vectors=pv, pv_docs=PV_DOCS, pv_held=PV_HELD, pv_infer_limit=PV_INFER_REL,
+        glove={"tokens": sum(len(s) for s in sents[:GLOVE_SENTENCES]),
+               "vocab": glove.vocab.num_words(), "epochs": GLOVE["epochs"],
+               "fit_s": glove_s, "rel_vs_cpu": glove_rel, "limit": GLOVE_REL,
+               "cpu_tokens": sum(len(s) for s in head), "cpu_epochs": GLOVE_CPU_EPOCHS,
+               "topic_recall": glove_recall, "recall_pin": GLOVE_RECALL_PIN},
+        distributed=dist, phase_s=time.perf_counter() - t_phase)
+    emit("nlp_paragraph_vectors_glove", **readings, checks=checks, ok=not failed(checks),
+         gpu=card)
+    if failed(checks):
+        raise AssertionError(f"nlp_paragraph_vectors_glove failed its checks: {failed(checks)}")
+    return readings
+
+
+def sbm_edges(seed):
+    """(edges [E, 2], each vertex's group): DW_VERTICES vertices in
+    DW_GROUPS groups of near-equal size, about DW_EDGES distinct undirected
+    edges, DW_INSIDE of them inside a group (each pair of a group an edge
+    with one probability, the rest drawn uniformly across groups)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    group = rng.permutation(np.arange(DW_VERTICES) % DW_GROUPS)
+    members = [np.flatnonzero(group == g) for g in range(DW_GROUPS)]
+    pairs_in = sum(len(m) * (len(m) - 1) // 2 for m in members)
+    p_in = DW_INSIDE * DW_EDGES / pairs_in
+    edges = []
+    for m in members:
+        iu = np.triu_indices(len(m), 1)
+        keep = rng.random(len(iu[0])) < p_in
+        edges.append(np.stack([m[iu[0][keep]], m[iu[1][keep]]], 1))
+    n_out = int(round((1 - DW_INSIDE) * DW_EDGES))
+    cand = rng.integers(0, DW_VERTICES, (2 * n_out, 2))
+    cand = cand[group[cand[:, 0]] != group[cand[:, 1]]]
+    cand = np.unique(np.sort(cand, 1), axis=0)
+    edges.append(cand[rng.permutation(len(cand))[:n_out]])
+    return np.concatenate(edges), group
+
+
+def community_recall(vectors, group, seed) -> float:
+    """The mean share of a vertex's 10 nearest vertices (cosine) in its own
+    group, over DW_RECALL_SAMPLE vertices drawn from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = vectors / np.maximum(np.linalg.norm(vectors, axis=1, keepdims=True), 1e-12)
+    idx = rng.choice(len(v), DW_RECALL_SAMPLE, replace=False)
+    sims = v[idx] @ v.T
+    sims[np.arange(len(idx)), idx] = -np.inf
+    near = np.argpartition(-sims, W2V_NEAREST, axis=1)[:, :W2V_NEAREST]
+    return float((group[near] == group[idx][:, None]).mean())
+
+
+def phase_graph_deepwalk(torch, card):
+    """DeepWalk at BlogCatalog's size: the SBM written as an edge list and
+    read through graph_embeddings.loader; DeepWalk(DW).fit on the card; its
+    first DW_CPU_WALKS walks fit on the card against the CPU; community
+    recall among the 10 nearest vertices; GraphVectors saved and loaded."""
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.graph_embeddings import (DeepWalk, GraphVectors,
+                                                           RandomWalkIterator,
+                                                           load_undirected_graph_edge_list)
+
+    t_phase = time.perf_counter()
+    edges, group = sbm_edges(SEED + 63)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "blogcatalog_sbm.edges")
+        np.savetxt(path, edges, fmt="%d")
+        t0 = time.perf_counter()
+        graph = load_undirected_graph_edge_list(path, DW_VERTICES)
+        load_s = time.perf_counter() - t0
+        it = RandomWalkIterator(graph, DW["walk_length"], seed=SEED)
+        head = [it.next_walk() for _ in range(DW_CPU_WALKS)]
+        small = {dev: DeepWalk(device=dev, seed=SEED, **DW).fit_walks(graph, head)
+                 for dev in ("cpu", DEVICE)}
+        small_rel = float(np.abs(small[DEVICE].vectors - small["cpu"].vectors).max()
+                          / np.abs(small["cpu"].vectors).max())
+        dw = DeepWalk(device=DEVICE, seed=SEED, **DW)
+        t0 = time.perf_counter()
+        gv = dw.fit(graph)
+        fit_s = time.perf_counter() - t0
+        engine = dw._engine
+        gv.save(os.path.join(tmp, "vectors"))
+        back = GraphVectors.load(os.path.join(tmp, "vectors"), graph)
+        saved_equal = bool(np.array_equal(back.vectors, gv.vectors))
+    recall = community_recall(gv.vectors, group, SEED + 64)
+    degrees = np.array([graph.get_vertex_degree(i) for i in range(DW_VERTICES)])
+    checks = {"card_vs_cpu": small_rel <= DW_REL, "community_recall": recall >= DW_RECALL_PIN,
+              "saved_equal": saved_equal, "finite": bool(np.isfinite(gv.vectors).all()),
+              "every_vertex_trained": engine.vocab.num_words() == DW_VERTICES}
+    readings = dict(
+        vertices=DW_VERTICES, groups=DW_GROUPS, edges=int(degrees.sum() // 2),
+        inside_share=float((group[edges[:, 0]] == group[edges[:, 1]]).mean()),
+        load_s=load_s, walks=DW_VERTICES * DW["walks_per_vertex"], settings=DW,
+        huffman_depth=engine._max_code, fit_s=fit_s, words_per_s=engine.last_words_per_sec,
+        cpu_walks=DW_CPU_WALKS, rel_vs_cpu=small_rel, limit=DW_REL,
+        community_recall=recall, recall_pin=DW_RECALL_PIN,
+        phase_s=time.perf_counter() - t_phase)
+    emit("graph_deepwalk", **readings, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"graph_deepwalk failed its checks: {failed(checks)}")
+    return readings
+
+
+def sentiment_reviews(n, lengths, seed):
+    """n (review, "pos" or "neg") pairs: lengths drawn in ``lengths``, Zipf
+    words with one in SENT_DENSITY (at random places) a word of the
+    review's planted polarity."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        pol = int(rng.integers(0, NLP_POLARITIES))
+        L = int(rng.integers(lengths[0], lengths[1] + 1))
+        toks = [f"w{k}" for k in nlp_zipf(rng, L)]
+        for i in np.flatnonzero(rng.random(L) < 1.0 / SENT_DENSITY):
+            toks[i] = f"p{pol}_{int(rng.integers(0, NLP_GROUP_WORDS))}"
+        out.append((" ".join(toks), ("neg", "pos")[pol]))
+    return out
+
+
+def sentiment_conf():
+    """GravesLSTM(300 -> 256, tanh) -> RnnOutputLayer(softmax, MCXENT, 2),
+    Adam at SENT_LR with ClipElementWiseAbsoluteValue at 1.0, l2 SENT_L2."""
+    from deeplearning4j_tpu_torch import (GravesLSTM, InputType, MultiLayerConfiguration,
+                                          RnnOutputLayer)
+
+    return MultiLayerConfiguration(
+        layers=[GravesLSTM(n_in=W2V["layer_size"], n_out=SENT_H, activation="tanh",
+                           weight_init="xavier", l2=SENT_L2),
+                RnnOutputLayer(n_in=SENT_H, n_out=2, activation="softmax", loss="mcxent",
+                               weight_init="xavier", l2=SENT_L2)],
+        input_type=InputType.recurrent(W2V["layer_size"]),
+        updater={"updater": "adam", "learning_rate": SENT_LR,
+                 "gradient_normalization": "ClipElementWiseAbsoluteValue",
+                 "gradient_normalization_threshold": 1.0},
+        seed=SEED)
+
+
+def sentiment_params(seed) -> list:
+    """Xavier (normal, 2 / (fan_in + fan_out)) weights from a numpy seed,
+    zero biases but the forget gate's 1, zero peepholes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    D, H = W2V["layer_size"], SENT_H
+
+    def w(shape, fan_in, fan_out):
+        return rng.normal(0.0, (2.0 / (fan_in + fan_out)) ** 0.5, shape)
+
+    b = np.zeros(4 * H)
+    b[H:2 * H] = 1.0
+    return [{"W": w((D, 4 * H), D, H), "RW": w((H, 4 * H), H, H), "b": b,
+             "pF": np.zeros(H), "pI": np.zeros(H), "pO": np.zeros(H)},
+            {"W": w((H, 2), H, 2), "b": np.zeros(2)}]
+
+
+def labels_at_last_real_step(ds) -> bool:
+    """Each row's label and labels mask at its last real step alone (the
+    features mask's last 1), a one-hot label there."""
+    import numpy as np
+
+    last = ds.features_mask.sum(1).astype(int) - 1
+    rows = np.arange(len(last))
+    want = np.zeros_like(ds.labels_mask)
+    want[rows, last] = 1.0
+    return bool(np.array_equal(ds.labels_mask, want)
+                and np.array_equal(ds.labels[rows, last].sum(-1), np.ones(len(last))))
+
+
+def padded_last_step(it_cls):
+    """A wrong Word2VecDataSetIterator: each label at the batch's last
+    (padded) step, not the row's last real one."""
+    from deeplearning4j_tpu_torch import DataSet
+
+    class Wrong(it_cls):
+        def __iter__(self):
+            for ds in super().__iter__():
+                y, m = ds.labels.copy(), ds.labels_mask.copy()
+                lab = y.sum(1)
+                y[:] = 0.0
+                y[:, -1] = lab
+                m[:] = 0.0
+                m[:, -1] = 1.0
+                yield DataSet(ds.features, y, features_mask=ds.features_mask, labels_mask=m)
+
+    return Wrong
+
+
+def sentiment_accuracy(net, it) -> float:
+    """Held-out accuracy at each review's last real step."""
+    import numpy as np
+
+    right = total = 0
+    for ds in it:
+        out = net.output(ds.features, features_mask=ds.features_mask)
+        last = ds.features_mask.sum(1).astype(int) - 1
+        rows = np.arange(len(last))
+        right += int((out[rows, last].argmax(-1) == ds.labels[rows, last].argmax(-1)).sum())
+        total += len(last)
+    return right / total
+
+
+def phase_w2v_sentiment(torch, w2v, card):
+    """DL4J's Word2VecSentimentRNN on phase nlp_word2vec's 300-d vectors:
+    the iterator's arrays checked (a wrong iterator with the labels at the
+    padded last step caught); the first 2 updates at SENT_CPU's smaller T on
+    the card against the CPU at RECIPE_LIMITS (and with the wrong iterator,
+    reported); SENT_EPOCHS epochs on the card with exact launches of rows
+    8-12; held-out accuracy; ms per update. Returns (launches, the long
+    batch's mask [T, B, 1], the net's leaf shapes, readings)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (MultiLayerNetwork, load_jax_params, ops,
+                                          params_to_numpy)
+    from deeplearning4j_tpu_torch.nlp import Word2VecDataSetIterator
+
+    t_phase = time.perf_counter()
+    conf, host = sentiment_conf(), sentiment_params(SEED + 65)
+    reviews = sentiment_reviews(SENT_TRAIN + SENT_HELD, SENT_LENGTHS, SEED + 66)
+    t0 = time.perf_counter()
+    train = list(Word2VecDataSetIterator(reviews[:SENT_TRAIN], w2v, batch=SENT_B,
+                                         max_length=SENT_T, labels=["neg", "pos"]))
+    held = list(Word2VecDataSetIterator(reviews[SENT_TRAIN:], w2v, batch=SENT_B,
+                                        max_length=SENT_T, labels=["neg", "pos"]))
+    encode_s = time.perf_counter() - t0
+    Wrong = padded_last_step(Word2VecDataSetIterator)
+    iterator_ok = all(labels_at_last_real_step(ds) for ds in train + held)
+    wrong_caught = not all(labels_at_last_real_step(ds) for ds in Wrong(
+        reviews[:SENT_B], w2v, batch=SENT_B, max_length=SENT_T, labels=["neg", "pos"]))
+
+    small = sentiment_reviews(SENT_CPU["reviews"], SENT_CPU["lengths"], SEED + 67)
+
+    def small_run(dev, cls=Word2VecDataSetIterator):
+        net = load_jax_params(MultiLayerNetwork(conf, device=dev), host)
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        net.fit(list(cls(small, w2v, batch=SENT_B, max_length=SENT_CPU["max_length"],
+                         labels=["neg", "pos"])))
+        net.set_listeners()
+        return net, np.array([float(l) for l in rec.losses]), params_to_numpy(net)
+
+    cpu = small_run("cpu")
+    readings = recipe_readings(small_run(DEVICE), cpu, host, lr=SENT_LR)
+    lim = SENT_LIMITS
+    wrong_readings = recipe_readings(small_run(DEVICE, Wrong), cpu, host, lr=SENT_LR)
+
+    net = load_jax_params(MultiLayerNetwork(conf), host)
+    updates = SENT_EPOCHS * len(train)
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    net.fit(train, epochs=SENT_EPOCHS)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.counters().items() if v}
+    expected = {"lstm_seq_masked_train_fwd": updates, "lstm_seq_masked_bwd": updates,
+                "drw_product": updates, "softmax_xent_fwd": updates,
+                "softmax_xent_bwd": updates, "adam_update": updates * adam_launches(net)}
+    accuracy = sentiment_accuracy(net, held)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(train)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(train)
+    long_batch = max(train, key=lambda ds: ds.features_mask.sum())
+    mask = np.ascontiguousarray(np.asarray(long_batch.features_mask, np.float32).T[..., None])
+    checks = {"iterator_label_at_last_real_step": iterator_ok,
+              "fault_label_at_padded_step_caught": wrong_caught,
+              "card_vs_cpu": within_limits(readings, lim), "launches": launches == expected,
+              "accuracy": accuracy >= SENT_PIN}
+    out = dict(
+        train=SENT_TRAIN, held=SENT_HELD, B=SENT_B, T=SENT_T, H=SENT_H,
+        encode_s=encode_s, compared=SENT_CPU, readings_vs_cpu=readings, limits=lim,
+        cpu_losses=cpu[1].tolist(),
+        label_at_padded_step_vs_cpu=wrong_readings,
+        label_at_padded_step_within_limits=within_limits(wrong_readings, lim),
+        updates=updates, kernel_launches=launches, expected_launches=expected,
+        accuracy=accuracy, pin=SENT_PIN, ms_per_update=ms,
+        mask_live_share=float(mask.mean()), phase_s=time.perf_counter() - t_phase)
+    emit("w2v_sentiment", **out, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"w2v_sentiment failed its checks: {failed(checks)}")
+    leaf_shapes = [np.shape(p[k]) for p in params_to_numpy(net) for k in p]
+    return launches, mask, leaf_shapes, out
+
+
+def phases_slice24(torch, card):
+    """The four phases of slice 24, each counting from 0 where it counts.
+    Returns (the sentiment path's launches, its mask, its leaf shapes,
+    readings by phase)."""
+    model, corpus, w2v = phase_nlp_word2vec(torch, card)
+    pvg = phase_nlp_paragraph_vectors_glove(torch, corpus, card)
+    dw = phase_graph_deepwalk(torch, card)
+    launches, mask, shapes, sent = phase_w2v_sentiment(torch, model, card)
+    return launches, mask, shapes, {"nlp_word2vec": w2v, "nlp_paragraph_vectors_glove": pvg,
+                                    "graph_deepwalk": dw, "w2v_sentiment": sent}
+
+
+def kernels_slice24(torch, ls, sx, ad, card, mask, leaf_shapes) -> dict:
+    """Rows 8-9 and dRW at the sentiment LSTM's shape (T=256, B=64, H=256)
+    under its longest batch's mask, rows 10-11 at its N = B*T rows over 2
+    classes, row 12 at its 8 leaves: each against its plain version, then
+    timed. Returns {kernel: (max abs err, times, shape)}."""
+    out = {}
+    T, B = mask.shape[0], mask.shape[1]
+    m = torch.as_tensor(mask, device=DEVICE).contiguous()
+    shape = f"T={T} B={B} H={SENT_H}, the longest batch's mask"
+    for k, (err, t) in lstm_rows_at(torch, ls, T, B, SENT_H, card, "w2v_sentiment",
+                                    mask=m).items():
+        out[k] = (err, t, shape + (f" R={T * B}" if k == "drw_product" else ""))
+    N = B * T
+    e = sxent_case(torch, sx, N, 2, "float32", "one_hot", SEED + N)
+    for (k, _), t in time_sxent(torch, sx, N, 2, ("float32",), card,
+                                "the sentiment net's loss head").items():
+        out[k] = (e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"]), t, f"N={N} C=2")
+    _, sc = adam_inputs(torch, SEED)
+    leaves, _ = adam_inputs(torch, SEED + 70, leaf_shapes)
+    err = adam_check(torch, ad, "w2v_sentiment", leaves, sc)
+    out["adam_update"] = (err, time_adam(torch, ad, card, leaf_shapes,
+                                         f"the sentiment net's {len(leaf_shapes)} leaves"),
+                          f"{len(leaf_shapes)} leaves")
+    return out
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -9275,6 +10101,17 @@ def main() -> int:
          cudnn_allow_tf32=False, build_seconds=time.perf_counter() - t0,
          build_seconds_by_source=build_s)
     sass = phase_sass(build_s)
+
+    # ---- 1b. slice 23: the training UI and its host tier (LeNet trained from
+    # IDX files through the C++ loader under the dashboard's listeners,
+    # served over HTTP, its features embedded by t-SNE and clustered by
+    # k-means on the card) on the default, replayed path; counts from 0. It
+    # runs first: the profiler's trace of its listener's window drops
+    # kernels in a process that has run for minutes (a whole update's
+    # forward ten minutes in, where it used to run)
+    os.environ.pop("DL4JTPU_INFER")
+    s23_launches, s23_readings = phase_ui_lenet(torch, card)
+    os.environ["DL4JTPU_INFER"] = "legacy"
 
     # ---- 2. each kernel against its plain version
     errs = phase_kernels(torch, ls)
@@ -9517,17 +10354,23 @@ def main() -> int:
     os.environ["DL4JTPU_INFER"] = "legacy"
     for k, v in s22_launches.items():
         launches[k] = launches.get(k, 0) + v
-    # ---- 4p. slice 23: the training UI and its host tier (LeNet trained from
-    # IDX files through the C++ loader under the dashboard's listeners,
-    # served over HTTP, its features embedded by t-SNE and clustered by
-    # k-means on the card) on the default, replayed path; counts from 0
-    os.environ.pop("DL4JTPU_INFER")
-    s23_launches, s23_readings = phase_ui_lenet(torch, card)
-    os.environ["DL4JTPU_INFER"] = "legacy"
+    # ---- 4p. slice 23's launches (its phase ran first, in section 1b)
     for k, v in s23_launches.items():
         launches[k] = launches.get(k, 0) + v
     for k in SLICE23_ROWS:
         new_path_launches[("ui_lenet", k)] = s23_launches.get(k, 0)
+    # ---- 4q. slice 24: the NLP stack and graph embeddings (Word2Vec at 300
+    # dimensions, ParagraphVectors, GloVe, DistributedWord2Vec, DeepWalk at
+    # BlogCatalog's size; their embedding steps plain tensor ops), then the
+    # vectors into the sentiment LSTM (rows 8-12) on the default path;
+    # counts from 0
+    os.environ.pop("DL4JTPU_INFER")
+    s24_launches, s24_mask, s24_shapes, s24_readings = phases_slice24(torch, card)
+    os.environ["DL4JTPU_INFER"] = "legacy"
+    for k, v in s24_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    for k in SLICE24_ROWS:
+        new_path_launches[("w2v_sentiment", k)] = s24_launches.get(k, 0)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -9616,6 +10459,7 @@ def main() -> int:
     s20_rows = kernels_slice20(torch, sx, card)
     s21_rows = kernels_slice21(torch, ls, lr, card)
     s22_rows = kernels_slice22(torch, ls, sx, card, s22_mask)
+    s24_rows = kernels_slice24(torch, ls, sx, ad, card, s24_mask, s24_shapes)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -9862,6 +10706,17 @@ def main() -> int:
                     launches=new_path_launches[("ui_lenet", k)],
                     traced_launches=s23_readings["trace"]["launches"][k])
         lines.append(line)
+    # rows 8-12 at the sentiment LSTM's shapes: launches of its training run
+    for k in SLICE24_ROWS:
+        err, t, shape = s24_rows[k]
+        source, replaces = {**KERNELS, **DRW_KERNELS}[k]
+        lines.append({
+            "name": f"{k}@w2v_sentiment", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": new_path_launches[("w2v_sentiment", k)],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
+            "kernel_device_ms": t.get("kernel_device_ms")})
     print(json.dumps({"kernels": lines, "launches": launches,
                       "staged_replays": staged_replays, "staged_ms_per_update": staged_times,
                       "staged_replayed_launches": staged_replayed,
@@ -9906,6 +10761,7 @@ def main() -> int:
                                   if k not in ("window_ms", "snapshot_ms", "write_s",
                                                "swap_ms")},
                       "slice23": s23_readings,
+                      "slice24": s24_readings,
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

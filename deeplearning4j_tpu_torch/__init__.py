@@ -59,8 +59,12 @@ g++ at first use), profiles (``profiler``: traces, step timers, FLOP
 counts), serves the training dashboard and the HTTP service
 (``ui.UIServer`` over ``ui.StatsListener``'s storage, ``POST
 /serving/predict``), and embeds and clusters features on the card
-(``plot.Tsne``, ``clustering.KMeansClustering``). Entry points run on the
-card unless the caller passes ``device="cpu"``.
+(``plot.Tsne``, ``clustering.KMeansClustering``). It trains word and graph
+embeddings (``nlp``: ``Word2Vec``, ``ParagraphVectors``, ``Glove``,
+``DistributedWord2Vec`` over ``SequenceVectors``, the word-vector formats,
+and ``Word2VecDataSetIterator``, which feeds trained vectors to a network;
+``graph_embeddings``: ``DeepWalk``). Entry points run on the card unless
+the caller passes ``device="cpu"``.
 """
 
 from .datasets.fetchers import (DigitsDataSetIterator, IrisDataSetIterator,

@@ -42,6 +42,7 @@ from deeplearning4j_tpu.streaming import QueueSource as JQueueSource  # noqa: E4
 from deeplearning4j_tpu.runtime import inference as jax_inference  # noqa: E402
 from deeplearning4j_tpu.telemetry import MetricsRegistry as JRegistry  # noqa: E402
 from deeplearning4j_tpu.telemetry import flight_recorder as jflight  # noqa: E402
+from deeplearning4j_tpu.telemetry import tracing as jtracing  # noqa: E402
 
 import deeplearning4j_tpu_torch as pt  # noqa: E402
 from deeplearning4j_tpu_torch.runtime import CheckpointStore, OnlineTrainer  # noqa: E402
@@ -52,6 +53,7 @@ from deeplearning4j_tpu_torch.streaming import QueueSource, ReplayBufferSource  
 from deeplearning4j_tpu_torch.telemetry import MetricsRegistry  # noqa: E402
 from deeplearning4j_tpu_torch.telemetry.flight_recorder import (FlightRecorder,  # noqa: E402
                                                                 set_flight_recorder)
+from deeplearning4j_tpu_torch.telemetry import tracing as ptracing  # noqa: E402
 from deeplearning4j_tpu_torch.testing import ChaosSource, FaultPlan  # noqa: E402
 
 ATOL = RTOL = 1e-5
@@ -67,6 +69,10 @@ def env(monkeypatch, tmp_path):
     yield
     ponline.clear_online_trainers()
     jonline.clear_online_trainers()
+    # a trainer's swap sets the process-level baggage every new trace
+    # context carries; later tests in this process must not see it
+    ptracing.set_default_baggage("checkpoint_version", None)
+    jtracing.set_default_baggage("checkpoint_version", None)
 
 
 @pytest.fixture
