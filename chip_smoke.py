@@ -142,6 +142,24 @@ vectors through Word2VecDataSetIterator into a GravesLSTM(256) classifier
 trained with Adam (rows 8-12, exact launches; its first 2 updates against
 the CPU; an iterator with the labels at the padded last step caught;
 held-out accuracy), with rows 8-12 held and timed at its shapes.
+Then slice 25, Keras model import and the Keras gateway on the default path,
+every archive written from the seed by ``scripts/torch_write_keras_h5.py``
+(numpy, no h5py) and read back by the port's own HDF5 reader: rows 5-9 and
+dRW with Keras's hardsigmoid gate at T=40, B=128, H=128 (f32 and bf16,
+against their plain versions, the wrong products caught); the LSTM text
+generator of Keras's examples/lstm_text_generation.py (Keras 1.2: LSTM(128)
+over 40 one-hot characters of 57, Dense, softmax) imported by guess_model
+and served at B=128 against a float64 numpy Keras LSTM and the CPU (gate
+blocks in Keras's order and sigmoid gates caught), the example's 100-char
+generation loop at B=1, 4 RMSprop updates from the archive's training
+config against the CPU; VGG16 of the zoo (138.4M params) from a 553 MB
+weights-only 'th' archive through TrainedModels.load, served at B=64 eager
+and replayed, held on 2 images against a CPU F.conv2d oracle over the raw
+OIHW kernels and the CPU (a skipped flatten permutation caught), its first
+Nesterov update at B=2 against the CPU and 3 updates at B=32 timed; a
+GatewayServer session (model (a)'s JSON with Adam: create, 4 fits,
+predict, evaluate) against the same session on the CPU; rows 5-7, dRW and
+10-12 held and timed at those shapes.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -328,16 +346,23 @@ def tc_rate(dtype: str):
     return F32_TC_OPS_PER_S if dtype == "float32" else None
 
 
-def bound(T: int, B: int, H: int, dtype: str, masked: bool):
+def bound(T: int, B: int, H: int, dtype: str, masked: bool, live: float = 1.0):
     """Least time for one layer-forward of the sequence op: each input read
     once and each output written once over HBM, or the recurrent product's
     2*B*H*4H*T operations at the tensor cores' peak (f32 at the 3xTF32
-    rate), whichever is larger. The dependency from one step to the next is
-    not in it."""
+    rate), whichever is larger. Of a masked call only the ``live`` share of
+    the T*B (step, row) pairs whose mask is 1 needs its zx read and its
+    product (a masked pair carries h and c over); ys is written whole. The
+    dependency from one step to the next is not in it."""
     item = 4 if dtype == "float32" else 2
-    elems = (T * B * 4 * H + (T * B if masked else 0) + 4 * B * H
+    elems = (T * B * 4 * H * live + (T * B if masked else 0) + 4 * B * H
              + H * 4 * H + 3 * H + T * B * H)
-    return roofline(elems * item, 2.0 * B * H * 4 * H * T, dtype, tc_rate(dtype))
+    return roofline(elems * item, 2.0 * B * H * 4 * H * T * live, dtype, tc_rate(dtype))
+
+
+def live_share(mask) -> float:
+    """The share of a sequence mask's (step, row) pairs that are 1."""
+    return float(mask.float().mean())
 
 
 def bound_train_fwd(T: int, B: int, H: int, dtype: str, masked: bool = False):
@@ -443,39 +468,45 @@ def char_rnn_params(conf, seed):
     return params
 
 
-def phase_kernels(torch, ls):
-    """Each kernel mode against its plain version, full width and decode."""
+SEQ_CASES = ((STEPS, BATCH, False), (STEPS, BATCH, True), (1, SLOTS, True), (1, SLOTS, False))
+
+
+def phase_kernels(torch, ls, gate="sigmoid", H=HIDDEN, cases=SEQ_CASES,
+                  dtypes=("float32", "bfloat16")):
+    """Each kernel mode (row 5, unmasked and masked) against its plain
+    version with the gate activation ``gate`` at each (T, B, masked) of
+    ``cases`` (default: full width and decode) in each of ``dtypes``; at
+    the first case's [T, B] also the wrong products, which the limit must
+    catch."""
     errs = {}
-    cases = [(STEPS, BATCH, False), (STEPS, BATCH, True), (1, SLOTS, True),
-             (1, SLOTS, False)]
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         for T, B, masked in cases:
-            args = seq_inputs(torch, T, B, HIDDEN, dtype, masked, SEED + T + B)
+            args = seq_inputs(torch, T, B, H, dtype, masked, SEED + T + B)
             if masked:
-                got = ls.fused_lstm_sequence_masked(*args, "tanh", "sigmoid")
-                want = ls.lstm_sequence_masked_reference(*args, "tanh", "sigmoid")
+                got = ls.fused_lstm_sequence_masked(*args, "tanh", gate)
+                want = ls.lstm_sequence_masked_reference(*args, "tanh", gate)
             else:
-                got = ls.fused_lstm_sequence(*args, "tanh", "sigmoid")
-                want = ls.lstm_sequence_reference(*args, "tanh", "sigmoid")
+                got = ls.fused_lstm_sequence(*args, "tanh", gate)
+                want = ls.lstm_sequence_reference(*args, "tanh", gate)
             torch.cuda.synchronize()
             err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
             finite = all(bool(torch.isfinite(g).all()) for g in got)
             name = "lstm_seq_lean_masked" if masked else "lstm_seq_lean"
-            emit("kernel_vs_plain", kernel=name, dtype=dtype, T=T, B=B, H=HIDDEN,
+            emit("kernel_vs_plain", kernel=name, dtype=dtype, T=T, B=B, H=H, gate=gate,
                  max_abs_err=err, atol=KERNEL_ATOL[dtype], finite=finite)
             if not finite or err > KERNEL_ATOL[dtype]:
-                raise AssertionError(f"{name} {dtype} T={T} B={B}: max abs err "
+                raise AssertionError(f"{name} {dtype} T={T} B={B} gate={gate}: max abs err "
                                      f"{err} > {KERNEL_ATOL[dtype]} or not finite")
             errs[(name, dtype, T, B)] = err
-            if (T, B) == (STEPS, BATCH):  # the limit must catch wrong products
+            if (T, B) == cases[0][:2]:  # the limit must catch wrong products
                 zx, mask, rest = (args[0], args[1], args[2:]) if masked else (
                     args[0], None, args[1:])
                 fwd_faults_caught(
                     name, dtype, lambda product: ls.lstm_sequence_masked_reference(
-                        zx, mask, *rest, "tanh", "sigmoid", product),
+                        zx, mask, *rest, "tanh", gate, product),
                     want, lambda got, ref: ({"max_abs_err": max_abs(got, ref)},
                                             max_abs(got, ref) <= KERNEL_ATOL[dtype]),
-                    dict(T=T, B=B, H=HIDDEN, limit=KERNEL_ATOL[dtype]))
+                    dict(T=T, B=B, H=H, gate=gate, limit=KERNEL_ATOL[dtype]))
     return errs
 
 
@@ -500,9 +531,10 @@ def bf16_readings(T: int, names, got, want):
     parts = []
     for n, g, w in zip(names, got, want):
         parts.append((n, g, w))
-        if g.dim() == 3 and g.shape[-1] == 4 * HIDDEN:
+        if n == "dzx":
+            H = g.shape[-1] // 4
             parts += [(f"{n}_{k}", gc, wc) for k, gc, wc in
-                      zip("afoi", g.split(HIDDEN, -1), w.split(HIDDEN, -1))]
+                      zip("afoi", g.split(H, -1), w.split(H, -1))]
     lim = BF16_TRAIN_REL["tail" if T <= TAIL else "long"]
     readings, bad = {}, {}
     for n, g, w in parts:
@@ -516,13 +548,14 @@ def bf16_readings(T: int, names, got, want):
     return readings, lim, bad
 
 
-def check_rel(name: str, T: int, names, got, want) -> None:
+def check_rel(name: str, T: int, names, got, want, **fields) -> None:
     """A bf16 LSTM training kernel against its plain version
     (``bf16_readings``, BF16_TRAIN_REL). Emits one kernel_vs_plain line with
     the readings, the limits and max |ref| beside them, and raises past a
-    limit."""
+    limit. ``fields`` (default: the char-RNN's B and H) go on the line."""
     readings, lim, bad = bf16_readings(T, names, got, want)
-    emit("kernel_vs_plain", kernel=name, dtype="bfloat16", T=T, B=BATCH, H=HIDDEN,
+    emit("kernel_vs_plain", kernel=name, dtype="bfloat16", T=T,
+         **(fields or dict(B=BATCH, H=HIDDEN)),
          relative_by_output=readings, limit_max_rel=lim["max"],
          limit_mean_rel=lim["mean"], ok=not bad)
     if bad:
@@ -628,14 +661,14 @@ def max_abs(got, want) -> float:
     return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
 
 
-def train_mask(torch, T: int, dtype: str, seed: int):
-    """A [T, BATCH, 1] features mask with every pattern a padded batch and
-    its TBPTT segments give, and more: row 0 all zeros, row 1 leading zeros,
+def train_mask(torch, T: int, dtype: str, seed: int, B: int = BATCH):
+    """A [T, B, 1] features mask with every pattern a padded batch and its
+    TBPTT segments give, and more: row 0 all zeros, row 1 leading zeros,
     row 2 an interior gap, the other rows ragged lengths (trailing zeros)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(max(1, T // 3), T + 1, BATCH)
+    lengths = rng.integers(max(1, T // 3), T + 1, B)
     rows = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float64)
     rows[0] = 0.0
     rows[1, :max(1, T // 4)] = 0.0
@@ -654,44 +687,12 @@ def phase_kernels_train(torch, ls, sx):
     (``bwd_faults_caught``); rows 10-11 at both row counts with one-hot and
     soft labels and at the other ``SXENT_CASES``, f32 and bf16 inputs.
     Returns the max abs error of each (kernel, dtype, size)."""
-    import numpy as np
-
     errs = {}
     for dtype in ("float32", "bfloat16"):
-        dt, lim = getattr(torch, dtype), KERNEL_ATOL[dtype]
         for T in (STEPS, TBPTT, TAIL):
             for masked in (False, True):
-                fwd, bwd = (("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd") if masked
-                            else ("lstm_seq_train_fwd", "lstm_seq_bwd"))
-                args = seq_inputs(torch, T, BATCH, HIDDEN, dtype, False, SEED + 7 * T)
-                mask = train_mask(torch, T, dtype, SEED + T) if masked else None
-                got = ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:])
-                want = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:])
-                torch.cuda.synchronize()
-                names = ("ys", "a", "f", "o", "i", "c", "hT", "cT")
-                errs[(fwd, dtype, T)] = max_abs(got, want)
-                if dtype == "bfloat16":
-                    check_rel(fwd, T, names, got, want)
-                else:
-                    e = {n: float((g.float() - w.float()).abs().max())
-                         for n, g, w in zip(names, got, want)}
-                    check(fwd, dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH, H=HIDDEN)
-                rng = np.random.default_rng(SEED + T)
-                up = [torch.as_tensor(rng.normal(0.0, 0.1, shape), dtype=dt, device=DEVICE)
-                      for shape in ((T, BATCH, HIDDEN), (BATCH, HIDDEN), (BATCH, HIDDEN))]
-                res = tuple(want[:6]) + tuple(args[1:])
-                got = ls.lstm_sequence_masked_backward(*up, mask, *res)
-                ref = ls.lstm_sequence_masked_backward_reference(*up, mask, *res)
-                torch.cuda.synchronize()
-                errs[(bwd, dtype, T)] = max_abs(got, ref)
-                if dtype == "bfloat16":
-                    check_rel(bwd, T, BWD_NAMES, got, ref)
-                else:
-                    e = f32_bwd_readings(got, ref)
-                    check(bwd, dtype, e, dict.fromkeys(e, lim), T=T, B=BATCH,
-                          H=HIDDEN, summed_grads_relative_to_largest=list(SUMMED_GRADS))
-                if T == TBPTT and not masked:
-                    bwd_faults_caught(ls, dtype, T, up, res, ref)
+                errs.update(train_rows_case(torch, ls, dtype, T, masked,
+                                            faults=T == TBPTT and not masked))
         for N, C in SXENT_CASES:
             for labels in ("one_hot", "soft") if C == VOCAB else ("one_hot",):
                 e = sxent_case(torch, sx, N, C, dtype, labels, SEED + N + C)
@@ -704,7 +705,53 @@ def phase_kernels_train(torch, ls, sx):
     return errs
 
 
-def bwd_faults_caught(ls, dtype, T, up, res, ref) -> None:
+def train_rows_case(torch, ls, dtype, T, masked, B=BATCH, H=HIDDEN, gate="sigmoid",
+                    faults=False) -> dict:
+    """Rows 6 and 8 (unmasked or masked training forward) on every output
+    including the residuals, then rows 7 or 9 on all seven grads from
+    random upstream grads, at [T, B, H] with the gate activation ``gate``,
+    each against its plain version (bf16 by ``check_rel``), the mask
+    ``train_mask``'s; with ``faults``, the wrong products of the backward
+    (``bwd_faults_caught``). Returns the max abs error of each (kernel,
+    dtype, T)."""
+    import numpy as np
+
+    dt, lim = getattr(torch, dtype), KERNEL_ATOL[dtype]
+    fwd, bwd = (("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd") if masked
+                else ("lstm_seq_train_fwd", "lstm_seq_bwd"))
+    shape = dict(B=B, H=H, gate=gate)
+    args = seq_inputs(torch, T, B, H, dtype, False, SEED + 7 * T)
+    mask = train_mask(torch, T, dtype, SEED + T, B) if masked else None
+    got = ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:], "tanh", gate)
+    want = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:], "tanh", gate)
+    torch.cuda.synchronize()
+    names = ("ys", "a", "f", "o", "i", "c", "hT", "cT")
+    errs = {(fwd, dtype, T): max_abs(got, want)}
+    if dtype == "bfloat16":
+        check_rel(fwd, T, names, got, want, **shape)
+    else:
+        e = {n: float((g.float() - w.float()).abs().max()) for n, g, w in zip(names, got, want)}
+        check(fwd, dtype, e, dict.fromkeys(e, lim), T=T, **shape)
+    rng = np.random.default_rng(SEED + T)
+    up = [torch.as_tensor(rng.normal(0.0, 0.1, s), dtype=dt, device=DEVICE)
+          for s in ((T, B, H), (B, H), (B, H))]
+    res = tuple(want[:6]) + tuple(args[1:])
+    got = ls.lstm_sequence_masked_backward(*up, mask, *res, "tanh", gate)
+    ref = ls.lstm_sequence_masked_backward_reference(*up, mask, *res, "tanh", gate)
+    torch.cuda.synchronize()
+    errs[(bwd, dtype, T)] = max_abs(got, ref)
+    if dtype == "bfloat16":
+        check_rel(bwd, T, BWD_NAMES, got, ref, **shape)
+    else:
+        e = f32_bwd_readings(got, ref)
+        check(bwd, dtype, e, dict.fromkeys(e, lim), T=T, **shape,
+              summed_grads_relative_to_largest=list(SUMMED_GRADS))
+    if faults:
+        bwd_faults_caught(ls, dtype, T, up, res, ref, gate=gate, B=B, H=H)
+    return errs
+
+
+def bwd_faults_caught(ls, dtype, T, up, res, ref, gate="sigmoid", B=BATCH, H=HIDDEN) -> None:
     """The plain backward with each wrong product of PRODUCT_FAULTS and
     each wrong dRW product of DRW_FAULTS, read against the right one as the
     kernel is: emits one kernel_limits line and raises unless every one
@@ -713,7 +760,7 @@ def bwd_faults_caught(ls, dtype, T, up, res, ref) -> None:
     for fault in PRODUCT_FAULTS[dtype] + DRW_FAULTS[dtype]:
         hook = ({"drw": drw_fault(fault, dtype)} if fault in DRW_FAULTS[dtype] else
                 {"product": product_fault(fault, dtype, BWD_CHUNK_BYTES)})
-        got = ls.lstm_sequence_masked_backward_reference(*up, None, *res, **hook)
+        got = ls.lstm_sequence_masked_backward_reference(*up, None, *res, "tanh", gate, **hook)
         if dtype == "bfloat16":
             readings, _, bad = bf16_readings(T, BWD_NAMES, got, ref)
             wrong[fault] = {"outputs_past_limits": sorted(bad),
@@ -725,23 +772,23 @@ def bwd_faults_caught(ls, dtype, T, up, res, ref) -> None:
             caught = wrong[fault]["worst"] > KERNEL_ATOL[dtype]
         wrong[fault]["caught"] = caught
     ok = all(w["caught"] for w in wrong.values())
-    emit("kernel_limits", kernel="lstm_seq_bwd", dtype=dtype, T=T, B=BATCH, H=HIDDEN,
+    emit("kernel_limits", kernel="lstm_seq_bwd", dtype=dtype, T=T, B=B, H=H, gate=gate,
          limit=KERNEL_ATOL[dtype] if dtype == "float32" else BF16_TRAIN_REL["long"],
          wrong_readings=wrong, caught=ok)
     if not ok:
         raise AssertionError(f"lstm_seq_bwd {dtype}: the limits do not catch {wrong}")
 
 
-def drw_inputs(torch, T, H, dtype, seed):
+def drw_inputs(torch, T, H, dtype, seed, B=BATCH):
     """(h0 [B, H], ys [T, B, H], dzx [T, B, 4H]) of one dRW product on the
     card from a numpy seed, scaled as the training backward's (h in
     (-1, 1), gate grads ~1e-2)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    arrs = (np.tanh(rng.normal(0.0, 1.0, (BATCH, H))),
-            np.tanh(rng.normal(0.0, 1.0, (T, BATCH, H))),
-            rng.normal(0.0, 1e-2, (T, BATCH, 4 * H)))
+    arrs = (np.tanh(rng.normal(0.0, 1.0, (B, H))),
+            np.tanh(rng.normal(0.0, 1.0, (T, B, H))),
+            rng.normal(0.0, 1e-2, (T, B, 4 * H)))
     return [torch.as_tensor(a, dtype=getattr(torch, dtype), device=DEVICE) for a in arrs]
 
 
@@ -953,7 +1000,7 @@ def time_train_kernels(torch, ls, sx, card):
         mask = train_mask(torch, STEPS, dtype, SEED + STEPS)
         mres = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:])
         mres = tuple(mres[:6]) + tuple(args[1:])
-        live = float(mask.float().mean())
+        live = live_share(mask)
         cases = (
             ("lstm_seq_train_fwd", lambda: ls.lstm_sequence_train_forward(*args),
              lambda: ls.lstm_sequence_train_reference(*args), None,
@@ -3735,35 +3782,41 @@ def pangram_batches():
             np.stack([eye[ids[i * t + 1:(i + 1) * t + 1]] for i in range(n)]))
 
 
-def lstm_rows_at(torch, ls, T, B, H, card, where, mask=None):
-    """The training kernels of one LSTM layer at [T, B, H], f32: rows 6-7
-    (8-9 with ``mask``, [T, B, 1]) against their plain versions on the same
-    CUDA tensors (every output; dRW and the peephole grads over their
-    largest element) and the dRW product alone at R = T*B; then each timed
-    beside its plain version and its bound, dRW also beside
-    torch.matmul(hp.t(), dz). Returns {name: (max abs err, times)}."""
+def lstm_rows_at(torch, ls, T, B, H, card, where, mask=None, gate="sigmoid", faults=False):
+    """The training kernels of one LSTM layer at [T, B, H], f32, with the
+    gate activation ``gate``: rows 6-7 (8-9 with ``mask``, [T, B, 1])
+    against their plain versions on the same CUDA tensors (every output;
+    dRW and the peephole grads over their largest element; with
+    ``faults``, row 7's wrong products caught) and the dRW product alone at
+    R = T*B; then each timed beside its plain version and its bound, dRW
+    also beside torch.matmul(hp.t(), dz). Returns {name: (max abs err,
+    times)}."""
     import numpy as np
 
     dt, lim = torch.float32, KERNEL_ATOL["float32"]
     fwd, bwd = (("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd") if mask is not None
                 else ("lstm_seq_train_fwd", "lstm_seq_bwd"))
+    acts = ("tanh", gate)
+    at = dict(at=where, gate=gate)
     args = seq_inputs(torch, T, B, H, "float32", False, SEED + T + H)
-    got = ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:])
-    want = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:])
+    got = ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:], *acts)
+    want = ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:], *acts)
     names = ("ys", "a", "f", "o", "i", "c", "hT", "cT")
     torch.cuda.synchronize()
     e = {n: float((g.float() - w.float()).abs().max()) for n, g, w in zip(names, got, want)}
-    out = {fwd: [check(fwd, "float32", e, dict.fromkeys(e, lim), T=T, B=B, H=H, at=where)]}
+    out = {fwd: [check(fwd, "float32", e, dict.fromkeys(e, lim), T=T, B=B, H=H, **at)]}
     rng = np.random.default_rng(SEED + T)
     up = [torch.as_tensor(rng.normal(0.0, 0.1, shape), dtype=dt, device=DEVICE)
           for shape in ((T, B, H), (B, H), (B, H))]
     res = tuple(want[:6]) + tuple(args[1:])
-    got = ls.lstm_sequence_masked_backward(*up, mask, *res)
-    ref = ls.lstm_sequence_masked_backward_reference(*up, mask, *res)
+    got = ls.lstm_sequence_masked_backward(*up, mask, *res, *acts)
+    ref = ls.lstm_sequence_masked_backward_reference(*up, mask, *res, *acts)
     torch.cuda.synchronize()
     e = f32_bwd_readings(got, ref)
-    check(bwd, "float32", e, dict.fromkeys(e, lim), T=T, B=B, H=H, at=where,
+    check(bwd, "float32", e, dict.fromkeys(e, lim), T=T, B=B, H=H, **at,
           summed_grads_relative_to_largest=list(SUMMED_GRADS))
+    if faults:
+        bwd_faults_caught(ls, "float32", T, up, res, ref, gate=gate, B=B, H=H)
     out[bwd] = [max_abs(got, ref)]
     h0, ys, dzx = args[1], want[0], torch.as_tensor(rng.normal(0.0, 1e-2, (T, B, 4 * H)),
                                                     dtype=dt, device=DEVICE)
@@ -3778,19 +3831,19 @@ def lstm_rows_at(torch, ls, T, B, H, card, where, mask=None):
     out["drw_product"] = [r["max_abs"]]
     hp = torch.cat([h0[None], ys[:T - 1]]).reshape(-1, H).contiguous()
     dz = dzx.reshape(-1, 4 * H).contiguous()
-    live = 1.0 if mask is None else float(mask.float().mean())
+    live = 1.0 if mask is None else live_share(mask)
     for name, kern, plain, lib, b in (
-            (fwd, lambda: ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:]),
-             lambda: ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:]), None,
-             bound_train_fwd(T, B, H, "float32", masked=mask is not None)),
-            (bwd, lambda: ls.lstm_sequence_masked_backward(*up, mask, *res),
-             lambda: ls.lstm_sequence_masked_backward_reference(*up, mask, *res), None,
+            (fwd, lambda: ls.lstm_sequence_masked_train_forward(args[0], mask, *args[1:], *acts),
+             lambda: ls.lstm_sequence_masked_train_reference(args[0], mask, *args[1:], *acts),
+             None, bound_train_fwd(T, B, H, "float32", masked=mask is not None)),
+            (bwd, lambda: ls.lstm_sequence_masked_backward(*up, mask, *res, *acts),
+             lambda: ls.lstm_sequence_masked_backward_reference(*up, mask, *res, *acts), None,
              bound_bwd(T, B, H, "float32", live=live, masked=mask is not None)),
             ("drw_product", lambda: ls.drw_product(h0, ys, dzx),
              lambda: ls.drw_product_reference(h0, ys, dzx), lambda: torch.matmul(hp.t(), dz),
              bound_drw(T * B, H, "float32"))):
         out[name].append(time_pair(torch, name, kern, plain, lib, *b, card, dtype="float32",
-                                   T=T, B=B, H=H, at=where, mask_live_share=live))
+                                   T=T, B=B, H=H, **at, mask_live_share=live))
     return out
 
 
@@ -3988,19 +4041,40 @@ def phase_train_records(torch, iris_net, iris_acc, card):
     return launches, torch.as_tensor(mask, device=DEVICE)
 
 
-def lean_at(torch, ls, T, B, H, card, where):
-    """Row 5 (unmasked) at [T, B, H], f32, against its plain version, then
+def lean_at(torch, ls, T, B, H, card, where, gate="sigmoid", live=None, faults=False):
+    """Row 5 at [T, B, H], f32, with the gate activation ``gate`` (masked
+    where ``live`` steps of T are, as a served bucket pads time), against
+    its plain version (with ``faults``, its wrong products caught), then
     timed beside it and its bound. Returns (max abs err, times)."""
-    args = seq_inputs(torch, T, B, H, "float32", False, SEED + T)
-    got, want = ls.fused_lstm_sequence(*args), ls.lstm_sequence_reference(*args)
+    args = seq_inputs(torch, T, B, H, "float32", False, SEED + T) + ["tanh", gate]
+    at = dict(at=where, gate=gate)
+    name, kern, plain = "lstm_seq_lean", ls.fused_lstm_sequence, ls.lstm_sequence_reference
+    if live is not None:
+        mask = torch.zeros(T, B, 1, device=DEVICE)
+        mask[:live] = 1.0
+        args.insert(1, mask)
+        at["live_steps"] = live
+        name = "lstm_seq_lean_masked"
+        kern, plain = ls.fused_lstm_sequence_masked, ls.lstm_sequence_masked_reference
+    got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
     e = {n: float((g - w).abs().max()) for n, g, w in zip(("ys", "hT", "cT"), got, want)}
-    err = check("lstm_seq_lean", "float32", e, dict.fromkeys(e, KERNEL_ATOL["float32"]),
-                T=T, B=B, H=H, at=where)
-    return err, time_pair(torch, "lstm_seq_lean", lambda: ls.fused_lstm_sequence(*args),
-                          lambda: ls.lstm_sequence_reference(*args), None,
-                          *bound(T, B, H, "float32", False), card, dtype="float32", T=T, B=B,
-                          H=H, at=where)
+    err = check(name, "float32", e, dict.fromkeys(e, KERNEL_ATOL["float32"]),
+                T=T, B=B, H=H, **at)
+    if faults:
+        zx, mask, rest = (args[0], args[1], args[2:-2]) if live is not None else (
+            args[0], None, args[1:-2])
+        fwd_faults_caught(
+            name, "float32", lambda product: ls.lstm_sequence_masked_reference(
+                zx, mask, *rest, "tanh", gate, product),
+            want, lambda got, ref: ({"max_abs_err": max_abs(got, ref)},
+                                    max_abs(got, ref) <= KERNEL_ATOL["float32"]),
+            dict(T=T, B=B, H=H, limit=KERNEL_ATOL["float32"], **at))
+    return err, time_pair(torch, name, lambda: kern(*args), lambda: plain(*args), None,
+                          *bound(T, B, H, "float32", live is not None,
+                                 1.0 if live is None else live_share(args[1])),
+                          card, dtype="float32",
+                          T=T, B=B, H=H, **at)
 
 
 def real_data_adam_shapes():
@@ -8225,7 +8299,7 @@ def kernels_slice21(torch, ls, lr, card) -> dict:
         got = got if isinstance(got, (list, tuple)) else (got,)
         want = want if isinstance(want, (list, tuple)) else (want,)
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-        b_ms, b_by = bound(T, B, HIDDEN, "float32", masked)
+        b_ms, b_by = bound(T, B, HIDDEN, "float32", masked, live_share(a[1]) if masked else 1.0)
         times = time_pair(torch, name, kern, plain, None, b_ms, b_by, card, dtype="float32",
                           T=T, B=B, H=HIDDEN, where="slice 21's graphs")
         out[("serve_graphs", name, f"T={T} B={B}")] = (err, times, f"T={T} B={B} H={HIDDEN}")
@@ -10051,6 +10125,715 @@ def kernels_slice24(torch, ls, sx, ad, card, mask, leaf_shapes) -> dict:
     return out
 
 
+# ---- slice 25: Keras model import and the Keras gateway. Archives are
+# written from the seed by scripts/torch_write_keras_h5.py (numpy, no
+# h5py) and read by the port's own HDF5 reader. (a) the LSTM text generator
+# of Keras's examples/lstm_text_generation.py in its Keras 1.2 form (LSTM(128)
+# over 40 one-hot characters of 57, Dense(57), softmax; RMSprop(lr=0.01),
+# categorical cross-entropy, batch 128); (b) VGG16 of the zoo at 224x224x3,
+# 1000 classes, from a weights-only 'th' archive in the canonical layout;
+# (c) the Keras gateway serving model (a)'s JSON with an Adam training
+# config (examples/keras_import.py:37-40).
+KERAS_CHARS, KERAS_MAXLEN, KERAS_UNITS, KERAS_B = 57, 40, 128, 128
+KERAS_GEN_CHARS = 100  # the example's generation loop: one output() of the last 40 a char
+KERAS_UPDATES = 4  # RMSprop updates at B=128 (card against CPU)
+KERAS_RMSPROP = {"lr": 0.01, "rho": 0.9, "epsilon": 1e-08, "decay": 0.0}
+KERAS_ADAM = {"lr": 1e-3, "beta_1": 0.9, "beta_2": 0.999, "epsilon": 1e-08, "decay": 0.0}
+VGG_SIDE, VGG_CLASSES = 224, 1000
+VGG_SERVE_B, VGG_TRAIN_B, VGG_CPU_B, VGG_UPDATES = 64, 32, 2, 3
+# the fine-tuning rate: the zoo conf's Nesterov rate (0.01, for training from
+# scratch) takes these random weights to NaN in the phase's 4th update, on
+# the card and on the CPU alike (scripts/torch_vgg16_lr_check.py: losses
+# 8.61, 602.0, 3.4e8, NaN on both); a fine-tune takes a tenth of it
+VGG_LR = 1e-3
+GATEWAY_FITS = 4  # the client's fit calls, a batch of KERAS_B windows each
+# Each reading against its limit. Served outputs are read as log
+# probabilities (max |log p - log p_ref|: the logits' difference, whatever
+# the softmax's spread). Oracles share no code with the importer: a float64
+# numpy Keras 1 LSTM from the archive's raw arrays (gates i, f, c, o;
+# hard_sigmoid; no peepholes) and a CPU F.conv2d VGG16 in NCHW over the raw
+# OIHW kernels and a C,H,W flatten. Card against the port's CPU: outputs,
+# each update's loss relative to the CPU's and each tensor's change
+# relative to the norm of the CPU's change (train_readings). The wrong
+# versions (gate blocks in Keras's [i, f, c, o] order, sigmoid gates, the
+# flatten permutation skipped) must read at least KERAS_FAULT_FACTOR times
+# past their limit. Read on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; two
+# runs, the same numbers): the text generator 1.9e-7 against the oracle and
+# 3.5e-7 against the CPU, its wrong versions 0.31 (gate order) and 0.087
+# (sigmoid); 4 RMSprop updates loss 1.2e-7, first change 6.5e-7, last 8.9e-6;
+# VGG16 7.4e-6 and 8.9e-6, the skipped flatten 2.5; its first update's loss
+# 3.3e-7 and change 4.2e-3 (the first conv's kernel: cuDNN's f32 algorithms
+# on the card against oneDNN's on the CPU through 16 layers); the gateway's
+# losses 1.2e-7, predictions 3.4e-7, score 0. Each limit sits 5-25x above.
+KERAS_LIMITS = {
+    "lstm_vs_keras_oracle": 5e-6, "lstm_vs_cpu": 5e-6,
+    "vgg16_vs_conv_oracle": 1e-4, "vgg16_vs_cpu": 1e-4,
+    "lstm_train": {"loss_rel": 5e-6, "first_change_rel": 1e-5, "change_rel": 1e-4},
+    "vgg16_train": {"loss_rel": 5e-6, "first_change_rel": 2e-2},
+    "gateway": {"loss_rel": 5e-6, "predict": 5e-6, "score_rel": 5e-6},
+}
+KERAS_FAULT_FACTOR = 10.0
+# rows of the kernels line at this slice's shapes: (kernel, shape) -> the
+# paths whose launches it counts. The served forward pads T=40 to its
+# power-of-two bucket, 64, under a mask of the 40 live steps, so row 5
+# serves masked there; fit takes the batch as it is (rows 6-7 at T=40), and
+# so does the score of the gateway's evaluate (row 5 unmasked at T=40)
+SLICE25_ROWS = {
+    ("lstm_seq_lean_masked", "T=64 B=128 H=128, 40 live steps"): ("text_serve", "gateway"),
+    ("lstm_seq_lean_masked", "T=64 B=1 H=128, 40 live steps"): ("text_generate",),
+    ("lstm_seq_lean", "T=40 B=128 H=128"): ("gateway",),
+    ("lstm_seq_train_fwd", "T=40 B=128 H=128"): ("text_train", "gateway"),
+    ("lstm_seq_bwd", "T=40 B=128 H=128"): ("text_train", "gateway"),
+    ("drw_product", "R=5120 H=128"): ("text_train", "gateway"),
+    ("softmax_xent_fwd", "N=128 C=57"): ("text_train", "gateway"),
+    ("softmax_xent_bwd", "N=128 C=57"): ("text_train", "gateway"),
+    ("softmax_xent_fwd", "N=32 C=1000"): ("vgg16_train",),
+    ("softmax_xent_bwd", "N=32 C=1000"): ("vgg16_train",),
+    ("adam_update", "8 leaves"): ("gateway",),
+}
+
+
+def keras_writer():
+    """scripts/torch_write_keras_h5.py, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_write_keras_h5", os.path.join(HERE, "scripts", "torch_write_keras_h5.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def h5_read_back(path: str, group) -> dict:
+    """Every attribute and array the writer was given (``group``, its
+    Group tree), read back by the port's reader: counts and mismatches."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.modelimport import hdf5
+
+    seen = {"attributes": 0, "arrays": 0, "bytes": 0, "mismatches": []}
+
+    def walk(spec, node, where):
+        for k, v in spec.attrs.items():
+            got = node.attrs.get(k)
+            want = v.encode() if isinstance(v, str) else v
+            seen["attributes"] += 1
+            if got is None or not np.array_equal(np.asarray(got), np.asarray(want)):
+                seen["mismatches"].append(f"{where}@{k}")
+        for k, v in spec.items():
+            if hasattr(v, "attrs"):
+                walk(v, node[k], f"{where}/{k}")
+            else:
+                arr = node[k].read()
+                seen["arrays"] += 1
+                seen["bytes"] += arr.nbytes
+                if arr.dtype != v.dtype or not np.array_equal(arr, v):
+                    seen["mismatches"].append(f"{where}/{k}")
+
+    with hdf5.File(path) as f:
+        walk(group, f, "")
+    return seen
+
+
+def text_generator_archive(W, seed):
+    """Model (a) as Keras 1.2 saves it (Keras's own initializers: W
+    glorot_uniform, U orthogonal, b zeros but the forget gate's ones, the
+    Dense glorot_uniform): (model_config, training_config, layer weights,
+    the writer's Group)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    C, H = KERAS_CHARS, KERAS_UNITS
+    mc = {"class_name": "Sequential", "config": [
+        {"class_name": "LSTM", "config": {
+            "name": "lstm_1", "trainable": True, "batch_input_shape": [None, KERAS_MAXLEN, C],
+            "input_dtype": "float32", "return_sequences": False, "go_backwards": False,
+            "stateful": False, "unroll": False, "consume_less": "cpu", "input_dim": C,
+            "input_length": None, "output_dim": H, "init": "glorot_uniform",
+            "inner_init": "orthogonal", "forget_bias_init": "one", "activation": "tanh",
+            "inner_activation": "hard_sigmoid", "W_regularizer": None, "U_regularizer": None,
+            "b_regularizer": None, "dropout_W": 0.0, "dropout_U": 0.0}},
+        {"class_name": "Dense", "config": {
+            "name": "dense_1", "trainable": True, "output_dim": C, "init": "glorot_uniform",
+            "activation": "linear", "W_regularizer": None, "b_regularizer": None,
+            "activity_regularizer": None, "W_constraint": None, "b_constraint": None,
+            "bias": True, "input_dim": H}},
+        {"class_name": "Activation", "config": {"name": "activation_1", "trainable": True,
+                                                "activation": "softmax"}}]}
+    tc = {"optimizer_config": {"class_name": "RMSprop", "config": dict(KERAS_RMSPROP)},
+          "loss": "categorical_crossentropy", "metrics": [], "sample_weight_mode": None,
+          "loss_weights": None}
+
+    def glorot(n_in, n_out):
+        s = (6.0 / (n_in + n_out)) ** 0.5
+        return rng.uniform(-s, s, (n_in, n_out)).astype(np.float32)
+
+    lstm = []
+    for g in ("i", "c", "f", "o"):
+        q, _ = np.linalg.qr(rng.normal(size=(H, H)))
+        lstm += [(f"lstm_1_W_{g}", glorot(C, H)), (f"lstm_1_U_{g}", q.astype(np.float32)),
+                 (f"lstm_1_b_{g}", np.full(H, 1.0 if g == "f" else 0.0, np.float32))]
+    lw = {"lstm_1": lstm, "dense_1": [("dense_1_W", glorot(H, C)),
+                                      ("dense_1_b", np.zeros(C, np.float32))],
+          "activation_1": []}
+    return mc, tc, lw, W.keras_model_archive(mc, tc, lw)
+
+
+def keras1_lstm_logp(lw, x):
+    """log p of model (a) in float64 numpy from the archive's raw arrays:
+    Keras 1's LSTM (gates i, f, c, o; hard_sigmoid = clip(0.2x + 0.5, 0,
+    1); tanh; no peepholes) and the Dense + softmax head."""
+    import numpy as np
+
+    w = {k[len("lstm_1_"):]: a.astype(np.float64) for k, a in lw["lstm_1"]}
+    hs = lambda z: np.clip(0.2 * z + 0.5, 0.0, 1.0)  # noqa: E731
+    h = np.zeros((x.shape[0], KERAS_UNITS))
+    c = np.zeros_like(h)
+    for t in range(x.shape[1]):
+        xt = x[:, t].astype(np.float64)
+        i = hs(xt @ w["W_i"] + h @ w["U_i"] + w["b_i"])
+        f = hs(xt @ w["W_f"] + h @ w["U_f"] + w["b_f"])
+        c = f * c + i * np.tanh(xt @ w["W_c"] + h @ w["U_c"] + w["b_c"])
+        o = hs(xt @ w["W_o"] + h @ w["U_o"] + w["b_o"])
+        h = o * np.tanh(c)
+    (_, dw), (_, db) = lw["dense_1"]
+    z = h @ dw.astype(np.float64) + db.astype(np.float64)
+    z -= z.max(-1, keepdims=True)
+    return z - np.log(np.exp(z).sum(-1, keepdims=True))
+
+
+def logp_err(probs, ref_logp) -> float:
+    """max |log p - log p_ref| of served probabilities."""
+    import numpy as np
+
+    with np.errstate(divide="ignore"):
+        return float(np.abs(np.log(np.asarray(probs, np.float64)) - ref_logp).max())
+
+
+def text_windows(n, seed):
+    """``n`` one-hot windows of KERAS_MAXLEN characters and the next
+    character's one-hot label, from a seeded text of KERAS_CHARS symbols
+    (a repeated sentence, so that there is something to learn)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sentence = rng.integers(0, KERAS_CHARS, 997)
+    starts = rng.integers(0, len(sentence), n)
+    idx = sentence[(starts[:, None] + np.arange(KERAS_MAXLEN + 1)) % len(sentence)]
+    eye = np.eye(KERAS_CHARS, dtype=np.float32)
+    return eye[idx[:, :KERAS_MAXLEN]], eye[idx[:, KERAS_MAXLEN]]
+
+
+def keras_gate_order_wrong(lw):
+    """Model (a)'s LSTM params with the gate blocks left in Keras's [i, f,
+    c, o] order (the port's are [c, f, o, i]), in the JAX layout."""
+    import numpy as np
+
+    w = dict(lw["lstm_1"])
+    order = ("i", "f", "c", "o")
+    H = KERAS_UNITS
+    return {"W": np.concatenate([w[f"lstm_1_W_{g}"] for g in order], 1),
+            "RW": np.concatenate([w[f"lstm_1_U_{g}"] for g in order], 1),
+            "b": np.concatenate([w[f"lstm_1_b_{g}"] for g in order]),
+            "pF": np.zeros(H, np.float32), "pI": np.zeros(H, np.float32),
+            "pO": np.zeros(H, np.float32)}
+
+
+def counted(torch, fn, replays: dict = None):
+    """``fn()`` as a ``Windows`` main path: (its result, its launches), the
+    wrappers' counts (eager runs, a bucket's warm-up and capture) plus what
+    the served graphs launched by replay in it, which also go into
+    ``replays``."""
+    win = Windows(torch)
+    out = win.main(fn)
+    if replays is not None:
+        replays.update(win.replayed)
+    return out, add_counts(win.launches, win.replayed)
+
+
+def train_run(torch, net, batches):
+    """``batches`` one fit each: (losses, params after the first update,
+    params after the last) as train_readings takes them."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import params_to_numpy
+
+    rec = LossRecorder()
+    net.set_listeners(rec)
+    first = None
+    for i, b in enumerate(batches):
+        net.fit(b)
+        if i == 0:
+            first = params_to_numpy(net)
+    net.set_listeners()
+    return np.array([float(l) for l in rec.losses]), first, params_to_numpy(net)
+
+
+def phase_keras_text_generator(torch, W, tmp, card):
+    """Model (a): its archive written from the seed and read back; imported
+    by guess_model and served by output() at B=128, T=40 (against the
+    float64 Keras oracle, the CPU, and the two wrong LSTM versions); the
+    example's generation loop (100 chars, one output() of the last 40 at
+    B=1 each); imported with its training config and trained 4 RMSprop
+    updates at B=128 on the card against the CPU. Returns (launches by
+    path, readings)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, params_to_numpy
+    from deeplearning4j_tpu_torch.modelimport import import_keras_sequential_model_and_weights
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.utils.model_guesser import guess_model
+
+    t_phase = time.perf_counter()
+    lim = KERAS_LIMITS
+    mc, tc, lw, group = text_generator_archive(W, SEED + 80)
+    path = os.path.join(tmp, "lstm_text_generation.h5")
+    t0 = time.perf_counter()
+    size = W.write_h5(path, group)
+    write_s = time.perf_counter() - t0
+    back = h5_read_back(path, group)
+    x, _ = text_windows(KERAS_B, SEED + 81)
+    oracle = keras1_lstm_logp(lw, x)
+    launches, readings, replays = {}, {}, {}
+
+    t0 = time.perf_counter()
+    served = guess_model(path)
+    import_s = time.perf_counter() - t0
+    probs, launches["text_serve"] = counted(torch, lambda: served.output(x),
+                                            replays.setdefault("text_serve", {}))
+    readings["vs_keras_oracle"] = logp_err(probs, oracle)
+    cpu = guess_model(path, device="cpu")
+    readings["vs_cpu"] = logp_err(probs, np.log(cpu.output(x).astype(np.float64)))
+    # the wrong versions, run on the card as the right one is
+    host = params_to_numpy(served)
+    wrong_gates = load_jax_params(MultiLayerNetwork(served.conf), [
+        keras_gate_order_wrong(lw) if i == 0 else p for i, p in enumerate(host)])
+    sig_conf = MultiLayerConfiguration.from_dict(served.conf.to_dict())
+    sig_conf.layers[0].gate_activation = "sigmoid"
+    wrong_sigmoid = load_jax_params(MultiLayerNetwork(sig_conf), host)
+    wrong = {"gate_blocks_keras_order": logp_err(wrong_gates.output(x), oracle),
+             "sigmoid_gates": logp_err(wrong_sigmoid.output(x), oracle)}
+    del wrong_gates, wrong_sigmoid
+
+    # the example's generation loop: sample the next char from the last 40
+    rng = np.random.default_rng(SEED + 82)
+    text = list(np.argmax(x[0], -1))
+    eye = np.eye(KERAS_CHARS, dtype=np.float32)
+
+    def generate():
+        for _ in range(KERAS_GEN_CHARS):
+            p = served.output(eye[text[-KERAS_MAXLEN:]][None])[0].astype(np.float64)
+            text.append(int(rng.choice(KERAS_CHARS, p=p / p.sum())))
+
+    served.output(eye[text[-KERAS_MAXLEN:]][None])  # the B=1 bucket's capture
+    t0 = time.perf_counter()
+    _, launches["text_generate"] = counted(torch, generate,
+                                          replays.setdefault("text_generate", {}))
+    gen_s = time.perf_counter() - t0
+
+    # fine-tuning with the archive's training config: RMSprop, an mcxent head
+    batches = [text_windows(KERAS_B, SEED + 83 + i) for i in range(KERAS_UPDATES)]
+    net = import_keras_sequential_model_and_weights(path)
+    seed_params = params_to_numpy(net)
+    run, launches["text_train"] = counted(torch, lambda: train_run(torch, net, batches))
+    ref = train_run(torch, import_keras_sequential_model_and_weights(path, device="cpu"),
+                    batches)
+    train = train_readings(run, ref, seed_params)
+    updater = net.conf.updater
+    checks = {
+        "read_back": not back["mismatches"],
+        "vs_keras_oracle": readings["vs_keras_oracle"] <= lim["lstm_vs_keras_oracle"],
+        "vs_cpu": readings["vs_cpu"] <= lim["lstm_vs_cpu"],
+        "wrong_gate_order_caught": wrong["gate_blocks_keras_order"]
+        > KERAS_FAULT_FACTOR * lim["lstm_vs_keras_oracle"],
+        "wrong_sigmoid_caught": wrong["sigmoid_gates"]
+        > KERAS_FAULT_FACTOR * lim["lstm_vs_keras_oracle"],
+        "gate_is_hardsigmoid": net.conf.layers[0].gate_activation == "hardsigmoid",
+        "rmsprop": updater["updater"] == "rmsprop" and updater["rms_decay"] == 0.9,
+        "generated": len(text) == KERAS_MAXLEN + KERAS_GEN_CHARS,
+        "train_vs_cpu": within_limits(train, lim["lstm_train"]),
+        "loss_finite": bool(np.isfinite(run[0]).all()),
+    }
+    out = dict(archive_bytes=size, write_s=write_s, read_back=back, import_s=import_s,
+               B=KERAS_B, T=KERAS_MAXLEN, H=KERAS_UNITS, C=KERAS_CHARS,
+               readings=readings, wrong_readings=wrong,
+               limits={k: lim[k] for k in ("lstm_vs_keras_oracle", "lstm_vs_cpu")},
+               fault_factor=KERAS_FAULT_FACTOR, generated_chars=KERAS_GEN_CHARS,
+               generate_s=gen_s, chars_per_s=KERAS_GEN_CHARS / gen_s,
+               train_readings=train, train_limits=lim["lstm_train"],
+               losses=run[0].tolist(), cpu_losses=ref[0].tolist(), launches=launches,
+               replayed_launches=replays, phase_s=time.perf_counter() - t_phase)
+    emit("keras_text_generator", **out, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"keras_text_generator failed its checks: {failed(checks)}")
+    return launches, out
+
+
+def vgg16_th_layers(seed):
+    """The canonical VGG16 weights-only archive's 37 layers as (kind,
+    arrays): ZeroPadding2D before each 3x3 conv (kernels OIHW, He-scaled),
+    the 5 pools, Flatten, Dense and Dropout layers (the first Dense's rows
+    in C,H,W flatten order); weightless layers hold no arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(std, shape):
+        return np.float32(std) * rng.standard_normal(shape, dtype=np.float32)
+
+    layers, c_in = [], 3
+    for block in ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512)):
+        for c_out in block:
+            layers += [("pad", []), ("conv", [normal((2.0 / (9 * c_in)) ** 0.5,
+                                                     (c_out, c_in, 3, 3)),
+                                              normal(0.01, c_out)])]
+            c_in = c_out
+        layers.append(("pool", []))
+    layers.append(("flatten", []))
+    flat = 512 * (VGG_SIDE // 32) ** 2
+    for n_in, n_out in ((flat, 4096), (4096, 4096)):
+        layers += [("dense", [normal((2.0 / n_in) ** 0.5, (n_in, n_out)),
+                              np.zeros(n_out, np.float32)]), ("dropout", [])]
+    layers.append(("dense", [normal(0.01, (4096, VGG_CLASSES)),
+                             np.zeros(VGG_CLASSES, np.float32)]))
+    return layers
+
+
+def vgg16_th_logp(torch, layers, x_nhwc):
+    """log p of the canonical archive's VGG16 on the CPU, NCHW as Keras 1's
+    'th' model runs it: F.pad and valid F.conv2d over the raw OIHW kernels,
+    max pools, the C,H,W flatten, the Dense layers (ReLU but the last),
+    log_softmax; in float32."""
+    import numpy as np
+
+    F = torch.nn.functional
+    h = torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2)))
+    dense = [arrs for kind, arrs in layers if kind == "dense"]
+    with torch.no_grad():
+        for kind, arrs in layers:
+            if kind == "pad":
+                h = F.pad(h, (1, 1, 1, 1))
+            elif kind == "conv":
+                h = F.relu(F.conv2d(h, torch.from_numpy(arrs[0]), torch.from_numpy(arrs[1])))
+            elif kind == "pool":
+                h = F.max_pool2d(h, 2, 2)
+            elif kind == "flatten":
+                h = h.reshape(h.shape[0], -1)
+            elif kind == "dense":
+                h = h @ torch.from_numpy(arrs[0]) + torch.from_numpy(arrs[1])
+                if arrs is not dense[-1]:
+                    h = F.relu(h)
+        return F.log_softmax(h.double(), -1).numpy()
+
+
+def vgg16_images(n, seed):
+    """``n`` NHWC images with values in [-1, 1) and one-hot labels of 1000
+    classes, float32 host arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, (n, VGG_SIDE, VGG_SIDE, 3)).astype(np.float32)
+    return x, one_hot(rng.integers(0, VGG_CLASSES, n), VGG_CLASSES)
+
+
+def phase_keras_vgg16(torch, W, tmp, card):
+    """Model (b): the 553 MB weights-only 'th' archive written from the seed
+    and read back (MB/s of the reader), loaded by TrainedModels.load; served
+    by output() at B=64 eager and replayed; on 2 images against the CPU
+    F.conv2d oracle, the port's CPU run and the wrong version with the
+    flatten permutation skipped; the first Nesterov update at B=2 against the
+    CPU; 3 timed updates at B=32. Returns (launches by path, readings)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, load_jax_params, params_to_numpy
+    from deeplearning4j_tpu_torch.modelimport import TrainedModels, hdf5
+
+    t_phase = time.perf_counter()
+    lim = KERAS_LIMITS
+    layers = vgg16_th_layers(SEED + 90)
+    group = W.keras_weights_archive([arrs for _, arrs in layers])
+    path = os.path.join(tmp, "vgg16_weights_th_dim_ordering.h5")
+    t0 = time.perf_counter()
+    size = W.write_h5(path, group)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hdf5.read_layer_weights(path)
+    read_s = time.perf_counter() - t0
+    back = h5_read_back(path, group)
+    del group
+    launches, readings = {}, {}
+    t0 = time.perf_counter()
+    net = TrainedModels.load("VGG16", path)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_params = net.num_params()
+
+    # served at B=64: eager (the yardstick) and replayed
+    xs, _ = vgg16_images(VGG_SERVE_B, SEED + 91)
+    eager = legacy(lambda: net.output(xs))
+    (replayed, again), launches["vgg16_serve"] = counted(
+        torch, lambda: (net.output(xs), net.output(xs)))
+    eager_runs = legacy(lambda: call_ms(torch, lambda: net.output(xs)))
+    replay_runs = call_ms(torch, lambda: net.output(xs))
+
+    # 2 images against the oracle, the CPU and the wrong flatten
+    x2 = xs[:VGG_CPU_B]
+    oracle = vgg16_th_logp(torch, layers, x2)
+    probs = net.output(x2)
+    readings["vs_conv_oracle"] = logp_err(probs, oracle)
+    host = params_to_numpy(net)
+    cpu = load_jax_params(MultiLayerNetwork(net.conf, device="cpu"), host)
+    readings["vs_cpu"] = logp_err(probs, np.log(cpu.output(x2).astype(np.float64)))
+    first_dense = len(net.conf.layers) - 3
+    raw = [arrs for kind, arrs in layers if kind == "dense"][0]
+    unpermuted = [dict(p, W=raw[0]) if i == first_dense else p for i, p in enumerate(host)]
+    wrong_net = load_jax_params(MultiLayerNetwork(net.conf), unpermuted)
+    wrong = {"flatten_permutation_skipped": logp_err(wrong_net.output(x2), oracle)}
+    del wrong_net, unpermuted, layers
+    gc_collect(torch)
+
+    # fine-tuning at VGG_LR: the first Nesterov update at B=2 against the
+    # CPU, then 3 timed at B=32 after one more (the conf is the CPU twin's too)
+    net.conf.updater["learning_rate"] = VGG_LR
+    _, y2 = vgg16_images(VGG_CPU_B, SEED + 92)
+    first, c1 = counted(torch, lambda: train_run(torch, net, [(x2, y2)]))
+    ref = train_run(torch, cpu, [(x2, y2)])
+    train = train_readings(first, ref, host)
+    del cpu, host
+    gc_collect(torch)
+    xt, yt = vgg16_images(VGG_TRAIN_B, SEED + 93)
+
+    def timed():
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        net.fit((xt, yt))
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(VGG_UPDATES):
+            t0 = time.perf_counter()
+            net.fit((xt, yt))
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        net.set_listeners()
+        return runs, [float(l) for l in rec.losses]
+
+    (update_runs, losses32), c32 = counted(torch, timed)
+    launches["vgg16_train"] = add_counts(dict(c1), c32)
+    checks = {
+        "read_back": not back["mismatches"] and back["arrays"] == 32,
+        "params": n_params == 138357544,
+        "replayed_bit_exact": bool(np.array_equal(replayed, eager)
+                                   and np.array_equal(again, eager)),
+        "vs_conv_oracle": readings["vs_conv_oracle"] <= lim["vgg16_vs_conv_oracle"],
+        "vs_cpu": readings["vs_cpu"] <= lim["vgg16_vs_cpu"],
+        "wrong_flatten_caught": wrong["flatten_permutation_skipped"]
+        > KERAS_FAULT_FACTOR * lim["vgg16_vs_conv_oracle"],
+        "train_vs_cpu": within_limits(train, lim["vgg16_train"]),
+        "losses_finite": bool(np.isfinite(losses32).all()),
+    }
+    out = dict(archive_bytes=size, archive_mb=size / 1e6, write_s=write_s, read_s=read_s,
+               read_mb_per_s=size / 1e6 / read_s, import_s=import_s,
+               import_mb_per_s=size / 1e6 / import_s, read_back=back, num_params=n_params,
+               serve_B=VGG_SERVE_B, eager_ms_runs=eager_runs, replayed_ms_runs=replay_runs,
+               eager_ms=statistics.median(eager_runs),
+               replayed_ms=statistics.median(replay_runs),
+               readings=readings, wrong_readings=wrong,
+               limits={k: lim[k] for k in ("vgg16_vs_conv_oracle", "vgg16_vs_cpu")},
+               fault_factor=KERAS_FAULT_FACTOR, train_readings=train,
+               train_limits=lim["vgg16_train"], first_loss=float(first[0][0]),
+               cpu_first_loss=float(ref[0][0]), train_B=VGG_TRAIN_B,
+               lr=VGG_LR, update_ms_runs=update_runs,
+               update_ms=statistics.median(update_runs), losses_B32=losses32, launches=launches,
+               phase_s=time.perf_counter() - t_phase)
+    emit("keras_vgg16", **out, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"keras_vgg16 failed its checks: {failed(checks)}")
+    del net
+    gc_collect(torch)
+    return launches, out
+
+
+def gateway_session(server, mc, tc, batches, x_pred, y_pred, out: dict) -> None:
+    """A client of ``server``: create model (a) from its JSON, fit each
+    batch, predict and evaluate; each op's result and ms into ``out``."""
+    from deeplearning4j_tpu_torch.interop import GatewayClient
+
+    client = GatewayClient(server.host, server.port)
+    ms = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    try:
+        out["num_params"] = timed("create", lambda: client.create_model("text", mc, tc))
+        out["losses"] = [timed("fit", lambda b=b: client.fit("text", *b)) for b in batches]
+        out["predict"] = timed("predict", lambda: client.predict("text", x_pred))
+        out["score"] = timed("evaluate", lambda: client.evaluate("text", x_pred, y_pred))
+        out["ms"] = ms
+    except Exception as e:  # noqa: BLE001 - read by the phase
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        client.close()
+
+
+def phase_keras_gateway(torch, W, card):
+    """(c): a GatewayServer on 127.0.0.1 on the card and a client thread
+    running model (a)'s JSON with an Adam training config: create, fit 4
+    batches of 128, predict 128 windows, evaluate; ms per op. The same
+    session against a GatewayServer on the CPU (the same seed's init):
+    losses, predictions and score. Returns (launches by path, readings,
+    the served model's leaf shapes)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import params_to_numpy
+    from deeplearning4j_tpu_torch.interop import GatewayServer
+
+    t_phase = time.perf_counter()
+    lim = KERAS_LIMITS["gateway"]
+    mc, _, _, _ = text_generator_archive(W, SEED + 80)
+    tc = {"optimizer_config": {"class_name": "Adam", "config": dict(KERAS_ADAM)},
+          "loss": "categorical_crossentropy"}
+    batches = [text_windows(KERAS_B, SEED + 95 + i) for i in range(GATEWAY_FITS)]
+    x_pred, y_pred = text_windows(KERAS_B, SEED + 99)
+    runs, replays = {}, {}
+    for device in ("cuda", "cpu"):
+        with GatewayServer("127.0.0.1", 0, device=device) as server:
+            got = {}
+
+            def session():
+                t = threading.Thread(target=gateway_session,
+                                     args=(server, mc, tc, batches, x_pred, y_pred, got))
+                t.start()
+                t.join(300)
+                return t.is_alive()
+
+            if device == "cuda":
+                hung, counts = counted(torch, session, replays)
+                leaf_shapes = [np.shape(p[k]) for p in params_to_numpy(server._models["text"])
+                               for k in p]
+            else:
+                hung = session()
+            runs[device] = got
+            if hung or "error" in got:
+                raise AssertionError(f"gateway session on {device}: {got.get('error', 'hung')}")
+    card_run, cpu_run = runs["cuda"], runs["cpu"]
+    readings = {
+        "loss_rel": float(np.max(np.abs(np.subtract(card_run["losses"], cpu_run["losses"]))
+                                 / np.abs(cpu_run["losses"]))),
+        "predict": logp_err(card_run["predict"],
+                            np.log(np.asarray(cpu_run["predict"], np.float64))),
+        "score_rel": abs(card_run["score"] - cpu_run["score"]) / abs(cpu_run["score"])}
+    checks = {"vs_cpu": within_limits(readings, lim),
+              "num_params": card_run["num_params"] == cpu_run["num_params"],
+              "adam_8_leaves": len(leaf_shapes) == 8,
+              "adam_launched": counts.get("adam_update", 0) == GATEWAY_FITS,
+              "predict_shape": card_run["predict"].shape == (KERAS_B, KERAS_CHARS)}
+    out = dict(fits=GATEWAY_FITS, B=KERAS_B, num_params=card_run["num_params"],
+               losses=card_run["losses"], cpu_losses=cpu_run["losses"],
+               score=card_run["score"], readings=readings, limits=lim,
+               ms_per_op={k: statistics.median(v) for k, v in card_run["ms"].items()},
+               ms_runs=card_run["ms"], cpu_ms_per_op={
+                   k: statistics.median(v) for k, v in cpu_run["ms"].items()},
+               launches=counts, replayed_launches=replays,
+               phase_s=time.perf_counter() - t_phase)
+    emit("keras_gateway", **out, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"keras_gateway failed its checks: {failed(checks)}")
+    return {"gateway": counts}, out, leaf_shapes
+
+
+def phase_kernels_keras(torch, ls):
+    """Rows 5-9 and dRW with the gate activation hardsigmoid (Keras's LSTM
+    default) at the text generator's shape T=40, B=128, H=128, f32 and bf16,
+    each against its plain version: row 5 unmasked, masked and at B=1 (the
+    generation loop), its wrong products caught; rows 6-9 on every output
+    and grad (``train_rows_case``), the backward's wrong products caught;
+    the dRW product alone at R = T*B. The f32 checks of row 5 unmasked,
+    rows 6-7 and dRW at this shape, wrong products included, are
+    kernels_slice25's (``lean_at``, ``lstm_rows_at``), not repeated here."""
+    T, B, H, gate = KERAS_MAXLEN, KERAS_B, KERAS_UNITS, "hardsigmoid"
+    errs = phase_kernels(torch, ls, gate=gate, H=H, cases=((T, B, True), (T, 1, False)),
+                         dtypes=("float32",))
+    errs.update(phase_kernels(torch, ls, gate=gate, H=H, dtypes=("bfloat16",),
+                              cases=((T, B, False), (T, B, True), (T, 1, False))))
+    errs.update(train_rows_case(torch, ls, "float32", T, True, B=B, H=H, gate=gate))
+    for masked in (False, True):
+        errs.update(train_rows_case(torch, ls, "bfloat16", T, masked, B=B, H=H, gate=gate,
+                                    faults=not masked))
+    h0, ys, dzx = drw_inputs(torch, T, H, "bfloat16", SEED + 96, B=B)
+    got, ref = ls.drw_product(h0, ys, dzx), ls.drw_product_reference(h0, ys, dzx)
+    torch.cuda.synchronize()
+    r = rel_readings([got], [ref], ["dRW"])["dRW"]
+    ok = tuple(got.shape) == (H, 4 * H) and drw_within(r, "bfloat16")
+    emit("kernel_vs_plain", kernel="drw_product", dtype="bfloat16", T=T, B=B, R=T * B, H=H,
+         at="keras_import", readings=r, ok=ok)
+    if not ok:
+        raise AssertionError(f"drw_product bfloat16 at keras_import: {r}")
+    errs[("drw_product", "bfloat16", T)] = r["max_abs"]
+    return errs
+
+
+def phases_slice25(torch, ls, card):
+    """The keras_import phase: the gate kernels, then (a), (b) and (c),
+    each path counting from 0. Returns (launches by path, readings, the
+    gateway model's leaf shapes)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    kernel_errs = phase_kernels_keras(torch, ls)
+    W = keras_writer()
+    with tempfile.TemporaryDirectory(prefix="keras_import_") as tmp:
+        text_launches, text = phase_keras_text_generator(torch, W, tmp, card)
+        vgg_launches, vgg = phase_keras_vgg16(torch, W, tmp, card)
+    gw_launches, gw, leaf_shapes = phase_keras_gateway(torch, W, card)
+    launches = {**text_launches, **vgg_launches, **gw_launches}
+    readings = {"keras_text_generator": text, "keras_vgg16": vgg, "keras_gateway": gw,
+                "kernel_max_abs_err": {"/".join(map(str, k)): v
+                                       for k, v in kernel_errs.items()},
+                "seconds": time.perf_counter() - t0}
+    emit("keras_import", seconds=readings["seconds"], launches=launches, gpu=card,
+         import_s=vgg["import_s"], import_mb_per_s=vgg["import_mb_per_s"],
+         read_mb_per_s=vgg["read_mb_per_s"], vgg16_eager_ms=vgg["eager_ms"],
+         vgg16_replayed_ms=vgg["replayed_ms"], vgg16_update_ms=vgg["update_ms"],
+         generate_chars_per_s=text["chars_per_s"], gateway_ms_per_op=gw["ms_per_op"])
+    return launches, readings, leaf_shapes
+
+
+def kernels_slice25(torch, ls, sx, ad, card, leaf_shapes) -> dict:
+    """Row 5 (masked at the served bucket T=64 with 40 live steps, and
+    unmasked at T=40), rows 6-7 and dRW (gate hardsigmoid) at the text
+    generator's shapes, f32, the wrong products of rows 5 and 7 caught;
+    rows 10-11 at its head (N=128, C=57) and VGG16's (N=32, C=1000), row 12
+    at the gateway model's 8 leaves: each against its plain version, then
+    timed. Returns {(kernel, shape): (max abs err, times)}."""
+    from deeplearning4j_tpu_torch.runtime.compile_manager import next_pow2
+
+    T, B, H, gate = KERAS_MAXLEN, KERAS_B, KERAS_UNITS, "hardsigmoid"
+    Ts = next_pow2(T)
+    out = {}
+    for b in (B, 1):
+        out[("lstm_seq_lean_masked", f"T={Ts} B={b} H={H}, {T} live steps")] = lean_at(
+            torch, ls, Ts, b, H, card, "keras_import", gate=gate, live=T)
+    out[("lstm_seq_lean", f"T={T} B={B} H={H}")] = lean_at(
+        torch, ls, T, B, H, card, "keras_import", gate=gate, faults=True)
+    for k, (err, t) in lstm_rows_at(torch, ls, T, B, H, card, "keras_import", gate=gate,
+                                    faults=True).items():
+        out[(k, f"R={T * B} H={H}" if k == "drw_product" else f"T={T} B={B} H={H}")] = (err, t)
+    for N, C, what in ((B, KERAS_CHARS, "the text generator's head"),
+                       (VGG_TRAIN_B, VGG_CLASSES, "VGG16's head")):
+        e = sxent_case(torch, sx, N, C, "float32", "one_hot", SEED + N + C)
+        for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card, what).items():
+            out[(k, f"N={N} C={C}")] = (
+                e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"]), t)
+    _, sc = adam_inputs(torch, SEED)
+    leaves, _ = adam_inputs(torch, SEED + 97, leaf_shapes)
+    out[("adam_update", f"{len(leaf_shapes)} leaves")] = (
+        adam_check(torch, ad, "keras_gateway", leaves, sc),
+        time_adam(torch, ad, card, leaf_shapes, f"the gateway model's {len(leaf_shapes)} leaves"))
+    return out
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -10371,6 +11154,19 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     for k in SLICE24_ROWS:
         new_path_launches[("w2v_sentiment", k)] = s24_launches.get(k, 0)
+    # ---- 4r. slice 25: Keras model import and the Keras gateway (the text
+    # generator and VGG16 read from HDF5 without h5py, served, generated
+    # and fine-tuned; the gateway's session; rows 5-7, dRW and 10-12 with
+    # the hardsigmoid gate) on the default path; each path counts from 0
+    os.environ.pop("DL4JTPU_INFER")
+    s25_launches, s25_readings, s25_shapes = phases_slice25(torch, ls, card)
+    os.environ["DL4JTPU_INFER"] = "legacy"
+    for counts in s25_launches.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for (k, shape), paths in SLICE25_ROWS.items():
+        new_path_launches[("keras_import", k, shape)] = sum(
+            s25_launches[p].get(k, 0) for p in paths)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
@@ -10390,7 +11186,8 @@ def main() -> int:
             ms_1 = median_ms(kern)
             ms_2 = median_ms(kern)
             plain_ms_2 = median_ms(plain, **PLAIN_REPS)
-            b_ms, b_by = bound(T, B, HIDDEN, dtype, masked)
+            b_ms, b_by = bound(T, B, HIDDEN, dtype, masked,
+                               live_share(args[1]) if masked else 1.0)
             name = "lstm_seq_lean_masked" if masked else "lstm_seq_lean"
             times[(name, dtype)] = dict(
                 ms=min(ms_1, ms_2), plain_ms=min(plain_ms_1, plain_ms_2),
@@ -10460,6 +11257,7 @@ def main() -> int:
     s21_rows = kernels_slice21(torch, ls, lr, card)
     s22_rows = kernels_slice22(torch, ls, sx, card, s22_mask)
     s24_rows = kernels_slice24(torch, ls, sx, ad, card, s24_mask, s24_shapes)
+    s25_rows = kernels_slice25(torch, ls, sx, ad, card, s25_shapes)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
@@ -10717,6 +11515,19 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "dtype": "float32", "shape": shape,
             "kernel_device_ms": t.get("kernel_device_ms")})
+    # rows 5-7, dRW (gate hardsigmoid) and 10-12 at the Keras import's shapes:
+    # launches of the paths that run them (SLICE25_ROWS)
+    for (k, shape), paths in SLICE25_ROWS.items():
+        err, t = s25_rows[(k, shape)]
+        source, replaces = {**KERNELS, **DRW_KERNELS}[k]
+        lines.append({
+            "name": f"{k}@keras_import[{shape}]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": new_path_launches[("keras_import", k, shape)],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "dtype": "float32",
+            "shape": shape + (", gate hardsigmoid" if k.startswith("lstm") else ""),
+            "paths": list(paths), "kernel_device_ms": t.get("kernel_device_ms")})
     print(json.dumps({"kernels": lines, "launches": launches,
                       "staged_replays": staged_replays, "staged_ms_per_update": staged_times,
                       "staged_replayed_launches": staged_replayed,
@@ -10762,6 +11573,7 @@ def main() -> int:
                                                "swap_ms")},
                       "slice23": s23_readings,
                       "slice24": s24_readings,
+                      "slice25": s25_readings,
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

@@ -2,7 +2,9 @@
 deeplearning4j-nlp-parent — SURVEY.md §2.5): SequenceVectors engine,
 Word2Vec/ParagraphVectors/GloVe, tokenizer + sentence-iterator SPIs,
 vocab/Huffman, word-vector serialization, text vectorizers and the
-word-vector DataSet iterators. Training runs on the card unless a model is
+word-vector DataSet iterators, the CJK tokenizer plugins (Japanese and
+Korean lattice segmenters) and the UIMA-style sentence and POS analyzers
+(host only). Training runs on the card unless a model is
 given ``device="cpu"``."""
 
 from .tokenization import (
@@ -32,6 +34,9 @@ from .glove import Glove, AbstractCoOccurrences
 from .stemming import PorterStemmer, StemmingPreprocessor
 from .stopwords import STOP_WORDS
 from .distributed import DistributedWord2Vec
+from .tokenization_plugins import JapaneseTokenizerFactory, KoreanTokenizerFactory
+from .uima_analyzers import (PosUimaTokenizerFactory, UimaSentenceIterator,
+                             UimaTokenizerFactory, pos_tag, segment_sentences)
 from .vectorizers import (
     BagOfWordsVectorizer,
     InvertedIndex,
@@ -50,6 +55,9 @@ from .serialization import (
 
 __all__ = [
     "STOP_WORDS", "PorterStemmer", "StemmingPreprocessor", "DistributedWord2Vec",
+    "JapaneseTokenizerFactory", "KoreanTokenizerFactory",
+    "PosUimaTokenizerFactory", "UimaSentenceIterator", "UimaTokenizerFactory",
+    "pos_tag", "segment_sentences",
     "BagOfWordsVectorizer", "TfidfVectorizer", "InvertedIndex", "windows",
     "CnnSentenceDataSetIterator", "Word2VecDataSetIterator",
     "Tokenizer", "TokenizerFactory", "DefaultTokenizerFactory",

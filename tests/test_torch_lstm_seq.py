@@ -169,7 +169,9 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
     PORT.parent / "chip_smoke.py", PORT.parent / "scripts" / "torch_chaos_soak.py",
-    PORT.parent / "scripts" / "torch_analyze_trace.py"],
+    PORT.parent / "scripts" / "torch_analyze_trace.py",
+    PORT.parent / "scripts" / "torch_write_keras_h5.py",
+    PORT.parent / "scripts" / "torch_vgg16_lr_check.py"],
                          ids=lambda p: str(p.relative_to(PORT.parent)))
 def test_port_imports_no_jax_and_no_jax_package(path):
     roots = {name.split(".")[0] for name in _imports(path)}
