@@ -160,6 +160,21 @@ Nesterov update at B=2 against the CPU and 3 updates at B=32 timed; a
 GatewayServer session (model (a)'s JSON with Adam: create, 4 fits,
 predict, evaluate) against the same session on the CPU; rows 5-7, dRW and
 10-12 held and timed at those shapes.
+Then slice 26 on the default path: the autotuner's search (run_autotune over
+bench.py's staged MLP, 784-1024-1024-10 with Adam in bf16, the 18 candidates
+of MlpFitWorkload.space()) with every trial's timed region capture-free,
+the environment restored and the card's memory back where it was, the
+winner re-timed in turns with the default (at least 0.95 of its rate),
+TUNED.json picked up by a fresh net's fit and not by an explicit window,
+the winner's first staged update against the CPU's; and the serving fleet:
+the full-width char-RNN in a CheckpointStore with a warm-boot bundle,
+served by two worker processes on this card behind a FleetRouter (zero
+captures since ready, a lone probe bit for bit with this process's
+replay, client traffic, a rollout with no torn answer, a killed worker
+respawned warm, a drain); rows 10-12 and 5 held and timed at those shapes.
+In f32, ResNet-50's compared training also runs under torch's default TF32
+flags. Every phase prints its seconds on a line of its own
+(``phase_seconds``), and a summary before the kernels line.
 It checks the results and the kernel launch counts of each path, and times
 the kernels and the training update.
 Every phase prints one JSON line and raises on failure; the last line is
@@ -170,6 +185,7 @@ JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import itertools
 import json
@@ -194,8 +210,9 @@ DEVICE = "cuda"
 TBPTT, LR, TIMED_BATCHES = 50, 0.1, 2
 TRAIN_BATCHES = {"standard": 2, "tbptt": 1}
 # repetitions of a plain version when it is timed: it runs 10-30x slower than
-# its kernel, and its time is only reported
-PLAIN_REPS = {"reps": 3, "warmup": 1}
+# its kernel, and its time is only reported (one call after a warm-up, in
+# turns with the kernel's: plain, kernel, kernel, plain)
+PLAIN_REPS = {"reps": 1, "warmup": 1}
 UPDATES_PER_BATCH = {"standard": 1, "tbptt": -(-STEPS // TBPTT)}
 # softmax-xent rows: a standard batch (B*T) and a TBPTT segment (B*50)
 SXENT_ROWS = (BATCH * STEPS, BATCH * TBPTT)
@@ -313,7 +330,7 @@ def gpu_line() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+def median_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     """Median of ``reps`` timed calls of ``fn`` (CUDA events, after warm-up)."""
     import torch
 
@@ -2446,15 +2463,22 @@ def bound_lrn(shape, dtype: str, backward: bool, with_d: bool = True):
     return roofline((3 if with_d else 2) * elems * item, (LRN_N + 6.0) * elems, "float32")
 
 
-def lrn_inputs(torch, shape, dtype, seed, scale=30.0):
-    """x at the scale of ReLU'd convolution outputs (where the window sums
-    weigh on y and dx) and an upstream gradient g, on the card."""
+def lrn_host(shape, seed, scale=30.0):
+    """``lrn_inputs``' float64 host arrays (drawn once for every dtype)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
+    return rng.normal(0.0, scale, shape), rng.normal(0.0, 1.0, shape)
+
+
+def lrn_inputs(torch, shape, dtype, seed, scale=30.0, host=None):
+    """x at the scale of ReLU'd convolution outputs (where the window sums
+    weigh on y and dx) and an upstream gradient g, on the card (from
+    ``host``, ``lrn_host``'s arrays of the same shape, seed and scale, where
+    given)."""
     dt = getattr(torch, dtype)
-    return (torch.as_tensor(rng.normal(0.0, scale, shape), dtype=dt, device=DEVICE),
-            torch.as_tensor(rng.normal(0.0, 1.0, shape), dtype=dt, device=DEVICE))
+    return tuple(torch.as_tensor(a, dtype=dt, device=DEVICE)
+                 for a in (host or lrn_host(shape, seed, scale)))
 
 
 def lrn_readings(got, want) -> dict:
@@ -3365,8 +3389,10 @@ def phase_train_resnet50(torch, dtype, host, card):
     through a zip). Then the conf itself at B=128 (an out-of-memory error
     fails the phase): ms per update and images/s, median of 3 after 2
     warm-ups, from the host's images and with the batch on the
-    card; the peak of allocated memory; one profiled update. Returns the
-    launch counts of both parts and the B=128 ms per update."""
+    card; the peak of allocated memory; one profiled update. In f32 the
+    compared run is repeated under torch's default TF32 flags (cuDNN's TF32
+    allowed, as without main's two lines) and held at the same limits.
+    Returns the launch counts of both parts and the B=128 ms per update."""
     import numpy as np
 
     from deeplearning4j_tpu_torch import resnet50_conf
@@ -3385,6 +3411,16 @@ def phase_train_resnet50(torch, dtype, host, card):
         faults[fault] = resnet_readings(resnet_train_run(conf, host, small, "cuda", fault),
                                         runs["cpu"], host)
         faults[fault]["caught"] = not within_limits(faults[fault], lim)
+    defaults = None
+    if dtype == "float32":  # without main's two TF32 lines: torch's own defaults
+        prior = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+        try:
+            defaults = resnet_readings(resnet_train_run(conf, host, small, "cuda"),
+                                       runs["cpu"], host)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prior
+        defaults["within"] = within_limits(defaults, lim)
     compared_s = time.perf_counter() - t0
     small_expected = dict.fromkeys(small_launches, 0)
     small_expected.update({"softmax_xent_fwd": RES_UPDATES, "softmax_xent_bwd": RES_UPDATES})
@@ -3413,10 +3449,11 @@ def phase_train_resnet50(torch, dtype, host, card):
           and cpu_losses[1] < cpu_losses[0] and card_losses[1] < card_losses[0]
           and small_launches == small_expected and timed_launches == expected
           and bool(np.isfinite(losses).all()) and acc["cuda"] == acc["cpu"]
-          and (resume is None or resume["ok"]))
+          and (resume is None or resume["ok"]) and (defaults is None or defaults["within"]))
     emit("train_resnet50", dtype=dtype, compared_batch=RES_CPU_B, compared_updates=RES_UPDATES,
          cpu_losses=cpu_losses.tolist(), card_losses=card_losses.tolist(),
-         readings_vs_cpu=readings, limits=lim, faults_vs_cpu=faults, compared_s=compared_s,
+         readings_vs_cpu=readings, limits=lim, faults_vs_cpu=faults,
+         readings_vs_cpu_under_torch_tf32_defaults=defaults, compared_s=compared_s,
          compared_launches=small_launches, compared_expected_launches=small_expected,
          evaluate_accuracy=acc, checkpoint=resume, B=RES_B,
          timed_losses=losses, kernel_launches=timed_launches, expected_launches=expected,
@@ -3570,6 +3607,9 @@ def phase_train_mnist(torch, name, card):
 REAL_DATA_INIT = os.path.join("tests", "data", "jax_init_real_data.npz")
 PIN_ACCURACY = 0.95  # digits held out (360), Iris the full set (150)
 REAL_DATA_EPOCHS = {"digits": 18, "iris": 200}
+# the epochs of each timed fit of a pin (as the batches come, read ahead,
+# staged); the run that the pin holds trains all of REAL_DATA_EPOCHS
+REAL_DATA_TIMED_EPOCHS = {"digits": 3, "iris": 25}
 REAL_DATA_COMPARED = 3  # updates of each pin held against the CPU port
 PANGRAM_TEXT = ("the quick brown fox jumps over the lazy dog. "
                 "pack my box with five dozen liquor jugs. "
@@ -3721,10 +3761,12 @@ def phase_train_real(torch, name, card):
         it = real_data_iterators(name)[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run.fit(it if how == "read_ahead" else AsItComes(it), epochs=REAL_DATA_EPOCHS[name])
+        run.fit(it if how == "read_ahead" else AsItComes(it),
+                epochs=REAL_DATA_TIMED_EPOCHS[name])
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / updates
+        return (time.perf_counter() - t0) * 1e3 / timed_updates
 
+    timed_updates = REAL_DATA_TIMED_EPOCHS[name] * len(train_it)
     fit_ms = {"read_ahead": [], "as_it_comes": []}
     for how in ("as_it_comes", "read_ahead", "read_ahead", "as_it_comes"):
         fit_ms[how].append(epochs_ms(how))
@@ -3735,15 +3777,15 @@ def phase_train_real(torch, name, card):
         it = real_data_iterators(name)[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        staged.fit(it, epochs=REAL_DATA_EPOCHS[name], stage_on_device=STAGED_K)
+        staged.fit(it, epochs=REAL_DATA_TIMED_EPOCHS[name], stage_on_device=STAGED_K)
         torch.cuda.synchronize()
-        staged_ms.append((time.perf_counter() - t0) * 1e3 / updates)
+        staged_ms.append((time.perf_counter() - t0) * 1e3 / timed_updates)
     staged_replays = staged._step_graphs.replays
     del staged
     ok = (acc >= PIN_ACCURACY and launches == expected and len(losses) == updates
           and bool(np.isfinite(losses).all()) and within_limits(readings, MNIST_LIMITS)
           and all(f["caught"] for f in faults.values())
-          and staged_replays == updates * 2 + len(train_it))
+          and staged_replays == timed_updates * 2 + len(train_it))
     emit(f"train_{name}", epochs=REAL_DATA_EPOCHS[name], B=real_data_models()[name][0],
          updates=updates, accuracy=acc, pin=PIN_ACCURACY, examples=ev.examples,
          first_loss=float(losses[0]), last_loss=float(losses[-1]),
@@ -3751,6 +3793,7 @@ def phase_train_real(torch, name, card):
          limits=MNIST_LIMITS, faults_vs_cpu=faults,
          kernel_launches=launches, expected_launches=expected, fit_seconds=fit_s,
          ms_per_update=fit_s * 1e3 / updates, ms_per_update_runs=fit_ms,
+         timed_epochs=REAL_DATA_TIMED_EPOCHS[name],
          read_ahead_ms_per_update=min(fit_ms["read_ahead"]),
          as_it_comes_ms_per_update=min(fit_ms["as_it_comes"]),
          staged_ms_per_update_runs=staged_ms, staged_replays=staged_replays,
@@ -4175,7 +4218,7 @@ def static_issue_ms(torch, lr, sass: dict, entry: str, elems: int) -> dict:
 
 
 def in_a_row_ms(fn, calls: int = 20) -> float:
-    """ms a call of ``fn`` over ``calls`` calls in a row (median of 7): the
+    """ms a call of ``fn`` over ``calls`` calls in a row (median of 5): the
     card's time, which the host's part of each call no longer delays."""
     return median_ms(lambda: [fn() for _ in range(calls)]) / calls
 
@@ -4196,9 +4239,10 @@ def time_lrn(torch, lr, card, sass: dict):
 
     times = {}
     args = (LRN_K, LRN_N, LRN_ALPHA, LRN_BETA)
-    for dtype in ("float32", "bfloat16"):
-        for where, shape in {**LRN_SHAPES, **GOOG_LRN_SHAPES}.items():
-            x, g = lrn_inputs(torch, shape, dtype, SEED)
+    for where, shape in {**LRN_SHAPES, **GOOG_LRN_SHAPES}.items():
+        host = lrn_host(shape, SEED)
+        for dtype in ("float32", "bfloat16"):
+            x, g = lrn_inputs(torch, shape, dtype, SEED, host=host)
             _, d = lr.lrn_forward(x, *args)
             xg = x.clone().requires_grad_()
             elems = math.prod(shape)
@@ -4289,6 +4333,7 @@ def sass_counts(lib) -> dict:
     it: for the LRN kernels, the tile loop without the halo's, what a
     thread issues for its elements of a tile, powf's special-case branches
     included."""
+    import bisect
     import re
 
     from deeplearning4j_tpu_torch.ops import _build
@@ -4313,8 +4358,7 @@ def sass_counts(lib) -> dict:
         for i, (a, text) in enumerate(ins):
             m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
             if m and int(m.group(1), 16) <= a:
-                loops.append((next(j for j, b in enumerate(addrs) if b >= int(m.group(1), 16)),
-                              i))
+                loops.append((bisect.bisect_left(addrs, int(m.group(1), 16)), i))
         loop = 0
         if loops:  # the largest loop, less the loops nested in it (a tile's halo)
             first, last = max(loops, key=lambda fl: fl[1] - fl[0])
@@ -4347,13 +4391,17 @@ def phase_sass(build_s: dict) -> dict:
     ``NO_SPILL_KERNELS`` (rows 3-4) spills, or a library of
     ``TENSOR_CORE_LIBS`` lacks one of its entries. Returns the entries by
     library and readable name."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from deeplearning4j_tpu_torch.ops import _build
 
+    libs = {name: _build.lib_path(name) for name in build_s}
+    with ThreadPoolExecutor(len(libs)) as pool:  # one cuobjdump a library at once
+        sass = dict(zip(libs, pool.map(sass_counts, libs.values())))
     report, bad = {}, []
-    for name in build_s:
-        lib = _build.lib_path(name)
+    for name, lib in libs.items():
         regs = ptxas_report(lib.with_suffix(".log").read_text())
-        counts = sass_counts(lib)
+        counts = sass[name]
         readable = demangle(sorted(set(regs) | set(counts)))
         entries = {}
         for fn in sorted(set(regs) | set(counts)):
@@ -4483,7 +4531,7 @@ def decode_vs_alone(net, trajectories):
 # buffers, copied one batch ahead on a side stream)
 STAGED_K, STAGED_STEPS = 4, 8  # bench_resnet50's path: 8 updates over 4 staged slots
 STAGED_FIT_BATCHES = 9  # fit(stage_on_device=4): windows of 4, 4 and 1 real batch
-STAGED_TIMED_WINDOWS = 2  # timed windows of STAGED_K replays (and as many eager updates)
+STAGED_TIMED_WINDOWS = 1  # timed windows of STAGED_K replays (and as many eager updates)
 # the staged trajectory against eager fit over the same slots, both with
 # cuDNN deterministic: each reading's limit is what two eager runs of the
 # same code read against each other in the same phase (the noise), times
@@ -4798,7 +4846,7 @@ def phase_staged_resnet50(torch, dtype, host, card):
     fit_losses = [float(l) for l in rec.losses]
     fit_replays, fit_graphs = net._step_graphs.replays, len(net._step_graphs)
     fit_ms = {"staged": [], "per_batch": []}
-    for how in ("per_batch", "staged", "staged", "per_batch"):
+    for how in ("staged", "per_batch"):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         net.fit(data, stage_on_device=STAGED_K if how == "staged" else 0)
@@ -6818,7 +6866,7 @@ def kernels_slice19(torch, sx, ad, card, leaf_shapes):
 # CollectScores listeners: TEL_UPDATES per-batch updates, then
 # fit(stage_on_device=STAGED_K) over TEL_STAGED_BATCHES host batches
 TEL_LR, TEL_FETCH, TEL_UPDATES, TEL_STAGED_BATCHES = 1e-2, 4, 4, 8
-TEL_TIMED = 2  # timed updates (eager) or windows (replayed) a turn, 4 turns
+TEL_TIMED = 1  # timed updates (eager) or windows (replayed) a turn, 4 turns
 TEL_LOSS_SCALE = 1024.0
 # the telemetry row's grad norm against a float64 recompute from the
 # _last_grads a needs_gradients listener sees (both sum f32 values; the
@@ -7474,11 +7522,11 @@ STREAM_STEPS = 32  # single-step rnn_time_step calls at B=SLOTS
 # algorithms at another row count)
 PADDED_REL = {"float32": 1e-5, "bfloat16": 3e-2}
 SERVICE_THREADS, SERVICE_MAX_BATCH = 8, 32
-SERVICE_WINDOWS, SERVICE_WINDOW_S = 3, 3.0  # timed traffic windows, seconds each
+SERVICE_WINDOWS, SERVICE_WINDOW_S = 2, 3.0  # timed traffic windows, seconds each
 SERVICE_T = 64  # the char-RNN's requests to the service: [rows, 64, 96]
 SERVICE_ROWS = (1, 2, 3, 5, 8)
 SERVICE_STARTS = (0, 8, 16)  # a request: SERVICE_ROWS rows from one of these offsets
-DECODE_ROUNDS = 5  # decode rounds of each server, replayed and eager in turn
+DECODE_ROUNDS = 3  # decode rounds of each server, replayed and eager in turn
 # slice 21's kernel rows: (path, kernel, shape name) -> the main line that
 # holds the same shape (None: held and timed in kernels_slice21)
 SLICE21_ROWS = {
@@ -8321,7 +8369,7 @@ ONLINE_BLOCKS = 14  # blocks of the traffic after the warm blocks (one of each b
 ONLINE_CKPT_EVERY, ONLINE_RETAIN = 8, 3
 ONLINE_CLIENTS, ONLINE_CLIENT_ROWS, ONLINE_CLIENT_T = 4, (1, 8), 128
 ONLINE_SERVE_MAX_BATCH = 32  # the clients' coalesced rows stay within the warmed buckets
-ONLINE_WINDOW_S = 4.0  # the clients' idle window, and the training window of the same length
+ONLINE_WINDOW_S = 2.0  # the clients' idle window, and the training window of the same length
 ONLINE_DEADLINE_S = 60.0  # the phase's traffic stops here whatever the record count
 ONLINE_BARE_WINDOWS = 6  # windows of the path kept for the bare fit_on_device yardstick
 # the seeded fault plan: outages at these source polls (4 polls down each),
@@ -8706,7 +8754,7 @@ UI_UPDATES = 40  # one epoch of the loader over the first UI_B * UI_UPDATES trai
 UI_COMPARED = 4  # updates held against the port on the CPU over the same batches
 UI_PROFILE = {"start": 10, "duration": 5}  # the ProfilingListener's window of updates
 UI_CONV_EVERY = 10
-UI_TIMED = 20  # timed updates a listener setting, in turns: none, every 1, every 10, and back
+UI_TIMED = 10  # timed updates a listener setting, in turns: none, every 1, every 10, and back
 UI_HTTP = {"clients": 4, "requests": 16, "rows": 8}  # requests/s over HTTP
 UI_TSNE_N = 2500  # held-out images whose penultimate features t-SNE embeds
 UI_TSNE_COMPARED = 3  # t-SNE iterations held against the CPU's
@@ -8740,6 +8788,7 @@ UI_ENDPOINT_KEYS = {
     "/api/memory": {"compile_cache", "devices", "executables", "report"},
     "/api/telemetry": {"metrics", "system"},
     "/api/flightrecorder": {"capacity", "dropped", "dumps", "events", "recorded"},
+    "/api/fleet": {"routers"},
 }
 # rows 10-12 at this path's shapes: (shape name, the main row of that shape)
 SLICE23_ROWS = {"softmax_xent_fwd": ("N=64 C=10", "softmax_xent_fwd@lenet"),
@@ -9150,13 +9199,12 @@ def phase_ui_lenet(torch, card):
             code, metrics = http_json(base, "/metrics")
             codes["/metrics"] = {"status": code, "keys_ok": "dl4jtpu_serve_requests_total"
                                  in str(metrics)}
-            for path in ("/api/fleet", "/api/ircost"):
-                code, body = http_json(base, path)
-                codes[path] = {"status": code, "keys_ok": "error" in body}
+            code, body = http_json(base, "/api/ircost")
+            codes["/api/ircost"] = {"status": code, "keys_ok": "error" in body}
             served["endpoints"] = codes
             served["endpoints_ok"] = all(
-                c["keys_ok"] and c["status"] == (501 if p in ("/api/fleet", "/api/ircost")
-                                                 else 200) for p, c in codes.items())
+                c["keys_ok"] and c["status"] == (501 if p == "/api/ircost" else 200)
+                for p, c in codes.items())
             errors = []
 
             def client(i):
@@ -10834,6 +10882,537 @@ def kernels_slice25(torch, ls, sx, ad, card, leaf_shapes) -> dict:
     return out
 
 
+# ---- slice 26: the autotuner and the serving fleet. ``tune_mlp``: the
+# autotuner's search (run_autotune, model "mlp", objective "fit") over the
+# bench MLP (bench.py:701-725: 784-1024-1024-10, Adam 1e-3, bf16 compute),
+# every candidate of MlpFitWorkload.space() (train_batch 32/256/512,
+# stage_window 2/4/8, telemetry_fetch_every 10/50) measured through the
+# staged warmup/fit_on_device path, capture-pinned, the winner persisted to
+# a temporary TUNED.json. ``fleet_char_rnn``: the full-width char-RNN
+# (bench.py:288-301) served by two fleet worker processes on this one card
+# behind a FleetRouter, from one CheckpointStore with a warm-boot bundle.
+TUNE_BUDGET_S = 60.0  # rung 0 measures all 18 candidates, rung 1 the best 9
+TUNE_FIDELITIES = (4, 8)  # timed staged windows a trial, by rung
+TUNE_RETIME_FIDELITY = 16  # the winner and the default re-timed in turns
+TUNE_KEEP = 0.95  # the winner keeps this share of the default's rate or better
+TUNE_FIT_BATCHES = 8  # fit() over this many batches picks up the tuned window
+TUNE_MEMORY_SLACK = 64 * 2 ** 20  # allocated bytes a search may leave behind
+TUNE_HEAD_ROWS = (32, 256, 512)  # rows 10-11 at the search's batches, C=10
+FLEET_LENGTHS = (50, 64)  # request lengths: 50 pads to the bucket 64 (masked), 64 exact
+FLEET_ROWS = (1, 2, 3, 5, 8)  # request rows: the row buckets 1, 2, 4, 8
+FLEET_MAX_BATCH = 8
+FLEET_REQUESTS = 24  # distinct requests, each with its in-process answer per version
+FLEET_CLIENTS = 4
+FLEET_WINDOW_S = 2.0  # the timed client window, through the router and in process
+FLEET_V2_SCALE = 8.0  # version 2: version 1's output layer scaled (answers far from v1's)
+
+
+def counted_mlp_workload(torch):
+    """The search's workload (``MlpFitWorkload`` on the card) keeping each
+    trial's kernel launches by its batch while ``counting`` is set: what
+    the wrappers counted in the trial (its warm-up steps and capture) and
+    what the replays of its captured step launched (read as the trial frees
+    its network). Returns (workload, launches by batch)."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.tune import search as tsearch
+
+    by_batch = {}
+
+    class CountedMlp(tsearch.MlpFitWorkload):
+        counting = True
+
+        def measure(self, config, fidelity):
+            if not self.counting:
+                return super().measure(config, fidelity)
+            replayed = {}
+            real_release = tsearch.release
+
+            def release(net):
+                add_counts(replayed, replayed_launches(net))
+                real_release(net)
+
+            torch.cuda.synchronize()
+            before = ops.counters()
+            tsearch.release = release
+            try:
+                return super().measure(config, fidelity)
+            finally:
+                tsearch.release = real_release
+                torch.cuda.synchronize()
+                after = ops.counters()
+                add_counts(by_batch.setdefault(int(config["train_batch"]), {}), add_counts(
+                    {k: after[k] - before.get(k, 0) for k in after}, replayed))
+
+    return CountedMlp(device=DEVICE), by_batch
+
+
+def phase_tune_mlp(torch, card):
+    """The autotuner on the card (module section above): every trial's
+    timed region capture-free, the environment restored, the card's
+    allocated memory back where it was; the winner and the default re-timed
+    in turns (default, winner, winner, default) in this phase, the winner
+    at TUNE_KEEP of the default's samples/s or better; a fresh net of the
+    same conf fitted with no ``stage_on_device`` picks up the winner's
+    window from TUNED.json and one with ``stage_on_device=0`` does not; the
+    winner's first staged update (its batch and window) against the CPU's,
+    in bf16 (the search's dtype) at RECIPE_LIMITS' bf16 limits and in f32
+    at the staged MLP's, MNIST_LIMITS. Rows 10-12 are counted inside the
+    search's trials by batch (``counted_mlp_workload``) and in those first
+    updates. Returns (launches by (kernel, shape), readings)."""
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (DataSet, ListDataSetIterator, MultiLayerNetwork,
+                                          load_jax_params, ops, params_to_numpy)
+    from deeplearning4j_tpu_torch.telemetry import get_registry
+    from deeplearning4j_tpu_torch.tune import TunedStore, run_autotune, scoped_env
+
+    t_phase = time.perf_counter()
+    applied = get_registry().counter(
+        "dl4jtpu_tuned_config_applied_total",
+        "tuned-config knobs auto-applied at startup, by context",
+        labelnames=("context",)).labels(context="fit")
+    wl, by_batch = counted_mlp_workload(torch)
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp, scoped_env(
+            DL4JTPU_TUNED_PATH=os.path.join(tmp, "TUNED.json")):
+        path = os.path.join(tmp, "TUNED.json")
+        env_before = dict(os.environ)
+        gc_collect(torch)
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = run_autotune(workload=wl, budget_s=TUNE_BUDGET_S, rungs=2,
+                              fidelities=TUNE_FIDELITIES, store_path=path,
+                              log=lambda m: emit("tune_mlp_log", message=m))
+        search_s = time.perf_counter() - t0
+        wl.counting = False
+        gc_collect(torch)
+        mem_after = torch.cuda.memory_allocated()
+        measured = [t for t in result.trials if t.measured is not None]
+        checks["env_restored"] = result.env_ok and dict(os.environ) == env_before
+        checks["no_capture_in_timed_regions"] = all(t.compiles_measured == 0 for t in measured)
+        checks["every_candidate_measured"] = len(measured) == len(result.trials) == 18
+        checks["memory_freed"] = mem_after <= mem_before + TUNE_MEMORY_SLACK
+        launches = {}
+        for B, counts in sorted(by_batch.items()):
+            for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
+                launches[(k, f"N={B} C=10 bfloat16")] = counts.get(k, 0)
+            launches[("adam_update_dev", "6 leaves")] = (
+                launches.get(("adam_update_dev", "6 leaves"), 0) + counts.get("adam_update_dev", 0))
+        checks["rows_10_12_launched_by_batch"] = sorted(by_batch) == list(TUNE_HEAD_ROWS) and all(
+            launches.values())
+        best, default = dict(result.best.config), dict(result.default.config)
+        entry = TunedStore(path).get(result.key) if result.key else None
+        checks["winner_persisted"] = (entry is not None and entry["config"] == best
+                                      and result.key == wl.key())
+
+        # the search's winner against the default, re-timed in turns
+        rates = {"default": [], "winner": []}
+        for who in ("default", "winner", "winner", "default"):
+            r = wl.measure(best if who == "winner" else default, TUNE_RETIME_FIDELITY)
+            rates[who].append(r["value"])
+            checks["retimed_capture_free"] = (checks.get("retimed_capture_free", True)
+                                              and r["compiles"] == 0)
+        retimed = {k: statistics.mean(v) for k, v in rates.items()}
+        checks["winner_keeps_default_rate"] = retimed["winner"] >= TUNE_KEEP * retimed["default"]
+
+        # a fresh net of the conf picks up the winner's window; an explicit 0 does not
+        B, K = int(best["train_batch"]), int(best["stage_window"])
+        dtype = str(best["precision_params_dtype"])
+        xs, ys = wl.batches(B, TUNE_FIT_BATCHES)
+
+        def data():
+            return ListDataSetIterator([DataSet(x, y) for x, y in zip(xs, ys)])
+
+        tuned_net = MultiLayerNetwork(wl.conf(dtype))
+        before = applied.value
+        tuned_net.fit(data())
+        picked = {"applied": applied.value - before,
+                  "staged_steps": tuned_net.staged_steps_total,
+                  "replays": tuned_net._step_graphs.replays,
+                  "window": tuned_net._fit_stage(None)}  # what fit read from TUNED.json
+        explicit_net = MultiLayerNetwork(wl.conf(dtype))
+        before = applied.value
+        explicit_net.fit(data(), stage_on_device=0)
+        explicit = {"applied": applied.value - before,
+                    "staged_steps": explicit_net.staged_steps_total,
+                    "replays": explicit_net._step_graphs.replays}
+        checks["fresh_net_takes_tuned_window"] = (
+            picked["applied"] >= 1 and picked["staged_steps"] == TUNE_FIT_BATCHES
+            and picked["window"] == K)
+        checks["explicit_stage_wins"] = explicit == {"applied": 0, "staged_steps": 0,
+                                                     "replays": 0}
+        del tuned_net, explicit_net
+
+        # the winner's first staged update, card against CPU, bf16 and f32
+        first, lims = {}, {}
+        for dt in ("bfloat16", "float32"):
+            host = conf_host(wl.conf(dt))
+            card_net = load_jax_params(MultiLayerNetwork(wl.conf(dt)), host)
+            cpu_net = load_jax_params(MultiLayerNetwork(wl.conf(dt), device="cpu"), host)
+            torch.cuda.synchronize()
+            before = ops.counters()
+            card_loss = card_net.fit_on_device(xs[:K], ys[:K], steps=1)
+            torch.cuda.synchronize()
+            after = ops.counters()
+            counts = add_counts({k: after[k] - before.get(k, 0) for k in after},
+                                replayed_launches(card_net))
+            for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
+                key = (k, f"N={B} C=10 {dt}")
+                launches[key] = launches.get(key, 0) + counts.get(k, 0)
+            launches[("adam_update_dev", "6 leaves")] += counts.get("adam_update_dev", 0)
+            rec = LossRecorder()
+            cpu_net.set_listeners(rec)
+            cpu_net.fit((xs[0], ys[0]))
+            first[dt] = recipe_readings(
+                (card_net, np.asarray(card_loss, np.float64), params_to_numpy(card_net)),
+                (cpu_net, np.array([float(rec.losses[0])]), params_to_numpy(cpu_net)), host)
+            lims[dt] = RECIPE_LIMITS[dt] if dt == "bfloat16" else MNIST_LIMITS
+            checks[f"first_staged_update_vs_cpu_{dt}"] = within_limits(first[dt], lims[dt])
+            del card_net, cpu_net
+        gc_collect(torch)
+    checks["rows_launched"] = all(launches.values())
+    out = dict(
+        budget_s=TUNE_BUDGET_S, fidelities=list(TUNE_FIDELITIES), search_s=search_s,
+        elapsed_s=result.elapsed_s, key=result.key, best=best, default=default,
+        best_measured=result.best.measured, default_measured=result.default.measured,
+        trials=[{"config": t.config, "samples_per_s": t.measured, "rung": t.rung,
+                 "captures_in_timed_region": t.compiles_measured,
+                 "step_ms": t.telemetry.get("step_ms"),
+                 "warm_captures": t.telemetry.get("warm_compiles"),
+                 "pool_bytes": t.telemetry.get("pool_bytes")} for t in result.trials],
+        retimed_samples_per_s=rates, retimed_mean=retimed,
+        winner_over_default=retimed["winner"] / retimed["default"], keep=TUNE_KEEP,
+        allocated_before=mem_before, allocated_after=mem_after,
+        peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        fit_picks_up=picked, fit_explicit=explicit, first_update_vs_cpu=first,
+        first_update_limits=lims, launches_by_batch=by_batch,
+        launches={f"{k}[{shape}]": n for (k, shape), n in launches.items()},
+        phase_s=time.perf_counter() - t_phase)
+    emit("tune_mlp", **out, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"tune_mlp failed its checks: {failed(checks)}")
+    return launches, out
+
+
+def fleet_requests(seed):
+    """FLEET_REQUESTS one-hot char-RNN requests [rows, T, VOCAB]: rows from
+    FLEET_ROWS, T from FLEET_LENGTHS, every pair at least once."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pairs = [(r, t) for r in FLEET_ROWS for t in FLEET_LENGTHS]
+    pairs += [pairs[i] for i in rng.integers(0, len(pairs), FLEET_REQUESTS - len(pairs))]
+    return [one_hot(rng.integers(0, VOCAB, (r, t)), VOCAB) for r, t in pairs]
+
+
+def fleet_json(base, path, payload=None):
+    """The JSON body of a GET (or a POST of ``payload``) that must answer 200."""
+    status, body = http_json(base, path, payload)
+    if status != 200:
+        raise RuntimeError(f"{base}{path} answered {status}: {str(body)[:200]}")
+    return body
+
+
+def fleet_post(base, x):
+    """POST /predict of ``x`` through the router: (output, version)."""
+    import numpy as np
+
+    body = fleet_json(base, "/predict", {"features": x.tolist()})
+    return np.asarray(body["output"], np.float32), int(body["version"])
+
+
+def fleet_clients(fn, n_requests, seconds, seed):
+    """FLEET_CLIENTS threads calling ``fn(i)`` on request indices drawn from
+    the seed for ``seconds``: (per-request (i, result, seconds), errors)."""
+    import numpy as np
+
+    results, errors, lock = [], [], threading.Lock()
+    stop = time.perf_counter() + seconds
+
+    def client(c):
+        rng = np.random.default_rng(seed + c)
+        while time.perf_counter() < stop:
+            i = int(rng.integers(0, n_requests))
+            t0 = time.perf_counter()
+            try:
+                r = fn(i)
+            except Exception as e:  # noqa: BLE001 - reported, fails the phase
+                with lock:
+                    errors.append(repr(e)[:200])
+                continue
+            with lock:
+                results.append((i, r, time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    return results, errors
+
+
+def phase_fleet_char_rnn(torch, host_params, card):
+    """The fleet on the card (module section above), on the default path:
+    version 1 of the f32 char-RNN and a warm-boot bundle (buckets 1-8 rows,
+    the one time bucket 64, lengths 50 and 64) in a CheckpointStore; a
+    FleetRouter spawns two worker processes; each worker's /healthz must
+    report the bundle installed, 8 buckets warmed and zero captures since
+    ready after a round of every request; a probe sent alone answers bit for
+    bit as this process's output() of the same version (the same bucket's
+    replay); answers under FLEET_CLIENTS clients within SERVE_ATOL of the
+    in-process answer, and one batch against the CPU at that limit; version
+    2 published and rolled out under client traffic, every answer version
+    1's or version 2's; one worker killed, respawned and warm at zero
+    captures; the router's recording rules derived; the fleet drained.
+    Row 5's launches (masked and unmasked) come from the workers' /api/worker.
+    Returns (launches, readings)."""
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import (MultiLayerNetwork, char_rnn, load_jax_params)
+    from deeplearning4j_tpu_torch.fleet import FleetRouter, build_bundle, save_bundle
+    from deeplearning4j_tpu_torch.runtime.checkpoint import CheckpointStore
+    from deeplearning4j_tpu_torch.serving import InferenceService
+    from deeplearning4j_tpu_torch.telemetry import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    conf = char_rnn(VOCAB, HIDDEN, LAYERS)
+    v1 = load_jax_params(MultiLayerNetwork(conf), host_params)
+    host2 = [dict(layer) for layer in host_params]  # the output layer's scaled
+    host2[-1] = {k: np.asarray(a) * np.float32(FLEET_V2_SCALE) for k, a in host2[-1].items()}
+    v2 = load_jax_params(MultiLayerNetwork(conf), host2)
+    reqs = fleet_requests(SEED + 260)
+    ref1 = [v1.output(x) for x in reqs]
+    ref2 = [v2.output(x) for x in reqs]
+    cpu = load_jax_params(MultiLayerNetwork(conf, device="cpu"), host_params)
+    checks, out = {}, {}
+
+    def within(i, got, refs):
+        return min(float(np.abs(got - r[i]).max()) for r in refs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(os.path.join(tmp, "store"))
+        store.save(v1)
+        save_bundle(store, build_bundle(
+            v1, example=np.zeros((1, FLEET_LENGTHS[-1], VOCAB), np.float32), argmax=False,
+            max_batch=FLEET_MAX_BATCH, time_lengths=FLEET_LENGTHS))
+        gc_collect(torch)
+        mem = {"before": list(torch.cuda.mem_get_info())}
+        registry = MetricsRegistry()
+        t0 = time.perf_counter()
+        router = FleetRouter(store.directory, workers=2, poll_s=0.2, device=DEVICE,
+                             backoff_base_s=0.1, boot_timeout_s=240, health_timeout_s=10,
+                             registry=registry,
+                             worker_args={"max_delay_ms": 0, "max_batch": FLEET_MAX_BATCH})
+        router.start()
+        start_s = time.perf_counter() - t0
+        mem["fleet_up"] = list(torch.cuda.mem_get_info())
+        base = f"http://127.0.0.1:{router.port}"
+        try:
+            # a round of every request, each against its in-process answer
+            served = [fleet_post(base, x) for x in reqs]
+            round_err = max(within(i, o, [ref1]) for i, (o, _) in enumerate(served))
+            checks["round_within_serve_atol"] = round_err <= SERVE_ATOL["float32"]
+            checks["round_version_1"] = {v for _, v in served} == {1}
+            cpu_err = float(np.abs(served[-1][0] - cpu.output(reqs[-1])).max())
+            checks["batch_vs_cpu"] = cpu_err <= SERVE_ATOL["float32"]
+            health = [fleet_json(f"http://127.0.0.1:{h.port}", "/healthz")
+                      for h in router.workers]
+            checks["workers_warm"] = all(
+                h["bundle_installed"] and h["warmed_buckets"] == 4 * len(FLEET_LENGTHS)
+                and h["compiles_since_ready"] == 0 for h in health)
+            boot = {"router_spawn_to_ready_s": [h.boot_seconds for h in router.workers],
+                    "worker_boot_s": [h["boot_seconds"] for h in health],
+                    "router_start_s": start_s}
+
+            # probes sent alone: bit for bit with this process's replay
+            probes = {}
+            for rows in (3, 8):
+                for T in FLEET_LENGTHS:
+                    i = next(j for j, x in enumerate(reqs) if x.shape[:2] == (rows, T))
+                    got, _ = fleet_post(base, reqs[i])
+                    probes[f"rows{rows}_T{T}"] = bool(np.array_equal(got, ref1[i]))
+            checks["lone_probe_bit_for_bit"] = all(probes.values())
+
+            # merged client traffic through the router, then in process
+            router.stats()  # one scrape of the rings before the window
+            results, errors = fleet_clients(lambda i: fleet_post(base, reqs[i]),
+                                            len(reqs), FLEET_WINDOW_S, SEED + 261)
+            merged_err = max((within(i, o, [ref1]) for i, (o, _), _ in results), default=np.inf)
+            checks["merged_within_serve_atol"] = not errors and merged_err <= SERVE_ATOL[
+                "float32"]
+            lat = sorted(s for _, _, s in results)
+            time.sleep(3 * router.poll_s)  # the rings' next health poll
+            fleet_lat = router.stats()["latency_seconds"]
+            svc = InferenceService(registry=MetricsRegistry(), max_delay_ms=0.0,
+                                   max_batch=FLEET_MAX_BATCH)
+            svc.register("char_rnn", v1)
+            for T in FLEET_LENGTHS:
+                svc.warmup("char_rnn", np.zeros((1, T, VOCAB), np.float32))
+            local, local_errors = fleet_clients(
+                lambda i: svc.predict("char_rnn", reqs[i]), len(reqs), FLEET_WINDOW_S,
+                SEED + 261)
+            local_stats = svc.stats()["models"]["char_rnn"]["latency_seconds"]
+            svc.stop()
+            checks["in_process_service_ok"] = not local_errors and max(
+                (within(i, o, [ref1]) for i, o, _ in local), default=np.inf) <= SERVE_ATOL[
+                "float32"]
+            traffic = {
+                "fleet": {"requests": len(results), "requests_per_s": len(results)
+                          / FLEET_WINDOW_S, "client_p50_s": pct(lat, 50),
+                          "client_p99_s": pct(lat, 99), "merged_p50_s": fleet_lat["p50"],
+                          "merged_p99_s": fleet_lat["p99"], "samples": fleet_lat["samples"],
+                          "max_abs_err": merged_err, "errors": errors[:3]},
+                "in_process": {"requests": len(local), "requests_per_s": len(local)
+                               / FLEET_WINDOW_S, "p50_s": local_stats["p50"],
+                               "p99_s": local_stats["p99"]}}
+
+            # version 2 rolled out under client traffic
+            store.save(v2)
+            rolled = {}
+
+            def rollout_done():
+                st = router.stats()
+                return st["rollouts"] >= 1 and all(w["version"] == 2 for w in st["workers"])
+
+            def watch():
+                deadline = time.perf_counter() + 60
+                while not rollout_done() and time.perf_counter() < deadline:
+                    time.sleep(0.05)
+                rolled["s"] = time.perf_counter() - t_roll
+
+            t_roll = time.perf_counter()
+            watcher = threading.Thread(target=watch)
+            watcher.start()
+            roll_results, roll_errors = fleet_clients(
+                lambda i: fleet_post(base, reqs[i]), len(reqs), FLEET_WINDOW_S, SEED + 262)
+            watcher.join(timeout=90)
+            versions = {"1": 0, "2": 0, "torn": 0}
+            for i, (o, _), _ in roll_results:
+                e1, e2 = within(i, o, [ref1]), within(i, o, [ref2])
+                key = "1" if e1 <= SERVE_ATOL["float32"] else "2" if e2 <= SERVE_ATOL[
+                    "float32"] else "torn"
+                versions[key] += 1
+            apart = min(float(np.abs(a - b).max()) for a, b in zip(ref1, ref2))
+            checks["rollout_done"] = rollout_done()
+            checks["rollout_no_torn_answer"] = (not roll_errors and versions["torn"] == 0
+                                                and versions["2"] > 0)
+            checks["versions_far_apart"] = apart > 20 * SERVE_ATOL["float32"]
+            time.sleep(3 * router.poll_s)
+            after_roll = [fleet_json(f"http://127.0.0.1:{h.port}", "/api/worker")
+                          for h in router.workers]
+            checks["zero_captures_after_rollout"] = all(
+                w["compiles_since_ready"] == 0 for w in after_roll)
+
+            # one worker killed: respawned, warm at version 2, zero captures
+            killed_pid = router.workers[0].proc.pid
+            t_kill = time.perf_counter()
+            os.kill(killed_pid, signal.SIGKILL)
+            deadline = time.perf_counter() + 240
+            snap = router.stats()["workers"][0]
+            while time.perf_counter() < deadline:
+                snap = router.stats()["workers"][0]
+                if (snap["ready"] and snap["respawns"] >= 1
+                        and snap["compiles_since_ready"] == 0):
+                    break
+                time.sleep(0.1)
+            respawn_s = time.perf_counter() - t_kill
+            got, version = fleet_post(base, reqs[0])
+            respawned = fleet_json(f"http://127.0.0.1:{router.workers[0].port}", "/api/worker")
+            checks["respawned_warm"] = (snap["ready"] and snap["respawns"] >= 1
+                                        and respawned["compiles_since_ready"] == 0
+                                        and respawned["version"] == 2 and version == 2
+                                        and within(0, got, [ref2]) <= SERVE_ATOL["float32"])
+            rules = sorted(n for n in (router.history.series_names()
+                                       if router.history is not None else [])
+                           if n.startswith(("fleet.", "worker.")))
+            checks["recording_rules"] = {"fleet.offered_load", "fleet.latency_p99_seconds",
+                                         "worker.compiles_since_ready"} <= set(rules)
+            final = [respawned, fleet_json(f"http://127.0.0.1:{router.workers[1].port}",
+                                           "/api/worker")]
+            # row 5 in the workers: both before the kill, and the respawned one's since
+            row5 = {}
+            for w in (after_roll[0], *final):
+                for part in ("wrapper", "replayed"):
+                    add_counts(row5, {k: v for k, v in w["kernel_launches"][part].items()
+                                      if k.startswith("lstm_seq_lean")})
+            checks["row5_launched_in_workers"] = (row5.get("lstm_seq_lean", 0) > 0
+                                                  and row5.get("lstm_seq_lean_masked", 0) > 0)
+            stats = router.stats()
+            drained = router.drain(timeout_s=30)
+            checks["drained"] = drained
+        finally:
+            router.stop()
+        procs_exited = all(h.proc is None or h.proc.poll() is not None for h in router.workers)
+        checks["processes_exited"] = procs_exited
+        gc_collect(torch)
+        mem["after"] = list(torch.cuda.mem_get_info())
+    worker_mem = [w.get("device_memory") for w in (after_roll[0], final[1], final[0])]
+    out = dict(boot=boot, respawn_s=respawn_s,
+               respawned_spawn_to_ready_s=stats["workers"][0]["boot_seconds"],
+               round_max_abs_err=round_err, batch_vs_cpu=cpu_err, limit=SERVE_ATOL["float32"],
+               probes_bit_for_bit=probes, traffic=traffic,
+               rollout={"seconds": rolled.get("s"), "answers": versions,
+                        "requests": len(roll_results), "versions_apart": apart},
+               worker_memory=worker_mem, smoke_mem_get_info=mem, row5_launches=row5,
+               recording_rules=rules, respawns=stats["workers"][0]["respawns"],
+               phase_s=time.perf_counter() - t_phase)
+    emit("fleet_char_rnn", **out, checks=checks, ok=not failed(checks), gpu=card)
+    if failed(checks):
+        raise AssertionError(f"fleet_char_rnn failed its checks: {failed(checks)}")
+    del v1, v2, cpu
+    gc_collect(torch)
+    return row5, out
+
+
+def kernels_slice26(torch, ls, sx, ad, card):
+    """The kernels of slice 26's paths at their shapes, against their plain
+    versions, then timed beside them, their bounds and the library call:
+    rows 10-11 at the search's heads (N = 32, 256, 512; C=10) with f32 and
+    bf16 logits, row 12's device-scalar entry at the bench MLP's 6 leaves;
+    row 5 at the fleet's buckets (T=64, B=8, H=512), unmasked and with the
+    50 live steps of a padded request. Returns {(kernel, shape): (max abs
+    err, times)}."""
+    from deeplearning4j_tpu_torch.tune.search import MlpFitWorkload
+
+    out = {}
+    for N in TUNE_HEAD_ROWS:
+        for dtype in ("float32", "bfloat16"):
+            e = sxent_case(torch, sx, N, 10, dtype, "one_hot", SEED + 260 + N)
+            for (k, _), t in time_sxent(torch, sx, N, 10, (dtype,), card,
+                                        "the tuned MLP's head").items():
+                out[(k, f"N={N} C=10 {dtype}")] = (
+                    e["loss"] if k.endswith("fwd") else max(e["dx"], e["dl"]), t)
+    shapes = mnist_leaf_shapes(MlpFitWorkload(device=DEVICE).conf("bfloat16"))
+    leaves, sc = adam_inputs(torch, SEED + 266, shapes)
+    gs, ms, vs = (list(x) for x in zip(*leaves))
+    row = torch.tensor(sc[:3], dtype=torch.float32, device=DEVICE)
+    got = ad.fused_adam_update_leaves_dev(gs, ms, vs, row, *sc[3:])
+    rel, err = dict.fromkeys(("u", "m", "v"), 0.0), 0.0
+    for i, (g, m, v) in enumerate(leaves):
+        for n, a, b in zip(rel, (got[0][i], got[1][i], got[2][i]),
+                           ad.adam_update_reference(g, m, v, row[0], row[1], row[2], *sc[3:])):
+            e = float((a - b).abs().max())
+            err, rel[n] = max(err, e), max(rel[n], e / float(b.abs().max()))
+    torch.cuda.synchronize()
+    check("adam_update_dev", "float32", rel, dict.fromkeys(rel, ADAM_REL), case="tune_mlp",
+          leaves=len(shapes), max_abs_err=err, relative_to_largest=True)
+    out[("adam_update_dev", f"{len(shapes)} leaves")] = (err, time_adam(
+        torch, ad, card, shapes, f"the tuned MLP's {len(shapes)} leaves", dev=True))
+    T = FLEET_LENGTHS[-1]
+    out[("lstm_seq_lean", f"T={T} B={FLEET_MAX_BATCH} H={HIDDEN}")] = lean_at(
+        torch, ls, T, FLEET_MAX_BATCH, HIDDEN, card, "fleet_char_rnn")
+    out[("lstm_seq_lean_masked", f"T={T} B={FLEET_MAX_BATCH} H={HIDDEN}, "
+         f"{FLEET_LENGTHS[0]} live steps")] = lean_at(
+        torch, ls, T, FLEET_MAX_BATCH, HIDDEN, card, "fleet_char_rnn", live=FLEET_LENGTHS[0])
+    return out
+
+
 def sum_counts(counts) -> dict:
     """Launch counts added kernel by kernel."""
     total = {}
@@ -10843,7 +11422,35 @@ def sum_counts(counts) -> dict:
     return total
 
 
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def section(name: str):
+    """``with section(name):`` around a part of ``main`` prints its seconds
+    on a ``phase_seconds`` line of its own and adds them to the summary.
+    Sections are not nested, so the summary's parts add up to the run."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        seconds = time.perf_counter() - t0
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + seconds
+        emit("phase_seconds", name=name, seconds=seconds)
+
+
 def main() -> int:
+    """The smoke, with ``TUNED.json`` read and written under a temporary
+    directory, so that a tuned entry in the user's cache changes none of
+    its fits."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tuned_") as tmp:
+        os.environ["DL4JTPU_TUNED_PATH"] = os.path.join(tmp, "TUNED.json")
+        return smoke()
+
+
+def smoke() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -10878,12 +11485,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build_s = _build.build()
+    with section("build"):
+        build_s = _build.build()
     emit("environment", gpu=card, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), matmul_allow_tf32=False,
          cudnn_allow_tf32=False, build_seconds=time.perf_counter() - t0,
          build_seconds_by_source=build_s)
-    sass = phase_sass(build_s)
+    with section("sass"):
+        sass = phase_sass(build_s)
 
     # ---- 1b. slice 23: the training UI and its host tier (LeNet trained from
     # IDX files through the C++ loader under the dashboard's listeners,
@@ -10893,80 +11502,94 @@ def main() -> int:
     # kernels in a process that has run for minutes (a whole update's
     # forward ten minutes in, where it used to run)
     os.environ.pop("DL4JTPU_INFER")
-    s23_launches, s23_readings = phase_ui_lenet(torch, card)
+    with section("ui_lenet"):
+        s23_launches, s23_readings = phase_ui_lenet(torch, card)
     os.environ["DL4JTPU_INFER"] = "legacy"
 
     # ---- 2. each kernel against its plain version
-    errs = phase_kernels(torch, ls)
-    errs.update(phase_kernels_train(torch, ls, sx))
-    drw_errs = phase_kernels_drw(torch, ls)
-    adam_errs = phase_adam(torch, ad)
+    with section("kernels"):
+        errs = phase_kernels(torch, ls)
+    with section("kernels_train"):
+        errs.update(phase_kernels_train(torch, ls, sx))
+    with section("kernels_drw"):
+        drw_errs = phase_kernels_drw(torch, ls)
+    with section("adam"):
+        adam_errs = phase_adam(torch, ad)
     errs[("adam_update", "float32", "leaves")] = adam_errs["char_rnn"]
-    adam_dev_errs = phase_adam_dev(torch, ad)
+    with section("adam_dev"):
+        adam_dev_errs = phase_adam_dev(torch, ad)
     errs[("adam_update_dev", "float32", "leaves")] = adam_dev_errs["char_rnn"]
-    errs.update(phase_kernels_attention(torch, fa))
-    errs.update(phase_kernels_lrn(torch, lr, sx))
-    mnist_errs = phase_kernels_mnist(torch, sx)
-    real_errs = phase_kernels_real_data(torch, sx)
-    cell_errs = phase_kernels_cell(torch, lc)
+    with section("kernels_attention"):
+        errs.update(phase_kernels_attention(torch, fa))
+    with section("kernels_lrn"):
+        errs.update(phase_kernels_lrn(torch, lr, sx))
+    with section("kernels_mnist"):
+        mnist_errs = phase_kernels_mnist(torch, sx)
+    with section("kernels_real_data"):
+        real_errs = phase_kernels_real_data(torch, sx)
+    with section("kernels_cell"):
+        cell_errs = phase_kernels_cell(torch, lc)
 
     # ---- 3 + 4. the main path: serving, then decode; counts from 0
-    confs = {dt: char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dt)
-             for dt in ("float32", "bfloat16")}
-    host_params = char_rnn_params(confs["float32"], SEED)
-    nets = {dt: load_jax_params(MultiLayerNetwork(c), host_params)
-            for dt, c in confs.items()}
-    rng = np.random.default_rng(SEED)
-    x = one_hot(rng.integers(0, VOCAB, (BATCH, STEPS)), VOCAB)
-    ops.reset_counters()
-    served = {}
-    for dt, net in nets.items():
-        before = ls.launches["lstm_seq_lean"]
-        probs = net.output(x)
-        cls = net.predict(x)
-        torch.cuda.synchronize()
-        rose = ls.launches["lstm_seq_lean"] - before
-        served[dt] = (probs, cls, rose)
-    server = DecodeServer(nets["float32"], capacity=SLOTS, max_delay_ms=2.0)
-    trajectories, decode_s = decode_sessions(server)
-    ticks = server.ticks
-    server.stop()
-    launches = ops.counters()
+    with section("serve_decode"):
+        confs = {dt: char_rnn(VOCAB, HIDDEN, LAYERS, dtype=dt)
+                 for dt in ("float32", "bfloat16")}
+        host_params = char_rnn_params(confs["float32"], SEED)
+        nets = {dt: load_jax_params(MultiLayerNetwork(c), host_params)
+                for dt, c in confs.items()}
+        rng = np.random.default_rng(SEED)
+        x = one_hot(rng.integers(0, VOCAB, (BATCH, STEPS)), VOCAB)
+        ops.reset_counters()
+        served = {}
+        for dt, net in nets.items():
+            before = ls.launches["lstm_seq_lean"]
+            probs = net.output(x)
+            cls = net.predict(x)
+            torch.cuda.synchronize()
+            rose = ls.launches["lstm_seq_lean"] - before
+            served[dt] = (probs, cls, rose)
+        server = DecodeServer(nets["float32"], capacity=SLOTS, max_delay_ms=2.0)
+        trajectories, decode_s = decode_sessions(server)
+        ticks = server.ticks
+        server.stop()
+        launches = ops.counters()
 
-    for dt, (probs, cls, rose) in served.items():
-        cpu = load_jax_params(MultiLayerNetwork(confs[dt], device="cpu"), host_params)
-        ref = cpu.output(x)
-        err = float(np.abs(probs - ref).max())
-        ok = (probs.shape == (BATCH, STEPS, VOCAB) and bool(np.isfinite(probs).all())
-              and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-2
-              and cls.shape == (BATCH, STEPS) and rose == 2 * LAYERS
-              and err <= SERVE_ATOL[dt])
-        emit("serve_output", dtype=dt, shape=list(probs.shape),
-             kernel_launches=rose, expected_launches=2 * LAYERS,
-             max_abs_err_vs_cpu=err, atol=SERVE_ATOL[dt],
-             argmax_agree_vs_cpu=float((cls == ref.argmax(-1)).mean()), ok=ok)
+        for dt, (probs, cls, rose) in served.items():
+            cpu = load_jax_params(MultiLayerNetwork(confs[dt], device="cpu"), host_params)
+            ref = cpu.output(x)
+            err = float(np.abs(probs - ref).max())
+            ok = (probs.shape == (BATCH, STEPS, VOCAB) and bool(np.isfinite(probs).all())
+                  and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-2
+                  and cls.shape == (BATCH, STEPS) and rose == 2 * LAYERS
+                  and err <= SERVE_ATOL[dt])
+            emit("serve_output", dtype=dt, shape=list(probs.shape),
+                 kernel_launches=rose, expected_launches=2 * LAYERS,
+                 max_abs_err_vs_cpu=err, atol=SERVE_ATOL[dt],
+                 argmax_agree_vs_cpu=float((cls == ref.argmax(-1)).mean()), ok=ok)
+            if not ok:
+                raise AssertionError(f"serving {dt} failed its checks")
+
+        alone_err, same_tokens = decode_vs_alone(nets["float32"], trajectories)
+        ok = same_tokens and alone_err <= DECODE_ATOL and launches["lstm_seq_lean_masked"] > 0
+        emit("decode_server", sessions=SLOTS, chars_each=DECODE_CHARS, ticks=ticks,
+             seconds=decode_s, tokens_per_s=SLOTS * DECODE_CHARS / decode_s,
+             same_tokens_as_alone=same_tokens, max_abs_err_vs_alone=alone_err,
+             atol=DECODE_ATOL, ok=ok, gpu=card)
         if not ok:
-            raise AssertionError(f"serving {dt} failed its checks")
-
-    alone_err, same_tokens = decode_vs_alone(nets["float32"], trajectories)
-    ok = same_tokens and alone_err <= DECODE_ATOL and launches["lstm_seq_lean_masked"] > 0
-    emit("decode_server", sessions=SLOTS, chars_each=DECODE_CHARS, ticks=ticks,
-         seconds=decode_s, tokens_per_s=SLOTS * DECODE_CHARS / decode_s,
-         same_tokens_as_alone=same_tokens, max_abs_err_vs_alone=alone_err,
-         atol=DECODE_ATOL, ok=ok, gpu=card)
-    if not ok:
-        raise AssertionError("decode sessions differ from running alone")
-    if not (launches["lstm_seq_lean"] and launches["lstm_seq_lean_masked"]):
-        raise AssertionError(f"a kernel of the serving path did not launch: {launches}")
+            raise AssertionError("decode sessions differ from running alone")
+        if not (launches["lstm_seq_lean"] and launches["lstm_seq_lean_masked"]):
+            raise AssertionError(f"a kernel of the serving path did not launch: {launches}")
 
     # ---- 4a. the cell route served and decoding (row 1): counts from 0
-    cell_serve = phase_serve_cell(torch, confs, host_params, x, nets["float32"], card)
+    with section("serve_cell"):
+        cell_serve = phase_serve_cell(torch, confs, host_params, x, nets["float32"], card)
 
     # ---- 4b. the training path: each run counts from 0 (phase_train)
     train = {}
-    for mode in ("standard", "tbptt"):
-        for dtype in ("float32", "bfloat16"):
-            train[(mode, dtype)] = phase_train(torch, mode, dtype, host_params, card)
+    with section("train"):
+        for mode in ("standard", "tbptt"):
+            for dtype in ("float32", "bfloat16"):
+                train[(mode, dtype)] = phase_train(torch, mode, dtype, host_params, card)
     for name in ("lstm_seq_train_fwd", "lstm_seq_bwd", "drw_product", "softmax_xent_fwd",
                  "softmax_xent_bwd"):
         launches[name] = sum(run[0][name] for run in train.values())
@@ -10974,8 +11597,9 @@ def main() -> int:
             raise AssertionError(f"{name} did not launch on the training path")
 
     # ---- 4c. the training recipe: Adam over padded batches (rows 8, 9, 12)
-    recipe = {dtype: phase_train_recipe(torch, dtype, host_params, card)
-              for dtype in ("float32", "bfloat16")}
+    with section("train_recipe"):
+        recipe = {dtype: phase_train_recipe(torch, dtype, host_params, card)
+                  for dtype in ("float32", "bfloat16")}
     for name in ("lstm_seq_masked_train_fwd", "lstm_seq_masked_bwd", "adam_update"):
         launches[name] = sum(run[0][name] for run in recipe.values())
         if not launches[name]:
@@ -10984,8 +11608,9 @@ def main() -> int:
         launches[name] += sum(run[0][name] for run in recipe.values())
 
     # ---- 4c2. the cell route trained: SGD and the recipe (rows 1-2; 10-12)
-    cell_train = {dtype: phase_train_cell(torch, dtype, host_params, card)
-                  for dtype in ("float32", "bfloat16")}
+    with section("train_cell"):
+        cell_train = {dtype: phase_train_cell(torch, dtype, host_params, card)
+                      for dtype in ("float32", "bfloat16")}
     for name in CELL_KERNELS:
         launches[name] = (cell_serve[name]
                           + sum(run[0][name] for run in cell_train.values()))
@@ -10995,9 +11620,11 @@ def main() -> int:
         launches[name] += sum(run[0][name] for run in cell_train.values())
 
     # ---- 4d. the attention net: serving, then training (rows 13-15; 10-12)
-    serve_launches = phase_serve_attention(torch, card)
-    attn_train = {dtype: phase_train_attention(torch, dtype, card)
-                  for dtype in ("float32", "bfloat16")}
+    with section("serve_attention"):
+        serve_launches = phase_serve_attention(torch, card)
+    with section("train_attention"):
+        attn_train = {dtype: phase_train_attention(torch, dtype, card)
+                      for dtype in ("float32", "bfloat16")}
     for name in ATTN_KERNELS:
         launches[name] = (serve_launches.get(name, 0)
                           + sum(run[0][name] for run in attn_train.values()))
@@ -11008,9 +11635,11 @@ def main() -> int:
 
     # ---- 4e. AlexNet: serving, then training (rows 3-4; 10-11)
     alex_host = alexnet_params(alexnet_conf(), SEED)
-    alex_serve = phase_serve_alexnet(torch, alex_host, card)
-    alex_train = {dtype: phase_train_alexnet(torch, lr, dtype, alex_host, card)
-                  for dtype in ("float32", "bfloat16")}
+    with section("serve_alexnet"):
+        alex_serve = phase_serve_alexnet(torch, alex_host, card)
+    with section("train_alexnet"):
+        alex_train = {dtype: phase_train_alexnet(torch, lr, dtype, alex_host, card)
+                      for dtype in ("float32", "bfloat16")}
     for name in LRN_KERNELS:
         launches[name] = (alex_serve.get(name, 0)
                           + sum(run[0][name] for run in alex_train.values()))
@@ -11021,9 +11650,11 @@ def main() -> int:
 
     # ---- 4f. GoogLeNet, a ComputationGraph: serving, then training (rows 3-4; 10-11)
     goog_host = googlenet_params(googlenet_conf(aux_heads=True), SEED)
-    goog_serve = phase_serve_googlenet(torch, goog_host, card)
-    goog_train = {dtype: phase_train_googlenet(torch, lr, dtype, goog_host, card)
-                  for dtype in ("float32", "bfloat16")}
+    with section("serve_googlenet"):
+        goog_serve = phase_serve_googlenet(torch, goog_host, card)
+    with section("train_googlenet"):
+        goog_train = {dtype: phase_train_googlenet(torch, lr, dtype, goog_host, card)
+                      for dtype in ("float32", "bfloat16")}
     for name in (*LRN_KERNELS, "softmax_xent_fwd", "softmax_xent_bwd"):
         on_path = (goog_serve.get(name, 0)
                    + sum(run[0].get(name, 0) for run in goog_train.values()))
@@ -11036,11 +11667,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     res_host = resnet_params(resnet50_conf(), SEED)
     res_state = resnet_serving_state(res_host)
-    phase_serve_resnet50(torch, res_host, res_state, card)
-    res_train = {dtype: phase_train_resnet50(torch, dtype, res_host, card)
-                 for dtype in ("float32", "bfloat16")}
+    with section("serve_resnet50"):
+        phase_serve_resnet50(torch, res_host, res_state, card)
+    with section("train_resnet50"):
+        res_train = {dtype: phase_train_resnet50(torch, dtype, res_host, card)
+                     for dtype in ("float32", "bfloat16")}
     # ---- 4h. LeNet and the MNIST MLP on MultiLayerNetwork (rows 10-12)
-    mnist_train = {name: phase_train_mnist(torch, name, card) for name in mnist_models()}
+    with section("train_mnist"):
+        mnist_train = {name: phase_train_mnist(torch, name, card) for name in mnist_models()}
     new_path_launches = {("resnet50", k): sum(run[0].get(k, 0) for run in res_train.values())
                          for k in ("softmax_xent_fwd", "softmax_xent_bwd")}
     for name, (counts, _) in mnist_train.items():
@@ -11048,19 +11682,23 @@ def main() -> int:
             new_path_launches[(name, k)] = counts.get(k, 0)
     # ---- 4i. slice 16: the accuracy pins on real data, then the char-RNN fed
     # from record files (rows 5-12); each phase counts from 0
-    real_train = {name: phase_train_real(torch, name, card) for name in real_data_models()}
+    with section("train_real"):
+        real_train = {name: phase_train_real(torch, name, card) for name in real_data_models()}
     real_launches = {name: run[0] for name, run in real_train.items()}
-    real_launches["pangram"], _ = phase_train_pangram(torch, ls, card)
-    real_launches["records"], records_mask = phase_train_records(
-        torch, real_train["iris"][1], real_train["iris"][2], card)
+    with section("train_pangram"):
+        real_launches["pangram"], _ = phase_train_pangram(torch, ls, card)
+    with section("train_records"):
+        real_launches["records"], records_mask = phase_train_records(
+            torch, real_train["iris"][1], real_train["iris"][2], card)
     for where, names in REAL_DATA_ROWS.items():
         for k in names:
             new_path_launches[(where, k)] = real_launches[where].get(k, 0)
     # ---- 4j. slice 17: the staged loop, its step captured and replayed
     # (ResNet-50, the recipe on both routes, LeNet and the MLP), and the
     # prefetch of fit (AlexNet); each phase counts from 0
-    staged_launches, staged_replays, staged_replayed, staged_times = phases_slice17(
-        torch, card, res_host, alex_host, host_params)
+    with section("slice17"):
+        staged_launches, staged_replays, staged_replayed, staged_times = phases_slice17(
+            torch, card, res_host, alex_host, host_params)
     for counts in staged_launches.values():
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -11072,19 +11710,20 @@ def main() -> int:
     # ---- 4k. slice 18: the char-RNN as a ComputationGraph (TBPTT, stream,
     # decode), the sequence classifier, the MoE block; each phase counts from 0
     s18_launches, s18_times = {}, {}
-    graph_runs = {dtype: phase_train_graph_char_rnn(torch, dtype, host_params, card)
-                  for dtype in ("float32", "bfloat16")}
-    graph_serve = phase_serve_graph_char_rnn(torch, host_params, x, nets["float32"],
-                                             trajectories, card)
-    s18_launches["graph_char_rnn"] = sum_counts(
-        [run[0] for run in graph_runs.values()] + [graph_serve[0]])
-    s18_times["graph_char_rnn"] = {**{dt: run[1] for dt, run in graph_runs.items()},
-                                   "serve": graph_serve[1]}
-    seq_counts, s18_times["seq_classifier"], seq_mask, seq_shapes = phase_train_seq_classifier(
-        torch, card)
-    s18_launches["seq_classifier"] = seq_counts
-    moe_runs = {dtype: phase_train_moe_attention(torch, dtype, card)
-                for dtype in ("float32", "bfloat16")}
+    with section("slice18"):
+        graph_runs = {dtype: phase_train_graph_char_rnn(torch, dtype, host_params, card)
+                      for dtype in ("float32", "bfloat16")}
+        graph_serve = phase_serve_graph_char_rnn(torch, host_params, x, nets["float32"],
+                                                 trajectories, card)
+        s18_launches["graph_char_rnn"] = sum_counts(
+            [run[0] for run in graph_runs.values()] + [graph_serve[0]])
+        s18_times["graph_char_rnn"] = {**{dt: run[1] for dt, run in graph_runs.items()},
+                                       "serve": graph_serve[1]}
+        seq_counts, s18_times["seq_classifier"], seq_mask, seq_shapes = (
+            phase_train_seq_classifier(torch, card))
+        s18_launches["seq_classifier"] = seq_counts
+        moe_runs = {dtype: phase_train_moe_attention(torch, dtype, card)
+                    for dtype in ("float32", "bfloat16")}
     s18_launches["moe_attention"] = sum_counts([run[0] for run in moe_runs.values()])
     s18_times["moe_attention"] = {dt: run[1] for dt, run in moe_runs.items()}
     for counts in s18_launches.values():
@@ -11096,8 +11735,9 @@ def main() -> int:
     # ---- 4l. slice 19: pretraining and transfer learning (the DBN, the
     # digits DBN, the VAE, ResNet-50 transferred, early stopping; rows
     # 10-12); each phase counts from 0
-    s19_launches, s19_times, s19_shapes = phases_slice19(torch, card, res_host, res_state,
-                                                         res_train["float32"][1])
+    with section("slice19"):
+        s19_launches, s19_times, s19_shapes = phases_slice19(torch, card, res_host, res_state,
+                                                             res_train["float32"][1])
     for counts in s19_launches.values():
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -11108,7 +11748,8 @@ def main() -> int:
     # optimizers (ResNet-50 on LAMB under telemetry, the seven updaters on
     # the char-RNN, the solvers on Iris, the watchdog and flight recorder on
     # the MNIST MLP; rows 6-7, 10-12); each phase counts from 0
-    s20_launches, s20_times = phases_slice20(torch, card, res_host, host_params)
+    with section("slice20"):
+        s20_launches, s20_times = phases_slice20(torch, card, res_host, host_params)
     for counts in s20_launches.values():
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -11119,8 +11760,9 @@ def main() -> int:
     # a replayed CUDA graph (GoogLeNet, ResNet-50, the char-RNN; the
     # service and its decode); each phase counts from 0
     os.environ.pop("DL4JTPU_INFER")
-    s21_launches, s21_replayed, s21_readings, s21_yardstick = phases_slice21(
-        torch, card, goog_host, res_host, res_state, host_params, alex_host)
+    with section("slice21"):
+        s21_launches, s21_replayed, s21_readings, s21_yardstick = phases_slice21(
+            torch, card, goog_host, res_host, res_state, host_params, alex_host)
     os.environ["DL4JTPU_INFER"] = "legacy"
     for counts in s21_launches.values():
         for k, v in counts.items():
@@ -11132,8 +11774,9 @@ def main() -> int:
     # CheckpointStore, hot swaps into an InferenceService under client
     # traffic, a rollback) on the default, replayed path; counts from 0
     os.environ.pop("DL4JTPU_INFER")
-    s22_launches, s22_by_t, s22_readings, s22_mask = phase_online_char_rnn(
-        torch, host_params, card)
+    with section("online_char_rnn"):
+        s22_launches, s22_by_t, s22_readings, s22_mask = phase_online_char_rnn(
+            torch, host_params, card)
     os.environ["DL4JTPU_INFER"] = "legacy"
     for k, v in s22_launches.items():
         launches[k] = launches.get(k, 0) + v
@@ -11148,7 +11791,8 @@ def main() -> int:
     # vectors into the sentiment LSTM (rows 8-12) on the default path;
     # counts from 0
     os.environ.pop("DL4JTPU_INFER")
-    s24_launches, s24_mask, s24_shapes, s24_readings = phases_slice24(torch, card)
+    with section("slice24"):
+        s24_launches, s24_mask, s24_shapes, s24_readings = phases_slice24(torch, card)
     os.environ["DL4JTPU_INFER"] = "legacy"
     for k, v in s24_launches.items():
         launches[k] = launches.get(k, 0) + v
@@ -11159,7 +11803,8 @@ def main() -> int:
     # and fine-tuned; the gateway's session; rows 5-7, dRW and 10-12 with
     # the hardsigmoid gate) on the default path; each path counts from 0
     os.environ.pop("DL4JTPU_INFER")
-    s25_launches, s25_readings, s25_shapes = phases_slice25(torch, ls, card)
+    with section("slice25"):
+        s25_launches, s25_readings, s25_shapes = phases_slice25(torch, ls, card)
     os.environ["DL4JTPU_INFER"] = "legacy"
     for counts in s25_launches.values():
         for k, v in counts.items():
@@ -11167,48 +11812,67 @@ def main() -> int:
     for (k, shape), paths in SLICE25_ROWS.items():
         new_path_launches[("keras_import", k, shape)] = sum(
             s25_launches[p].get(k, 0) for p in paths)
+    # ---- 4s. slice 26: the autotuner's search over the bench MLP (rows
+    # 10-12 inside its trials, counted by batch), then the serving fleet, two
+    # worker processes on this card (row 5 in each worker's replayed
+    # buckets, read from their /api/worker); the default path
+    os.environ.pop("DL4JTPU_INFER")
+    with section("tune_mlp"):
+        s26_tune_launches, s26_tune = phase_tune_mlp(torch, card)
+    with section("fleet_char_rnn"):
+        s26_row5, s26_fleet = phase_fleet_char_rnn(torch, host_params, card)
+    os.environ["DL4JTPU_INFER"] = "legacy"
+    for (k, shape), n in s26_tune_launches.items():
+        launches[k] = launches.get(k, 0) + n
+        new_path_launches[("tune_mlp", k, shape)] = n
+    for k in ("lstm_seq_lean", "lstm_seq_lean_masked"):
+        new_path_launches[("fleet_char_rnn", k)] = s26_row5.get(k, 0)
     missing = [key for key, n in new_path_launches.items() if not n]
     if missing:
         raise AssertionError(f"kernels that did not launch on their path: {missing}")
 
     # ---- 5. times
     times = {}
-    for dtype in ("float32", "bfloat16"):
-        for T, B, masked in ((STEPS, BATCH, False), (1, SLOTS, True)):
-            args = seq_inputs(torch, T, B, HIDDEN, dtype, masked, SEED)
-            if masked:
-                kern = lambda: ls.fused_lstm_sequence_masked(*args)  # noqa: E731
-                plain = lambda: ls.lstm_sequence_masked_reference(*args)  # noqa: E731
-            else:
-                kern = lambda: ls.fused_lstm_sequence(*args)  # noqa: E731
-                plain = lambda: ls.lstm_sequence_reference(*args)  # noqa: E731
-            plain_ms_1 = median_ms(plain, **PLAIN_REPS)
-            ms_1 = median_ms(kern)
-            ms_2 = median_ms(kern)
-            plain_ms_2 = median_ms(plain, **PLAIN_REPS)
-            b_ms, b_by = bound(T, B, HIDDEN, dtype, masked,
-                               live_share(args[1]) if masked else 1.0)
-            name = "lstm_seq_lean_masked" if masked else "lstm_seq_lean"
-            times[(name, dtype)] = dict(
-                ms=min(ms_1, ms_2), plain_ms=min(plain_ms_1, plain_ms_2),
-                bound_ms=b_ms, bound_by=b_by, T=T, B=B)
-            emit("time_kernel", kernel=name, dtype=dtype, T=T, B=B, H=HIDDEN,
-                 ms_runs=[ms_1, ms_2], plain_ms_runs=[plain_ms_1, plain_ms_2],
-                 bound_ms=b_ms, bound_by=b_by, step_launches=T,
-                 library_ms=None, gpu=card)
-    for dt, net in nets.items():
-        net.output(x)
-        runs = []
-        for _ in range(5):
-            t0 = time.perf_counter()
+    with section("time_main_rows"):
+        for dtype in ("float32", "bfloat16"):
+            for T, B, masked in ((STEPS, BATCH, False), (1, SLOTS, True)):
+                args = seq_inputs(torch, T, B, HIDDEN, dtype, masked, SEED)
+                if masked:
+                    kern = lambda: ls.fused_lstm_sequence_masked(*args)  # noqa: E731
+                    plain = lambda: ls.lstm_sequence_masked_reference(*args)  # noqa: E731
+                else:
+                    kern = lambda: ls.fused_lstm_sequence(*args)  # noqa: E731
+                    plain = lambda: ls.lstm_sequence_reference(*args)  # noqa: E731
+                plain_ms_1 = median_ms(plain, **PLAIN_REPS)
+                ms_1 = median_ms(kern)
+                ms_2 = median_ms(kern)
+                plain_ms_2 = median_ms(plain, **PLAIN_REPS)
+                b_ms, b_by = bound(T, B, HIDDEN, dtype, masked,
+                                   live_share(args[1]) if masked else 1.0)
+                name = "lstm_seq_lean_masked" if masked else "lstm_seq_lean"
+                times[(name, dtype)] = dict(
+                    ms=min(ms_1, ms_2), plain_ms=min(plain_ms_1, plain_ms_2),
+                    bound_ms=b_ms, bound_by=b_by, T=T, B=B)
+                emit("time_kernel", kernel=name, dtype=dtype, T=T, B=B, H=HIDDEN,
+                     ms_runs=[ms_1, ms_2], plain_ms_runs=[plain_ms_1, plain_ms_2],
+                     bound_ms=b_ms, bound_by=b_by, step_launches=T,
+                     library_ms=None, gpu=card)
+        for dt, net in nets.items():
             net.output(x)
-            runs.append((time.perf_counter() - t0) * 1e3)
-        emit("time_output", dtype=dt, B=BATCH, T=STEPS, ms_median=statistics.median(runs),
-             ms_runs=runs, gpu=card)
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                net.output(x)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            emit("time_output", dtype=dt, B=BATCH, T=STEPS, ms_median=statistics.median(runs),
+                 ms_runs=runs, gpu=card)
 
-    times.update(time_train_kernels(torch, ls, sx, card))
-    cell_times = time_cell(torch, lc, times, card)
-    drw_times = time_drw(torch, ls, card)
+    with section("time_train_kernels"):
+        times.update(time_train_kernels(torch, ls, sx, card))
+    with section("time_cell"):
+        cell_times = time_cell(torch, lc, times, card)
+    with section("time_drw"):
+        drw_times = time_drw(torch, ls, card)
     times[("drw_product", "float32")] = drw_times[("float32", STEPS * BATCH)]
     for name in CELL_KERNELS:  # the table's shape: B=64
         times[(name, "float32")] = cell_times[(name, "float32", BATCH)]
@@ -11217,89 +11881,106 @@ def main() -> int:
                 "seqfused_ms_per_update_same_phase": cell_train[dtype][1]["seqfused"],
                 "seqfused_ms_per_update_train_recipe": recipe[dtype][1]}
         for dtype in cell_train})
-    times[("adam_update", "float32")] = time_adam(torch, ad, card)
-    times[("adam_update_dev", "float32")] = time_adam(torch, ad, card, dev=True)
-    times.update(time_attention(torch, fa, card))
-    lrn_times = time_lrn(torch, lr, card, sass["lrn"])
+    with section("time_adam"):
+        times[("adam_update", "float32")] = time_adam(torch, ad, card)
+        times[("adam_update_dev", "float32")] = time_adam(torch, ad, card, dev=True)
+    with section("time_attention"):
+        times.update(time_attention(torch, fa, card))
+    with section("time_lrn"):
+        lrn_times = time_lrn(torch, lr, card, sass["lrn"])
     for name in LRN_KERNELS:  # the table's shape: LRN 1
         times[(name, "float32")] = lrn_times[(name, "float32", "lrn1")]
-    head_times = time_sxent_head(torch, sx, card)
-    for name, (B, conf) in mnist_models().items():
-        for (k, _), t in time_sxent(torch, sx, B, 10, ("float32",), card,
-                                    f"{name}'s loss head").items():
-            times[(k, name)] = t
-        shapes = mnist_leaf_shapes(conf)
-        times[("adam_update", name)] = time_adam(torch, ad, card, shapes,
-                                                 f"{name}'s {len(shapes)} leaves")
-        if name == "lenet":
-            times[("adam_update_dev", name)] = time_adam(
-                torch, ad, card, shapes, f"{name}'s {len(shapes)} leaves", dev=True)
-    real_shapes = real_data_adam_shapes()
-    for where, (N, C) in REAL_DATA_SXENT.items():
-        for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card,
-                                    f"{where}'s loss head").items():
-            times[(k, where)] = t
-        times[("adam_update", where)] = time_adam(torch, ad, card, real_shapes[where],
-                                                  f"{where}'s {len(real_shapes[where])} leaves")
-    lstm_at = {"pangram": lstm_rows_at(torch, ls, PANGRAM_TBPTT, PANGRAM_B, PANGRAM_H, card,
-                                       "pangram"),
-               "records": lstm_rows_at(torch, ls, records_mask.shape[0], RECORDS_B, HIDDEN,
-                                       card, "records", mask=records_mask)}
-    lstm_at["pangram"]["lstm_seq_lean"] = list(lean_at(torch, ls, PANGRAM_T, PANGRAM_B,
-                                                       PANGRAM_H, card, "pangram"))
+    with section("time_heads"):
+        head_times = time_sxent_head(torch, sx, card)
+        for name, (B, conf) in mnist_models().items():
+            for (k, _), t in time_sxent(torch, sx, B, 10, ("float32",), card,
+                                        f"{name}'s loss head").items():
+                times[(k, name)] = t
+            shapes = mnist_leaf_shapes(conf)
+            times[("adam_update", name)] = time_adam(torch, ad, card, shapes,
+                                                     f"{name}'s {len(shapes)} leaves")
+            if name == "lenet":
+                times[("adam_update_dev", name)] = time_adam(
+                    torch, ad, card, shapes, f"{name}'s {len(shapes)} leaves", dev=True)
+        real_shapes = real_data_adam_shapes()
+        for where, (N, C) in REAL_DATA_SXENT.items():
+            for (k, _), t in time_sxent(torch, sx, N, C, ("float32",), card,
+                                        f"{where}'s loss head").items():
+                times[(k, where)] = t
+            times[("adam_update", where)] = time_adam(
+                torch, ad, card, real_shapes[where],
+                f"{where}'s {len(real_shapes[where])} leaves")
+        lstm_at = {"pangram": lstm_rows_at(torch, ls, PANGRAM_TBPTT, PANGRAM_B, PANGRAM_H,
+                                           card, "pangram"),
+                   "records": lstm_rows_at(torch, ls, records_mask.shape[0], RECORDS_B,
+                                           HIDDEN, card, "records", mask=records_mask)}
+        lstm_at["pangram"]["lstm_seq_lean"] = list(lean_at(torch, ls, PANGRAM_T, PANGRAM_B,
+                                                           PANGRAM_H, card, "pangram"))
     lstm_shapes = {"pangram": {"lstm_seq_lean": (PANGRAM_T, PANGRAM_B, PANGRAM_H)},
                    "records": {}}
-    s18_rows = kernels_slice18(torch, ls, sx, ad, card, seq_mask,
-                               {"seq_classifier": seq_shapes,
-                                "moe_attention": moe_runs["float32"][2]})
-    s19_rows = kernels_slice19(torch, sx, ad, card, s19_shapes)
-    s20_rows = kernels_slice20(torch, sx, card)
-    s21_rows = kernels_slice21(torch, ls, lr, card)
-    s22_rows = kernels_slice22(torch, ls, sx, card, s22_mask)
-    s24_rows = kernels_slice24(torch, ls, sx, ad, card, s24_mask, s24_shapes)
-    s25_rows = kernels_slice25(torch, ls, sx, ad, card, s25_shapes)
+    with section("kernels_slice18"):
+        s18_rows = kernels_slice18(torch, ls, sx, ad, card, seq_mask,
+                                   {"seq_classifier": seq_shapes,
+                                    "moe_attention": moe_runs["float32"][2]})
+    with section("kernels_slice19"):
+        s19_rows = kernels_slice19(torch, sx, ad, card, s19_shapes)
+    with section("kernels_slice20"):
+        s20_rows = kernels_slice20(torch, sx, card)
+    with section("kernels_slice21"):
+        s21_rows = kernels_slice21(torch, ls, lr, card)
+    with section("kernels_slice22"):
+        s22_rows = kernels_slice22(torch, ls, sx, card, s22_mask)
+    with section("kernels_slice24"):
+        s24_rows = kernels_slice24(torch, ls, sx, ad, card, s24_mask, s24_shapes)
+    with section("kernels_slice25"):
+        s25_rows = kernels_slice25(torch, ls, sx, ad, card, s25_shapes)
+    with section("kernels_slice26"):
+        s26_rows = kernels_slice26(torch, ls, sx, ad, card)
     emit("recipe_update_share", gpu=card, **{
         dtype: {"ms_per_update": run[1], "adam_ms_per_update": times[("adam_update", "float32")]["ms"],
                 "adam_share": times[("adam_update", "float32")]["ms"] / run[1]}
         for dtype, run in recipe.items()})
 
-    net = nets["float32"]
-    emit("profile", what="output() f32 B=64 T=256", gpu=card,
-         **profile(torch, lambda: net.output(x), groups=LSTM_PROFILE_GROUPS))
-    _, _, train_net, (tx, ty) = train[("standard", "float32")]
-    emit("profile", what="fit() one standard SGD update, f32 B=64 T=256", gpu=card,
-         **profile(torch, lambda: train_net.fit((tx, ty)), groups=LSTM_PROFILE_GROUPS))
-    _, _, recipe_net, recipe_it = recipe["float32"]
-    long_batch = next(ds for ds in recipe_it if ds.features.shape[1] == STEPS)
-    emit("profile", what="fit() one bucketed Adam TBPTT batch, f32 B=64 T=256 (6 updates)",
-         gpu=card, **profile(torch, lambda: recipe_net.fit(long_batch),
-                             groups=LSTM_PROFILE_GROUPS))
-    _, _, cell_net, (cx, cy) = cell_train["float32"]
-    emit("profile", what="fit() one standard SGD update on the fusedcell route, f32 B=64 "
-         "T=256 (512 launches of each cell row)", gpu=card,
-         **profile(torch, lambda: cell_net.fit((cx, cy)), top=8, groups=LSTM_PROFILE_GROUPS))
-    _, _, attn_net, attn_it = attn_train["float32"]
-    attn_batch = next(ds for ds in attn_it if ds.features.shape[1] == ATTN_T)
-    emit("profile", what="fit() one Adam update of the attention net, f32 B=4 T=4096",
-         gpu=card, **profile(torch, lambda: attn_net.fit(attn_batch)))
-    _, _, alex_net, alex_batch = alex_train["float32"]
-    emit("profile", what="fit() one Nesterov update of AlexNet, f32 B=128, dropout 0.5",
-         gpu=card, **profile(torch, lambda: alex_net.fit(alex_batch), top=14,
-                             groups=ALEX_PROFILE_GROUPS))
-    for dtype, (_, _, goog_net, goog_batch) in goog_train.items():
-        emit("profile", what=f"fit() one Nesterov update of GoogLeNet, {dtype} B=128, "
-             "dropout 0.4", gpu=card, **profile(torch, lambda: goog_net.fit(goog_batch),
-                                               top=14, groups=ALEX_PROFILE_GROUPS))
-    x_goog = alexnet_images(GOOG_B, SEED + 8)[0]
-    goog_serving = googlenet_net(googlenet_conf(), goog_host)
-    emit("profile", what="output() of GoogLeNet, f32 B=128", gpu=card,
-         **profile(torch, lambda: goog_serving.output(x_goog), top=14,
-                   groups=ALEX_PROFILE_GROUPS))
-    server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
+    with section("profiles"):
+        net = nets["float32"]
+        emit("profile", what="output() f32 B=64 T=256", gpu=card,
+             **profile(torch, lambda: net.output(x), groups=LSTM_PROFILE_GROUPS))
+        _, _, train_net, (tx, ty) = train[("standard", "float32")]
+        emit("profile", what="fit() one standard SGD update, f32 B=64 T=256", gpu=card,
+             **profile(torch, lambda: train_net.fit((tx, ty)), groups=LSTM_PROFILE_GROUPS))
+        _, _, recipe_net, recipe_it = recipe["float32"]
+        long_batch = next(ds for ds in recipe_it if ds.features.shape[1] == STEPS)
+        emit("profile",
+             what="fit() one bucketed Adam TBPTT batch, f32 B=64 T=256 (6 updates)",
+             gpu=card, **profile(torch, lambda: recipe_net.fit(long_batch),
+                                 groups=LSTM_PROFILE_GROUPS))
+        _, _, cell_net, (cx, cy) = cell_train["float32"]
+        emit("profile", what="fit() one standard SGD update on the fusedcell route, f32 B=64 "
+             "T=256 (512 launches of each cell row)", gpu=card,
+             **profile(torch, lambda: cell_net.fit((cx, cy)), top=8,
+                       groups=LSTM_PROFILE_GROUPS))
+        _, _, attn_net, attn_it = attn_train["float32"]
+        attn_batch = next(ds for ds in attn_it if ds.features.shape[1] == ATTN_T)
+        emit("profile", what="fit() one Adam update of the attention net, f32 B=4 T=4096",
+             gpu=card, **profile(torch, lambda: attn_net.fit(attn_batch)))
+        _, _, alex_net, alex_batch = alex_train["float32"]
+        emit("profile", what="fit() one Nesterov update of AlexNet, f32 B=128, dropout 0.5",
+             gpu=card, **profile(torch, lambda: alex_net.fit(alex_batch), top=14,
+                                 groups=ALEX_PROFILE_GROUPS))
+        for dtype, (_, _, goog_net, goog_batch) in goog_train.items():
+            emit("profile", what=f"fit() one Nesterov update of GoogLeNet, {dtype} B=128, "
+                 "dropout 0.4", gpu=card, **profile(torch, lambda: goog_net.fit(goog_batch),
+                                                   top=14, groups=ALEX_PROFILE_GROUPS))
+        x_goog = alexnet_images(GOOG_B, SEED + 8)[0]
+        goog_serving = googlenet_net(googlenet_conf(), goog_host)
+        emit("profile", what="output() of GoogLeNet, f32 B=128", gpu=card,
+             **profile(torch, lambda: goog_serving.output(x_goog), top=14,
+                       groups=ALEX_PROFILE_GROUPS))
+        server = DecodeServer(net, capacity=SLOTS, max_delay_ms=2.0)
 
-    emit("profile", what=f"decode {SLOTS} sessions x {DECODE_CHARS} chars f32", gpu=card,
-         **profile(torch, lambda: decode_sessions(server)))
-    server.stop()
+        emit("profile", what=f"decode {SLOTS} sessions x {DECODE_CHARS} chars f32", gpu=card,
+             **profile(torch, lambda: decode_sessions(server)))
+        server.stop()
 
     # ---- 6. the kernels of the paths (f32, at the main path's shapes)
     lines = []
@@ -11528,6 +12209,28 @@ def main() -> int:
             "library_ms": t.get("library_ms"), "dtype": "float32",
             "shape": shape + (", gate hardsigmoid" if k.startswith("lstm") else ""),
             "paths": list(paths), "kernel_device_ms": t.get("kernel_device_ms")})
+    # rows 10-12 at the autotuner's search (launches of its trials at each
+    # batch, and of the winner's first staged updates), row 5 at the fleet's
+    # buckets (launches in the worker processes, read from /api/worker)
+    for (k, shape), (err, t) in s26_rows.items():
+        if k.startswith("lstm"):
+            path, n = "fleet_char_rnn", new_path_launches[("fleet_char_rnn", k)]
+        elif (k, shape) in s26_tune_launches:
+            path, n = "tune_mlp", s26_tune_launches[(k, shape)]
+        else:
+            continue  # f32 at a batch the search's winner did not take
+        source, replaces = KERNELS[k]
+        lines.append({
+            "name": f"{k}@{path}[{shape}]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "dtype": "float32" if k.startswith(
+                ("lstm", "adam")) else shape.split()[-1], "shape": shape,
+            "kernel_device_ms": t.get("kernel_device_ms")})
+    script_s = time.perf_counter() - STARTED
+    emit("phase_seconds_summary", seconds=dict(sorted(
+        PHASE_SECONDS.items(), key=lambda kv: -kv[1])),
+         outside_sections=script_s - sum(PHASE_SECONDS.values()), script_seconds=script_s)
     print(json.dumps({"kernels": lines, "launches": launches,
                       "staged_replays": staged_replays, "staged_ms_per_update": staged_times,
                       "staged_replayed_launches": staged_replayed,
@@ -11574,6 +12277,7 @@ def main() -> int:
                       "slice23": s23_readings,
                       "slice24": s24_readings,
                       "slice25": s25_readings,
+                      "slice26": {"tune_mlp": s26_tune, "fleet_char_rnn": s26_fleet},
                       "script_seconds": time.perf_counter() - STARTED}),
           flush=True)
     print(gpu_line(), flush=True)

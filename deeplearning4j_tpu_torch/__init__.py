@@ -63,8 +63,11 @@ counts), serves the training dashboard and the HTTP service
 embeddings (``nlp``: ``Word2Vec``, ``ParagraphVectors``, ``Glove``,
 ``DistributedWord2Vec`` over ``SequenceVectors``, the word-vector formats,
 and ``Word2VecDataSetIterator``, which feeds trained vectors to a network;
-``graph_embeddings``: ``DeepWalk``). Entry points run on the card unless
-the caller passes ``device="cpu"``.
+``graph_embeddings``: ``DeepWalk``). It searches its own knobs
+(``tune``: successive halving over measured trials, ``TUNED.json`` applied
+at ``fit``, ``warmup``, ``InferenceService.register`` and ``OnlineTrainer``)
+and serves from several worker processes behind a router (``fleet``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .datasets.fetchers import (DigitsDataSetIterator, IrisDataSetIterator,

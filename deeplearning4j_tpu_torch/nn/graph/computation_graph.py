@@ -467,9 +467,13 @@ class ComputationGraph(BaseNetwork):
                labels_masks=None, real_batches: Optional[int] = None) -> "ComputationGraph":
         """Capture ahead (see ``MultiLayerNetwork.warmup``): one array (or
         meta tensor) per network input and output, masks per input and
-        output."""
+        output. A matching TUNED.json entry retargets the telemetry cadence
+        (``tune/store.py``)."""
         self.init()
         self._updater_ready()
+        from ...tune import store as _tuned  # noqa: PLC0415
+
+        _tuned.auto_apply(self, "warmup")
 
         def mat(v):
             if isinstance(v, (list, tuple)):

@@ -13,10 +13,22 @@ library call here. ConvolutionMode's output-size rules (strict, truncate,
 same) are the JAX package's; Same pads asymmetrically, low side
 ``total//2``, which ``F.conv2d``'s symmetric ``padding`` cannot express, so
 asymmetric pads are applied by ``F.pad`` first.
+
+An f32 convolution on the card computes in f32 whatever the process's
+flags say: torch lets cuDNN run f32 convolutions in TF32 by default
+(``torch.backends.cudnn.allow_tf32``), whose 10-bit mantissa moves a
+ResNet-50 or VGG16 update well past what the JAX reference computes in f32
+(``scripts/torch_tf32_probe.py``). :func:`conv` runs such a convolution
+through :class:`ExactF32Conv`, which turns cuDNN's TF32 off for its forward
+and for both products of its backward (the flag is process-wide, so it is
+set and put back under one lock). bf16, and every convolution on the CPU,
+take ``F.conv2d``/``F.conv1d`` as before.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -69,6 +81,64 @@ def _same_pads(size: int, k: int, s: int, dilation: int = 1) -> Tuple[int, int]:
     out = -(-size // s)
     total = max((out - 1) * s + k_eff - size, 0)
     return total // 2, total - total // 2
+
+
+_TF32_LOCK = threading.RLock()
+
+
+@contextmanager
+def cudnn_tf32_off():
+    """cuDNN's TF32 off for the body, put back after it. The flag is
+    process-wide: every convolution of the port sets it under this lock, so
+    two of them on two threads never put it back under each other."""
+    with _TF32_LOCK:
+        prior = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prior
+
+
+class ExactF32Conv(torch.autograd.Function):
+    """``aten.convolution`` (N-d, no transpose) in f32 with cuDNN's TF32 off
+    in the forward and in the backward's input and weight products."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.args = (tuple(stride), tuple(padding), tuple(dilation), int(groups), b is not None)
+        with cudnn_tf32_off():
+            return torch.ops.aten.convolution(x, w, b, stride, padding, dilation, False,
+                                              [0] * len(stride), groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups, has_b = ctx.args
+        need = ctx.needs_input_grad
+        with cudnn_tf32_off():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                gy, x, w, [w.shape[0]] if has_b else None, stride, padding, dilation,
+                False, [0] * len(stride), groups, [need[0], need[1], has_b and need[2]])
+        return gx, gw, gb, None, None, None, None
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, b, stride, padding, dilation=None,
+         groups: int = 1) -> torch.Tensor:
+    """``F.conv2d``/``F.conv1d`` by ``x``'s rank, with an f32 convolution on
+    the card computed in f32 (:class:`ExactF32Conv`)."""
+    n = x.dim() - 2
+    stride, padding = _tuple(stride, n), _tuple(padding, n)
+    dilation = _tuple(1 if dilation is None else dilation, n)
+    if x.is_cuda and x.dtype == torch.float32:
+        return ExactF32Conv.apply(x, w, b, stride, padding, dilation, groups)
+    fn = F.conv2d if n == 2 else F.conv1d
+    return fn(x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
+
+
+def _tuple(v, n: int) -> Tuple[int, ...]:
+    return tuple(int(a) for a in v) if isinstance(v, (tuple, list)) else (int(v),) * n
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -148,8 +218,8 @@ class ConvolutionLayer(BaseLayer):
         else:
             xc, padding = pad_nchw(xc, pads), (0, 0)
         w = params["W"].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        z = F.conv2d(xc, w, params["b"] if self.has_bias else None, stride=self.stride,
-                     padding=padding, dilation=self.dilation)
+        z = conv(xc, w, params["b"] if self.has_bias else None, stride=self.stride,
+                 padding=padding, dilation=self.dilation)
         return self._activate(nhwc(z)), state
 
 
@@ -194,8 +264,8 @@ class Convolution1DLayer(BaseLayer):
         xc = x.transpose(1, 2)  # [B, F, T]
         if lo != hi:
             xc, lo = F.pad(xc, (lo, hi)), 0
-        z = F.conv1d(xc, params["W"].permute(2, 1, 0), params["b"] if self.has_bias else None,
-                     stride=self.stride, padding=lo)
+        z = conv(xc, params["W"].permute(2, 1, 0), params["b"] if self.has_bias else None,
+                 stride=self.stride, padding=lo)
         return self._activate(z.transpose(1, 2)), state
 
 

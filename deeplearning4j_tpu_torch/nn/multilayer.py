@@ -664,7 +664,7 @@ class BaseNetwork(torch.nn.Module):
             step_scalars(self._updater, self._opt_state, 1)[0]))
         snap = self._snapshot()
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = get_compile_manager().side_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
@@ -808,10 +808,18 @@ class BaseNetwork(torch.nn.Module):
             self._finish_window(queued)
 
     def _fit_stage(self, stage_on_device) -> int:
-        """The window size ``fit`` stages with: 0 for None (the port has no
-        tuning store), and 0 under TBPTT or when a listener lacks
+        """The window size ``fit`` stages with: for None, a matching
+        TUNED.json entry's ``stage_window`` (``tune/store.py``, which also
+        retargets the telemetry cadence), else 0; an explicit value,
+        including 0, always wins. 0 under TBPTT or when a listener lacks
         ``supports_staged`` (its ``iteration_done`` runs after the window,
         where the per-step model state it might read is gone)."""
+        from ..tune import store as _tuned  # noqa: PLC0415
+
+        tuned = _tuned.auto_apply(
+            self, "fit", explicit=() if stage_on_device is None else ("stage_window",))
+        if stage_on_device is None:
+            stage_on_device = tuned.get("stage_window", 0)
         stage = int(stage_on_device or 0)
         if stage > 1 and (self.conf.backprop_type == "tbptt" or any(
                 not getattr(lst, "supports_staged", False) for lst in self.listeners)):
@@ -1094,7 +1102,8 @@ class MultiLayerNetwork(BaseNetwork):
         sequences pad to power-of-two lengths, a trailing partial window runs
         its real batches only; ``bucketing=False`` stages only full uniform
         groups and trains the rest per batch. TBPTT, and a listener without
-        ``supports_staged``, turn staging off."""
+        ``supports_staged``, turn staging off. ``stage_on_device=None`` takes a
+        matching TUNED.json entry's window (``tune/store.py``)."""
         self._updater_ready()
         stage = self._fit_stage(stage_on_device)
         for it, reader in self._epochs(data, epochs, stage > 1):
@@ -1152,9 +1161,14 @@ class MultiLayerNetwork(BaseNetwork):
         arrays may be real data or meta tensors (shape and dtype only). The
         capture's warm-up steps run from a snapshot of the params, updater
         and layer state, the dropout generator's state and ``iteration``,
-        which is put back exactly. TBPTT raises ``ValueError``."""
+        which is put back exactly. TBPTT raises ``ValueError``. A matching
+        TUNED.json entry retargets the telemetry cadence
+        (``tune/store.py``)."""
         self.init()
         self._updater_ready()
+        from ..tune import store as _tuned  # noqa: PLC0415
+
+        _tuned.auto_apply(self, "warmup")
         xs, ys, fm, lm = (None if a is None else _materialize(a)
                           for a in (xs, ys, features_masks, labels_masks))
         stacked = self._staged_args(xs, ys, fm, lm)

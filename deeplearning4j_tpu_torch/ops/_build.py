@@ -110,6 +110,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
+def missing(names: Optional[Iterable[str]] = None) -> list:
+    """The libraries among ``names`` (default: all) not built yet."""
+    return [name for name in (list(sources()) if names is None else names)
+            if not lib_path(name).exists()]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library of ``name``, built first if it is missing."""
     with _LOCK:

@@ -53,7 +53,7 @@ counting holds there too.
 What has no counterpart here: XLA's persistent disk cache (a CUDA graph
 cannot be saved; every process captures anew), the IR findings family and
 the static cost records of the JAX package's admission scan, and
-``kernel_select`` (ROADMAP item 9: the port has no roofline selection). The
+``kernel_select`` (the port has no roofline selection). The
 JAX ``stats()`` keys that read them are left out.
 """
 
@@ -199,6 +199,7 @@ class CompileManager:
         # finalizer runs inside the garbage collector, which may fire while
         # this manager iterates its entries
         self._retired: deque = deque()
+        self._side_streams: dict = {}  # device index -> the captures' warm-up stream
         if registry is None:
             from ..telemetry.registry import get_registry  # noqa: PLC0415
 
@@ -226,6 +227,25 @@ class CompileManager:
         self.hbm_total = registry.gauge(
             "dl4jtpu_executable_hbm_total_bytes",
             "reserved bytes of the live captured graphs' memory pools")
+
+    # -------------------------------------------------------------- streams
+    def side_stream(self, device):
+        """The side stream on which a capture runs its eager warm-up steps:
+        one per device for the process. Captures hold the capture lock
+        exclusively, so two never use it at once; and a stream made per
+        capture would cost cuBLAS a workspace on it, which torch keeps
+        until the process exits (a search that captures a step per trial
+        would grow the card's memory by one each, up to torch's pool of 32
+        streams)."""
+        import torch  # noqa: PLC0415
+
+        device = torch.device(device)
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        with self._lock:
+            stream = self._side_streams.get(index)
+            if stream is None:
+                stream = self._side_streams[index] = torch.cuda.Stream(index)
+            return stream
 
     # -------------------------------------------------------- observability
     @staticmethod

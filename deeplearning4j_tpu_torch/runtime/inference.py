@@ -300,7 +300,7 @@ class ServedGraph:
     def _capture_locked(self, device, pool) -> None:
         saved = [t.clone() for t in self.writes]
         current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
+        side = get_compile_manager().side_stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             for _ in range(INFER_WARMUP):

@@ -40,10 +40,9 @@ semantics, drift and input-shift detectors and poisoned-span replay).
   place (``load_into``: zero new captures), replay the poisoned span
   through a no-update loss, and dump a flight bundle.
 
-What waits (ROADMAP Queue 1): the JAX trainer reads ``stage`` and the time
-buckets from a ``TUNED.json`` entry of ``tune/`` (item 9); here the
-argument, then the default (``stage=4``). ``GET /api/online`` waits for
-``ui/`` (item 7); :meth:`OnlineTrainer.stats` keeps its keys.
+``stage`` and the time buckets come from the argument, then a matching
+``TUNED.json`` entry (``tune/store.py``), then the default (``stage=4``,
+power-of-two buckets). :meth:`OnlineTrainer.stats` keeps the JAX keys.
 """
 
 from __future__ import annotations
@@ -165,10 +164,22 @@ class OnlineTrainer:
         from ..telemetry import Watchdog, get_registry  # noqa: PLC0415
         from ..telemetry.flight_recorder import get_flight_recorder  # noqa: PLC0415
 
-        # the JAX trainer's TUNED.json step waits for tune/ (ROADMAP Queue 1
-        # item 9): the argument, then the default
+        # tuned-config auto-apply (tune/store.py): a matching TUNED.json
+        # entry supplies the staging window / bucket boundaries unless the
+        # caller chose them explicitly — explicit settings always win
+        from ..tune import store as _tuned  # noqa: PLC0415
+
+        tuned = _tuned.auto_apply(net, "online", explicit=[
+            knob for knob, user_set in (
+                ("stage_window", stage is not None),
+                ("bucket_boundaries", time_boundaries is not None),
+            ) if user_set])
         if stage is None:
-            stage = 4
+            stage = int(tuned.get("stage_window", 4))
+        if time_boundaries is None:
+            tb = tuned.get("bucket_boundaries")
+            if isinstance(tb, (list, tuple)):
+                time_boundaries = tuple(int(t) for t in tb)
         if int(batch) < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         if int(stage) < 2:

@@ -27,12 +27,12 @@ budget; a request that would breach either is shed with
 :class:`AdmissionError`, and a draining service refuses new traffic with
 :class:`ServiceDraining` while in-flight requests finish.
 
-What waits (ROADMAP.md): the JAX ``register`` applies a TUNED.json entry
-of ``tune/`` to the batcher and admission knobs; the port reads the
-argument, then the service's constructor argument, then the environment,
-then the default. The HTTP endpoints (``ui/``) come with their own item,
-and ``register(layout=...)`` raises ``NotImplementedError`` until the
-parallelism item (ROADMAP Queue 1 item 8). As in the JAX package, the
+``register`` applies a matching TUNED.json entry (``tune/store.py``) to
+the batcher and admission knobs the caller left unset: the argument, the
+service's constructor argument or the environment win over it, and it
+wins over the default. ``register(layout=...)`` raises
+``NotImplementedError`` until the parallelism item (ROADMAP Queue 1 item
+8). As in the JAX package, the
 constructor starts the process-wide metric-history sampler
 (``telemetry/history.py``; ``DL4JTPU_HISTORY=0`` turns it off): its
 thread reads only the host registry, never the card.
@@ -51,7 +51,7 @@ import numpy as np
 from ..runtime import inference as _inf
 from ..runtime.compile_manager import get_compile_manager, next_pow2
 from ..telemetry.tracing import current_trace, record_trace_event, trace_span
-from .batcher import MicroBatcher
+from .batcher import MAX_BATCH_ENV, MAX_DELAY_ENV, MicroBatcher
 from .decode import DecodeServer
 
 __all__ = ["AdmissionError", "InferenceService", "LATENCY_BUDGET_ENV",
@@ -253,9 +253,9 @@ class InferenceService:
         service's constructor argument, the environment, the default), and
         the admission pair ``max_queue_depth`` (shed at this many queued
         requests) / ``latency_budget_ms`` (shed while the ring p99 exceeds
-        it): this argument, the environment, else disabled. The JAX
-        package's TUNED.json step waits for ``tune/`` (ROADMAP Queue 1 item
-        9). Shed requests raise :class:`AdmissionError`."""
+        it): this argument, the environment, else disabled. A matching
+        TUNED.json entry fills each knob that none of those set, before the
+        default. Shed requests raise :class:`AdmissionError`."""
         if self._is_graph(net):
             if (len(net.conf.network_inputs) != 1
                     or len(net.conf.network_outputs) != 1):
@@ -267,14 +267,45 @@ class InferenceService:
                 "register(layout=...) is not ported yet: mesh layouts come with "
                 "the parallelism item (ROADMAP.md Queue 1 item 8)")
         net.init()
+        # tuned-config auto-apply (tune/store.py): a matching TUNED.json
+        # entry supplies the batcher and admission knobs — unless the user
+        # already chose them, by argument, service ctor arg OR process env
+        # (explicit wins)
+        from ..tune import store as _tuned  # noqa: PLC0415
+
+        tuned = _tuned.auto_apply(net, "serve", explicit=[
+            knob for knob, user_set in (
+                ("serve_max_delay_ms",
+                 max_delay_ms is not None
+                 or self.max_delay_ms is not None
+                 or os.environ.get(MAX_DELAY_ENV) is not None),
+                ("serve_max_batch",
+                 max_batch is not None
+                 or self.max_batch is not None
+                 or os.environ.get(MAX_BATCH_ENV) is not None),
+                ("serve_max_queue_depth",
+                 max_queue_depth is not None
+                 or os.environ.get(MAX_QUEUE_ENV) is not None),
+                ("serve_latency_budget_ms",
+                 latency_budget_ms is not None
+                 or os.environ.get(LATENCY_BUDGET_ENV) is not None),
+            ) if user_set])
         # the batcher reads the environment and its default where both of
         # these are None
         delay_ms = max_delay_ms if max_delay_ms is not None else self.max_delay_ms
+        if delay_ms is None:
+            delay_ms = tuned.get("serve_max_delay_ms")
         rows_cap = max_batch if max_batch is not None else self.max_batch
+        if rows_cap is None:
+            rows_cap = tuned.get("serve_max_batch")
         if max_queue_depth is None:
             max_queue_depth = _env_limit(MAX_QUEUE_ENV, int)
+            if max_queue_depth is None:
+                max_queue_depth = tuned.get("serve_max_queue_depth")
         if latency_budget_ms is None:
             latency_budget_ms = _env_limit(LATENCY_BUDGET_ENV)
+            if latency_budget_ms is None:
+                latency_budget_ms = tuned.get("serve_latency_budget_ms")
         # 0 / negative means "limit disabled" wherever it came from
         if max_queue_depth is not None and int(max_queue_depth) <= 0:
             max_queue_depth = None

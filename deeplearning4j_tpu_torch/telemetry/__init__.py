@@ -24,8 +24,8 @@ side).
 - :mod:`slo` — declared serving objectives and multi-window burn rates.
 - :mod:`history` — the metric time-series store and its Deadline-paced
   sampler, which the ``InferenceService`` starts (``DL4JTPU_HISTORY=0``
-  turns it off); the JAX package's ``FleetRecordingRules`` waits for
-  ``fleet/``.
+  turns it off), and ``FleetRecordingRules``, the fleet router's
+  autoscaler sensors.
 """
 
 from .device import GRAD_NORM, LOSS, NONFINITE, NUM_SLOTS, step_stats
@@ -45,6 +45,7 @@ from .memory import (
     sample_device_memory,
 )
 from .history import (
+    FleetRecordingRules,
     Forecast,
     HistorySampler,
     HistoryStore,
@@ -135,6 +136,7 @@ __all__ = [
     "record_trace_event",
     "trace_span",
     "use_trace",
+    "FleetRecordingRules",
     "Forecast",
     "HistorySampler",
     "HistoryStore",

@@ -29,10 +29,9 @@ Memory is bounded by construction: per-series rings are fixed-length
 deques, the series map is LRU-capped (``max_series``), and the
 estimated footprint is exported as ``dl4jtpu_history_bytes``.
 
-What waits (ROADMAP Queue 1): the JAX package's ``FleetRecordingRules``
-(the router's autoscaler sensors and their forecast gauges) comes with
-``fleet/`` (item 9), and ``GET /api/history``, which serves
-:meth:`HistoryStore.http_query`, with ``ui/`` (item 7).
+- :class:`FleetRecordingRules` — the fleet router's autoscaler sensors
+  (``RECORDING_RULES``) derived from its ``stats()`` each scrape tick,
+  with EWMA/Holt forecasts exported as ``dl4jtpu_forecast_*`` gauges.
 """
 
 from __future__ import annotations
@@ -50,7 +49,11 @@ from .registry import MetricsRegistry, get_registry
 __all__ = [
     "HISTORY_ENV",
     "HISTORY_INTERVAL_ENV",
+    "FORECAST_HORIZONS_S",
+    "FORECAST_SENSORS",
+    "RECORDING_RULES",
     "Forecast",
+    "FleetRecordingRules",
     "HistorySampler",
     "HistoryStore",
     "ensure_default_sampler",
@@ -79,6 +82,25 @@ _POINT_BYTES = 120
 _BUCKET_BYTES = 240
 _SERIES_BYTES = 640        # per-series fixed overhead (dict entry, deques)
 _ANNOTATION_BYTES = 512
+
+# the recording-rule series FleetRecordingRules derives — the autoscaler
+# sensor suite by name (docs/observability.md has the full table)
+RECORDING_RULES: Tuple[str, ...] = (
+    "fleet.offered_load",          # requests/s per model (counter->rate)
+    "fleet.shed_rate",             # sheds/s per model (counter->rate)
+    "fleet.latency_p50_seconds",   # exact, merged worker latency rings
+    "fleet.latency_p99_seconds",   # exact, merged worker latency rings
+    "fleet.queue_depth",           # summed ready-worker queue depth
+    "fleet.workers_ready",         # live, ready worker count
+    "worker.queue_depth",          # per {worker,model}
+    "worker.boot_ready_seconds",   # spawn->READY_SENTINEL, per worker
+    "worker.compiles_since_ready",  # warm-pool signal, per worker
+)
+
+# sensors that additionally carry EWMA/Holt forecasts
+FORECAST_SENSORS: Tuple[str, ...] = (
+    "offered_load", "shed_rate", "latency_p99_seconds", "queue_depth")
+FORECAST_HORIZONS_S: Tuple[float, ...] = (60.0, 300.0)
 
 _AGGS = ("mean", "min", "max", "last", "sum")
 
@@ -897,6 +919,132 @@ class Forecast:
         if self.level is None:
             return None
         return self.level + self.trend * float(horizon_s)
+
+
+class FleetRecordingRules:
+    """Derives the autoscaler sensor suite (``RECORDING_RULES``) from a
+    router's ``stats()`` payload each scrape tick, and maintains EWMA +
+    Holt forecasts per key sensor, exported as ``dl4jtpu_forecast_*``
+    gauges with horizon labels (``ewma``, ``trend_per_s``, ``60s``,
+    ``300s``). One instance per router; the forecast gauge families are
+    declared here."""
+
+    def __init__(self, store: Optional[HistoryStore] = None,
+                 registry: Optional[MetricsRegistry] = None, *,
+                 alpha: float = 0.5, beta: float = 0.3):
+        reg = registry if registry is not None else get_registry()
+        self.store = store if store is not None else get_history_store()
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+        # observe_fleet runs on the router's scrape thread; stats()/tests
+        # read the forecast table from others
+        self._lock = threading.Lock()
+        self._forecasts: Dict[tuple, Tuple[Forecast, Forecast]] = {}
+        self._fam = {
+            "offered_load": reg.gauge(
+                "dl4jtpu_forecast_offered_load",
+                "EWMA/Holt forecast of per-model offered load "
+                "(requests/s), by horizon",
+                labelnames=("model", "horizon")),
+            "shed_rate": reg.gauge(
+                "dl4jtpu_forecast_shed_rate",
+                "EWMA/Holt forecast of per-model shed rate (sheds/s), "
+                "by horizon",
+                labelnames=("model", "horizon")),
+            "latency_p99_seconds": reg.gauge(
+                "dl4jtpu_forecast_latency_p99_seconds",
+                "EWMA/Holt forecast of the exact merged-ring p99 latency, "
+                "by horizon",
+                labelnames=("model", "horizon")),
+            "queue_depth": reg.gauge(
+                "dl4jtpu_forecast_queue_depth",
+                "EWMA/Holt forecast of summed ready-worker queue depth, "
+                "by horizon",
+                labelnames=("model", "horizon")),
+        }
+
+    def observe_fleet(self, fleet_stats: dict,
+                      now: Optional[float] = None) -> Dict[str, float]:
+        """One recording-rule pass over a router ``stats()`` payload.
+        Returns the sensor values observed this tick (rate sensors are
+        absent on their baseline tick)."""
+        ts = self.store._ts(now)  # noqa: SLF001 - same-module clock
+        model = str(fleet_stats.get("model", "default"))
+        lab = {"model": model}
+        sensors: Dict[str, Optional[float]] = {}
+        sensors["offered_load"] = self.store.record_counter(
+            "fleet.offered_load", fleet_stats.get("requests_total", 0),
+            lab, now=ts)
+        sensors["shed_rate"] = self.store.record_counter(
+            "fleet.shed_rate", fleet_stats.get("shed_total", 0),
+            lab, now=ts)
+        lat = fleet_stats.get("latency_seconds") or {}
+        if lat.get("p50") is not None:
+            self.store.record_gauge("fleet.latency_p50_seconds",
+                                    lat["p50"], lab, now=ts)
+        if lat.get("p99") is not None:
+            sensors["latency_p99_seconds"] = self.store.record_gauge(
+                "fleet.latency_p99_seconds", lat["p99"], lab, now=ts)
+        workers = fleet_stats.get("workers") or []
+        ready = [w for w in workers if w.get("ready")]
+        qd = float(sum(w.get("queue_depth") or 0 for w in ready))
+        sensors["queue_depth"] = self.store.record_gauge(
+            "fleet.queue_depth", qd, lab, now=ts)
+        self.store.record_gauge("fleet.workers_ready", len(ready),
+                                lab, now=ts)
+        for w in workers:
+            wlab = {"model": model, "worker": str(w.get("id"))}
+            if w.get("ready"):
+                self.store.record_gauge("worker.queue_depth",
+                                        w.get("queue_depth") or 0,
+                                        wlab, now=ts)
+            if w.get("boot_seconds") is not None:
+                self.store.record_gauge("worker.boot_ready_seconds",
+                                        w["boot_seconds"], wlab, now=ts)
+            if w.get("compiles_since_ready") is not None:
+                self.store.record_gauge("worker.compiles_since_ready",
+                                        w["compiles_since_ready"],
+                                        wlab, now=ts)
+        self._update_forecasts(sensors, model, ts)
+        return {k: v for k, v in sensors.items() if v is not None}
+
+    def _update_forecasts(self, sensors: Dict[str, Optional[float]],
+                          model: str, ts: float) -> None:
+        for sensor in FORECAST_SENSORS:
+            value = sensors.get(sensor)
+            if value is None:
+                continue
+            with self._lock:
+                pair = self._forecasts.get((sensor, model))
+                if pair is None:
+                    pair = (Forecast(self.alpha, 0.0),
+                            Forecast(self.alpha, self.beta))
+                    self._forecasts[(sensor, model)] = pair
+                ewma, holt = pair
+                ewma.update(value, ts)
+                holt.update(value, ts)
+                level, trend = ewma.level, holt.trend
+                horizons = {f"{int(h)}s": holt.forecast(h)
+                            for h in FORECAST_HORIZONS_S}
+            fam = self._fam[sensor]
+            fam.labels(model=model, horizon="ewma").set(level)
+            fam.labels(model=model, horizon="trend_per_s").set(trend)
+            for hname, hval in horizons.items():
+                if hval is not None:
+                    fam.labels(model=model, horizon=hname).set(hval)
+
+    def forecast_table(self) -> dict:
+        """{(sensor, model): {ewma, trend_per_s, <horizon>s...}} for
+        stats/debugging."""
+        out = {}
+        with self._lock:
+            for (sensor, model), (ewma, holt) in self._forecasts.items():
+                row = {"ewma": ewma.level, "trend_per_s": holt.trend,
+                       "samples": holt.n}
+                for h in FORECAST_HORIZONS_S:
+                    row[f"{int(h)}s"] = holt.forecast(h)
+                out[f"{sensor}{{model={model}}}"] = row
+        return out
 
 
 # ------------------------------------------------------------------ globals

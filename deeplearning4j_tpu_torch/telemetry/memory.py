@@ -99,6 +99,23 @@ def executable_memory(entry, segments: Optional[list] = None) -> dict:
             "allocated_bytes": allocated, "total_bytes": reserved}
 
 
+def network_pool_bytes(net) -> int:
+    """Reserved bytes of the memory pools of ``net``'s captured graphs (the
+    compile manager's entries under its token, served buckets and training
+    steps, each pool counted once); 0 where nothing is captured (the CPU)."""
+    from ..runtime.compile_manager import get_compile_manager  # noqa: PLC0415
+
+    segments = pool_segments()
+    seen, total = set(), 0
+    for _, entry in get_compile_manager().owned(net._cm_token):  # noqa: SLF001
+        rec = executable_memory(entry, segments)
+        pool = tuple(rec.get("pool") or ())
+        if rec.get("available") and pool not in seen:
+            seen.add(pool)
+            total += int(rec["total_bytes"])
+    return total
+
+
 # ------------------------------------------------------------------ live
 def device_memory_stats(registry: Optional[MetricsRegistry] = None) -> List[dict]:
     """Per-device allocator stats — the live-memory source the telemetry
@@ -402,7 +419,7 @@ def preflight(net, batch_or_struct=None, *, limit_bytes: Optional[int] = None,
     ``layout`` raises ``NotImplementedError``."""
     if layout is not None:
         raise NotImplementedError(
-            "preflight(layout=...) is not ported yet (ROADMAP.md Queue 1 item 9, "
+            "preflight(layout=...) is not ported yet (ROADMAP.md Queue 1 item 8, "
             "the mesh layouts)")
     report = memory_report(net, batch_or_struct)
     source = "explicit limit_bytes"

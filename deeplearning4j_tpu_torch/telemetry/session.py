@@ -53,8 +53,8 @@ class Telemetry:
         from .flight_recorder import get_flight_recorder  # noqa: PLC0415
 
         self.registry = registry if registry is not None else get_registry()
-        # None = the library default (the JAX package's tuned-config store
-        # may retarget it; the port has no such store)
+        # None = the library default, which a matching TUNED.json entry
+        # may retarget (tune/store.py); an explicit value is never moved
         self.fetch_every_explicit = fetch_every is not None
         self.fetch_every = max(1, int(
             self.DEFAULT_FETCH_EVERY if fetch_every is None else fetch_every))

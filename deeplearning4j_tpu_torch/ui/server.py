@@ -35,8 +35,9 @@ Pages:
 - ``/api/online``     — online-learning snapshot: per-trainer ingest rate,
   window/step counters, drift/rollback state, hot-swap history, and the
   checkpoint store's version listing (see docs/streaming.md).
-- ``/api/fleet``      — answers 501 until the port has ``fleet/`` (its
-  FleetRouter is not ported).
+- ``/api/fleet``      — multi-process fleet snapshot: every in-process
+  FleetRouter's per-worker liveness/version/queue view plus merged exact
+  p50/p99.
 - ``/api/resilience`` — live state of every registered failure-handling
   site: retry policies (attempts/backoff), deadlines (expiries) and
   circuit breakers (state/cooldown) (see docs/robustness.md).
@@ -569,9 +570,13 @@ class _Handler(BaseHTTPRequestHandler):
                               for name, t in get_online_trainers().items()}},
                 default=str).encode())
         if path == "/api/fleet":
-            return self._send(501, json.dumps({
-                "error": "not implemented in the port: the fleet view waits for "
-                         "fleet/ (FleetRouter), which is not ported yet"}).encode())
+            # fleet snapshot: every in-process FleetRouter's per-worker
+            # liveness/version/queue view plus merged exact p50/p99
+            from ..fleet import get_fleet_routers  # noqa: PLC0415
+
+            return self._send(200, json.dumps(
+                {"routers": [r.stats() for r in get_fleet_routers()]},
+                default=str).encode())
         if path == "/api/resilience":
             # live state of every registered failure-handling site:
             # retry policies, deadlines, circuit breakers

@@ -30,11 +30,21 @@ The stream is wrapped ``ReplayBufferSource(ChaosSource(queue, plan))`` so
 the replayed span *includes* the injected NaNs and the validation pass can
 actually see the poison.
 
-Usage (tests and ``chip_smoke.py`` use the in-process entry ``run_soak``)::
+``--fleet`` runs the fleet scenarios instead (``run_fleet_soak``): two
+worker processes behind the port's ``FleetRouter`` over a store whose
+newest version the plan corrupts as it lands, so both cold-boot the
+previous good version with zero captures; a ``hang-worker`` fault freezes
+one worker's ``/healthz`` (detected by the health deadline, respawned with
+reason ``hung``), a ``partial-http`` fault sends half a ``/healthz`` body
+(reason ``unhealthy``), and a ``kill-worker`` fault, which the soak
+delivers as SIGKILL (reason ``crash``); every respawned worker comes back
+warm and the fleet answers and drains.
+
+Usage (tests and ``chip_smoke.py`` use the in-process entries)::
 
     python scripts/torch_chaos_soak.py [--device cpu] [--records 4096]
         [--batch 32] [--stage 4] [--nan-bursts 3] [--no-outages]
-        [--seq] [--deadline 300] [--seed 0]
+        [--seq] [--deadline 300] [--seed 0] [--fleet]
 
 It runs on the card unless ``--device cpu`` is passed.
 
@@ -272,6 +282,109 @@ def _run_soak_inner(records, batch, stage, feature_dim, classes, hidden,
     return summary
 
 
+def run_fleet_soak(device="cuda", seed: int = 1405,
+                   deadline_s: float = 90.0) -> dict:
+    """The fleet scenarios (module doc) on ``device``; returns the summary,
+    raises AssertionError when the contract is violated."""
+    import signal
+    import urllib.request
+
+    from deeplearning4j_tpu_torch import (DenseLayer, InputType,
+                                          MultiLayerConfiguration,
+                                          MultiLayerNetwork, OutputLayer,
+                                          UpdaterConfig)
+    from deeplearning4j_tpu_torch.fleet import FleetRouter, build_bundle, save_bundle
+    from deeplearning4j_tpu_torch.runtime.checkpoint import CheckpointStore
+    from deeplearning4j_tpu_torch.runtime.resilience import Deadline
+    from deeplearning4j_tpu_torch.telemetry import MetricsRegistry
+    from deeplearning4j_tpu_torch.testing.chaos import FaultPlan
+    from deeplearning4j_tpu_torch.tune import scoped_env
+
+    def wait_for(pred, what):
+        d = Deadline(deadline_s)
+        while not pred():
+            if not d.pace(0.1):
+                raise AssertionError(f"fleet soak: {what} never happened")
+
+    with tempfile.TemporaryDirectory() as work:
+        net = MultiLayerNetwork(MultiLayerConfiguration(
+            layers=[DenseLayer(n_out=16, activation="relu"),
+                    OutputLayer(n_out=4, activation="softmax", loss="mcxent")],
+            input_type=InputType.feed_forward(8),
+            updater=UpdaterConfig(updater="sgd", learning_rate=1e-2),
+            seed=7), device="cpu").init()
+        store_dir = os.path.join(work, "store")
+        write_plan = FaultPlan(seed, [{"site": "checkpoint.write",
+                                       "fault": "corrupt-checkpoint", "at": [2]}])
+        store = CheckpointStore(store_dir, chaos=write_plan)
+        store.save(net)  # v1, the good version
+        save_bundle(store, build_bundle(
+            net, example=np.zeros((1, 8), np.float32), argmax=True, max_batch=8))
+        store.save(net)  # v2, byte-corrupted by the plan as it lands
+        assert [f["fault"] for f in write_plan.fired] == ["corrupt-checkpoint"]
+
+        worker_plan = FaultPlan(seed, [
+            {"site": "worker.healthz", "fault": "hang-worker", "at": [3],
+             "params": {"seconds": 30}, "marker": os.path.join(work, "hang")},
+            {"site": "worker.healthz", "fault": "partial-http", "at": [8],
+             "marker": os.path.join(work, "partial")}])
+        kill_plan = FaultPlan(seed, [{"site": "soak.kill", "fault": "kill-worker",
+                                      "at": [1]}])
+        registry = MetricsRegistry()
+        with scoped_env(DL4JTPU_CHAOS_PLAN=worker_plan.to_env()):
+            router = FleetRouter(store_dir, workers=2, poll_s=0.2,
+                                 health_timeout_s=2.0, backoff_base_s=0.1,
+                                 device=str(device), registry=registry,
+                                 worker_args={"max_delay_ms": 0, "max_batch": 8}).start()
+        try:
+            respawns = {r: router._m_respawns.labels(reason=r)
+                        for r in ("hung", "unhealthy", "crash")}
+            for handle in router.workers:
+                router._check_worker(handle)
+            snaps = router.stats()["workers"]
+            boot = {"versions": [w["version"] for w in snaps if w["ready"]],
+                    "compiles_since_ready": [w["compiles_since_ready"] for w in snaps
+                                             if w["ready"]]}
+            assert boot["versions"] and set(boot["versions"]) == {1}, snaps
+            assert set(boot["compiles_since_ready"]) == {0}, snaps
+            assert os.path.exists(store.path(2) + ".quarantine"), os.listdir(store_dir)
+            probe = np.linspace(-1, 1, 8, dtype=np.float32).reshape(1, 8)
+            want = net.output(probe)
+
+            def answers() -> bool:
+                status, body, _ = router.route_predict({"features": probe.tolist()})
+                return status == 200 and float(np.abs(
+                    np.asarray(body["output"], np.float32) - want).max()) <= 1e-5
+
+            assert answers()
+            wait_for(lambda: respawns["hung"].value >= 1, "hang-worker detection")
+            wait_for(lambda: respawns["unhealthy"].value >= 1, "partial-http detection")
+            wait_for(lambda: all(w["ready"] for w in router.stats()["workers"]),
+                     "respawn after the healthz faults")
+            fault = kill_plan.fire("soak.kill")
+            assert fault is not None and fault["fault"] == "kill-worker"
+            os.kill(router.workers[0].proc.pid, signal.SIGKILL)
+            wait_for(lambda: respawns["crash"].value >= 1, "crash respawn")
+            wait_for(lambda: all(w["ready"] and w["compiles_since_ready"] == 0
+                                 for w in router.stats()["workers"]),
+                     "every worker back warm")
+            assert answers()
+            sites = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{router.port}/api/resilience", timeout=10).read())["sites"]
+            assert sites["fleet.router.health"]["expired_total"] >= 1, sites
+            assert router.drain(timeout_s=30)
+            return {
+                "device": str(device), "boot": boot,
+                "respawns": {r: int(c.value) for r, c in respawns.items()},
+                "workers": [{k: w[k] for k in ("respawns", "boot_seconds", "version",
+                                               "compiles_since_ready")}
+                            for w in router.stats()["workers"]],
+                "chaos": {"write": write_plan.summary(), "kill": kill_plan.summary()},
+            }
+        finally:
+            router.stop()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="torch_chaos_soak")
     ap.add_argument("--device", default="cuda",
@@ -287,7 +400,14 @@ def main(argv=None) -> int:
     ap.add_argument("--flight-dir", default=None)
     ap.add_argument("--seed", type=int, default=0,
                     help="FaultPlan seed — same seed, same fault sequence")
+    ap.add_argument("--fleet", action="store_true",
+                    help="run the fleet scenarios (hang-worker, partial-http, "
+                         "kill-worker) instead of the online soak")
     args = ap.parse_args(argv)
+    if args.fleet:
+        print(json.dumps(run_fleet_soak(device=args.device, seed=args.seed,
+                                        deadline_s=args.deadline)))
+        return 0
     summary = run_soak(records=args.records, batch=args.batch,
                        stage=args.stage, nan_bursts=args.nan_bursts,
                        outages=not args.no_outages, seq=args.seq,

@@ -74,6 +74,16 @@ BF16_PROB_ATOL = 2.0 ** -8  # one bf16 step of a value in [0.5, 1)
 BF16_LOSS_REL = 2.0 ** -8  # a logit's one bf16 rounding, relative
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
     monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)

@@ -45,6 +45,16 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 SHAPES = [(), (5,), (37,), (128,), (3, 100)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _x64(dtype):
     """JAX's mode for the dtype: f32 scalars for f32, x64 for f64."""
     return jax.enable_x64(dtype is np.float64)

@@ -41,6 +41,16 @@ BUCKETS = (16, 40)
 TBPTT = 7
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
     """The JAX package's unbucketed inference and its own kernel choice,

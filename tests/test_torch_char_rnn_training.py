@@ -39,6 +39,16 @@ SGD = {"updater": "sgd", "learning_rate": 0.1}
 JAX_PATHS = {"seq_fused": ("seq", "fused"), "scan_reference": ("0", "reference")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def jax_path(monkeypatch, tmp_path):
     """Select the JAX package's kernels by its own knobs; clear its cached

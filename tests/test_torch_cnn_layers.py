@@ -249,3 +249,37 @@ def test_layers_of_a_later_slice_raise_naming_the_class(jlayer):
     assert type(layer).__name__ == type(jlayer).__name__
     assert layer.to_dict() == {k: v for k, v in jlayer.to_dict().items()
                                if k in layer.to_dict()}
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_exact_f32_conv_is_the_plain_convolution_and_its_gradients(rank):
+    """``ExactF32Conv`` (what an f32 convolution on the card runs, cuDNN's
+    TF32 off) computes what ``F.conv2d``/``F.conv1d`` and their autograd
+    compute, bit for bit on the CPU; ``cudnn_tf32_off`` puts the process
+    flag back, also on an exception."""
+    from deeplearning4j_tpu_torch.nn.layers import convolution as pconv
+
+    rng = np.random.default_rng(rank)
+    spatial = (9, 8) if rank == 2 else (11,)
+    x = torch.tensor(rng.normal(size=(2, 3) + spatial).astype(np.float32), requires_grad=True)
+    w = torch.tensor(rng.normal(size=(4, 3) + (3,) * rank).astype(np.float32),
+                     requires_grad=True)
+    b = torch.tensor(rng.normal(size=4).astype(np.float32), requires_grad=True)
+    kw = dict(stride=(2,) * rank, padding=(1,) * rank, dilation=(1,) * rank, groups=1)
+    plain = (torch.nn.functional.conv2d if rank == 2 else torch.nn.functional.conv1d)(
+        x, w, b, **kw)
+    exact = pconv.ExactF32Conv.apply(x, w, b, kw["stride"], kw["padding"], kw["dilation"], 1)
+    assert torch.equal(plain, exact)
+    g = torch.tensor(rng.normal(size=plain.shape).astype(np.float32))
+    want = torch.autograd.grad(plain, (x, w, b), g)
+    got = torch.autograd.grad(exact, (x, w, b), g)
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)
+    assert torch.equal(pconv.conv(x, w, b, **kw), plain)  # the CPU keeps F.conv*d
+    prior = torch.backends.cudnn.allow_tf32
+    with pytest.raises(RuntimeError):
+        with pconv.cudnn_tf32_off():
+            assert torch.backends.cudnn.allow_tf32 is False
+            raise RuntimeError("inside")
+    assert torch.backends.cudnn.allow_tf32 == prior
+

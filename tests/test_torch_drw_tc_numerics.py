@@ -63,6 +63,16 @@ lc = importlib.import_module("deeplearning4j_tpu_torch.ops.lstm_cell")
 SOURCE = (Path(ls.__file__).parent / "csrc" / "lstm_drw.cuh").read_text()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _const(name: str) -> int:
     m = re.search(rf"constexpr int {name} = (\d+);", SOURCE)
     assert m, f"lstm_drw.cuh defines no {name}"

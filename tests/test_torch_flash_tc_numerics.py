@@ -45,6 +45,16 @@ B, H = 2, 2
 NEG_INF = fa.NEG_INF
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """x (f32) rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: the 13 low
     mantissa bits dropped, to nearest, ties away from zero (adding half a

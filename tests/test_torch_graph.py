@@ -40,6 +40,16 @@ ATOL = RTOL = 1e-5
 B, T, F_A, F_S, H = 6, 7, 6, 5, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def jax_env(monkeypatch, tmp_path):
     monkeypatch.setattr(jax_inference, "fast_path_enabled", lambda: False)

@@ -46,6 +46,16 @@ BWD = ("dzx", "dh_prev", "dc_prev", "dRW", "dpF", "dpI", "dpO")
 ARGS = ("zx", "h_prev", "c_prev", "RW", "pF", "pI", "pO")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, b=B, h=H):
     """(zx, h_prev, c_prev, RW, pF, pI, pO) as float64 numpy, peepholes non-zero."""
     rng = np.random.default_rng(seed)

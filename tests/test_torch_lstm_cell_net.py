@@ -48,6 +48,16 @@ SGD = {"updater": "sgd", "learning_rate": 0.1}
 ADAM = {"updater": "adam", "learning_rate": 0.01}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def jax_cell(monkeypatch, tmp_path):
     """The JAX package on its "fusedcell" route, with a spy on its cell.

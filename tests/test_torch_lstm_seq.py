@@ -31,6 +31,16 @@ ACT_GATE = [("tanh", "sigmoid"), ("tanh", "hardsigmoid"), ("relu", "sigmoid")]
 PORT = Path(__file__).resolve().parents[1] / "deeplearning4j_tpu_torch"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed=0, T=7, B=3, H=16, masked=False):
     rng = np.random.default_rng(seed)
     r = lambda *s: (rng.normal(size=s) * 0.4).astype(np.float32)  # noqa: E731
@@ -171,7 +181,8 @@ def _imports(path: Path):
     PORT.parent / "chip_smoke.py", PORT.parent / "scripts" / "torch_chaos_soak.py",
     PORT.parent / "scripts" / "torch_analyze_trace.py",
     PORT.parent / "scripts" / "torch_write_keras_h5.py",
-    PORT.parent / "scripts" / "torch_vgg16_lr_check.py"],
+    PORT.parent / "scripts" / "torch_vgg16_lr_check.py",
+    PORT.parent / "scripts" / "torch_tf32_probe.py"],
                          ids=lambda p: str(p.relative_to(PORT.parent)))
 def test_port_imports_no_jax_and_no_jax_package(path):
     roots = {name.split(".")[0] for name in _imports(path)}
@@ -183,8 +194,9 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 # runtime durability and online learning of slice 22 (runtime/,
 # streaming/, testing/, telemetry/history.py, utils/netio.py), and the
 # training UI and its host tier of slice 23 (runtime/native_loader.py,
-# profiler.py, ui/, clustering/, plot/), which the scan above must cover
-# like every other module of the port
+# profiler.py, ui/, clustering/, plot/), and the autotuner and the fleet of
+# slice 26 (tune/, fleet/, utils/subproc.py, utils/time_source.py), which
+# the scan above must cover like every other module of the port
 OBSERVABILITY_MODULES = [f"telemetry/{m}.py" for m in (
     "__init__", "registry", "spans", "watchdog", "flight_recorder", "device", "memory",
     "session")] + [f"optimize/{m}.py" for m in ("__init__", "listeners", "solvers")] + [
@@ -199,7 +211,8 @@ OBSERVABILITY_MODULES = [f"telemetry/{m}.py" for m in (
     f"ui/{m}.py" for m in ("__init__", "i18n", "storage", "stats_listener", "conv_listener",
                            "server")] + [
     f"clustering/{m}.py" for m in ("__init__", "trees", "kmeans")] + [
-    f"plot/{m}.py" for m in ("__init__", "tsne")]
+    f"plot/{m}.py" for m in ("__init__", "tsne")] + [
+    "tune/__init__.py", "fleet/__init__.py", "utils/subproc.py", "utils/time_source.py"]
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES)

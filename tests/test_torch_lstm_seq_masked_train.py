@@ -47,6 +47,16 @@ RAGGED = np.array([[0, 0, 1, 1, 0, 1, 1, 1, 1],
                    [0, 0, 0, 0, 0, 0, 0, 0, 0]])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mask(dtype, rows=RAGGED):
     """[T, B, 1] as the op takes it."""
     return np.ascontiguousarray(rows.T[..., None]).astype(dtype)

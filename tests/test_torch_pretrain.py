@@ -40,6 +40,16 @@ ATOL = 1e-5
 ADAM_OUTLIERS = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_module():
+    """torch's intra-op threads capped at one for this module: its tensors
+    are small, and under several test workers the threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _binary_data(n=64, d=12, seed=0):
     """tests/test_pretrain.py's data: two prototype patterns with 5% of the
     bits flipped."""

@@ -555,7 +555,7 @@ def test_preflight_raises_under_a_small_limit_and_reads_the_env(monkeypatch):
             jnet.preflight(512)
     assert jerr.value.projected_bytes == pnet.memory_report(512)["totals"][
         "projected_peak_bytes"]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         pnet.preflight(2, layout=object())
 
 

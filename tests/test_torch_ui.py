@@ -9,9 +9,9 @@ other's. StatsListener records are held against JAX's listener: bins and
 counts exactly (and every mean magnitude exactly) when both read the same
 arrays, mean magnitudes at ``MM_RTOL`` after the same training from the
 same params (``load_jax_params``; f32 on both sides, JAX with x64 off).
-Endpoints answer with JAX's keys; ``/api/fleet`` and ``/api/ircost``
-answer 501. Served outputs are held at ``ATOL`` against JAX's unbucketed
-``output`` of the same params. HTTP runs on 127.0.0.1, port 0.
+Endpoints answer with JAX's keys (``/api/fleet`` with JAX's answer);
+``/api/ircost`` answers 501. Served outputs are held at ``ATOL`` against
+JAX's unbucketed ``output`` of the same params. HTTP runs on 127.0.0.1, port 0.
 """
 
 import json
@@ -445,7 +445,14 @@ def test_observability_endpoints_answer_with_jaxs_keys(servers):
         _status(jbase, "/api/history?range_s=-1")[0]
 
 
-@pytest.mark.parametrize("path", ["/api/fleet", "/api/ircost"])
+def test_fleet_view_answers_as_jaxs(servers):
+    """``/api/fleet``, ported with ``fleet/``, answers as JAX's server does
+    (no router in either process)."""
+    base, jbase, _ = servers
+    assert _status(base, "/api/fleet") == _status(jbase, "/api/fleet") == (200, {"routers": []})
+
+
+@pytest.mark.parametrize("path", ["/api/ircost"])
 def test_unported_views_answer_501_with_a_reason(servers, path):
     base, _, _ = servers
     code, body = _status(base, path)
